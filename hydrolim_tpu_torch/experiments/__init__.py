@@ -1,0 +1,1 @@
+"""experiments layer of the PyTorch port (mirrors hydrolim_tpu.experiments)."""

@@ -1,0 +1,1 @@
+"""fields layer of the PyTorch port (mirrors hydrolim_tpu.fields)."""

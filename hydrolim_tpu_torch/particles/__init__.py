@@ -1,0 +1,1 @@
+"""particles layer of the PyTorch port (mirrors hydrolim_tpu.particles)."""

@@ -1,0 +1,187 @@
+"""IMEX stepper for the hydrodynamic-limit PDE, batched over replicas.
+
+- implicit diffusion: exact solve (``ops.diffusion``),
+- explicit upwind advection,
+- Curie–Weiss reaction with clipped rates,
+- positivity clip + total-mass renormalization,
+- tracer ensemble (CW flips, Euler–Maruyama) with windowed v_eff/D_eff
+  from a circular displacement buffer.
+
+Fields are (B, L) float32; per-replica parameters are (B,) tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from hydrolim_tpu_torch.core.config import PDEConfig, PDEParams
+from hydrolim_tpu_torch.fields.magnetization import pde_magnetization
+from hydrolim_tpu_torch.ops.diffusion import build_dense_inverse, diffusion_solve
+
+
+@dataclasses.dataclass
+class PDEOps:
+    """Per-config operators: the solve kind ('identity' | 'dense') and the
+    dense inverse when there is one."""
+
+    kind: str
+    a_inv: Optional[torch.Tensor] = None
+
+
+def build_pde_ops(config: PDEConfig, gamma: float, device="cpu") -> PDEOps:
+    """Every exact solver kind of the JAX package ('fft', 'dct', 'dense')
+    solves the same linear system: the port applies its dense inverse.  The
+    truncated banded kinds are not ported."""
+    kind = config.solver_kind
+    if kind == "identity" or float(gamma) == 0.0:
+        return PDEOps("identity")
+    if kind not in ("fft", "dct", "dense"):
+        raise NotImplementedError(f"diffusion solver {kind!r} is not ported")
+    return PDEOps("dense", build_dense_inverse(config.L, config.dx, config.dt,
+                                               gamma, config.bc, device))
+
+
+def _col(v, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32,
+                           device=like.device).reshape(-1, 1)
+
+
+def cw_rate(sigma, m, beta):
+    """Curie–Weiss flip rate with the reference's clipping."""
+    return torch.clamp(torch.exp(-beta * sigma * m), 1e-8, 1e8)
+
+
+def upwind_derivative(rho: torch.Tensor, direction: int, dx: float,
+                      bc: str) -> torch.Tensor:
+    """One-sided difference along the trailing axis."""
+    if direction > 0:          # right-moving: backward difference
+        d = (rho - torch.roll(rho, 1, dims=-1)) / dx
+        if bc == "neumann":
+            d[..., 0] = 0.0
+    else:                      # left-moving: forward difference
+        d = (torch.roll(rho, -1, dims=-1) - rho) / dx
+        if bc == "neumann":
+            d[..., -1] = 0.0
+    return d
+
+
+def magnetization(config: PDEConfig, rho_p, rho_m):
+    return pde_magnetization(rho_p, rho_m, config.gaussian_kernel,
+                             kernel_sigma=config.kernel_sigma)
+
+
+def pde_step(config: PDEConfig, params: PDEParams, ops: PDEOps,
+             rho_p: torch.Tensor, rho_m: torch.Tensor, m=None):
+    """One IMEX step.  ``m`` is the magnetization of the pre-step
+    densities (computed if not given)."""
+    dt, dx, bc = config.dt, config.dx, config.bc
+    if m is None:
+        m = magnetization(config, rho_p, rho_m)
+    lam, beta = _col(params.lam, rho_p), _col(params.beta, rho_p)
+
+    rho_p1 = diffusion_solve(ops.a_inv, rho_p, ops.kind)
+    rho_m1 = diffusion_solve(ops.a_inv, rho_m, ops.kind)
+
+    R_p = cw_rate(-1.0, m, beta) * rho_m1 - cw_rate(+1.0, m, beta) * rho_p1
+    if config.active_model == "bidirectional":
+        adv_p = -lam * upwind_derivative(rho_p1, +1, dx, bc)
+        adv_m = +lam * upwind_derivative(rho_m1, -1, dx, bc)
+        rho_p2 = torch.clamp(rho_p1 + dt * (adv_p + R_p), min=0.0)
+        rho_m2 = torch.clamp(rho_m1 + dt * (adv_m - R_p), min=0.0)
+    else:  # anchored_minus: reaction first, then advection of rho_p only
+        rho_p_star = torch.clamp(rho_p1 + dt * R_p, min=0.0)
+        rho_m2 = torch.clamp(rho_m1 - dt * R_p, min=0.0)
+        adv_p = -lam * upwind_derivative(rho_p_star, +1, dx, bc)
+        rho_p2 = torch.clamp(rho_p_star + dt * adv_p, min=0.0)
+
+    # mass renormalization against the post-diffusion mass
+    M0 = (rho_p1 + rho_m1).sum(-1, keepdim=True)
+    M1 = (rho_p2 + rho_m2).sum(-1, keepdim=True)
+    scale = M0 / torch.clamp(M1, min=1e-30)
+    return rho_p2 * scale, rho_m2 * scale
+
+
+# ---------------------------------------------------------------------------
+# tracers and records
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TracerState:
+    pos: torch.Tensor          # (B, n_t) wrapped position in [0, xlim)
+    unwrapped: torch.Tensor    # (B, n_t)
+    spin: torch.Tensor         # (B, n_t) int32 ±1
+    hist: torch.Tensor         # (B, window, n_t) circular unwrapped buffer
+
+
+@dataclasses.dataclass
+class PDERecord:
+    """Per-step observables, leading axes (B, n_records)."""
+
+    m_mean: torch.Tensor
+    var: torch.Tensor
+    fft_ri: torch.Tensor       # (..., kmax, 2) re/im of rfft(total)/L
+    v_eff: torch.Tensor
+    D_eff: torch.Tensor
+
+
+@dataclasses.dataclass
+class PDESolveResult:
+    rho_p: torch.Tensor
+    rho_m: torch.Tensor
+    records: PDERecord
+    snapshots: torch.Tensor    # (B, n_snap, L) total density
+    m_snapshots: torch.Tensor  # (B, n_snap, L) rho_p - rho_m
+    snap_times: torch.Tensor   # (B, n_snap)
+
+
+def _tracer_update(config: PDEConfig, params: PDEParams, m_field,
+                   tr: TracerState, n: int,
+                   generator: Optional[torch.Generator] = None,
+                   _inject=None) -> Tuple[TracerState, torch.Tensor,
+                                          torch.Tensor]:
+    """CW spin flips + Euler–Maruyama advance + windowed v/D at iteration
+    ``n``; the window is the ring buffer's length.
+
+    ``_inject``: optional ``(flip_u, z)`` — (B, n_t) float32 flip uniforms
+    and standard normals replacing the draws from ``generator``.
+
+    The slot about to be overwritten, ``hist[n % window]``, holds the
+    position ``window`` iterations ago, so it is read before the write."""
+    dt, dx, L = config.dt, config.dx, config.L
+    window = tr.hist.shape[-2]
+    beta, lam = _col(params.beta, m_field), _col(params.lam, m_field)
+    gamma = _col(params.gamma, m_field)
+
+    idx = (tr.pos / dx).to(torch.int64) % L
+    m_loc = torch.gather(m_field, -1, idx)
+    rate = cw_rate(tr.spin.to(torch.float32), m_loc, beta)
+    if _inject is None:
+        flip_u = torch.rand(tr.pos.shape, generator=generator,
+                            device=tr.pos.device)
+        z = torch.randn(tr.pos.shape, generator=generator,
+                        device=tr.pos.device)
+    else:
+        flip_u, z = _inject
+    flip = flip_u < rate * dt
+    spin = torch.where(flip, -tr.spin, tr.spin)
+
+    v_loc = lam * spin.to(torch.float32)
+    noise = torch.sqrt(2.0 * gamma * dt) * z
+    unwrapped = tr.unwrapped + v_loc * dt + noise
+    pos = torch.remainder(unwrapped, config.xlim)
+
+    slot = n % window
+    old = tr.hist[:, slot]
+    hist = tr.hist.clone()
+    hist[:, slot] = unwrapped
+    dr = unwrapped - old
+    mean_dr = dr.mean(-1)
+    var_dr = ((dr - mean_dr[:, None]) ** 2).mean(-1)
+    nan = torch.full_like(mean_dr, float("nan"))
+    valid = n >= window
+    v_eff = mean_dr / (window * dt) if valid else nan
+    D_eff = var_dr / (2.0 * window * dt) if valid else nan
+    return (TracerState(pos=pos, unwrapped=unwrapped, spin=spin, hist=hist),
+            v_eff, D_eff)

@@ -1,0 +1,1 @@
+"""theory layer of the PyTorch port (mirrors hydrolim_tpu.theory)."""

@@ -1,0 +1,115 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Marked ``gpu``: each test skips without a CUDA device.  Run on a GPU host
+with ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py`` (the
+suite's conftest imports jax, which a GPU host need not have); ``chip_smoke.py``
+runs the same comparisons at the main path's shapes.
+"""
+import numpy as np
+import pytest
+import torch
+
+from hydrolim_tpu_torch.core.config import PDEConfig
+from hydrolim_tpu_torch.ops.pde_kernel import (
+    build_solve_operands,
+    pde_multi_step,
+    pde_multi_step_plain,
+)
+from hydrolim_tpu_torch.ops.stepper_kernel import (
+    meanfield_multi_step,
+    meanfield_multi_step_plain,
+)
+from hydrolim_tpu_torch.pde.init import pde_initialize
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _bits(shape, gen, dev):
+    return torch.randint(0, 2 ** 32, shape, generator=gen, device=dev,
+                         dtype=torch.int64).to(torch.int32)
+
+
+@pytest.mark.parametrize("bidirectional", [True, False])
+@pytest.mark.parametrize("N", [96, 30_000])   # shared- and device-memory state
+def test_b1_kernel_equals_plain(dev, bidirectional, N):
+    B, L, k = 3, 64, 40
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(N)
+    pos = torch.randint(0, L, (B, N), generator=gen, device=dev,
+                        dtype=torch.int32)
+    sig = torch.randint(0, 2, (B, N), generator=gen, device=dev,
+                        dtype=torch.int32) * 2 - 1
+    wind = torch.zeros_like(pos)
+    scal = torch.tensor([[0.3, 0.5, 2.0], [1.3, 0.5, 2.0], [2.6, 0.5, 2.0]],
+                        device=dev)
+    seeds = torch.zeros(B, dtype=torch.int32, device=dev)
+    kw = dict(L=L, k_steps=k, dt=0.02, bidirectional=bidirectional,
+              noise=_bits((B, k, N), gen, dev))
+    n0 = meanfield_multi_step.launches
+    got = meanfield_multi_step(scal, seeds, pos, sig, wind, **kw)
+    assert meanfield_multi_step.launches == n0 + 1
+    want = meanfield_multi_step_plain(scal, seeds, pos, sig, wind, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_b1_native_streams(dev):
+    """Native Philox: deterministic per (seed, step0), a new stream per
+    step0, and the flip rate of σ at β = 0 close to its expectation."""
+    B, N, L, k, dt = 2, 20_000, 100, 10, 0.01
+    pos = torch.zeros((B, N), dtype=torch.int32, device=dev)
+    sig = torch.ones((B, N), dtype=torch.int32, device=dev)
+    wind = torch.zeros_like(pos)
+    scal = torch.tensor([[0.0, 0.0, 0.0]] * B, device=dev)
+    seeds = torch.tensor([7, 7], dtype=torch.int32, device=dev)
+    kw = dict(L=L, k_steps=1, dt=dt, bidirectional=True)
+    a = meanfield_multi_step(scal, seeds, pos, sig, wind, step0=0, **kw)
+    b = meanfield_multi_step(scal, seeds, pos, sig, wind, step0=0, **kw)
+    c = meanfield_multi_step(scal, seeds, pos, sig, wind, step0=1, **kw)
+    assert torch.equal(a[1], b[1]) and not torch.equal(a[1], c[1])
+    assert not torch.equal(a[1][0], a[1][1])        # replica is in the key
+    flips = sum(int((meanfield_multi_step(
+        scal, seeds, pos, sig, wind, step0=s, **kw)[1] < 0).sum())
+        for s in range(k))
+    expect = B * N * k * dt                         # exp(0)·dt per step
+    assert abs(flips - expect) < 5 * np.sqrt(expect)
+
+
+@pytest.mark.parametrize("gamma", [0.2, 0.0])
+def test_b2_kernel_matches_plain(dev, gamma):
+    B, L, n_t, W, kmax, dt, k = 3, 256, 200, 10, 8, 5e-4, 30
+    config = PDEConfig(L=L, dt=dt, n_tracers=n_t,
+                       tracer_window_time=W * dt + 1e-12)
+    assert config.tracer_window == W
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    rp, rm, tr = pde_initialize(config, gen, B=B, mode="homogeneous",
+                                noise=0.3, n_tracers=n_t, device=dev)
+    mode = "exact" if gamma > 0 else "none"
+    solve = build_solve_operands(L, config.dx, dt, gamma, True, mode, dev)
+    scal = torch.tensor([[b, 0.6, gamma, 0.0] for b in (0.5, 1.5, 3.0)],
+                        device=dev)
+    seeds = torch.zeros(B, dtype=torch.int32, device=dev)
+    noise = _bits((B, 2 * k, 3, n_t), gen, dev)
+    sk = [rp, rm, tr.unwrapped, tr.spin.float(), tr.hist]
+    sp = list(sk)
+    for c in range(2):
+        kw = dict(L=L, n_t=n_t, window=W, k_steps=k, dt=dt, xlim=1.0,
+                  periodic=True, m_mode="global", solve_mode=mode,
+                  bidirectional=True, kmax_rec=kmax,
+                  noise=noise[:, c * k:(c + 1) * k].contiguous())
+        *sk, rk = pde_multi_step(scal, seeds, c * k, *sk, solve, **kw)
+        *sp, rp_ = pde_multi_step_plain(scal, seeds, c * k, *sp, solve, **kw)
+    torch.testing.assert_close(sk[0], sp[0], rtol=2e-4, atol=1e-7)
+    torch.testing.assert_close(sk[1], sp[1], rtol=2e-4, atol=1e-7)
+    torch.testing.assert_close(sk[2], sp[2], rtol=1e-4, atol=1e-5)
+    assert torch.equal(sk[3], sp[3])
+    torch.testing.assert_close(rk[..., 2:4], rp_[..., 2:4], rtol=5e-4,
+                               atol=1e-6, equal_nan=True)
