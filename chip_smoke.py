@@ -4,15 +4,27 @@
 Phases (each prints one line with its wall time; a failed phase raises):
 
 1. device: a CUDA card, its name and power limit (nvidia-smi), versions;
-2. build: both CUDA kernels from ``hydrolim_tpu_torch/csrc`` with nvcc;
+2. build: the three CUDA kernels from ``hydrolim_tpu_torch/csrc``, one
+   nvcc process each, all started together;
 3. kernel B1 against its plain PyTorch version on the card, injected bits;
 4. kernel B2 against its plain PyTorch version on the card, injected bits;
 5. the micro↔macro main path at full size (the cross-engine driver on
    ``device='cuda'``, native Philox streams) with its physics pins, and the
-   proof that it ran through both kernels (launch counters);
-6. throughput at the headline shapes, kernel and plain version.
+   proof that it ran through B1 and B2 (launch counters);
+6. throughput of B1 and B2 at the headline shapes, kernel and plain version;
+7. kernel B3/B4 against its plain version on the card, injected bits, in
+   four configurations at 4 and 33 replicas: slots equal, state moved,
+   admission refused somewhere, ids conserved, occupancy ≤ K;
+8. the exclusion β-sweep at full size (``sweep_over_betas`` on
+   ``device='cuda'``, native Philox) in the reference configuration and at
+   the flagship capacity, with its checks, where its wall time went, the
+   physics pins, and the proof that it ran through B3/B4 (launch counter,
+   per configuration);
+9. throughput of B3/B4 at the JAX bench's flagship shape and at the
+   sweep's 33 replicas, kernel and plain version.
 
-The line before the last is ``{"kernels": [...]}`` and the last line is
+The line before the last is ``{"kernels": [...]}`` (each kernel's
+launches on its path, errors, times and bound) and the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 
@@ -20,6 +32,7 @@ Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import subprocess
@@ -59,6 +72,23 @@ def randbits(shape, gen, dev):
 
     return torch.randint(0, 2 ** 32, shape, generator=gen, device=dev,
                          dtype=torch.int64).to(torch.int32)
+
+
+# The least time the card could take for a kernel's work: the larger of its
+# bytes over the H100's memory rate and its float32 operations over the
+# float32 peak outside the tensor cores (NVIDIA's H100 SXM data sheet, at
+# 700 W).  Bytes count each input read once and each
+# output written once; operations are counted from the shapes and, where
+# the work depends on the data, from this run's inputs.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
 
 
 # ---------------------------------------------------------------------------
@@ -294,8 +324,11 @@ def throughput(dev) -> dict:
     ms = [cuda_ms(kernel_call) for _ in range(3)]   # 3 frames
     plain_ms = cuda_ms(lambda: meanfield_multi_step_plain(
         scal, seeds, *st, generator=gen, **kw))
-    out["meanfield_multi_step"] = dict(ms=float(np.mean(ms)),
-                                       plain_ms=plain_ms)
+    # per particle-step: the uniform's scale and four threshold compares;
+    # per replica-step: two expf and their scaling
+    out["meanfield_multi_step"] = dict(
+        ms=float(np.mean(ms)), plain_ms=plain_ms,
+        **bound(6 * 4 * B * N + 16 * B, k * (5 * B * N + 4 * B)))
     print(f"B1 kernel {B * N * k / (np.mean(ms) / 1e3):.4e} particle-steps/s "
           f"(frames {', '.join(f'{m:.2f}' for m in ms)} ms); plain "
           f"{B * N * k / (plain_ms / 1e3):.4e} particle-steps/s "
@@ -322,11 +355,407 @@ def throughput(dev) -> dict:
     solve.a_inv                  # the plain version's inverse, built untimed
     plain_ms = cuda_ms(lambda: pde_multi_step_plain(*args, generator=gen,
                                                     **kw))
-    out["pde_multi_step"] = dict(ms=ms, plain_ms=plain_ms)
+    # bytes: fields, tracer position/spin/unwrapped and the ring in and
+    # out, the records out; operations per replica-step, counted from the
+    # step's arithmetic: ~30 per site (m, upwind advection, CW reaction,
+    # tridiagonal solve, clip, renormalisation), ~24 per tracer (flip,
+    # Box–Muller, gather, update, window statistics) and 4 per site and
+    # spectral bin
+    W, kmax = config.tracer_window, 8
+    out["pde_multi_step"] = dict(
+        ms=ms, plain_ms=plain_ms,
+        **bound(4 * (2 * 2 * B * L + 2 * 3 * B * n_t + 2 * B * W * n_t
+                     + B * k * (4 + 2 * kmax)),
+                k * B * (30 * L + 24 * n_t + 4 * kmax * L)))
     print(f"B2 kernel {B * k / (ms / 1e3):.4e} replica-steps/s "
           f"({ms:.1f} ms per {k}-step chunk); plain "
           f"{B * k / (plain_ms / 1e3):.4e} replica-steps/s "
           f"({plain_ms:.1f} ms)", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: B3/B4 against its plain version
+# ---------------------------------------------------------------------------
+
+B3_CHECKS = (
+    ("global m, periodic, bidirectional", 3, 0.0, True, True),
+    ("local m sigma=0.002, non-periodic, plus_forward", 3, 0.002, False,
+     False),
+    ("local m sigma=0.02, periodic", 3, 0.02, True, False),
+    ("K=1, local m sigma=0.005, non-periodic", 1, 0.005, False, False),
+)
+
+
+def exclusion_state(dev, gen, *, B, K, L, sigma, periodic, N=None,
+                    init="fixed", profiles=(None, None)):
+    """(slots with payload ids, smoothing band or None) of B replicas."""
+    from hydrolim_tpu_torch.core.config import ParticleConfig
+    from hydrolim_tpu_torch.ops.exclusion_kernel import build_smoothing_band
+    from hydrolim_tpu_torch.sweeps.fast_exclusion import init_payload_slots
+
+    cfg = ParticleConfig(L=L, N=N or (K * L) // 2, init=init,
+                         scale_rates=False, local_kernel_sigma=sigma,
+                         periodic=periodic, site_capacity=K)
+    slots = init_payload_slots(cfg, gen, *profiles, B=B, device=dev)
+    return slots, (build_smoothing_band(cfg, dev) if sigma > 0 else None)
+
+
+def check_b3(dev) -> float:
+    """L=1000, rd=1, ra=3, dt=0.02 (events on ~10% of slot-steps, so the
+    admission rounds refuse candidates), β across [0, 3], half the K·L
+    slots filled; two chained 100-step calls per configuration at 4 and 33
+    replicas.  Slots must be EQUAL (the same bits, the same float32
+    arithmetic and summation order, expf on both sides); the state must
+    move, some admission round must refuse a candidate (the plain
+    version's tally), particle ids must be conserved and occupancy ≤ K.
+    Returns the max abs difference (0)."""
+    import torch
+    from hydrolim_tpu_torch.ops.exclusion_kernel import (
+        exclusion_multi_step,
+        exclusion_multi_step_plain,
+    )
+
+    L, k, dt = 1000, 100, 0.02
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    err = 0
+    for B in (4, 33):
+        for what, K, sigma, periodic, bidi in B3_CHECKS:
+            what = f"B3/B4 B={B} {what}"
+            slots0, band = exclusion_state(dev, gen, B=B, K=K, L=L,
+                                           sigma=sigma, periodic=periodic)
+            scal = torch.stack([torch.linspace(0.0, 3.0, B, device=dev),
+                                torch.full((B,), 1.0, device=dev),
+                                torch.full((B,), 3.0, device=dev)],
+                               1).contiguous()
+            seeds = torch.zeros(B, dtype=torch.int32, device=dev)
+            sk = sp = slots0
+            tally = {}
+            for c in range(2):
+                kw = dict(k_steps=k, dt=dt, periodic=periodic,
+                          bidirectional=bidi,
+                          noise=randbits((B, k, 2, K, L), gen, dev))
+                sk = exclusion_multi_step(scal, seeds, sk, band, **kw)
+                sp = exclusion_multi_step_plain(scal, seeds, sp, band,
+                                                tally=tally, **kw)
+                torch.cuda.synchronize()
+                bad = int((sk != sp).sum())
+                if bad:
+                    raise AssertionError(
+                        f"{what}: call {c}: slots differ at {bad} of "
+                        f"{sk.numel()}")
+                err = max(err, int((sk - sp).abs().max()))
+            if torch.equal(sk, slots0):
+                raise AssertionError(f"{what}: the state did not move")
+            refused = tally["candidates"] - tally["admitted"]
+            if refused <= 0:
+                raise AssertionError(f"{what}: no admission refusal "
+                                     f"({tally})")
+            for r in range(B):
+                if not torch.equal(sk[r].abs()[sk[r] != 0].sort().values,
+                                   slots0[r].abs()[slots0[r] != 0]
+                                   .sort().values):
+                    raise AssertionError(f"{what}: replica {r} lost or "
+                                         "gained particles")
+            if int((sk != 0).sum(1).max()) > K:
+                raise AssertionError(f"{what}: occupancy above K={K}")
+            print(f"{what}: equal over {2 * k} steps; admission "
+                  f"{tally['admitted']} of {tally['candidates']} candidates",
+                  flush=True)
+    return float(err)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the exclusion β-sweep at full size
+# ---------------------------------------------------------------------------
+
+SLICE_BETAS = np.linspace(0.0, 3.0, 11)
+
+
+def host_s(fn, reps: int = 3) -> tuple:
+    """(min, max) over ``reps`` calls of ``fn()``'s wall time in s, the
+    card synchronised at the end of each call."""
+    import torch
+
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return min(ts), max(ts)
+
+
+def sweep_breakdown(save: dict, over: dict, outdir: str, n_calls: int,
+                    wall: float) -> None:
+    """Where one sweep's wall time went.  The same sweep is run again,
+    warm (the difference from ``wall`` is one-time set-up); then each part
+    is timed alone through the calls the sweep makes: the grid run
+    (``run_sweep_grid_lattice_gas``: initial state, kernel calls, frame
+    records; the frames stay on the card), the estimators on its frames,
+    the frames' copy to the host that ``keep_outs`` makes, and the NB fit
+    (``fit_and_plot_v_eff`` on the sweep's arrays).  Host times spread on
+    a shared machine, so each is the min–max of 3 runs, and the parts'
+    minima are set against the warm minimum; what they leave is the per-β
+    statistics and the npz save.  Last, the kernel's device time for the
+    sweep's ``n_calls`` calls, replayed back to back under CUDA events on
+    the sweep's final slots (the same particles)."""
+    import torch
+    from hydrolim_tpu_torch.fit.veff_fit import fit_and_plot_v_eff
+    from hydrolim_tpu_torch.observables.batched import batched_estimates
+    from hydrolim_tpu_torch.particles.lattice_gas import tracer_valid_mask
+    from hydrolim_tpu_torch.ops.exclusion_kernel import (
+        build_smoothing_band,
+        exclusion_multi_step,
+    )
+    from hydrolim_tpu_torch.particles.run import substeps_for
+    from hydrolim_tpu_torch.sweeps.beta_sweep import (
+        DEFAULT_PS_KWARGS,
+        DEFAULT_RUN_KWARGS,
+        make_exp_gradient,
+        run_sweep_grid_lattice_gas,
+        sweep_over_betas,
+    )
+
+    warm = host_s(lambda: sweep_over_betas(
+        SLICE_BETAS, n_runs_per_beta=3, ps_kwargs=over or None,
+        npz_path=f"{outdir}/warm.npz", outdir=outdir, seed=0,
+        keep_outs=True, plot_result=False, device="cuda"))
+    ps = dict(DEFAULT_PS_KWARGS, **over)
+    grad = make_exp_gradient(L=ps["L"], N=ps["N"], frac_plus=0.75,
+                             decay_length=0.35, anchor_positions=None)
+    grid_out = []
+
+    def grid_run():
+        grid_out[:] = run_sweep_grid_lattice_gas(
+            SLICE_BETAS, 3, ps, dict(rho0_plus=grad[0], rho0_minus=grad[1]),
+            DEFAULT_RUN_KWARGS, seed=0, device="cuda")
+
+    grid = host_s(grid_run)
+    cfg, _, _, f, _ = grid_out
+    obs_dt = float(DEFAULT_RUN_KWARGS["obs_dt"])
+    est = host_s(lambda: batched_estimates(
+        f.total, f.m_global, f.rho_p,
+        np.arange(0.0, float(DEFAULT_RUN_KWARGS["T"]), obs_dt),
+        f.tracer_pos, tracer_valid_mask(f.tracer_pos), dx=cfg.dx,
+        xlim=float(cfg.xlim)))
+    copies = host_s(lambda: [a.cpu().numpy() for a in f])
+    del f, grid_out
+    fit = host_s(lambda: fit_and_plot_v_eff(
+        save["beta_values"], save["ps_kwargs"],
+        *(save[k] for k in ("means", "stds", "ses", "m_means", "m_stds",
+                            "m_ses", "rho_means", "rho_ses", "block_means",
+                            "block_ses")),
+        plot_result=False, outdir=outdir))
+    parts = grid[0] + est[0] + copies[0] + fit[0]
+
+    dev = torch.device("cuda", 0)
+    k = substeps_for(obs_dt, float(save["dt"]))
+    slots = torch.as_tensor(save["spins_final"], device=dev)
+    scal = torch.tensor([[b, ps["rate_diffusion"], ps["rate_active"]]
+                         for b in np.repeat(SLICE_BETAS, 3)],
+                        dtype=torch.float32, device=dev)
+    seeds = torch.arange(len(scal), dtype=torch.int32, device=dev)
+    band = (build_smoothing_band(cfg, dev) if cfg.local_kernel_sigma > 0
+            else None)
+    kernel = n_calls * cuda_ms(lambda: exclusion_multi_step(
+        scal, seeds, slots, band, k_steps=k, dt=obs_dt / k,
+        periodic=cfg.periodic,
+        bidirectional=cfg.active_model == "bidirectional"),
+        reps=n_calls) / 1e3
+    span = lambda t: f"{t[0]:.4f}–{t[1]:.4f} s"
+    print(f"  breakdown (host clock, min–max of 3): wall {wall:.4f} s, warm "
+          f"{span(warm)} (set-up {wall - warm[0]:.4f} s); grid run "
+          f"{span(grid)}, estimators {span(est)}, frames to the host "
+          f"{span(copies)}, NB fit {span(fit)}; the parts' minima sum to "
+          f"{parts:.4f} s of the warm minimum {warm[0]:.4f} s; kernel "
+          f"{kernel:.4f} s on the device ({n_calls} calls of {k} steps), "
+          f"{kernel / warm[0]:.2%} of the warm minimum", flush=True)
+
+
+def slice_path(outdir: str) -> dict:
+    """``sweep_over_betas(engine='fused')`` on the card at the reference
+    sweep's own size (11 β × 3 runs, L=1000, T=20, obs_dt=0.1, every
+    particle tagged): (a) DEFAULT_PS_KWARGS (K=1, N=500, σ=0.005) and (b)
+    the flagship capacity (K=3, N=750, σ=0.002).  Then the physics pins of
+    the CPU tests, through the kernel."""
+    import torch
+    from hydrolim_tpu_torch.experiments.particle_beta_sweep import FLAGSHIP
+    from hydrolim_tpu_torch.ops.exclusion_kernel import exclusion_multi_step
+    from hydrolim_tpu_torch.sweeps.beta_sweep import (
+        make_exp_gradient,
+        sweep_over_betas,
+    )
+    from hydrolim_tpu_torch.theory.meanfield import m_fixed_point
+
+    launches = {}
+    for name, over in (("(a) K=1, N=500, sigma=0.005", {}),
+                       ("(b) K=3, N=750, sigma=0.002", FLAGSHIP)):
+        exclusion_multi_step.launches = 0
+        t0 = time.perf_counter()
+        save = sweep_over_betas(
+            SLICE_BETAS, n_runs_per_beta=3, ps_kwargs=over or None,
+            npz_path=f"{outdir}/sweep.npz", outdir=outdir, seed=0,
+            keep_outs=True, plot_result=False, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = exclusion_multi_step.launches
+        launches[f"sweep {name}"] = n
+        print(f"sweep {name}: {wall:.2f} s wall, {n} launches of "
+              f"exclusion_multi_step, dt {float(save['dt']):.4e}", flush=True)
+        if n <= 0:
+            raise AssertionError(f"sweep {name} never launched the kernel")
+        for key in ("means", "D_means", "m_means", "rho_means",
+                    "block_means", "popt"):
+            print(f"  {key}: {np.round(save[key], 5).tolist()}", flush=True)
+            if not np.all(np.isfinite(save[key])):
+                raise AssertionError(f"sweep {name}: non-finite {key}")
+        K = int(save["ps_kwargs"]["site_capacity"])
+        spins = save["spins_final"]
+        n0 = np.array([o["alive_frames"][0].sum() for outs in save["outs"]
+                       for o in outs])
+        if not np.array_equal((spins != 0).sum((1, 2)), n0):
+            raise AssertionError(f"sweep {name}: particle counts changed")
+        if (spins != 0).sum(1).max() > K:
+            raise AssertionError(f"sweep {name}: occupancy above K={K}")
+        sweep_breakdown(save, over, outdir, n, wall)
+
+    exclusion_multi_step.launches = 0
+    L, N = 128, 96
+    grad = make_exp_gradient(L=L, N=N, frac_plus=0.75, decay_length=0.35,
+                             anchor_positions=None)
+    save = sweep_over_betas(
+        [0.7], n_runs_per_beta=64, ps_kwargs=dict(
+            L=L, N=N, init="poisson", local_kernel_sigma=0.0, periodic=False,
+            site_capacity=3, rate_diffusion=0.02, rate_active=2.0),
+        init_kwargs=dict(rho0_plus=grad[0], rho0_minus=grad[1]),
+        run_kwargs=dict(T=6.0, obs_dt=0.25), npz_path=f"{outdir}/pin.npz",
+        seed=21, do_fit=False, plot_result=False, device="cuda")
+    mean, se = float(save["block_means"][0]), float(save["block_ses"][0])
+    print(f"pin K=3 p_block {mean:.4f} ± {se:.4f} (golden 0.5964)",
+          flush=True)
+    if not abs(mean - 0.5964) < max(4.0 * se, 0.028):
+        raise AssertionError(f"K=3 p_block {mean} ± {se} off the golden")
+    save = sweep_over_betas(
+        [0.8, 1.5, 2.5], n_runs_per_beta=4, ps_kwargs=dict(
+            L=128, N=48, init="fixed", local_kernel_sigma=0.0, periodic=True,
+            site_capacity=1, active_model="bidirectional",
+            rate_diffusion=0.5, rate_active=2.0),
+        run_kwargs=dict(T=8.0, obs_dt=0.5), npz_path=f"{outdir}/pin.npz",
+        seed=12, keep_outs=True, do_fit=False, plot_result=False,
+        device="cuda")
+    m_abs = np.mean([np.abs(o["m_global"][len(o["m_global"]) // 2:]).mean()
+                     for o in save["outs"][2]])
+    print(f"pin K=1 |m|(beta=2.5) {m_abs:.4f} (theory "
+          f"{m_fixed_point(2.5):.4f}); pins launched the kernel "
+          f"{exclusion_multi_step.launches} times", flush=True)
+    if not abs(m_abs - m_fixed_point(2.5)) < 0.06:
+        raise AssertionError(f"K=1 |m|(2.5) = {m_abs} off the fixed point")
+    if exclusion_multi_step.launches <= 0:
+        raise AssertionError("the pins never launched the kernel")
+    return dict(launches=sum(launches.values()),
+                launches_per_config=launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: B3/B4 throughput
+# ---------------------------------------------------------------------------
+
+def b3_bound(slots, band, k: int) -> dict:
+    """Bytes: the slots in and out, the scalars and seeds, the band once.
+    Operations per replica-step: 2 sums of 2 operations per band tap and
+    site (local m), and ~10 per occupied slot (the expf argument, expf,
+    three threshold adds, the flip rate's scale, three compares), counted
+    on these slots."""
+    B, K, L = slots.shape
+    W = 0 if band is None else band.idx.shape[1]
+    n_occ = int((slots != 0).sum())
+    return bound(2 * 4 * slots.numel() + 12 * B + 8 * L * W,
+                 k * (4 * W * L * B + 10 * n_occ))
+
+
+def throughput_b3(dev) -> dict:
+    """Native Philox, CUDA events, one warm-up call first:
+    - the JAX bench's flagship shape (bench.py:295-320): B=16, K=3, L=1000,
+      N=750 fixed init, σ=0.002 non-periodic plus_forward, dt=2e-3, β=0.7,
+      ra=5, rd=0, 10,000- and 1,000-step calls, and the plain version's
+      1,000-step call at that shape;
+    - the sweep's 33 replicas at configuration (b) (exp-gradient Poisson
+      init, β over [0, 3], rd=0.02, ra=5, its Δt), 10,000- and 1,000-step
+      calls, and the plain version's 1,000-step call at that shape."""
+    import torch
+    from hydrolim_tpu_torch.experiments.particle_beta_sweep import FLAGSHIP
+    from hydrolim_tpu_torch.ops.exclusion_kernel import (
+        exclusion_multi_step,
+        exclusion_multi_step_plain,
+    )
+    from hydrolim_tpu_torch.sweeps.beta_sweep import (
+        DEFAULT_PS_KWARGS,
+        config_from_kwargs,
+        make_exp_gradient,
+    )
+    from hydrolim_tpu_torch.sweeps.ensemble import ensemble_dt
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    L, K = 1000, 3
+    out = {}
+
+    def rate(tag, slots, scal, seeds, band, k, dt, calls=3):
+        state = [slots, 0]
+
+        def call():
+            state[0] = exclusion_multi_step(
+                scal, seeds, state[0], band, k_steps=k, dt=dt,
+                periodic=False, bidirectional=False, step0=state[1] * k)
+            state[1] += 1
+
+        call()                                           # warm-up
+        ms = [cuda_ms(call) for _ in range(calls)]
+        n = int((slots != 0).sum())
+        print(f"B3 {tag}: {k}-step calls {', '.join(f'{m:.2f}' for m in ms)}"
+              f" ms; {np.mean(ms) * 1e3 / k:.3f} us/step; "
+              f"{n * k / (np.mean(ms) / 1e3):.4e} particle-steps/s", flush=True)
+        return float(np.mean(ms))
+
+    def plain(tag, slots, scal, seeds, band, dt):
+        kw = dict(k_steps=1000, dt=dt, periodic=False, bidirectional=False)
+        exclusion_multi_step_plain(scal, seeds, slots, band, generator=gen,
+                                   **dict(kw, k_steps=10))   # warm-up
+        ms = cuda_ms(lambda: exclusion_multi_step_plain(
+            scal, seeds, slots, band, generator=gen, **kw))
+        n = int((slots != 0).sum())
+        print(f"B3 plain, {tag}: {ms:.1f} ms per 1000 steps; "
+              f"{n * 1000 / (ms / 1e3):.4e} particle-steps/s", flush=True)
+        return ms
+
+    B = 16
+    slots, band = exclusion_state(dev, gen, B=B, K=K, L=L, sigma=0.002,
+                                  periodic=False, N=750)
+    scal = torch.tensor([[0.7, 0.0, 5.0]] * B, device=dev)
+    seeds = torch.arange(B, dtype=torch.int32, device=dev)
+    rate("flagship B=16 N=750", slots, scal, seeds, band, 10_000, 2e-3)
+    rate("flagship B=16 N=750", slots, scal, seeds, band, 1000, 2e-3)
+    plain("flagship B=16 N=750", slots, scal, seeds, band, 2e-3)
+
+    ps = dict(DEFAULT_PS_KWARGS, **FLAGSHIP)
+    cfg = config_from_kwargs(ps)
+    grad = make_exp_gradient(L=L, N=750, frac_plus=0.75, decay_length=0.35,
+                             anchor_positions=None)
+    dt = ensemble_dt(cfg, beta_max=3.0, rate_diffusion=0.02, rate_active=5.0)
+    B = 33
+    slots, band = exclusion_state(dev, gen, B=B, K=K, L=L, sigma=0.002,
+                                  periodic=False, N=750, init="poisson",
+                                  profiles=(grad[2], grad[3]))
+    scal = torch.tensor([[b, 0.02, 5.0] for b in np.repeat(SLICE_BETAS, 3)],
+                        dtype=torch.float32, device=dev)
+    seeds = torch.arange(B, dtype=torch.int32, device=dev)
+    rate("sweep (b) B=33", slots, scal, seeds, band, 10_000, dt)
+    ms = rate("sweep (b) B=33", slots, scal, seeds, band, 1000, dt)
+    plain_ms = plain("sweep (b) B=33", slots, scal, seeds, band, dt)
+    out["exclusion_multi_step"] = dict(ms=ms, plain_ms=plain_ms,
+                                       **b3_bound(slots, band, 1000))
     return out
 
 
@@ -337,12 +766,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import hydrolim_tpu_torch  # noqa: F401  (sets TF32 off)
-    from hydrolim_tpu_torch.ops import pde_kernel, stepper_kernel
+    from hydrolim_tpu_torch.ops import (
+        exclusion_kernel,
+        pde_kernel,
+        stepper_kernel,
+    )
     from hydrolim_tpu_torch.ops._build import BUILD_DIR, build_kernel_library
 
     dev = torch.device("cuda", 0)
     kinds = {"meanfield_multi_step": stepper_kernel,
-             "pde_multi_step": pde_kernel}
+             "pde_multi_step": pde_kernel,
+             "exclusion_multi_step": exclusion_kernel}
     rows = {name: dict(name=name, route="cuda", source=mod.SOURCE,
                        replaces=mod.REPLACES) for name, mod in kinds.items()}
 
@@ -356,11 +790,10 @@ def main() -> int:
               f"python {sys.version.split()[0]} devices "
               f"{torch.cuda.device_count()}", flush=True)
     with phase("2 build"):
-        for name in kinds:
-            t0 = time.perf_counter()
-            so = build_kernel_library(name)
-            print(f"built {so.name} in {time.perf_counter() - t0:.1f} s",
-                  flush=True)
+        with concurrent.futures.ThreadPoolExecutor(len(kinds)) as pool:
+            built = list(pool.map(build_kernel_library, kinds))
+        for name, so in zip(kinds, built):
+            print(f"built {so.name}", flush=True)
             print((BUILD_DIR / f"{name}.ptxas.txt").read_text().strip(),
                   flush=True)
     with phase("3 B1 vs plain"):
@@ -373,6 +806,14 @@ def main() -> int:
                 rows[name]["launches"] = n
     with phase("6 throughput"):
         for name, t in throughput(dev).items():
+            rows[name].update(t)
+    with phase("7 B3/B4 vs plain"):
+        rows["exclusion_multi_step"]["max_abs_err"] = check_b3(dev)
+    with phase("8 exclusion sweep"):
+        with tempfile.TemporaryDirectory() as outdir:
+            rows["exclusion_multi_step"].update(slice_path(outdir))
+    with phase("9 B3/B4 throughput"):
+        for name, t in throughput_b3(dev).items():
             rows[name].update(t)
 
     print(json.dumps({"kernels": list(rows.values())}))

@@ -124,7 +124,7 @@ def make_particle_params(
     k_on: float = 0.1,
     k_off: float = 0.01,
     k_exit: float = 0.0,
-    device="cpu",
+    device="cuda",
 ) -> ParticleParams:
     if config.scale_rates:
         rate_diffusion = rate_diffusion / config.dx ** 2
@@ -231,6 +231,6 @@ class PDEParams:
 
 
 def make_pde_params(*, gamma: float = 2.33e-4, lam: float = 0.6,
-                    beta: float = 2.0, device="cpu") -> PDEParams:
+                    beta: float = 2.0, device="cuda") -> PDEParams:
     as_t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
     return PDEParams(gamma=as_t(gamma), lam=as_t(lam), beta=as_t(beta))

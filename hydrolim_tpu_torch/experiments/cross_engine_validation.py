@@ -46,7 +46,7 @@ def configs(small: bool):
 
 
 def particle_side(beta_values, n_runs, *, L, N, T, obs_dt, seed=0,
-                  device="cpu"):
+                  device="cuda"):
     """Mean-field bidirectional particle ensemble in lattice units chosen so
     that λ = rate_active·dx and γ = rate_diffusion·dx² match the PDE: with
     dx = 1/L, rate_active = λ·L and rate_diffusion = γ·L²."""
@@ -114,7 +114,7 @@ def _plot(out: Path, beta_values, particle, pde) -> None:
 
 
 def main(small: bool = False, outdir: str = "cross_engine_out",
-         device: str = "cpu") -> dict:
+         device: str = "cuda") -> dict:
     """Run both sides, write the two figures (when matplotlib is installed)
     and ``cross_engine.json`` into ``outdir``, and return the
     per-β series."""
@@ -162,6 +162,6 @@ if __name__ == "__main__":
     p = argparse.ArgumentParser()
     p.add_argument("--small", action="store_true")
     p.add_argument("--outdir", default="cross_engine_out")
-    p.add_argument("--device", default="cpu")
+    p.add_argument("--device", default="cuda")
     a = p.parse_args()
     main(a.small, a.outdir, a.device)

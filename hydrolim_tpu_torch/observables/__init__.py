@@ -1,0 +1,1 @@
+"""observables layer of the PyTorch port (mirrors hydrolim_tpu.observables)."""

@@ -35,7 +35,7 @@ def _second_difference(L: int, bc: str) -> np.ndarray:
 
 
 def build_dense_inverse(L: int, dx: float, dt: float, gamma: float,
-                        bc: str, device="cpu") -> torch.Tensor:
+                        bc: str, device="cuda") -> torch.Tensor:
     """(L, L) float32 ``A⁻¹`` (inverted in float64)."""
     A = np.eye(L) - float(gamma) * dt * _second_difference(L, bc) / dx ** 2
     return torch.tensor(np.linalg.inv(A), dtype=torch.float32, device=device)
@@ -69,7 +69,7 @@ class CyclicTridiagFactors:
 
 
 def cyclic_tridiag_factors(L: int, dx: float, dt: float, gamma: float,
-                           device="cpu") -> CyclicTridiagFactors:
+                           device="cuda") -> CyclicTridiagFactors:
     assert L >= 3, L
     c = float(gamma) * dt / dx ** 2
     b = 1.0 + 2.0 * c

@@ -1,0 +1,397 @@
+"""Kernel B3/B4: fused multi-step K-slot exclusion stepper.
+
+``exclusion_multi_step`` advances k steps of the K-slot exclusion engine per
+replica.  On CUDA tensors it launches the hand-written kernel
+(``csrc/exclusion_multi_step.cu``), the counterpart of both TPU kernels
+``hydrolim_tpu/ops/pallas_exclusion.py`` (B3, (R, Kp, Lp) layout) and
+``hydrolim_tpu/ops/pallas_exclusion_rb.py`` (B4, the same law in a
+replica-banked (K, R, Lp) layout); on CPU tensors it runs
+``exclusion_multi_step_plain``.  The two TPU layouts existed to fill the
+TPU's sublanes; ``interop`` converts their slots and injected bits to the
+port's (B, K, L).
+
+State: (B, K, L) int32 signed slot payloads — sign = spin, magnitude =
+particle identity (1 for anonymous fields, id+1 for tagged runs); moves
+and compaction carry payloads intact.  Per step:
+
+1. m: the global Σσ / max(Σ|σ|, 1), or the local smoothed ratio
+   conv(σ)/conv(|σ|) (0 where conv(|σ|) = 0, clipped to [−1, 1]) with the
+   per-site weight band of ``build_smoothing_band``, summed in ascending
+   input-site order;
+2. per slot, from the pre-step neighbour occupancy (walls closed when
+   non-periodic): thresholds t1 = left rate·Δt, t2 = t1 + right rate·Δt,
+   t3 = t2 + exp(−βσm)·Δt against one 24-bit uniform, (bits & 0xFFFFFF)·2⁻²⁴;
+3. per destination site, the ≤ 2K incoming candidates carry priorities
+   ((bits >> 1) & 0x7FFFFFF0) | row (right-movers row k, left-movers K+k);
+   K rounds each admit the smallest while the free capacity lasts;
+4. per site, stayers (flipped where a flip fired), then admitted
+   right-incomers, then left-incomers, packed front-first in that order.
+
+Randomness is injected (``noise``: (B, k, 2, K, L) int32 bits, draw 0 =
+event, 1 = priority) or native: the kernel draws Philox4x32-10 with key
+(seed, replica) and counter (slot·L + site, ``step0`` + step), words 0 and
+1 of one call; the plain version draws from ``generator``.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from hydrolim_tpu_torch.core.config import ParticleConfig
+from hydrolim_tpu_torch.ops._build import check_cuda, load_kernel_library, ptr
+from hydrolim_tpu_torch.ops.convolve import (
+    gaussian_filter_weights,
+    periodic_gaussian_kernel,
+)
+from hydrolim_tpu_torch.ops.stepper_kernel import _check, bits_to_uniform
+
+SOURCE = "hydrolim_tpu_torch/csrc/exclusion_multi_step.cu"
+REPLACES = ("hydrolim_tpu/ops/pallas_exclusion.py:403 and "
+            "hydrolim_tpu/ops/pallas_exclusion_rb.py:222")
+
+MAX_K = 8                     # 2K candidate row ids fit the priorities' 4 bits
+MAX_SMEM = 232_448 - 256      # an H100 block's limit less the static partials
+_SENT = 0x7FFFFFFF            # "no candidate": sorts after every priority
+_MASK_HI = 0x7FFFFFF0         # 27 random bits; the low 4 carry the row id
+_PERIODIC_TAIL = 1e-7         # periodic band: the cut tail's share of mass
+
+
+def smem_bytes(K: int, L: int, W: int = 0) -> int:
+    """Shared memory of one replica's block: two (K, L) int32 slot buffers,
+    (K, L) int32 priorities and int8 events, three (L,) int32 site arrays
+    and the band's W interior taps (float32)."""
+    return (13 * K + 12) * L + 4 * W
+
+
+# ---------------------------------------------------------------------------
+# the smoothing band
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SmoothingBand:
+    """Per output site x: input sites ``idx[x]`` (ascending) and float32
+    weights ``w[x]`` (0 on padding entries), both (L, W).  The sites x in
+    the interior [lo, hi) read the same (W,) ``taps`` at the inputs
+    x − radius + t: ``idx[x, t] = x − radius + t`` and ``w[x] = taps``
+    bit for bit, checked where the band is built.  The kernel serves those
+    taps from shared memory and reads the other rows from ``idx``/``w``."""
+
+    idx: torch.Tensor
+    w: torch.Tensor
+    taps: torch.Tensor
+    radius: int
+    lo: int
+    hi: int
+
+
+def _periodic_radius(k: np.ndarray) -> int:
+    """Smallest radius whose taps hold all but ``_PERIODIC_TAIL`` of the
+    torus kernel's mass (float64)."""
+    k = np.abs(np.asarray(k, np.float64))
+    L, total = k.shape[0], k.sum()
+    for r in range(1, (L - 1) // 2 + 1):
+        d = np.arange(-r, r + 1)
+        if total - k[d % L].sum() <= _PERIODIC_TAIL * total:
+            return r
+    return (L - 1) // 2 + 1
+
+
+def band_weights(config: ParticleConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """(L, W) int32 input sites and float32 weights of the local-m smoothing,
+    entry for entry the JAX kernel's smoothing matrix (``build_conv_matrix``,
+    rows = input, columns = output): periodic, the normalised torus
+    Gaussian cut where its tail holds < 1e-7 of the mass; non-periodic, the
+    scipy reflect-mode weights, reflected entries summed in float32 in the
+    same order."""
+    L = config.L
+    out = np.arange(L)
+    if config.periodic:
+        k = periodic_gaussian_kernel(L, config.dx, config.local_kernel_sigma)
+        r = _periodic_radius(k)
+        if 2 * r + 1 >= L:
+            src = np.broadcast_to(np.arange(L), (L, L))
+        else:
+            src = np.sort((out[:, None] + np.arange(-r, r + 1)) % L, axis=1)
+        w = k[(out[:, None] - src) % L]
+        return np.ascontiguousarray(src, np.int32), w.astype(np.float32)
+    wts = gaussian_filter_weights(config.sigma_grid, 4.0)
+    r = (len(wts) - 1) // 2
+    if r >= L:
+        raise ValueError(f"smoothing radius {r} >= L={L}: a reflected tap "
+                         "would leave the lattice")
+    w = np.zeros((L, 2 * r + 1), np.float32)
+    for d in range(-r, r + 1):                  # the matrix's order of sums
+        src = out - d
+        src = np.where(src < 0, -1 - src, src)
+        src = np.where(src >= L, 2 * L - 1 - src, src)
+        w[out, src - (out - r)] += wts[d + r]
+    src = out[:, None] - r + np.arange(2 * r + 1)
+    valid = (src >= 0) & (src < L)
+    assert not w[~valid].any()
+    return np.where(valid, src, 0).astype(np.int32), w
+
+
+def band_interior(idx: np.ndarray, w: np.ndarray
+                  ) -> Tuple[np.ndarray, int, int, int]:
+    """(taps, radius, lo, hi): the longest run of sites [lo, hi) whose rows
+    are one row of taps translated, ``idx[x] = x − radius + arange(W)`` and
+    ``w[x] = taps`` exactly; an empty run (lo = hi = 0) where no row of the
+    middle site's shape exists."""
+    L, W = idx.shape
+    r = (W - 1) // 2
+    taps = w[L // 2]
+    ok = ((idx == np.arange(L)[:, None] - r + np.arange(W)).all(1)
+          & (w == taps).all(1))
+    edges = np.flatnonzero(np.diff(np.concatenate([[0], ok, [0]]).astype(int)))
+    starts, ends = edges[::2], edges[1::2]
+    if not len(starts):
+        return np.ascontiguousarray(taps), r, 0, 0
+    j = int(np.argmax(ends - starts))
+    return np.ascontiguousarray(taps), r, int(starts[j]), int(ends[j])
+
+
+def smoothing_band(idx: np.ndarray, w: np.ndarray,
+                   device="cuda") -> SmoothingBand:
+    """The band of (L, W) input sites and weights, with its interior."""
+    taps, radius, lo, hi = band_interior(idx, w)
+    return SmoothingBand(idx=torch.tensor(idx, device=device),
+                         w=torch.tensor(w, device=device),
+                         taps=torch.tensor(taps, device=device),
+                         radius=radius, lo=lo, hi=hi)
+
+
+def build_smoothing_band(config: ParticleConfig,
+                         device="cuda") -> SmoothingBand:
+    return smoothing_band(*band_weights(config), device=device)
+
+
+def smooth_with_band(x: torch.Tensor, band: SmoothingBand) -> torch.Tensor:
+    """(B, L) float32 → Σ_t w[:, t]·x[:, idx[:, t]], one rounded multiply and
+    one rounded add per tap, in ascending input order (as the kernel)."""
+    idx = band.idx.long()
+    acc = torch.zeros_like(x)
+    for t in range(idx.shape[1]):
+        acc = acc + band.w[:, t] * x[:, idx[:, t]]
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# the plain version
+# ---------------------------------------------------------------------------
+
+def _shift_right(x: torch.Tensor, periodic: bool, fill) -> torch.Tensor:
+    """out[..., i] = x[..., i−1]; the wall site gets ``fill``."""
+    if periodic:
+        return torch.roll(x, 1, -1)
+    return torch.cat([torch.full_like(x[..., :1], fill), x[..., :-1]], -1)
+
+
+def _shift_left(x: torch.Tensor, periodic: bool, fill) -> torch.Tensor:
+    """out[..., i] = x[..., i+1]; the wall site gets ``fill``."""
+    if periodic:
+        return torch.roll(x, -1, -1)
+    return torch.cat([x[..., 1:], torch.full_like(x[..., :1], fill)], -1)
+
+
+def _draw_bits(shape, generator, device) -> torch.Tensor:
+    return torch.randint(0, 2 ** 32, shape, generator=generator,
+                         device=device, dtype=torch.int64)
+
+
+def step_thresholds(slots: torch.Tensor, scalars: torch.Tensor,
+                    band: Optional[SmoothingBand], dt: float, periodic: bool,
+                    bidirectional: bool) -> Tuple[torch.Tensor, ...]:
+    """One step's event thresholds (t1, t2, t3), each (B, K, L) float32,
+    and the pre-step site occupancy (B, L), in the kernel's arithmetic."""
+    B, K, L = slots.shape
+    f32 = torch.float32
+    dt32 = torch.tensor(dt, dtype=f32, device=slots.device)
+    zero = torch.zeros((), dtype=f32, device=slots.device)
+    occ_slot = slots != 0
+    is_plus = slots > 0
+    is_minus = slots < 0
+    sgn_f = is_plus.to(f32) - is_minus.to(f32)
+    counts_s = sgn_f.sum(1)                           # (B, L), exact
+    tot = occ_slot.to(f32).sum(1)
+    occ_tot = occ_slot.sum(1)
+    if band is not None:
+        c0 = smooth_with_band(counts_s, band)
+        c1 = smooth_with_band(tot, band)
+        pos = c1 > 0
+        m = torch.where(pos, c0 / torch.where(pos, c1, 1.0), zero)
+        m = m.clamp(-1.0, 1.0)[:, None, :]
+    else:
+        m = (counts_s.sum(-1) / tot.sum(-1).clamp(min=1.0)).reshape(B, 1, 1)
+    beta = scalars[:, 0].reshape(B, 1, 1)
+    c = torch.where(occ_slot, torch.exp(-beta * sgn_f * m), zero)
+
+    p_dif = (scalars[:, 1] * dt32).reshape(B, 1, 1)
+    p_act = (scalars[:, 2] * dt32).reshape(B, 1, 1)
+    right_free = (_shift_left(occ_tot, periodic, K) < K)[:, None, :]
+    left_free = (_shift_right(occ_tot, periodic, K) < K)[:, None, :]
+    rate_left = torch.where(occ_slot & left_free, p_dif, zero)
+    if bidirectional:
+        rate_left = rate_left + torch.where(is_minus & left_free, p_act, zero)
+    rate_right = (torch.where(occ_slot & right_free, p_dif, zero)
+                  + torch.where(is_plus & right_free, p_act, zero))
+    t1 = rate_left
+    t2 = t1 + rate_right
+    return t1, t2, t2 + c * dt32, occ_tot
+
+
+def exclusion_multi_step_plain(scalars: torch.Tensor, seeds: torch.Tensor,
+                               slots: torch.Tensor,
+                               band: Optional[SmoothingBand] = None, *,
+                               k_steps: int, dt: float, periodic: bool,
+                               bidirectional: bool, step0: int = 0,
+                               noise: Optional[torch.Tensor] = None,
+                               generator: Optional[torch.Generator] = None,
+                               tally: Optional[dict] = None
+                               ) -> torch.Tensor:
+    """Plain PyTorch version: the kernel's steps in the same order on
+    (B, K, L) tensors.  ``seeds`` and ``step0`` select the kernel's native
+    stream and are not used here; without ``noise`` the bits come from
+    ``generator``.  Bit operations run in int64.  A ``tally`` dict, if
+    given, accumulates the admission candidates and the admitted ones
+    (keys 'candidates', 'admitted'), so a check can see refusals."""
+    B, K, L = slots.shape
+    dev = slots.device
+    row = torch.arange(K, device=dev).reshape(1, K, 1)
+    for s in range(k_steps):
+        t1, t2, t3, occ_tot = step_thresholds(slots, scalars, band, dt,
+                                              periodic, bidirectional)
+        if noise is not None:
+            u_bits = noise[:, s, 0].to(torch.int64)
+            p_bits = noise[:, s, 1].to(torch.int64)
+        else:
+            u_bits = _draw_bits((B, K, L), generator, dev)
+            p_bits = _draw_bits((B, K, L), generator, dev)
+        u = bits_to_uniform(u_bits)
+        ev_left = u < t1
+        ev_right = (u >= t1) & (u < t2)
+        ev_flip = (u >= t2) & (u < t3)
+
+        rand_hi = ((p_bits & 0xFFFFFFFF) >> 1) & _MASK_HI
+        cand_r = _shift_right(torch.where(ev_right, rand_hi | row, _SENT),
+                              periodic, _SENT)
+        cand_l = _shift_left(torch.where(ev_left, rand_hi | (row + K), _SENT),
+                             periodic, _SENT)
+        cand = torch.cat([cand_r, cand_l], 1)         # (B, 2K, L)
+        free = (K - occ_tot)[:, None, :]
+        accept = torch.zeros_like(cand, dtype=torch.bool)
+        for r in range(K):
+            cur_min = cand.min(1, keepdim=True).values
+            win = (cand == cur_min) & (cand != _SENT) & (free > r)
+            accept = accept | win
+            cand = torch.where(win, _SENT, cand)
+        acc_right_in, acc_left_in = accept[:, :K], accept[:, K:]
+        if tally is not None:
+            tally["candidates"] = tally.get("candidates", 0) + int(
+                ev_right.sum() + ev_left.sum())
+            tally["admitted"] = tally.get("admitted", 0) + int(accept.sum())
+
+        leaver = (_shift_left(acc_right_in, periodic, False)
+                  | _shift_right(acc_left_in, periodic, False))
+        stay = torch.where(leaver, 0, slots)
+        stay = torch.where(ev_flip & ~leaver, -stay, stay)
+        in_right = torch.where(acc_right_in, _shift_right(slots, periodic, 0),
+                               0)
+        in_left = torch.where(acc_left_in, _shift_left(slots, periodic, 0), 0)
+        combined = torch.cat([stay, in_right, in_left], 1)    # (B, 3K, L)
+
+        # stable front-pack of the nonzero rows; the spare row 3K takes the
+        # zeros
+        nz = combined != 0
+        dest = torch.where(nz, nz.cumsum(1) - 1, 3 * K)
+        packed = torch.zeros((B, 3 * K + 1, L), dtype=slots.dtype, device=dev)
+        packed.scatter_(1, dest, combined)
+        slots = packed[:, :K].contiguous()
+    return slots
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+# ---------------------------------------------------------------------------
+
+def exclusion_multi_step(scalars: torch.Tensor, seeds: torch.Tensor,
+                         slots: torch.Tensor,
+                         band: Optional[SmoothingBand] = None, *,
+                         k_steps: int, dt: float, periodic: bool,
+                         bidirectional: bool, step0: int = 0,
+                         noise: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
+    """Advance k exclusion steps; returns the new (B, K, L) slots.
+
+    Args:
+      scalars: (B, 3) float32 [β, rate_diffusion, rate_active] (site units).
+      seeds: (B,) int32 Philox seeds (native mode).
+      slots: (B, K, L) int32 signed payloads, K ≤ 8.
+      band: the local-m smoothing (``build_smoothing_band``); None for the
+        global m.
+      step0: global step index of the first step (native-mode counter).
+      noise: optional (B, k_steps, 2, K, L) int32 random bits.
+      generator: the plain version's source of bits (CPU, no noise).
+    """
+    kw = dict(k_steps=k_steps, dt=dt, periodic=periodic,
+              bidirectional=bidirectional, step0=step0, noise=noise)
+    if slots.device.type == "cpu":
+        return exclusion_multi_step_plain(scalars, seeds, slots, band,
+                                          generator=generator, **kw)
+    if slots.device.type != "cuda":
+        raise ValueError(f"exclusion_multi_step: unsupported device "
+                         f"{slots.device}")
+    if slots.dim() != 3:
+        raise ValueError(f"slots: want (B, K, L), got {tuple(slots.shape)}")
+    B, K, L = slots.shape
+    dev = slots.device
+    if not 1 <= K <= MAX_K or L < 2:
+        raise ValueError(f"exclusion_multi_step: K={K} (1..{MAX_K}) and "
+                         f"L={L} (>= 2) out of range")
+    _check(scalars, "scalars", torch.float32, (B, 3), dev)
+    _check(seeds, "seeds", torch.int32, (B,), dev)
+    _check(slots, "slots", torch.int32, (B, K, L), dev)
+    if noise is not None:
+        _check(noise, "noise", torch.int32, (B, k_steps, 2, K, L), dev)
+    W = radius = lo = hi = 0
+    if band is not None:
+        W = band.idx.shape[1]
+        _check(band.idx, "band.idx", torch.int32, (L, W), dev)
+        _check(band.w, "band.w", torch.float32, (L, W), dev)
+        _check(band.taps, "band.taps", torch.float32, (W,), dev)
+        radius, lo, hi = band.radius, band.lo, band.hi
+        if not (0 <= lo <= hi <= L and (lo == hi or (
+                lo >= radius and hi + W - 1 - radius <= L))):
+            raise ValueError(f"band interior [{lo}, {hi}) with radius "
+                             f"{radius} and W={W} reads outside 0..{L}")
+    if smem_bytes(K, L, W) > MAX_SMEM:
+        raise ValueError(
+            f"exclusion_multi_step: K·L = {K}·{L} needs "
+            f"{smem_bytes(K, L, W)} bytes of shared memory per replica, "
+            f"more than {MAX_SMEM}")
+    if not (0 <= step0 and step0 + k_steps < 2 ** 31):
+        raise ValueError(f"step0 out of range: {step0}")
+    lib = load_kernel_library("exclusion_multi_step")
+    out = torch.empty_like(slots)
+    fn = lib.exclusion_multi_step_launch
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    exclusion_multi_step.launches += 1
+    rc = fn(ptr(scalars), ptr(seeds), step0, ptr(slots), ptr(out), ptr(noise),
+            *(ptr(getattr(band, f) if band is not None else None)
+              for f in ("idx", "w", "taps")),
+            W, radius, lo, hi, B, K, L, k_steps, dt, int(periodic),
+            int(bidirectional),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    check_cuda(rc, "exclusion_multi_step")
+    return out
+
+
+exclusion_multi_step.launches = 0

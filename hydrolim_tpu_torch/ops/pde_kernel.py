@@ -80,7 +80,7 @@ class SolveOperands:
 
 def build_solve_operands(L: int, dx: float, dt: float, gamma: float,
                          periodic: bool, solve_mode: str,
-                         device="cpu") -> Optional[SolveOperands]:
+                         device="cuda") -> Optional[SolveOperands]:
     """The solve of ``solve_mode``: 'exact' (A·x = ρ solved exactly) or
     'none' (γ = 0, the identity; returns None)."""
     if solve_mode == "none":
@@ -90,7 +90,7 @@ def build_solve_operands(L: int, dx: float, dt: float, gamma: float,
     return SolveOperands(L, dx, dt, gamma, periodic, torch.device(device))
 
 
-def trig_table(L: int, device="cpu") -> torch.Tensor:
+def trig_table(L: int, device="cuda") -> torch.Tensor:
     """(2, L) float32 [cos, sin](2π·j/L), computed in float64."""
     ang = 2.0 * np.pi * np.arange(L) / L
     return torch.tensor(np.stack([np.cos(ang), np.sin(ang)]),
@@ -113,7 +113,7 @@ def box_muller(u2: torch.Tensor, u3: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(-2.0 * torch.log(u2)) * torch.cos(two_pi * u3)
 
 
-def spectra_mats(L: int, kmax: int, device="cpu") -> torch.Tensor:
+def spectra_mats(L: int, kmax: int, device="cuda") -> torch.Tensor:
     """(2, L, kmax) float32 [cos, sin](2π·k·x/L) read from ``trig_table``
     at (k·x mod L), the kernel's indexing."""
     trig = trig_table(L, device)

@@ -12,7 +12,7 @@ from hydrolim_tpu_torch.pde.stepper import TracerState
 def pde_initialize(config: PDEConfig, generator: torch.Generator, *,
                    B: int = 1, mode: str = "poisson", rho0: float = 1.0,
                    noise: float = 0.2, n_tracers: int = 1000,
-                   device="cpu"
+                   device="cuda"
                    ) -> Tuple[torch.Tensor, torch.Tensor, TracerState]:
     """(ρ₊, ρ₋, tracers) for B replicas, all draws from ``generator`` (which
     must live on ``device``).  ``mode='poisson'`` reproduces the reference

@@ -30,7 +30,7 @@ class PDEOps:
     a_inv: Optional[torch.Tensor] = None
 
 
-def build_pde_ops(config: PDEConfig, gamma: float, device="cpu") -> PDEOps:
+def build_pde_ops(config: PDEConfig, gamma: float, device="cuda") -> PDEOps:
     """Every exact solver kind of the JAX package ('fft', 'dct', 'dense')
     solves the same linear system: the port applies its dense inverse.  The
     truncated banded kinds are not ported."""

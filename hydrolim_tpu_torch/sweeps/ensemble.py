@@ -14,7 +14,7 @@ from hydrolim_tpu_torch.core.config import (
 
 def broadcast_params(config: ParticleConfig, *, beta, rate_diffusion,
                      rate_active, k_on=0.0, k_off=0.0, k_exit=0.0,
-                     n_runs: int = 1, device="cpu") -> ParticleParams:
+                     n_runs: int = 1, device="cuda") -> ParticleParams:
     """Params with leading axis (n_beta·n_runs,): β varies across the grid
     (each value repeated ``n_runs`` times), the other rates broadcast."""
     beta = np.atleast_1d(np.asarray(beta, dtype=np.float32))
@@ -40,5 +40,5 @@ def ensemble_dt(config: ParticleConfig, *, beta_max: float, rate_diffusion,
     p = make_particle_params(config, beta=beta_max,
                              rate_diffusion=rate_diffusion,
                              rate_active=rate_active, k_on=k_on, k_off=k_off,
-                             k_exit=k_exit)
+                             k_exit=k_exit, device="cpu")
     return auto_dt(config, p, beta_max=beta_max)

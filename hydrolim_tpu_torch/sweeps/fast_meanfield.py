@@ -66,7 +66,7 @@ def resolve_meanfield_engine(device, config: ParticleConfig) -> str:
 
 def run_meanfield_sweep(config: ParticleConfig, params_b: ParticleParams,
                         *, T: float, obs_dt: float, dt: float, seed: int = 0,
-                        device="cpu", record_pos: bool = True
+                        device="cuda", record_pos: bool = True
                         ) -> MeanfieldFrames:
     """Sweep over the batch of ``params_b`` on ``device``.
 

@@ -25,7 +25,7 @@ def run_pde_ensemble(config: PDEConfig, beta_values, *, gamma: float,
                      lam: float, n_runs: int, seed: int = 0,
                      mode: str = "homogeneous", rho0: float = 1.0,
                      noise: float = 0.3, n_tracers: int = 1000,
-                     device="cpu", fetch_snapshots: bool = True):
+                     device="cuda", fetch_snapshots: bool = True):
     """Batched (β × runs) solve on ``device``; returns the result as numpy
     arrays and the flattened β array.  Every draw comes from one
     ``torch.Generator`` seeded with ``seed``."""
@@ -56,7 +56,7 @@ def pde_beta_sweep(beta_values=None, n_runs: int = 3, T: float = 40.0,
                    kernel_sigma: float = 1e5 - 10, L: int = 1000,
                    dt: float = 5e-4, seed: int = 0, n_tracers: int = 1000,
                    outdir: str = ".", plot_result: bool = True,
-                   device="cpu") -> Dict:
+                   device="cuda") -> Dict:
     """β sweep with theory overlay.  v per run is |nanmean v_eff(t)| over
     [t_min, t_max]; D per run is nanmean D_eff(t) there."""
     if beta_values is None:

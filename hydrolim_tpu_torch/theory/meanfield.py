@@ -51,3 +51,7 @@ def D_theory(beta_values, gamma: float, lam: float) -> np.ndarray:
     beta = np.asarray(beta_values, dtype=float)
     m = compute_m_of_beta(beta)
     return gamma + lam ** 2 / (2.0 * np.cosh(beta * m) ** 3)
+
+
+# identical twin in the reference (`..._sweep_beta.py:256-278`)
+compute_m_of_beta_non = compute_m_of_beta

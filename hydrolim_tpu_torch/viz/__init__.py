@@ -1,0 +1,1 @@
+"""viz layer of the PyTorch port (mirrors hydrolim_tpu.viz)."""

@@ -9,7 +9,14 @@ import numpy as np
 import pytest
 import torch
 
-from hydrolim_tpu_torch.core.config import PDEConfig
+from hydrolim_tpu_torch.core.config import ParticleConfig, PDEConfig
+from hydrolim_tpu_torch.ops.exclusion_kernel import (
+    band_weights,
+    build_smoothing_band,
+    exclusion_multi_step,
+    exclusion_multi_step_plain,
+    smoothing_band,
+)
 from hydrolim_tpu_torch.ops.pde_kernel import (
     build_solve_operands,
     pde_multi_step,
@@ -20,6 +27,7 @@ from hydrolim_tpu_torch.ops.stepper_kernel import (
     meanfield_multi_step_plain,
 )
 from hydrolim_tpu_torch.pde.init import pde_initialize
+from hydrolim_tpu_torch.sweeps.fast_exclusion import init_payload_slots
 
 pytestmark = pytest.mark.gpu
 
@@ -113,3 +121,99 @@ def test_b2_kernel_matches_plain(dev, gamma):
     assert torch.equal(sk[3], sp[3])
     torch.testing.assert_close(rk[..., 2:4], rp_[..., 2:4], rtol=5e-4,
                                atol=1e-6, equal_nan=True)
+
+
+def _exclusion_inputs(dev, *, B, K, L, sigma, periodic, seed):
+    cfg = ParticleConfig(L=L, N=(K * L) // 2, init="fixed", scale_rates=False,
+                         local_kernel_sigma=sigma, periodic=periodic,
+                         site_capacity=K)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    slots = init_payload_slots(cfg, gen, B=B, device=dev)
+    scal = torch.stack([torch.linspace(0.0, 3.0, B, device=dev),
+                        torch.full((B,), 1.0, device=dev),
+                        torch.full((B,), 3.0, device=dev)], 1).contiguous()
+    band = build_smoothing_band(cfg, dev) if sigma > 0 else None
+    return gen, slots, scal, band
+
+
+@pytest.mark.parametrize("sigma,periodic,bidirectional", [
+    (0.0, True, True),          # global m
+    (0.002, False, False),      # local m, the flagship smoothing
+])
+def test_b3_kernel_equals_plain(dev, sigma, periodic, bidirectional):
+    """40 steps at injected bits: slots EQUAL to the plain version's."""
+    B, K, L, k = 5, 3, 1000, 40
+    gen, slots, scal, band = _exclusion_inputs(
+        dev, B=B, K=K, L=L, sigma=sigma, periodic=periodic, seed=K)
+    seeds = torch.zeros(B, dtype=torch.int32, device=dev)
+    kw = dict(k_steps=k, dt=0.02, periodic=periodic,
+              bidirectional=bidirectional,
+              noise=_bits((B, k, 2, K, L), gen, dev))
+    n0 = exclusion_multi_step.launches
+    got = exclusion_multi_step(scal, seeds, slots, band, **kw)
+    assert exclusion_multi_step.launches == n0 + 1
+    want = exclusion_multi_step_plain(scal, seeds, slots, band, **kw)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, slots)
+
+
+def test_b3_kernel_equals_plain_on_a_bent_band(dev):
+    """A band with one interior row changed (so not one row of taps): the
+    kernel reads that row from the band, and stays EQUAL to the plain
+    version."""
+    B, K, L, k = 3, 3, 1000, 40
+    cfg = ParticleConfig(L=L, N=(K * L) // 2, init="fixed",
+                         scale_rates=False, local_kernel_sigma=0.005,
+                         periodic=False, site_capacity=K)
+    idx, w = band_weights(cfg)
+    w = w.copy()
+    w[L // 3] *= 1.5
+    band = smoothing_band(idx, w, device=dev)
+    assert not band.lo <= L // 3 < band.hi
+    gen, slots, scal, _ = _exclusion_inputs(dev, B=B, K=K, L=L, sigma=0.0,
+                                            periodic=False, seed=4)
+    seeds = torch.zeros(B, dtype=torch.int32, device=dev)
+    kw = dict(k_steps=k, dt=0.02, periodic=False, bidirectional=False,
+              noise=_bits((B, k, 2, K, L), gen, dev))
+    got = exclusion_multi_step(scal, seeds, slots, band, **kw)
+    want = exclusion_multi_step_plain(scal, seeds, slots, band, **kw)
+    assert torch.equal(got, want)
+
+
+def test_b3_native_streams_conserve(dev):
+    """Native Philox: deterministic per (seed, step0), a new stream per
+    step0; particle ids conserved and occupancy ≤ K."""
+    B, K, L = 4, 3, 500
+    _, slots, scal, band = _exclusion_inputs(
+        dev, B=B, K=K, L=L, sigma=0.01, periodic=False, seed=1)
+    seeds = torch.arange(B, dtype=torch.int32, device=dev)
+    kw = dict(k_steps=200, dt=0.01, periodic=False, bidirectional=False)
+    a = exclusion_multi_step(scal, seeds, slots, band, step0=0, **kw)
+    b = exclusion_multi_step(scal, seeds, slots, band, step0=0, **kw)
+    c = exclusion_multi_step(scal, seeds, slots, band, step0=200, **kw)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    for r in range(B):
+        assert torch.equal(a[r].abs()[a[r] != 0].sort().values,
+                           slots[r].abs()[slots[r] != 0].sort().values)
+    assert int((a != 0).sum(1).max()) <= K
+
+
+def test_b3_wrapper_refusals(dev):
+    """Wrong dtype, non-contiguous slots, and a K·L past shared memory are
+    refused before any launch."""
+    B, K, L = 2, 3, 256
+    _, slots, scal, _ = _exclusion_inputs(dev, B=B, K=K, L=L, sigma=0.0,
+                                          periodic=True, seed=2)
+    seeds = torch.zeros(B, dtype=torch.int32, device=dev)
+    kw = dict(k_steps=1, dt=0.01, periodic=True, bidirectional=True)
+    n0 = exclusion_multi_step.launches
+    with pytest.raises(ValueError):
+        exclusion_multi_step(scal, seeds, slots.to(torch.int64), **kw)
+    with pytest.raises(ValueError):
+        exclusion_multi_step(scal, seeds, slots.transpose(1, 2).contiguous()
+                             .transpose(1, 2), **kw)
+    big = torch.zeros((1, 8, 3000), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        exclusion_multi_step(scal[:1], seeds[:1], big, **kw)
+    assert exclusion_multi_step.launches == n0

@@ -43,11 +43,12 @@ def _port_kernel(scal, pos, sig, wnd, bits, *, L, k_steps, dt, bidi, n):
     from hydrolim_tpu.ops.pallas_stepper import pack_particles
 
     lanes = pack_particles(pos, sig, wnd)
-    p, s, w = (interop.lanes_to_rows(np.asarray(x), n) for x in lanes)
+    p, s, w = (interop.lanes_to_rows(np.asarray(x), n, device="cpu")
+               for x in lanes)
     out = meanfield_multi_step(
         torch.tensor(scal), torch.zeros(scal.shape[0], dtype=torch.int32),
         p, s, w, L=L, k_steps=k_steps, dt=dt, bidirectional=bidi,
-        noise=interop.meanfield_noise(bits, n))
+        noise=interop.meanfield_noise(bits, n, device="cpu"))
     assert meanfield_multi_step.launches == 0     # CPU tensors: plain version
     return [t.numpy() for t in out]
 
@@ -105,7 +106,7 @@ def test_step_meanfield_global_matches_jax(model):
               active_model=model)
     jcfg, cfg = JParticleConfig(**kw), ParticleConfig(**kw)
     jp = j_make_params(jcfg, beta=1.7, rate_diffusion=0.7, rate_active=3.0)
-    tp = interop.particle_params(jp)
+    tp = interop.particle_params(jp, device="cpu")
     st = init_particles(jcfg, jax.random.PRNGKey(4))
     ts = ParticleState(pos=torch.tensor(np.asarray(st.pos))[None],
                        sigma=torch.tensor(np.asarray(st.sigma))[None],
@@ -113,7 +114,7 @@ def test_step_meanfield_global_matches_jax(model):
     rng = np.random.default_rng(1)
     for _ in range(30):
         bits = rng.integers(0, 2 ** 32, (1, N), dtype=np.uint32)
-        u = bits_to_uniform(interop.to_torch(bits, torch.int32))
+        u = bits_to_uniform(interop.to_torch(bits, torch.int32, device="cpu"))
         st = j_step(jcfg, jp, st, dt, u_override=jnp.asarray(u[0].numpy()))
         ts = _step_meanfield_global(cfg, tp, ts, dt, u_override=u)
     np.testing.assert_array_equal(ts.pos[0].numpy(), np.asarray(st.pos))
@@ -127,7 +128,8 @@ def test_bits_to_uniform_matches_kernel_map():
                     np.uint32)
     want = (bits & np.uint32(0xFFFFFF)).astype(np.float32) * \
         np.float32(2.0 ** -24)
-    got = bits_to_uniform(interop.to_torch(bits, torch.int32)).numpy()
+    got = bits_to_uniform(
+        interop.to_torch(bits, torch.int32, device="cpu")).numpy()
     np.testing.assert_array_equal(got, want)
 
 

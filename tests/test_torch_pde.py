@@ -85,32 +85,35 @@ def test_b2_plain_matches_jax_kernel(gamma):
             solve_mode=solve_mode, solve_r=solve_r, bidirectional=True,
             has_noise=gamma > 0, kmax_rec=kmax, interpret=True,
             noise=jnp.asarray(bits[:, sl]))
-        jrecs.append(interop.pde_records(np.asarray(rec), kmax).numpy())
+        jrecs.append(interop.pde_records(np.asarray(rec), kmax,
+                                         device="cpu").numpy())
     jrecs = np.concatenate(jrecs, axis=1)
 
     # ---- port, unpadded, plain version on CPU tensors ----
     port_mode = "exact" if gamma > 0 else "none"
-    solve = build_solve_operands(L, config.dx, dt, gamma, True, port_mode)
-    pst = [interop.to_torch(a, torch.float32)
+    solve = build_solve_operands(L, config.dx, dt, gamma, True, port_mode,
+                                 device="cpu")
+    pst = [interop.to_torch(a, torch.float32, device="cpu")
            for a in (rp0, rm0, pos0, spin0)]
     pst.append(torch.zeros((B, window, n_t)))
     precs = []
     for c in range(2):
         sl = slice(c * k_steps, (c + 1) * k_steps)
         *pst, rec = pde_multi_step(
-            interop.pde_scalars(betas, lam, gamma),
+            interop.pde_scalars(betas, lam, gamma, device="cpu"),
             torch.zeros(B, dtype=torch.int32), c * k_steps, *pst, solve,
             L=L, n_t=n_t, window=window, k_steps=k_steps, dt=dt,
             xlim=config.xlim, periodic=True, m_mode="global",
             solve_mode=port_mode, bidirectional=True, kmax_rec=kmax,
-            noise=interop.pde_noise(bits[:, sl], n_t))
+            noise=interop.pde_noise(bits[:, sl], n_t, device="cpu"))
         precs.append(rec.numpy())
     precs = np.concatenate(precs, axis=1)
     assert pde_multi_step.launches == 0
 
-    jst = [interop.unpad(np.asarray(a), L).numpy() for a in st[:2]] + \
-        [interop.unpad(np.asarray(a), n_t).numpy() for a in st[2:4]] + \
-        [interop.unpad(np.asarray(st[4]), window, n_t).numpy()]
+    unpad = lambda a, *s: interop.unpad(np.asarray(a), *s,
+                                        device="cpu").numpy()
+    jst = [unpad(a, L) for a in st[:2]] + [unpad(a, n_t) for a in st[2:4]] + \
+        [unpad(st[4], window, n_t)]
     pst = [t.numpy() for t in pst]
     # fields to f32 roundoff
     for got, want in zip(pst[:2], jst[:2]):
@@ -166,7 +169,7 @@ def test_pde_step_and_magnetization_match_jax(bc, active_model, global_m):
     betas = np.array([0.7, 2.2], np.float32)
     params = PDEParams(gamma=torch.full((2,), 0.2), lam=torch.full((2,), 0.6),
                        beta=torch.tensor(betas))
-    ops = p_ops(cfg, 0.2)
+    ops = p_ops(cfg, 0.2, device="cpu")
     jops = build_pde_ops(jcfg, make_pde_params(gamma=0.2, lam=0.6, beta=0.0))
     trp, trm = torch.tensor(rp), torch.tensor(rm)
     for _ in range(20):
@@ -201,10 +204,11 @@ def test_cyclic_tridiag_factors_match_dense_inverse(L, gamma, dt):
     a_inv = np.asarray(build_diffusion_op(L, dx, dt, gamma, "periodic",
                                           "dense").a_inv, np.float64)
     want = x.astype(np.float64) @ a_inv.T
-    f = cyclic_tridiag_factors(L, dx, dt, gamma)
+    f = cyclic_tridiag_factors(L, dx, dt, gamma, device="cpu")
     got = cyclic_tridiag_solve(f, torch.tensor(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-9)
-    dense = diffusion_solve(build_dense_inverse(L, dx, dt, gamma, "periodic"),
+    dense = diffusion_solve(build_dense_inverse(L, dx, dt, gamma, "periodic",
+                                                device="cpu"),
                             torch.tensor(x), "dense").numpy()
     np.testing.assert_allclose(dense, want, rtol=1e-5, atol=1e-9)
 
@@ -224,11 +228,11 @@ def test_interop_pde_layouts_round_trip():
     ring = np.zeros((B, Wp, Ntp), np.float32)
     ring[:, :W, :n_t] = rng.random((B, W, n_t))
     np.testing.assert_array_equal(
-        interop.pad(interop.unpad(fields, L), Lp), fields)
+        interop.pad(interop.unpad(fields, L, device="cpu"), Lp), fields)
     np.testing.assert_array_equal(
-        interop.pad(interop.unpad(tr, n_t), Ntp), tr)
+        interop.pad(interop.unpad(tr, n_t, device="cpu"), Ntp), tr)
     np.testing.assert_array_equal(
-        interop.pad(interop.unpad(ring, W, n_t), Wp, Ntp), ring)
+        interop.pad(interop.unpad(ring, W, n_t, device="cpu"), Wp, Ntp), ring)
 
     jtr = JTracerState(pos=jnp.asarray(tr[:, :n_t]),
                        unwrapped=jnp.asarray(tr[:, :n_t] + 3.0),
@@ -236,14 +240,14 @@ def test_interop_pde_layouts_round_trip():
                                         jnp.int32),
                        hist=jnp.asarray(ring[:, :W, :n_t]))
     back = JTracerState(**interop.tracer_state_arrays(
-        interop.tracer_state(jtr)))
+        interop.tracer_state(jtr, device="cpu")))
     for a, b in zip(back, jtr):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
         assert np.asarray(a).dtype == np.asarray(b).dtype
 
     # the kernel noise layout: (G, k, 3, R, Ntp) → (G·R, k, 3, n_t)
     bits = rng.integers(0, 2 ** 32, (2, 4, 3, 2, Ntp), dtype=np.uint32)
-    got = interop.pde_noise(bits, n_t).numpy().view(np.uint32)
+    got = interop.pde_noise(bits, n_t, device="cpu").numpy().view(np.uint32)
     np.testing.assert_array_equal(got[3], bits[1, :, :, 1, :n_t])
 
 
@@ -259,6 +263,6 @@ def test_interop_particle_lanes_round_trip():
         rng.integers(-3, 3, (B, n)))]
     assert (lanes[1].reshape(B, -1)[:, n:] == 0).all()     # σ = 0 padding
     for a in lanes:
-        rows = interop.lanes_to_rows(a, n)
+        rows = interop.lanes_to_rows(a, n, device="cpu")
         assert rows.shape == (B, n) and rows.dtype == torch.int32
         np.testing.assert_array_equal(interop.rows_to_lanes(rows), a)

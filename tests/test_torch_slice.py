@@ -6,6 +6,10 @@
   the tracer statistics (different random streams) agree statistically.
 - Particle side: the port's ``run_meanfield_sweep`` (plain kernel B1)
   against the theory pins of ``test_meanfield_physics.py``.
+- Exclusion side: the flagship β-sweep (``sweep_over_betas``,
+  engine 'fused', plain kernel B3/B4 on CPU tensors) against the golden
+  pins of ``test_golden.py``: the K=3 blocking probability and the K=1 |m|
+  at β = 2.5.
 - The package never imports jax, and CPU tensors never reach a kernel.
 """
 import subprocess
@@ -20,9 +24,14 @@ import torch
 from hydrolim_tpu_torch import interop
 from hydrolim_tpu_torch.core.config import ParticleConfig, PDEConfig
 from hydrolim_tpu_torch.ops._build import load_kernel_library
+from hydrolim_tpu_torch.ops.exclusion_kernel import exclusion_multi_step
 from hydrolim_tpu_torch.ops.pde_kernel import pde_multi_step
 from hydrolim_tpu_torch.ops.stepper_kernel import meanfield_multi_step
 from hydrolim_tpu_torch.pde.fast_solve import pde_solve_fused
+from hydrolim_tpu_torch.sweeps.beta_sweep import (
+    make_exp_gradient,
+    sweep_over_betas,
+)
 from hydrolim_tpu_torch.sweeps.ensemble import broadcast_params, ensemble_dt
 from hydrolim_tpu_torch.sweeps.fast_meanfield import run_meanfield_sweep
 from hydrolim_tpu_torch.theory.meanfield import m_fixed_point
@@ -62,10 +71,10 @@ def pde_pair():
     gen = torch.Generator()
     gen.manual_seed(1)
     pres = pde_solve_fused(
-        cfg, interop.pde_params(jparams),
-        interop.to_torch(np.asarray(rp), torch.float32),
-        interop.to_torch(np.asarray(rm), torch.float32),
-        interop.tracer_state(jax.device_get(tr)), gen)
+        cfg, interop.pde_params(jparams, device="cpu"),
+        interop.to_torch(np.asarray(rp), torch.float32, device="cpu"),
+        interop.to_torch(np.asarray(rm), torch.float32, device="cpu"),
+        interop.tracer_state(jax.device_get(tr), device="cpu"), gen)
     return jres, pres
 
 
@@ -127,11 +136,11 @@ T, OBS = 12.0, 0.5
 def _sweep(betas, n_runs, seed):
     config = ParticleConfig(**PART_KW)
     params = broadcast_params(config, beta=betas, rate_diffusion=RD,
-                              rate_active=RA, n_runs=n_runs)
+                              rate_active=RA, n_runs=n_runs, device="cpu")
     dt = ensemble_dt(config, beta_max=float(np.max(betas)),
                      rate_diffusion=RD, rate_active=RA)
     return run_meanfield_sweep(config, params, T=T, obs_dt=OBS, dt=dt,
-                               seed=seed)
+                               seed=seed, device="cpu")
 
 
 def _v_and_D(frames, rep):
@@ -170,6 +179,55 @@ def test_slice_particle_D_eff_matches_cosh_law():
     np.testing.assert_allclose(D_sim, D_th, rtol=0.15)
 
 
+def test_slice_exclusion_p_block_k3_golden(tmp_path):
+    """The K=3 blocking probability at test_golden.py's shrunk flagship
+    (plus_forward, non-periodic, exp-gradient Poisson init, global m,
+    L=128, N=96, 64 runs, T=6, β=0.7) through the port's sweep: within
+    max(4·SE, 0.028) of the frozen golden 0.5964 of the JAX slot engine."""
+    L, N = 128, 96
+    grad = make_exp_gradient(L=L, N=N, frac_plus=0.75, decay_length=0.35,
+                             anchor_positions=None)
+    ps = dict(L=L, xlim=1, N=N, init="poisson", scale_rates=False,
+              local_kernel_sigma=0.0, periodic=False, site_capacity=3,
+              active_model="plus_forward", rate_diffusion=0.02,
+              rate_active=2.0)
+    save = sweep_over_betas(
+        [0.7], n_runs_per_beta=64, ps_kwargs=ps,
+        init_kwargs=dict(rho0_plus=grad[0], rho0_minus=grad[1]),
+        run_kwargs=dict(T=6.0, obs_dt=0.25), npz_path=str(tmp_path / "s.npz"),
+        seed=21, do_fit=False, plot_result=False, device="cpu")
+    mean, se = float(save["block_means"][0]), float(save["block_ses"][0])
+    assert abs(mean - 0.5964) < max(4.0 * se, 0.028), (mean, se)
+    # the npz reload path returns the same table
+    again = sweep_over_betas([0.7], run=False, npz_path=str(tmp_path / "s.npz"),
+                             do_fit=False, plot_result=False, device="cpu")
+    assert again["block_means"][0] == save["block_means"][0]
+
+
+def test_slice_exclusion_k1_magnetization_pin(tmp_path):
+    """K=1 exclusion with global m at test_golden.py's _exclusion_cfg
+    (L=128, N=48, periodic, bidirectional, rd=0.5, ra=2, T=8, 4 runs):
+    the second-half mean of |m| at β=2.5 within 0.06 of the tanh fixed
+    point, and |m| rises through the transition."""
+    ps = dict(L=128, xlim=1, N=48, init="fixed", scale_rates=False,
+              local_kernel_sigma=0.0, periodic=True, site_capacity=1,
+              active_model="bidirectional", rate_diffusion=0.5,
+              rate_active=2.0)
+    betas, n_runs = np.array([0.8, 1.5, 2.5]), 4
+    save = sweep_over_betas(
+        betas, n_runs_per_beta=n_runs, ps_kwargs=ps,
+        run_kwargs=dict(T=8.0, obs_dt=0.5), npz_path=str(tmp_path / "s.npz"),
+        seed=12, keep_outs=True, do_fit=False, plot_result=False,
+        device="cpu")
+    m_abs = np.array([[np.abs(o["m_global"][len(o["m_global"]) // 2:]).mean()
+                       for o in outs] for outs in save["outs"]])
+    assert abs(m_abs[2].mean() - m_fixed_point(2.5)) < 0.06, m_abs[2]
+    assert m_abs[2].mean() > m_abs[0].mean() + 0.2
+    # every particle is tagged and stays a valid tracer
+    assert all(o["alive_frames"].all() and o["pos_frames"].shape[-1] == 48
+               for outs in save["outs"] for o in outs)
+
+
 def test_package_never_imports_jax():
     """Importing every module of the port leaves jax out of sys.modules."""
     code = (
@@ -192,4 +250,5 @@ def test_cpu_tensors_never_reach_a_kernel(pde_pair):
     _sweep(np.array([1.0]), 1, seed=2)
     assert meanfield_multi_step.launches == 0
     assert pde_multi_step.launches == 0
+    assert exclusion_multi_step.launches == 0
     assert load_kernel_library.cache_info().currsize == 0
