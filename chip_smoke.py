@@ -7,11 +7,16 @@ Phases (each prints one line with its wall time; a failed phase raises):
 2. build: the three CUDA kernels from ``hydrolim_tpu_torch/csrc``, one
    nvcc process each, all started together;
 3. kernel B1 against its plain PyTorch version on the card, injected bits;
-4. kernel B2 against its plain PyTorch version on the card, injected bits;
+4. kernel B2 against its plain PyTorch version on the card, injected bits,
+   in every mode (``B2_CASES``: global / pointwise / narrow / smooth m,
+   periodic / Neumann, bidirectional / anchored_minus, exact / banded /
+   no solve, L=8192, the facade's 501 spectral bins);
 5. the micro↔macro main path at full size (the cross-engine driver on
    ``device='cuda'``, native Philox streams) with its physics pins, and the
    proof that it ran through B1 and B2 (launch counters);
-6. throughput of B1 and B2 at the headline shapes, kernel and plain version;
+6. throughput of B1 and B2 at the headline shapes, kernel and plain version,
+   and B2's µs per step in each mode at the PDE slice's shapes with its
+   bound;
 7. kernel B3/B4 against its plain version on the card, injected bits, in
    four configurations at 4 and 33 replicas: slots equal, state moved,
    admission refused somewhere, ids conserved, occupancy ≤ K;
@@ -21,7 +26,11 @@ Phases (each prints one line with its wall time; a failed phase raises):
    physics pins, and the proof that it ran through B3/B4 (launch counter,
    per configuration);
 9. throughput of B3/B4 at the JAX bench's flagship shape and at the
-   sweep's 33 replicas, kernel and plain version.
+   sweep's 33 replicas, kernel and plain version;
+10. the PDE slice at full size on ``device='cuda'``: the magn2 kernel-σ
+    sweep, the single run through the ``IMEXPDE`` facade and the (β × σ)
+    phase diagram, with their pins, B2's launches on each and the kernel's
+    device time against each driver's wall time.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
 launches on its path, errors, times and bound) and the last line is
@@ -162,81 +171,156 @@ def check_b1(dev) -> float:
 # phase 4: B2 against its plain version
 # ---------------------------------------------------------------------------
 
-def check_b2(dev) -> float:
-    """B=4 with β spread, L=1000, n_t=1000, window 100, kmax 8, γ ∈ {0.2,
-    0}, two chained 150-step chunks.  Tolerances of the JAX package's
-    kernel-logic test: fields rtol 2e-4 / atol 1e-7, tracers rtol 1e-4 /
-    atol 1e-5, spins equal, v and D rtol 5e-4 / atol 1e-6 with the NaN
-    prefix.  Returns the max abs field difference."""
+def held(what: str, got, want, rtol: float, atol: float) -> tuple:
+    """(max |got − want|, its largest share of the tolerance atol +
+    rtol·|want|); NaN must sit where the plain version has NaN.  Raises
+    past the tolerance."""
+    import torch
+
+    nan = torch.isnan(want)
+    if not torch.equal(nan, torch.isnan(got)):
+        raise AssertionError(f"{what}: NaN where the plain version has none "
+                             "(or the reverse)")
+    d = (got - want).abs()[~nan]
+    tol = (atol + rtol * want.abs())[~nan]
+    if d.numel() == 0:
+        return 0.0, 0.0
+    err, share = float(d.max()), float((d / tol).max())
+    if not share <= 1.0:
+        raise AssertionError(
+            f"{what}: max |kernel - plain| {err:.3e} is {share:.2f} x its "
+            f"tolerance (rtol {rtol}, atol {atol})")
+    return err, share
+
+
+# Kernel B2's covering set: (label, expected (m_mode, solve_mode), PDEConfig
+# fields beyond the defaults, shape).  Defaults: L=1000, B=4, n_t=1000,
+# window 100, dt=5e-4, γ=0.2, periodic, bidirectional, kmax 8, two chained
+# 150-step calls.
+B2_CASES = (
+    ("global, periodic, bidirectional, exact", ("global", "exact"),
+     dict(gaussian_kernel=True, kernel_sigma=2e5), {}),
+    ("global, periodic, bidirectional, none", ("global", "none"),
+     dict(gaussian_kernel=True, kernel_sigma=2e5), dict(gamma=0.0)),
+    ("pointwise, periodic, bidirectional, exact", ("pointwise", "exact"),
+     {}, {}),
+    ("narrow sigma=0.005, periodic, bidirectional, none", ("narrow", "none"),
+     dict(gaussian_kernel=True, kernel_sigma=0.005), dict(gamma=0.0)),
+    ("smooth sigma=0.05, neumann, anchored_minus, exact",
+     ("smooth", "exact"), dict(gaussian_kernel=True, kernel_sigma=0.05,
+                               bc="neumann", active_model="anchored_minus"),
+     {}),
+    ("global, periodic, bidirectional, banded (dt=1e-5)",
+     ("global", "banded"), dict(gaussian_kernel=True, kernel_sigma=2e5,
+                                diffusion_solver="banded"), dict(dt=1e-5)),
+    ("pointwise, L=8192, banded (dt=2e-7, B=4, 64 tracers, window 20)",
+     ("pointwise", "banded"), dict(diffusion_solver="banded"),
+     dict(L=8192, n_t=64, W=20, dt=2e-7)),
+    ("the facade's spectra: narrow sigma=0.005, none, kmax 501, B=1",
+     ("narrow", "none"), dict(gaussian_kernel=True, kernel_sigma=0.005),
+     dict(B=1, gamma=0.0, kmax=501)),
+)
+
+
+def b2_inputs(dev, gen, over: dict, shape: dict):
+    """(config, γ, operands, scal, state) of one B2 shape."""
     import torch
     from hydrolim_tpu_torch.core.config import PDEConfig
+    from hydrolim_tpu_torch.pde.fast_solve import kernel_operands
+    from hydrolim_tpu_torch.pde.init import pde_initialize
+
+    sh = dict(L=1000, B=4, n_t=1000, W=100, dt=5e-4, gamma=0.2, kmax=8)
+    sh.update(shape)
+    config = PDEConfig(L=sh["L"], dt=sh["dt"], n_tracers=sh["n_t"],
+                       tracer_window_time=sh["W"] * sh["dt"] * (1 + 1e-9),
+                       fft_kmax=sh["kmax"], **over)
+    assert config.tracer_window == sh["W"]
+    ops = kernel_operands(config, sh["gamma"], dev)
+    rp, rm, tr = pde_initialize(config, gen, B=sh["B"], mode="homogeneous",
+                                noise=0.3, n_tracers=sh["n_t"], device=dev)
+    scal = torch.tensor([[b, 0.6, sh["gamma"], 0.0]
+                         for b in np.linspace(0.5, 3.0, sh["B"])],
+                        dtype=torch.float32, device=dev)
+    state = [rp, rm, tr.unwrapped, tr.spin.float(), tr.hist]
+    return config, sh["gamma"], ops, scal, state
+
+
+def b2_kwargs(config, ops) -> dict:
+    m_mode, solve_mode, _, _ = ops
+    return dict(L=config.L, n_t=config.n_tracers, window=config.tracer_window,
+                dt=config.dt, xlim=config.xlim,
+                periodic=config.bc == "periodic", m_mode=m_mode,
+                solve_mode=solve_mode,
+                bidirectional=config.active_model == "bidirectional",
+                kmax_rec=config.kmax)
+
+
+def check_b2(dev) -> float:
+    """Every mode of B2 (``B2_CASES``) against its plain version on the
+    card: injected bits, β spread over the replicas, two chained 150-step
+    calls.  Tolerances of the JAX package's kernel-logic test: fields rtol
+    2e-4 / atol 1e-7, tracers and ring rtol 1e-4 / atol 1e-5, spins equal,
+    v and D rtol 5e-4 / atol 1e-6 with the NaN prefix; records: m atol
+    1e-5, Var rtol 1e-3, spectra rtol 1e-4 / atol 1e-8.  Each check prints
+    its max error and its share of the tolerance.  Returns the max abs
+    field difference."""
+    import torch
     from hydrolim_tpu_torch.ops.pde_kernel import (
-        build_solve_operands,
         pde_multi_step,
         pde_multi_step_plain,
     )
-    from hydrolim_tpu_torch.pde.init import pde_initialize
 
-    B, L, n_t, W, kmax, dt, lam, k = 4, 1000, 1000, 100, 8, 5e-4, 0.6, 150
-    betas = [0.5, 1.2, 2.0, 3.0]
-    config = PDEConfig(L=L, dt=dt, n_tracers=n_t, tracer_window_time=0.05)
-    assert config.tracer_window == W
-    close = lambda a, b, rtol, atol, what: torch.testing.assert_close(
-        a, b, rtol=rtol, atol=atol, equal_nan=True, msg=lambda m: f"{what}: {m}")
+    k = 150
     err = 0.0
-    for gamma in (0.2, 0.0):
+    for what, modes, over, shape in B2_CASES:
         gen = torch.Generator(device=dev)
         gen.manual_seed(2)
-        rp, rm, tr = pde_initialize(config, gen, B=B, mode="homogeneous",
-                                    noise=0.3, n_tracers=n_t, device=dev)
-        mode = "exact" if gamma > 0 else "none"
-        solve = build_solve_operands(L, config.dx, dt, gamma, True, mode,
-                                     dev)
-        scal = torch.tensor([[b, lam, gamma, 0.0] for b in betas],
-                            device=dev)
+        config, gamma, ops, scal, sk = b2_inputs(dev, gen, over, shape)
+        if ops[:2] != modes:
+            raise AssertionError(f"B2 {what}: routed to {ops[:2]}")
+        B, n_t, W = scal.shape[0], config.n_tracers, config.tracer_window
         seeds = torch.zeros(B, dtype=torch.int32, device=dev)
         noise = randbits((B, 2 * k, 3, n_t), gen, dev)
-        sk = [rp, rm, tr.unwrapped, tr.spin.float(), tr.hist]
-        sp = list(sk)
+        start, sp = list(sk), list(sk)
         rk, rpl = [], []
         for c in range(2):
-            kw = dict(L=L, n_t=n_t, window=W, k_steps=k, dt=dt,
-                      xlim=config.xlim, periodic=True, m_mode="global",
-                      solve_mode=mode, bidirectional=True, kmax_rec=kmax,
+            kw = dict(b2_kwargs(config, ops), k_steps=k,
                       noise=noise[:, c * k:(c + 1) * k].contiguous())
-            *sk, r1 = pde_multi_step(scal, seeds, c * k, *sk, solve, **kw)
-            *sp, r2 = pde_multi_step_plain(scal, seeds, c * k, *sp, solve,
-                                           **kw)
+            *sk, r1 = pde_multi_step(scal, seeds, c * k, *sk, ops[3],
+                                     ops[2], **kw)
+            *sp, r2 = pde_multi_step_plain(scal, seeds, c * k, *sp, ops[3],
+                                           ops[2], **kw)
             rk.append(r1)
             rpl.append(r2)
         torch.cuda.synchronize()
         rk, rpl = torch.cat(rk, 1), torch.cat(rpl, 1)
-        what = f"B2 gamma={gamma}"
-        close(sk[0], sp[0], 2e-4, 1e-7, f"{what} rho_p")
-        close(sk[1], sp[1], 2e-4, 1e-7, f"{what} rho_m")
-        close(sk[2], sp[2], 1e-4, 1e-5, f"{what} tracer pos")
-        close(sk[4], sp[4], 1e-4, 1e-5, f"{what} ring")
+        what = f"B2 {what}"
+        res = {}
+        for name, i, rtol, atol in (("rho_p", 0, 2e-4, 1e-7),
+                                    ("rho_m", 1, 2e-4, 1e-7),
+                                    ("tracer pos", 2, 1e-4, 1e-5),
+                                    ("ring", 4, 1e-4, 1e-5)):
+            res[name] = held(f"{what} {name}", sk[i], sp[i], rtol, atol)
         if not torch.equal(sk[3], sp[3]):
             raise AssertionError(f"{what}: tracer spins differ")
         for col, name in ((2, "v_eff"), (3, "D_eff")):
-            if not (rk[:, :W, col].isnan().all()
-                    and rpl[:, :W, col].isnan().all()):
+            if not rk[:, :W, col].isnan().all():
                 raise AssertionError(f"{what}: {name} NaN prefix")
-            close(rk[:, W:, col], rpl[:, W:, col], 5e-4, 1e-6,
-                  f"{what} {name}")
-        # records are sums over the fields, held at the fields' error: m
-        # (|m| ≤ 1) to 1e-5, Var and the spectra relative to their scale
-        print(f"{what} record max |kernel - plain|: m "
-              f"{float((rk[..., 0] - rpl[..., 0]).abs().max()):.3e}, Var "
-              f"{float((rk[..., 1] - rpl[..., 1]).abs().max()):.3e} (of "
-              f"{float(rpl[..., 1].abs().max()):.3e}), spectra "
-              f"{float((rk[..., 4:] - rpl[..., 4:]).abs().max()):.3e} (of "
-              f"{float(rpl[..., 4:].abs().max()):.3e})", flush=True)
-        close(rk[..., 0], rpl[..., 0], 0.0, 1e-5, f"{what} m")
-        close(rk[..., 1], rpl[..., 1], 1e-3, 1e-11, f"{what} Var")
-        close(rk[..., 4:], rpl[..., 4:], 1e-4, 1e-8, f"{what} spectra")
-        err = max(err, float((sk[0] - sp[0]).abs().max()),
-                  float((sk[1] - sp[1]).abs().max()))
+            res[name] = held(f"{what} {name}", rk[..., col], rpl[..., col],
+                             5e-4, 1e-6)
+        res["m"] = held(f"{what} m", rk[..., 0], rpl[..., 0], 0.0, 1e-5)
+        res["Var"] = held(f"{what} Var", rk[..., 1], rpl[..., 1], 1e-3,
+                          1e-11)
+        res["spectra"] = held(f"{what} spectra", rk[..., 4:], rpl[..., 4:],
+                              1e-4, 1e-8)
+        if torch.equal(sk[0], start[0]) or torch.equal(sk[2], start[2]):
+            raise AssertionError(f"{what}: the fields or tracers did not "
+                                 "move")
+        print(f"{what}: spins equal; max |kernel - plain| (share of the "
+              "tolerance): " + ", ".join(
+                  f"{n} {e:.2e} ({s:.3f})" for n, (e, s) in res.items()),
+              flush=True)
+        err = max(err, res["rho_p"][0], res["rho_m"][0])
     return err
 
 
@@ -371,7 +455,92 @@ def throughput(dev) -> dict:
           f"({ms:.1f} ms per {k}-step chunk); plain "
           f"{B * k / (plain_ms / 1e3):.4e} replica-steps/s "
           f"({plain_ms:.1f} ms)", flush=True)
+    out["pde_multi_step"]["per_mode"] = throughput_b2_modes(dev, gen)
     return out
+
+
+# B2's step time per mode at the PDE slice's shapes: (label, PDEConfig
+# fields beyond the defaults, shape (as in B2_CASES), steps per kernel
+# call).  B=5 is the σ sweep's (1000 tracers), B=64 the phase diagram's
+# (64 tracers); both L=1000, dt=5e-4, γ=0.2 (the exact solve), kmax 8.
+def _b2_rate_rows():
+    rows = []
+    for B, n_t in ((5, 1000), (64, 64)):
+        for m, over in (("global", dict(gaussian_kernel=True,
+                                        kernel_sigma=2e5)),
+                        ("pointwise", {}),
+                        ("narrow sigma=0.005", dict(gaussian_kernel=True,
+                                                    kernel_sigma=0.005)),
+                        ("smooth sigma=0.05", dict(gaussian_kernel=True,
+                                                   kernel_sigma=0.05))):
+            rows.append((f"{m}, exact, B={B}, n_t={n_t}", over,
+                         dict(B=B, n_t=n_t), 2000))
+    rows.append(("pointwise, banded, L=8192, B=4, n_t=64",
+                 dict(diffusion_solver="banded"),
+                 dict(L=8192, B=4, n_t=64, W=20, dt=2e-7), 2000))
+    rows.append(("the single run: narrow sigma=0.005, none, kmax 501, B=1",
+                 dict(gaussian_kernel=True, kernel_sigma=0.005),
+                 dict(B=1, gamma=0.0, kmax=501), 50))
+    return rows
+
+
+def b2_step_bound(config, ops, B: int, k: int) -> dict:
+    """Bytes: the fields, tracers and ring in and out, the records out.
+    Operations per replica-step (an FMA is two): ~30 per site (m, upwind
+    advection, CW reaction, tridiagonal solve, clip, renormalisation), ~24
+    per tracer, 4 per site and spectral bin, and the taps: 4·(2r+1) per
+    site for the narrow smoothing and the banded solve, 4·L per site
+    (2·L² FMAs) for the full circulant."""
+    m_mode, solve_mode, smooth, solve = ops
+    L, n_t, W, kmax = (config.L, config.n_tracers, config.tracer_window,
+                       config.kmax)
+    per_site = 30 + 4 * kmax
+    if smooth is not None:
+        per_site += 4 * (2 * smooth.radius + 1) if m_mode == "narrow" \
+            else 4 * L
+    if solve_mode == "banded":
+        per_site += 4 * (solve.weights.shape[0])
+    return bound(4 * (2 * 2 * B * L + 2 * 3 * B * n_t + 2 * B * W * n_t
+                      + B * k * (4 + 2 * kmax)),
+                 k * B * (per_site * L + 24 * n_t))
+
+
+def throughput_b2_modes(dev, gen) -> list:
+    """B2's µs per step in each mode at the slice's shapes (native
+    Philox, CUDA events over 3 calls after a warm-up), its bound, and the
+    plain version's µs per step (one 20-step call)."""
+    import torch
+    from hydrolim_tpu_torch.ops.pde_kernel import (
+        pde_multi_step,
+        pde_multi_step_plain,
+    )
+
+    rows = []
+    for label, over, shape, k in _b2_rate_rows():
+        config, _, ops, scal, state = b2_inputs(dev, gen, over, shape)
+        B = scal.shape[0]
+        seeds = torch.arange(B, dtype=torch.int32, device=dev)
+        kw = dict(b2_kwargs(config, ops), k_steps=k)
+        args = (scal, seeds, 0, *state, ops[3], ops[2])
+        pde_multi_step(*args, **kw)                     # warm-up
+        ms = cuda_ms(lambda: pde_multi_step(*args, **kw), reps=3)
+        pk = 20
+        pde_multi_step_plain(*args, generator=gen, **dict(kw, k_steps=2))
+        plain_ms = cuda_ms(lambda: pde_multi_step_plain(
+            *args, generator=gen, **dict(kw, k_steps=pk)))
+        b = b2_step_bound(config, ops, B, k)
+        row = dict(label=label, m_mode=ops[0], solve_mode=ops[1], B=B,
+                   L=config.L, n_t=config.n_tracers, steps_per_call=k,
+                   us_per_step=ms * 1e3 / k,
+                   plain_us_per_step=plain_ms * 1e3 / pk,
+                   bound_us_per_step=b["bound_ms"] * 1e3 / k,
+                   bound_by=b["bound_by"])
+        rows.append(row)
+        print(f"B2 {label}: {row['us_per_step']:.2f} us/step "
+              f"({B * k / (ms / 1e3):.4e} replica-steps/s); bound "
+              f"{row['bound_us_per_step']:.4f} us/step ({b['bound_by']}); "
+              f"plain {row['plain_us_per_step']:.1f} us/step", flush=True)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -759,6 +928,82 @@ def throughput_b3(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the PDE slice at full size
+# ---------------------------------------------------------------------------
+
+def pde_slice(outdir: str) -> dict:
+    """The three finite-σ PDE drivers at the JAX package's full sizes on
+    ``device='cuda'``, each with its pins, its B2 launches (counts set to
+    0 just before it) and the kernel's device time (CUDA events around each
+    launch) against its wall time:
+    - ``pde_kernel_sigma_sweep(variant='magn2')``: 5 σ × 5 runs, L=1000,
+      T=10, 1000 tracers; mean over runs of |m(T)| < 1e-2 at every σ;
+    - ``pde_single_run()``: L=1000, T=20 (40,000 steps), σ=0.005, 1000
+      tracers, per-step spectra at the full rfft; ||m(T)| − m_β(2)| < 0.01
+      and all 40,001 ``fft_amp`` rows finite;
+    - the (β × σ) phase diagram (32 β × 2 seeds × 16 σ, L=1000, T=10, 64
+      tracers) with its ``check_physics`` pins."""
+    import torch
+    from hydrolim_tpu_torch.experiments import pde_phase_diagram
+    from hydrolim_tpu_torch.ops.pde_kernel import kernel_ms, pde_multi_step
+    from hydrolim_tpu_torch.sweeps.pde_sweeps import (
+        pde_kernel_sigma_sweep,
+        pde_single_run,
+    )
+    from hydrolim_tpu_torch.theory.meanfield import m_fixed_point
+
+    launches = {}
+
+    def driven(name, fn):
+        pde_multi_step.launches = 0
+        pde_multi_step.events = []
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            device_s = kernel_ms(pde_multi_step.events) / 1e3
+        finally:
+            events, pde_multi_step.events = pde_multi_step.events, None
+        n = launches[name] = pde_multi_step.launches
+        print(f"{name}: {wall:.2f} s wall, {n} launches of pde_multi_step, "
+              f"kernel {device_s:.3f} s on the device "
+              f"({device_s / wall:.1%} of the wall)", flush=True)
+        if n <= 0 or len(events) != n:
+            raise AssertionError(f"{name} never launched pde_multi_step")
+        return out
+
+    sweep = driven("sigma sweep magn2", lambda: pde_kernel_sigma_sweep(
+        variant="magn2", outdir=outdir, plot_result=False, device="cuda"))
+    for sigma, m in sweep["m"].items():
+        final = float(np.mean(m[:, -1]))
+        print(f"  sigma={sigma}: mean over {m.shape[0]} runs of |m(T)| "
+              f"{final:.3e} (pin < 1e-2)", flush=True)
+        if not final < 1e-2:
+            raise AssertionError(f"magn2 sigma={sigma}: |m(T)| {final}")
+
+    out = driven("single run", lambda: pde_single_run(
+        outdir=f"{outdir}/single", device="cuda"))
+    m_T, m_b = abs(float(out["m_series"][-1])), m_fixed_point(2.0)
+    amp = out["fft_amp"]
+    print(f"  |m(T)| {m_T:.5f}, m_beta(2) {m_b:.5f} (pin 0.01); fft_amp "
+          f"{amp.shape}, finite rows {int(np.isfinite(amp).all(1).sum())}",
+          flush=True)
+    if not abs(m_b - 0.9575) < 1e-3 or not abs(m_T - m_b) < 0.01:
+        raise AssertionError(f"single run |m(T)| {m_T} off m_beta(2)")
+    if amp.shape != (40001, 501) or not np.isfinite(amp).all():
+        raise AssertionError(f"single run spectra {amp.shape} not finite")
+
+    data = driven("phase diagram", lambda: pde_phase_diagram.main(
+        outdir=f"{outdir}/phase_diagram", device="cuda"))
+    print("  sigma rows: " + ", ".join(
+        f"{s:.4g} {w:.2f} s" for s, w in zip(data["sigma"],
+                                             data["row_wall_s"])),
+          flush=True)
+    return dict(launches_per_path=launches)
+
+
 def main() -> int:
     import torch
 
@@ -815,6 +1060,13 @@ def main() -> int:
     with phase("9 B3/B4 throughput"):
         for name, t in throughput_b3(dev).items():
             rows[name].update(t)
+    with phase("10 PDE slice"):
+        with tempfile.TemporaryDirectory() as outdir:
+            per_path = pde_slice(outdir)["launches_per_path"]
+        row = rows["pde_multi_step"]
+        row["launches_per_path"] = dict(main_path=row["launches"],
+                                        **per_path)
+        row["launches"] = sum(row["launches_per_path"].values())
 
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,9 @@ torus Gaussian (``torch.fft``, in float64), non-periodic a reflect-mode
 Gaussian filter (``ops.convolve``).
 
 PDE side: ``pde_magnetization`` (IMEX_PDE_solver_class.py:154-166
-semantics): pointwise (ρ₊−ρ₋)/(ρ₊+ρ₋) without a kernel, and the global
-scalar above the σ > 1e5 sentinel.  Kernel smoothing below the sentinel is
-not ported yet.
+semantics): pointwise (ρ₊−ρ₋)/(ρ₊+ρ₋) without a kernel, the global scalar
+above the σ > 1e5 sentinel, and below it the ratio of the smoothed
+numerator and denominator (the full periodic circulant, no clip).
 """
 from __future__ import annotations
 
@@ -70,15 +70,18 @@ def local_m_field(counts_p: torch.Tensor, counts_m: torch.Tensor,
 
 
 def pde_magnetization(rho_p: torch.Tensor, rho_m: torch.Tensor,
-                      gaussian_kernel: bool, *, kernel_sigma: float,
+                      smooth: Optional[MFieldOp], *, kernel_sigma: float,
                       global_sentinel: float = 1e5) -> torch.Tensor:
-    """Batched over leading dims; trailing axis is the lattice."""
+    """Batched over leading dims; trailing axis is the lattice.  ``smooth``
+    is None without a kernel (pointwise m); otherwise the periodic kernel's
+    operand (``build_mfield_op``), unused above the sentinel (global m)."""
     num = rho_p - rho_m
     den = rho_p + rho_m
-    if not gaussian_kernel:
+    if smooth is None:
         return num / (den + 1e-12)
     if kernel_sigma > global_sentinel:
         g = num.sum(-1, keepdim=True) / (den.sum(-1, keepdim=True) + 1e-12)
         return g.expand(num.shape)
-    raise NotImplementedError(
-        "kernel-smoothed PDE magnetization is not ported yet")
+    both = _circular_convolve(torch.stack([num, den], dim=-2),
+                              smooth.kernel_rfft)
+    return both[..., 0, :] / (both[..., 1, :] + 1e-12)

@@ -110,6 +110,23 @@ def pde_scalars(beta, lam, gamma, device="cuda") -> torch.Tensor:
     return to_torch(s, torch.float32, device)
 
 
+def taps(row, r: int, device="cuda") -> torch.Tensor:
+    """A TPU kernel's (1, 128) symmetric weight row, w(d) at lane r + d
+    (narrow smoothing, banded solve) → the port's (2r+1,) taps."""
+    return to_torch(np.asarray(row, np.float32).reshape(-1)[:2 * r + 1],
+                    torch.float32, device)
+
+
+def imexpde_state(solver, device="cuda"):
+    """A JAX ``IMEXPDE``'s initial state (after ``initialize``) → the port
+    facade's ``(rho_p, rho_m, tracers)``, one replica: assign them to its
+    attributes of the same names."""
+    f = lambda a: to_torch(np.asarray(a, np.float32)[None], torch.float32,
+                           device)
+    return f(solver.rho_p), f(solver.rho_m), tracer_state(solver.tracers,
+                                                          device)
+
+
 def tracer_state(tr, device="cuda") -> TracerState:
     """A JAX ``TracerState`` (single or vmapped) → the port's batched one."""
     pos = np.asarray(tr.pos, np.float32)

@@ -54,3 +54,17 @@ def reflect_gaussian_filter(x: torch.Tensor, sigma_grid: float,
     radius = (w.shape[0] - 1) // 2
     xp = reflect_pad(x.to(torch.float32), radius)
     return (xp.unfold(-1, w.shape[0], 1) * w).sum(-1)
+
+
+def banded_circular_conv(x: torch.Tensor, w) -> torch.Tensor:
+    """Periodic banded convolution with a centred symmetric kernel ``w``
+    ((2r+1,), w(d) at r + d, r < L) on the trailing axis, batched: the
+    weighted sum of the 2r+1 windows of the wrap-padded signal, in
+    float32."""
+    w = torch.as_tensor(w, dtype=torch.float32, device=x.device)
+    r = (w.shape[0] - 1) // 2
+    L = x.shape[-1]
+    assert r < L, "banded kernel wider than the lattice"
+    xf = x.to(torch.float32)
+    xp = torch.cat([xf[..., L - r:], xf, xf[..., :r]], dim=-1) if r else xf
+    return (xp.unfold(-1, w.shape[0], 1) * w).sum(-1)

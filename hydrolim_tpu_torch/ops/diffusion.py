@@ -5,12 +5,16 @@ the second-difference operator (periodic corners or Neumann mirrors).
 
 - ``identity``: γ = 0, A = I.
 - ``dense``: ``A⁻¹`` built on the host in float64 and applied as an f32
-  matmul — the plain version of the solve.
-- cyclic tridiagonal factors: the periodic A is tridiagonal plus two corner
-  entries.  ``cyclic_tridiag_factors`` factors it on the host in float64
-  (Thomas with a Sherman–Morrison correction for the corners); kernel B2
+  matmul — the plain version of the exact solve.
+- ``banded`` / ``banded_dct``: the rows of ``A⁻¹`` decay exponentially, so
+  the solve is a symmetric banded circular convolution (``banded_kernel``,
+  the JAX package's ``build_diffusion_op(kind='banded')``); ``banded_dct``
+  applies it to the even extension (Neumann).
+- tridiagonal factors: A is tridiagonal, plus two corner entries when
+  periodic.  ``tridiag_factors`` factors it on the host in float64 (Thomas,
+  with a Sherman–Morrison correction for the periodic corners); kernel B2
   applies the factors in f32 (``csrc/pde_multi_step.cu``), and
-  ``cyclic_tridiag_solve`` applies them in torch for testing.
+  ``tridiag_solve`` applies them in torch for testing.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from hydrolim_tpu_torch.ops.convolve import banded_circular_conv
 
 
 def _second_difference(L: int, bc: str) -> np.ndarray:
@@ -41,84 +47,134 @@ def build_dense_inverse(L: int, dx: float, dt: float, gamma: float,
     return torch.tensor(np.linalg.inv(A), dtype=torch.float32, device=device)
 
 
-def diffusion_solve(a_inv: torch.Tensor, rho: torch.Tensor,
-                    kind: str) -> torch.Tensor:
-    """Apply ``A⁻¹`` along the trailing axis (batched): ``kind`` is
-    'identity' or 'dense' (``a_inv`` from :func:`build_dense_inverse`)."""
+def banded_kernel(dx: float, dt: float, gamma: float) -> np.ndarray:
+    """(2r+1,) float32 symmetric taps of the periodic ``A⁻¹``, w(d) at
+    r + d, truncated where they fall below 1e-9 of the centre.  Computed
+    from the circulant symbol at a probe size M0 that adapts to
+    c = γ·dt/dx² (independent of L); raises ValueError when the taps do not
+    decay within the probe."""
+    c = float(gamma) * dt / dx ** 2
+    est_r = int(21.0 * (np.sqrt(max(c, 0.0)) + 1.0))
+    M0 = 1 << max(12, int(np.ceil(np.log2(8 * est_r))))
+    if M0 > (1 << 20):
+        raise ValueError(
+            f"banded diffusion kernel radius ~{est_r} too wide "
+            f"(c = {c:.3g}); use the exact solver or rescale dt/dx")
+    lam = 2.0 * np.cos(2.0 * np.pi * np.arange(M0 // 2 + 1) / M0) - 2.0
+    k = np.fft.irfft(1.0 / (1.0 - c * lam), n=M0)
+    eps = 1e-9 * abs(k[0])
+    nz = np.flatnonzero(np.abs(k[:M0 // 2]) >= eps)
+    r = int(nz[-1]) if nz.size else 0
+    if r >= M0 // 2 - 1:
+        raise ValueError(
+            f"banded diffusion kernel does not decay within the probe "
+            f"(c = {c:.3g} too large); use the exact solver")
+    w = np.concatenate([k[M0 - r:], k[:r + 1]]) if r else k[:1]
+    return w.astype(np.float32)
+
+
+def diffusion_solve(op, rho: torch.Tensor, kind: str) -> torch.Tensor:
+    """Apply ``A⁻¹`` along the trailing axis (batched).  ``op`` is the
+    operand of ``kind``: the dense inverse for 'dense', the taps of
+    :func:`banded_kernel` for 'banded' / 'banded_dct', unused for
+    'identity'."""
     if kind == "identity":
         return rho
     if kind == "dense":
-        return torch.matmul(rho, a_inv.T)
-    raise NotImplementedError(f"diffusion solve kind {kind!r} is not ported")
+        return torch.matmul(rho, op.T)
+    if kind == "banded":
+        return banded_circular_conv(rho, op)
+    if kind == "banded_dct":        # Neumann = periodic on the even extension
+        even = torch.cat([rho, rho[..., 1:-1].flip(-1)], dim=-1)
+        return banded_circular_conv(even, op)[..., :rho.shape[-1]]
+    raise ValueError(f"unknown diffusion solve kind {kind!r}")
 
 
 @dataclasses.dataclass
-class CyclicTridiagFactors:
-    """Float64-derived factors of the periodic ``A = (1+2c)I − c·(S + Sᵀ)``,
-    c = γ·dt/dx², stored in f32.
+class TridiagFactors:
+    """Float64-derived factors of ``A = (1+2c)I − c·D`` (c = γ·dt/dx²),
+    stored in f32.
 
-    ``rows`` is (3, L): [1/pivot_i, c'_i, z_i] — the Thomas pivots and
-    modified super-diagonal of the corner-reduced tridiagonal B, and
-    z = B⁻¹u, the Sherman–Morrison column.  With y = B⁻¹ρ,
-    x = y − fac·(y_0 + v_last·y_{L−1})·z."""
+    ``rows`` is (4, L): [1/pivot_i, c'_i, z_i, a_i] — the Thomas pivots and
+    modified super-diagonal, the Sherman–Morrison column z and the
+    magnitude a_i of row i's sub-diagonal (c, and 2c on the last Neumann
+    row).  With y the Thomas solution of the tridiagonal part, the periodic
+    solve is x = y − fac·(y_0 + v_last·y_{L−1})·z; the Neumann one is y
+    (z = 0, fac = 0)."""
 
-    rows: torch.Tensor     # (3, L) float32
-    c: float               # off-diagonal magnitude γ·dt/dx²
+    rows: torch.Tensor     # (4, L) float32
+    periodic: bool
     v_last: float          # β/γ of the corner vector v = (1, 0, …, β/γ)
     fac: float             # 1 / (1 + v·z)
 
 
-def cyclic_tridiag_factors(L: int, dx: float, dt: float, gamma: float,
-                           device="cuda") -> CyclicTridiagFactors:
+def _thomas_factors(diag, sup, sub):
+    """Pivots 1/p_i and c'_i = sup_i/p_i of a tridiagonal (signed sub and
+    super-diagonals; sub[0] and sup[-1] unused), in float64."""
+    L = len(diag)
+    inv, cp = np.zeros(L), np.zeros(L)
+    inv[0] = 1.0 / diag[0]
+    cp[0] = sup[0] * inv[0]
+    for i in range(1, L):
+        inv[i] = 1.0 / (diag[i] - sub[i] * cp[i - 1])
+        cp[i] = sup[i] * inv[i] if i < L - 1 else 0.0
+    return inv, cp
+
+
+def _thomas(inv, cp, sub, d):
+    d = np.array(d, dtype=np.float64)
+    d[0] *= inv[0]
+    for i in range(1, len(d)):
+        d[i] = (d[i] - sub[i] * d[i - 1]) * inv[i]
+    for i in range(len(d) - 2, -1, -1):
+        d[i] -= cp[i] * d[i + 1]
+    return d
+
+
+def tridiag_factors(L: int, dx: float, dt: float, gamma: float, bc: str,
+                    device="cuda") -> TridiagFactors:
+    """The factors of the periodic (cyclic, with the Sherman–Morrison
+    corner split) or Neumann (mirrored rows 0 and L−1) ``A``."""
     assert L >= 3, L
     c = float(gamma) * dt / dx ** 2
-    b = 1.0 + 2.0 * c
-    gam = -b                              # Sherman–Morrison split
-    alpha = beta = -c                     # A[L-1, 0], A[0, L-1]
-    diag = np.full(L, b)
-    diag[0] -= gam
-    diag[-1] -= alpha * beta / gam
-    sub = -c                              # a_i (i >= 1) and c_i (i <= L-2)
-
-    inv = np.zeros(L)
-    cp = np.zeros(L)
-    inv[0] = 1.0 / diag[0]
-    cp[0] = sub * inv[0]
-    for i in range(1, L):
-        inv[i] = 1.0 / (diag[i] - sub * cp[i - 1])
-        cp[i] = sub * inv[i] if i < L - 1 else 0.0
-
-    def thomas(d):
-        d = np.array(d, dtype=np.float64)
-        d[0] *= inv[0]
-        for i in range(1, L):
-            d[i] = (d[i] - sub * d[i - 1]) * inv[i]
-        for i in range(L - 2, -1, -1):
-            d[i] -= cp[i] * d[i + 1]
-        return d
-
-    u = np.zeros(L)
-    u[0], u[-1] = gam, alpha
-    z = thomas(u)
-    v_last = beta / gam
-    fac = 1.0 / (1.0 + z[0] + v_last * z[-1])
-    rows = torch.tensor(np.stack([inv, cp, z]), dtype=torch.float32,
+    diag = np.full(L, 1.0 + 2.0 * c)
+    sub = np.full(L, -c)
+    sup = np.full(L, -c)
+    z = np.zeros(L)
+    v_last = fac = 0.0
+    if bc == "periodic":
+        gam = -diag[0]                    # Sherman–Morrison split
+        alpha = beta = -c                 # A[L-1, 0], A[0, L-1]
+        diag[0] -= gam
+        diag[-1] -= alpha * beta / gam
+        inv, cp = _thomas_factors(diag, sup, sub)
+        u = np.zeros(L)
+        u[0], u[-1] = gam, alpha
+        z = _thomas(inv, cp, sub, u)
+        v_last = beta / gam
+        fac = 1.0 / (1.0 + z[0] + v_last * z[-1])
+    else:
+        sup[0] = sub[-1] = -2.0 * c       # the mirrored neighbours
+        inv, cp = _thomas_factors(diag, sup, sub)
+    rows = torch.tensor(np.stack([inv, cp, z, -sub]), dtype=torch.float32,
                         device=device)
-    return CyclicTridiagFactors(rows=rows, c=c, v_last=v_last, fac=fac)
+    return TridiagFactors(rows=rows, periodic=bc == "periodic",
+                          v_last=v_last, fac=fac)
 
 
-def cyclic_tridiag_solve(f: CyclicTridiagFactors,
-                         rho: torch.Tensor) -> torch.Tensor:
+def tridiag_solve(f: TridiagFactors, rho: torch.Tensor) -> torch.Tensor:
     """Apply the factors in f32 along the trailing axis (batched) — the same
     recurrences kernel B2 runs, one site at a time."""
-    inv, cp, z = f.rows[0], f.rows[1], f.rows[2]
+    inv, cp, z, a = f.rows
     L = rho.shape[-1]
     d = list(rho.unbind(-1))
     d[0] = d[0] * inv[0]
     for i in range(1, L):
-        d[i] = (d[i] + f.c * d[i - 1]) * inv[i]
+        d[i] = (d[i] + a[i] * d[i - 1]) * inv[i]
     for i in range(L - 2, -1, -1):
         d[i] = d[i] - cp[i] * d[i + 1]
     y = torch.stack(d, dim=-1)
+    if not f.periodic:
+        return y
     coef = f.fac * (y[..., :1] + f.v_last * y[..., -1:])
     return y - coef * z

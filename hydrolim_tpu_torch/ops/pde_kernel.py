@@ -4,8 +4,17 @@
 records) for B replicas.  On CUDA tensors it launches the hand-written
 kernel (``csrc/pde_multi_step.cu``, the port of the TPU kernel
 ``hydrolim_tpu/ops/pallas_pde.py``); on CPU tensors it runs
-``pde_multi_step_plain``, a loop of the ported ``magnetization``,
+``pde_multi_step_plain``, a loop of the ported magnetization,
 ``_tracer_update`` and ``pde_step`` with the kernel's record layout.
+
+Modes, as in the TPU kernel:
+- ``m_mode``: 'global' (one m per replica), 'pointwise', 'narrow' (the
+  Gaussian's 2r+1 centre taps, ``SmoothOperands``) or 'smooth' (the full
+  periodic circulant);
+- the boundary (``periodic`` or Neumann walls) and the active model
+  (``bidirectional`` or anchored_minus);
+- ``solve_mode``: 'exact' (A·x = ρ solved exactly), 'banded' (the
+  truncated taps of A⁻¹) or 'none' (γ = 0).
 
 Layout: unpadded (B, L) fields, (B, n_t) tracers, (B, window, n_t) ring,
 records (B, k, 4 + 2·kmax_rec) = [m_mean, Var, v_eff, D_eff, rfft re (k
@@ -14,10 +23,6 @@ TPU kernel's padded lane layouts.  Randomness is either injected (``noise``:
 (B, k, 3, n_t) uint32 bits held in int32 — tracer flip, Box–Muller u2, u3)
 or native: Philox4x32-10 in the kernel, key (seed, replica), counter
 (tracer, ``step0`` + step); the plain version draws from ``generator``.
-
-The kernel covers the global magnetization, the periodic lattice, the
-bidirectional model and the exact solve ('exact') or none; it raises
-``NotImplementedError`` for the other modes of the TPU kernel.
 """
 from __future__ import annotations
 
@@ -31,12 +36,13 @@ import numpy as np
 import torch
 
 from hydrolim_tpu_torch.core.config import PDEConfig, PDEParams
-from hydrolim_tpu_torch.fields.magnetization import pde_magnetization
+from hydrolim_tpu_torch.fields.magnetization import MFieldOp, pde_magnetization
 from hydrolim_tpu_torch.ops._build import check_cuda, load_kernel_library, ptr
+from hydrolim_tpu_torch.ops.convolve import banded_circular_conv
 from hydrolim_tpu_torch.ops.diffusion import (
-    CyclicTridiagFactors,
+    TridiagFactors,
     build_dense_inverse,
-    cyclic_tridiag_factors,
+    tridiag_factors,
 )
 from hydrolim_tpu_torch.ops.stepper_kernel import bits_to_uniform
 from hydrolim_tpu_torch.pde.stepper import (
@@ -48,16 +54,24 @@ from hydrolim_tpu_torch.pde.stepper import (
 
 SOURCE = "hydrolim_tpu_torch/csrc/pde_multi_step.cu"
 REPLACES = "hydrolim_tpu/ops/pallas_pde.py:337"
-MAX_KMAX_REC = 62
-_SMEM_LIMIT = 227 * 1024
+SMEM_LIMIT = 232_448          # bytes of shared memory one block may use
+_M_CODES = {"global": 0, "pointwise": 1, "narrow": 2, "smooth": 2}
+_SOLVE_CODES = {"none": 0, "exact": 1, "banded": 2}
+
+
+def _half_taps(w: torch.Tensor) -> torch.Tensor:
+    """(R+1,) float32 w(0..R) of centred symmetric taps (2R+1,)."""
+    r = (w.shape[0] - 1) // 2
+    return w[r:].to(torch.float32).contiguous()
 
 
 @dataclasses.dataclass
 class SolveOperands:
-    """The implicit solve A·x = ρ of solve_mode 'exact'.  Each consumer
-    builds the form it reads, once, at its first use: the plain version the
-    dense inverse (``a_inv``), the kernel the cyclic tridiagonal factors
-    (``factors``, periodic only)."""
+    """The implicit solve A·x = ρ.  'exact': each consumer builds the form
+    it reads, once, at its first use — the plain version the dense inverse
+    (``a_inv``), the kernel the tridiagonal factors (``factors``).
+    'banded': ``weights``, the (2r+1,) symmetric taps of A⁻¹, w(d) at
+    r + d."""
 
     L: int
     dx: float
@@ -65,6 +79,7 @@ class SolveOperands:
     gamma: float
     periodic: bool
     device: torch.device
+    weights: Optional[torch.Tensor] = None
 
     @functools.cached_property
     def a_inv(self) -> torch.Tensor:
@@ -73,37 +88,107 @@ class SolveOperands:
                                    self.device)
 
     @functools.cached_property
-    def factors(self) -> CyclicTridiagFactors:
-        return cyclic_tridiag_factors(self.L, self.dx, self.dt, self.gamma,
-                                      self.device)
+    def factors(self) -> TridiagFactors:
+        bc = "periodic" if self.periodic else "neumann"
+        return tridiag_factors(self.L, self.dx, self.dt, self.gamma, bc,
+                               self.device)
+
+    @functools.cached_property
+    def half_taps(self) -> torch.Tensor:
+        """(r+1,) w(0..r) of the banded taps, the kernel's tap table."""
+        return _half_taps(self.weights)
 
 
 def build_solve_operands(L: int, dx: float, dt: float, gamma: float,
-                         periodic: bool, solve_mode: str,
-                         device="cuda") -> Optional[SolveOperands]:
-    """The solve of ``solve_mode``: 'exact' (A·x = ρ solved exactly) or
+                         periodic: bool, solve_mode: str, device="cuda",
+                         weights=None) -> Optional[SolveOperands]:
+    """The solve of ``solve_mode``: 'exact', 'banded' (``weights``: the
+    (2r+1,) taps, e.g. ``fast_solve.build_banded_solve_weights``) or
     'none' (γ = 0, the identity; returns None)."""
     if solve_mode == "none":
         return None
-    if solve_mode != "exact":
-        raise NotImplementedError(f"solve_mode {solve_mode!r} is not ported")
-    return SolveOperands(L, dx, dt, gamma, periodic, torch.device(device))
+    if solve_mode not in ("exact", "banded"):
+        raise ValueError(f"unknown solve_mode {solve_mode!r}")
+    if solve_mode == "banded":
+        if weights is None or not periodic:
+            raise ValueError("solve_mode 'banded' needs its taps and a "
+                             "periodic lattice")
+        weights = torch.as_tensor(weights, dtype=torch.float32,
+                                  device=device)
+    return SolveOperands(L, dx, dt, gamma, periodic, torch.device(device),
+                         weights)
 
 
-def trig_table(L: int, device="cuda") -> torch.Tensor:
-    """(2, L) float32 [cos, sin](2π·j/L), computed in float64."""
+@dataclasses.dataclass
+class SmoothOperands:
+    """The smoothing of m_mode 'narrow' — ``weights`` (2r+1,), w(d) at
+    r + d — or 'smooth' — ``weights`` (L,), the periodic kernel k(j)
+    (the circulant's first row)."""
+
+    mode: str
+    weights: torch.Tensor
+
+    @functools.cached_property
+    def kernel_rfft(self) -> torch.Tensor:
+        """rfft of the circulant row, complex128 (the plain 'smooth')."""
+        return torch.fft.rfft(self.weights.to(torch.float64))
+
+    @functools.cached_property
+    def half_taps(self) -> torch.Tensor:
+        """(R+1,) float32 w(0..R) of the kernel's tap routine.  For the
+        full circulant R = L//2; with L even, site x ± L/2 is one site, so
+        its tap is halved: the pair adds it once, exactly."""
+        if self.mode == "narrow":
+            return _half_taps(self.weights)
+        L = self.weights.shape[0]
+        w = self.weights[:L // 2 + 1].to(torch.float32).clone()
+        if L % 2 == 0:
+            w[L // 2] *= 0.5
+        return w.contiguous()
+
+    @property
+    def radius(self) -> int:
+        return self.half_taps.shape[0] - 1
+
+
+def build_smooth_operands(m_mode: str, weights,
+                          device="cuda") -> Optional[SmoothOperands]:
+    """The smoothing operand of ``m_mode`` ('narrow' or 'smooth'; None for
+    'global' and 'pointwise')."""
+    if m_mode in ("global", "pointwise"):
+        return None
+    if m_mode not in ("narrow", "smooth"):
+        raise ValueError(f"unknown m_mode {m_mode!r}")
+    return SmoothOperands(m_mode, torch.as_tensor(
+        weights, dtype=torch.float32, device=device))
+
+
+@functools.lru_cache(maxsize=8)
+def _trig_table(L: int, device: str) -> torch.Tensor:
     ang = 2.0 * np.pi * np.arange(L) / L
     return torch.tensor(np.stack([np.cos(ang), np.sin(ang)]),
                         dtype=torch.float32, device=device)
 
 
-def m_field_of(m_mode: str, rho_p: torch.Tensor,
-               rho_m: torch.Tensor) -> torch.Tensor:
-    """The magnetization field of a kernel m_mode ('global' | 'pointwise')."""
-    if m_mode not in ("global", "pointwise"):
-        raise NotImplementedError(f"m_mode {m_mode!r} is not ported")
-    return pde_magnetization(rho_p, rho_m, m_mode == "global",
-                             kernel_sigma=math.inf)
+def trig_table(L: int, device="cuda") -> torch.Tensor:
+    """(2, L) float32 [cos, sin](2π·j/L), computed in float64."""
+    return _trig_table(L, str(torch.device(device)))
+
+
+def m_field_of(m_mode: str, rho_p: torch.Tensor, rho_m: torch.Tensor,
+               smooth: Optional[SmoothOperands] = None) -> torch.Tensor:
+    """The magnetization field of a kernel m_mode: 'narrow' sums the 2r+1
+    taps, 'smooth' the full circulant."""
+    if m_mode in ("global", "pointwise"):
+        op = MFieldOp(None) if m_mode == "global" else None
+        return pde_magnetization(rho_p, rho_m, op, kernel_sigma=math.inf)
+    num, den = rho_p - rho_m, rho_p + rho_m
+    if m_mode == "narrow":
+        both = banded_circular_conv(torch.stack([num, den], -2),
+                                    smooth.weights)
+        return both[..., 0, :] / (both[..., 1, :] + 1e-12)
+    return pde_magnetization(rho_p, rho_m, MFieldOp(smooth.kernel_rfft),
+                             kernel_sigma=0.0)
 
 
 def box_muller(u2: torch.Tensor, u3: torch.Tensor) -> torch.Tensor:
@@ -130,7 +215,8 @@ def _spectra(total: torch.Tensor, mats: torch.Tensor, L: int) -> torch.Tensor:
 
 
 def pde_multi_step_plain(scal, seeds, step0: int, rho_p, rho_m, pos, spin,
-                         hist, solve: Optional[SolveOperands], *, L: int,
+                         hist, solve: Optional[SolveOperands],
+                         smooth: Optional[SmoothOperands] = None, *, L: int,
                          n_t: int, window: int, k_steps: int, dt: float,
                          xlim: float, periodic: bool, m_mode: str,
                          solve_mode: str, bidirectional: bool,
@@ -146,8 +232,12 @@ def pde_multi_step_plain(scal, seeds, step0: int, rho_p, rho_m, pos, spin,
                        active_model=("bidirectional" if bidirectional
                                      else "anchored_minus"))
     params = PDEParams(beta=scal[:, 0], lam=scal[:, 1], gamma=scal[:, 2])
-    ops = PDEOps("dense", solve.a_inv) if solve_mode == "exact" \
-        else PDEOps("identity")
+    if solve_mode == "exact":
+        ops = PDEOps("dense", a_inv=solve.a_inv)
+    elif solve_mode == "banded":
+        ops = PDEOps("banded", banded_w=solve.weights)
+    else:
+        ops = PDEOps("identity")
     tr = TracerState(pos=torch.remainder(pos, xlim), unwrapped=pos,
                      spin=spin.to(torch.int32), hist=hist)
     inv_L = torch.tensor(1.0 / L, dtype=torch.float32, device=rho_p.device)
@@ -155,7 +245,7 @@ def pde_multi_step_plain(scal, seeds, step0: int, rho_p, rho_m, pos, spin,
     recs = []
     for s in range(k_steps):
         n = step0 + s
-        m = m_field_of(m_mode, rho_p, rho_m)
+        m = m_field_of(m_mode, rho_p, rho_m, smooth)
         den = rho_p + rho_m
         m_mean = m[:, 0] if m_mode == "global" else m.mean(-1)
         t_mean = den.sum(-1, keepdim=True) * inv_L
@@ -187,9 +277,10 @@ def _check(t, name, dtype, shape, device):
 
 
 def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
-                   solve: Optional[SolveOperands], *, L: int, n_t: int,
-                   window: int, k_steps: int, dt: float, xlim: float,
-                   periodic: bool, m_mode: str, solve_mode: str,
+                   solve: Optional[SolveOperands],
+                   smooth: Optional[SmoothOperands] = None, *, L: int,
+                   n_t: int, window: int, k_steps: int, dt: float,
+                   xlim: float, periodic: bool, m_mode: str, solve_mode: str,
                    bidirectional: bool,
                    kmax_rec: int = 0, noise: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None):
@@ -203,14 +294,17 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
       rho_p / rho_m: (B, L) float32.  pos: (B, n_t) float32 unwrapped
         tracer positions.  spin: (B, n_t) float32 ±1.
       hist: (B, window, n_t) float32 circular unwrapped buffer.
-      solve: ``build_solve_operands`` for ``solve_mode`` ('exact' or
-        'none').
+      solve: ``build_solve_operands`` for ``solve_mode`` ('exact',
+        'banded' or 'none').
+      smooth: ``build_smooth_operands`` for ``m_mode`` 'narrow' or
+        'smooth' (None otherwise).
+      kmax_rec: rfft bins recorded per step (any number up to L//2 + 1).
       noise: optional (B, k_steps, 3, n_t) int32 random bits.
 
     Returns (rho_p, rho_m, pos, spin, hist, recs), recs
     (B, k_steps, 4 + 2·kmax_rec) float32 with NaN v/D before the first full
     window."""
-    args = (scal, seeds, step0, rho_p, rho_m, pos, spin, hist, solve)
+    args = (scal, seeds, step0, rho_p, rho_m, pos, spin, hist, solve, smooth)
     kw = dict(L=L, n_t=n_t, window=window, k_steps=k_steps, dt=dt,
               xlim=xlim, periodic=periodic, m_mode=m_mode,
               solve_mode=solve_mode, bidirectional=bidirectional,
@@ -219,17 +313,16 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
         return pde_multi_step_plain(*args, **kw)
     if rho_p.device.type != "cuda":
         raise ValueError(f"pde_multi_step: unsupported device {rho_p.device}")
-    for what, ok in (("m_mode", m_mode == "global"),
-                     ("boundary", periodic),
-                     ("active model", bidirectional),
-                     ("solve_mode", solve_mode in ("exact", "none"))):
-        if not ok:
-            raise NotImplementedError(
-                f"pde_multi_step kernel: {what} not ported (m_mode="
-                f"{m_mode!r}, periodic={periodic}, bidirectional="
-                f"{bidirectional}, solve_mode={solve_mode!r})")
-    if not 0 <= kmax_rec <= MAX_KMAX_REC:
-        raise NotImplementedError(f"kmax_rec {kmax_rec} > {MAX_KMAX_REC}")
+    if m_mode not in _M_CODES or solve_mode not in _SOLVE_CODES:
+        raise ValueError(f"pde_multi_step: m_mode {m_mode!r}, solve_mode "
+                         f"{solve_mode!r}")
+    if (smooth is None) != (m_mode in ("global", "pointwise")) or (
+            smooth is not None and smooth.mode != m_mode):
+        raise ValueError(f"m_mode {m_mode!r} needs its SmoothOperands")
+    if (solve is None) != (solve_mode == "none") or (
+            solve_mode == "banded" and solve.weights is None):
+        raise ValueError(f"solve_mode {solve_mode!r} needs its "
+                         "SolveOperands")
     B = rho_p.shape[0]
     dev = rho_p.device
     _check(scal, "scal", torch.float32, (B, 4), dev)
@@ -241,42 +334,72 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
     _check(hist, "hist", torch.float32, (B, window, n_t), dev)
     if noise is not None:
         _check(noise, "noise", torch.int32, (B, k_steps, 3, n_t), dev)
-    if L < 3 or n_t < 1 or window < 1 or not 0 <= step0 < 2 ** 31 - k_steps:
+    if L < 3 or n_t < 1 or window < 1 or not 0 <= step0 < 2 ** 31 - k_steps \
+            or not 0 <= kmax_rec <= L // 2 + 1:
         raise ValueError(f"pde_multi_step: L={L}, n_t={n_t}, "
-                         f"window={window}, step0={step0}")
-    fac = None
-    if solve_mode == "exact":
-        if solve is None:
-            raise ValueError("solve_mode 'exact' needs its SolveOperands")
-        fac = solve.factors
-        _check(fac.rows, "factors", torch.float32, (3, L), dev)
+                         f"window={window}, step0={step0}, "
+                         f"kmax_rec={kmax_rec}")
     lib = load_kernel_library("pde_multi_step")
     lib.pde_multi_step_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.pde_multi_step_smem_bytes.restype = ctypes.c_size_t
-    smem = lib.pde_multi_step_smem_bytes(L, n_t, kmax_rec)
-    if smem > _SMEM_LIMIT:
-        raise NotImplementedError(
-            f"pde_multi_step kernel: L={L}, n_t={n_t} need {smem} B of "
-            "shared memory")
+    smem = lib.pde_multi_step_smem_bytes(L, n_t, int(m_mode != "global"))
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"pde_multi_step kernel: L={L}, n_t={n_t}, m_mode {m_mode!r} "
+            f"need {smem} B of shared memory per replica "
+            f"({5 if m_mode != 'global' else 4}·L + n_t floats), more than "
+            f"the {SMEM_LIMIT} B a block may use")
+    fac = solve.factors if solve_mode == "exact" else None
+    if fac is not None:
+        _check(fac.rows, "factors", torch.float32, (4, L), dev)
+    solve_taps = solve.half_taps if solve_mode == "banded" else None
+    smooth_taps = smooth.half_taps if smooth is not None else None
+    for name, taps in (("solve taps", solve_taps),
+                       ("smoothing taps", smooth_taps)):
+        if taps is not None:
+            _check(taps, name, torch.float32, (taps.shape[0],), dev)
+            if 2 * (taps.shape[0] - 1) > L:
+                raise ValueError(f"{name}: radius {taps.shape[0] - 1} > L/2")
     trig = trig_table(L, dev) if kmax_rec > 0 else None
     outs = [torch.empty_like(t) for t in (rho_p, rho_m, pos, spin, hist)]
     recs = torch.empty((B, k_steps, 4 + 2 * kmax_rec), dtype=torch.float32,
                        device=dev)
     fn = lib.pde_multi_step_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 16 + [ctypes.c_int] * 12
                    + [ctypes.c_float] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     pde_multi_step.launches += 1
+    stream = torch.cuda.current_stream(dev)
+    if pde_multi_step.events is not None:
+        pde_multi_step.events.append(
+            [torch.cuda.Event(enable_timing=True) for _ in range(2)])
+        pde_multi_step.events[-1][0].record(stream)
     rc = fn(ptr(scal), ptr(seeds), step0, ptr(rho_p), ptr(rho_m), ptr(pos),
             ptr(spin), ptr(hist), *[ptr(t) for t in outs], ptr(recs),
-            ptr(fac.rows if fac is not None else None), ptr(trig),
-            ptr(noise), B, L, n_t, window, k_steps, kmax_rec, dt, xlim / L,
-            fac.c if fac else 0.0, fac.v_last if fac else 0.0,
-            fac.fac if fac else 0.0, window * dt, 2.0 * window * dt,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+            ptr(fac.rows if fac is not None else None), ptr(solve_taps),
+            ptr(smooth_taps), ptr(trig), ptr(noise), B, L, n_t, window,
+            k_steps, kmax_rec, _M_CODES[m_mode], _SOLVE_CODES[solve_mode],
+            0 if solve_taps is None else solve_taps.shape[0] - 1,
+            0 if smooth_taps is None else smooth_taps.shape[0] - 1,
+            int(periodic), int(bidirectional), dt, xlim / L, xlim,
+            0.0 if fac is None else fac.v_last,
+            0.0 if fac is None else fac.fac, window * dt, 2.0 * window * dt,
+            ctypes.c_void_p(stream.cuda_stream))
     check_cuda(rc, "pde_multi_step")
+    if pde_multi_step.events is not None:
+        pde_multi_step.events[-1][1].record(stream)
     return (*outs, recs)
 
 
+# launches of the kernel; and, while ``events`` is a list, a pair of CUDA
+# events around each launch (``kernel_ms`` sums them) — off by default
 pde_multi_step.launches = 0
+pde_multi_step.events = None
+
+
+def kernel_ms(events) -> float:
+    """Device time in ms of the launches timed in ``events`` (waits for
+    the card)."""
+    torch.cuda.synchronize()
+    return float(sum(a.elapsed_time(b) for a, b in events))

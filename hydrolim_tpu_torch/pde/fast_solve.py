@@ -1,27 +1,30 @@
 """Fused PDE solve on kernel B2.
 
 ``pde_solve_fused`` advances the whole (β × runs) batch chunk by chunk, one
-``pde_multi_step`` call per ``snapshot_interval`` steps, and returns the
-per-step records (m, Var, v_eff, D_eff, rfft re/im), the chunk-start
-snapshots and the final fields.  Semantics follow ``pde_solve``: record at
-state n, tracer update at n, no field step at n = nsteps.
+``pde_multi_step`` call per ``snapshot_interval`` steps (the last chunk
+shorter when the interval does not divide the run), and returns the
+per-step records (m, Var, v_eff, D_eff and the rfft re/im at every kmax),
+the chunk-start snapshots and the final fields.  Semantics follow the XLA
+``pde_solve`` of the JAX package: record at state n, tracer update at n, no
+field step at n = nsteps; the snapshots are the states at the multiples of
+the interval.
 
-CUDA tensors run the kernel, CPU tensors its plain version.  Per-step
-spectra ride the record rows when kmax ≤ 62; a wider kmax is recorded at
-chunk starts only (the other rows NaN).
+CUDA tensors run the kernel, CPU tensors its plain version.  The routing
+(``_m_mode``, ``_solve_mode_of``) is the JAX package's, without its VMEM
+budget: an exact solve needs no (L, L) matrix here.
 """
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
 
 from hydrolim_tpu_torch.core.config import PDEConfig, PDEParams
+from hydrolim_tpu_torch.fields.magnetization import pde_magnetization
+from hydrolim_tpu_torch.ops.convolve import periodic_gaussian_kernel
+from hydrolim_tpu_torch.ops.diffusion import banded_kernel
 from hydrolim_tpu_torch.ops.pde_kernel import (
-    MAX_KMAX_REC,
+    build_smooth_operands,
     build_solve_operands,
-    m_field_of,
     pde_multi_step,
 )
 from hydrolim_tpu_torch.pde.stepper import (
@@ -29,14 +32,20 @@ from hydrolim_tpu_torch.pde.stepper import (
     PDESolveResult,
     TracerState,
     _tracer_update,
+    build_smooth_op,
 )
 
+_NARROW_R_MAX = 63   # taps per side of the narrow smoothing
+_BANDED_R_MAX = 63   # taps per side of the banded solve
+
+
 def _m_mode(config: PDEConfig) -> str:
-    """The kernel's magnetization mode: 'pointwise', 'global' or 'smooth'
-    (not ported; the JAX package splits it into narrow and smooth).  A
-    kernel much wider than the domain (the reference β-sweep's σ = 1e5−10,
-    just under the >1e5 sentinel) is uniform to below f32 resolution and
-    routes to the exact global mean."""
+    """The kernel's magnetization mode: 'pointwise', 'global', 'narrow' or
+    'smooth'.  A kernel much wider than the domain (the reference β-sweep's
+    σ = 1e5−10, just under the >1e5 sentinel) is uniform to below f32
+    resolution and routes to the exact global mean; a kernel much narrower
+    than the domain applies as its 2r+1 centre taps (truncated at 5.7σ, a
+    relative tail < 1e-7 that cancels in the num/den ratio)."""
     if not config.gaussian_kernel:
         return "pointwise"
     if config.kernel_sigma > 1e5:
@@ -44,22 +53,79 @@ def _m_mode(config: PDEConfig) -> str:
     sigma_grid = config.kernel_sigma / config.dx
     if (config.L / 2.0) ** 2 / (2.0 * sigma_grid * sigma_grid) < 1e-8:
         return "global"
+    r = _narrow_radius(config)
+    if 1 <= r <= _NARROW_R_MAX and 2 * r + 1 < config.L:
+        return "narrow"
     return "smooth"
 
 
-def _kmax_rec(config: PDEConfig) -> int:
-    """Per-step in-kernel spectra bins, or 0 when kmax is too wide."""
-    k = config.kmax
-    return k if k <= MAX_KMAX_REC else 0
+def _narrow_radius(config: PDEConfig) -> int:
+    """Tap radius covering the Gaussian to a relative tail < ~1e-7
+    (exp(-r²/2σ²) < 1e-7 at r ≈ 5.7σ), rounded up to a multiple of 16
+    (capped at the narrow bound), as the JAX package rounds it: nearby σ
+    values share one radius, and the extra taps carry ~zero weight."""
+    sigma_grid = config.kernel_sigma / config.dx
+    r = int(np.ceil(5.7 * sigma_grid))
+    if r <= _NARROW_R_MAX:
+        r = min(-(-r // 16) * 16, _NARROW_R_MAX)
+    return r
 
 
-def _solve_mode_of(config: PDEConfig, gamma: float) -> str:
+def build_narrow_weights(config: PDEConfig) -> np.ndarray:
+    """(2r+1,) float32 symmetric circulant taps, w(d) = k(d mod L) at
+    r + d."""
+    r = _narrow_radius(config)
+    k = periodic_gaussian_kernel(config.L, config.dx, config.kernel_sigma)
+    return np.array([k[d % config.L] for d in range(-r, r + 1)], np.float32)
+
+
+def _solve_mode_of(config: PDEConfig, gamma: float):
+    """(solve_mode, solve_r) for the fused kernel: 'none' for γ = 0 or the
+    identity; 'banded' where the XLA engine would apply the truncated
+    banded taps (``diffusion_solver='banded'``, or the auto solver past
+    L = 8192) on a periodic lattice and they fit ``_BANDED_R_MAX``, the
+    radius rounded up to a multiple of 16 (capped); else 'exact'."""
     if config.solver_kind == "identity" or gamma == 0.0:
-        return "none"
-    if config.solver_kind in ("fft", "dct", "dense"):
-        return "exact"
-    raise NotImplementedError(
-        f"diffusion solver {config.solver_kind!r} is not ported")
+        return "none", 0
+    if config.solver_kind == "banded":
+        try:
+            r = (len(banded_kernel(config.dx, config.dt, gamma)) - 1) // 2
+        except ValueError:
+            return "exact", 0
+        if r <= _BANDED_R_MAX:
+            return "banded", min(-(-max(r, 1) // 16) * 16, _BANDED_R_MAX)
+    return "exact", 0
+
+
+def build_banded_solve_weights(config: PDEConfig, gamma: float,
+                               solve_r: int) -> np.ndarray:
+    """(2·solve_r+1,) float32 symmetric truncated taps of A⁻¹, w(d) at
+    solve_r + d, zero past the kernel's own radius."""
+    w = banded_kernel(config.dx, config.dt, gamma)
+    r = (len(w) - 1) // 2
+    out = np.zeros(2 * solve_r + 1, np.float32)
+    out[solve_r - r:solve_r + r + 1] = w
+    return out
+
+
+def kernel_operands(config: PDEConfig, gamma: float, device="cuda"):
+    """(m_mode, solve_mode, SmoothOperands or None, SolveOperands or None)
+    of a configuration."""
+    m_mode = _m_mode(config)
+    solve_mode, solve_r = _solve_mode_of(config, gamma)
+    weights = None
+    if m_mode == "narrow":
+        weights = build_narrow_weights(config)
+    elif m_mode == "smooth":            # the circulant's first row
+        weights = periodic_gaussian_kernel(config.L, config.dx,
+                                           config.kernel_sigma)
+    smooth = build_smooth_operands(m_mode, weights, device)
+    solve = build_solve_operands(
+        config.L, config.dx, config.dt, gamma, config.bc == "periodic",
+        solve_mode, device,
+        weights=(build_banded_solve_weights(config, gamma, solve_r)
+                 if solve_mode == "banded" else None))
+    return m_mode, solve_mode, smooth, solve
 
 
 def _rfft_ri(total: torch.Tensor, kmax: int, L: int) -> torch.Tensor:
@@ -79,20 +145,15 @@ def pde_solve_fused(config: PDEConfig, params_b: PDEParams,
     gamma = float(gamma_b[0])
     if not bool(torch.all(gamma_b == gamma_b[0])):
         raise ValueError("pde_solve_fused needs a uniform gamma")
-    nsteps, k_chunk = config.nsteps, config.snapshot_interval
-    if config.n_tracers < 1 or nsteps % k_chunk != 0:
-        raise ValueError("pde_solve_fused needs n_tracers >= 1 and nsteps "
-                         "a multiple of snapshot_interval")
+    if config.n_tracers < 1:
+        raise ValueError("pde_solve_fused needs n_tracers >= 1")
     dev = rho_p0.device
     B, L, dt = rho_p0.shape[0], config.L, config.dt
-    n_t, W = config.n_tracers, config.tracer_window
-    n_chunks = nsteps // k_chunk
-    m_mode = _m_mode(config)
-    solve_mode = _solve_mode_of(config, gamma)
+    n_t, W, kmax = config.n_tracers, config.tracer_window, config.kmax
+    nsteps, interval = config.nsteps, config.snapshot_interval
+    starts = list(range(0, nsteps, interval))
+    m_mode, solve_mode, smooth, solve = kernel_operands(config, gamma, dev)
     periodic = config.bc == "periodic"
-    solve = build_solve_operands(L, config.dx, dt, gamma, periodic,
-                                 solve_mode, dev)
-    kmax, kmax_rec = config.kmax, _kmax_rec(config)
 
     f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
     scal = torch.zeros((B, 4), dtype=torch.float32, device=dev)
@@ -105,51 +166,47 @@ def pde_solve_fused(config: PDEConfig, params_b: PDEParams,
     pos, spin = f32(tracers0.unwrapped), f32(tracers0.spin)
     hist = f32(tracers0.hist)
 
-    recs, snaps, m_snaps, fft_chunks = [], [], [], []
-    for c in range(n_chunks):
+    recs, snaps, m_snaps = [], [], []
+    for n0 in starts:
         if keep_snapshots:
             snaps.append(rho_p + rho_m)
             m_snaps.append(rho_p - rho_m)
-        if kmax_rec == 0:
-            fft_chunks.append(_rfft_ri(rho_p + rho_m, kmax, L))
         rho_p, rho_m, pos, spin, hist, rec = pde_multi_step(
-            scal, seeds, c * k_chunk, rho_p, rho_m, pos, spin, hist, solve,
-            L=L, n_t=n_t, window=W, k_steps=k_chunk, dt=dt,
-            xlim=config.xlim, periodic=periodic, m_mode=m_mode,
+            scal, seeds, n0, rho_p, rho_m, pos, spin, hist, solve, smooth,
+            L=L, n_t=n_t, window=W, k_steps=min(interval, nsteps - n0),
+            dt=dt, xlim=config.xlim, periodic=periodic, m_mode=m_mode,
             solve_mode=solve_mode,
             bidirectional=config.active_model == "bidirectional",
-            kmax_rec=kmax_rec, generator=generator)
+            kmax_rec=kmax, generator=generator)
         recs.append(rec)
     recs = torch.cat(recs, dim=1)                    # (B, nsteps, 4 + 2k)
 
-    # final iteration (n = nsteps): record + tracer update, no step
-    m_field = m_field_of(m_mode, rho_p, rho_m)
+    # final iteration (n = nsteps): record + tracer update, no step; m as
+    # the XLA path takes it (the full circulant, also for a narrow kernel)
+    m_field = pde_magnetization(rho_p, rho_m, build_smooth_op(config, dev),
+                                kernel_sigma=config.kernel_sigma)
     total = rho_p + rho_m
     tr = TracerState(pos=torch.remainder(pos, config.xlim), unwrapped=pos,
                      spin=spin.to(torch.int32), hist=hist)
     _, v_f, D_f = _tracer_update(config, params_b, m_field, tr, nsteps,
                                  generator=generator)
-    fft_f = _rfft_ri(total, kmax, L)
     cat = lambda a, b: torch.cat([a, b[:, None]], dim=1)
     m_mean = cat(recs[:, :, 0], m_field.mean(-1))
     var = cat(recs[:, :, 1], total.var(-1, unbiased=False))
     v_eff = cat(recs[:, :, 2], v_f)
     D_eff = cat(recs[:, :, 3], D_f)
-    if kmax_rec > 0:
-        per = torch.stack([recs[:, :, 4:4 + kmax_rec],
-                           recs[:, :, 4 + kmax_rec:4 + 2 * kmax_rec]], -1)
-        fft_ri = torch.cat([per, fft_f[:, None]], dim=1)
-    else:
-        fft_ri = torch.full((B, nsteps + 1, kmax, 2), math.nan,
-                            dtype=torch.float32, device=dev)
-        fft_ri[:, 0:nsteps:k_chunk] = torch.stack(fft_chunks, dim=1)
-        fft_ri[:, nsteps] = fft_f
+    per = torch.stack([recs[:, :, 4:4 + kmax],
+                       recs[:, :, 4 + kmax:4 + 2 * kmax]], -1)
+    fft_ri = torch.cat([per, _rfft_ri(total, kmax, L)[:, None]], dim=1)
     if keep_snapshots:
-        snapshots = torch.stack(snaps + [total], dim=1)
-        m_snapshots = torch.stack(m_snaps + [rho_p - rho_m], dim=1)
-        snap_times = (torch.arange(n_chunks + 1, dtype=torch.float32,
-                                   device=dev) * (k_chunk * dt)).expand(
-            B, n_chunks + 1)
+        if nsteps % interval == 0:      # the final state is a block start
+            snaps.append(total)
+            m_snaps.append(rho_p - rho_m)
+        snapshots = torch.stack(snaps, dim=1)
+        m_snapshots = torch.stack(m_snaps, dim=1)
+        snap_times = (torch.arange(len(snaps), dtype=torch.float32,
+                                   device=dev) * (interval * dt)).expand(
+            B, len(snaps))
     else:
         snapshots = torch.zeros((B, 0, L), device=dev)
         m_snapshots = torch.zeros((B, 0, L), device=dev)
@@ -176,4 +233,3 @@ def result_to_numpy(res: PDESolveResult) -> PDESolveResult:
                           D_eff=np_(rec.D_eff)),
         snapshots=np_(res.snapshots), m_snapshots=np_(res.m_snapshots),
         snap_times=np_(res.snap_times))
-

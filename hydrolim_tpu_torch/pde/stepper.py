@@ -1,6 +1,6 @@
 """IMEX stepper for the hydrodynamic-limit PDE, batched over replicas.
 
-- implicit diffusion: exact solve (``ops.diffusion``),
+- implicit diffusion: exact or banded solve (``ops.diffusion``),
 - explicit upwind advection,
 - Curie–Weiss reaction with clipped rates,
 - positivity clip + total-mass renormalization,
@@ -17,30 +17,62 @@ from typing import Optional, Tuple
 import torch
 
 from hydrolim_tpu_torch.core.config import PDEConfig, PDEParams
-from hydrolim_tpu_torch.fields.magnetization import pde_magnetization
-from hydrolim_tpu_torch.ops.diffusion import build_dense_inverse, diffusion_solve
+from hydrolim_tpu_torch.fields.magnetization import (
+    MFieldOp,
+    build_mfield_op,
+    pde_magnetization,
+)
+from hydrolim_tpu_torch.ops.diffusion import (
+    banded_kernel,
+    build_dense_inverse,
+    diffusion_solve,
+)
 
 
 @dataclasses.dataclass
 class PDEOps:
-    """Per-config operators: the solve kind ('identity' | 'dense') and the
-    dense inverse when there is one."""
+    """Per-config operators: the solve kind ('identity' | 'dense' |
+    'banded' | 'banded_dct') with its operand (the dense inverse, or the
+    banded taps), and the smoothing operand of the magnetization (None
+    without a Gaussian kernel)."""
 
     kind: str
     a_inv: Optional[torch.Tensor] = None
+    banded_w: Optional[torch.Tensor] = None
+    smooth: Optional[MFieldOp] = None
+
+    @property
+    def solve_operand(self):
+        return self.banded_w if self.kind.startswith("banded") else self.a_inv
+
+
+def build_smooth_op(config: PDEConfig, device="cuda") -> Optional[MFieldOp]:
+    """The magnetization's smoothing operand: None without a kernel, an
+    empty operand above the global sentinel, else the periodic kernel's
+    rfft."""
+    if not config.gaussian_kernel:
+        return None
+    if config.kernel_sigma > 1e5:
+        return MFieldOp(None)
+    return build_mfield_op(config.L, config.dx, config.kernel_sigma, True,
+                           device)
 
 
 def build_pde_ops(config: PDEConfig, gamma: float, device="cuda") -> PDEOps:
     """Every exact solver kind of the JAX package ('fft', 'dct', 'dense')
     solves the same linear system: the port applies its dense inverse.  The
-    truncated banded kinds are not ported."""
+    banded kinds apply the truncated taps of ``banded_kernel``."""
     kind = config.solver_kind
+    smooth = build_smooth_op(config, device)
     if kind == "identity" or float(gamma) == 0.0:
-        return PDEOps("identity")
-    if kind not in ("fft", "dct", "dense"):
-        raise NotImplementedError(f"diffusion solver {kind!r} is not ported")
+        return PDEOps("identity", smooth=smooth)
+    if kind in ("banded", "banded_dct"):
+        w = torch.tensor(banded_kernel(config.dx, config.dt, gamma),
+                         device=device)
+        return PDEOps(kind, banded_w=w, smooth=smooth)
     return PDEOps("dense", build_dense_inverse(config.L, config.dx, config.dt,
-                                               gamma, config.bc, device))
+                                               gamma, config.bc, device),
+                  smooth=smooth)
 
 
 def _col(v, like: torch.Tensor) -> torch.Tensor:
@@ -67,8 +99,9 @@ def upwind_derivative(rho: torch.Tensor, direction: int, dx: float,
     return d
 
 
-def magnetization(config: PDEConfig, rho_p, rho_m):
-    return pde_magnetization(rho_p, rho_m, config.gaussian_kernel,
+def magnetization(config: PDEConfig, ops: PDEOps, rho_p, rho_m):
+    smooth = ops.smooth if config.gaussian_kernel else None
+    return pde_magnetization(rho_p, rho_m, smooth,
                              kernel_sigma=config.kernel_sigma)
 
 
@@ -78,11 +111,11 @@ def pde_step(config: PDEConfig, params: PDEParams, ops: PDEOps,
     densities (computed if not given)."""
     dt, dx, bc = config.dt, config.dx, config.bc
     if m is None:
-        m = magnetization(config, rho_p, rho_m)
+        m = magnetization(config, ops, rho_p, rho_m)
     lam, beta = _col(params.lam, rho_p), _col(params.beta, rho_p)
 
-    rho_p1 = diffusion_solve(ops.a_inv, rho_p, ops.kind)
-    rho_m1 = diffusion_solve(ops.a_inv, rho_m, ops.kind)
+    rho_p1 = diffusion_solve(ops.solve_operand, rho_p, ops.kind)
+    rho_m1 = diffusion_solve(ops.solve_operand, rho_m, ops.kind)
 
     R_p = cw_rate(-1.0, m, beta) * rho_m1 - cw_rate(+1.0, m, beta) * rho_p1
     if config.active_model == "bidirectional":

@@ -1,14 +1,17 @@
-"""PDE sweep drivers on the fused solve (kernel B2 on CUDA).
+"""PDE drivers on the fused solve (kernel B2 on CUDA).
 
 - :func:`run_pde_ensemble` — one batched (β × runs) solve,
+- :func:`pde_single_run` — IMEX_PDE_solver_run.py through the ``IMEXPDE``
+  facade (L=1000, T=20, γ=0, λ=0.6, β=2, kernel σ=0.005, seed 58),
 - :func:`pde_beta_sweep` — the reference β sweep
   (IMEX_PDE_solver_run_sweep.py): near-global kernel (σ = 1e5−10),
-  windowed v/D means against λ·tanh(βm_β) and γ + λ²/(2cosh³).
+  windowed v/D means against λ·tanh(βm_β) and γ + λ²/(2cosh³),
+- :func:`pde_kernel_sigma_sweep` — IMEX_PDE_solver_run_sweep_magn{,2}.py:
+  one batched run ensemble per σ, |m|/|v|/D/Var mean ± std bands.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 from pathlib import Path
 from typing import Dict
 
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from hydrolim_tpu_torch.core.config import PDEConfig, PDEParams
+from hydrolim_tpu_torch.fit.veff_fit import _pyplot
 from hydrolim_tpu_torch.pde.fast_solve import pde_solve_fused, result_to_numpy
 from hydrolim_tpu_torch.pde.init import pde_initialize
 from hydrolim_tpu_torch.theory.meanfield import compute_m_of_beta
@@ -50,6 +54,25 @@ def run_pde_ensemble(config: PDEConfig, beta_values, *, gamma: float,
     return result_to_numpy(res), flat_beta
 
 
+def pde_single_run(outdir: str = "IMEX_output", seed: int = 58,
+                   device="cuda", **overrides):
+    """Single-run driver (IMEX_PDE_solver_run.py:7-34) through the
+    ``IMEXPDE`` facade; returns ``get_output()``."""
+    from hydrolim_tpu_torch.pde.system import IMEXPDE
+
+    kw = dict(L=1000, T=20.0, dt=5e-4, gamma=0.0, lam=0.6, beta=2.0,
+              bc="periodic", active_model="bidirectional",
+              gaussian_kernel=True, kernel_sigma=0.005, snapshot_interval=50,
+              outdir=outdir, seed=seed, device=device)
+    kw.update(overrides)
+    solver = IMEXPDE(**kw)
+    solver.initialize(mode="homogeneous", rho0=1.0, noise=0.3)
+    solver.solve()
+    solver.plot_all()
+    solver.plot_individual()
+    return solver.get_output()
+
+
 def pde_beta_sweep(beta_values=None, n_runs: int = 3, T: float = 40.0,
                    t_min: float = 20.0, t_max: float = 40.0,
                    gamma: float = 0.2, lam: float = 0.6,
@@ -62,13 +85,10 @@ def pde_beta_sweep(beta_values=None, n_runs: int = 3, T: float = 40.0,
     if beta_values is None:
         beta_values = np.linspace(0, 3, 11)
     beta_values = np.asarray(beta_values, dtype=float)
-    # one kernel call per 2000-step chunk (fewer when nsteps is not a
-    # multiple of 2000: the chunks must tile the run)
-    nsteps = PDEConfig(L=L, T=T, dt=dt).nsteps
     config = PDEConfig(L=L, T=T, dt=dt, bc="periodic",
                        active_model="bidirectional", gaussian_kernel=True,
-                       kernel_sigma=kernel_sigma,
-                       snapshot_interval=math.gcd(nsteps, 2000), fft_kmax=8)
+                       kernel_sigma=kernel_sigma, snapshot_interval=2000,
+                       fft_kmax=8)
     res, _ = run_pde_ensemble(config, beta_values, gamma=gamma, lam=lam,
                               n_runs=n_runs, seed=seed, n_tracers=n_tracers,
                               device=device, fetch_snapshots=False)
@@ -120,3 +140,96 @@ def pde_beta_sweep(beta_values=None, n_runs: int = 3, T: float = 40.0,
 
     return dict(beta_values=beta_values, v_mean=v_mean, v_err=v_err,
                 D_mean=D_mean, D_err=D_err)
+
+
+MAGN_VARIANTS = {
+    # IMEX_PDE_solver_run_sweep_magn.py:25-42
+    "magn": dict(T=40.0, gamma=0.0, beta=0.5),
+    # IMEX_PDE_solver_run_sweep_magn2.py (diff at :27-31)
+    "magn2": dict(T=10.0, gamma=0.2, beta=0.75),
+}
+
+REFERENCE_KERNEL_SIGMAS = [0.0005, 0.005, 0.05, 0.1, 1.0]
+
+
+def pde_kernel_sigma_sweep(kernel_sigma_values=None, n_runs: int = 5,
+                           variant: str = "magn", base_seed: int = 100,
+                           L: int = 1000, dt: float = 5e-4, lam: float = 0.6,
+                           n_tracers: int = 1000, outdir: str = ".",
+                           plot_result: bool = True, record_every: int = 1,
+                           device="cuda", **overrides) -> Dict:
+    """Kernel-σ sweep: per-σ time series of |m|, |v_eff|, D_eff, Var(t)
+    (mean ± std bands across runs).  One batched ensemble of ``n_runs`` per
+    σ, seeded ``base_seed + 1000·k_idx`` (the reference's per-σ seed
+    scheme, :64)."""
+    if kernel_sigma_values is None:
+        kernel_sigma_values = REFERENCE_KERNEL_SIGMAS
+    v = dict(MAGN_VARIANTS[variant])
+    v.update(overrides)
+    T, gamma, beta = v["T"], v["gamma"], v["beta"]
+
+    m_results, v_results, D_results, var_results = {}, {}, {}, {}
+    for k_idx, sigma in enumerate(kernel_sigma_values):
+        config = PDEConfig(L=L, T=T, dt=dt, bc="periodic",
+                           active_model="bidirectional",
+                           gaussian_kernel=True, kernel_sigma=float(sigma),
+                           snapshot_interval=2000, fft_kmax=8,
+                           record_every=record_every)
+        res, _ = run_pde_ensemble(config, [beta], gamma=gamma, lam=lam,
+                                  n_runs=n_runs,
+                                  seed=base_seed + 1000 * k_idx,
+                                  n_tracers=n_tracers, device=device,
+                                  fetch_snapshots=False)
+        n_rec = config.n_records        # nsteps+1 thinned by record_every
+        m_results[sigma] = np.abs(res.records.m_mean[:, :n_rec])
+        v_results[sigma] = np.abs(res.records.v_eff[:, :n_rec])
+        D_results[sigma] = res.records.D_eff[:, :n_rec]
+        var_results[sigma] = res.records.var[:, :n_rec]
+
+    if plot_result:
+        _plot_magn_bands(kernel_sigma_values, m_results, v_results,
+                         D_results, var_results, T, outdir)
+    return dict(m=m_results, v=v_results, D=D_results, var=var_results,
+                T=T, gamma=gamma, beta=beta)
+
+
+def _plot_magn_bands(sigmas, m_results, v_results, D_results, var_results,
+                     T, outdir) -> None:
+    """The four mean±std band figures (IMEX_PDE_solver_run_sweep_magn.py
+    :100-204); skipped where matplotlib is not installed."""
+    plt = _pyplot()
+    if plt is None:
+        return
+    out = Path(outdir)
+    out.mkdir(parents=True, exist_ok=True)
+    colors = plt.cm.Blues(np.linspace(0.4, 0.9, len(sigmas)))
+    t = np.linspace(0, T, m_results[sigmas[0]].shape[1])
+
+    panels = (
+        (m_results, r"$|m(t)|$", "magnitude_magnetization_sweep.png",
+         dict(xlim=(0, min(10, T)), ylim=(0, 1))),
+        (v_results, r"$|v_{\mathrm{eff}}(t)|$",
+         "magnitude_velocity_sweep.png", dict(xlim=(0.05, min(10, T)))),
+        (D_results, r"$D_{\mathrm{eff}}(t)$", "diffusion_sweep.png", {}),
+        (var_results, r"$\mathrm{Var}(t)$", "variance_sweep.png", {}),
+    )
+    for results, ylabel, fname, lims in panels:
+        plt.figure(figsize=(8, 5))
+        for color, sigma in zip(colors, sigmas):
+            data = results[sigma]
+            mean = np.nanmean(data, axis=0)
+            std = np.nanstd(data, axis=0)
+            plt.plot(t, mean, color=color, lw=2, label=rf"$\sigma={sigma}$")
+            plt.fill_between(t, mean - std, mean + std, color=color,
+                             alpha=0.25)
+        plt.xlabel("$t$")
+        plt.ylabel(ylabel)
+        plt.legend()
+        plt.grid()
+        if "xlim" in lims:
+            plt.xlim(*lims["xlim"])
+        if "ylim" in lims:
+            plt.ylim(*lims["ylim"])
+        plt.tight_layout()
+        plt.savefig(out / fname, dpi=200)
+        plt.close()

@@ -18,7 +18,6 @@ from hydrolim_tpu_torch.ops.exclusion_kernel import (
     smoothing_band,
 )
 from hydrolim_tpu_torch.ops.pde_kernel import (
-    build_solve_operands,
     pde_multi_step,
     pde_multi_step_plain,
 )
@@ -90,37 +89,106 @@ def test_b1_native_streams(dev):
     assert abs(flips - expect) < 5 * np.sqrt(expect)
 
 
-@pytest.mark.parametrize("gamma", [0.2, 0.0])
-def test_b2_kernel_matches_plain(dev, gamma):
-    B, L, n_t, W, kmax, dt, k = 3, 256, 200, 10, 8, 5e-4, 30
+# Kernel B2's covering set: (PDEConfig fields beyond the defaults, γ, dt,
+# L, expected (m_mode, solve_mode)).  Defaults: B=3, n_t=200, window 10,
+# kmax 8, periodic, bidirectional.
+B2_MODES = {
+    "global-exact": (dict(gaussian_kernel=True, kernel_sigma=2e5), 0.2,
+                     5e-4, 256, ("global", "exact")),
+    "global-none": (dict(gaussian_kernel=True, kernel_sigma=2e5), 0.0, 5e-4,
+                    256, ("global", "none")),
+    "pointwise-exact": ({}, 0.2, 5e-4, 256, ("pointwise", "exact")),
+    "narrow-none": (dict(gaussian_kernel=True, kernel_sigma=0.01), 0.0, 5e-4,
+                    256, ("narrow", "none")),
+    "smooth-neumann-anchored-exact": (
+        dict(gaussian_kernel=True, kernel_sigma=0.1, bc="neumann",
+             active_model="anchored_minus"), 0.2, 5e-4, 256,
+        ("smooth", "exact")),
+    "smooth-odd-L-anchored-none": (
+        dict(gaussian_kernel=True, kernel_sigma=0.1,
+             active_model="anchored_minus"), 0.0, 5e-4, 255,
+        ("smooth", "none")),
+    "global-banded": (dict(gaussian_kernel=True, kernel_sigma=2e5,
+                           diffusion_solver="banded"), 0.2, 1.5e-4, 256,
+                      ("global", "banded")),
+    "pointwise-banded-L8192": (dict(diffusion_solver="banded"), 0.2, 2e-7,
+                               8192, ("pointwise", "banded")),
+    "narrow-full-rfft": (dict(gaussian_kernel=True, kernel_sigma=0.01,
+                              fft_kmax=129), 0.0, 5e-4, 256,
+                         ("narrow", "none")),
+}
+
+
+@pytest.mark.parametrize("case", list(B2_MODES))
+def test_b2_kernel_matches_plain(dev, case):
+    """Every mode at injected bits, two chained 30-step calls, at the
+    kernel-logic tolerances."""
+    from hydrolim_tpu_torch.pde.fast_solve import kernel_operands
+
+    over, gamma, dt, L, modes = B2_MODES[case]
+    B, n_t, W, k = 3, 200, 10, 30
+    kw = dict(fft_kmax=8)
+    kw.update(over)
     config = PDEConfig(L=L, dt=dt, n_tracers=n_t,
-                       tracer_window_time=W * dt + 1e-12)
+                       tracer_window_time=W * dt * (1 + 1e-9), **kw)
     assert config.tracer_window == W
+    m_mode, solve_mode, smooth, solve = kernel_operands(config, gamma, dev)
+    assert (m_mode, solve_mode) == modes
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     rp, rm, tr = pde_initialize(config, gen, B=B, mode="homogeneous",
                                 noise=0.3, n_tracers=n_t, device=dev)
-    mode = "exact" if gamma > 0 else "none"
-    solve = build_solve_operands(L, config.dx, dt, gamma, True, mode, dev)
     scal = torch.tensor([[b, 0.6, gamma, 0.0] for b in (0.5, 1.5, 3.0)],
                         device=dev)
     seeds = torch.zeros(B, dtype=torch.int32, device=dev)
     noise = _bits((B, 2 * k, 3, n_t), gen, dev)
     sk = [rp, rm, tr.unwrapped, tr.spin.float(), tr.hist]
     sp = list(sk)
+    n0 = pde_multi_step.launches
     for c in range(2):
         kw = dict(L=L, n_t=n_t, window=W, k_steps=k, dt=dt, xlim=1.0,
-                  periodic=True, m_mode="global", solve_mode=mode,
-                  bidirectional=True, kmax_rec=kmax,
+                  periodic=config.bc == "periodic", m_mode=m_mode,
+                  solve_mode=solve_mode,
+                  bidirectional=config.active_model == "bidirectional",
+                  kmax_rec=config.kmax,
                   noise=noise[:, c * k:(c + 1) * k].contiguous())
-        *sk, rk = pde_multi_step(scal, seeds, c * k, *sk, solve, **kw)
-        *sp, rp_ = pde_multi_step_plain(scal, seeds, c * k, *sp, solve, **kw)
+        *sk, rk = pde_multi_step(scal, seeds, c * k, *sk, solve, smooth,
+                                 **kw)
+        *sp, rp_ = pde_multi_step_plain(scal, seeds, c * k, *sp, solve,
+                                        smooth, **kw)
+    assert pde_multi_step.launches == n0 + 2
     torch.testing.assert_close(sk[0], sp[0], rtol=2e-4, atol=1e-7)
     torch.testing.assert_close(sk[1], sp[1], rtol=2e-4, atol=1e-7)
     torch.testing.assert_close(sk[2], sp[2], rtol=1e-4, atol=1e-5)
     assert torch.equal(sk[3], sp[3])
+    torch.testing.assert_close(sk[4], sp[4], rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(rk[..., 2:4], rp_[..., 2:4], rtol=5e-4,
                                atol=1e-6, equal_nan=True)
+    torch.testing.assert_close(rk[..., 0], rp_[..., 0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(rk[..., 4:], rp_[..., 4:], rtol=1e-4,
+                               atol=1e-8)
+
+
+def test_b2_wrapper_refuses_what_does_not_fit(dev):
+    """A lattice past shared memory is refused before any launch, with the
+    reason; so are missing operands."""
+    from hydrolim_tpu_torch.ops.pde_kernel import SMEM_LIMIT
+
+    B, L, n_t, W = 1, 12_000, 64, 4
+    rp = torch.full((B, L), 0.5 / L, device=dev)
+    pos = torch.zeros((B, n_t), device=dev)
+    args = (torch.tensor([[1.0, 0.6, 0.0, 0.0]], device=dev),
+            torch.zeros(B, dtype=torch.int32, device=dev), 0, rp, rp.clone(),
+            pos, torch.ones_like(pos), torch.zeros((B, W, n_t), device=dev),
+            None, None)
+    kw = dict(L=L, n_t=n_t, window=W, k_steps=1, dt=1e-4, xlim=1.0,
+              periodic=True, solve_mode="none", bidirectional=True)
+    n0 = pde_multi_step.launches
+    with pytest.raises(ValueError, match=f"more than the {SMEM_LIMIT} B"):
+        pde_multi_step(*args, m_mode="pointwise", **kw)
+    with pytest.raises(ValueError, match="needs its SmoothOperands"):
+        pde_multi_step(*args, m_mode="narrow", **kw)
+    assert pde_multi_step.launches == n0
 
 
 def _exclusion_inputs(dev, *, B, K, L, sigma, periodic, seed):

@@ -16,9 +16,9 @@ from hydrolim_tpu.core.config import PDEConfig as JPDEConfig
 from hydrolim_tpu_torch import interop
 from hydrolim_tpu_torch.ops.diffusion import (
     build_dense_inverse,
-    cyclic_tridiag_factors,
-    cyclic_tridiag_solve,
     diffusion_solve,
+    tridiag_factors,
+    tridiag_solve,
 )
 from hydrolim_tpu_torch.ops.pde_kernel import (
     build_solve_operands,
@@ -173,7 +173,7 @@ def test_pde_step_and_magnetization_match_jax(bc, active_model, global_m):
     jops = build_pde_ops(jcfg, make_pde_params(gamma=0.2, lam=0.6, beta=0.0))
     trp, trm = torch.tensor(rp), torch.tensor(rm)
     for _ in range(20):
-        m = magnetization(cfg, trp, trm)
+        m = magnetization(cfg, ops, trp, trm)
         jm = [j_mag(jcfg, jops, jnp.asarray(rp[b]), jnp.asarray(rm[b]))
               for b in range(2)]
         # |m| ≤ 1 is a ratio of fields held to f32 roundoff: absolute
@@ -204,8 +204,8 @@ def test_cyclic_tridiag_factors_match_dense_inverse(L, gamma, dt):
     a_inv = np.asarray(build_diffusion_op(L, dx, dt, gamma, "periodic",
                                           "dense").a_inv, np.float64)
     want = x.astype(np.float64) @ a_inv.T
-    f = cyclic_tridiag_factors(L, dx, dt, gamma, device="cpu")
-    got = cyclic_tridiag_solve(f, torch.tensor(x)).numpy()
+    f = tridiag_factors(L, dx, dt, gamma, "periodic", device="cpu")
+    got = tridiag_solve(f, torch.tensor(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-9)
     dense = diffusion_solve(build_dense_inverse(L, dx, dt, gamma, "periodic",
                                                 device="cpu"),
