@@ -6,7 +6,10 @@ Phases (each prints one line with its wall time; a failed phase raises):
 1. device: a CUDA card, its name and power limit (nvidia-smi), versions;
 2. build: the three CUDA kernels from ``hydrolim_tpu_torch/csrc``, one
    nvcc process each, all started together;
-3. kernel B1 against its plain PyTorch version on the card, injected bits;
+3. kernel B1 against its plain PyTorch version on the card, injected bits,
+   under its own plan and under every cluster size and state mode its
+   launch plan can reach (``B1_PLANS``: registers, shared memory, device
+   memory);
 4. kernel B2 against its plain PyTorch version on the card, injected bits,
    in every mode (``B2_CASES``: global / pointwise / narrow / smooth m,
    periodic / Neumann, bidirectional / anchored_minus, exact / banded /
@@ -14,9 +17,10 @@ Phases (each prints one line with its wall time; a failed phase raises):
 5. the micro↔macro main path at full size (the cross-engine driver on
    ``device='cuda'``, native Philox streams) with its physics pins, and the
    proof that it ran through B1 and B2 (launch counters);
-6. throughput of B1 and B2 at the headline shapes, kernel and plain version,
-   and B2's µs per step in each mode at the PDE slice's shapes with its
-   bound;
+6. throughput of B1 at the main path's and the headline shapes (with the
+   plan's cluster size and state mode) and of B2 at the main path's shape,
+   kernel and plain version, and B2's µs per step in each mode at the PDE
+   slice's shapes with its bound;
 7. kernel B3/B4 against its plain version on the card, injected bits, in
    four configurations at 4 and 33 replicas: slots equal, state moved,
    admission refused somewhere, ids conserved, occupancy ≤ K;
@@ -164,7 +168,68 @@ def check_b1(dev) -> float:
                 raise AssertionError(f"{what}: the state did not move")
             if not (got[2] != 0).any():
                 raise AssertionError(f"{what}: no particle wrapped")
-    return float(err)
+    return max(float(err), check_b1_plans(dev, gen))
+
+
+# B1's plans: (N, L, forced cluster size, the state mode it must take)
+B1_PLANS = (
+    (5000, 256, 1, "registers"), (5000, 256, 2, "registers"),
+    (5001, 256, 3, "registers"), (5000, 256, 4, "registers"),
+    (4999, 256, 8, "registers"), (30_000, 64, 1, "shared"),
+    (100_000, 1000, 2, "shared"), (100_003, 1000, 4, "shared"),
+    (100_000, 1000, 1, "global"), (3000, 70_000, 2, "global"),
+)
+
+
+def check_b1_plans(dev, gen) -> float:
+    """B=3, 200 steps (dt=0.02, rd=0.5, ra=2: p_dif = 0.01), injected
+    bits, both active models, under each of ``B1_PLANS``: pos, σ and wind
+    EQUAL to the plain version's.  Returns the max abs difference (0)."""
+    import torch
+    from hydrolim_tpu_torch.ops.stepper_kernel import (
+        coresident_clusters,
+        launch_plan,
+        meanfield_multi_step_planned,
+        meanfield_multi_step_plain,
+    )
+
+    B, k = 3, 200
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    scal = torch.tensor([[b, 0.5, 2.0] for b in (0.5, 1.5, 2.5)],
+                        dtype=torch.float32, device=dev)
+    seeds = torch.zeros(B, dtype=torch.int32, device=dev)
+    for N, L, C, mode in B1_PLANS:
+        plan = launch_plan(B, N, L, k, sm, coresident_clusters(0, N, L),
+                           cluster=C)
+        what = (f"B1 plan C={C} {plan.shape.mode} ({plan.shape.threads} "
+                f"threads) N={N} L={L}")
+        if plan.shape.mode != mode:
+            raise AssertionError(f"{what}: want the {mode} state")
+        pos = torch.randint(0, L, (B, N), generator=gen, device=dev,
+                            dtype=torch.int32)
+        sig = torch.randint(0, 2, (B, N), generator=gen, device=dev,
+                            dtype=torch.int32) * 2 - 1
+        wind = torch.randint(-2, 3, (B, N), generator=gen, device=dev,
+                             dtype=torch.int32)
+        for bidi in (True, False):
+            kw = dict(L=L, k_steps=k, dt=0.02, bidirectional=bidi,
+                      noise=randbits((B, k, N), gen, dev))
+            got = meanfield_multi_step_planned(plan, scal, seeds, pos, sig,
+                                               wind, **kw)
+            want = meanfield_multi_step_plain(scal, seeds, pos, sig, wind,
+                                              **kw)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("pos", "sigma", "wind"), got, want):
+                bad = int((a != b).sum())
+                if bad:
+                    raise AssertionError(f"{what} bidirectional={bidi}: "
+                                         f"{name} differs at {bad} of "
+                                         f"{a.numel()} particles")
+            if torch.equal(got[0], pos) or torch.equal(got[1], sig):
+                raise AssertionError(f"{what}: the state did not move")
+        print(f"{what}: equal over {k} steps, both active models",
+              flush=True)
+    return 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +269,8 @@ B2_CASES = (
      dict(gaussian_kernel=True, kernel_sigma=2e5), dict(gamma=0.0)),
     ("pointwise, periodic, bidirectional, exact", ("pointwise", "exact"),
      {}, {}),
+    ("pointwise, neumann, bidirectional, exact", ("pointwise", "exact"),
+     dict(bc="neumann"), {}),
     ("narrow sigma=0.005, periodic, bidirectional, none", ("narrow", "none"),
      dict(gaussian_kernel=True, kernel_sigma=0.005), dict(gamma=0.0)),
     ("smooth sigma=0.05, neumann, anchored_minus, exact",
@@ -364,39 +431,28 @@ def main_path(outdir: str) -> dict:
 # phase 6: throughput
 # ---------------------------------------------------------------------------
 
-def throughput(dev) -> dict:
-    """B1 at the headline shape (B=64, N=1e5, L=1000, dt=0.002, rd=0.5,
-    ra=2, β=linspace(0,3,64), 1000-step calls) and B2 at the main path's PDE
-    shape (33 replicas, L=1000, 1000 tracers, one 2000-step chunk), each
-    beside its plain version on the same card."""
+def b1_rate(dev, gen, label, B, N, L, k, dt, rd, ra, betas) -> dict:
+    """B1's ms per ``k``-step call at one shape (native Philox, CUDA events
+    over 3 calls after a warm-up, step0 advanced per call), the plan the
+    wrapper chose, its bound and the plain version's ms per 1000 steps."""
     import torch
-    from hydrolim_tpu_torch.core.config import PDEConfig
-    from hydrolim_tpu_torch.ops.pde_kernel import (
-        build_solve_operands,
-        pde_multi_step,
-        pde_multi_step_plain,
-    )
     from hydrolim_tpu_torch.ops.stepper_kernel import (
+        coresident_clusters,
+        launch_plan,
         meanfield_multi_step,
         meanfield_multi_step_plain,
     )
-    from hydrolim_tpu_torch.pde.init import pde_initialize
 
-    out = {}
-    B, N, L, k = 64, 100_000, 1000, 1000
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
     st = [torch.randint(0, L, (B, N), generator=gen, device=dev,
                         dtype=torch.int32),
           torch.randint(0, 2, (B, N), generator=gen, device=dev,
                         dtype=torch.int32) * 2 - 1,
           torch.zeros((B, N), dtype=torch.int32, device=dev)]
-    scal = torch.stack([torch.linspace(0.0, 3.0, B, device=dev),
-                        torch.full((B,), 0.5, device=dev),
-                        torch.full((B,), 2.0, device=dev)], 1).contiguous()
+    scal = torch.tensor([[b, rd, ra] for b in betas], dtype=torch.float32,
+                        device=dev)
     seeds = torch.randint(0, 2 ** 30, (B,), generator=gen, device=dev,
                           dtype=torch.int32)
-    kw = dict(L=L, k_steps=k, dt=0.002, bidirectional=True)
+    kw = dict(L=L, k_steps=k, dt=dt, bidirectional=True)
     frame = [0]
 
     def kernel_call():
@@ -407,17 +463,66 @@ def throughput(dev) -> dict:
     kernel_call()                                   # warm-up
     ms = [cuda_ms(kernel_call) for _ in range(3)]   # 3 frames
     plain_ms = cuda_ms(lambda: meanfield_multi_step_plain(
-        scal, seeds, *st, generator=gen, **kw))
+        scal, seeds, *st, generator=gen, **dict(kw, k_steps=1000)))
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = launch_plan(B, N, L, k, sm, coresident_clusters(0, N, L))
     # per particle-step: the uniform's scale and four threshold compares;
     # per replica-step: two expf and their scaling
+    b = bound(6 * 4 * B * N + 16 * B, k * (5 * B * N + 4 * B))
+    row = dict(shape=label, B=B, N=N, L=L, k_steps=k,
+               cluster=plan.shape.cluster, state=plan.shape.mode,
+               threads=plan.shape.threads, ms=float(np.mean(ms)),
+               us_per_step=float(np.mean(ms)) * 1e3 / k,
+               plain_ms_per_1000_steps=plain_ms, **b)
+    print(f"B1 {label} (B={B}, N={N}, L={L}): cluster C={plan.shape.cluster}"
+          f", state in {plan.shape.mode}, {plan.shape.threads} threads; "
+          f"{row['us_per_step']:.3f} us/step "
+          f"({B * N * k / (row['ms'] / 1e3):.4e} particle-steps/s; "
+          f"{k}-step calls {', '.join(f'{m:.2f}' for m in ms)} ms); bound "
+          f"{b['bound_ms']:.4f} ms per call ({b['bound_by']}); plain "
+          f"{plain_ms:.1f} ms per 1000 steps", flush=True)
+    return row
+
+
+def throughput(dev) -> dict:
+    """B1 at the main path's particle shape (33 replicas, N=5000, L=256,
+    its rates and dt, 20,000-step calls) and at the headline shape (B=64,
+    N=1e5, L=1000, dt=0.002, rd=0.5, ra=2, β=linspace(0,3,64), 1000-step
+    calls), and B2 at the main path's PDE shape (33 replicas, L=1000, 1000
+    tracers, one 2000-step chunk), each beside its plain version on the
+    same card."""
+    import torch
+    from hydrolim_tpu_torch.core.config import ParticleConfig, PDEConfig
+    from hydrolim_tpu_torch.experiments.cross_engine_validation import (
+        GAMMA,
+        LAM,
+    )
+    from hydrolim_tpu_torch.ops.pde_kernel import (
+        build_solve_operands,
+        pde_multi_step,
+        pde_multi_step_plain,
+    )
+    from hydrolim_tpu_torch.pde.init import pde_initialize
+    from hydrolim_tpu_torch.sweeps.ensemble import ensemble_dt
+
+    out = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    L = 256
+    rd, ra = GAMMA * L ** 2, LAM * L
+    dt = ensemble_dt(ParticleConfig(
+        L=L, N=5000, n_pad=5000, init="fixed", scale_rates=False,
+        local_kernel_sigma=0.0, periodic=True, site_capacity=None,
+        active_model="bidirectional"), beta_max=3.0, rate_diffusion=rd,
+        rate_active=ra)
+    main_row = b1_rate(dev, gen, "main path", 33, 5000, L, 20_000, dt, rd,
+                       ra, np.repeat(np.linspace(0.0, 3.0, 11), 3))
+    head = b1_rate(dev, gen, "headline", 64, 100_000, 1000, 1000, 0.002,
+                   0.5, 2.0, np.linspace(0.0, 3.0, 64))
     out["meanfield_multi_step"] = dict(
-        ms=float(np.mean(ms)), plain_ms=plain_ms,
-        **bound(6 * 4 * B * N + 16 * B, k * (5 * B * N + 4 * B)))
-    print(f"B1 kernel {B * N * k / (np.mean(ms) / 1e3):.4e} particle-steps/s "
-          f"(frames {', '.join(f'{m:.2f}' for m in ms)} ms); plain "
-          f"{B * N * k / (plain_ms / 1e3):.4e} particle-steps/s "
-          f"({plain_ms:.1f} ms per {k} steps)", flush=True)
-    del st
+        ms=head["ms"], plain_ms=head["plain_ms_per_1000_steps"],
+        **{key: head[key] for key in ("bound_ms", "bound_by", "library_ms")},
+        per_shape=[main_row, head])
 
     B, L, n_t, k, dt, gamma = 33, 1000, 1000, 2000, 5e-4, 0.2
     config = PDEConfig(L=L, dt=dt, n_tracers=n_t)

@@ -8,39 +8,58 @@
 // bins.
 //
 // What bounds it on an H100: per step a replica is a few thousand flops on
-// 2*L field values and n_t tracers (up to 2*L^2 FMAs with the full
-// smoothing circulant) -- too little work per replica to be bound by
-// bandwidth.  It is bound by latency: the exact solve is a sequential
-// recurrence over the L sites, and every reduction (m, Var, tracer mean and
-// variance, mass renormalisation) is a block-wide barrier.  The TPU
-// kernel's dense (L, L) matrices are not carried over: at L = 1000 each is
-// 4 MB and does not fit shared memory.
+// 2*L field values and n_t tracers, plus 2*L^2 FMAs with the full smoothing
+// circulant -- too little work per replica to be bound by bandwidth, and
+// every reduction (m, Var, tracer mean and variance, mass renormalisation)
+// is a block-wide barrier.  The parent kernel spent ~37 of its ~43 us
+// exact-solve step in two threads running Thomas' recurrences, and its full
+// circulant (one site per thread, two shared-memory loads per pair of
+// FMAs) ~46 us on top.  The TPU kernel's dense (L, L) matrices are not
+// carried over: at L = 1000 each is 4 MB and does not fit shared memory.
 //
 // Design: one CTA per replica, looping over the chunk's k steps.  The two
 // fields, two scratch fields and, for a local magnetization, the m field
-// live in shared memory (5*L floats: 160 KB at L = 8192).  What is the same
-// for every replica -- the tridiagonal factors, the tap tables, the cos/sin
+// live in shared memory (5*L floats: 160 KB at L = 8192), with a buffer of
+// the circulant's partial sums where it fits.  What is the same for every
+// replica -- the tridiagonal factors, the padded tap tables, the cos/sin
 // table -- is read from device memory through L1.
-//   - m: pointwise (P-M)/(P+M), or the symmetric-circulant tap routine on
-//     the numerator and denominator; kept per site in shared memory, read
-//     by the tracer gather at int(mod(pos, xlim)/dx) mod L.
-//   - the tap routine sum_d w(d) (x[i-d] + x[i+d]) (indices mod L) serves
-//     the narrow smoothing, the full circulant (d up to L/2; for even L the
-//     host halves the d = L/2 tap, so its pair adds it once) and the banded
-//     solve.  Each thread keeps its sites' sums in registers; the full
-//     circulant costs 2 L^2 FMAs per step with two shared-memory loads per
-//     pair of FMAs.
-//   - exact solve (1+2c) x_i - a_i x_{i-1} - c x_{i+1} = rho_i: Thomas with
-//     a per-row sub-diagonal a_i (Neumann's mirrored last row carries 2c)
-//     and, when periodic, a Sherman-Morrison correction for the corners;
-//     factored on the host in float64 (ops/diffusion.py), applied here in
-//     f32 -- one thread per field, the two fields in two warps.
+//   - m: pointwise (P-M)/(P+M), or the blocked circulant on the numerator
+//     and denominator; kept per site in shared memory, read by the tracer
+//     gather at int(mod(pos, xlim)/dx) mod L.
+//   - the blocked circulant sum_d w(d) (x[i-d] + x[i+d]) (indices mod L)
+//     serves the narrow smoothing, the full circulant (d up to L/2; for
+//     even L the host halves the d = L/2 tap, so its pair adds it once) and
+//     the banded solve.  A thread computes kBlock consecutive sites of one
+//     field over one slice of the taps, sliding two windows through
+//     registers (a circular buffer whose slots rotate at compile time), so
+//     tap d -> d+1 loads one new value per side for kBlock outputs; kBlock
+//     is odd, so a warp's loads at stride kBlock are free of bank
+//     conflicts; one field at a time keeps the windows within the 64
+//     registers a thread of a 1024-thread block has.  The slices' partial
+//     sums meet in shared memory in slice order.  The host
+//     pads the tap table with zeros to whole slices (ops/pde_kernel.py
+//     tap_plan).  What remains is the sums' own FP32 work, 2*L^2 FMAs per
+//     step for the full circulant.
+//   - exact solve (1+2c) x_i - a_i x_{i-1} - c x_{i+1} = rho_i: both sweeps
+//     of Thomas are first-order affine recurrences with coefficients fixed
+//     from step to step (forward y_i = alpha_i y_{i-1} + inv_i rho_i, back
+//     x_i = y_i - c'_i x_{i+1}), so each runs as a block scan of affine
+//     maps: a run of consecutive sites per thread composed in registers, a
+//     warp scan by shuffle, one cross-warp level (the warp totals through
+//     shared memory, composed by a shuffle scan); the two fields at once on
+//     the two halves of the block.  Neumann's mirrored last row carries 2c
+//     in a_i; periodic adds a Sherman-Morrison correction for the corners
+//     from x_0 and x_{L-1}, applied where the next phase reads the solved
+//     fields.  Factors come from the host in float64 (ops/diffusion.py); the
+//     scan composes its maps in float64 (latency-bound, so at little cost)
+//     and stores f32 fields, closer to the exact solve than f32 Thomas.
 //   - upwind advection, CW reaction, clip and mass renormalisation, in the
 //     bidirectional branch, or in anchored_minus (reaction first, then the
 //     advection of rho_+* alone, read across a barrier).
 // Tracers take one thread each; their windowed displacement ring stays in
 // device memory, touched once per tracer-step.  Spectra: one warp per
-// (bin, re|im) sums total(x) * table[(k x) mod L]; lane 0 writes the record.
+// (bin, re|im) sums total(x) * table[(k x) mod L]; lane 0 writes the record
+// (still the single run's bottleneck at 501 bins).
 //
 // Random bits: injected (noise, (B, k, 3, n_t) uint32 held in int32: flip,
 // Box-Muller u2, u3) or native Philox with key (seed[b], b) and counter
@@ -55,6 +74,8 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
+constexpr int kHalf = kThreads / 2;  // the scan solve: one field per half
+constexpr int kBlock = 9;            // sites per unit of the circulant
 
 enum MMode { kGlobal = 0, kPointwise = 1, kTaps = 2 };
 enum SolveMode { kNoSolve = 0, kExact = 1, kBanded = 2 };
@@ -89,24 +110,168 @@ __device__ __forceinline__ float cw(float beta, float s, float m) {
   return fminf(fmaxf(expf(-beta * s * m), 1e-8f), 1e8f);
 }
 
-// The symmetric circulant at site x on two fields at once:
-//   oa = w[0] a[x] + sum_{d=1..R} w[d] (a[x-d] + a[x+d]),  indices mod L.
-__device__ __forceinline__ void taps2(const float* __restrict__ a,
-                                      const float* __restrict__ b,
-                                      const float* __restrict__ w, int R,
-                                      int L, int x, float& oa, float& ob) {
-  const float w0 = __ldg(w);
-  float sa = w0 * a[x], sb = w0 * b[x];
-  int lo = x, hi = x;
-  for (int d = 1; d <= R; ++d) {
-    lo = lo == 0 ? L - 1 : lo - 1;
-    hi = hi == L - 1 ? 0 : hi + 1;
-    const float wd = __ldg(w + d);
-    sa += wd * (a[lo] + a[hi]);
-    sb += wd * (b[lo] + b[hi]);
+__device__ __forceinline__ int wrap(int i, int L) {
+  i %= L;
+  return i < 0 ? i + L : i;
+}
+
+// One tap of the circulant on a unit's S outputs; u (the tap's place in
+// its chunk) is a constant once the caller's loop is unrolled, so the slots
+// are registers.
+template <int S>
+__device__ __forceinline__ void tap_sum(const float (&lw)[S],
+                                        const float (&rw)[S], float (&acc)[S],
+                                        float wd, int u) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+    acc[s] = fmaf(wd, lw[(s + 2 * S - 1 - u) % S] + rw[(s + 1 + u) % S],
+                  acc[s]);
+}
+
+// The symmetric circulant on one field,
+//   o[x] = w[0] a[x] + sum_{d>=1} w[d] (a[x-d] + a[x+d]),  indices mod L,
+// w padded with zeros to 1 + ns*len taps (len a multiple of kBlock).  Work
+// unit (slice, block) = sites [kBlock*block, +kBlock) over taps
+// [1 + slice*len, 1 + (slice+1)*len); slice 0 adds the centre tap.  With
+// ns == 1 each unit hands its sums to consume(x, o); otherwise the units
+// write `part` ([ns][L]) and, after a barrier, consume() runs per site on
+// the slices' sums in slice order (a unit and the per-site pass give a
+// thread the same sites in both fields, so a second call may read what the
+// first one's consume() wrote).  Every thread must call it.
+template <typename F>
+__device__ __forceinline__ void circulant(const float* __restrict__ a,
+                                          const float* __restrict__ w,
+                                          int L, int nb, int ns, int len,
+                                          float* part, F consume) {
+  constexpr int S = kBlock;
+  for (int unit = threadIdx.x; unit < nb * ns; unit += kThreads) {
+    const int sl = unit / nb, x0 = (unit - sl * nb) * S;
+    const int d0 = sl * len;  // the window before the slice's first tap
+    float lw[S], rw[S], acc[S];
+    int lo = wrap(x0 - d0, L), hi = wrap(x0 + d0, L);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {  // slot s holds x0 + s -/+ d0
+      lw[s] = a[lo];
+      rw[s] = a[hi];
+      lo = lo == L - 1 ? 0 : lo + 1;
+      hi = hi == L - 1 ? 0 : hi + 1;
+    }
+    const float w0 = sl == 0 ? __ldg(w) : 0.f;
+#pragma unroll
+    for (int s = 0; s < S; ++s) acc[s] = w0 * lw[s];
+    lo = wrap(x0 - d0, L);              // the next left site is lo - 1
+    hi = wrap(x0 + S - 1 + d0, L);      // the next right site is hi + 1
+    const float* wp = w + 1 + d0;
+    for (int c = 0; c < len; c += S) {
+#pragma unroll
+      for (int u = 0; u < S; ++u) {
+        // tap d = d0 + c + u + 1 = 1 + u (mod S): left site x0 + s - d
+        // sits in slot (s - 1 - u) mod S, right site x0 + s + d in slot
+        // (s + 1 + u) mod S; the new values enter slots S-1-u and u
+        lo = lo == 0 ? L - 1 : lo - 1;
+        hi = hi == L - 1 ? 0 : hi + 1;
+        lw[S - 1 - u] = a[lo];
+        rw[u] = a[hi];
+        tap_sum<S>(lw, rw, acc, __ldg(wp + c + u), u);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int x = x0 + s;
+      if (x >= L) break;
+      if (ns == 1) {
+        consume(x, acc[s]);
+      } else {
+        part[sl * L + x] = acc[s];
+      }
+    }
   }
-  oa = sa;
-  ob = sb;
+  if (ns > 1) {
+    __syncthreads();
+    for (int x = threadIdx.x; x < L; x += kThreads) {
+      float o = part[x];
+      for (int sl = 1; sl < ns; ++sl) o += part[sl * L + x];
+      consume(x, o);
+    }
+    __syncthreads();  // `part` is free again
+  }
+}
+
+// An affine map v -> a v + b, in float64; after(l, e) is l o e.
+struct Aff {
+  double a, b;
+};
+__device__ __forceinline__ Aff after(Aff l, Aff e) {
+  return {l.a * e.a, fma(l.a, e.b, l.b)};
+}
+__device__ __forceinline__ Aff shfl_up(Aff v, int d) {
+  return {__shfl_up_sync(0xffffffffu, v.a, d),
+          __shfl_up_sync(0xffffffffu, v.b, d)};
+}
+__device__ __forceinline__ Aff shfl_down(Aff v, int d) {
+  return {__shfl_down_sync(0xffffffffu, v.a, d),
+          __shfl_down_sync(0xffffffffu, v.b, d)};
+}
+
+// One sweep of the scan solve over this thread's run [lo, hi) of field F
+// on its half of the block (kHalf threads, one field each).  Forward:
+// y_i = alpha_i y_{i-1} + inv_i F_i from y_{-1} = 0; back (rev): x_i =
+// -c'_i x_{i+1} + F_i from x_L = 0 (c'_{L-1} = 0).  `tot` holds the half's
+// kHalf/32 warp totals; the caller's barrier must separate two uses of it.
+// Writes the result over F[lo, hi).
+__device__ __forceinline__ void scan_sweep(float* F, int lo, int hi,
+                                           const double* __restrict__ coef,
+                                           const double* __restrict__ inv,
+                                           bool rev, Aff* tot) {
+  const int lane = threadIdx.x & 31, wh = (threadIdx.x & (kHalf - 1)) >> 5;
+  constexpr int kHalfWarps = kHalf / 32;
+  Aff v{1.0, 0.0};
+  if (!rev) {
+    for (int i = lo; i < hi; ++i) {
+      const double al = __ldg(coef + i);
+      v = {al * v.a, fma(al, v.b, (double)F[i] * __ldg(inv + i))};
+    }
+  } else {
+    for (int i = hi - 1; i >= lo; --i) {
+      const double ng = -__ldg(coef + i);
+      v = {ng * v.a, fma(ng, v.b, (double)F[i])};
+    }
+  }
+  // inclusive warp scan in sweep order (rev: lane 31 first)
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const Aff o = rev ? shfl_down(v, d) : shfl_up(v, d);
+    if (rev ? lane + d < 32 : lane >= d) v = after(v, o);
+  }
+  if (lane == (rev ? 0 : 31)) tot[wh] = v;
+  Aff e = rev ? shfl_down(v, 1) : shfl_up(v, 1);
+  if (lane == (rev ? 31 : 0)) e = {1.0, 0.0};
+  __syncthreads();
+  // the warps before this one in sweep order: lane l < kHalfWarps takes the
+  // total of the warp at sweep position l, and a shuffle scan composes them
+  Aff t{1.0, 0.0};
+  if (lane < kHalfWarps) t = tot[rev ? kHalfWarps - 1 - lane : lane];
+#pragma unroll
+  for (int d = 1; d < kHalfWarps; d <<= 1) {
+    const Aff o = shfl_up(t, d);
+    if (lane >= d) t = after(t, o);
+  }
+  const int at = rev ? kHalfWarps - 1 - wh : wh;  // this warp's position
+  Aff q{__shfl_sync(0xffffffffu, t.a, at > 0 ? at - 1 : 0),
+        __shfl_sync(0xffffffffu, t.b, at > 0 ? at - 1 : 0)};
+  if (at == 0) q = {1.0, 0.0};
+  double y = after(e, q).b;  // the value entering the run
+  if (!rev) {
+    for (int i = lo; i < hi; ++i) {
+      y = fma(__ldg(coef + i), y, (double)F[i] * __ldg(inv + i));
+      F[i] = (float)y;
+    }
+  } else {
+    for (int i = hi - 1; i >= lo; --i) {
+      y = fma(-__ldg(coef + i), y, (double)F[i]);
+      F[i] = (float)y;
+    }
+  }
 }
 
 struct Args {
@@ -116,11 +281,13 @@ struct Args {
   const float *rp_in, *rm_in, *pos_in, *spin_in, *hist_in;
   float *rp_out, *rm_out, *pos_out, *spin_out, *hist_out, *recs;
   const float* factors;      // (4, L) [1/pivot, c', z, a] (exact solve)
-  const float* solve_taps;   // (solve_r + 1,) half taps (banded solve)
-  const float* smooth_taps;  // (smooth_r + 1,) half taps (smoothed m)
+  const double* scan;        // (3, L) [1/pivot, c', alpha] (exact solve)
+  const float* solve_taps;   // (1 + sv_ns*sv_len,) padded taps (banded)
+  const float* smooth_taps;  // (1 + sm_ns*sm_len,) padded taps (smoothed m)
   const float* trig;         // (2, L) [cos, sin](2 pi j / L) or null
   const int* noise;
-  int L, n_t, window, k_steps, kmax, m_mode, solve_mode, solve_r, smooth_r;
+  int L, n_t, window, k_steps, kmax, m_mode, solve_mode;
+  int sm_nb, sm_ns, sm_len, sv_nb, sv_ns, sv_len;  // circulant plans
   int periodic, bidirectional;
   float dt, dx, xlim, v_last, fac, w_dt, w_2dt;
 };
@@ -139,10 +306,11 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
   float* N = Q + L;
   float* mS = N + L;                       // L floats when local_m
   float* DR = mS + (local_m ? L : 0);      // n_t
-  float* coef = DR + n_t;                  // 2
-  float* redA = coef + 2;                  // kWarps * 2
+  float* redA = DR + n_t;                  // kWarps * 2
   float* redB = redA + kWarps * 2;         // kWarps * 2
   float* redD = redB + kWarps * 2;         // kWarps * 3
+  Aff* scanT = reinterpret_cast<Aff*>(redD + kWarps * 3);  // 2 x kWarps
+  float* part = reinterpret_cast<float*>(scanT + 2 * kWarps);  // circulant
 
   const float beta = a.scal[4 * b], lam = a.scal[4 * b + 1];
   const float noise_amp = sqrtf(__fmul_rn(2.f * a.scal[4 * b + 2], a.dt));
@@ -179,23 +347,28 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
       __syncthreads();
     }
     float vA[2] = {0.f, 0.f};
-    for (int x = tid; x < L; x += kThreads) {
-      const float p = P[x], q = M[x];
-      if (a.m_mode == kGlobal) {
-        vA[0] += p - q;
-      } else {
-        float mx;
-        if (a.m_mode == kPointwise) {
-          mx = (p - q) / (p + q + 1e-12f);
+    if (a.m_mode == kTaps) {  // mS holds the smoothed numerator between
+      circulant(Q, a.smooth_taps, L, a.sm_nb, a.sm_ns, a.sm_len, part,
+                [&](int x, float sn) { mS[x] = sn; });
+      circulant(N, a.smooth_taps, L, a.sm_nb, a.sm_ns, a.sm_len, part,
+                [&](int x, float sd) {
+                  const float mx = mS[x] / (sd + 1e-12f);
+                  mS[x] = mx;
+                  vA[0] += mx;
+                });
+      for (int x = tid; x < L; x += kThreads) vA[1] += P[x] + M[x];
+    } else {
+      for (int x = tid; x < L; x += kThreads) {
+        const float p = P[x], q = M[x];
+        if (a.m_mode == kGlobal) {
+          vA[0] += p - q;
         } else {
-          float sn, sd;
-          taps2(Q, N, a.smooth_taps, a.smooth_r, L, x, sn, sd);
-          mx = sn / (sd + 1e-12f);
+          const float mx = (p - q) / (p + q + 1e-12f);
+          mS[x] = mx;
+          vA[0] += mx;
         }
-        mS[x] = mx;
-        vA[0] += mx;
+        vA[1] += p + q;
       }
-      vA[1] += p + q;
     }
     block_sum<2>(vA, redA);  // its barrier also publishes mS
     const float m_glob = vA[0] / (vA[1] + 1e-12f);
@@ -273,44 +446,30 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
 
     // -- implicit diffusion: (P1, M1) are the solved fields ---------------
     float *P1 = P, *M1 = M, *P2 = Q, *M2 = N;
-    if (a.solve_mode == kExact) {  // in place
-      if (lane == 0 && warp < 2) {
-        float* F = warp == 0 ? P : M;
-        const float* inv = a.factors;
-        const float* cp = inv + L;
-        const float* sub = inv + 3 * L;
-        float prev = F[0] * __ldg(inv);
-        F[0] = prev;
-#pragma unroll 4
-        for (int i = 1; i < L; ++i) {
-          prev = (F[i] + __ldg(sub + i) * prev) * __ldg(inv + i);
-          F[i] = prev;
-        }
-#pragma unroll 4
-        for (int i = L - 2; i >= 0; --i) {
-          prev = F[i] - __ldg(cp + i) * prev;
-          F[i] = prev;
-        }
-        coef[warp] = a.fac * (prev + a.v_last * F[L - 1]);
-      }
+    // the periodic exact solve's corner correction: P1[x] - cP z[x]
+    float cP = 0.f, cM = 0.f;
+    const float* zz = nullptr;
+    if (a.solve_mode == kExact) {  // in place: two scan sweeps per field
+      const int h = tid / kHalf, t = tid - h * kHalf;
+      const int run = (L + kHalf - 1) / kHalf;
+      const int lo = min(L, t * run), hi = min(L, lo + run);
+      float* F = h == 0 ? P : M;
+      const double* g = a.scan;
+      scan_sweep(F, lo, hi, g + 2 * L, g, false, scanT + h * (kHalf / 32));
+      scan_sweep(F, lo, hi, g + L, nullptr, true,
+                 scanT + kWarps + h * (kHalf / 32));
+      const float* f = a.factors;
       __syncthreads();
-      if (a.periodic) {  // Sherman-Morrison correction of the corners
-        const float cP = coef[0], cM = coef[1];
-        const float* zz = a.factors + 2 * L;
-        for (int x = tid; x < L; x += kThreads) {
-          const float z = __ldg(zz + x);
-          P[x] -= cP * z;
-          M[x] -= cM * z;
-        }
-        __syncthreads();
+      if (a.periodic) {  // Sherman-Morrison: x - c z, applied where read
+        cP = a.fac * (P[0] + a.v_last * P[L - 1]);
+        cM = a.fac * (M[0] + a.v_last * M[L - 1]);
+        zz = f + 2 * L;
       }
     } else if (a.solve_mode == kBanded) {
-      for (int x = tid; x < L; x += kThreads) {
-        float sp, sq;
-        taps2(P, M, a.solve_taps, a.solve_r, L, x, sp, sq);
-        Q[x] = sp;
-        N[x] = sq;
-      }
+      circulant(P, a.solve_taps, L, a.sv_nb, a.sv_ns, a.sv_len, part,
+                [&](int x, float v) { Q[x] = v; });
+      circulant(M, a.solve_taps, L, a.sv_nb, a.sv_ns, a.sv_len, part,
+                [&](int x, float v) { N[x] = v; });
       __syncthreads();
       P1 = Q; M1 = N; P2 = P; M2 = M;
     }
@@ -325,9 +484,16 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
       for (int x = tid; x < L; x += kThreads) {
         const int xl = x == 0 ? L - 1 : x - 1;
         const int xr = x == L - 1 ? 0 : x + 1;
-        const float p1 = P1[x], m1 = M1[x];
-        float dp = (p1 - P1[xl]) / dx;
-        float dm = (M1[xr] - m1) / dx;
+        float p1 = P1[x], m1 = M1[x], pl = P1[xl], mr = M1[xr];
+        if (zz) {
+          const float z = __ldg(zz + x);
+          p1 -= cP * z;
+          m1 -= cM * z;
+          pl -= cP * __ldg(zz + xl);
+          mr -= cM * __ldg(zz + xr);
+        }
+        float dp = (p1 - pl) / dx;
+        float dm = (mr - m1) / dx;
         if (walls && x == 0) dp = 0.f;
         if (walls && x == L - 1) dm = 0.f;
         const float mx = local_m ? mS[x] : m_glob;
@@ -344,7 +510,12 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
       P_new = P2; M_new = M2; Q_new = P1; N_new = M1;
     } else {  // anchored_minus: reaction first, then rho_+* is advected
       for (int x = tid; x < L; x += kThreads) {
-        const float p1 = P1[x], m1 = M1[x];
+        float p1 = P1[x], m1 = M1[x];
+        if (zz) {
+          const float z = __ldg(zz + x);
+          p1 -= cP * z;
+          m1 -= cM * z;
+        }
         const float mx = local_m ? mS[x] : m_glob;
         const float cwm = local_m ? cw(beta, -1.f, mx) : cwm_g;
         const float cwp = local_m ? cw(beta, 1.f, mx) : cwp_g;
@@ -397,9 +568,10 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
 
 }  // namespace
 
-extern "C" size_t pde_multi_step_smem_bytes(int L, int n_t, int local_m) {
-  return sizeof(float) * ((size_t)(local_m ? 5 : 4) * L + n_t + 2 +
-                          7 * kWarps);
+extern "C" size_t pde_multi_step_smem_bytes(int L, int n_t, int local_m,
+                                            int part_floats) {
+  return sizeof(float) * ((size_t)(local_m ? 5 : 4) * L + n_t + 7 * kWarps) +
+         sizeof(Aff) * 2 * kWarps + sizeof(float) * (size_t)part_floats;
 }
 
 extern "C" int pde_multi_step_launch(
@@ -407,19 +579,22 @@ extern "C" int pde_multi_step_launch(
     const float* rm_in, const float* pos_in, const float* spin_in,
     const float* hist_in, float* rp_out, float* rm_out, float* pos_out,
     float* spin_out, float* hist_out, float* recs, const float* factors,
-    const float* solve_taps, const float* smooth_taps, const float* trig,
+    const double* scan, const float* solve_taps, const float* smooth_taps, const float* trig,
     const int* noise, int B, int L, int n_t, int window, int k_steps,
-    int kmax, int m_mode, int solve_mode, int solve_r, int smooth_r,
-    int periodic, int bidirectional, float dt, float dx, float xlim,
-    float v_last, float fac, float w_dt, float w_2dt, void* stream) {
-  Args a{scal,    seeds,    step0,      rp_in,     rm_in,       pos_in,
-         spin_in, hist_in,  rp_out,     rm_out,    pos_out,     spin_out,
-         hist_out, recs,    factors,    solve_taps, smooth_taps, trig,
-         noise,   L,        n_t,        window,    k_steps,     kmax,
-         m_mode,  solve_mode, solve_r,  smooth_r,  periodic,    bidirectional,
-         dt,      dx,       xlim,       v_last,    fac,         w_dt,
-         w_2dt};
-  const size_t smem = pde_multi_step_smem_bytes(L, n_t, m_mode != kGlobal);
+    int kmax, int m_mode, int solve_mode, int sm_nb, int sm_ns, int sm_len,
+    int sv_nb, int sv_ns, int sv_len, int part_floats, int periodic,
+    int bidirectional, float dt, float dx, float xlim, float v_last,
+    float fac, float w_dt, float w_2dt, void* stream) {
+  Args a{scal,     seeds,      step0,       rp_in,   rm_in,    pos_in,
+         spin_in,  hist_in,    rp_out,      rm_out,  pos_out,  spin_out,
+         hist_out, recs,       factors,     scan,    solve_taps, smooth_taps,
+         trig,
+         noise,    L,          n_t,         window,  k_steps,  kmax,
+         m_mode,   solve_mode, sm_nb,       sm_ns,   sm_len,   sv_nb,
+         sv_ns,    sv_len,     periodic,    bidirectional, dt, dx,
+         xlim,     v_last,     fac,         w_dt,    w_2dt};
+  const size_t smem =
+      pde_multi_step_smem_bytes(L, n_t, m_mode != kGlobal, part_floats);
   cudaError_t e = cudaFuncSetAttribute(
       pde_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;

@@ -13,8 +13,9 @@ the second-difference operator (periodic corners or Neumann mirrors).
 - tridiagonal factors: A is tridiagonal, plus two corner entries when
   periodic.  ``tridiag_factors`` factors it on the host in float64 (Thomas,
   with a Sherman–Morrison correction for the periodic corners); kernel B2
-  applies the factors in f32 (``csrc/pde_multi_step.cu``), and
-  ``tridiag_solve`` applies them in torch for testing.
+  applies them as two block scans of affine maps composed in float64 on f32
+  fields (``csrc/pde_multi_step.cu``), and ``tridiag_solve`` applies them in
+  torch as Thomas' sequential f32 recurrences, for testing.
 """
 from __future__ import annotations
 
@@ -98,11 +99,15 @@ class TridiagFactors:
     ``rows`` is (4, L): [1/pivot_i, c'_i, z_i, a_i] — the Thomas pivots and
     modified super-diagonal, the Sherman–Morrison column z and the
     magnitude a_i of row i's sub-diagonal (c, and 2c on the last Neumann
-    row).  With y the Thomas solution of the tridiagonal part, the periodic
+    row).  ``scan`` is (3, L) float64: [1/pivot_i, c'_i, α_i], α_i =
+    a_i/pivot_i, the coefficients of kernel B2's scan solve, which runs the
+    forward sweep as y_i = α_i·y_{i−1} + ρ_i/pivot_i in float64 (f32
+    coefficients would cost it more accuracy than Thomas loses).  With y the Thomas solution of the tridiagonal part, the periodic
     solve is x = y − fac·(y_0 + v_last·y_{L−1})·z; the Neumann one is y
     (z = 0, fac = 0)."""
 
     rows: torch.Tensor     # (4, L) float32
+    scan: torch.Tensor     # (3, L) float64
     periodic: bool
     v_last: float          # β/γ of the corner vector v = (1, 0, …, β/γ)
     fac: float             # 1 / (1 + v·z)
@@ -158,7 +163,9 @@ def tridiag_factors(L: int, dx: float, dt: float, gamma: float, bc: str,
         inv, cp = _thomas_factors(diag, sup, sub)
     rows = torch.tensor(np.stack([inv, cp, z, -sub]), dtype=torch.float32,
                         device=device)
-    return TridiagFactors(rows=rows, periodic=bc == "periodic",
+    scan = torch.tensor(np.stack([inv, cp, -sub * inv]),
+                        dtype=torch.float64, device=device)
+    return TridiagFactors(rows=rows, scan=scan, periodic=bc == "periodic",
                           v_last=v_last, fac=fac)
 
 

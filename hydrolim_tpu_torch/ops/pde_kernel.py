@@ -55,6 +55,8 @@ from hydrolim_tpu_torch.pde.stepper import (
 SOURCE = "hydrolim_tpu_torch/csrc/pde_multi_step.cu"
 REPLACES = "hydrolim_tpu/ops/pallas_pde.py:337"
 SMEM_LIMIT = 232_448          # bytes of shared memory one block may use
+KERNEL_THREADS = 1024         # one block per replica
+KBLOCK = 9                    # sites per work unit of the blocked circulant
 _M_CODES = {"global": 0, "pointwise": 1, "narrow": 2, "smooth": 2}
 _SOLVE_CODES = {"none": 0, "exact": 1, "banded": 2}
 
@@ -161,6 +163,40 @@ def build_smooth_operands(m_mode: str, weights,
         raise ValueError(f"unknown m_mode {m_mode!r}")
     return SmoothOperands(m_mode, torch.as_tensor(
         weights, dtype=torch.float32, device=device))
+
+
+def tap_plan(L: int, R: int, avail_floats: int):
+    """(nb, ns, length) of kernel B2's blocked circulant over taps 1..R:
+    nb units of KBLOCK consecutive sites, ns slices of the taps of
+    ``length`` taps each (a multiple of KBLOCK; the table is padded with
+    zero taps to 1 + ns·length).  The slices fill the block's threads, as
+    many as shared memory holds partial sums for (L floats each, out of
+    ``avail_floats``), and as few as give each unit its fewest taps."""
+    nb = -(-L // KBLOCK)
+    chunks = -(-R // KBLOCK)
+    if chunks == 0:
+        return nb, 1, 0
+    cap = max(1, min(KERNEL_THREADS // nb, avail_floats // L, chunks))
+    per = -(-chunks // cap)
+    ns = -(-chunks // per)
+    return nb, ns, KBLOCK * per
+
+
+def padded_taps(half_taps: torch.Tensor, ns: int, length: int
+                ) -> torch.Tensor:
+    """The (R+1,) half taps padded with zeros to 1 + ns·length."""
+    w = torch.zeros(1 + ns * length, dtype=torch.float32,
+                    device=half_taps.device)
+    w[:half_taps.shape[0]] = half_taps
+    return w
+
+
+def _kernel_taps(ops, ns: int, length: int) -> torch.Tensor:
+    """``padded_taps`` of an operand's half taps, kept on the operand."""
+    cache = ops.__dict__.setdefault("_kernel_taps", {})
+    if (ns, length) not in cache:
+        cache[ns, length] = padded_taps(ops.half_taps, ns, length)
+    return cache[ns, length]
 
 
 @functools.lru_cache(maxsize=8)
@@ -340,9 +376,9 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
                          f"window={window}, step0={step0}, "
                          f"kmax_rec={kmax_rec}")
     lib = load_kernel_library("pde_multi_step")
-    lib.pde_multi_step_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.pde_multi_step_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.pde_multi_step_smem_bytes.restype = ctypes.c_size_t
-    smem = lib.pde_multi_step_smem_bytes(L, n_t, int(m_mode != "global"))
+    smem = lib.pde_multi_step_smem_bytes(L, n_t, int(m_mode != "global"), 0)
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"pde_multi_step kernel: L={L}, n_t={n_t}, m_mode {m_mode!r} "
@@ -352,21 +388,29 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
     fac = solve.factors if solve_mode == "exact" else None
     if fac is not None:
         _check(fac.rows, "factors", torch.float32, (4, L), dev)
-    solve_taps = solve.half_taps if solve_mode == "banded" else None
-    smooth_taps = smooth.half_taps if smooth is not None else None
-    for name, taps in (("solve taps", solve_taps),
-                       ("smoothing taps", smooth_taps)):
-        if taps is not None:
-            _check(taps, name, torch.float32, (taps.shape[0],), dev)
-            if 2 * (taps.shape[0] - 1) > L:
-                raise ValueError(f"{name}: radius {taps.shape[0] - 1} > L/2")
+        _check(fac.scan, "scan factors", torch.float64, (3, L), dev)
+    avail = (SMEM_LIMIT - smem) // 4
+    plans, taps = {}, {}
+    for name, ops in (("solve", solve if solve_mode == "banded" else None),
+                      ("smoothing", smooth)):
+        if ops is None:
+            plans[name], taps[name] = (0, 1, 0), None
+            continue
+        t = ops.half_taps
+        _check(t, f"{name} taps", torch.float32, (t.shape[0],), dev)
+        if 2 * (t.shape[0] - 1) > L:
+            raise ValueError(f"{name} taps: radius {t.shape[0] - 1} > L/2")
+        plans[name] = tap_plan(L, t.shape[0] - 1, avail)
+        taps[name] = _kernel_taps(ops, *plans[name][1:])
+    part_floats = max(ns * L if ns > 1 else 0
+                      for _, ns, _ in plans.values())
     trig = trig_table(L, dev) if kmax_rec > 0 else None
     outs = [torch.empty_like(t) for t in (rho_p, rho_m, pos, spin, hist)]
     recs = torch.empty((B, k_steps, 4 + 2 * kmax_rec), dtype=torch.float32,
                        device=dev)
     fn = lib.pde_multi_step_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 16 + [ctypes.c_int] * 12
+                   + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 17
                    + [ctypes.c_float] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     pde_multi_step.launches += 1
@@ -377,11 +421,11 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
         pde_multi_step.events[-1][0].record(stream)
     rc = fn(ptr(scal), ptr(seeds), step0, ptr(rho_p), ptr(rho_m), ptr(pos),
             ptr(spin), ptr(hist), *[ptr(t) for t in outs], ptr(recs),
-            ptr(fac.rows if fac is not None else None), ptr(solve_taps),
-            ptr(smooth_taps), ptr(trig), ptr(noise), B, L, n_t, window,
+            ptr(fac.rows if fac is not None else None),
+            ptr(fac.scan if fac is not None else None), ptr(taps["solve"]),
+            ptr(taps["smoothing"]), ptr(trig), ptr(noise), B, L, n_t, window,
             k_steps, kmax_rec, _M_CODES[m_mode], _SOLVE_CODES[solve_mode],
-            0 if solve_taps is None else solve_taps.shape[0] - 1,
-            0 if smooth_taps is None else smooth_taps.shape[0] - 1,
+            *plans["smoothing"], *plans["solve"], part_floats,
             int(periodic), int(bidirectional), dt, xlim / L, xlim,
             0.0 if fac is None else fac.v_last,
             0.0 if fac is None else fac.fac, window * dt, 2.0 * window * dt,

@@ -13,11 +13,20 @@ kernel's (B, ⌈n/128⌉, 128) lanes.  Randomness is either injected
 Philox4x32-10 with key (seed, replica) and counter (particle group,
 ``step0`` + step), so advancing ``step0`` by k per call gives every call an
 independent stream; the plain version draws from ``generator``.
+
+Launch plan (``launch_plan``, a pure function tested on the CPU): a
+thread-block cluster of C ≤ 8 CTAs per replica, the state packed on chip (in
+registers or shared memory) where it fits, and calls split where the packed
+winding change could overflow.  C is chosen so that all B clusters are
+co-resident on the card (``cudaOccupancyMaxActiveClusters``) and, among
+those, by a step-time model measured on the card (``STEP_MODEL``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import dataclasses
+import functools
+from typing import Mapping, Optional, Tuple
 
 import torch
 
@@ -30,6 +39,118 @@ from hydrolim_tpu_torch.particles.stepper import (
 
 SOURCE = "hydrolim_tpu_torch/csrc/meanfield_multi_step.cu"
 REPLACES = "hydrolim_tpu/ops/pallas_stepper.py:120"
+
+MAX_THREADS = 1024
+MAX_CLUSTER = 8                 # the portable cluster size
+SMEM_LIMIT = 232_448            # bytes of shared memory one block may use
+SLOT_BYTES = 2 * MAX_CLUSTER * 32 * 8   # the kernel's static reduction slots
+REG_GROUPS_PER_THREAD = (1, 2, 4)       # the register-mode instantiations
+MAX_POS = 1 << 16               # packed pos: 16 bits
+MAX_DWIND = (1 << 13) - 1       # packed winding change: 14 signed bits
+_MODES = {"registers": 0, "shared": 1, "global": 2}
+
+# Step-time model (µs per step) that ranks the co-resident cluster sizes:
+# a fixed cost per step (m, the two expf, the exchange of Σσ), and the
+# issue time per Philox group on an SM, not below one dependent pass.
+# Fitted to CUDA-event times of the kernel on an H100 80GB HBM3 at 700 W
+# (experiments/profile_meanfield_kernel.py --clusters): at the main path's
+# shape 2.19, 1.36, 1.22, 1.45, 1.28, 1.27 and 1.29 µs per step at C = 1,
+# 2, 3, 4, 5, 6, 8; at the headline's 19.70 µs at C=2 (shared memory) and
+# 49.66 µs at C=1 (device memory).
+STEP_MODEL = dict(fixed_us=0.52, pass_us=0.69,
+                  group_ns={"registers": 1.33, "shared": 1.53,
+                            "global": 1.97})
+
+
+@dataclasses.dataclass(frozen=True)
+class CtaShape:
+    """One CTA's share of a replica at cluster size ``cluster``."""
+
+    cluster: int
+    mode: str              # 'registers', 'shared' or 'global'
+    groups_per_thread: int  # registers: P (compile time); else the passes
+    threads: int
+    groups_per_cta: int
+
+    @property
+    def smem_bytes(self) -> int:
+        return 16 * self.groups_per_cta if self.mode == "shared" else 0
+
+
+@dataclasses.dataclass(frozen=True)
+class B1Plan:
+    shape: CtaShape
+    steps_per_launch: int
+    waves: int             # ⌈B / co-resident clusters⌉ (1: all at once)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def cta_shape(n: int, L: int, cluster: int) -> CtaShape:
+    """The state mode and thread count of one CTA when ``cluster`` CTAs
+    share a replica of n particles (Philox groups of 4)."""
+    gc = _cdiv(_cdiv(n, 4), cluster)
+    packable = L <= MAX_POS
+    for P in REG_GROUPS_PER_THREAD:
+        if packable and _cdiv(gc, P) <= MAX_THREADS:
+            threads = 32 * _cdiv(_cdiv(gc, P), 32)
+            return CtaShape(cluster, "registers", P, threads, gc)
+    # the fewest thread-slots over all passes (ties: more threads, fewer
+    # passes), so the last pass is as full as a multiple of 32 allows
+    threads = min(range(32, MAX_THREADS + 1, 32),
+                  key=lambda t: (_cdiv(gc, t) * t, -t))
+    passes = _cdiv(gc, threads)
+    mode = ("shared" if packable and 16 * gc + SLOT_BYTES <= SMEM_LIMIT
+            else "global")
+    return CtaShape(cluster, mode, passes, threads, gc)
+
+
+def max_steps_per_launch(L: int) -> int:
+    """The longest call whose packed winding change |Δwind| ≤ ⌈k/L⌉ + 1
+    fits 14 signed bits."""
+    return (MAX_DWIND - 1) * L
+
+
+def step_estimate_us(shape: CtaShape, ctas_per_sm: int = 1) -> float:
+    """The model's µs per step when ``ctas_per_sm`` CTAs share an SM's
+    issue slots."""
+    m = STEP_MODEL
+    return m["fixed_us"] + max(ctas_per_sm * shape.groups_per_cta
+                               * m["group_ns"][shape.mode] * 1e-3,
+                               m["pass_us"])
+
+
+def launch_plan(B: int, n: int, L: int, k_steps: int, sm_count: int,
+                coresident: Mapping[int, int],
+                cluster: Optional[int] = None) -> B1Plan:
+    """The plan of one call.  ``coresident[C]`` is how many clusters of
+    C CTAs of ``cta_shape(n, L, C)`` the card holds at once (C absent or 0:
+    the shape cannot launch).  Each C ≤ 8 is ranked first by its waves
+    (⌈B / co-resident clusters⌉: all B at once comes first), then by
+    ``step_estimate_us`` (the CTAs of a wave spread over ``sm_count``
+    SMs), ties to the smaller C; ``cluster`` forces one size.  Where the
+    state is packed, calls longer than ``max_steps_per_launch(L)`` are
+    split."""
+    best = None
+    sizes = [cluster] if cluster else range(1, MAX_CLUSTER + 1)
+    for C in sizes:
+        seats = int(coresident.get(C, 0))
+        if seats <= 0:
+            continue
+        shape = cta_shape(n, L, C)
+        waves = _cdiv(B, seats)
+        per_sm = _cdiv(min(B, seats) * C, sm_count)
+        est = waves * step_estimate_us(shape, per_sm)
+        if best is None or (waves, est) < (best[2], best[0] - 1e-9):
+            best = (est, shape, waves)
+    if best is None:
+        raise ValueError(f"meanfield_multi_step: no cluster size of "
+                         f"{list(sizes)} fits the card (n={n}, L={L})")
+    _, shape, waves = best
+    k_max = k_steps if shape.mode == "global" else max_steps_per_launch(L)
+    return B1Plan(shape, max(1, min(k_steps, k_max)), waves)
 
 
 def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
@@ -74,6 +195,20 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
             f"(contiguous={t.is_contiguous()})")
 
 
+def _check_inputs(scalars, seeds, pos, sigma, wind, noise, k_steps,
+                  step0) -> None:
+    B, n = pos.shape
+    dev = pos.device
+    _check(scalars, "scalars", torch.float32, (B, 3), dev)
+    _check(seeds, "seeds", torch.int32, (B,), dev)
+    for name, t in (("pos", pos), ("sigma", sigma), ("wind", wind)):
+        _check(t, name, torch.int32, (B, n), dev)
+    if noise is not None:
+        _check(noise, "noise", torch.int32, (B, k_steps, n), dev)
+    if not (0 <= step0 and step0 + k_steps < 2 ** 31):
+        raise ValueError(f"step0 out of range: {step0}")
+
+
 def meanfield_multi_step(scalars: torch.Tensor, seeds: torch.Tensor,
                          pos: torch.Tensor, sigma: torch.Tensor,
                          wind: torch.Tensor, *, L: int, k_steps: int,
@@ -87,8 +222,8 @@ def meanfield_multi_step(scalars: torch.Tensor, seeds: torch.Tensor,
       scalars: (B, 3) float32 [β, rate_diffusion, rate_active] per replica
         (site units).
       seeds: (B,) int32 Philox seeds (native mode).
-      pos/sigma/wind: (B, n) int32; n is the true particle count and
-        normalizes m.
+      pos/sigma/wind: (B, n) int32, pos in [0, L) and σ in {−1, 0, +1}; n
+        is the true particle count and normalizes m.
       step0: global step index of the first step (native-mode counter).
       noise: optional (B, k_steps, n) int32 random bits.
       generator: the plain version's source of uniforms (CPU, no noise).
@@ -103,29 +238,78 @@ def meanfield_multi_step(scalars: torch.Tensor, seeds: torch.Tensor,
                          f"{pos.device}")
     B, n = pos.shape
     dev = pos.device
-    _check(scalars, "scalars", torch.float32, (B, 3), dev)
-    _check(seeds, "seeds", torch.int32, (B,), dev)
-    for name, t in (("pos", pos), ("sigma", sigma), ("wind", wind)):
-        _check(t, name, torch.int32, (B, n), dev)
-    if noise is not None:
-        _check(noise, "noise", torch.int32, (B, k_steps, n), dev)
-    if not (0 <= step0 and step0 + k_steps < 2 ** 31):
-        raise ValueError(f"step0 out of range: {step0}")
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = launch_plan(B, n, L, k_steps, sm,
+                       coresident_clusters(dev.index or 0, n, L))
+    return meanfield_multi_step_planned(plan, scalars, seeds, pos, sigma,
+                                        wind, L=L, k_steps=k_steps, dt=dt,
+                                        bidirectional=bidirectional,
+                                        step0=step0, noise=noise)
+
+
+def _lib():
     lib = load_kernel_library("meanfield_multi_step")
-    pos_o, sig_o, wnd_o = (torch.empty_like(pos), torch.empty_like(sigma),
-                           torch.empty_like(wind))
     fn = lib.meanfield_multi_step_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                   + [ctypes.c_float] + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    meanfield_multi_step.launches += 1
-    rc = fn(ptr(scalars), ptr(seeds), step0, ptr(pos), ptr(sigma), ptr(wind),
-            ptr(pos_o), ptr(sig_o), ptr(wnd_o), ptr(noise), B, n, L, k_steps,
-            dt, int(bidirectional),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    check_cuda(rc, "meanfield_multi_step")
-    return pos_o, sig_o, wnd_o
+    occ = lib.meanfield_max_active_clusters
+    occ.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    occ.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=64)
+def coresident_clusters(device_index: int, n: int, L: int) -> dict:
+    """{C: clusters of ``cta_shape(n, L, C)`` the card holds at once}, from
+    ``cudaOccupancyMaxActiveClusters`` (0 where the shape cannot launch)."""
+    lib = _lib()
+    out = {}
+    with torch.cuda.device(device_index):
+        for C in range(1, MAX_CLUSTER + 1):
+            sh = cta_shape(n, L, C)
+            cnt = ctypes.c_int(0)
+            rc = lib.meanfield_max_active_clusters(
+                _MODES[sh.mode], sh.groups_per_thread, C, sh.threads,
+                sh.groups_per_cta, ctypes.byref(cnt))
+            out[C] = cnt.value if rc == 0 else 0
+    return out
+
+
+def meanfield_multi_step_planned(plan: B1Plan, scalars, seeds, pos, sigma,
+                                 wind, *, L: int, k_steps: int, dt: float,
+                                 bidirectional: bool, step0: int = 0,
+                                 noise: Optional[torch.Tensor] = None):
+    """``meanfield_multi_step`` on CUDA tensors under a given plan (the
+    wrapper's own, or one that ``launch_plan(..., cluster=C)`` forces, to
+    compare cluster sizes and state modes): one launch per
+    ``plan.steps_per_launch`` steps, ``step0`` advanced between them."""
+    _check_inputs(scalars, seeds, pos, sigma, wind, noise, k_steps, step0)
+    B, n = pos.shape
+    sh = plan.shape
+    if sh != cta_shape(n, L, sh.cluster):
+        raise ValueError(f"meanfield_multi_step: a plan for {sh} does not "
+                         f"fit n={n}, L={L}")
+    fn = _lib().meanfield_multi_step_launch
+    stream = ctypes.c_void_p(torch.cuda.current_stream(pos.device).cuda_stream)
+    state = (pos, sigma, wind)
+    s0 = 0
+    while True:
+        k = min(plan.steps_per_launch, k_steps - s0)
+        out = tuple(torch.empty_like(t) for t in state)
+        nz = (ctypes.c_void_p(noise.data_ptr() + 4 * s0 * n)
+              if noise is not None else ctypes.c_void_p(0))
+        meanfield_multi_step.launches += 1
+        rc = fn(ptr(scalars), ptr(seeds), step0 + s0, *map(ptr, state),
+                *map(ptr, out), nz, k_steps, B, n, L, k, dt,
+                int(bidirectional), _MODES[sh.mode], sh.groups_per_thread,
+                sh.cluster, sh.threads, sh.groups_per_cta, stream)
+        check_cuda(rc, "meanfield_multi_step")
+        state, s0 = out, s0 + k
+        if s0 >= k_steps:
+            return state
 
 
 meanfield_multi_step.launches = 0

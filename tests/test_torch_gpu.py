@@ -22,7 +22,11 @@ from hydrolim_tpu_torch.ops.pde_kernel import (
     pde_multi_step_plain,
 )
 from hydrolim_tpu_torch.ops.stepper_kernel import (
+    coresident_clusters,
+    launch_plan,
+    max_steps_per_launch,
     meanfield_multi_step,
+    meanfield_multi_step_planned,
     meanfield_multi_step_plain,
 )
 from hydrolim_tpu_torch.pde.init import pde_initialize
@@ -65,6 +69,102 @@ def test_b1_kernel_equals_plain(dev, bidirectional, N):
     want = meanfield_multi_step_plain(scal, seeds, pos, sig, wind, **kw)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _b1_state(dev, gen, B, N, L):
+    pos = torch.randint(0, L, (B, N), generator=gen, device=dev,
+                        dtype=torch.int32)
+    sig = torch.randint(0, 2, (B, N), generator=gen, device=dev,
+                        dtype=torch.int32) * 2 - 1
+    wind = torch.randint(-3, 4, (B, N), generator=gen, device=dev,
+                         dtype=torch.int32)
+    scal = torch.stack([torch.linspace(0.3, 2.6, B, device=dev),
+                        torch.full((B,), 0.5, device=dev),
+                        torch.full((B,), 2.0, device=dev)], 1).contiguous()
+    return scal, pos, sig, wind
+
+
+def _b1_plan(dev, B, N, L, k, C):
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    return launch_plan(B, N, L, k, sm, coresident_clusters(dev.index, N, L),
+                       cluster=C)
+
+
+# (N, L, cluster size, the state mode the plan must pick): every mode at
+# several cluster sizes, and N not a multiple of 4·C
+B1_PLANS = [
+    (96, 64, 1, "registers"), (5000, 256, 1, "registers"),
+    (5000, 256, 2, "registers"), (5003, 256, 3, "registers"),
+    (5000, 256, 4, "registers"), (4999, 256, 8, "registers"),
+    (30_001, 64, 1, "shared"), (100_000, 1000, 2, "shared"),
+    (100_001, 1000, 3, "shared"), (100_000, 1000, 1, "global"),
+    (90, 70_000, 1, "global"), (1001, 70_000, 2, "global"),
+]
+
+
+@pytest.mark.parametrize("N,L,C,mode", B1_PLANS)
+def test_b1_kernel_equals_plain_under_every_plan(dev, N, L, C, mode):
+    """Injected bits, both active models: pos, σ and wind EQUAL to the
+    plain version under each cluster size and state mode."""
+    B, k = 3, 40
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(N + C)
+    scal, pos, sig, wind = _b1_state(dev, gen, B, N, L)
+    seeds = torch.zeros(B, dtype=torch.int32, device=dev)
+    plan = _b1_plan(dev, B, N, L, k, C)
+    assert (plan.shape.cluster, plan.shape.mode) == (C, mode)
+    for bidi in (True, False):
+        kw = dict(L=L, k_steps=k, dt=0.02, bidirectional=bidi,
+                  noise=_bits((B, k, N), gen, dev))
+        n0 = meanfield_multi_step.launches
+        got = meanfield_multi_step_planned(plan, scal, seeds, pos, sig, wind,
+                                           **kw)
+        assert meanfield_multi_step.launches == n0 + 1
+        want = meanfield_multi_step_plain(scal, seeds, pos, sig, wind, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert not torch.equal(got[0], pos)
+
+
+def test_b1_split_call_equals_unsplit_plain(dev):
+    """At L=3 a call longer than ``max_steps_per_launch`` (the packed
+    winding change's limit) is split, step0 and the bits advanced; the
+    result equals the plain version's one unsplit run."""
+    B, N, L = 2, 64, 3
+    k = max_steps_per_launch(L) + 500
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    scal, pos, sig, wind = _b1_state(dev, gen, B, N, L)
+    seeds = torch.zeros(B, dtype=torch.int32, device=dev)
+    kw = dict(L=L, k_steps=k, dt=0.05, bidirectional=True,
+              noise=_bits((B, k, N), gen, dev))
+    n0 = meanfield_multi_step.launches
+    got = meanfield_multi_step(scal, seeds, pos, sig, wind, **kw)
+    assert meanfield_multi_step.launches == n0 + 2
+    want = meanfield_multi_step_plain(scal, seeds, pos, sig, wind, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int((got[2] - wind).abs().max()) > 0    # the wrap branch ran
+
+
+def test_b1_native_stream_is_the_same_under_every_plan(dev):
+    """Native Philox: the same (seed, step0) gives the same state whatever
+    the cluster size and state mode; and the wrapper's own plan seats every
+    cluster at once at the main path's shape."""
+    B, N, L, k = 4, 5000, 256, 300
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    scal, pos, sig, wind = _b1_state(dev, gen, B, N, L)
+    seeds = torch.arange(11, 11 + B, dtype=torch.int32, device=dev)
+    kw = dict(L=L, k_steps=k, dt=0.01, bidirectional=True, step0=77)
+    ref = meanfield_multi_step(scal, seeds, pos, sig, wind, **kw)
+    for C in (1, 2, 3, 4, 8):
+        got = meanfield_multi_step_planned(_b1_plan(dev, B, N, L, k, C),
+                                           scal, seeds, pos, sig, wind, **kw)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    assert _b1_plan(dev, 33, 5000, 256, k, None).waves == 1
+    assert _b1_plan(dev, 64, 100_000, 1000, k, None).waves == 1
 
 
 def test_b1_native_streams(dev):
@@ -116,6 +216,12 @@ B2_MODES = {
     "narrow-full-rfft": (dict(gaussian_kernel=True, kernel_sigma=0.01,
                               fft_kmax=129), 0.0, 5e-4, 256,
                          ("narrow", "none")),
+    "global-exact-L1000": (dict(gaussian_kernel=True, kernel_sigma=2e5),
+                           0.2, 5e-4, 1000, ("global", "exact")),
+    "pointwise-neumann-exact-L1000": (dict(bc="neumann"), 0.2, 5e-4, 1000,
+                                      ("pointwise", "exact")),
+    "smooth-exact-L1000": (dict(gaussian_kernel=True, kernel_sigma=0.05),
+                           0.2, 5e-4, 1000, ("smooth", "exact")),
 }
 
 
