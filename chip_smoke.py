@@ -13,7 +13,8 @@ Phases (each prints one line with its wall time; a failed phase raises):
 4. kernel B2 against its plain PyTorch version on the card, injected bits,
    in every mode (``B2_CASES``: global / pointwise / narrow / smooth m,
    periodic / Neumann, bidirectional / anchored_minus, exact / banded /
-   no solve, L=8192, the facade's 501 spectral bins);
+   no solve, L=8192, the facade's 501 spectral bins, an odd n_t and an
+   odd L);
 5. the micro↔macro main path at full size (the cross-engine driver on
    ``device='cuda'``, native Philox streams) with its physics pins, and the
    proof that it ran through B1 and B2 (launch counters);
@@ -194,12 +195,11 @@ def check_b1_plans(dev, gen) -> float:
     )
 
     B, k = 3, 200
-    sm = torch.cuda.get_device_properties(dev).multi_processor_count
     scal = torch.tensor([[b, 0.5, 2.0] for b in (0.5, 1.5, 2.5)],
                         dtype=torch.float32, device=dev)
     seeds = torch.zeros(B, dtype=torch.int32, device=dev)
     for N, L, C, mode in B1_PLANS:
-        plan = launch_plan(B, N, L, k, sm, coresident_clusters(0, N, L),
+        plan = launch_plan(B, N, L, k, coresident_clusters(0, N, L),
                            cluster=C)
         what = (f"B1 plan C={C} {plan.shape.mode} ({plan.shape.threads} "
                 f"threads) N={N} L={L}")
@@ -271,6 +271,11 @@ B2_CASES = (
      {}, {}),
     ("pointwise, neumann, bidirectional, exact", ("pointwise", "exact"),
      dict(bc="neumann"), {}),
+    ("global, periodic, bidirectional, exact, n_t=1001 (odd)",
+     ("global", "exact"), dict(gaussian_kernel=True, kernel_sigma=2e5),
+     dict(n_t=1001)),
+    ("pointwise, periodic, bidirectional, exact, L=999 (odd L + n_t)",
+     ("pointwise", "exact"), {}, dict(L=999)),
     ("narrow sigma=0.005, periodic, bidirectional, none", ("narrow", "none"),
      dict(gaussian_kernel=True, kernel_sigma=0.005), dict(gamma=0.0)),
     ("smooth sigma=0.05, neumann, anchored_minus, exact",
@@ -464,8 +469,7 @@ def b1_rate(dev, gen, label, B, N, L, k, dt, rd, ra, betas) -> dict:
     ms = [cuda_ms(kernel_call) for _ in range(3)]   # 3 frames
     plain_ms = cuda_ms(lambda: meanfield_multi_step_plain(
         scal, seeds, *st, generator=gen, **dict(kw, k_steps=1000)))
-    sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = launch_plan(B, N, L, k, sm, coresident_clusters(0, N, L))
+    plan = launch_plan(B, N, L, k, coresident_clusters(0, N, L))
     # per particle-step: the uniform's scale and four threshold compares;
     # per replica-step: two expf and their scaling
     b = bound(6 * 4 * B * N + 16 * B, k * (5 * B * N + 4 * B))

@@ -8,10 +8,11 @@
 // replica-wide exchange.  Per particle-step the work is a quarter of a
 // Philox4x32-10 call (the generator is part of the function and stays), one
 // 24-bit uniform and four threshold compares.  Measured with CUDA events
-// (PERF.md; no counter could be read): a step costs ~0.5 us fixed (m, two
-// expf, the exchange of sum(sigma) across the cluster) plus ~1.3-1.5 ns per
-// group of four particles on an SM, which is issue-bound; at the main
-// path's 417 groups per CTA a step sits at a floor of ~1.2 us.  The parent
+// (PERF.md; no counter could be read): a step has a floor of ~1.2-1.3 us
+// (m, two expf, the exchange of sum(sigma) across the cluster, one
+// dependent pass), reached at the main path's 417 groups per CTA and not
+// lowered by fewer; past it ~1.5 ns per group of four particles on an SM,
+// which is issue-bound (the headline's 12,500 groups per CTA).  The parent
 // kernel ran a replica on one SM, with a barrier and a serial read of 32
 // partials per step, and at N=1e5 (1.2 MB of int32 state) every
 // particle-step read device memory.

@@ -280,8 +280,7 @@ struct Args {
   int step0;
   const float *rp_in, *rm_in, *pos_in, *spin_in, *hist_in;
   float *rp_out, *rm_out, *pos_out, *spin_out, *hist_out, *recs;
-  const float* factors;      // (4, L) [1/pivot, c', z, a] (exact solve)
-  const double* scan;        // (3, L) [1/pivot, c', alpha] (exact solve)
+  const double* scan;        // (4, L) [1/pivot, c', alpha, z] (exact solve)
   const float* solve_taps;   // (1 + sv_ns*sv_len,) padded taps (banded)
   const float* smooth_taps;  // (1 + sm_ns*sm_len,) padded taps (smoothed m)
   const float* trig;         // (2, L) [cos, sin](2 pi j / L) or null
@@ -293,14 +292,17 @@ struct Args {
 };
 
 __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
-  extern __shared__ float sm[];
+  // the scan's double-word table first, so it is 16-byte aligned whatever
+  // L and n_t
+  extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int L = a.L, n_t = a.n_t, kmax = a.kmax;
   const bool local_m = a.m_mode != kGlobal;
 
+  Aff* scanT = reinterpret_cast<Aff*>(smem);  // 2 x kWarps
   // state (P, M) and scratch (Q, N) swap roles from step to step
-  float* P = sm;
+  float* P = reinterpret_cast<float*>(scanT + 2 * kWarps);
   float* M = P + L;
   float* Q = M + L;
   float* N = Q + L;
@@ -309,8 +311,7 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
   float* redA = DR + n_t;                  // kWarps * 2
   float* redB = redA + kWarps * 2;         // kWarps * 2
   float* redD = redB + kWarps * 2;         // kWarps * 3
-  Aff* scanT = reinterpret_cast<Aff*>(redD + kWarps * 3);  // 2 x kWarps
-  float* part = reinterpret_cast<float*>(scanT + 2 * kWarps);  // circulant
+  float* part = redD + kWarps * 3;         // circulant partial sums
 
   const float beta = a.scal[4 * b], lam = a.scal[4 * b + 1];
   const float noise_amp = sqrtf(__fmul_rn(2.f * a.scal[4 * b + 2], a.dt));
@@ -448,7 +449,7 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
     float *P1 = P, *M1 = M, *P2 = Q, *M2 = N;
     // the periodic exact solve's corner correction: P1[x] - cP z[x]
     float cP = 0.f, cM = 0.f;
-    const float* zz = nullptr;
+    const double* zz = nullptr;
     if (a.solve_mode == kExact) {  // in place: two scan sweeps per field
       const int h = tid / kHalf, t = tid - h * kHalf;
       const int run = (L + kHalf - 1) / kHalf;
@@ -458,12 +459,11 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
       scan_sweep(F, lo, hi, g + 2 * L, g, false, scanT + h * (kHalf / 32));
       scan_sweep(F, lo, hi, g + L, nullptr, true,
                  scanT + kWarps + h * (kHalf / 32));
-      const float* f = a.factors;
       __syncthreads();
       if (a.periodic) {  // Sherman-Morrison: x - c z, applied where read
         cP = a.fac * (P[0] + a.v_last * P[L - 1]);
         cM = a.fac * (M[0] + a.v_last * M[L - 1]);
-        zz = f + 2 * L;
+        zz = g + 3 * L;
       }
     } else if (a.solve_mode == kBanded) {
       circulant(P, a.solve_taps, L, a.sv_nb, a.sv_ns, a.sv_len, part,
@@ -486,11 +486,11 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
         const int xr = x == L - 1 ? 0 : x + 1;
         float p1 = P1[x], m1 = M1[x], pl = P1[xl], mr = M1[xr];
         if (zz) {
-          const float z = __ldg(zz + x);
+          const float z = (float)__ldg(zz + x);
           p1 -= cP * z;
           m1 -= cM * z;
-          pl -= cP * __ldg(zz + xl);
-          mr -= cM * __ldg(zz + xr);
+          pl -= cP * (float)__ldg(zz + xl);
+          mr -= cM * (float)__ldg(zz + xr);
         }
         float dp = (p1 - pl) / dx;
         float dm = (mr - m1) / dx;
@@ -512,7 +512,7 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
       for (int x = tid; x < L; x += kThreads) {
         float p1 = P1[x], m1 = M1[x];
         if (zz) {
-          const float z = __ldg(zz + x);
+          const float z = (float)__ldg(zz + x);
           p1 -= cP * z;
           m1 -= cM * z;
         }
@@ -570,16 +570,17 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
 
 extern "C" size_t pde_multi_step_smem_bytes(int L, int n_t, int local_m,
                                             int part_floats) {
-  return sizeof(float) * ((size_t)(local_m ? 5 : 4) * L + n_t + 7 * kWarps) +
-         sizeof(Aff) * 2 * kWarps + sizeof(float) * (size_t)part_floats;
+  return sizeof(Aff) * 2 * kWarps +
+         sizeof(float) * ((size_t)(local_m ? 5 : 4) * L + n_t + 7 * kWarps +
+                          (size_t)part_floats);
 }
 
 extern "C" int pde_multi_step_launch(
     const float* scal, const int* seeds, int step0, const float* rp_in,
     const float* rm_in, const float* pos_in, const float* spin_in,
     const float* hist_in, float* rp_out, float* rm_out, float* pos_out,
-    float* spin_out, float* hist_out, float* recs, const float* factors,
-    const double* scan, const float* solve_taps, const float* smooth_taps, const float* trig,
+    float* spin_out, float* hist_out, float* recs, const double* scan,
+    const float* solve_taps, const float* smooth_taps, const float* trig,
     const int* noise, int B, int L, int n_t, int window, int k_steps,
     int kmax, int m_mode, int solve_mode, int sm_nb, int sm_ns, int sm_len,
     int sv_nb, int sv_ns, int sv_len, int part_floats, int periodic,
@@ -587,8 +588,7 @@ extern "C" int pde_multi_step_launch(
     float fac, float w_dt, float w_2dt, void* stream) {
   Args a{scal,     seeds,      step0,       rp_in,   rm_in,    pos_in,
          spin_in,  hist_in,    rp_out,      rm_out,  pos_out,  spin_out,
-         hist_out, recs,       factors,     scan,    solve_taps, smooth_taps,
-         trig,
+         hist_out, recs,       scan,        solve_taps, smooth_taps, trig,
          noise,    L,          n_t,         window,  k_steps,  kmax,
          m_mode,   solve_mode, sm_nb,       sm_ns,   sm_len,   sv_nb,
          sv_ns,    sv_len,     periodic,    bidirectional, dt, dx,

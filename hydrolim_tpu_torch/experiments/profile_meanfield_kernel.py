@@ -13,10 +13,12 @@ checkouts that compute it alike print the same hash.  It calls only what
 the kernel's wrapper has taken since it was first ported, so the same
 script times an older checkout of the package: put that checkout first on
 ``PYTHONPATH`` and run this file by its path.  ``--clusters 1,2,4`` times
-each forced cluster size instead (this checkout only).
+each forced cluster size instead, ``--modes registers,shared`` each forced
+state mode, at the wrapper's cluster size or at each forced one (this
+checkout only).
 
 Usage: PYTHONPATH=<checkout> python <this file> [--calls 3] [--tag NAME]
-       [--shapes main,headline] [--clusters 1,2,4]
+       [--shapes main,headline] [--clusters 1,2,4] [--modes registers,shared]
 """
 from __future__ import annotations
 
@@ -57,7 +59,7 @@ def card() -> str:
         text=True).stdout.strip().splitlines()[0]
 
 
-def run(name: str, calls: int, tag: str, cluster=None) -> dict:
+def run(name: str, calls: int, tag: str, cluster=None, mode=None) -> dict:
     dev = torch.device("cuda", 0)
     sh = shape(name)
     B, N, L, k = sh["B"], sh["N"], sh["L"], sh["k"]
@@ -75,16 +77,15 @@ def run(name: str, calls: int, tag: str, cluster=None) -> dict:
     kw = dict(L=L, k_steps=k, dt=sh["dt"], bidirectional=True)
     step = meanfield_multi_step
     plan_info = None
-    if cluster is not None:
+    if cluster is not None or mode is not None:
         from hydrolim_tpu_torch.ops.stepper_kernel import (
             coresident_clusters,
             launch_plan,
             meanfield_multi_step_planned,
         )
-        sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = launch_plan(B, N, L, k, sm, coresident_clusters(0, N, L),
-                           cluster=cluster)
-        plan_info = dict(cluster=cluster, mode=plan.shape.mode,
+        plan = launch_plan(B, N, L, k, coresident_clusters(0, N, L, mode),
+                           cluster=cluster, mode=mode)
+        plan_info = dict(cluster=plan.shape.cluster, mode=plan.shape.mode,
                          threads=plan.shape.threads, waves=plan.waves,
                          groups_per_thread=plan.shape.groups_per_thread)
         step = lambda *a, **kw_: meanfield_multi_step_planned(plan, *a,
@@ -117,13 +118,14 @@ def run(name: str, calls: int, tag: str, cluster=None) -> dict:
 
 
 def main(calls: int = 3, tag: str = "", shapes=("main", "headline"),
-         clusters=None) -> list:
+         clusters=None, modes=None) -> list:
     if not torch.cuda.is_available():
         raise SystemExit("profile_meanfield_kernel: needs a CUDA device")
     rows = []
     for name in shapes:
         for C in clusters or [None]:
-            rows.append(run(name, calls, tag, C))
+            for mode in modes or [None]:
+                rows.append(run(name, calls, tag, C, mode))
     return rows
 
 
@@ -134,6 +136,9 @@ if __name__ == "__main__":
     p.add_argument("--shapes", default="main,headline")
     p.add_argument("--clusters", default="",
                    help="comma-separated forced cluster sizes")
+    p.add_argument("--modes", default="",
+                   help="comma-separated forced state modes")
     a = p.parse_args()
     main(a.calls, a.tag, a.shapes.split(","),
-         [int(c) for c in a.clusters.split(",")] if a.clusters else None)
+         [int(c) for c in a.clusters.split(",")] if a.clusters else None,
+         a.modes.split(",") if a.modes else None)

@@ -96,18 +96,19 @@ class TridiagFactors:
     """Float64-derived factors of ``A = (1+2c)I − c·D`` (c = γ·dt/dx²),
     stored in f32.
 
-    ``rows`` is (4, L): [1/pivot_i, c'_i, z_i, a_i] — the Thomas pivots and
-    modified super-diagonal, the Sherman–Morrison column z and the
-    magnitude a_i of row i's sub-diagonal (c, and 2c on the last Neumann
-    row).  ``scan`` is (3, L) float64: [1/pivot_i, c'_i, α_i], α_i =
-    a_i/pivot_i, the coefficients of kernel B2's scan solve, which runs the
-    forward sweep as y_i = α_i·y_{i−1} + ρ_i/pivot_i in float64 (f32
-    coefficients would cost it more accuracy than Thomas loses).  With y the Thomas solution of the tridiagonal part, the periodic
-    solve is x = y − fac·(y_0 + v_last·y_{L−1})·z; the Neumann one is y
-    (z = 0, fac = 0)."""
+    ``rows`` is (4, L), read by ``tridiag_solve``: [1/pivot_i, c'_i, z_i,
+    a_i] — the Thomas pivots and modified super-diagonal, the
+    Sherman–Morrison column z and the magnitude a_i of row i's sub-diagonal
+    (c, and 2c on the last Neumann row).  ``scan`` is (4, L) float64, the
+    one table kernel B2 reads: [1/pivot_i, c'_i, α_i, z_i], α_i =
+    a_i/pivot_i; the scan solve runs the forward sweep as y_i =
+    α_i·y_{i−1} + ρ_i/pivot_i in float64 (f32 coefficients would cost it
+    more accuracy than Thomas loses).  With y the Thomas solution of the
+    tridiagonal part, the periodic solve is x = y − fac·(y_0 +
+    v_last·y_{L−1})·z; the Neumann one is y (z = 0, fac = 0)."""
 
     rows: torch.Tensor     # (4, L) float32
-    scan: torch.Tensor     # (3, L) float64
+    scan: torch.Tensor     # (4, L) float64
     periodic: bool
     v_last: float          # β/γ of the corner vector v = (1, 0, …, β/γ)
     fac: float             # 1 / (1 + v·z)
@@ -163,7 +164,7 @@ def tridiag_factors(L: int, dx: float, dt: float, gamma: float, bc: str,
         inv, cp = _thomas_factors(diag, sup, sub)
     rows = torch.tensor(np.stack([inv, cp, z, -sub]), dtype=torch.float32,
                         device=device)
-    scan = torch.tensor(np.stack([inv, cp, -sub * inv]),
+    scan = torch.tensor(np.stack([inv, cp, -sub * inv, z]),
                         dtype=torch.float64, device=device)
     return TridiagFactors(rows=rows, scan=scan, periodic=bc == "periodic",
                           v_last=v_last, fac=fac)

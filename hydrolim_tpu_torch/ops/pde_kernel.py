@@ -387,8 +387,7 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
             f"the {SMEM_LIMIT} B a block may use")
     fac = solve.factors if solve_mode == "exact" else None
     if fac is not None:
-        _check(fac.rows, "factors", torch.float32, (4, L), dev)
-        _check(fac.scan, "scan factors", torch.float64, (3, L), dev)
+        _check(fac.scan, "scan factors", torch.float64, (4, L), dev)
     avail = (SMEM_LIMIT - smem) // 4
     plans, taps = {}, {}
     for name, ops in (("solve", solve if solve_mode == "banded" else None),
@@ -410,7 +409,7 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
                        device=dev)
     fn = lib.pde_multi_step_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 17
+                   + [ctypes.c_void_p] * 16 + [ctypes.c_int] * 17
                    + [ctypes.c_float] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     pde_multi_step.launches += 1
@@ -421,7 +420,6 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
         pde_multi_step.events[-1][0].record(stream)
     rc = fn(ptr(scal), ptr(seeds), step0, ptr(rho_p), ptr(rho_m), ptr(pos),
             ptr(spin), ptr(hist), *[ptr(t) for t in outs], ptr(recs),
-            ptr(fac.rows if fac is not None else None),
             ptr(fac.scan if fac is not None else None), ptr(taps["solve"]),
             ptr(taps["smoothing"]), ptr(trig), ptr(noise), B, L, n_t, window,
             k_steps, kmax_rec, _M_CODES[m_mode], _SOLVE_CODES[solve_mode],

@@ -19,7 +19,7 @@ thread-block cluster of C ≤ 8 CTAs per replica, the state packed on chip (in
 registers or shared memory) where it fits, and calls split where the packed
 winding change could overflow.  C is chosen so that all B clusters are
 co-resident on the card (``cudaOccupancyMaxActiveClusters``) and, among
-those, by a step-time model measured on the card (``STEP_MODEL``).
+those, as the smallest that brings a CTA down to ``ONE_PASS_GROUPS``.
 """
 from __future__ import annotations
 
@@ -48,18 +48,13 @@ REG_GROUPS_PER_THREAD = (1, 2, 4)       # the register-mode instantiations
 MAX_POS = 1 << 16               # packed pos: 16 bits
 MAX_DWIND = (1 << 13) - 1       # packed winding change: 14 signed bits
 _MODES = {"registers": 0, "shared": 1, "global": 2}
-
-# Step-time model (µs per step) that ranks the co-resident cluster sizes:
-# a fixed cost per step (m, the two expf, the exchange of Σσ), and the
-# issue time per Philox group on an SM, not below one dependent pass.
-# Fitted to CUDA-event times of the kernel on an H100 80GB HBM3 at 700 W
-# (experiments/profile_meanfield_kernel.py --clusters): at the main path's
-# shape 2.19, 1.36, 1.22, 1.45, 1.28, 1.27 and 1.29 µs per step at C = 1,
-# 2, 3, 4, 5, 6, 8; at the headline's 19.70 µs at C=2 (shared memory) and
-# 49.66 µs at C=1 (device memory).
-STEP_MODEL = dict(fixed_us=0.52, pass_us=0.69,
-                  group_ns={"registers": 1.33, "shared": 1.53,
-                            "global": 1.97})
+# The groups per CTA below which a step stops getting faster: one group a
+# thread in half a block's warps, where the step's fixed cost (m, two expf,
+# the exchange of Σσ) and one dependent pass dominate.  PERF.md's cluster
+# table (profile_meanfield_kernel.py --clusters) shows it at the main
+# path's shape: 1250 groups per CTA at C=1, 625 at C=2, 417 at C=3 and
+# 157-250 at C=5-8 take 2.19, 1.36, 1.22 and 1.27-1.29 µs per step.
+ONE_PASS_GROUPS = 512
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,23 +83,32 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def cta_shape(n: int, L: int, cluster: int) -> CtaShape:
+def cta_shape(n: int, L: int, cluster: int,
+              mode: Optional[str] = None) -> CtaShape:
     """The state mode and thread count of one CTA when ``cluster`` CTAs
-    share a replica of n particles (Philox groups of 4)."""
+    share a replica of n particles (Philox groups of 4): registers where
+    they hold the state, else shared memory, else device memory.  ``mode``
+    forces a mode the state fits (to compare modes at one shape)."""
     gc = _cdiv(_cdiv(n, 4), cluster)
     packable = L <= MAX_POS
-    for P in REG_GROUPS_PER_THREAD:
-        if packable and _cdiv(gc, P) <= MAX_THREADS:
-            threads = 32 * _cdiv(_cdiv(gc, P), 32)
-            return CtaShape(cluster, "registers", P, threads, gc)
+    fits = {"registers": packable
+            and _cdiv(gc, REG_GROUPS_PER_THREAD[-1]) <= MAX_THREADS,
+            "shared": packable and 16 * gc + SLOT_BYTES <= SMEM_LIMIT,
+            "global": True}
+    if mode is None:
+        mode = next(m for m in ("registers", "shared", "global") if fits[m])
+    elif not fits.get(mode, False):
+        raise ValueError(f"meanfield_multi_step: the {mode!r} state does "
+                         f"not hold {gc} groups per CTA at L={L}")
+    if mode == "registers":
+        P = next(P for P in REG_GROUPS_PER_THREAD
+                 if _cdiv(gc, P) <= MAX_THREADS)
+        return CtaShape(cluster, mode, P, 32 * _cdiv(_cdiv(gc, P), 32), gc)
     # the fewest thread-slots over all passes (ties: more threads, fewer
     # passes), so the last pass is as full as a multiple of 32 allows
     threads = min(range(32, MAX_THREADS + 1, 32),
                   key=lambda t: (_cdiv(gc, t) * t, -t))
-    passes = _cdiv(gc, threads)
-    mode = ("shared" if packable and 16 * gc + SLOT_BYTES <= SMEM_LIMIT
-            else "global")
-    return CtaShape(cluster, mode, passes, threads, gc)
+    return CtaShape(cluster, mode, _cdiv(gc, threads), threads, gc)
 
 
 def max_steps_per_launch(L: int) -> int:
@@ -113,42 +117,28 @@ def max_steps_per_launch(L: int) -> int:
     return (MAX_DWIND - 1) * L
 
 
-def step_estimate_us(shape: CtaShape, ctas_per_sm: int = 1) -> float:
-    """The model's µs per step when ``ctas_per_sm`` CTAs share an SM's
-    issue slots."""
-    m = STEP_MODEL
-    return m["fixed_us"] + max(ctas_per_sm * shape.groups_per_cta
-                               * m["group_ns"][shape.mode] * 1e-3,
-                               m["pass_us"])
-
-
-def launch_plan(B: int, n: int, L: int, k_steps: int, sm_count: int,
-                coresident: Mapping[int, int],
-                cluster: Optional[int] = None) -> B1Plan:
+def launch_plan(B: int, n: int, L: int, k_steps: int,
+                coresident: Mapping[int, int], cluster: Optional[int] = None,
+                mode: Optional[str] = None) -> B1Plan:
     """The plan of one call.  ``coresident[C]`` is how many clusters of
     C CTAs of ``cta_shape(n, L, C)`` the card holds at once (C absent or 0:
-    the shape cannot launch).  Each C ≤ 8 is ranked first by its waves
-    (⌈B / co-resident clusters⌉: all B at once comes first), then by
-    ``step_estimate_us`` (the CTAs of a wave spread over ``sm_count``
-    SMs), ties to the smaller C; ``cluster`` forces one size.  Where the
-    state is packed, calls longer than ``max_steps_per_launch(L)`` are
-    split."""
-    best = None
+    the shape cannot launch).  Among the C ≤ 8 with the fewest waves
+    (⌈B / co-resident clusters⌉: all B at once where any C allows it), the
+    smallest C whose CTA holds at most ``ONE_PASS_GROUPS`` groups, else
+    the C with the fewest groups per CTA.  ``cluster`` and ``mode`` force
+    a cluster size and a state mode.  Where the state is packed, calls
+    longer than ``max_steps_per_launch(L)`` are split."""
     sizes = [cluster] if cluster else range(1, MAX_CLUSTER + 1)
-    for C in sizes:
-        seats = int(coresident.get(C, 0))
-        if seats <= 0:
-            continue
-        shape = cta_shape(n, L, C)
-        waves = _cdiv(B, seats)
-        per_sm = _cdiv(min(B, seats) * C, sm_count)
-        est = waves * step_estimate_us(shape, per_sm)
-        if best is None or (waves, est) < (best[2], best[0] - 1e-9):
-            best = (est, shape, waves)
-    if best is None:
+    seated = [(_cdiv(B, int(coresident[C])), cta_shape(n, L, C, mode))
+              for C in sizes if int(coresident.get(C, 0)) > 0]
+    if not seated:
         raise ValueError(f"meanfield_multi_step: no cluster size of "
                          f"{list(sizes)} fits the card (n={n}, L={L})")
-    _, shape, waves = best
+    waves = min(w for w, _ in seated)
+    shapes = [sh for w, sh in seated if w == waves]
+    small = [sh for sh in shapes if sh.groups_per_cta <= ONE_PASS_GROUPS]
+    shape = (small[0] if small
+             else min(shapes, key=lambda sh: sh.groups_per_cta))
     k_max = k_steps if shape.mode == "global" else max_steps_per_launch(L)
     return B1Plan(shape, max(1, min(k_steps, k_max)), waves)
 
@@ -238,8 +228,7 @@ def meanfield_multi_step(scalars: torch.Tensor, seeds: torch.Tensor,
                          f"{pos.device}")
     B, n = pos.shape
     dev = pos.device
-    sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = launch_plan(B, n, L, k_steps, sm,
+    plan = launch_plan(B, n, L, k_steps,
                        coresident_clusters(dev.index or 0, n, L))
     return meanfield_multi_step_planned(plan, scalars, seeds, pos, sigma,
                                         wind, L=L, k_steps=k_steps, dt=dt,
@@ -262,14 +251,20 @@ def _lib():
 
 
 @functools.lru_cache(maxsize=64)
-def coresident_clusters(device_index: int, n: int, L: int) -> dict:
-    """{C: clusters of ``cta_shape(n, L, C)`` the card holds at once}, from
-    ``cudaOccupancyMaxActiveClusters`` (0 where the shape cannot launch)."""
+def coresident_clusters(device_index: int, n: int, L: int,
+                        mode: Optional[str] = None) -> dict:
+    """{C: clusters of ``cta_shape(n, L, C, mode)`` the card holds at
+    once}, from ``cudaOccupancyMaxActiveClusters`` (0 where the shape
+    cannot launch)."""
     lib = _lib()
     out = {}
     with torch.cuda.device(device_index):
         for C in range(1, MAX_CLUSTER + 1):
-            sh = cta_shape(n, L, C)
+            try:
+                sh = cta_shape(n, L, C, mode)
+            except ValueError:      # a forced mode the state does not fit
+                out[C] = 0
+                continue
             cnt = ctypes.c_int(0)
             rc = lib.meanfield_max_active_clusters(
                 _MODES[sh.mode], sh.groups_per_thread, C, sh.threads,
@@ -283,13 +278,13 @@ def meanfield_multi_step_planned(plan: B1Plan, scalars, seeds, pos, sigma,
                                  bidirectional: bool, step0: int = 0,
                                  noise: Optional[torch.Tensor] = None):
     """``meanfield_multi_step`` on CUDA tensors under a given plan (the
-    wrapper's own, or one that ``launch_plan(..., cluster=C)`` forces, to
-    compare cluster sizes and state modes): one launch per
+    wrapper's own, or one that ``launch_plan(..., cluster=C, mode=M)``
+    forces, to compare cluster sizes and state modes): one launch per
     ``plan.steps_per_launch`` steps, ``step0`` advanced between them."""
     _check_inputs(scalars, seeds, pos, sigma, wind, noise, k_steps, step0)
     B, n = pos.shape
     sh = plan.shape
-    if sh != cta_shape(n, L, sh.cluster):
+    if sh != cta_shape(n, L, sh.cluster, sh.mode):
         raise ValueError(f"meanfield_multi_step: a plan for {sh} does not "
                          f"fit n={n}, L={L}")
     fn = _lib().meanfield_multi_step_launch

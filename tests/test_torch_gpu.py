@@ -85,8 +85,7 @@ def _b1_state(dev, gen, B, N, L):
 
 
 def _b1_plan(dev, B, N, L, k, C):
-    sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    return launch_plan(B, N, L, k, sm, coresident_clusters(dev.index, N, L),
+    return launch_plan(B, N, L, k, coresident_clusters(dev.index, N, L),
                        cluster=C)
 
 
@@ -190,8 +189,10 @@ def test_b1_native_streams(dev):
 
 
 # Kernel B2's covering set: (PDEConfig fields beyond the defaults, γ, dt,
-# L, expected (m_mode, solve_mode)).  Defaults: B=3, n_t=200, window 10,
-# kmax 8, periodic, bidirectional.
+# L, expected (m_mode, solve_mode)).  Defaults: B=3, n_t=200 (or the
+# fields' n_tracers), window 10, kmax 8, periodic, bidirectional.  An odd
+# n_t (global m) or an odd L + n_t (local m) puts the float part of shared
+# memory at an odd length.
 B2_MODES = {
     "global-exact": (dict(gaussian_kernel=True, kernel_sigma=2e5), 0.2,
                      5e-4, 256, ("global", "exact")),
@@ -222,6 +223,13 @@ B2_MODES = {
                                       ("pointwise", "exact")),
     "smooth-exact-L1000": (dict(gaussian_kernel=True, kernel_sigma=0.05),
                            0.2, 5e-4, 1000, ("smooth", "exact")),
+    "global-exact-odd-n_t": (dict(gaussian_kernel=True, kernel_sigma=2e5,
+                                  n_tracers=201), 0.2, 5e-4, 256,
+                             ("global", "exact")),
+    "pointwise-exact-L999": ({}, 0.2, 5e-4, 999, ("pointwise", "exact")),
+    "smooth-neumann-exact-L999": (
+        dict(gaussian_kernel=True, kernel_sigma=0.05, bc="neumann"), 0.2,
+        5e-4, 999, ("smooth", "exact")),
 }
 
 
@@ -232,9 +240,9 @@ def test_b2_kernel_matches_plain(dev, case):
     from hydrolim_tpu_torch.pde.fast_solve import kernel_operands
 
     over, gamma, dt, L, modes = B2_MODES[case]
-    B, n_t, W, k = 3, 200, 10, 30
     kw = dict(fft_kmax=8)
     kw.update(over)
+    B, n_t, W, k = 3, kw.pop("n_tracers", 200), 10, 30
     config = PDEConfig(L=L, dt=dt, n_tracers=n_t,
                        tracer_window_time=W * dt * (1 + 1e-9), **kw)
     assert config.tracer_window == W

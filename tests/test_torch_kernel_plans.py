@@ -12,8 +12,9 @@ their shape is checked here:
     tap slices meeting in slice order) against the dense circulant product
     and the JAX package's ``build_conv_matrix``;
 (c) B1's launch plan: co-resident clusters at the main path's and the
-    headline's shapes, the packed state within shared memory, the winding
-    change within its bits, and the unpacked fallback.
+    headline's shapes, the cluster-size rule, forced state modes, the
+    packed state within shared memory, the winding change within its bits,
+    and the unpacked fallback.
 """
 import numpy as np
 import pytest
@@ -34,6 +35,7 @@ from hydrolim_tpu_torch.ops.pde_kernel import (
 from hydrolim_tpu_torch.ops.stepper_kernel import (
     MAX_CLUSTER,
     MAX_DWIND,
+    ONE_PASS_GROUPS,
     SLOT_BYTES,
     SMEM_LIMIT,
     cta_shape,
@@ -115,8 +117,7 @@ def scan_solve(f, rho):
     """Kernel B2's exact solve, emulated: the forward sweep, the back sweep
     (the same scan on the reversed thread order) and, when periodic, the
     Sherman–Morrison correction."""
-    inv, cp, alpha = f.scan
-    z = f.rows[2]
+    inv, cp, alpha, z = f.scan
     L = rho.shape[-1]
     y = _scan_sweep(alpha, lambda i, F: F[:, i].double() * inv[i], rho, L)
     # back: x_i = −c'_i x_{i+1} + y_i; thread t's run reversed is thread
@@ -133,7 +134,7 @@ def scan_solve(f, rho):
     if not f.periodic:
         return x
     coef = f.fac * (x[:, :1] + f.v_last * x[:, -1:])
-    return x - coef * z
+    return x - coef * z.float()
 
 
 @pytest.mark.parametrize("bc", ["periodic", "neumann"])
@@ -169,16 +170,19 @@ def test_scan_solve_matches_thomas_and_dense_inverse(bc, L):
 
 @pytest.mark.parametrize("bc", ["periodic", "neumann"])
 def test_scan_coefficients_are_the_thomas_factors(bc):
-    """The scan's float64 table [1/pivot, c', α] is Thomas' factors (the f32
-    rows rounded from it), α_i = a_i/pivot_i: the affine forward recurrence
-    y_i = α_i·y_{i−1} + ρ_i/pivot_i is Thomas' forward sweep
-    (ρ_i + a_i·y_{i−1})/pivot_i, to float64 roundoff."""
+    """The scan's float64 table [1/pivot, c', α, z] is Thomas' factors and
+    the Sherman–Morrison column (the f32 rows rounded from it), α_i =
+    a_i/pivot_i: the affine forward recurrence y_i = α_i·y_{i−1} +
+    ρ_i/pivot_i is Thomas' forward sweep (ρ_i + a_i·y_{i−1})/pivot_i, to
+    float64 roundoff."""
     L = 1000
     f = tridiag_factors(L, 1.0 / L, 5e-4, 0.2, bc, device="cpu")
-    inv, cp, alpha = f.scan
+    inv, cp, alpha, z = f.scan
     assert f.scan.dtype == torch.float64
     assert torch.equal(f.rows[0], inv.float())
     assert torch.equal(f.rows[1], cp.float())
+    assert torch.equal(f.rows[2], z.float())
+    assert bool((z != 0).any()) == (bc == "periodic")
     a = alpha / inv
     np.testing.assert_allclose(a.numpy(), f.rows[3].double().numpy(),
                                rtol=1e-7)
@@ -196,7 +200,7 @@ def test_scan_coefficients_are_the_thomas_factors(bc):
 # ---------------------------------------------------------------------------
 
 def blocked_circulant(x, half, avail_floats):
-    """Kernel B2's ``circulant2`` on one field, emulated unit by unit (all
+    """Kernel B2's ``circulant`` on one field, emulated unit by unit (all
     units at once): out[i] = w0·x[i] + Σ_d w(d)·(x[i−d] + x[i+d])."""
     L, S = x.shape[0], KBLOCK
     nb, ns, length = tap_plan(L, half.shape[0] - 1, avail_floats)
@@ -239,9 +243,9 @@ def test_blocked_circulant_matches_dense_product(L, sigma, avail):
     """The full circulant (R = L//2, the d = L/2 tap halved for even L)
     against the float64 dense product of the periodic Gaussian and the JAX
     package's ``build_conv_matrix`` (rows input, columns output): rtol 1e-5,
-    atol 1e-9 on fields ~1/L.  KBLOCK = 7 divides none of the L here but
-    the unit count at 1000 and 999 is checked whole; ``avail`` = 2000 floats
-    forces a single slice (no partial-sum buffer) at L ≥ 1000."""
+    atol 1e-9 on fields ~1/L.  KBLOCK = 9 divides 999 only, so the other
+    L end in a ragged unit; ``avail`` = 2000 floats forces a single slice
+    (no partial-sum buffer) at L ≥ 1000."""
     from hydrolim_tpu.core.config import ParticleConfig as JConfig
     from hydrolim_tpu.ops.pallas_exclusion import build_conv_matrix
 
@@ -310,22 +314,23 @@ HEAD_SEATS = {1: 132, 2: 66, 3: 42, 4: 32, 5: 0, 6: 0, 7: 0, 8: 16}
                                          (64, 100_000, 1000, HEAD_SEATS)])
 def test_b1_plan_seats_every_cluster_at_once(B, n, L, seats):
     """The plan picks a C whose B clusters are all co-resident (C=4 seats
-    only 32 at the main path's B=33), with the state on chip."""
-    plan = launch_plan(B, n, L, 132_000, 132, seats)
+    only 32 at the main path's B=33), with the state on chip: C=3 (417
+    groups per CTA, in registers) at the main path, C=2 at the headline."""
+    plan = launch_plan(B, n, L, 132_000, seats)
     C = plan.shape.cluster
     assert plan.waves == 1 and seats[C] >= B and plan.shape.mode != "global"
-    assert C != 4 or B <= 32
-    forced = launch_plan(B, n, L, 132_000, 132, seats, cluster=4)
+    assert C == (3 if n == 5000 else 2)
+    forced = launch_plan(B, n, L, 132_000, seats, cluster=4)
     assert forced.waves == (2 if B > 32 else 1)
     # a table where nothing but C=1 fits still gives a plan
-    one = launch_plan(B, n, L, 1000, 132, {1: 132})
+    one = launch_plan(B, n, L, 1000, {1: 132})
     assert one.shape.cluster == 1
 
 
 def test_b1_plan_headline_state_in_shared_memory():
     """C=2: 12,500 groups per CTA, 200 KB of packed state, 17 passes of
     736 threads (12 idle thread-slots) rather than 13 of 992 (396)."""
-    plan = launch_plan(64, 100_000, 1000, 1000, 132, HEAD_SEATS)
+    plan = launch_plan(64, 100_000, 1000, 1000, HEAD_SEATS)
     assert (plan.shape.cluster, plan.shape.mode) == (2, "shared")
     assert plan.shape.smem_bytes == 200_000
     assert (plan.shape.threads, plan.shape.groups_per_thread) == (736, 17)
@@ -359,11 +364,11 @@ def test_b1_winding_change_never_overflows(L):
     L is split into launches of at most ``max_steps_per_launch(L)`` steps
     that cover it."""
     k = 3 * max_steps_per_launch(L) + 17
-    plan = launch_plan(8, 5000, L, k, 132, MAIN_SEATS)
+    plan = launch_plan(8, 5000, L, k, MAIN_SEATS)
     spl = plan.steps_per_launch
     assert spl < k and -(-spl // L) + 1 <= MAX_DWIND
     assert -(-k // spl) == 4
-    short = launch_plan(8, 5000, L, 1000, 132, MAIN_SEATS)
+    short = launch_plan(8, 5000, L, 1000, MAIN_SEATS)
     assert short.steps_per_launch == 1000
 
 
@@ -371,23 +376,39 @@ def test_b1_unpacked_state_past_the_packed_limits():
     """L > 65,536 (pos past 16 bits) and N past what C=8 holds take the
     unpacked device-memory state, which needs no split."""
     for n, L in ((5000, 65_537), (1_000_000, 1000)):
-        plan = launch_plan(4, n, L, 10 ** 7, 132, MAIN_SEATS)
+        plan = launch_plan(4, n, L, 10 ** 7, MAIN_SEATS)
         assert plan.shape.mode == "global"
         assert plan.steps_per_launch == 10 ** 7
 
 
-@pytest.mark.parametrize("kernel", ["meanfield_multi_step", "pde_multi_step"])
-def test_ablation_variants_apply_to_the_sources(kernel):
-    """Every source ablation of ``experiments/ablate_kernels.py`` finds its
-    text in the kernel's source, once."""
-    from hydrolim_tpu_torch.experiments.ablate_kernels import (
-        VARIANTS,
-        variant_source,
-    )
-    from hydrolim_tpu_torch.ops._build import CSRC
+@pytest.mark.parametrize("B,n,seats,want", [
+    (33, 5000, {C: 40 for C in range(1, 9)}, 3),    # first C at ≤ 512
+    (1, 2000, MAIN_SEATS, 1),                        # 500 groups at C=1
+    (200, 5000, MAIN_SEATS, 1),                      # fewest waves first
+    (16, 100_000, HEAD_SEATS, 8),                    # fewest groups per CTA
+])
+def test_b1_plan_rule(B, n, seats, want):
+    """Among the sizes with the fewest waves, the smallest C that brings a
+    CTA to ``ONE_PASS_GROUPS`` groups, else the fewest groups per CTA."""
+    plan = launch_plan(B, n, 1000, 1000, seats)
+    assert plan.shape.cluster == want
+    waves = {C: -(-B // seats[C]) for C in seats if seats[C]}
+    assert plan.waves == min(waves.values())
+    if plan.shape.groups_per_cta > ONE_PASS_GROUPS:
+        assert all(cta_shape(n, 1000, C).groups_per_cta > ONE_PASS_GROUPS
+                   for C in waves if waves[C] == plan.waves)
 
-    src = (CSRC / f"{kernel}.cu").read_text()
-    for name, edits in VARIANTS[kernel].items():
-        for old, _ in edits:
-            assert src.count(old) == 1, (name, old)
-        assert (variant_source(kernel, edits) == src) == (not edits)
+
+@pytest.mark.parametrize("mode", ["registers", "shared", "global"])
+def test_b1_forced_state_mode(mode):
+    """A forced mode keeps the CTA's groups and, off registers, spreads
+    them as the wrapper's own shared or device-memory plan would; the
+    plan carries it; a mode that does not hold the groups is refused."""
+    sh = cta_shape(5000, 256, 3, mode)
+    assert (sh.mode, sh.groups_per_cta, sh.threads) == (mode, 417, 448)
+    assert sh.groups_per_thread == 1
+    plan = launch_plan(33, 5000, 256, 1000, MAIN_SEATS, cluster=3, mode=mode)
+    assert plan.shape == sh
+    if mode != "global":
+        with pytest.raises(ValueError, match="does not hold"):
+            cta_shape(100_000, 70_000 if mode == "shared" else 1000, 2, mode)
