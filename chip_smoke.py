@@ -23,7 +23,9 @@ Phases (each prints one line with its wall time; a failed phase raises):
    kernel and plain version, and B2's µs per step in each mode at the PDE
    slice's shapes with its bound;
 7. kernel B3/B4 against its plain version on the card, injected bits, in
-   four configurations at 4 and 33 replicas: slots equal, state moved,
+   four configurations at 4 and 33 replicas and L = 1000 and 999, under
+   the launch plan and under every cluster size it allows, and at L=8192
+   (K=3, past one block's shared memory): slots equal, state moved,
    admission refused somewhere, ids conserved, occupancy ≤ K;
 8. the exclusion β-sweep at full size (``sweep_over_betas`` on
    ``device='cuda'``, native Philox) in the reference configuration and at
@@ -31,7 +33,8 @@ Phases (each prints one line with its wall time; a failed phase raises):
    physics pins, and the proof that it ran through B3/B4 (launch counter,
    per configuration);
 9. throughput of B3/B4 at the JAX bench's flagship shape and at the
-   sweep's 33 replicas, kernel and plain version;
+   sweep's 33 replicas: the plan it takes, the kernel (and per forced
+   cluster size, C = 1…8), the plain version and the bound;
 10. the PDE slice at full size on ``device='cuda'``: the magn2 kernel-σ
     sweep, the single run through the ``IMEXPDE`` facade and the (β × σ)
     phase diagram, with their pins, B2's launches on each and the kernel's
@@ -680,67 +683,95 @@ def exclusion_state(dev, gen, *, B, K, L, sigma, periodic, N=None,
 
 
 def check_b3(dev) -> float:
-    """L=1000, rd=1, ra=3, dt=0.02 (events on ~10% of slot-steps, so the
-    admission rounds refuse candidates), β across [0, 3], half the K·L
-    slots filled; two chained 100-step calls per configuration at 4 and 33
-    replicas.  Slots must be EQUAL (the same bits, the same float32
+    """L=1000 and L=999, rd=1, ra=3, dt=0.02 (events on ~10% of slot-steps,
+    so the admission rounds refuse candidates), β across [0, 3], half the
+    K·L slots filled; two chained 100-step calls per configuration at 4 and
+    33 replicas, under the wrapper's plan and under every cluster size the
+    plan allows.  Slots must be EQUAL (the same bits, the same float32
     arithmetic and summation order, expf on both sides); the state must
     move, some admission round must refuse a candidate (the plain
     version's tally), particle ids must be conserved and occupancy ≤ K.
-    Returns the max abs difference (0)."""
+    Then L=8192 at K=3 (more than one block's shared memory) under every
+    cluster size that holds it.  Returns the max abs difference (0)."""
     import torch
     from hydrolim_tpu_torch.ops.exclusion_kernel import (
+        card_plan,
         exclusion_multi_step,
         exclusion_multi_step_plain,
+        exclusion_multi_step_planned,
     )
 
-    L, k, dt = 1000, 100, 0.02
+    k, dt = 100, 0.02
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     err = 0
-    for B in (4, 33):
-        for what, K, sigma, periodic, bidi in B3_CHECKS:
-            what = f"B3/B4 B={B} {what}"
-            slots0, band = exclusion_state(dev, gen, B=B, K=K, L=L,
-                                           sigma=sigma, periodic=periodic)
-            scal = torch.stack([torch.linspace(0.0, 3.0, B, device=dev),
-                                torch.full((B,), 1.0, device=dev),
-                                torch.full((B,), 3.0, device=dev)],
-                               1).contiguous()
-            seeds = torch.zeros(B, dtype=torch.int32, device=dev)
-            sk = sp = slots0
-            tally = {}
-            for c in range(2):
-                kw = dict(k_steps=k, dt=dt, periodic=periodic,
-                          bidirectional=bidi,
-                          noise=randbits((B, k, 2, K, L), gen, dev))
-                sk = exclusion_multi_step(scal, seeds, sk, band, **kw)
-                sp = exclusion_multi_step_plain(scal, seeds, sp, band,
-                                                tally=tally, **kw)
+    cases = [(B, L) + c for B in (4, 33) for L in (1000, 999)
+             for c in B3_CHECKS]
+    cases.append((4, 8192, "local m sigma=0.002, non-periodic, K=3", 3,
+                  0.002, False, False))
+    for B, L, what, K, sigma, periodic, bidi in cases:
+        what = f"B3/B4 B={B} L={L} {what}"
+        slots0, band = exclusion_state(dev, gen, B=B, K=K, L=L,
+                                       sigma=sigma, periodic=periodic)
+        scal = torch.stack([torch.linspace(0.0, 3.0, B, device=dev),
+                            torch.full((B,), 1.0, device=dev),
+                            torch.full((B,), 3.0, device=dev)],
+                           1).contiguous()
+        seeds = torch.zeros(B, dtype=torch.int32, device=dev)
+        kws = [dict(k_steps=k if L < 8192 else 20, dt=dt, periodic=periodic,
+                    bidirectional=bidi,
+                    noise=randbits((B, k if L < 8192 else 20, 2, K, L), gen,
+                                   dev)) for _ in range(2)]
+        sk = sp = slots0
+        tally = {}
+        want = []
+        for c, kw in enumerate(kws):
+            sk = exclusion_multi_step(scal, seeds, sk, band, **kw)
+            sp = exclusion_multi_step_plain(scal, seeds, sp, band,
+                                            tally=tally, **kw)
+            torch.cuda.synchronize()
+            bad = int((sk != sp).sum())
+            if bad:
+                raise AssertionError(
+                    f"{what}: call {c}: slots differ at {bad} of "
+                    f"{sk.numel()}")
+            err = max(err, int((sk - sp).abs().max()))
+            want.append(sp)
+        if torch.equal(sk, slots0):
+            raise AssertionError(f"{what}: the state did not move")
+        refused = tally["candidates"] - tally["admitted"]
+        if refused <= 0:
+            raise AssertionError(f"{what}: no admission refusal ({tally})")
+        for r in range(B):
+            if not torch.equal(sk[r].abs()[sk[r] != 0].sort().values,
+                               slots0[r].abs()[slots0[r] != 0]
+                               .sort().values):
+                raise AssertionError(f"{what}: replica {r} lost or gained "
+                                     "particles")
+        if int((sk != 0).sum(1).max()) > K:
+            raise AssertionError(f"{what}: occupancy above K={K}")
+        sizes = []
+        for C in range(1, 9):
+            try:
+                plan = card_plan(B, K, L, band, periodic, cluster=C)
+            except ValueError:
+                continue
+            got = slots0
+            for c, kw in enumerate(kws):
+                got = exclusion_multi_step_planned(plan, scal, seeds, got,
+                                                   band, **kw)
                 torch.cuda.synchronize()
-                bad = int((sk != sp).sum())
-                if bad:
-                    raise AssertionError(
-                        f"{what}: call {c}: slots differ at {bad} of "
-                        f"{sk.numel()}")
-                err = max(err, int((sk - sp).abs().max()))
-            if torch.equal(sk, slots0):
-                raise AssertionError(f"{what}: the state did not move")
-            refused = tally["candidates"] - tally["admitted"]
-            if refused <= 0:
-                raise AssertionError(f"{what}: no admission refusal "
-                                     f"({tally})")
-            for r in range(B):
-                if not torch.equal(sk[r].abs()[sk[r] != 0].sort().values,
-                                   slots0[r].abs()[slots0[r] != 0]
-                                   .sort().values):
-                    raise AssertionError(f"{what}: replica {r} lost or "
-                                         "gained particles")
-            if int((sk != 0).sum(1).max()) > K:
-                raise AssertionError(f"{what}: occupancy above K={K}")
-            print(f"{what}: equal over {2 * k} steps; admission "
-                  f"{tally['admitted']} of {tally['candidates']} candidates",
-                  flush=True)
+                if not torch.equal(got, want[c]):
+                    raise AssertionError(f"{what}: C={C}: call {c}: slots "
+                                         f"differ at "
+                                         f"{int((got != want[c]).sum())}")
+            sizes.append(C)
+        if not sizes:
+            raise AssertionError(f"{what}: no cluster size fits")
+        print(f"{what}: equal over {2 * kws[0]['k_steps']} steps under the "
+              f"plan (C={card_plan(B, K, L, band, periodic).cluster}) and "
+              f"C={sizes}; admission {tally['admitted']} of "
+              f"{tally['candidates']} candidates", flush=True)
     return float(err)
 
 
@@ -961,12 +992,16 @@ def throughput_b3(dev) -> dict:
       1,000-step call at that shape;
     - the sweep's 33 replicas at configuration (b) (exp-gradient Poisson
       init, β over [0, 3], rd=0.02, ra=5, its Δt), 10,000- and 1,000-step
-      calls, and the plain version's 1,000-step call at that shape."""
+      calls, and the plain version's 1,000-step call at that shape;
+    each with the launch plan it takes and the µs per step under every
+    cluster size C = 1…8 that fits (1000-step calls)."""
     import torch
     from hydrolim_tpu_torch.experiments.particle_beta_sweep import FLAGSHIP
     from hydrolim_tpu_torch.ops.exclusion_kernel import (
+        card_plan,
         exclusion_multi_step,
         exclusion_multi_step_plain,
+        exclusion_multi_step_planned,
     )
     from hydrolim_tpu_torch.sweeps.beta_sweep import (
         DEFAULT_PS_KWARGS,
@@ -1008,13 +1043,44 @@ def throughput_b3(dev) -> dict:
               f"{n * 1000 / (ms / 1e3):.4e} particle-steps/s", flush=True)
         return ms
 
+    def clusters(tag, slots, scal, seeds, band, dt, k=1000):
+        """µs per step under each forced cluster size (one warm-up call,
+        then 2 calls of k steps)."""
+        row = {}
+        for C in range(1, 9):
+            try:
+                plan = card_plan(slots.shape[0], K, L, band, False,
+                                 cluster=C)
+            except ValueError:
+                continue
+            state = [slots, 0]
+
+            def call():
+                state[0] = exclusion_multi_step_planned(
+                    plan, scal, seeds, state[0], band, k_steps=k, dt=dt,
+                    periodic=False, bidirectional=False, step0=state[1] * k)
+                state[1] += 1
+
+            call()
+            row[C] = round(np.mean([cuda_ms(call) for _ in range(2)])
+                           * 1e3 / k, 4)
+        print(f"B3 {tag}: us/step per cluster size {row}", flush=True)
+        return row
+
+    def shape(tag, slots, band):
+        plan = card_plan(slots.shape[0], K, L, band, False)
+        print(f"B3 {tag}: plan {plan}", flush=True)
+        return plan
+
     B = 16
     slots, band = exclusion_state(dev, gen, B=B, K=K, L=L, sigma=0.002,
                                   periodic=False, N=750)
     scal = torch.tensor([[0.7, 0.0, 5.0]] * B, device=dev)
     seeds = torch.arange(B, dtype=torch.int32, device=dev)
+    shape("flagship B=16 N=750", slots, band)
     rate("flagship B=16 N=750", slots, scal, seeds, band, 10_000, 2e-3)
     rate("flagship B=16 N=750", slots, scal, seeds, band, 1000, 2e-3)
+    clusters("flagship B=16 N=750", slots, scal, seeds, band, 2e-3)
     plain("flagship B=16 N=750", slots, scal, seeds, band, 2e-3)
 
     ps = dict(DEFAULT_PS_KWARGS, **FLAGSHIP)
@@ -1029,11 +1095,16 @@ def throughput_b3(dev) -> dict:
     scal = torch.tensor([[b, 0.02, 5.0] for b in np.repeat(SLICE_BETAS, 3)],
                         dtype=torch.float32, device=dev)
     seeds = torch.arange(B, dtype=torch.int32, device=dev)
+    plan = shape("sweep (b) B=33", slots, band)
     rate("sweep (b) B=33", slots, scal, seeds, band, 10_000, dt)
     ms = rate("sweep (b) B=33", slots, scal, seeds, band, 1000, dt)
+    table = clusters("sweep (b) B=33", slots, scal, seeds, band, dt)
     plain_ms = plain("sweep (b) B=33", slots, scal, seeds, band, dt)
-    out["exclusion_multi_step"] = dict(ms=ms, plain_ms=plain_ms,
-                                       **b3_bound(slots, band, 1000))
+    out["exclusion_multi_step"] = dict(
+        ms=ms, plain_ms=plain_ms, plan=dict(cluster=plan.cluster,
+                                            halo=plan.halo,
+                                            threads=plan.threads),
+        us_per_step_by_cluster=table, **b3_bound(slots, band, 1000))
     return out
 
 

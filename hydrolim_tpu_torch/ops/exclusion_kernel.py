@@ -31,12 +31,22 @@ Randomness is injected (``noise``: (B, k, 2, K, L) int32 bits, draw 0 =
 event, 1 = priority) or native: the kernel draws Philox4x32-10 with key
 (seed, replica) and counter (slot·L + site, ``step0`` + step), words 0 and
 1 of one call; the plain version draws from ``generator``.
+
+Launch plan (``exclusion_launch_plan``, a pure function tested on the CPU):
+a thread-block cluster of C ≤ 8 CTAs per replica, CTA r owning the sites
+``segments(L, C)[r]`` plus ``halo_width`` sites of state on each side
+(``cta_window``).  Among the C whose windows fit shared memory, whose
+segments are at least two halos wide and that seat all B clusters at once
+with a CTA per SM (``cudaOccupancyMaxActiveClusters``), the smallest that
+brings a CTA to ``SITES_PER_CTA`` sites.  ``card_plan`` asks the card;
+``exclusion_multi_step_planned`` runs a given (or forced) plan.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Tuple
+import functools
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,17 +64,133 @@ REPLACES = ("hydrolim_tpu/ops/pallas_exclusion.py:403 and "
             "hydrolim_tpu/ops/pallas_exclusion_rb.py:222")
 
 MAX_K = 8                     # 2K candidate row ids fit the priorities' 4 bits
+MAX_CLUSTER = 8               # the portable cluster size
+MAX_THREADS = 1024
 MAX_SMEM = 232_448 - 256      # an H100 block's limit less the static partials
+SLOT_BYTES = 2 * MAX_CLUSTER * 32 * 8   # global m's tagged Σσ partials
+# The sites per CTA at which a step stops getting faster with more CTAs:
+# each phase of a step is a chain of dependent loads, so a CTA of a few
+# warps takes about as long as one of eight, and each CTA more adds a halo
+# handoff.  PERF.md's cluster tables (chip_smoke.py phase 9,
+# profile_exclusion_kernel.py --clusters) show it at L=1000: at B=16, 1000
+# sites per CTA (C=1) take 5.97 µs per step, 334 (C=3) 3.77, 250 (C=4)
+# 3.44 and 125-200 (C=5-8) 3.41-3.46; at L=250 one CTA of 250 sites took
+# 2.96 against 3.17 at C=4.
+SITES_PER_CTA = 256
 _SENT = 0x7FFFFFFF            # "no candidate": sorts after every priority
 _MASK_HI = 0x7FFFFFF0         # 27 random bits; the low 4 carry the row id
 _PERIODIC_TAIL = 1e-7         # periodic band: the cut tail's share of mass
 
 
-def smem_bytes(K: int, L: int, W: int = 0) -> int:
-    """Shared memory of one replica's block: two (K, L) int32 slot buffers,
-    (K, L) int32 priorities and int8 events, three (L,) int32 site arrays
-    and the band's W interior taps (float32)."""
-    return (13 * K + 12) * L + 4 * W
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def cta_threads(L: int, C: int) -> int:
+    """Threads of one CTA: the sites of its longest P2 range (its segment
+    and, in a cluster, two sites past each side) in whole warps, at most
+    1024."""
+    return min(MAX_THREADS, 32 * _cdiv(_cdiv(L, C) + (4 if C > 1 else 0),
+                                       32))
+
+
+def cta_smem_bytes(K: int, L: int, W: int, C: int, halo: int,
+                   global_m: bool) -> int:
+    """Dynamic shared memory of one CTA (the kernel's ``smem_bytes``): the
+    halo mailboxes (2 step parities × 2 sides × K × halo tagged 64-bit
+    words), global m's tagged partials, two (K, window) int32 slot buffers,
+    (K, window) int32 priorities and int8 events, three (window,) int32
+    site arrays, the band's W taps (float32) and a K-byte draw queue per
+    thread.  The window is L at C=1, else the longest segment and two
+    halos."""
+    window = L if C == 1 else _cdiv(L, C) + 2 * halo
+    return ((0 if C == 1 else 32 * K * halo)
+            + (SLOT_BYTES if global_m else 0) + (13 * K + 12) * window
+            + 4 * W + K * cta_threads(L, C))
+
+
+def segments(L: int, C: int) -> list:
+    """CTA r of a cluster of C owns the sites [r·L//C, (r+1)·L//C)."""
+    return [(r * L // C, (r + 1) * L // C) for r in range(C)]
+
+
+@dataclasses.dataclass(frozen=True)
+class CtaWindow:
+    """The sites CTA ``rank`` keeps: ``left`` halo sites, its segment
+    [lo, hi), ``right`` halo sites; local site z is the global site
+    ``start`` + z (mod L on a torus)."""
+
+    lo: int
+    hi: int
+    left: int
+    right: int
+    start: int
+
+    def sites(self, L: int) -> np.ndarray:
+        return (self.start + np.arange(self.left + self.hi - self.lo
+                                       + self.right)) % L
+
+
+def cta_window(L: int, C: int, rank: int, halo: int,
+               periodic: bool) -> CtaWindow:
+    """The window of CTA ``rank``: no halo past a wall, none at C=1 (the
+    whole lattice, wrapping in itself when periodic)."""
+    lo, hi = segments(L, C)[rank]
+    left = halo if C > 1 and (periodic or rank > 0) else 0
+    right = halo if C > 1 and (periodic or rank < C - 1) else 0
+    return CtaWindow(lo, hi, left, right, (lo - left) % L)
+
+
+def halo_width(band: Optional["SmoothingBand"], periodic: bool) -> int:
+    """Sites of pre-step state a CTA needs on each side of its segment: the
+    pack at the segment's edge reads admission one site out, admission
+    reads events two out, and an event reads the occupancy three out and
+    (local m) the band's inputs ``reach`` + 2 out."""
+    if band is None:
+        return 3
+    return max(3, (band.reach_wrap if periodic else band.reach) + 2)
+
+
+def cluster_fits(K: int, L: int, W: int, C: int, halo: int) -> bool:
+    """A cluster of C CTAs can run the call: each segment at least two
+    halos wide, and the window's shared memory within the block's."""
+    return ((C == 1 or L // C >= 2 * halo)
+            and cta_smem_bytes(K, L, W, C, halo, W == 0) <= MAX_SMEM)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExclusionPlan:
+    cluster: int
+    halo: int
+    threads: int
+    smem: int
+    waves: int             # ⌈B / co-resident clusters⌉, a CTA per SM
+
+
+def exclusion_launch_plan(B: int, K: int, L: int, W: int, halo: int,
+                          coresident: Mapping[int, int], *,
+                          cluster: Optional[int] = None) -> ExclusionPlan:
+    """The plan of one call (W = 0: global m).  ``coresident[C]`` is how
+    many clusters of C CTAs the card holds at once with every CTA on an
+    SM of its own (absent or 0: cannot launch).  Among the C ≤ 8 that fit
+    (``cluster_fits``) with the fewest waves, the smallest C whose CTA
+    holds at most ``SITES_PER_CTA`` sites, else the one with the fewest.
+    ``cluster`` forces C."""
+    sizes = [cluster] if cluster else range(1, MAX_CLUSTER + 1)
+    ok = [C for C in sizes
+          if cluster_fits(K, L, W, C, halo) and int(coresident.get(C, 0)) > 0]
+    if not ok:
+        raise ValueError(f"exclusion_multi_step: no cluster size of "
+                         f"{list(sizes)} fits K={K}, L={L}, W={W}, halo "
+                         f"{halo} in shared memory")
+    waves = {C: _cdiv(B, int(coresident[C])) for C in ok}
+    fewest = min(waves.values())
+    cands = [C for C in ok if waves[C] == fewest]
+    small = [C for C in cands if _cdiv(L, C) <= SITES_PER_CTA]
+    C = min(small) if small else max(cands)
+    h = halo if C > 1 else 0
+    return ExclusionPlan(C, h, cta_threads(L, C),
+                         cta_smem_bytes(K, L, W, C, h, W == 0), fewest)
 
 
 # ---------------------------------------------------------------------------
@@ -78,14 +204,21 @@ class SmoothingBand:
     the interior [lo, hi) read the same (W,) ``taps`` at the inputs
     x − radius + t: ``idx[x, t] = x − radius + t`` and ``w[x] = taps``
     bit for bit, checked where the band is built.  The kernel serves those
-    taps from shared memory and reads the other rows from ``idx``/``w``."""
+    taps from shared memory and reads the other rows from ``idx``/``w``.
+    ``rot`` (L,) int32: each row's rotation (``band_rotation``).
+    ``reach`` and ``reach_wrap``: the farthest input (weight ≠ 0, or an
+    interior tap) from its output site, along the line and around the
+    torus."""
 
     idx: torch.Tensor
     w: torch.Tensor
     taps: torch.Tensor
+    rot: torch.Tensor
     radius: int
     lo: int
     hi: int
+    reach: int
+    reach_wrap: int
 
 
 def _periodic_radius(k: np.ndarray) -> int:
@@ -154,14 +287,42 @@ def band_interior(idx: np.ndarray, w: np.ndarray
     return np.ascontiguousarray(taps), r, int(starts[j]), int(ends[j])
 
 
+def band_rotation(idx: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """(L,) int32: the rotation ``rot`` of each row under which its tap t
+    reads the input x − radius + ((t + rot) mod W) wherever its weight is
+    not 0: rot ≥ 0 along the line (an interior or a wall's row), −2 − rot
+    only around the torus (a row near the wrap, whose inputs in ascending
+    site order start past it), −1 for a row of no such form."""
+    L, W = idx.shape
+    r = (W - 1) // 2
+    x = np.arange(L)
+    live = w != 0
+    t = np.arange(W)[None, :]
+    t0 = np.argmax(live, 1)
+    rot = ((idx[x, t0].astype(np.int64) - (x - r)) % L - t0) % W
+    want = x[:, None] - r + (t + rot[:, None]) % W
+    lin = ((want == idx) | ~live).all(1)
+    wrap = ((want % L == idx) | ~live).all(1)
+    return np.where(lin, rot, np.where(wrap, -2 - rot, -1)).astype(np.int32)
+
+
 def smoothing_band(idx: np.ndarray, w: np.ndarray,
                    device="cuda") -> SmoothingBand:
-    """The band of (L, W) input sites and weights, with its interior."""
+    """The band of (L, W) input sites and weights, with its interior and
+    its reach."""
     taps, radius, lo, hi = band_interior(idx, w)
+    L, W = idx.shape
+    d = np.abs(idx.astype(np.int64) - np.arange(L)[:, None])[w != 0]
+    inner = max(radius, W - 1 - radius) if lo < hi else 0
+    reach = max(int(d.max(initial=0)), inner)
+    reach_wrap = max(int(np.minimum(d, L - d).max(initial=0)), inner)
     return SmoothingBand(idx=torch.tensor(idx, device=device),
                          w=torch.tensor(w, device=device),
                          taps=torch.tensor(taps, device=device),
-                         radius=radius, lo=lo, hi=hi)
+                         rot=torch.tensor(band_rotation(idx, w),
+                                          device=device),
+                         radius=radius, lo=lo, hi=hi, reach=reach,
+                         reach_wrap=reach_wrap)
 
 
 def build_smoothing_band(config: ParticleConfig,
@@ -204,9 +365,12 @@ def _draw_bits(shape, generator, device) -> torch.Tensor:
 
 def step_thresholds(slots: torch.Tensor, scalars: torch.Tensor,
                     band: Optional[SmoothingBand], dt: float, periodic: bool,
-                    bidirectional: bool) -> Tuple[torch.Tensor, ...]:
+                    bidirectional: bool, m: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, ...]:
     """One step's event thresholds (t1, t2, t3), each (B, K, L) float32,
-    and the pre-step site occupancy (B, L), in the kernel's arithmetic."""
+    and the pre-step site occupancy (B, L), in the kernel's arithmetic.
+    ``m`` (B, 1, 1), if given, replaces the global m of these slots (a
+    window of a lattice takes its lattice's)."""
     B, K, L = slots.shape
     f32 = torch.float32
     dt32 = torch.tensor(dt, dtype=f32, device=slots.device)
@@ -224,7 +388,7 @@ def step_thresholds(slots: torch.Tensor, scalars: torch.Tensor,
         pos = c1 > 0
         m = torch.where(pos, c0 / torch.where(pos, c1, 1.0), zero)
         m = m.clamp(-1.0, 1.0)[:, None, :]
-    else:
+    elif m is None:
         m = (counts_s.sum(-1) / tot.sum(-1).clamp(min=1.0)).reshape(B, 1, 1)
     beta = scalars[:, 0].reshape(B, 1, 1)
     c = torch.where(occ_slot, torch.exp(-beta * sgn_f * m), zero)
@@ -259,58 +423,70 @@ def exclusion_multi_step_plain(scalars: torch.Tensor, seeds: torch.Tensor,
     given, accumulates the admission candidates and the admitted ones
     (keys 'candidates', 'admitted'), so a check can see refusals."""
     B, K, L = slots.shape
-    dev = slots.device
-    row = torch.arange(K, device=dev).reshape(1, K, 1)
     for s in range(k_steps):
-        t1, t2, t3, occ_tot = step_thresholds(slots, scalars, band, dt,
-                                              periodic, bidirectional)
         if noise is not None:
             u_bits = noise[:, s, 0].to(torch.int64)
             p_bits = noise[:, s, 1].to(torch.int64)
         else:
-            u_bits = _draw_bits((B, K, L), generator, dev)
-            p_bits = _draw_bits((B, K, L), generator, dev)
-        u = bits_to_uniform(u_bits)
-        ev_left = u < t1
-        ev_right = (u >= t1) & (u < t2)
-        ev_flip = (u >= t2) & (u < t3)
-
-        rand_hi = ((p_bits & 0xFFFFFFFF) >> 1) & _MASK_HI
-        cand_r = _shift_right(torch.where(ev_right, rand_hi | row, _SENT),
-                              periodic, _SENT)
-        cand_l = _shift_left(torch.where(ev_left, rand_hi | (row + K), _SENT),
-                             periodic, _SENT)
-        cand = torch.cat([cand_r, cand_l], 1)         # (B, 2K, L)
-        free = (K - occ_tot)[:, None, :]
-        accept = torch.zeros_like(cand, dtype=torch.bool)
-        for r in range(K):
-            cur_min = cand.min(1, keepdim=True).values
-            win = (cand == cur_min) & (cand != _SENT) & (free > r)
-            accept = accept | win
-            cand = torch.where(win, _SENT, cand)
-        acc_right_in, acc_left_in = accept[:, :K], accept[:, K:]
-        if tally is not None:
-            tally["candidates"] = tally.get("candidates", 0) + int(
-                ev_right.sum() + ev_left.sum())
-            tally["admitted"] = tally.get("admitted", 0) + int(accept.sum())
-
-        leaver = (_shift_left(acc_right_in, periodic, False)
-                  | _shift_right(acc_left_in, periodic, False))
-        stay = torch.where(leaver, 0, slots)
-        stay = torch.where(ev_flip & ~leaver, -stay, stay)
-        in_right = torch.where(acc_right_in, _shift_right(slots, periodic, 0),
-                               0)
-        in_left = torch.where(acc_left_in, _shift_left(slots, periodic, 0), 0)
-        combined = torch.cat([stay, in_right, in_left], 1)    # (B, 3K, L)
-
-        # stable front-pack of the nonzero rows; the spare row 3K takes the
-        # zeros
-        nz = combined != 0
-        dest = torch.where(nz, nz.cumsum(1) - 1, 3 * K)
-        packed = torch.zeros((B, 3 * K + 1, L), dtype=slots.dtype, device=dev)
-        packed.scatter_(1, dest, combined)
-        slots = packed[:, :K].contiguous()
+            u_bits = _draw_bits((B, K, L), generator, slots.device)
+            p_bits = _draw_bits((B, K, L), generator, slots.device)
+        slots = exclusion_step_plain(slots, scalars, band, u_bits, p_bits,
+                                     dt=dt, periodic=periodic,
+                                     bidirectional=bidirectional, tally=tally)
     return slots
+
+
+def exclusion_step_plain(slots: torch.Tensor, scalars: torch.Tensor,
+                         band: Optional[SmoothingBand], u_bits: torch.Tensor,
+                         p_bits: torch.Tensor, *, dt: float, periodic: bool,
+                         bidirectional: bool,
+                         m: Optional[torch.Tensor] = None,
+                         tally: Optional[dict] = None) -> torch.Tensor:
+    """One step of the plain version at (B, K, L) int64 event and priority
+    bits; ``m`` as in ``step_thresholds``."""
+    B, K, L = slots.shape
+    dev = slots.device
+    row = torch.arange(K, device=dev).reshape(1, K, 1)
+    t1, t2, t3, occ_tot = step_thresholds(slots, scalars, band, dt,
+                                          periodic, bidirectional, m)
+    u = bits_to_uniform(u_bits)
+    ev_left = u < t1
+    ev_right = (u >= t1) & (u < t2)
+    ev_flip = (u >= t2) & (u < t3)
+
+    rand_hi = ((p_bits & 0xFFFFFFFF) >> 1) & _MASK_HI
+    cand_r = _shift_right(torch.where(ev_right, rand_hi | row, _SENT),
+                          periodic, _SENT)
+    cand_l = _shift_left(torch.where(ev_left, rand_hi | (row + K), _SENT),
+                         periodic, _SENT)
+    cand = torch.cat([cand_r, cand_l], 1)             # (B, 2K, L)
+    free = (K - occ_tot)[:, None, :]
+    accept = torch.zeros_like(cand, dtype=torch.bool)
+    for r in range(K):
+        cur_min = cand.min(1, keepdim=True).values
+        win = (cand == cur_min) & (cand != _SENT) & (free > r)
+        accept = accept | win
+        cand = torch.where(win, _SENT, cand)
+    acc_right_in, acc_left_in = accept[:, :K], accept[:, K:]
+    if tally is not None:
+        tally["candidates"] = tally.get("candidates", 0) + int(
+            ev_right.sum() + ev_left.sum())
+        tally["admitted"] = tally.get("admitted", 0) + int(accept.sum())
+
+    leaver = (_shift_left(acc_right_in, periodic, False)
+              | _shift_right(acc_left_in, periodic, False))
+    stay = torch.where(leaver, 0, slots)
+    stay = torch.where(ev_flip & ~leaver, -stay, stay)
+    in_right = torch.where(acc_right_in, _shift_right(slots, periodic, 0), 0)
+    in_left = torch.where(acc_left_in, _shift_left(slots, periodic, 0), 0)
+    combined = torch.cat([stay, in_right, in_left], 1)        # (B, 3K, L)
+
+    # stable front-pack of the nonzero rows; the spare row 3K takes the zeros
+    nz = combined != 0
+    dest = torch.where(nz, nz.cumsum(1) - 1, 3 * K)
+    packed = torch.zeros((B, 3 * K + 1, L), dtype=slots.dtype, device=dev)
+    packed.scatter_(1, dest, combined)
+    return packed[:, :K].contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -357,39 +533,114 @@ def exclusion_multi_step(scalars: torch.Tensor, seeds: torch.Tensor,
     _check(slots, "slots", torch.int32, (B, K, L), dev)
     if noise is not None:
         _check(noise, "noise", torch.int32, (B, k_steps, 2, K, L), dev)
-    W = radius = lo = hi = 0
+    W = 0
     if band is not None:
         W = band.idx.shape[1]
         _check(band.idx, "band.idx", torch.int32, (L, W), dev)
         _check(band.w, "band.w", torch.float32, (L, W), dev)
         _check(band.taps, "band.taps", torch.float32, (W,), dev)
+        _check(band.rot, "band.rot", torch.int32, (L,), dev)
         radius, lo, hi = band.radius, band.lo, band.hi
         if not (0 <= lo <= hi <= L and (lo == hi or (
                 lo >= radius and hi + W - 1 - radius <= L))):
             raise ValueError(f"band interior [{lo}, {hi}) with radius "
                              f"{radius} and W={W} reads outside 0..{L}")
-    if smem_bytes(K, L, W) > MAX_SMEM:
+    halo = halo_width(band, periodic)
+    if not any(cluster_fits(K, L, W, C, halo)
+               for C in range(1, MAX_CLUSTER + 1)):
         raise ValueError(
-            f"exclusion_multi_step: K·L = {K}·{L} needs "
-            f"{smem_bytes(K, L, W)} bytes of shared memory per replica, "
-            f"more than {MAX_SMEM}")
+            f"exclusion_multi_step: K·L = {K}·{L} (band W={W}, halo {halo}) "
+            f"needs more shared memory than a cluster of up to "
+            f"{MAX_CLUSTER} CTAs holds ({MAX_SMEM} bytes each)")
     if not (0 <= step0 and step0 + k_steps < 2 ** 31):
         raise ValueError(f"step0 out of range: {step0}")
+    plan = card_plan(B, K, L, band, periodic, dev.index or 0)
+    return exclusion_multi_step_planned(plan, scalars, seeds, slots, band,
+                                        **kw)
+
+
+def card_plan(B: int, K: int, L: int, band: Optional[SmoothingBand],
+              periodic: bool, device_index: int = 0,
+              cluster: Optional[int] = None) -> ExclusionPlan:
+    """``exclusion_launch_plan`` for this call on the card: its halo and
+    band, the card's co-resident clusters; ``cluster`` forces C."""
+    W = 0 if band is None else band.idx.shape[1]
+    halo = halo_width(band, periodic)
+    return exclusion_launch_plan(
+        B, K, L, W, halo,
+        exclusion_max_active_clusters(device_index, K, L, W, halo),
+        cluster=cluster)
+
+
+def _lib():
     lib = load_kernel_library("exclusion_multi_step")
-    out = torch.empty_like(slots)
     fn = lib.exclusion_multi_step_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    occ = lib.exclusion_max_active_clusters
+    occ.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    occ.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=64)
+def exclusion_max_active_clusters(device_index: int, K: int, L: int, W: int,
+                                  halo: int) -> dict:
+    """{C: clusters of C CTAs the card holds at once for this call's shape
+    (W = 0: global m) with every CTA on an SM of its own}, from
+    ``cudaOccupancyMaxActiveClusters`` asked for CTAs whose shared memory
+    leaves no room for a second (the kernel itself takes what its window
+    needs); 0 where the cluster does not fit (``cluster_fits``) or cannot
+    launch.  The GPCs decide what this seats: on an H100 clusters of 4
+    seat 32, not 33."""
+    lib = _lib()
+    out = {}
+    with torch.cuda.device(device_index):
+        for C in range(1, MAX_CLUSTER + 1):
+            out[C] = 0
+            if not cluster_fits(K, L, W, C, halo):
+                continue
+            h = halo if C > 1 else 0
+            cnt = ctypes.c_int(0)
+            rc = lib.exclusion_max_active_clusters(
+                K, L, W, C, h, cta_threads(L, C), int(W == 0),
+                ctypes.byref(cnt))
+            out[C] = cnt.value if rc == 0 else 0
+    return out
+
+
+def exclusion_multi_step_planned(plan: ExclusionPlan, scalars, seeds, slots,
+                                 band: Optional[SmoothingBand] = None, *,
+                                 k_steps: int, dt: float, periodic: bool,
+                                 bidirectional: bool, step0: int = 0,
+                                 noise: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """``exclusion_multi_step`` on CUDA tensors under a given plan (the
+    wrapper's own, or one that ``exclusion_launch_plan(..., cluster=C)``
+    forces, to compare cluster sizes).  The inputs are checked by the
+    wrapper; here only that the plan fits them."""
+    B, K, L = slots.shape
+    W = 0 if band is None else band.idx.shape[1]
+    C = plan.cluster
+    halo = halo_width(band, periodic)
+    if plan.halo != (halo if C > 1 else 0) or not cluster_fits(
+            K, L, W, C, halo) or plan.threads != cta_threads(L, C):
+        raise ValueError(f"exclusion_multi_step: {plan} does not fit K={K}, "
+                         f"L={L}, W={W}, halo {halo}")
+    out = torch.empty_like(slots)
     exclusion_multi_step.launches += 1
-    rc = fn(ptr(scalars), ptr(seeds), step0, ptr(slots), ptr(out), ptr(noise),
-            *(ptr(getattr(band, f) if band is not None else None)
-              for f in ("idx", "w", "taps")),
-            W, radius, lo, hi, B, K, L, k_steps, dt, int(periodic),
-            int(bidirectional),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    rc = _lib().exclusion_multi_step_launch(
+        ptr(scalars), ptr(seeds), step0, ptr(slots), ptr(out), ptr(noise),
+        *(ptr(getattr(band, f) if band is not None else None)
+          for f in ("idx", "w", "taps", "rot")),
+        W, *((band.radius, band.lo, band.hi) if band is not None
+             else (0, 0, 0)),
+        B, K, L, k_steps, dt, int(periodic), int(bidirectional), C,
+        plan.halo, plan.threads,
+        ctypes.c_void_p(torch.cuda.current_stream(slots.device).cuda_stream))
     check_cuda(rc, "exclusion_multi_step")
     return out
 

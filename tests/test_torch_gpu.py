@@ -13,8 +13,10 @@ from hydrolim_tpu_torch.core.config import ParticleConfig, PDEConfig
 from hydrolim_tpu_torch.ops.exclusion_kernel import (
     band_weights,
     build_smoothing_band,
+    card_plan,
     exclusion_multi_step,
     exclusion_multi_step_plain,
+    exclusion_multi_step_planned,
     smoothing_band,
 )
 from hydrolim_tpu_torch.ops.pde_kernel import (
@@ -382,8 +384,8 @@ def test_b3_native_streams_conserve(dev):
 
 
 def test_b3_wrapper_refusals(dev):
-    """Wrong dtype, non-contiguous slots, and a K·L past shared memory are
-    refused before any launch."""
+    """Wrong dtype, non-contiguous slots, and a K·L past the shared memory
+    of a cluster of 8 CTAs are refused before any launch."""
     B, K, L = 2, 3, 256
     _, slots, scal, _ = _exclusion_inputs(dev, B=B, K=K, L=L, sigma=0.0,
                                           periodic=True, seed=2)
@@ -395,7 +397,121 @@ def test_b3_wrapper_refusals(dev):
     with pytest.raises(ValueError):
         exclusion_multi_step(scal, seeds, slots.transpose(1, 2).contiguous()
                              .transpose(1, 2), **kw)
-    big = torch.zeros((1, 8, 3000), dtype=torch.int32, device=dev)
+    big = torch.zeros((1, 8, 20_000), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         exclusion_multi_step(scal[:1], seeds[:1], big, **kw)
     assert exclusion_multi_step.launches == n0
+
+
+# chip_smoke.B3_CHECKS: (K, σ, periodic, bidirectional)
+B3_CONFIGS = {
+    "global m, periodic, bidirectional": (3, 0.0, True, True),
+    "local m sigma=0.002, walls": (3, 0.002, False, False),
+    "local m sigma=0.02, periodic": (3, 0.02, True, False),
+    "K=1, local m sigma=0.005, walls": (1, 0.005, False, False),
+}
+
+
+def _b3_plan(dev, B, K, L, band, periodic, C=None):
+    return card_plan(B, K, L, band, periodic, dev.index, cluster=C)
+
+
+@pytest.mark.parametrize("L", [1000, 999])
+@pytest.mark.parametrize("B", [4, 33])
+@pytest.mark.parametrize("config", list(B3_CONFIGS))
+def test_b3_kernel_equals_plain_under_every_cluster_size(dev, config, B, L):
+    """40 steps at injected bits under each cluster size the plan allows
+    (C ≤ 8; the periodic σ=0.02 band, 215 taps, allows C ≤ 4): slots EQUAL
+    to the plain version's."""
+    K, sigma, periodic, bidi = B3_CONFIGS[config]
+    k = 40
+    gen, slots, scal, band = _exclusion_inputs(
+        dev, B=B, K=K, L=L, sigma=sigma, periodic=periodic, seed=B + L)
+    seeds = torch.zeros(B, dtype=torch.int32, device=dev)
+    kw = dict(k_steps=k, dt=0.02, periodic=periodic, bidirectional=bidi,
+              noise=_bits((B, k, 2, K, L), gen, dev))
+    want = exclusion_multi_step_plain(scal, seeds, slots, band, **kw)
+    assert not torch.equal(want, slots)
+    ran = []
+    for C in range(1, 9):
+        try:
+            plan = _b3_plan(dev, B, K, L, band, periodic, C)
+        except ValueError:
+            continue
+        n0 = exclusion_multi_step.launches
+        got = exclusion_multi_step_planned(plan, scal, seeds, slots, band,
+                                           **kw)
+        assert exclusion_multi_step.launches == n0 + 1
+        assert torch.equal(got, want), f"C={C}"
+        ran.append(C)
+    assert ran == (list(range(1, 5)) if sigma == 0.02 else list(range(1, 9)))
+
+
+def test_b3_band_rows_of_any_form_under_every_cluster_size(dev):
+    """A band with a bent interior row (read with its own weights) and a
+    row whose inputs run in descending order (no rotation of the taps: the
+    kernel reads its index table), at walls and on a torus: slots EQUAL to
+    the plain version's under every cluster size."""
+    B, K, L, k = 3, 3, 1000, 40
+    for periodic in (False, True):
+        cfg = ParticleConfig(L=L, N=(K * L) // 2, init="fixed",
+                             scale_rates=False, local_kernel_sigma=0.005,
+                             periodic=periodic, site_capacity=K)
+        idx, w = band_weights(cfg)
+        idx, w = idx.copy(), w.copy()
+        w[L // 3] *= 1.5
+        idx[L // 2], w[L // 2] = idx[L // 2, ::-1], w[L // 2, ::-1]
+        band = smoothing_band(idx, w, device=dev)
+        assert int(band.rot[L // 2]) == -1
+        gen, slots, scal, _ = _exclusion_inputs(
+            dev, B=B, K=K, L=L, sigma=0.0, periodic=periodic, seed=6)
+        seeds = torch.zeros(B, dtype=torch.int32, device=dev)
+        kw = dict(k_steps=k, dt=0.02, periodic=periodic,
+                  bidirectional=False, noise=_bits((B, k, 2, K, L), gen, dev))
+        want = exclusion_multi_step_plain(scal, seeds, slots, band, **kw)
+        for C in range(1, 9):
+            got = exclusion_multi_step_planned(
+                _b3_plan(dev, B, K, L, band, periodic, C), scal, seeds,
+                slots, band, **kw)
+            assert torch.equal(got, want), f"periodic={periodic} C={C}"
+
+
+def test_b3_native_stream_is_the_same_under_every_plan(dev):
+    """Native Philox: the same (seed, step0) gives the same slots whatever
+    the cluster size, at global and local m."""
+    B, K, L = 6, 3, 1000
+    for sigma in (0.0, 0.002):
+        _, slots, scal, band = _exclusion_inputs(
+            dev, B=B, K=K, L=L, sigma=sigma, periodic=False, seed=7)
+        seeds = torch.arange(3, 3 + B, dtype=torch.int32, device=dev)
+        kw = dict(k_steps=300, dt=0.01, periodic=False, bidirectional=False,
+                  step0=123)
+        ref = exclusion_multi_step(scal, seeds, slots, band, **kw)
+        assert not torch.equal(ref, slots)
+        for C in range(1, 9):
+            got = exclusion_multi_step_planned(
+                _b3_plan(dev, B, K, L, band, False, C), scal, seeds, slots,
+                band, **kw)
+            assert torch.equal(got, ref), f"sigma={sigma} C={C}"
+
+
+def test_b3_past_one_block(dev):
+    """L=8192 at K=3 (more than one block's shared memory) runs on a
+    cluster: particle ids conserved, occupancy ≤ K, and EQUAL to the plain
+    version at injected bits."""
+    B, K, L, k = 3, 3, 8192, 20
+    gen, slots, scal, band = _exclusion_inputs(
+        dev, B=B, K=K, L=L, sigma=0.002, periodic=False, seed=9)
+    assert _b3_plan(dev, B, K, L, band, False).cluster >= 2
+    seeds = torch.arange(B, dtype=torch.int32, device=dev)
+    kw = dict(k_steps=k, dt=0.02, periodic=False, bidirectional=False)
+    got = exclusion_multi_step(scal, seeds, slots, band, **kw)
+    for r in range(B):
+        assert torch.equal(got[r].abs()[got[r] != 0].sort().values,
+                           slots[r].abs()[slots[r] != 0].sort().values)
+    assert int((got != 0).sum(1).max()) <= K
+    assert not torch.equal(got, slots)
+    kw["noise"] = _bits((B, k, 2, K, L), gen, dev)
+    assert torch.equal(exclusion_multi_step(scal, seeds, slots, band, **kw),
+                       exclusion_multi_step_plain(scal, seeds, slots, band,
+                                                  **kw))
