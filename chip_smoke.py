@@ -24,8 +24,9 @@ Phases (each prints one line with its wall time; a failed phase raises):
    slice's shapes with its bound;
 7. kernel B3/B4 against its plain version on the card, injected bits, in
    four configurations at 4 and 33 replicas and L = 1000 and 999, under
-   the launch plan and under every cluster size it allows, and at L=8192
-   (K=3, past one block's shared memory): slots equal, state moved,
+   the launch plan and under every cluster size it allows, at L=8192
+   (K=3, past one block's shared memory) and on the dense reflect and
+   periodic bands (every row reads all L sites): slots equal, state moved,
    admission refused somewhere, ids conserved, occupancy ≤ K;
 8. the exclusion β-sweep at full size (``sweep_over_betas`` on
    ``device='cuda'``, native Philox) in the reference configuration and at
@@ -38,7 +39,22 @@ Phases (each prints one line with its wall time; a failed phase raises):
 10. the PDE slice at full size on ``device='cuda'``: the magn2 kernel-σ
     sweep, the single run through the ``IMEXPDE`` facade and the (β × σ)
     phase diagram, with their pins, B2's launches on each and the kernel's
-    device time against each driver's wall time.
+    device time against each driver's wall time;
+11. ``ParticleSystem``: the reference's flagship single run on
+    ``engine='pallas'`` (B3/B4; its out-dict keys, ids conserved,
+    occupancy ≤ K), a mean-field run on B1 and one with walls on the torch
+    fast path (no B1 launch), each with the m_β pin;
+12. the particle (β × σ) phase diagram at full size (1024 replicas) with
+    its ``check_physics`` pins and each row's wall, cluster size and µs per
+    step;
+13. the (N, β) double sweep at full size (836 replicas), refitting the
+    exclusion constants C0/C1/C2 within the JAX package's golden bounds;
+14. the σ sweep at full size (``REFERENCE_SIGMA_VALUES`` × 11 β × 5 runs),
+    every estimate finite, each σ's launches, and the wide bands' plan and
+    µs per step (σ=0.1: 801 taps; σ=0.3: the dense reflect band).
+
+Phases 11-14 record B3's device time (CUDA events around each launch) and
+its share of each driver's wall time.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
 launches on its path, errors, times and bound) and the last line is
@@ -692,7 +708,8 @@ def check_b3(dev) -> float:
     move, some admission round must refuse a candidate (the plain
     version's tally), particle ids must be conserved and occupancy ≤ K.
     Then L=8192 at K=3 (more than one block's shared memory) under every
-    cluster size that holds it.  Returns the max abs difference (0)."""
+    cluster size that holds it, and the two dense bands at L=1000 (C=1).
+    Returns the max abs difference (0)."""
     import torch
     from hydrolim_tpu_torch.ops.exclusion_kernel import (
         card_plan,
@@ -709,6 +726,13 @@ def check_b3(dev) -> float:
              for c in B3_CHECKS]
     cases.append((4, 8192, "local m sigma=0.002, non-periodic, K=3", 3,
                   0.002, False, False))
+    # the dense bands (every row reads all L sites; C=1): the sigma
+    # sweep's sigma=0.3 (reflect radius 1200 >= L) and the particle phase
+    # diagram's sigma=2.0 (2r+1 >= L on the torus)
+    cases.append((4, 1000, "dense reflect band sigma=0.3, non-periodic, "
+                  "K=1", 1, 0.3, False, False))
+    cases.append((4, 1000, "dense periodic band sigma=2.0, bidirectional",
+                  3, 2.0, True, True))
     for B, L, what, K, sigma, periodic, bidi in cases:
         what = f"B3/B4 B={B} L={L} {what}"
         slots0, band = exclusion_state(dev, gen, B=B, K=K, L=L,
@@ -979,8 +1003,13 @@ def b3_bound(slots, band, k: int) -> dict:
     on these slots."""
     B, K, L = slots.shape
     W = 0 if band is None else band.idx.shape[1]
-    n_occ = int((slots != 0).sum())
-    return bound(2 * 4 * slots.numel() + 12 * B + 8 * L * W,
+    return b3_bound_counts(B, K, L, W, int((slots != 0).sum()), k)
+
+
+def b3_bound_counts(B: int, K: int, L: int, W: int, n_occ: int,
+                    k: int) -> dict:
+    """``b3_bound`` from the call's shape and its occupied slots."""
+    return bound(2 * 4 * B * K * L + 12 * B + 8 * L * W,
                  k * (4 * W * L * B + 10 * n_occ))
 
 
@@ -1184,6 +1213,306 @@ def pde_slice(outdir: str) -> dict:
     return dict(launches_per_path=launches)
 
 
+# ---------------------------------------------------------------------------
+# phases 11-14: the particle facade and the drivers on the fused route
+# ---------------------------------------------------------------------------
+
+# The JAX package's ``ParticleSystem.run`` out-dict keys
+# (hydrolim_tpu/particles/system.py:265-287 and :352-372): the GPU host has
+# no jax to ask.
+REF_OUT_KEYS = sorted([
+    "times_obs", "pos_list", "rho_p_list", "rho_m_list", "total_list",
+    "particle_count_list", "bound_list", "m_local_list", "m_global",
+    "rho_hat_complex", "fft_amp_list", "var_list", "exit_times",
+    "exit_positions", "exit_init_bin", "pos_frames", "alive_frames",
+    "bound_frames", "dt_eff"])
+
+
+@contextlib.contextmanager
+def b3_timed(rows: list, module=None, name: str = ""):
+    """B3's launches and device time (CUDA events around each launch) while
+    the block runs; with ``module``/``name``, also per call of that
+    function, appended to ``rows`` as {launches, kernel_ms, args, kwargs,
+    result}.  The block's totals are appended last as {launches,
+    kernel_ms}."""
+    from hydrolim_tpu_torch.ops.exclusion_kernel import exclusion_multi_step
+    from hydrolim_tpu_torch.ops.pde_kernel import kernel_ms
+
+    exclusion_multi_step.launches = 0
+    exclusion_multi_step.events = []
+    orig = getattr(module, name) if module is not None else None
+
+    def per_call(*args, **kwargs):
+        n0 = exclusion_multi_step.launches
+        e0 = len(exclusion_multi_step.events)
+        out = orig(*args, **kwargs)
+        rows.append(dict(launches=exclusion_multi_step.launches - n0,
+                         kernel_ms=kernel_ms(exclusion_multi_step.events[e0:]),
+                         args=args, kwargs=kwargs, result=out))
+        return out
+
+    if orig is not None:
+        setattr(module, name, per_call)
+    try:
+        yield
+        rows.append(dict(launches=exclusion_multi_step.launches,
+                         kernel_ms=kernel_ms(exclusion_multi_step.events)))
+    finally:
+        exclusion_multi_step.events = None
+        if orig is not None:
+            setattr(module, name, orig)
+
+
+def report_wall(name: str, wall: float, tot: dict) -> dict:
+    dev_s = tot["kernel_ms"] / 1e3
+    print(f"{name}: {wall:.3f} s wall, {tot['launches']} launches of "
+          f"exclusion_multi_step, kernel {dev_s:.4f} s on the device "
+          f"({dev_s / wall:.2%} of the wall)", flush=True)
+    if tot["launches"] <= 0:
+        raise AssertionError(f"{name} never launched exclusion_multi_step")
+    return dict(wall_s=wall, launches=tot["launches"], kernel_s=dev_s)
+
+
+def particle_system_runs() -> dict:
+    """``ParticleSystem`` on the card:
+    (a) the flagship single run (experiments/run_particle_single.py:22-32):
+        L=1000, N=750, K=3, σ=0.002, non-periodic, β=0.7, rd=0, ra=5, T=20,
+        obs_dt=0.5, rng=0, ``run(engine='pallas', record_fft=True,
+        record_var=True)``: the JAX package's out keys, every particle a
+        tracer in every frame, occupancy ≤ K, B3 launched;
+    (b) a mean-field run on B1: periodic, the fixed init, global m, L=256,
+        N=5000, β=2, T=30, the main path's rates (rd=γL², ra=λL,
+        bidirectional): late-window mean of ||m| − m_β(2)| < 0.03, B1
+        launched;
+    (c) the same with walls, on the torch fast path: positions within
+        [0, L), the same pin, no B1 launch.  Its rates are cut to rd=2,
+        ra=5 (4,900 steps): the torch path launches ~25 kernels per step,
+        and the main path's rates take 7.9 million; m's law (the flips
+        under the global m) does not depend on the hop rates."""
+    import torch
+    from hydrolim_tpu_torch import ParticleSystem
+    from hydrolim_tpu_torch.experiments.cross_engine_validation import (
+        GAMMA,
+        LAM,
+    )
+    from hydrolim_tpu_torch.ops.stepper_kernel import meanfield_multi_step
+    from hydrolim_tpu_torch.sweeps.beta_sweep import make_exp_gradient
+    from hydrolim_tpu_torch.theory.meanfield import m_fixed_point
+
+    out = {}
+    L, N = 1000, 750
+    grad = make_exp_gradient(L=L, N=N, frac_plus=0.85, decay_length=0.2,
+                             anchor_positions=None)
+    rows = []
+    t0 = time.perf_counter()
+    with b3_timed(rows):
+        ps = ParticleSystem(
+            L=L, xlim=1, rate_diffusion=0, rate_active=5, beta=0.7,
+            init="fixed", rho0_plus=grad[0], rho0_minus=grad[1], N=N,
+            scale_rates=False, local_kernel_sigma=0.002, minus_anchor=True,
+            periodic=False, immobilize_when_anchored=True,
+            anchor_radius=0.003, anchor_positions=None, site_capacity=3,
+            crowding_suppresses_rates=False, k_on=0, k_off=0, k_exit=0,
+            rng=0, device="cuda")
+        res = ps.run(T=20.0, obs_dt=0.5, record_fft=True, record_var=True,
+                     engine="pallas")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["single run"] = report_wall("ParticleSystem flagship single run "
+                                    "(engine='pallas')", wall, rows[-1])
+    if sorted(res) != REF_OUT_KEYS:
+        raise AssertionError(f"out keys {sorted(res)} != {REF_OUT_KEYS}")
+    pos = res["pos_frames"]
+    if pos.shape != (40, N) or not res["alive_frames"].all():
+        raise AssertionError(f"tracers lost: {pos.shape}")
+    occ = max(int(np.bincount(p, minlength=L).max()) for p in res["pos_list"])
+    if occ > 3 or any(len(p) != N for p in res["pos_list"]):
+        raise AssertionError(f"occupancy {occ} > K or a particle lost")
+    if not np.isfinite(res["fft_amp_list"]).all() or \
+            not np.isfinite(res["var_list"]).all():
+        raise AssertionError("non-finite spectra or variance")
+    print(f"  keys equal the JAX package's; {N} ids in all 40 frames; max "
+          f"occupancy {occ}; COM drift "
+          f"{(pos[-1] - pos[0]).mean() / L / 19.5:.4f} per unit time",
+          flush=True)
+
+    m_b = m_fixed_point(2.0)
+    for name, periodic, (rd, ra) in (
+            ("mean-field, periodic (B1)", True,
+             (GAMMA * 256 ** 2, LAM * 256)),
+            ("mean-field, walls (torch fast path)", False, (2.0, 5.0))):
+        meanfield_multi_step.launches = 0
+        t0 = time.perf_counter()
+        ps = ParticleSystem(L=256, xlim=1, rate_diffusion=rd,
+                            rate_active=ra, beta=2.0, init="fixed", N=5000,
+                            scale_rates=False, local_kernel_sigma=0.0,
+                            periodic=periodic, site_capacity=None,
+                            active_model="bidirectional", rng=1,
+                            device="cuda")
+        res = ps.run(T=30.0, obs_dt=0.5)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = meanfield_multi_step.launches
+        m = res["m_global"]
+        dev_m = float(np.abs(np.abs(m[len(m) // 2:]) - m_b).mean())
+        steps = round(30.0 / res["dt_eff"])
+        print(f"ParticleSystem {name}: {wall:.3f} s wall, route "
+              f"{ps.last_run_info['engine']}, {n} launches of "
+              f"meanfield_multi_step, {steps} steps (dt_eff "
+              f"{res['dt_eff']:.4e}); late-window mean ||m| - m_beta(2)| "
+              f"{dev_m:.4f} (pin 0.03)", flush=True)
+        if not dev_m < 0.03:
+            raise AssertionError(f"{name}: |m| off m_beta(2) by {dev_m}")
+        if (n > 0) != periodic:
+            raise AssertionError(f"{name}: {n} B1 launches on the "
+                                 f"{ps.last_run_info['engine']} route")
+        if not periodic and not (0 <= res["pos_frames"].min()
+                                 and res["pos_frames"].max() < 256):
+            raise AssertionError(f"{name}: a particle left the lattice")
+        out[name] = dict(wall_s=wall, launches=n, steps=steps,
+                         route=ps.last_run_info["engine"])
+    return out
+
+
+def phase_diagram_full(outdir: str) -> dict:
+    """The particle (β × σ) phase diagram's ``main()`` at full size: 32 β ×
+    2 seeds × 16 σ (``geomspace(0.002, 2, 15)`` and global m), L=1000,
+    N=1500, K=3, T=20; ``check_physics`` runs inside.  Per row: its wall,
+    its launch plan (cluster size, band taps) and B3's µs per step."""
+    import torch
+    from hydrolim_tpu_torch.core.config import ParticleConfig
+    from hydrolim_tpu_torch.experiments import particle_phase_diagram as ppd
+    from hydrolim_tpu_torch.ops.exclusion_kernel import (
+        build_smoothing_band,
+        card_plan,
+    )
+    from hydrolim_tpu_torch.particles.run import substeps_for
+
+    rows = []
+    t0 = time.perf_counter()
+    with b3_timed(rows, ppd, "run_exclusion_sweep"):
+        data = ppd.main(outdir=outdir, device="cuda")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = report_wall("particle phase diagram", wall, rows[-1])
+    per_row = []
+    for sigma, row, row_wall in zip(data["sigma"], rows[:-1],
+                                    data["row_wall_s"]):
+        cfg = row["args"][0]
+        band = (build_smoothing_band(cfg, "cuda") if sigma > 0 else None)
+        B = row["args"][1].beta.shape[0]
+        plan = card_plan(B, cfg.K, cfg.L, band, True)
+        k = substeps_for(row["kwargs"]["obs_dt"], row["kwargs"]["dt"])
+        steps = row["launches"] * k
+        us = row["kernel_ms"] * 1e3 / steps
+        W = 0 if band is None else band.idx.shape[1]
+        slots = row["result"][1]
+        b = b3_bound_counts(B, cfg.K, cfg.L, W, int((slots != 0).sum()), k)
+        per_row.append(dict(sigma=sigma, wall_s=row_wall, cluster=plan.cluster,
+                            taps=W, launches=row["launches"], steps=steps,
+                            kernel_s=row["kernel_ms"] / 1e3,
+                            us_per_step=us,
+                            bound_us_per_step=b["bound_ms"] * 1e3 / k))
+        print(f"  sigma={sigma:.4g}: {row_wall:.3f} s wall, C={plan.cluster}, "
+              f"W={W} taps, {row['launches']} launches, {steps} steps, "
+              f"kernel {row['kernel_ms'] / 1e3:.4f} s = {us:.2f} us/step; "
+              f"bound {b['bound_ms'] * 1e3 / k:.3f} us/step "
+              f"({b['bound_by']})", flush=True)
+    out["rows"] = per_row
+    return out
+
+
+def double_sweep_full(outdir: str) -> dict:
+    """``particle_double_sweep.main()`` at full size: 19 N × 11 β × 4 runs,
+    T=10, obs_dt=0.1, ``DOUBLE_SWEEP_PS_KWARGS`` (K=1, σ=0.02 reflect,
+    rd=0.005, ra=10), in chunks of 44 replicas.  The golden pins of the JAX
+    package (tests/test_golden.py:298-319): |ΔC0|/C0 < 0.03, |ΔC1|/C1 <
+    0.08, |ΔC2|/C2 < 0.08 against the frozen constants, 0 < C0_err < 0.05
+    and 0 < C2_err < 0.01."""
+    import torch
+    from hydrolim_tpu_torch.experiments import particle_double_sweep
+    from hydrolim_tpu_torch.theory import blocking as bl
+
+    rows = []
+    t0 = time.perf_counter()
+    with b3_timed(rows):
+        res = particle_double_sweep.main(outdir=outdir, device="cuda")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = report_wall("double sweep", wall, rows[-1])
+    d = {k: abs(res[k] - getattr(bl, k)) / getattr(bl, k)
+         for k in ("C0", "C1", "C2")}
+    print(f"  C0 {res['C0']:.5f} ± {res['C0_err']:.5f} (|d|/C0 "
+          f"{d['C0']:.4f}, pin 0.03), C1 {res['C1']:.5f} ± "
+          f"{res['C1_err']:.5f} ({d['C1']:.4f}, pin 0.08), C2 "
+          f"{res['C2']:.5f} ± {res['C2_err']:.5f} ({d['C2']:.4f}, pin 0.08)",
+          flush=True)
+    if not (d["C0"] < 0.03 and d["C1"] < 0.08 and d["C2"] < 0.08):
+        raise AssertionError(f"C0/C1/C2 off the frozen constants: {d}")
+    if not (0 < res["C0_err"] < 0.05 and 0 < res["C2_err"] < 0.01):
+        raise AssertionError(f"fit errors {res['C0_err']}, {res['C2_err']}")
+    out.update({k: res[k] for k in ("C0", "C1", "C2", "C0_err", "C1_err",
+                                    "C2_err")})
+    return out
+
+
+def sigma_sweep_full(outdir: str) -> dict:
+    """``particle_sigma_sweep.main()`` at full size:
+    ``REFERENCE_SIGMA_VALUES`` (σ = 1e-4 … 0.3 and global m) × 11 β × 5
+    runs, L=1000, K=1, non-periodic, T=20, obs_dt=0.1, every particle
+    tagged.  Every estimate finite; each σ's launches, wall and B3 time;
+    the wide bands' plan and µs per step (σ=0.1: 801 taps; σ=0.3: the
+    dense reflect band).  The JAX package pins no physics here."""
+    import torch
+    from hydrolim_tpu_torch.experiments import particle_sigma_sweep
+    from hydrolim_tpu_torch.ops.exclusion_kernel import (
+        build_smoothing_band,
+        card_plan,
+    )
+    from hydrolim_tpu_torch.particles.run import substeps_for
+    from hydrolim_tpu_torch.sweeps import sigma_sweep
+    from hydrolim_tpu_torch.sweeps.beta_sweep import config_from_kwargs
+
+    rows = []
+    t0 = time.perf_counter()
+    with b3_timed(rows, sigma_sweep, "sweep_over_betas"):
+        res = particle_sigma_sweep.main(outdir=outdir, device="cuda")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = report_wall("sigma sweep", wall, rows[-1])
+    per_sigma = []
+    for sigma, row in zip(sigma_sweep.REFERENCE_SIGMA_VALUES, rows[:-1]):
+        r = res[float(sigma)]
+        for k in ("v_mean", "v_se", "D_mean", "D_se"):
+            if not np.all(np.isfinite(r[k])):
+                raise AssertionError(f"sigma={sigma}: non-finite {k}")
+        if row["launches"] <= 0:
+            raise AssertionError(f"sigma={sigma} never launched the kernel")
+        save = row["result"]
+        cfg = config_from_kwargs(save["ps_kwargs"])
+        band = build_smoothing_band(cfg, "cuda") if sigma > 0 else None
+        spins = save["spins_final"]
+        B = spins.shape[0]
+        plan = card_plan(B, cfg.K, cfg.L, band, False)
+        k = substeps_for(0.1, float(save["dt"]))
+        steps = row["launches"] * k
+        us = row["kernel_ms"] * 1e3 / steps
+        W = 0 if band is None else band.idx.shape[1]
+        b = b3_bound_counts(B, cfg.K, cfg.L, W, int((spins != 0).sum()), k)
+        per_sigma.append(dict(sigma=sigma, launches=row["launches"],
+                              cluster=plan.cluster, taps=W, steps=steps,
+                              kernel_s=row["kernel_ms"] / 1e3,
+                              us_per_step=us,
+                              bound_us_per_step=b["bound_ms"] * 1e3 / k))
+        print(f"  sigma={sigma:g}: {row['launches']} launches, C="
+              f"{plan.cluster}, W={W} taps, kernel "
+              f"{row['kernel_ms'] / 1e3:.4f} s = {us:.2f} us/step; bound "
+              f"{b['bound_ms'] * 1e3 / k:.3f} us/step ({b['bound_by']}); "
+              f"v(beta) {np.round(r['v_mean'], 4).tolist()}", flush=True)
+    out["per_sigma"] = per_sigma
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1246,6 +1575,30 @@ def main() -> int:
         row = rows["pde_multi_step"]
         row["launches_per_path"] = dict(main_path=row["launches"],
                                         **per_path)
+        row["launches"] = sum(row["launches_per_path"].values())
+    b3 = rows["exclusion_multi_step"]
+    b3["launches_per_path"] = {"exclusion beta-sweep": b3["launches"]}
+    b1 = rows["meanfield_multi_step"]
+    b1["launches_per_path"] = {"main_path": b1["launches"]}
+    with phase("11 ParticleSystem"):
+        runs = particle_system_runs()
+        b3["launches_per_path"]["ParticleSystem single run"] = \
+            runs["single run"]["launches"]
+        b1["launches_per_path"]["ParticleSystem mean-field run"] = \
+            runs["mean-field, periodic (B1)"]["launches"]
+    with phase("12 particle phase diagram"):
+        with tempfile.TemporaryDirectory() as outdir:
+            b3["launches_per_path"]["particle phase diagram"] = \
+                phase_diagram_full(outdir)["launches"]
+    with phase("13 double sweep"):
+        with tempfile.TemporaryDirectory() as outdir:
+            b3["launches_per_path"]["double sweep"] = \
+                double_sweep_full(outdir)["launches"]
+    with phase("14 sigma sweep"):
+        with tempfile.TemporaryDirectory() as outdir:
+            b3["launches_per_path"]["sigma sweep"] = \
+                sigma_sweep_full(outdir)["launches"]
+    for row in (b1, b3):
         row["launches"] = sum(row["launches_per_path"].values())
 
     print(json.dumps({"kernels": list(rows.values())}))

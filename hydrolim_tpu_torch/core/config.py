@@ -18,6 +18,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from hydrolim_tpu_torch.core.scope import not_ported
+
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -146,8 +148,7 @@ def auto_dt(config: ParticleConfig, params: ParticleParams,
     ``config.max_event_prob``, for the default Curie–Weiss flip rate (whose
     maximum is exp(|β|)).  A custom ``flip_rate_fn`` is not ported."""
     if config.flip_rate_fn is not None:
-        raise NotImplementedError(
-            "auto_dt: a custom flip_rate_fn is not supported by the port")
+        raise not_ported("a custom flip_rate_fn", "tau-leap")
     get = lambda v: float(torch.max(torch.as_tensor(v)).item())
     b = beta_max if beta_max is not None else get(params.beta)
     flip_max = float(np.exp(abs(b)))

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from hydrolim_tpu_torch.core.config import ParticleParams, PDEParams
+from hydrolim_tpu_torch.particles.stepper import ParticleState
 from hydrolim_tpu_torch.pde.stepper import TracerState
 
 LANE = 128
@@ -41,6 +42,21 @@ def pde_params(p, device="cuda") -> PDEParams:
     """A JAX ``PDEParams`` → the port's."""
     f = lambda v: to_torch(np.asarray(v, np.float32), torch.float32, device)
     return PDEParams(gamma=f(p.gamma), lam=f(p.lam), beta=f(p.beta))
+
+
+def particle_state(st, device="cuda") -> ParticleState:
+    """A JAX ``ParticleState`` (one replica, (n_buf,) arrays, or a vmapped
+    batch, (B, n_buf)) → the port's batched (B, n_buf) state: pos, σ and
+    wind int32, alive and bound bool.  The JAX state's PRNG key, birth
+    sites and exit log have no counterpart here."""
+    pos = np.asarray(st.pos)
+    b = (lambda a: np.asarray(a)) if pos.ndim == 2 \
+        else (lambda a: np.asarray(a)[None])
+    i32 = lambda a: to_torch(b(a).astype(np.int32), torch.int32, device)
+    bool_ = lambda a: to_torch(b(a).astype(bool), torch.bool, device)
+    return ParticleState(pos=i32(st.pos), sigma=i32(st.sigma),
+                         wind=i32(st.wind), alive=bool_(st.alive),
+                         bound=bool_(st.bound))
 
 
 # ---------------------------------------------------------------------------

@@ -239,7 +239,15 @@ def band_weights(config: ParticleConfig) -> Tuple[np.ndarray, np.ndarray]:
     rows = input, columns = output): periodic, the normalised torus
     Gaussian cut where its tail holds < 1e-7 of the mass; non-periodic, the
     scipy reflect-mode weights, reflected entries summed in float32 in the
-    same order."""
+    same order.  A periodic band whose 2r+1 taps cover the torus, and a
+    reflect band whose radius r reaches L, is dense: every row reads all L
+    sites in ascending order.  Reflect taps fold onto the lattice by
+    repeated half-sample reflection (period 2L), as ``ops.convolve.
+    reflect_pad`` does, so the band is scipy's filter at any radius; below
+    L each tap reflects at most once and the weights are the JAX kernel's
+    matrix entry for entry.  (That matrix reflects each tap once at any
+    radius, so beyond L it is not scipy's filter: ROADMAP.md, "Reference
+    behaviours a parity test runs into".)"""
     L = config.L
     out = np.arange(L)
     if config.periodic:
@@ -253,15 +261,15 @@ def band_weights(config: ParticleConfig) -> Tuple[np.ndarray, np.ndarray]:
         return np.ascontiguousarray(src, np.int32), w.astype(np.float32)
     wts = gaussian_filter_weights(config.sigma_grid, 4.0)
     r = (len(wts) - 1) // 2
-    if r >= L:
-        raise ValueError(f"smoothing radius {r} >= L={L}: a reflected tap "
-                         "would leave the lattice")
-    w = np.zeros((L, 2 * r + 1), np.float32)
+    dense = r >= L
+    w = np.zeros((L, L if dense else 2 * r + 1), np.float32)
     for d in range(-r, r + 1):                  # the matrix's order of sums
-        src = out - d
-        src = np.where(src < 0, -1 - src, src)
+        src = (out - d) % (2 * L)
         src = np.where(src >= L, 2 * L - 1 - src, src)
-        w[out, src - (out - r)] += wts[d + r]
+        w[out, src if dense else src - (out - r)] += wts[d + r]
+    if dense:
+        return np.ascontiguousarray(np.broadcast_to(out, (L, L)),
+                                    np.int32), w
     src = out[:, None] - r + np.arange(2 * r + 1)
     valid = (src >= 0) & (src < L)
     assert not w[~valid].any()
@@ -287,12 +295,14 @@ def band_interior(idx: np.ndarray, w: np.ndarray
     return np.ascontiguousarray(taps), r, int(starts[j]), int(ends[j])
 
 
-def band_rotation(idx: np.ndarray, w: np.ndarray) -> np.ndarray:
+def band_rotation(idx: np.ndarray, w: np.ndarray,
+                  periodic: bool = True) -> np.ndarray:
     """(L,) int32: the rotation ``rot`` of each row under which its tap t
     reads the input x − radius + ((t + rot) mod W) wherever its weight is
     not 0: rot ≥ 0 along the line (an interior or a wall's row), −2 − rot
     only around the torus (a row near the wrap, whose inputs in ascending
-    site order start past it), −1 for a row of no such form."""
+    site order start past it; on a torus only), −1 for a row of no such
+    form."""
     L, W = idx.shape
     r = (W - 1) // 2
     x = np.arange(L)
@@ -303,13 +313,14 @@ def band_rotation(idx: np.ndarray, w: np.ndarray) -> np.ndarray:
     want = x[:, None] - r + (t + rot[:, None]) % W
     lin = ((want == idx) | ~live).all(1)
     wrap = ((want % L == idx) | ~live).all(1)
+    wrap = wrap & periodic
     return np.where(lin, rot, np.where(wrap, -2 - rot, -1)).astype(np.int32)
 
 
-def smoothing_band(idx: np.ndarray, w: np.ndarray,
-                   device="cuda") -> SmoothingBand:
-    """The band of (L, W) input sites and weights, with its interior and
-    its reach."""
+def smoothing_band(idx: np.ndarray, w: np.ndarray, device="cuda",
+                   periodic: bool = True) -> SmoothingBand:
+    """The band of (L, W) input sites and weights, with its interior, its
+    rows' rotations and its reach."""
     taps, radius, lo, hi = band_interior(idx, w)
     L, W = idx.shape
     d = np.abs(idx.astype(np.int64) - np.arange(L)[:, None])[w != 0]
@@ -319,7 +330,7 @@ def smoothing_band(idx: np.ndarray, w: np.ndarray,
     return SmoothingBand(idx=torch.tensor(idx, device=device),
                          w=torch.tensor(w, device=device),
                          taps=torch.tensor(taps, device=device),
-                         rot=torch.tensor(band_rotation(idx, w),
+                         rot=torch.tensor(band_rotation(idx, w, periodic),
                                           device=device),
                          radius=radius, lo=lo, hi=hi, reach=reach,
                          reach_wrap=reach_wrap)
@@ -327,16 +338,18 @@ def smoothing_band(idx: np.ndarray, w: np.ndarray,
 
 def build_smoothing_band(config: ParticleConfig,
                          device="cuda") -> SmoothingBand:
-    return smoothing_band(*band_weights(config), device=device)
+    return smoothing_band(*band_weights(config), device=device,
+                          periodic=config.periodic)
 
 
 def smooth_with_band(x: torch.Tensor, band: SmoothingBand) -> torch.Tensor:
-    """(B, L) float32 → Σ_t w[:, t]·x[:, idx[:, t]], one rounded multiply and
-    one rounded add per tap, in ascending input order (as the kernel)."""
-    idx = band.idx.long()
+    """(..., L) float32 → Σ_t w[:, t]·x[..., idx[:, t]], one rounded
+    multiply and one rounded add per tap, in ascending input order (as the
+    kernel): the products in one gather, then one add per tap."""
+    prod = band.w * x[..., band.idx.long()]             # (..., L, W)
     acc = torch.zeros_like(x)
-    for t in range(idx.shape[1]):
-        acc = acc + band.w[:, t] * x[:, idx[:, t]]
+    for t in range(prod.shape[-1]):
+        acc = acc + prod[..., t]
     return acc
 
 
@@ -383,8 +396,7 @@ def step_thresholds(slots: torch.Tensor, scalars: torch.Tensor,
     tot = occ_slot.to(f32).sum(1)
     occ_tot = occ_slot.sum(1)
     if band is not None:
-        c0 = smooth_with_band(counts_s, band)
-        c1 = smooth_with_band(tot, band)
+        c0, c1 = smooth_with_band(torch.stack([counts_s, tot]), band)
         pos = c1 > 0
         m = torch.where(pos, c0 / torch.where(pos, c1, 1.0), zero)
         m = m.clamp(-1.0, 1.0)[:, None, :]
@@ -631,7 +643,12 @@ def exclusion_multi_step_planned(plan: ExclusionPlan, scalars, seeds, slots,
         raise ValueError(f"exclusion_multi_step: {plan} does not fit K={K}, "
                          f"L={L}, W={W}, halo {halo}")
     out = torch.empty_like(slots)
+    stream = torch.cuda.current_stream(slots.device)
     exclusion_multi_step.launches += 1
+    if exclusion_multi_step.events is not None:
+        exclusion_multi_step.events.append(
+            [torch.cuda.Event(enable_timing=True) for _ in range(2)])
+        exclusion_multi_step.events[-1][0].record(stream)
     rc = _lib().exclusion_multi_step_launch(
         ptr(scalars), ptr(seeds), step0, ptr(slots), ptr(out), ptr(noise),
         *(ptr(getattr(band, f) if band is not None else None)
@@ -639,10 +656,15 @@ def exclusion_multi_step_planned(plan: ExclusionPlan, scalars, seeds, slots,
         W, *((band.radius, band.lo, band.hi) if band is not None
              else (0, 0, 0)),
         B, K, L, k_steps, dt, int(periodic), int(bidirectional), C,
-        plan.halo, plan.threads,
-        ctypes.c_void_p(torch.cuda.current_stream(slots.device).cuda_stream))
+        plan.halo, plan.threads, ctypes.c_void_p(stream.cuda_stream))
     check_cuda(rc, "exclusion_multi_step")
+    if exclusion_multi_step.events is not None:
+        exclusion_multi_step.events[-1][1].record(stream)
     return out
 
 
+# launches of the kernel; and, while ``events`` is a list, a pair of CUDA
+# events around each launch (``pde_kernel.kernel_ms`` sums them) — off by
+# default
 exclusion_multi_step.launches = 0
+exclusion_multi_step.events = None

@@ -38,6 +38,20 @@ from hydrolim_tpu_torch.pde.stepper import (
 _NARROW_R_MAX = 63   # taps per side of the narrow smoothing
 _BANDED_R_MAX = 63   # taps per side of the banded solve
 
+# The JAX package's PDE engines: its XLA solve and its fused Pallas kernel,
+# which 'auto' picks where the configuration qualifies.  They share one law
+# (the fields and the m/Var/v_eff/D_eff records), and the port's one engine,
+# the fused solve, also records the per-step spectra the XLA solve records
+# at every kmax, so all three names run it.
+PDE_ENGINES = ("xla", "pallas", "auto")
+
+
+def check_pde_engine(engine: str) -> None:
+    """Accept the JAX package's PDE engine names (``PDE_ENGINES``)."""
+    if engine not in PDE_ENGINES:
+        raise ValueError(f"unknown PDE engine {engine!r}; the JAX package's "
+                         f"names are {PDE_ENGINES}")
+
 
 def _m_mode(config: PDEConfig) -> str:
     """The kernel's magnetization mode: 'pointwise', 'global', 'narrow' or

@@ -18,7 +18,11 @@ import numpy as np
 import torch
 
 from hydrolim_tpu_torch.core.config import PDEConfig, PDEParams
-from hydrolim_tpu_torch.pde.fast_solve import pde_solve_fused, result_to_numpy
+from hydrolim_tpu_torch.pde.fast_solve import (
+    check_pde_engine,
+    pde_solve_fused,
+    result_to_numpy,
+)
 from hydrolim_tpu_torch.pde.init import pde_initialize
 from hydrolim_tpu_torch.pde.stepper import PDESolveResult
 
@@ -118,8 +122,11 @@ class IMEXPDE:
             self.config, self.generator, B=1, mode=mode, rho0=rho0,
             noise=noise, n_tracers=n_tracers, device=self.device)
 
-    def solve(self) -> None:
-        """Advance the full T horizon through ``pde_solve_fused``."""
+    def solve(self, engine: str = "xla") -> None:
+        """Advance the full T horizon through ``pde_solve_fused``.
+        ``engine`` takes the JAX package's names, which all run it
+        (``fast_solve.PDE_ENGINES``)."""
+        check_pde_engine(engine)
         cfg = self.config if self.config.n_tracers == self.n_tracers \
             else dataclasses.replace(self.config, n_tracers=self.n_tracers)
         res = result_to_numpy(pde_solve_fused(

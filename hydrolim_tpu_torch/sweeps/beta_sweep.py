@@ -5,14 +5,16 @@ Mirrors the JAX package's ``sweeps/beta_sweep.py``
 
 - ``make_exp_gradient``, the exp-gradient ρ₀± profile factory (:16-53);
 - ``sweep_over_betas`` (:828-1028): the whole (β × replicas) grid in one
-  batch on the fused exclusion kernel (``engine='fused'``, the JAX
-  package's ``'pallas'``), the five estimators per replica on the device,
-  means ± SE per β, the npz checkpoint (``run=False`` reloads it), the
-  (θ, γ) NB fit and the standard figures (where matplotlib is installed).
+  batch on the fused exclusion kernel (``engine='fused'``; the JAX
+  package's ``'pallas'`` and ``'auto'`` name it too), the five estimators
+  per replica on the device, means ± SE per β, the npz checkpoint
+  (``run=False`` reloads it), the (θ, γ) NB fit and the standard figures
+  (where matplotlib is installed).
 
 The particle-centric engine (``engine='particle'``), the XLA slot engines
 (``engine='lattice_gas'``), anchors, the host estimators, ``mesh=`` and
-``ckpt_dir=`` are not ported yet (ROADMAP.md).
+``ckpt_dir=`` are not ported yet: each raises ``NotImplementedError``
+naming its ROADMAP.md item (``core/scope.py``).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from hydrolim_tpu_torch.core.config import ParticleConfig
+from hydrolim_tpu_torch.core.scope import not_ported
 from hydrolim_tpu_torch.fit.veff_fit import fit_and_plot_v_eff
 from hydrolim_tpu_torch.observables.batched import batched_estimates
 from hydrolim_tpu_torch.particles.init import eval_profile
@@ -35,8 +38,19 @@ from hydrolim_tpu_torch.sweeps.fast_exclusion import (
     run_exclusion_sweep,
 )
 
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, 'Slice 2 left out'); "
-               "use engine='fused'")
+# the JAX package's names of the fused route
+FUSED_ENGINES = ("fused", "pallas", "auto")
+
+
+def check_fused_engine(engine: str) -> None:
+    """Accept the names of the fused route; the JAX package's other
+    engines raise with the ROADMAP.md item that ports them."""
+    if engine == "particle":
+        raise not_ported("engine='particle'", "tau-leap")
+    if engine == "lattice_gas":
+        raise not_ported("engine='lattice_gas'", "slot engines")
+    if engine not in FUSED_ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -150,9 +164,9 @@ def run_sweep_grid_lattice_gas(beta_values, n_runs: int, ps_kwargs: Dict,
     config = config_from_kwargs(ps_kwargs)
     assert config.exclusion, "lattice-gas engines require site_capacity"
     if kernel != "fused" or not is_fused_exclusion_path(config):
-        raise NotImplementedError(
-            f"the XLA slot engines (kernel={kernel!r}, or a configuration "
-            f"outside the fused class) {_NOT_PORTED}")
+        raise not_ported(f"kernel={kernel!r}, or a configuration outside "
+                         "the fused class (anchors, crowding, a custom flip "
+                         "rate, K > 8)", "slot engines")
     rho0_p, rho0_m = _profiles(config, init_kwargs)
     rates = dict(
         rate_diffusion=float(ps_kwargs["rate_diffusion"]),
@@ -225,16 +239,11 @@ def sweep_over_betas(beta_values, n_runs_per_beta: int = 10, run: bool = True,
     """Full β sweep (:828-1028): one batched grid run on ``device`` →
     estimator means ± SE per β → npz checkpoint → (θ, γ) fit and figures.
     ``run=False`` reloads ``npz_path`` and re-fits without simulating.
-    Beside the JAX package's keys the result holds ``spins_final``, the
+    ``engine``: any of ``FUSED_ENGINES``.  Beside the JAX package's keys the result holds ``spins_final``, the
     (β·runs, K, L) slot spins at the end of the run."""
-    if engine in ("particle", "lattice_gas"):
-        raise NotImplementedError(f"engine={engine!r} {_NOT_PORTED}")
-    if engine != "fused":
-        raise ValueError(f"unknown engine {engine!r}")
+    check_fused_engine(engine)
     if estimator != "device":
-        raise NotImplementedError(
-            f"estimator={estimator!r}: the host estimators are not ported "
-            "yet (ROADMAP.md); use estimator='device'")
+        raise not_ported(f"estimator={estimator!r}", "host")
     beta_values = np.asarray(beta_values, dtype=float)
     ps_kwargs = dict(DEFAULT_PS_KWARGS, **(ps_kwargs or {}))
     run_kwargs = dict(DEFAULT_RUN_KWARGS, **(run_kwargs or {}))

@@ -1,5 +1,15 @@
-"""Batched (β-grid × replicas) parameters for the particle sweeps."""
+"""Replica/parameter ensembles of the particle engine.
+
+The (β-grid × replicas) batch is one (B, n_buf) state: β enters only
+through the flip rate, so it batches as the leading axis of
+``ParticleParams``; replicas differ only by their draws.
+``run_particle_ensemble`` initialises and runs the batch through
+``particles.run.run_particles`` (kernel B1 inside its scope), and
+``frames_to_out`` slices one replica into the reference's ``out`` dict.
+"""
 from __future__ import annotations
+
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -10,6 +20,9 @@ from hydrolim_tpu_torch.core.config import (
     auto_dt,
     make_particle_params,
 )
+from hydrolim_tpu_torch.particles.init import init_particles
+from hydrolim_tpu_torch.particles.run import ParticleRunResult, run_particles
+from hydrolim_tpu_torch.particles.stepper import ParticleState
 
 
 def broadcast_params(config: ParticleConfig, *, beta, rate_diffusion,
@@ -42,3 +55,72 @@ def ensemble_dt(config: ParticleConfig, *, beta_max: float, rate_diffusion,
                              rate_active=rate_active, k_on=k_on, k_off=k_off,
                              k_exit=k_exit, device="cpu")
     return auto_dt(config, p, beta_max=beta_max)
+
+
+def run_particle_ensemble(config: ParticleConfig, params_b: ParticleParams,
+                          seed: int = 0, *, T: float, obs_dt: float,
+                          dt: float, rho0_plus: Optional[np.ndarray] = None,
+                          rho0_minus: Optional[np.ndarray] = None,
+                          record_pos: bool = True, record_fft: bool = True,
+                          engine: str = "auto", device="cuda"
+                          ) -> ParticleRunResult:
+    """Initialise and run B = len(params_b.beta) replicas on ``device``.
+    ``rho0_plus/minus`` are (L,) profiles shared by the batch or (B, L)
+    rows per replica (the (N, β) double sweep: N varies only through the
+    Poisson intensities).  The initial state is drawn from a generator
+    seeded with ``seed``; the run's draws from one seeded with ``seed + 1``.
+    Returns a ``ParticleRunResult`` with leaves (B, M, ...)."""
+    B = params_b.beta.shape[0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    st = init_particles(config, gen, rho0_plus, rho0_minus, B=B,
+                        device=device)
+    state0 = ParticleState(pos=st.pos, sigma=st.sigma,
+                           wind=torch.zeros_like(st.pos), alive=st.alive)
+    return run_particles(config, params_b, state0, T=T, obs_dt=obs_dt,
+                         dt=dt, record_pos=record_pos, record_fft=record_fft,
+                         seed=seed + 1, engine=engine)
+
+
+def frames_to_out(frames, rep_idx: int, config: ParticleConfig, T: float,
+                  obs_dt: float, record_pos: bool = True,
+                  final_state=None) -> Dict:
+    """Slice one replica out of a batched ``ParticleRunResult.frames`` into
+    the reference-schema ``out`` dict (numpy, on the host), with the JAX
+    package's keys and value types.  Passing the batched ``final_state``
+    adds the exit-event log, which is empty: the port's mean-field engine
+    has no exit channel."""
+    g = lambda a: a[rep_idx].detach().cpu().numpy()
+    f = frames
+    L = config.L
+    ri = g(f.rho_hat_ri)
+    out = {
+        "times_obs": np.arange(0.0, T, obs_dt),
+        "rho_p_list": g(f.rho_p),
+        "rho_m_list": g(f.rho_m),
+        "total_list": g(f.total),
+        "m_local_list": g(f.m_local),
+        "m_global": g(f.m_global),
+        "particle_count_list": list(g(f.particle_count)),
+        "rho_hat_complex": ((ri[..., 0] + 1j * ri[..., 1]).astype(
+            np.complex64) if ri.shape[-2] > 0 else None),
+        "fft_amp_list": g(f.fft_amp) if f.fft_amp.shape[-1] > 0 else None,
+        "var_list": g(f.var),
+    }
+    if record_pos and f.pos.shape[-1] > 0:
+        pos, alive, bound = g(f.pos), g(f.alive), g(f.bound)
+        out["pos_frames"] = pos
+        out["alive_frames"] = alive
+        out["bound_frames"] = bound
+        out["pos_list"] = [(pos[k][alive[k]] % L).astype(np.int64)
+                           for k in range(pos.shape[0])]
+        out["bound_list"] = [bound[k][alive[k]] for k in range(pos.shape[0])]
+    else:
+        out["pos_frames"] = None
+        out["alive_frames"] = None
+        out["pos_list"] = None
+    out["exit_times"] = []
+    out["exit_positions"] = []
+    if final_state is not None:
+        out["exit_init_bin"] = []
+    return out

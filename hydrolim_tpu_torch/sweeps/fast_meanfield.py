@@ -3,7 +3,10 @@
 Advances the (β-grid × replicas) batch one obs_dt frame per
 ``meanfield_multi_step`` call and records the frame observables (densities,
 global m, Var, unwrapped positions) between calls.  CUDA tensors go through
-the kernel, CPU tensors through its plain version.
+the kernel, CPU tensors through its plain version.  Configurations outside
+the kernel's scope (Poisson init, walls) run ``run_particle_ensemble`` on
+the torch fast path under ``engine='auto'``, as the JAX package's runner
+falls back to its XLA path.
 """
 from __future__ import annotations
 
@@ -16,8 +19,9 @@ import torch
 from hydrolim_tpu_torch.core.config import ParticleConfig, ParticleParams
 from hydrolim_tpu_torch.ops.segment import masked_bincount
 from hydrolim_tpu_torch.ops.stepper_kernel import meanfield_multi_step
-from hydrolim_tpu_torch.particles.run import substeps_for
+from hydrolim_tpu_torch.particles.run import in_b1_scope, substeps_for
 from hydrolim_tpu_torch.particles.stepper import _is_meanfield_fast_path
+from hydrolim_tpu_torch.sweeps.ensemble import run_particle_ensemble
 
 
 @dataclasses.dataclass
@@ -46,42 +50,58 @@ def _frame_obs(pos: torch.Tensor, sigma: torch.Tensor, L: int, n: int,
     return rho_p, rho_m, m, var
 
 
-def resolve_meanfield_engine(device, config: ParticleConfig) -> str:
-    """The engine the device selects ('kernel' on CUDA, 'plain' on CPU),
-    after the kernel's scope gate: the 'fixed' (uniform-site) init and the
-    periodic lattice only — outside it the law would change, so raise."""
-    if config.init != "fixed":
+def resolve_meanfield_engine(engine: str, config: ParticleConfig) -> str:
+    """The JAX package's engine names: 'auto' picks the kernel ('pallas')
+    where the configuration is in its scope (init='fixed' and periodic:
+    the kernel hard-codes the uniform-site init and wrap+winding moves),
+    else the fast path ('xla', the torch fast path here).  An explicit
+    'pallas' outside that scope raises instead of changing the law."""
+    if engine == "auto":
+        engine = "pallas" if in_b1_scope(config) else "xla"
+    if engine not in ("pallas", "xla"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "pallas" and config.init != "fixed":
         raise ValueError(
-            "run_meanfield_sweep implements the 'fixed' (uniform-site) init "
-            f"only; got init={config.init!r}")
-    if not config.periodic:
+            "engine='pallas' implements the 'fixed' (uniform-site) init "
+            f"only; got init={config.init!r} — use engine='xla' or 'auto'")
+    if engine == "pallas" and not config.periodic:
         raise ValueError(
-            "run_meanfield_sweep implements the periodic lattice only (the "
-            "kernel hard-codes wrap+winding moves)")
-    kind = torch.device(device).type
-    if kind not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return "kernel" if kind == "cuda" else "plain"
+            "engine='pallas' implements the periodic lattice only (the "
+            "kernel hard-codes wrap+winding moves); non-periodic configs "
+            "block boundary moves — use engine='xla' or 'auto'")
+    return engine
 
 
 def run_meanfield_sweep(config: ParticleConfig, params_b: ParticleParams,
                         *, T: float, obs_dt: float, dt: float, seed: int = 0,
-                        device="cuda", record_pos: bool = True
-                        ) -> MeanfieldFrames:
+                        device="cuda", record_pos: bool = True,
+                        engine: str = "auto") -> MeanfieldFrames:
     """Sweep over the batch of ``params_b`` on ``device``.
 
     Requires the mean-field configuration (global m, no exclusion, no
-    anchors).  All draws come from one ``torch.Generator`` seeded with
-    ``seed`` on ``device``: the initial state, the kernel's Philox seeds
-    and, on the CPU, the plain version's uniforms."""
+    anchors).  ``engine`` (``resolve_meanfield_engine``): 'pallas' runs
+    kernel B1 here, 'xla' ``run_particle_ensemble`` on the torch fast
+    path (frames of the whole n_buf buffer, as the JAX package's).  All
+    draws come from generators seeded with ``seed`` on ``device``: the
+    initial state, the kernel's Philox seeds and, on the CPU, the plain
+    version's uniforms."""
     assert _is_meanfield_fast_path(config), (
         "run_meanfield_sweep requires the mean-field configuration")
-    resolve_meanfield_engine(device, config)
     device = torch.device(device)
+    times = np.arange(0.0, T, obs_dt)
+    if resolve_meanfield_engine(engine, config) == "xla":
+        f = run_particle_ensemble(config, params_b, seed, T=T, obs_dt=obs_dt,
+                                  dt=dt, record_pos=record_pos,
+                                  record_fft=False, engine="xla",
+                                  device=device).frames
+        host = lambda a: a.movedim(1, 0).cpu().numpy()
+        return MeanfieldFrames(
+            times_obs=times, m_global=host(f.m_global), rho_p=host(f.rho_p),
+            rho_m=host(f.rho_m), var=host(f.var),
+            pos=host(f.pos) if record_pos else None)
     B = params_b.beta.shape[0]
     n = config.N                    # the TRUE particle count normalizes m
     L = config.L
-    times = np.arange(0.0, T, obs_dt)
     M = len(times)
     n_sub = substeps_for(obs_dt, dt)
     dt_eff = obs_dt / n_sub

@@ -20,7 +20,11 @@ import torch
 
 from hydrolim_tpu_torch.core.config import PDEConfig, PDEParams
 from hydrolim_tpu_torch.fit.veff_fit import _pyplot
-from hydrolim_tpu_torch.pde.fast_solve import pde_solve_fused, result_to_numpy
+from hydrolim_tpu_torch.pde.fast_solve import (
+    check_pde_engine,
+    pde_solve_fused,
+    result_to_numpy,
+)
 from hydrolim_tpu_torch.pde.init import pde_initialize
 from hydrolim_tpu_torch.theory.meanfield import compute_m_of_beta
 
@@ -29,10 +33,14 @@ def run_pde_ensemble(config: PDEConfig, beta_values, *, gamma: float,
                      lam: float, n_runs: int, seed: int = 0,
                      mode: str = "homogeneous", rho0: float = 1.0,
                      noise: float = 0.3, n_tracers: int = 1000,
-                     device="cuda", fetch_snapshots: bool = True):
+                     engine: str = "xla", device="cuda",
+                     fetch_snapshots: bool = True):
     """Batched (β × runs) solve on ``device``; returns the result as numpy
     arrays and the flattened β array.  Every draw comes from one
-    ``torch.Generator`` seeded with ``seed``."""
+    ``torch.Generator`` seeded with ``seed``.  ``engine`` takes the JAX
+    package's names, which all run the fused solve
+    (``fast_solve.PDE_ENGINES``)."""
+    check_pde_engine(engine)
     if float(gamma) == 0.0 and config.diffusion_solver == "auto":
         config = dataclasses.replace(config, diffusion_solver="identity")
     if config.n_tracers != n_tracers:
@@ -79,9 +87,10 @@ def pde_beta_sweep(beta_values=None, n_runs: int = 3, T: float = 40.0,
                    kernel_sigma: float = 1e5 - 10, L: int = 1000,
                    dt: float = 5e-4, seed: int = 0, n_tracers: int = 1000,
                    outdir: str = ".", plot_result: bool = True,
-                   device="cuda") -> Dict:
+                   engine: str = "xla", device="cuda") -> Dict:
     """β sweep with theory overlay.  v per run is |nanmean v_eff(t)| over
-    [t_min, t_max]; D per run is nanmean D_eff(t) there."""
+    [t_min, t_max]; D per run is nanmean D_eff(t) there.  ``engine`` as in
+    ``run_pde_ensemble``; the figures need matplotlib."""
     if beta_values is None:
         beta_values = np.linspace(0, 3, 11)
     beta_values = np.asarray(beta_values, dtype=float)
@@ -91,7 +100,8 @@ def pde_beta_sweep(beta_values=None, n_runs: int = 3, T: float = 40.0,
                        fft_kmax=8)
     res, _ = run_pde_ensemble(config, beta_values, gamma=gamma, lam=lam,
                               n_runs=n_runs, seed=seed, n_tracers=n_tracers,
-                              device=device, fetch_snapshots=False)
+                              engine=engine, device=device,
+                              fetch_snapshots=False)
     t = np.linspace(0, T, config.nsteps + 1)
     mask = (t >= t_min) & (t <= t_max)
 
@@ -109,16 +119,13 @@ def pde_beta_sweep(beta_values=None, n_runs: int = 3, T: float = 40.0,
     v_mean, v_err = np.array(v_mean), np.array(v_err)
     D_mean, D_err = np.array(D_mean), np.array(D_err)
 
-    if plot_result:
+    plt = _pyplot() if plot_result else None
+    if plt is not None:
         beta_dense = np.linspace(beta_values.min(),
                                  max(beta_values.max(), 1e-9), 400)
         m_dense = compute_m_of_beta(beta_dense)
         v_th = lam * np.tanh(beta_dense * m_dense)
         D_th = gamma + lam ** 2 / (2 * np.cosh(beta_dense * m_dense) ** 3)
-        import matplotlib
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-
         out = Path(outdir)
         out.mkdir(parents=True, exist_ok=True)
         for sim, err, th, ylabel, fname in (
@@ -157,7 +164,8 @@ def pde_kernel_sigma_sweep(kernel_sigma_values=None, n_runs: int = 5,
                            L: int = 1000, dt: float = 5e-4, lam: float = 0.6,
                            n_tracers: int = 1000, outdir: str = ".",
                            plot_result: bool = True, record_every: int = 1,
-                           device="cuda", **overrides) -> Dict:
+                           engine: str = "xla", device="cuda",
+                           **overrides) -> Dict:
     """Kernel-σ sweep: per-σ time series of |m|, |v_eff|, D_eff, Var(t)
     (mean ± std bands across runs).  One batched ensemble of ``n_runs`` per
     σ, seeded ``base_seed + 1000·k_idx`` (the reference's per-σ seed
@@ -178,8 +186,8 @@ def pde_kernel_sigma_sweep(kernel_sigma_values=None, n_runs: int = 5,
         res, _ = run_pde_ensemble(config, [beta], gamma=gamma, lam=lam,
                                   n_runs=n_runs,
                                   seed=base_seed + 1000 * k_idx,
-                                  n_tracers=n_tracers, device=device,
-                                  fetch_snapshots=False)
+                                  n_tracers=n_tracers, engine=engine,
+                                  device=device, fetch_snapshots=False)
         n_rec = config.n_records        # nsteps+1 thinned by record_every
         m_results[sigma] = np.abs(res.records.m_mean[:, :n_rec])
         v_results[sigma] = np.abs(res.records.v_eff[:, :n_rec])

@@ -38,6 +38,18 @@ from hydrolim_tpu_torch.ops.exclusion_kernel import (
 )
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: the suite runs several
+    test processes on the host's cores, and torch's thread pool in each
+    would only contend (a test of thousands of tiny ops then runs tens of
+    times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _band(K, L, sigma, periodic, bent=False):
     if sigma == 0:
         return None

@@ -515,3 +515,48 @@ def test_b3_past_one_block(dev):
     assert torch.equal(exclusion_multi_step(scal, seeds, slots, band, **kw),
                        exclusion_multi_step_plain(scal, seeds, slots, band,
                                                   **kw))
+
+
+@pytest.mark.parametrize("sigma,periodic", [
+    (0.3, False),      # the σ sweep's σ=0.3: reflect radius 1200 ≥ L
+    (2.0, True),       # the phase diagram's σ=2.0: 2r+1 ≥ L on the torus
+])
+def test_b3_dense_band_equals_plain(dev, sigma, periodic):
+    """The dense bands (every row reading all L sites; C=1): 40 steps at
+    injected bits, slots EQUAL to the plain version's."""
+    B, K, L, k = 4, 3, 1000, 40
+    gen, slots, scal, band = _exclusion_inputs(
+        dev, B=B, K=K, L=L, sigma=sigma, periodic=periodic, seed=7)
+    assert tuple(band.idx.shape) == (L, L)
+    assert card_plan(B, K, L, band, periodic).cluster == 1
+    seeds = torch.zeros(B, dtype=torch.int32, device=dev)
+    kw = dict(k_steps=k, dt=0.02, periodic=periodic, bidirectional=periodic,
+              noise=_bits((B, k, 2, K, L), gen, dev))
+    got = exclusion_multi_step(scal, seeds, slots, band, **kw)
+    want = exclusion_multi_step_plain(scal, seeds, slots, band, **kw)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, slots)
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_run_particles_routes_on_the_card(dev, periodic):
+    """``run_particles`` on CUDA tensors takes kernel B1 inside its scope
+    (periodic, the fixed init) and the torch fast path outside it (walls):
+    the launch counter shows which."""
+    from hydrolim_tpu_torch.particles.run import B1_ROUTE, TORCH_ROUTE
+    from hydrolim_tpu_torch.particles.system import ParticleSystem
+
+    ps = ParticleSystem(L=256, xlim=1, rate_diffusion=0.5, rate_active=2.0,
+                        beta=2.0, N=1000, periodic=periodic,
+                        site_capacity=None, local_kernel_sigma=0.0,
+                        scale_rates=False, active_model="bidirectional",
+                        rng=0, device="cuda")
+    n0 = meanfield_multi_step.launches
+    out = ps.run(T=2.0, obs_dt=0.5)
+    n = meanfield_multi_step.launches - n0
+    assert ps.last_run_info["engine"] == (B1_ROUTE if periodic
+                                          else TORCH_ROUTE)
+    assert (n > 0) == periodic
+    assert np.isfinite(out["m_global"]).all()
+    if not periodic:
+        assert 0 <= out["pos_frames"].min() <= out["pos_frames"].max() < 256

@@ -6,8 +6,21 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from hydrolim_tpu_torch.ops.pde_kernel import pde_multi_step
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: the suite runs several
+    test processes on the host's cores, and torch's thread pool in each
+    would only contend (a test of thousands of tiny ops then runs tens of
+    times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _finite(a) -> bool:
@@ -48,3 +61,21 @@ def test_pde_phase_diagram_small_grid(tmp_path):
         assert grid.shape == (3, 6) and _finite(grid), key
     assert (np.asarray(saved["m"]) <= 1.0 + 1e-6).all()
     assert len(saved["row_wall_s"]) == 3
+
+
+def test_pde_beta_cli_writes_its_json_without_matplotlib(tmp_path,
+                                                          monkeypatch):
+    """On a host without matplotlib (the GPU host) ``pde_experiments beta``
+    still writes ``beta.json``: its figures go through ``_pyplot()``, which
+    skips them."""
+    import sys
+
+    from hydrolim_tpu_torch.experiments import pde_experiments
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    monkeypatch.setitem(sys.modules, "matplotlib.pyplot", None)
+    pde_experiments.main("beta", small=True, outdir=str(tmp_path),
+                         device="cpu")
+    out = json.loads((tmp_path / "beta.json").read_text())
+    assert len(out["v_mean"]) == 4 and _finite(out["v_mean"])
+    assert not list(tmp_path.glob("*.png"))

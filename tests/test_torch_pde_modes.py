@@ -406,3 +406,38 @@ def test_kernel_sigma_sweep_matches_jax(monkeypatch):
         for f in ("v", "D"):
             assert np.isnan(pres[f][sigma][:, :W]).all()
             assert np.isfinite(pres[f][sigma][:, W:]).all()
+
+
+@pytest.mark.parametrize("engine", ["xla", "pallas", "auto"])
+def test_facade_and_ensemble_take_the_jax_engine_names(engine):
+    """The JAX package's ``engine=`` names on ``IMEXPDE.solve``,
+    ``run_pde_ensemble``, ``pde_beta_sweep`` and ``pde_kernel_sigma_sweep``
+    all run the port's one fused solve: the same output as the default at
+    the same seed.  An unknown name raises."""
+    from hydrolim_tpu_torch import IMEXPDE
+    from hydrolim_tpu_torch.sweeps.pde_sweeps import (
+        pde_beta_sweep,
+        run_pde_ensemble,
+    )
+
+    kw = dict(FACADE_KW, T=0.02)
+    outs = []
+    for e in (None, engine):
+        ps = IMEXPDE(device="cpu", **kw)
+        ps.initialize(mode="homogeneous", noise=0.3, n_tracers=20)
+        ps.solve() if e is None else ps.solve(engine=e)
+        outs.append(ps.get_output())
+    for k in outs[0]:
+        np.testing.assert_array_equal(outs[1][k], outs[0][k], err_msg=k)
+    cfg = PDEConfig(L=L, T=0.02, dt=1e-3, n_tracers=20)
+    a, b = (run_pde_ensemble(cfg, [1.0], gamma=0.2, lam=0.6, n_runs=2,
+                             n_tracers=20, device="cpu", **e)[0]
+            for e in ({}, dict(engine=engine)))
+    np.testing.assert_array_equal(a.rho_p, b.rho_p)
+    r = pde_beta_sweep([1.0], n_runs=1, T=0.08, t_min=0.06, t_max=0.08, L=L,
+                       dt=1e-3, n_tracers=10, plot_result=False,
+                       engine=engine, device="cpu")
+    assert np.isfinite(r["v_mean"]).all()
+    with pytest.raises(ValueError, match="unknown PDE engine"):
+        ps.solve(engine="fused")
+    assert pde_multi_step.launches == 0

@@ -43,6 +43,18 @@ PDE_KW = dict(L=128, T=0.3, dt=1e-3, bc="periodic",
 GAMMA, LAM = 0.2, 0.6
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: the suite runs several
+    test processes on the host's cores, and torch's thread pool in each
+    would only contend (a test of thousands of tiny ops then runs tens of
+    times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pde_pair():
     """(JAX result, port result) of the same 4-replica batch: β ∈ {0.5, 2}
