@@ -51,7 +51,16 @@ Phases (each prints one line with its wall time; a failed phase raises):
     exclusion constants C0/C1/C2 within the JAX package's golden bounds;
 14. the σ sweep at full size (``REFERENCE_SIGMA_VALUES`` × 11 β × 5 runs),
     every estimate finite, each σ's launches, and the wide bands' plan and
-    µs per step (σ=0.1: 801 taps; σ=0.3: the dense reflect band).
+    µs per step (σ=0.1: 801 taps; σ=0.3: the dense reflect band);
+15. the slot engines (plain torch, no kernel of their own): ``lgk_step``
+    on the card equal to kernel B3 at injected bits (K=3 and K=1, global
+    and local m, B=33, L=1000); ``sweep_over_betas(engine='lattice_gas')``
+    in phase 8's two configurations at full size, within error bars of
+    phase 8's fused numbers, with no B3 launch; the anchored-exits driver
+    at full size (exits on anchors, N_final + exits = N_initial, Sₐ
+    finite) and the anchored golden; each driver's wall, and the slot
+    engine's µs, kernels and launch calls per step (``torch.profiler``)
+    beside B3's.
 
 Phases 11-14 record B3's device time (CUDA events around each launch) and
 its share of each driver's wall time.
@@ -804,6 +813,8 @@ def check_b3(dev) -> float:
 # ---------------------------------------------------------------------------
 
 SLICE_BETAS = np.linspace(0.0, 3.0, 11)
+# phase 8's fused-route statistics per configuration, for phase 15
+PHASE8_SWEEPS: dict = {}
 
 
 def host_s(fn, reps: int = 3) -> tuple:
@@ -866,7 +877,7 @@ def sweep_breakdown(save: dict, over: dict, outdir: str, n_calls: int,
             DEFAULT_RUN_KWARGS, seed=0, device="cuda")
 
     grid = host_s(grid_run)
-    cfg, _, _, f, _ = grid_out
+    cfg, _, _, f, _, _ = grid_out
     obs_dt = float(DEFAULT_RUN_KWARGS["obs_dt"])
     est = host_s(lambda: batched_estimates(
         f.total, f.m_global, f.rho_p,
@@ -952,6 +963,9 @@ def slice_path(outdir: str) -> dict:
             raise AssertionError(f"sweep {name}: particle counts changed")
         if (spins != 0).sum(1).max() > K:
             raise AssertionError(f"sweep {name}: occupancy above K={K}")
+        PHASE8_SWEEPS[name] = {k: np.asarray(save[k], float) for k in (
+            "means", "ses", "D_means", "D_ses", "m_means", "m_ses")}
+        PHASE8_SWEEPS[name]["wall_s"] = wall
         sweep_breakdown(save, over, outdir, n, wall)
 
     exclusion_multi_step.launches = 0
@@ -1513,6 +1527,318 @@ def sigma_sweep_full(outdir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the slot engines (plain torch)
+# ---------------------------------------------------------------------------
+
+SLOT_CHECKS = (
+    ("K=3, local m sigma=0.002, non-periodic, plus_forward", 3, 0.002,
+     False, False),
+    ("K=3, global m, periodic, bidirectional", 3, 0.0, True, True),
+    ("K=1, local m sigma=0.005, non-periodic, plus_forward", 1, 0.005,
+     False, False),
+    ("K=1, global m, periodic, bidirectional", 1, 0.0, True, True),
+)
+
+
+def check_slot_engine(dev) -> None:
+    """(a) ``lgk_step`` on the card against kernel B3 at injected bits:
+    B=33, L=1000, β over [0, 3], rd=1, ra=3, dt=0.02, 40 steps in each of
+    ``SLOT_CHECKS``.  Each step's bits are drawn in B3's (Kp, Lp) layout
+    and converted by ``interop.exclusion_noise``: event bits, and a
+    distinct random rank per slot as B3's priority bits (``rank << 6``),
+    the slot engine's priority being ``rank << 17 | slot id`` (no ties,
+    the same admission).  The slot engine rounds t2 = t1 + (rd + ra)·Δt,
+    B3 t1 + rd·Δt + ra·Δt: the check asserts that these rates round alike.
+    Spins EQUAL after every step; the state moved."""
+    import torch
+    from hydrolim_tpu_torch import interop
+    from hydrolim_tpu_torch.core.config import ParticleConfig, ParticleParams
+    from hydrolim_tpu_torch.ops.exclusion_kernel import exclusion_multi_step
+    from hydrolim_tpu_torch.ops.stepper_kernel import bits_to_uniform
+    from hydrolim_tpu_torch.particles.lattice_gas_k import lgk_step
+
+    B, L, dt, rd, ra, steps = 33, 1000, 0.02, 1.0, 3.0, 40
+    f = np.float32
+    if (f(rd) + f(ra)) * f(dt) != f(rd) * f(dt) + f(ra) * f(dt):
+        raise AssertionError("the check's rates round differently in the "
+                             "two threshold orders")
+    rng = np.random.default_rng(15)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    betas = torch.linspace(0.0, 3.0, B, device=dev)
+    scal = torch.stack([betas, torch.full((B,), rd, device=dev),
+                        torch.full((B,), ra, device=dev)], 1).contiguous()
+    zero = torch.zeros(B, device=dev)
+    params = ParticleParams(beta=betas, rate_diffusion=scal[:, 1],
+                            rate_active=scal[:, 2], k_on=zero, k_off=zero,
+                            k_exit=zero)
+    seeds = torch.zeros(B, dtype=torch.int32, device=dev)
+    for what, K, sigma, periodic, bidi in SLOT_CHECKS:
+        cfg = ParticleConfig(L=L, N=(K * L) // 2, init="fixed",
+                             scale_rates=False, local_kernel_sigma=sigma,
+                             periodic=periodic, site_capacity=K,
+                             active_model="bidirectional" if bidi
+                             else "plus_forward")
+        slots0, band = exclusion_state(dev, gen, B=B, K=K, L=L, sigma=sigma,
+                                       periodic=periodic)
+        slots, spins = slots0, torch.sign(slots0)
+        Kp, Lp = -(-K // 4) * 4, -(-L // 128) * 128
+        ids = np.arange(K * L, dtype=np.int64).reshape(K, L)
+        for s in range(steps):
+            bits = np.zeros((B, 1, 2, 1, Kp, Lp), np.uint32)
+            bits[:, 0, 0, 0] = rng.integers(0, 2 ** 32, (B, Kp, Lp),
+                                            dtype=np.uint32)
+            rank = np.stack([rng.permutation(K * L).reshape(K, L)
+                             for _ in range(B)]).astype(np.int64)
+            bits[:, 0, 1, 0, :K, :L] = rank << 6
+            noise = interop.exclusion_noise(bits, K, L, device=dev)
+            u = bits_to_uniform(noise[:, 0, 0].to(torch.int64))
+            prio = torch.as_tensor((rank << 17) | ids, device=dev)
+            slots = exclusion_multi_step(scal, seeds, slots, band, k_steps=1,
+                                         dt=dt, periodic=periodic,
+                                         bidirectional=bidi, noise=noise)
+            spins, _, _ = lgk_step(cfg, params, band, spins, dt,
+                                   _inject=(u, prio))
+            bad = int((torch.sign(slots) != spins).sum())
+            if bad:
+                raise AssertionError(f"slot engine vs B3, {what}: step {s}: "
+                                     f"spins differ at {bad} slots")
+        if torch.equal(spins, torch.sign(slots0)):
+            raise AssertionError(f"slot engine vs B3, {what}: no move")
+        print(f"slot engine vs B3 B={B} L={L} {what}: equal over {steps} "
+              f"steps", flush=True)
+
+
+def slot_sweeps(outdir: str) -> dict:
+    """(b) ``sweep_over_betas(engine='lattice_gas')`` in phase 8's two
+    configurations at full size (11 β × 3 runs, L=1000, T=20, obs_dt=0.1,
+    every particle tagged): (a) K=1 on ``lg_step``, (b) K=3 on
+    ``lgk_step``.  No B3 launch; particle counts kept, occupancy ≤ K; per
+    β, m, v_eff and D_eff within 3·(SE_a + SE_b) + 0.02·max(1, |mean b|)
+    of phase 8's fused-route numbers (the rule of
+    tests/test_golden.py:146-149)."""
+    import torch
+    from hydrolim_tpu_torch.experiments.particle_beta_sweep import FLAGSHIP
+    from hydrolim_tpu_torch.ops.exclusion_kernel import exclusion_multi_step
+    from hydrolim_tpu_torch.sweeps.beta_sweep import sweep_over_betas
+
+    walls = {}
+    for name, over, route in (
+            ("(a) K=1, N=500, sigma=0.005", {}, "lg_step"),
+            ("(b) K=3, N=750, sigma=0.002", FLAGSHIP, "lgk_step")):
+        exclusion_multi_step.launches = 0
+        t0 = time.perf_counter()
+        save = sweep_over_betas(
+            SLICE_BETAS, n_runs_per_beta=3, ps_kwargs=over or None,
+            npz_path=f"{outdir}/slot_sweep.npz", outdir=outdir, seed=0,
+            keep_outs=True, plot_result=False, engine="lattice_gas",
+            device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        walls[name] = wall
+        fused = PHASE8_SWEEPS[name]
+        print(f"slot-engine sweep {name}: {wall:.2f} s wall on "
+              f"{save['route']} (fused route {fused['wall_s']:.2f} s), "
+              f"{exclusion_multi_step.launches} launches of "
+              f"exclusion_multi_step", flush=True)
+        if str(save["route"]) != route:
+            raise AssertionError(f"slot sweep {name} ran {save['route']}")
+        if exclusion_multi_step.launches != 0:
+            raise AssertionError(f"slot sweep {name} launched B3")
+        K = int(save["ps_kwargs"]["site_capacity"])
+        spins = save["spins_final"]
+        n0 = np.array([o["alive_frames"][0].sum() for outs in save["outs"]
+                       for o in outs])
+        if not np.array_equal((spins != 0).sum((1, 2)), n0):
+            raise AssertionError(f"slot sweep {name}: particle counts "
+                                 "changed")
+        if (spins != 0).sum(1).max() > K:
+            raise AssertionError(f"slot sweep {name}: occupancy above K")
+        for q, mean, se in (("m", "m_means", "m_ses"),
+                            ("v_eff", "means", "ses"),
+                            ("D_eff", "D_means", "D_ses")):
+            a, b = np.asarray(save[mean], float), fused[mean]
+            tol = (3.0 * (np.asarray(save[se], float) + fused[se])
+                   + 0.02 * max(1.0, abs(float(b.mean()))))
+            gap = np.abs(a - b)
+            print(f"  {q}: slot {np.round(a, 5).tolist()}, fused "
+                  f"{np.round(b, 5).tolist()}; max |gap|/tol "
+                  f"{float((gap / tol).max()):.3f}", flush=True)
+            if not np.all(np.isfinite(a)) or not np.all(gap < tol):
+                raise AssertionError(f"slot sweep {name}: {q} off the fused "
+                                     f"route: {a} vs {b}, tol {tol}")
+    return walls
+
+
+def anchored_checks(outdir: str) -> dict:
+    """(c) The anchored-exits driver at its full default size (K=3,
+    L=1000, N=500, 11 β × 3 runs, T=20, obs_dt=0.1, k_on=10, k_off=5,
+    k_exit=5) on ``device='cuda'``: every β has exits and fewer than its
+    particles; N_final + exits = N_initial per replica (the initial field
+    drawn again from the run's seed); every exit on an anchor site; the
+    Sₐ fit finite; no B3 launch.  (d) The anchored golden at its own size
+    (tests/test_golden.py:213-245): 96 runs, L=128, N=64, T=6, the mean
+    exit total within max(4·SE, 1.12) of 8.667."""
+    import torch
+    from hydrolim_tpu_torch.core.config import ParticleConfig
+    from hydrolim_tpu_torch.experiments import anchored_exits
+    from hydrolim_tpu_torch.ops.exclusion_kernel import exclusion_multi_step
+    from hydrolim_tpu_torch.particles.lattice_gas_k import (
+        lgk_init,
+        run_lattice_gas_anchored,
+    )
+    from hydrolim_tpu_torch.sweeps import beta_sweep
+    from hydrolim_tpu_torch.sweeps.ensemble import (
+        broadcast_params,
+        ensemble_dt,
+    )
+
+    out = {}
+    exclusion_multi_step.launches = 0
+    t0 = time.perf_counter()
+    res = anchored_exits.main(outdir=outdir, device="cuda")
+    torch.cuda.synchronize()
+    out["anchored-exits driver"] = wall = time.perf_counter() - t0
+    ps = anchored_exits.anchored_ps_kwargs(res["L"], res["N"], res["K"])
+    cfg = beta_sweep.config_from_kwargs(ps)
+    grad = beta_sweep.make_exp_gradient(
+        L=res["L"], N=res["N"], frac_plus=0.75, decay_length=0.35,
+        anchor_positions=anchored_exits.ANCHORS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(res["seed"])
+    prof = beta_sweep._profiles(cfg, dict(rho0_plus=grad[0],
+                                          rho0_minus=grad[1]))
+    n0 = (lgk_init(cfg, gen, *prof, B=len(res["n_final"]),
+                   device="cuda") != 0).sum((1, 2)).cpu().numpy()
+    exits = np.asarray(res["exit_counts"])
+    n_beta = len(res["beta_values"])
+    per_beta = exits.reshape(n_beta, res["n_runs"]).sum(1)
+    on_anchor = cfg.anchor_mask()
+    print(f"anchored-exits driver: {wall:.2f} s wall on {res['route']}, "
+          f"{exclusion_multi_step.launches} launches of "
+          f"exclusion_multi_step; exits per beta {per_beta.tolist()}; "
+          f"total mean {np.round(res['total_mean'], 2).tolist()}; S_a "
+          f"{np.round(res['S_fits'], 5).tolist()}", flush=True)
+    if res["route"] != "lgk_step anchored" or \
+            exclusion_multi_step.launches != 0:
+        raise AssertionError("the anchored driver left the anchored engine")
+    if not np.all(per_beta > 0) or not np.all(exits < n0):
+        raise AssertionError(f"exits per beta {per_beta}, per replica "
+                             f"{exits} of {n0}")
+    if not np.array_equal(np.asarray(res["n_final"]) + exits, n0):
+        raise AssertionError("N_final + exits != N_initial: "
+                             f"{res['n_final']} + {exits} vs {n0}")
+    if not all(on_anchor[np.asarray(e, int)].all()
+               for e in res["exit_sites"]):
+        raise AssertionError("an exit off the anchor sites")
+    if not np.all(np.isfinite(res["S_fits"])):
+        raise AssertionError(f"S_a fit not finite: {res['S_fits']}")
+
+    L, N, n_runs, T = 128, 64, 96, 6.0
+    anchors = (0.25, 0.60, 0.80)
+    gcfg = ParticleConfig(L=L, xlim=1, N=N, init="poisson",
+                          scale_rates=False, local_kernel_sigma=0.02,
+                          periodic=False, site_capacity=3,
+                          active_model="plus_forward", minus_anchor=True,
+                          immobilize_when_anchored=True,
+                          anchor_positions=anchors, anchor_radius=0.01,
+                          exit_buffer=N)
+    g = beta_sweep.make_exp_gradient(L=L, N=N, frac_plus=0.75,
+                                     decay_length=0.35,
+                                     anchor_positions=anchors)
+    rates = dict(rate_diffusion=0.02, rate_active=2.0, k_on=10.0,
+                 k_off=5.0, k_exit=5.0)
+    t0 = time.perf_counter()
+    _, _, (ec, _, _) = run_lattice_gas_anchored(
+        gcfg, broadcast_params(gcfg, beta=[0.7], n_runs=n_runs,
+                               device="cuda", **rates),
+        T=T, obs_dt=0.5, dt=ensemble_dt(gcfg, beta_max=0.7, **rates),
+        seed=33, device="cuda", rho0_plus=g[2], rho0_minus=g[3])
+    counts = ec.cpu().numpy().astype(float)
+    out["anchored golden"] = time.perf_counter() - t0
+    mean, se = counts.mean(), counts.std(ddof=1) / np.sqrt(n_runs)
+    print(f"anchored golden: {out['anchored golden']:.2f} s wall; exits "
+          f"{mean:.3f} ± {se:.3f} (golden 8.667, tolerance "
+          f"{max(4 * se, 1.12):.3f})", flush=True)
+    if not (abs(mean - 8.667) < max(4.0 * se, 1.12) and 0 < mean < N):
+        raise AssertionError(f"anchored golden {mean} ± {se} off 8.667")
+    return out
+
+
+def slot_step_rates(dev, b3_us: float) -> dict:
+    """The slot engine's step at the sweep's shape, configuration (b):
+    B=33, K=3, L=1000, σ=0.002 (17 taps), the exp-gradient Poisson
+    init, β over [0, 3], rd=0.02, ra=5, the sweep's Δt; and the K=1
+    step at (a)'s (σ=0.005, 41 taps).  Wall per step by CUDA events over
+    200 steps after 5 warm-up steps; launches per step and the device's
+    busy time from ``torch.profiler`` over 20 steps (the kernels it
+    records on the card)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hydrolim_tpu_torch.experiments.particle_beta_sweep import FLAGSHIP
+    from hydrolim_tpu_torch.ops.exclusion_kernel import build_smoothing_band
+    from hydrolim_tpu_torch.particles.lattice_gas import lg_init, lg_step
+    from hydrolim_tpu_torch.particles.lattice_gas_k import lgk_init, lgk_step
+    from hydrolim_tpu_torch.sweeps import beta_sweep
+    from hydrolim_tpu_torch.sweeps.ensemble import (
+        broadcast_params,
+        ensemble_dt,
+    )
+
+    out = {}
+    for tag, over, init, step in (
+            ("lgk_step (b) B=33 K=3", FLAGSHIP, lgk_init, lgk_step),
+            ("lg_step (a) B=33 K=1", {}, lg_init, lg_step)):
+        ps = dict(beta_sweep.DEFAULT_PS_KWARGS, **over)
+        cfg = beta_sweep.config_from_kwargs(ps)
+        grad = beta_sweep.make_exp_gradient(
+            L=cfg.L, N=cfg.N, frac_plus=0.75, decay_length=0.35,
+            anchor_positions=None)
+        rates = dict(rate_diffusion=0.02, rate_active=5.0)
+        params = broadcast_params(cfg, beta=SLICE_BETAS, n_runs=3,
+                                  device=dev, **rates)
+        dt = ensemble_dt(cfg, beta_max=3.0, **rates)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(4)
+        state = [init(cfg, gen, grad[2], grad[3], B=33, device=dev)]
+        band = build_smoothing_band(cfg, dev)
+
+        def one():
+            state[0] = step(cfg, params, band, state[0], dt,
+                            generator=gen)[0]
+
+        for _ in range(5):
+            one()
+        us = cuda_ms(one, reps=200) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                one()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        launches = [e for e in prof.events()
+                    if e.name in ("cudaLaunchKernel", "cuLaunchKernel")]
+        busy_us = sum(e.device_time_total for e in kernels) / 20 if kernels \
+            else float("nan")
+        row = dict(us_per_step=us, kernels_per_step=len(kernels) / 20,
+                   launch_calls_per_step=len(launches) / 20,
+                   device_busy_us_per_step=busy_us)
+        out[tag] = row
+        print(f"{tag}: {us:.1f} us/step (CUDA events, 200 steps), "
+              f"{row['kernels_per_step']:.1f} kernels and "
+              f"{row['launch_calls_per_step']:.1f} launch calls per step, "
+              f"{busy_us:.1f} us/step of device time (torch.profiler, 20 "
+              f"steps: "
+              + (f"{1 - busy_us / us:.1%} idle" if kernels else
+                 "no device events, not measured")
+              + f"); B3 at B=33 K=3: {b3_us:.3f} us/step (phase 9)",
+              flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1598,6 +1924,16 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as outdir:
             b3["launches_per_path"]["sigma sweep"] = \
                 sigma_sweep_full(outdir)["launches"]
+    with phase("15 slot engines"):
+        check_slot_engine(dev)
+        with tempfile.TemporaryDirectory() as outdir:
+            walls = slot_sweeps(outdir)
+            walls.update(anchored_checks(outdir))
+        # phase 9: B3 ms per 1000-step call at the sweep shape = µs per step
+        slot_step_rates(dev, b3["ms"])
+        print("slot-engine driver walls (s): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()),
+              flush=True)
     for row in (b1, b3):
         row["launches"] = sum(row["launches_per_path"].values())
 

@@ -7,11 +7,10 @@ ROADMAP.md §A that will port it.
 from __future__ import annotations
 
 ROADMAP_ITEMS = {
-    "slot engines": "ROADMAP.md §A item 1, the XLA slot engines",
-    "tau-leap": "ROADMAP.md §A item 2, the general τ-leap engine",
-    "host": "ROADMAP.md §A item 3, host estimators, structure and figures",
-    "checkpointing": "ROADMAP.md §A item 4, checkpointing",
-    "parallelism": "ROADMAP.md §A item 5, parallelism",
+    "tau-leap": "ROADMAP.md §A item 1, the general τ-leap engine",
+    "host": "ROADMAP.md §A item 2, host estimators, structure and figures",
+    "checkpointing": "ROADMAP.md §A item 3, checkpointing",
+    "parallelism": "ROADMAP.md §A item 4, parallelism",
 }
 
 

@@ -5,10 +5,12 @@ Reference driver: PARTICLE_solver_BIOLOGY_EXCLUSION_sweep_beta.py:1030-1034
 (β = linspace(0, 3, 11) × 3 runs at L=1000, N=500, T=20, K=1).
 ``--flagship`` runs the flagship capacity instead: K=3, N=750, σ=0.002
 (experiments/run_particle_single.py:24-31).  The whole (β × replicas)
-grid advances as one batch on the card unless ``--device cpu``.
+grid advances as one batch on the card unless ``--device cpu``;
+``--engine lattice_gas`` runs it on the plain-torch slot engines.
 
 Usage: python -m hydrolim_tpu_torch.experiments.particle_beta_sweep
        [--outdir DIR] [--small] [--flagship] [--replot] [--device cuda|cpu]
+       [--engine fused|lattice_gas]
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ FLAGSHIP = dict(site_capacity=3, N=750, local_kernel_sigma=0.002)
 
 def main(outdir: str = "beta_sweep_out", small: bool = False,
          run: bool = True, n_runs: int = None, flagship: bool = False,
-         device: str = "cuda"):
+         device: str = "cuda", engine: str = "fused"):
     beta_values = np.linspace(0, 3, 5 if small else 11)
     over = dict(FLAGSHIP) if flagship else {}
     if small:
@@ -33,7 +35,7 @@ def main(outdir: str = "beta_sweep_out", small: bool = False,
         beta_values, n_runs_per_beta=n_runs or (2 if small else 3), run=run,
         ps_kwargs=over or None, run_kwargs=rk,
         npz_path=f"{outdir}/beta_sweep_results.npz", outdir=outdir, seed=0,
-        device=device)
+        device=device, engine=engine)
     print("v_eff(beta):", np.round(save["means"], 4))
     print("D_eff(beta):", np.round(save["D_means"], 4))
     print("p_block(beta):", np.round(save["block_means"], 4))
@@ -51,6 +53,8 @@ if __name__ == "__main__":
                    help="reload the npz checkpoint instead of re-running")
     p.add_argument("--n-runs", type=int, default=None)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--engine", default="fused",
+                   choices=["fused", "lattice_gas"])
     a = p.parse_args()
     main(a.outdir, a.small, run=not a.replot, n_runs=a.n_runs,
-         flagship=a.flagship, device=a.device)
+         flagship=a.flagship, device=a.device, engine=a.engine)

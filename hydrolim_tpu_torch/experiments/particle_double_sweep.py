@@ -8,11 +8,12 @@ package's ``experiments/run_particle_double_sweep.py``.  The grid runs in
 chunks of 44 replicas on the card unless ``--device cpu``.
 
 ``--n-runs`` and ``--seed`` repeat the grid at other statistics (the
-JAX package's VALIDATION.md compares 16-run realizations, seeds 0 and 1).
+JAX package's VALIDATION.md compares 16-run realizations, seeds 0 and 1);
+``--engine lattice_gas`` runs it on the plain-torch slot engine.
 
 Usage: python -m hydrolim_tpu_torch.experiments.particle_double_sweep
        [--small] [--outdir DIR] [--device cuda|cpu] [--n-runs N]
-       [--seed S]
+       [--seed S] [--engine pallas|lattice_gas]
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ from hydrolim_tpu_torch.sweeps.double_sweep import double_sweep_fused
 
 
 def main(small: bool = False, outdir: str = "double_sweep_out",
-         device: str = "cuda", n_runs: int = None, seed: int = 0):
+         device: str = "cuda", n_runs: int = None, seed: int = 0,
+         engine: str = "pallas"):
     if small:
         betas = np.linspace(0, 3, 4)
         Ns = np.linspace(40, 160, 4)
@@ -36,7 +38,7 @@ def main(small: bool = False, outdir: str = "double_sweep_out",
         kw = dict(n_runs_per_beta=n_runs or 4,
                   run_kwargs=dict(T=10, obs_dt=0.1))
     res = double_sweep_fused(betas, Ns, outdir=outdir, device=device,
-                             seed=seed, **kw)
+                             seed=seed, engine=engine, **kw)
     print("f(rho):", np.round(res["f_fit"], 3))
     print("g(rho):", np.round(res["g_fit"], 3))
     print(f"C0={res['C0']:.6f} ± {res['C0_err']:.6f}  C1={res['C1']:.6f} ± "
@@ -52,5 +54,8 @@ if __name__ == "__main__":
     p.add_argument("--device", default="cuda")
     p.add_argument("--n-runs", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--engine", default="pallas",
+                   choices=["pallas", "lattice_gas"])
     a = p.parse_args()
-    main(a.small, a.outdir, a.device, n_runs=a.n_runs, seed=a.seed)
+    main(a.small, a.outdir, a.device, n_runs=a.n_runs, seed=a.seed,
+         engine=a.engine)

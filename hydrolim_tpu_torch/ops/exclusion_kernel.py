@@ -337,7 +337,11 @@ def smoothing_band(idx: np.ndarray, w: np.ndarray, device="cuda",
 
 
 def build_smoothing_band(config: ParticleConfig,
-                         device="cuda") -> SmoothingBand:
+                         device="cuda") -> Optional[SmoothingBand]:
+    """The local-m smoothing band of ``config``, None for global m
+    (σ ≤ 0)."""
+    if config.local_kernel_sigma <= 0:
+        return None
     return smoothing_band(*band_weights(config), device=device,
                           periodic=config.periodic)
 
@@ -351,6 +355,22 @@ def smooth_with_band(x: torch.Tensor, band: SmoothingBand) -> torch.Tensor:
     for t in range(prod.shape[-1]):
         acc = acc + prod[..., t]
     return acc
+
+
+def band_m(counts_s: torch.Tensor, tot: torch.Tensor,
+           band: Optional[SmoothingBand]) -> torch.Tensor:
+    """The exclusion step's m from per-site signed and total counts
+    (..., L) float32: the global Σs / max(Σtot, 1), (..., 1), without a
+    band; else the smoothed ratio (0 where the smoothed total is 0, clipped
+    to [−1, 1]), (..., L).  The kernel's m, and the slot engines' (one law
+    and one summation order, so they equal the kernel at the same bits)."""
+    if band is None:
+        return counts_s.sum(-1, keepdim=True) / tot.sum(
+            -1, keepdim=True).clamp(min=1.0)
+    c0, c1 = smooth_with_band(torch.stack([counts_s, tot]), band)
+    pos = c1 > 0
+    return torch.where(pos, c0 / torch.where(pos, c1, 1.0),
+                       0.0).clamp(-1.0, 1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -395,13 +415,8 @@ def step_thresholds(slots: torch.Tensor, scalars: torch.Tensor,
     counts_s = sgn_f.sum(1)                           # (B, L), exact
     tot = occ_slot.to(f32).sum(1)
     occ_tot = occ_slot.sum(1)
-    if band is not None:
-        c0, c1 = smooth_with_band(torch.stack([counts_s, tot]), band)
-        pos = c1 > 0
-        m = torch.where(pos, c0 / torch.where(pos, c1, 1.0), zero)
-        m = m.clamp(-1.0, 1.0)[:, None, :]
-    elif m is None:
-        m = (counts_s.sum(-1) / tot.sum(-1).clamp(min=1.0)).reshape(B, 1, 1)
+    if band is not None or m is None:
+        m = band_m(counts_s, tot, band)[:, None, :]
     beta = scalars[:, 0].reshape(B, 1, 1)
     c = torch.where(occ_slot, torch.exp(-beta * sgn_f * m), zero)
 

@@ -16,7 +16,7 @@ Which engine runs the steps follows the configuration only:
 - a mean-field configuration outside it (walls, Poisson init) runs the
   torch fast path, ``particles.stepper._step_meanfield_global`` per step;
 - anything else (exclusion, local m, anchors, a custom flip rate) needs the
-  general τ-leap step, not ported yet (ROADMAP.md §A item 2).
+  general τ-leap step, not ported yet (ROADMAP.md §A item 1).
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@ configurations outside kernel B1's scope (walls, a dead buffer tail) and
 the loop body of B1's plain version.
 
 The general τ-leap ``step`` (exclusion, local m, anchors, a custom flip
-rate) is not ported yet (ROADMAP.md §A item 2)."""
+rate) is not ported yet (ROADMAP.md §A item 1)."""
 from __future__ import annotations
 
 import dataclasses

@@ -4,20 +4,23 @@ API surface.
 Constructor keywords and defaults are the JAX package's
 (``hydrolim_tpu/particles/system.py``, after PARTICLE_solver_CLASS.py:14-40)
 plus ``device``; ``run(T, obs_dt, record_fft, record_var, engine)`` returns
-the same ``out`` dict (:542-557).  Two engines are ported:
+the same ``out`` dict (:542-557).  Three engines are ported:
 
 - ``engine='particle'`` for the mean-field configuration (no exclusion,
   global m, no anchors, the default flip rate) through
   ``particles.run.run_particles``: kernel B1 where it is in scope
   (periodic, ``init='fixed'``), the torch fast path elsewhere;
 - ``engine='pallas'`` for the fused exclusion class through
-  ``sweeps.fast_exclusion.run_exclusion_sweep`` (kernel B3/B4), every
-  particle tagged so ``pos_list``/``pos_frames`` carry identities.
+  ``sweeps.fast_exclusion.run_exclusion_sweep`` (kernel B3/B4);
+- ``engine='lattice_gas'`` for any exclusion configuration without
+  anchors through the plain-torch slot engine
+  (``particles.lattice_gas_k.run_lattice_gas_k``).
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-item: ``engine='lattice_gas'`` (§A item 1), the general τ-leap engine for
-every other configuration under ``'particle'`` (item 2), the figures
-(item 3) and ``run_checkpointed`` (item 4).
+The two slot routes tag every particle, so ``pos_list``/``pos_frames``
+carry identities.  Not ported yet, each raising ``NotImplementedError``
+with its ROADMAP.md item: the general τ-leap engine for every other
+configuration under ``'particle'`` (§A item 1), the figures (item 2) and
+``run_checkpointed`` (item 3).
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from hydrolim_tpu_torch.core.config import (
 from hydrolim_tpu_torch.core.scope import not_ported
 from hydrolim_tpu_torch.particles.init import eval_profile, init_particles
 from hydrolim_tpu_torch.particles.lattice_gas import tracer_valid_mask
+from hydrolim_tpu_torch.particles.lattice_gas_k import run_lattice_gas_k
 from hydrolim_tpu_torch.particles.run import (
     ParticleRunResult,
     run_particles,
@@ -227,13 +231,13 @@ class ParticleSystem:
         ``engine='particle'``: the mean-field configuration through
         ``run_particles`` (``last_run_info['engine']`` names the route:
         kernel B1 or the torch fast path).  ``engine='pallas'``: the fused
-        exclusion class on kernel B3/B4 with every particle tagged.
-        ``var_list`` holds the true variances whenever ``record_var`` is
-        set (the JAX package's deviation from a reference quirk)."""
-        if engine == "pallas":
-            return self._run_fused(T, obs_dt, record_fft, record_var)
-        if engine == "lattice_gas":
-            raise not_ported("engine='lattice_gas'", "slot engines")
+        exclusion class on kernel B3/B4; ``engine='lattice_gas'``: any
+        exclusion configuration without anchors on the slot engine; both
+        with every particle tagged.  ``var_list`` holds the true variances
+        whenever ``record_var`` is set (the JAX package's deviation from a
+        reference quirk)."""
+        if engine in ("pallas", "lattice_gas"):
+            return self._run_slots(T, obs_dt, record_fft, record_var, engine)
         if engine != "particle":
             raise ValueError(f"unknown engine {engine!r}")
         res = self.run_raw(T=T, obs_dt=obs_dt, record_fft=record_fft)
@@ -282,17 +286,24 @@ class ParticleSystem:
             "dt_eff": obs_dt / substeps_for(obs_dt, self._dt),
         }
 
-    def _run_fused(self, T: float, obs_dt: float, record_fft: bool,
-                   record_var: bool) -> Dict[str, Any]:
-        """Single run on kernel B3/B4, the JAX facade's ``engine='pallas'``
-        (its ``_run_lattice_gas``): every particle is a tagged tracer, so
-        ``pos_list``/``pos_frames`` carry exact identities."""
+    def _run_slots(self, T: float, obs_dt: float, record_fft: bool,
+                   record_var: bool, engine: str) -> Dict[str, Any]:
+        """Single run on a slot route, the JAX facade's
+        ``_run_lattice_gas``: kernel B3/B4 (``'pallas'``) or the slot
+        engine (``'lattice_gas'``, its ``kernel='xla'``).  Every particle
+        is a tagged tracer, so ``pos_list``/``pos_frames`` carry exact
+        identities."""
         config = self.config
-        if not (config.exclusion and is_fused_exclusion_path(config)):
+        if engine == "pallas" and not (config.exclusion
+                                       and is_fused_exclusion_path(config)):
             raise ValueError(
                 "engine='pallas' requires the fused-kernel configuration "
                 "class (exclusion with K<=8, no anchors/crowding, default "
                 "flip rate)")
+        if not config.exclusion or config.anchor_positions is not None:
+            raise ValueError(
+                "engine='lattice_gas' supports exclusion configs without "
+                "anchors/binding")
         # Poisson inits realize a count that follows the profiles: tag the
         # whole buffer; surplus tags are TRACER_INVALID and masked below
         n_tags = config.n_buf if config.init == "poisson" else config.N
@@ -301,12 +312,15 @@ class ParticleSystem:
                                        for k in ("beta", "rate_diffusion",
                                                  "rate_active", "k_on",
                                                  "k_off", "k_exit")))
-        frames, _ = run_exclusion_sweep(
+        runner = (run_exclusion_sweep if engine == "pallas"
+                  else run_lattice_gas_k)
+        frames, _ = runner(
             config, params_b, T=T, obs_dt=obs_dt, dt=self._dt,
             seed=self._next_seed(), device=self.device,
             rho0_plus=self.rho0_plus, rho0_minus=self.rho0_minus,
             record_fft=False, n_tracers=n_tags)
-        self.last_run_info = {"engine": "exclusion_multi_step"}
+        self.last_run_info = {"engine": "exclusion_multi_step"
+                              if engine == "pallas" else "lgk_step"}
         g = lambda a: a[0].detach().cpu().numpy()
         times_obs = np.arange(0.0, T, obs_dt)
         M = len(times_obs)

@@ -5,16 +5,25 @@ Mirrors the JAX package's ``sweeps/beta_sweep.py``
 
 - ``make_exp_gradient``, the exp-gradient ρ₀± profile factory (:16-53);
 - ``sweep_over_betas`` (:828-1028): the whole (β × replicas) grid in one
-  batch on the fused exclusion kernel (``engine='fused'``; the JAX
-  package's ``'pallas'`` and ``'auto'`` name it too), the five estimators
-  per replica on the device, means ± SE per β, the npz checkpoint
-  (``run=False`` reloads it), the (θ, γ) NB fit and the standard figures
-  (where matplotlib is installed).
+  batch, the five estimators per replica on the device, means ± SE per β,
+  the npz checkpoint (``run=False`` reloads it), the (θ, γ) NB fit and the
+  standard figures (where matplotlib is installed).
 
-The particle-centric engine (``engine='particle'``), the XLA slot engines
-(``engine='lattice_gas'``), anchors, the host estimators, ``mesh=`` and
-``ckpt_dir=`` are not ported yet: each raises ``NotImplementedError``
-naming its ROADMAP.md item (``core/scope.py``).
+Routes (``run_sweep_grid_lattice_gas``), decided by the configuration and
+the engine name alone:
+
+- anchors (bind / unbind / exit) → the anchored slot engine
+  (``run_lattice_gas_anchored``), whatever the engine;
+- ``engine='lattice_gas'`` (``kernel='xla'``) → the XLA slot engines in
+  plain torch: ``run_lattice_gas`` at K=1, ``run_lattice_gas_k`` above;
+- ``'fused'``, ``'pallas'`` and ``'auto'`` (``kernel='auto'``) → kernel
+  B3/B4 where ``is_fused_exclusion_path`` holds, the slot engines
+  otherwise (crowding, K > 8).
+
+The route taken is returned with the grid and saved as the sweep's
+``route``.  The particle-centric engine (``engine='particle'``), the host estimators,
+``mesh=`` and ``ckpt_dir=`` are not ported yet: each raises
+``NotImplementedError`` naming its ROADMAP.md item (``core/scope.py``).
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from hydrolim_tpu_torch.core.config import ParticleConfig
 from hydrolim_tpu_torch.core.scope import not_ported
@@ -30,7 +40,12 @@ from hydrolim_tpu_torch.observables.batched import batched_estimates
 from hydrolim_tpu_torch.particles.init import eval_profile
 from hydrolim_tpu_torch.particles.lattice_gas import (
     LatticeGasFrames,
+    run_lattice_gas,
     tracer_valid_mask,
+)
+from hydrolim_tpu_torch.particles.lattice_gas_k import (
+    run_lattice_gas_anchored,
+    run_lattice_gas_k,
 )
 from hydrolim_tpu_torch.sweeps.ensemble import broadcast_params, ensemble_dt
 from hydrolim_tpu_torch.sweeps.fast_exclusion import (
@@ -40,16 +55,22 @@ from hydrolim_tpu_torch.sweeps.fast_exclusion import (
 
 # the JAX package's names of the fused route
 FUSED_ENGINES = ("fused", "pallas", "auto")
+SWEEP_ENGINES = FUSED_ENGINES + ("lattice_gas",)
+
+# the routes of run_sweep_grid_lattice_gas
+FUSED_ROUTE = "exclusion_multi_step"
+K1_ROUTE = "lg_step"
+SLOT_ROUTE = "lgk_step"
+ANCHORED_ROUTE = "lgk_step anchored"
 
 
 def check_fused_engine(engine: str) -> None:
-    """Accept the names of the fused route; the JAX package's other
-    engines raise with the ROADMAP.md item that ports them."""
+    """Accept the names of the fused route and ``'lattice_gas'`` (the slot
+    engines); the particle engine raises with the ROADMAP.md item that
+    ports it."""
     if engine == "particle":
         raise not_ported("engine='particle'", "tau-leap")
-    if engine == "lattice_gas":
-        raise not_ported("engine='lattice_gas'", "slot engines")
-    if engine not in FUSED_ENGINES:
+    if engine not in SWEEP_ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
 
 
@@ -155,18 +176,24 @@ def run_sweep_grid_lattice_gas(beta_values, n_runs: int, ps_kwargs: Dict,
                                run_kwargs: Dict, seed: int = 0,
                                n_tracers: Optional[int] = None,
                                kernel: str = "fused", device="cuda"):
-    """(β × replicas) grid on the fused slot kernel; returns (config,
-    out_for(i) accessor, dt, frames, the final (B, K, L) slot spins).
-    Tagged tracers give the displacements for D_eff; the default tags EVERY
-    particle (the whole buffer for Poisson inits, whose realised count
-    varies), matching the reference's all-particle tracking
-    (``..._sweep_beta.py:500-525``)."""
+    """(β × replicas) grid on the slot engines (JAX ``beta_sweep.py:
+    158-266``); returns (config, out_for(i) accessor, dt, frames, the final
+    (B, K, L) slot spins, the route taken).  Tagged tracers give the
+    displacements for D_eff; the default tags EVERY particle (the whole
+    buffer for Poisson inits, whose realised count varies), matching the
+    reference's all-particle tracking (``..._sweep_beta.py:500-525``).
+
+    ``kernel``: ``'xla'`` runs the plain-torch slot engines; ``'auto'``
+    kernel B3/B4 where ``is_fused_exclusion_path(config)`` holds, the slot
+    engines otherwise; ``'pallas'`` (the port's ``'fused'``, the default)
+    B3/B4 or a ``ValueError``.  Anchors run the anchored engine under every
+    kernel, as in the JAX package.  The route (one of ``FUSED_ROUTE``,
+    ``K1_ROUTE``, ``SLOT_ROUTE``, ``ANCHORED_ROUTE``) is decided by the
+    configuration and the kernel name alone."""
     config = config_from_kwargs(ps_kwargs)
     assert config.exclusion, "lattice-gas engines require site_capacity"
-    if kernel != "fused" or not is_fused_exclusion_path(config):
-        raise not_ported(f"kernel={kernel!r}, or a configuration outside "
-                         "the fused class (anchors, crowding, a custom flip "
-                         "rate, K > 8)", "slot engines")
+    if kernel not in ("xla", "auto", "pallas", "fused"):
+        raise ValueError(f"unknown kernel {kernel!r}")
     rho0_p, rho0_m = _profiles(config, init_kwargs)
     rates = dict(
         rate_diffusion=float(ps_kwargs["rate_diffusion"]),
@@ -179,28 +206,57 @@ def run_sweep_grid_lattice_gas(beta_values, n_runs: int, ps_kwargs: Dict,
     dt = ensemble_dt(config, beta_max=float(np.max(beta_values)), **rates)
     T, obs_dt = float(run_kwargs["T"]), float(run_kwargs["obs_dt"])
     times = np.arange(0.0, T, obs_dt)
+    kw = dict(T=T, obs_dt=obs_dt, dt=dt, seed=seed, device=device,
+              rho0_plus=rho0_p, rho0_minus=rho0_m,
+              record_fft=bool(run_kwargs.get("record_fft", True)))
+    if config.anchor_positions is not None:
+        frames, slots, exit_log = run_lattice_gas_anchored(config, params,
+                                                           **kw)
+        return (config, _lattice_gas_out_accessor(frames, times, exit_log),
+                dt, frames, torch.sign(slots).to(torch.int32),
+                ANCHORED_ROUTE)
     full_tags = config.n_buf if config.init == "poisson" else config.N
-    n_tracers = full_tags if n_tracers is None else min(n_tracers, full_tags)
-    frames, spins_final = run_exclusion_sweep(
-        config, params, T=T, obs_dt=obs_dt, dt=dt, seed=seed, device=device,
-        rho0_plus=rho0_p, rho0_minus=rho0_m, n_tracers=n_tracers,
-        record_fft=bool(run_kwargs.get("record_fft", True)))
+    kw["n_tracers"] = (full_tags if n_tracers is None
+                       else min(n_tracers, full_tags))
+    fused = is_fused_exclusion_path(config)
+    if kernel in ("pallas", "fused") and not fused:
+        raise ValueError(f"kernel={kernel!r} requires the fused-kernel "
+                         "configuration class (K<=8, no anchors/crowding, "
+                         "default flip rate)")
+    if kernel != "xla" and fused:
+        frames, spins_final = run_exclusion_sweep(config, params, **kw)
+        route = FUSED_ROUTE
+    elif config.K == 1:
+        frames, occ = run_lattice_gas(config, params, **kw)
+        spins_final, route = occ[:, None, :], K1_ROUTE
+    else:
+        frames, spins_final = run_lattice_gas_k(config, params, **kw)
+        route = SLOT_ROUTE
     return (config, _lattice_gas_out_accessor(frames, times), dt, frames,
-            spins_final)
+            spins_final, route)
 
 
-def _lattice_gas_out_accessor(frames, times):
+def _lattice_gas_out_accessor(frames, times, exit_log=None):
     """out_for(i): replica i's frames as the reference's per-run dict of
-    numpy arrays.  The first call copies the frames to the host, one copy
-    per field for the whole batch."""
+    numpy arrays, with its exit log (``(exit_count, exit_times,
+    exit_pos)``) where the run has one.  The first call copies the frames
+    to the host, one copy per field for the whole batch."""
     on_host = []
 
     def out_for(i):
         if not on_host:
-            on_host.append(LatticeGasFrames(
-                *(a.cpu().numpy() for a in frames)))
-        f = on_host[0]
+            on_host.append((LatticeGasFrames(*(a.cpu().numpy()
+                                               for a in frames)),
+                            None if exit_log is None else
+                            tuple(a.cpu().numpy() for a in exit_log)))
+        f, log = on_host[0]
         tr = f.tracer_pos[i]
+        if log is not None:
+            ec, et, ep = log
+            k = min(int(ec[i]), et.shape[1])
+            exit_times, exit_positions = list(et[i][:k]), list(ep[i][:k])
+        else:
+            exit_times, exit_positions = [], []
         return {
             "times_obs": times,
             "rho_p_list": f.rho_p[i],
@@ -214,8 +270,8 @@ def _lattice_gas_out_accessor(frames, times):
             "pos_frames": tr,
             "alive_frames": tracer_valid_mask(tr),
             "pos_list": None,
-            "exit_times": [],
-            "exit_positions": [],
+            "exit_times": exit_times,
+            "exit_positions": exit_positions,
         }
 
     return out_for
@@ -239,8 +295,12 @@ def sweep_over_betas(beta_values, n_runs_per_beta: int = 10, run: bool = True,
     """Full β sweep (:828-1028): one batched grid run on ``device`` →
     estimator means ± SE per β → npz checkpoint → (θ, γ) fit and figures.
     ``run=False`` reloads ``npz_path`` and re-fits without simulating.
-    ``engine``: any of ``FUSED_ENGINES``.  Beside the JAX package's keys the result holds ``spins_final``, the
-    (β·runs, K, L) slot spins at the end of the run."""
+    ``engine``: ``'lattice_gas'`` runs the slot engines (``kernel='xla'``);
+    the fused names (``FUSED_ENGINES``) take kernel B3/B4 where it covers
+    the configuration and the slot engines elsewhere (``kernel='auto'``, as
+    the JAX package maps ``'pallas'``).  Beside the JAX package's keys the
+    result holds ``spins_final``, the (β·runs, K, L) slot spins at the end
+    of the run, and ``route``, the engine that ran."""
     check_fused_engine(engine)
     if estimator != "device":
         raise not_ported(f"estimator={estimator!r}", "host")
@@ -255,9 +315,11 @@ def sweep_over_betas(beta_values, n_runs_per_beta: int = 10, run: bool = True,
 
     outs = []
     if run:
-        config, out_for, dt, f, spins_final = run_sweep_grid_lattice_gas(
+        (config, out_for, dt, f, spins_final,
+         route) = run_sweep_grid_lattice_gas(
             beta_values, n_runs_per_beta, ps_kwargs, init_kwargs,
-            run_kwargs, seed=seed, device=device)
+            run_kwargs, seed=seed, device=device,
+            kernel="xla" if engine == "lattice_gas" else "auto")
         T, obs_dt = float(run_kwargs["T"]), float(run_kwargs["obs_dt"])
         tr = f.tracer_pos
         est = batched_estimates(
@@ -288,7 +350,8 @@ def sweep_over_betas(beta_values, n_runs_per_beta: int = 10, run: bool = True,
         arrays = {k: np.asarray(v) for k, v in per_beta.items()}
         save_dict = {"beta_values": beta_values, **arrays,
                      "ps_kwargs": ps_kwargs, "dt": dt,
-                     "spins_final": spins_final.cpu().numpy()}
+                     "spins_final": spins_final.cpu().numpy(),
+                     "route": np.str_(route)}
         Path(npz_path).parent.mkdir(parents=True, exist_ok=True)
         np.savez(npz_path, **{k: v for k, v in save_dict.items()
                               if k != "ps_kwargs"},

@@ -11,12 +11,13 @@ The defaults are ``DOUBLE_SWEEP_PS_KWARGS``, the reference double sweep's
 own physics block (:666-694).
 
 ``double_sweep_fused`` runs the whole (N × β × replicas) grid on kernel
-B3/B4 (the JAX package's ``engine='pallas'``, the port's default): N enters
-only through the per-replica Poisson profiles, so one (B, L) batch of
-``chunk_size`` replicas per call holds any N.  The JAX package's default
-engine, the general τ-leap (``'particle'``), and its XLA slot engine
-(``'lattice_gas'``), its ``ckpt_dir=`` chunk ledger and ``n_devices=``
-are not ported yet (ROADMAP.md §A items 2, 1, 4 and 5).
+B3/B4 (the JAX package's ``engine='pallas'``, the port's default) or on the
+plain-torch slot engine (``engine='lattice_gas'``, ``run_lattice_gas_k``):
+N enters only through the per-replica Poisson profiles, so one (B, L)
+batch of ``chunk_size`` replicas per call holds any N.  The JAX package's
+default engine, the general τ-leap (``'particle'``), its ``ckpt_dir=``
+chunk ledger and ``n_devices=`` are not ported yet (ROADMAP.md §A items 1,
+3 and 4).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from scipy.optimize import curve_fit
 from hydrolim_tpu_torch.core.scope import not_ported
 from hydrolim_tpu_torch.fit.veff_fit import _pyplot
 from hydrolim_tpu_torch.observables.batched import batched_estimates
+from hydrolim_tpu_torch.particles.lattice_gas_k import run_lattice_gas_k
 from hydrolim_tpu_torch.sweeps.beta_sweep import (
     DEFAULT_PS_KWARGS,
     check_fused_engine,
@@ -145,9 +147,10 @@ def double_sweep_fused(beta_values, list_N_part: Sequence[float],
                        chunk_size: int = 44, engine: str = "pallas",
                        n_devices: Optional[int] = None, ckpt_dir=None,
                        device="cuda") -> Dict:
-    """The whole (N × β × replicas) grid on kernel B3/B4 in chunks of
-    ``chunk_size`` replicas (per-replica Poisson profiles, (B, L)), each
-    chunk's draws from a generator seeded by ``chunk_seed(seed, c0)``; the
+    """The whole (N × β × replicas) grid on kernel B3/B4 (the fused names)
+    or the slot engine (``'lattice_gas'``) in chunks of ``chunk_size``
+    replicas (per-replica Poisson profiles, (B, L)), each chunk's draws
+    from a generator seeded by ``chunk_seed(seed, c0)``; the
     blocking estimator runs on the device per chunk, the (f, g) fits and
     the C0/C1/C2 meta-fit on the host.  Returns the JAX package's keys."""
     check_fused_engine(engine)
@@ -184,12 +187,14 @@ def double_sweep_fused(beta_values, list_N_part: Sequence[float],
     T, obs_dt = float(rk["T"]), float(rk["obs_dt"])
     times = np.arange(0.0, T, obs_dt)
 
+    runner = (run_lattice_gas_k if engine == "lattice_gas"
+              else run_exclusion_sweep)
     p_block_flat = np.zeros((B,), float)
     for c0 in range(0, B, chunk_size):
         sl = slice(c0, min(c0 + chunk_size, B))
         params_c = broadcast_params(config, beta=flat_beta[sl],
                                     device=device, **rates)
-        frames, _ = run_exclusion_sweep(
+        frames, _ = runner(
             config, params_c, T=T, obs_dt=obs_dt, dt=dt,
             seed=chunk_seed(seed, c0), device=device,
             rho0_plus=prof_p[sl], rho0_minus=prof_m[sl], record_fft=False)

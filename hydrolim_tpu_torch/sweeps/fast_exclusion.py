@@ -20,7 +20,6 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from hydrolim_tpu_torch.core.config import ParticleConfig, ParticleParams
@@ -34,9 +33,12 @@ from hydrolim_tpu_torch.particles.lattice_gas import (
     TRACER_INVALID,
     LatticeGasFrames,
     _lg_record_counts,
+    frame_grid,
+    stack_frames,
+    top_keys,
+    tracer_bits,
 )
 from hydrolim_tpu_torch.particles.lattice_gas_k import lgk_init
-from hydrolim_tpu_torch.particles.run import substeps_for
 
 
 def is_fused_exclusion_path(config: ParticleConfig) -> bool:
@@ -92,15 +94,15 @@ def _record_fn(config: ParticleConfig, record_fft: bool, device="cuda"):
 def _init_tags(slots0: torch.Tensor, generator: torch.Generator,
                n_tracers: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-replica tracer ids: ``n_tracers`` distinct occupied payloads,
-    chosen by random 31-bit keys.  Returns ``(tags (B, n_t) int32, valid
+    chosen by random 31-bit keys in descending order (``top_keys``, the
+    slot engines' tag law).  Returns ``(tags (B, n_t) int32, valid
     (B, n_t) bool)``: surplus tags (fewer occupied slots than requested)
     are invalid."""
     B = slots0.shape[0]
     flat = slots0.abs().reshape(B, -1)
-    bits = torch.randint(0, 2 ** 31, flat.shape, generator=generator,
-                         device=flat.device, dtype=torch.int64)
-    keys = torch.where(flat != 0, bits, 0)
-    vals, idx = keys.topk(n_tracers, dim=-1)
+    keys = torch.where(flat != 0, tracer_bits(flat.shape, generator,
+                                              flat.device), 0)
+    vals, idx = top_keys(keys, n_tracers)
     return flat.gather(1, idx).to(torch.int32), vals > 0
 
 
@@ -142,10 +144,7 @@ def run_exclusion_sweep(config: ParticleConfig, params_b: ParticleParams, *,
     device = torch.device(device)
     B = params_b.beta.shape[0]
     K, L = config.K, config.L
-    times = np.arange(0.0, T, obs_dt)
-    M = len(times)
-    n_sub = substeps_for(obs_dt, dt)
-    dt_eff = obs_dt / n_sub
+    M, n_sub, dt_eff = frame_grid(T, obs_dt, dt)
 
     if config.periodic and n_tracers > 0:
         # per-frame minimal-image unwrapping is ambiguous once a frame's
@@ -175,8 +174,7 @@ def run_exclusion_sweep(config: ParticleConfig, params_b: ParticleParams, *,
         device=device, dtype=torch.float32).contiguous()
     seeds = torch.randint(0, 2 ** 31 - 1, (B,), generator=gen, device=device,
                           dtype=torch.int32)
-    band = (build_smoothing_band(config, device)
-            if config.local_kernel_sigma > 0 else None)
+    band = build_smoothing_band(config, device)
     bidi = config.active_model == "bidirectional"
     rec = _record_fn(config, record_fft, device)
 
@@ -197,8 +195,5 @@ def run_exclusion_sweep(config: ParticleConfig, params_b: ParticleParams, *,
 
     tracer_pos = unwrap_tracer_sites(torch.stack(raws), L,    # (M, B, n_t)
                                      config.periodic).movedim(0, 1)
-    frames = LatticeGasFrames(
-        *(torch.stack([getattr(r, name) for r in records], dim=1)
-          for name in LatticeGasFrames._fields[:-1]),        # (B, M, …)
-        tracer_pos=tracer_pos)
-    return frames, torch.sign(slots).to(torch.int32)
+    return stack_frames(records, tracer_pos), torch.sign(slots).to(
+        torch.int32)

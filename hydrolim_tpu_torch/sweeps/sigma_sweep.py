@@ -8,8 +8,10 @@ the smoothing band, one batched call per frame for the (β × replicas)
 grid), saves the per-σ npz and the cross-σ archive, and the four cross-σ
 figures (:1077-1275) are drawn where matplotlib is installed.
 
-The JAX package's ``ckpt_dir=`` and ``n_devices=``, and its other engines
-(``'particle'``, ``'lattice_gas'``), are not ported yet (ROADMAP.md §A).
+``engine`` goes to ``sweep_over_betas``: ``'lattice_gas'`` runs each σ on
+the plain-torch slot engines.  The JAX package's ``ckpt_dir=`` and
+``n_devices=``, and its particle engine (``'particle'``), are not ported
+yet (ROADMAP.md §A).
 """
 from __future__ import annotations
 
@@ -57,7 +59,7 @@ def sweep_over_sigmas(sigma_values: Sequence[float], beta_values,
     ``resume=True`` reloads σ values whose per-σ npz already exists
     (restart semantics after a crash or interruption); ``run=False``
     reloads the cross-σ archive.  ``engine`` is passed to
-    ``sweep_over_betas`` (its fused names)."""
+    ``sweep_over_betas`` (its fused names or ``'lattice_gas'``)."""
     if ckpt_dir is not None:
         raise not_ported("ckpt_dir=", "checkpointing")
     if n_devices is not None:

@@ -560,3 +560,61 @@ def test_run_particles_routes_on_the_card(dev, periodic):
     assert np.isfinite(out["m_global"]).all()
     if not periodic:
         assert 0 <= out["pos_frames"].min() <= out["pos_frames"].max() < 256
+
+
+def _matched_slot_draws(gen, B, K, L, dev):
+    """One step's draws for kernel B3 and the slot engine at once: event
+    bits, and a distinct random rank per slot, encoded as B3's priority
+    bits (``rank << 6``) and as the slot engine's priority
+    (``rank << 17 | slot id``): no ties, so the same admission."""
+    from hydrolim_tpu_torch.ops.stepper_kernel import bits_to_uniform
+
+    u_bits = _bits((B, K, L), gen, dev)
+    rank = torch.rand((B, K * L), generator=gen, device=dev).argsort(
+        1).reshape(B, K, L)
+    noise = torch.stack([u_bits, (rank << 6).to(torch.int32)], 1)[:, None]
+    ids = torch.arange(K * L, device=dev).reshape(K, L)
+    return noise, bits_to_uniform(u_bits.to(torch.int64)), (rank << 17) | ids
+
+
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("sigma,periodic,bidirectional", [
+    (0.0, True, True),          # global m
+    (0.005, False, False),      # local m, walls
+])
+def test_slot_engine_step_equals_b3_kernel(dev, K, sigma, periodic,
+                                           bidirectional):
+    """30 steps at dt = 0.02, rd = 1, ra = 3 (where the slot engine's
+    (rd + ra)·Δt and B3's rd·Δt + ra·Δt round alike): the plain-torch
+    ``lgk_step`` on the card and kernel B3 at the same bits, spins EQUAL
+    after every step, one B3 launch per step."""
+    from hydrolim_tpu_torch.core.config import ParticleParams
+    from hydrolim_tpu_torch.particles.lattice_gas_k import lgk_step
+
+    B, L, dt = 4, 1000, 0.02
+    gen, slots, scal, band = _exclusion_inputs(
+        dev, B=B, K=K, L=L, sigma=sigma, periodic=periodic, seed=K)
+    cfg = ParticleConfig(L=L, N=(K * L) // 2, init="fixed",
+                         scale_rates=False, local_kernel_sigma=sigma,
+                         periodic=periodic, site_capacity=K,
+                         active_model="bidirectional" if bidirectional
+                         else "plus_forward")
+    zero = torch.zeros(B, device=dev)
+    params = ParticleParams(beta=scal[:, 0], rate_diffusion=scal[:, 1],
+                            rate_active=scal[:, 2], k_on=zero, k_off=zero,
+                            k_exit=zero)
+    seeds = torch.zeros(B, dtype=torch.int32, device=dev)
+    spins = torch.sign(slots)
+    n0 = exclusion_multi_step.launches
+    for s in range(30):
+        noise, u, prio = _matched_slot_draws(gen, B, K, L, dev)
+        slots = exclusion_multi_step(scal, seeds, slots, band, k_steps=1,
+                                     dt=dt, periodic=periodic,
+                                     bidirectional=bidirectional,
+                                     noise=noise)
+        spins, _, _ = lgk_step(cfg, params, band, spins, dt,
+                               _inject=(u, prio))
+        assert torch.equal(torch.sign(slots), spins), f"step {s}"
+    assert exclusion_multi_step.launches == n0 + 30
+    assert not torch.equal(spins, torch.sign(_exclusion_inputs(
+        dev, B=B, K=K, L=L, sigma=sigma, periodic=periodic, seed=K)[1]))

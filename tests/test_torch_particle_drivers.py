@@ -136,11 +136,28 @@ def test_double_sweep_small(tmp_path):
     assert exclusion_multi_step.launches == 0
 
 
-@pytest.mark.parametrize("engine,item", [("particle", "item 2"),
-                                         ("lattice_gas", "item 1")])
-def test_double_sweep_other_engines_raise(engine, item):
-    with pytest.raises(NotImplementedError, match=item):
-        port_ds.double_sweep_fused([1.0], [50], engine=engine, device="cpu")
+@pytest.mark.parametrize("engine", ["particle", "lattice_gas"],
+                         ids=["particle-item 2", "lattice_gas-item 1"])
+def test_double_sweep_other_engines_raise(engine, tmp_path):
+    """The JAX package's other engines: ``'particle'`` raises naming its
+    ROADMAP.md item (§A item 1, the τ-leap engine); ``'lattice_gas'`` runs
+    the grid on the slot engine (once §A item 1 itself), the JAX package's
+    keys, finite constants, no kernel launch."""
+    if engine == "particle":
+        with pytest.raises(NotImplementedError, match="item 1"):
+            port_ds.double_sweep_fused([1.0], [50], engine=engine,
+                                       device="cpu")
+        return
+    n0 = exclusion_multi_step.launches
+    res = port_ds.double_sweep_fused(
+        np.linspace(0, 3, 4), [40, 80, 120], n_runs_per_beta=2,
+        ps_kwargs=dict(L=100), run_kwargs=dict(T=2.0, obs_dt=0.2),
+        outdir=str(tmp_path), plot_result=False, engine=engine,
+        device="cpu")
+    assert set(res) == DOUBLE_SWEEP_KEYS
+    for k in ("C0", "C1", "C2"):
+        assert np.isfinite(res[k]), k
+    assert exclusion_multi_step.launches == n0
 
 
 def test_sigma_sweep_small_and_resume(tmp_path, monkeypatch):
@@ -215,13 +232,24 @@ def test_sweep_over_betas_takes_the_jax_fused_names(tmp_path, engine):
     np.testing.assert_array_equal(got["spins_final"], want["spins_final"])
 
 
-@pytest.mark.parametrize("engine,item", [("particle", "item 2"),
-                                         ("lattice_gas", "item 1")])
-def test_sweep_over_betas_other_engines_raise(engine, item):
+@pytest.mark.parametrize("engine", ["particle", "lattice_gas"],
+                         ids=["particle-item 2", "lattice_gas-item 1"])
+def test_sweep_over_betas_other_engines_raise(engine, tmp_path):
+    """``'particle'`` raises naming §A item 1 (the τ-leap engine);
+    ``'lattice_gas'`` runs on the slot engines."""
     from hydrolim_tpu_torch.sweeps.beta_sweep import sweep_over_betas
 
-    with pytest.raises(NotImplementedError, match=item):
-        sweep_over_betas([1.0], engine=engine, device="cpu")
+    if engine == "particle":
+        with pytest.raises(NotImplementedError, match="item 1"):
+            sweep_over_betas([1.0], engine=engine, device="cpu")
+        return
+    save = sweep_over_betas([1.0], n_runs_per_beta=2,
+                            ps_kwargs=dict(L=64, N=40),
+                            run_kwargs=dict(T=2.0, obs_dt=0.2),
+                            npz_path=str(tmp_path / "s.npz"), do_fit=False,
+                            plot_result=False, engine=engine, device="cpu")
+    assert str(save["route"]) == "lg_step"
+    assert np.isfinite(save["m_means"]).all()
 
 
 @pytest.mark.parametrize("L,sigma", [(100, 0.3), (64, 0.5), (1000, 0.3)])

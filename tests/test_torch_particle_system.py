@@ -313,11 +313,21 @@ def test_meanfield_sweep_auto_outside_b1_scope():
 @pytest.mark.parametrize("call", ["lattice_gas", "exclusion", "checkpoint",
                                   "figures", "flip_rate"])
 def test_out_of_scope_raises_with_its_roadmap_item(call):
+    """Each configuration or call outside the port raises naming its
+    ROADMAP.md item; ``engine='lattice_gas'`` (once §A item 1) now runs
+    an exclusion configuration on the slot engine."""
     ps = ParticleSystem(**_ps_kwargs(), device="cpu")
+    if call == "lattice_gas":
+        ps = ParticleSystem(**_ps_kwargs(site_capacity=3,
+                                         local_kernel_sigma=0.01),
+                            device="cpu")
+        out = ps.run(T=1.0, obs_dt=0.5, engine="lattice_gas")
+        assert ps.last_run_info["engine"] == "lgk_step"
+        assert len(out["pos_list"]) == 2 and np.isfinite(
+            out["m_global"]).all()
+        return
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A item"):
-        if call == "lattice_gas":
-            ps.run(T=1.0, obs_dt=0.5, engine="lattice_gas")
-        elif call == "exclusion":
+        if call == "exclusion":
             ParticleSystem(**_ps_kwargs(site_capacity=3,
                                         local_kernel_sigma=0.01),
                            device="cpu").run(T=1.0, obs_dt=0.5)
