@@ -60,7 +60,20 @@ Phases (each prints one line with its wall time; a failed phase raises):
     at full size (exits on anchors, N_final + exits = N_initial, Sₐ
     finite) and the anchored golden; each driver's wall, and the slot
     engine's µs, kernels and launch calls per step (``torch.profiler``)
-    beside B3's.
+    beside B3's;
+16. the general τ-leap engine (plain torch, no kernel of its own): its step
+    on the card against the step on the CPU at the same injected draws
+    (B=33, L=1000, 200 steps, five configurations: K=1 global m, K=3 local
+    m, walls, anchors with bind/unbind/exit, K=12 on the sort path; equal
+    wherever the events agree, every differing event within 1e-6 of a
+    threshold); the port's copy of the exact CTMC oracle and the τ-leap
+    engine on the card against the exact two-particle law; path (ii),
+    ``sweep_over_betas(engine='particle')`` in phase 8's configuration
+    (b), within the golden rule of phase 8's fused numbers with no B3
+    launch; path (i), the local-structure sweep at its full default size
+    on ``'particle'`` and on ``'pallas'`` (B3) within the golden rule of
+    each other; the step's µs, kernels and device-busy share at both
+    paths' shapes, and each path's wall.
 
 Phases 11-14 record B3's device time (CUDA events around each launch) and
 its share of each driver's wall time.
@@ -865,7 +878,7 @@ def sweep_breakdown(save: dict, over: dict, outdir: str, n_calls: int,
     warm = host_s(lambda: sweep_over_betas(
         SLICE_BETAS, n_runs_per_beta=3, ps_kwargs=over or None,
         npz_path=f"{outdir}/warm.npz", outdir=outdir, seed=0,
-        keep_outs=True, plot_result=False, device="cuda"))
+        keep_outs=True, plot_result=False, engine="fused", device="cuda"))
     ps = dict(DEFAULT_PS_KWARGS, **over)
     grad = make_exp_gradient(L=ps["L"], N=ps["N"], frac_plus=0.75,
                              decay_length=0.35, anchor_positions=None)
@@ -941,7 +954,7 @@ def slice_path(outdir: str) -> dict:
         save = sweep_over_betas(
             SLICE_BETAS, n_runs_per_beta=3, ps_kwargs=over or None,
             npz_path=f"{outdir}/sweep.npz", outdir=outdir, seed=0,
-            keep_outs=True, plot_result=False, device="cuda")
+            keep_outs=True, plot_result=False, engine="fused", device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n = exclusion_multi_step.launches
@@ -978,7 +991,8 @@ def slice_path(outdir: str) -> dict:
             site_capacity=3, rate_diffusion=0.02, rate_active=2.0),
         init_kwargs=dict(rho0_plus=grad[0], rho0_minus=grad[1]),
         run_kwargs=dict(T=6.0, obs_dt=0.25), npz_path=f"{outdir}/pin.npz",
-        seed=21, do_fit=False, plot_result=False, device="cuda")
+        seed=21, do_fit=False, plot_result=False, engine="fused",
+        device="cuda")
     mean, se = float(save["block_means"][0]), float(save["block_ses"][0])
     print(f"pin K=3 p_block {mean:.4f} ± {se:.4f} (golden 0.5964)",
           flush=True)
@@ -991,7 +1005,7 @@ def slice_path(outdir: str) -> dict:
             rate_diffusion=0.5, rate_active=2.0),
         run_kwargs=dict(T=8.0, obs_dt=0.5), npz_path=f"{outdir}/pin.npz",
         seed=12, keep_outs=True, do_fit=False, plot_result=False,
-        device="cuda")
+        engine="fused", device="cuda")
     m_abs = np.mean([np.abs(o["m_global"][len(o["m_global"]) // 2:]).mean()
                      for o in save["outs"][2]])
     print(f"pin K=1 |m|(beta=2.5) {m_abs:.4f} (theory "
@@ -1450,7 +1464,8 @@ def double_sweep_full(outdir: str) -> dict:
     rows = []
     t0 = time.perf_counter()
     with b3_timed(rows):
-        res = particle_double_sweep.main(outdir=outdir, device="cuda")
+        res = particle_double_sweep.main(outdir=outdir, device="cuda",
+                                         engine="pallas")
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     out = report_wall("double sweep", wall, rows[-1])
@@ -1490,7 +1505,8 @@ def sigma_sweep_full(outdir: str) -> dict:
     rows = []
     t0 = time.perf_counter()
     with b3_timed(rows, sigma_sweep, "sweep_over_betas"):
-        res = particle_sigma_sweep.main(outdir=outdir, device="cuda")
+        res = particle_sigma_sweep.main(outdir=outdir, device="cuda",
+                                        engine="fused")
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     out = report_wall("sigma sweep", wall, rows[-1])
@@ -1839,6 +1855,331 @@ def slot_step_rates(dev, b3_us: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the general τ-leap engine (plain torch)
+# ---------------------------------------------------------------------------
+
+# (a)'s configurations: ParticleConfig fields beyond L=1000, the fixed
+# init, K=3, and the anchor rates where there are anchors
+TAU_LEAP_CHECKS = (
+    ("K=1, global m, periodic, bidirectional",
+     dict(site_capacity=1, N=500, local_kernel_sigma=0.0, periodic=True,
+          active_model="bidirectional")),
+    ("K=3, local m sigma=0.002, periodic, bidirectional",
+     dict(N=1500, local_kernel_sigma=0.002, periodic=True,
+          active_model="bidirectional")),
+    ("K=3, local m sigma=0.005, walls, plus_forward",
+     dict(N=1500, local_kernel_sigma=0.005, periodic=False)),
+    ("K=3, anchors bind/unbind/exit, walls, local m sigma=0.002",
+     dict(N=600, local_kernel_sigma=0.002, periodic=False,
+          anchor_positions=(0.25, 0.6, 0.8), anchor_radius=0.01,
+          exit_buffer=600)),
+    ("K=12, global m, periodic (the sort path)",
+     dict(site_capacity=12, N=6000, local_kernel_sigma=0.0,
+          periodic=True)),
+)
+
+
+def check_tau_leap_step(dev) -> None:
+    """(a) The τ-leap step on the card against the step on the CPU from the
+    same state at the same injected (u, bits): B=33, L=1000, β over [0, 3],
+    rd=1, ra=3 (anchors: k_on=20, k_off=2, k_exit=10), Δt=0.005, 200
+    steps in each of ``TAU_LEAP_CHECKS``.  Per step the events of both
+    (``draw_events``) are compared: where they agree the whole state and
+    exit log must be EQUAL; an event that differs must have its u within
+    1e-6 of one of its thresholds (an ulp of m or of a flip rate apart),
+    and is counted.  The card's state goes on.  Where m is local the
+    largest |m_card − m_cpu| (every 10th step) is printed."""
+    import torch
+    from hydrolim_tpu_torch.core.config import ParticleConfig
+    from hydrolim_tpu_torch.ops.segment import occupancy
+    from hydrolim_tpu_torch.particles.init import init_particles
+    from hydrolim_tpu_torch.particles.stepper import (
+        ParticleState,
+        build_static_arrays,
+        compute_m_field,
+        draw_events,
+        step,
+        with_exit_log,
+    )
+    from hydrolim_tpu_torch.sweeps.ensemble import broadcast_params
+
+    B, dt, steps = 33, 0.005, 200
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(16)
+    rates = dict(rate_diffusion=1.0, rate_active=3.0, k_on=20.0, k_off=2.0,
+                 k_exit=10.0)
+    fields = ("pos", "wind", "sigma", "bound", "alive", "init_bin",
+              "exit_count", "exit_times", "exit_pos", "exit_init_bin")
+    for what, over in TAU_LEAP_CHECKS:
+        cfg = ParticleConfig(**dict(
+            dict(L=1000, init="fixed", scale_rates=False, site_capacity=3,
+                 active_model="plus_forward"), **over))
+        params = {d: broadcast_params(cfg, beta=np.linspace(0, 3, B),
+                                      device=d, **rates) for d in (cpu, dev)}
+        statics = {d: build_static_arrays(cfg, d) for d in (cpu, dev)}
+        gen = torch.Generator().manual_seed(16)
+        st = init_particles(cfg, gen, B=B, device="cpu")
+        st = with_exit_log(cfg, ParticleState(
+            pos=st.pos, sigma=st.sigma, wind=torch.zeros_like(st.pos),
+            alive=st.alive))
+        state = {d: ParticleState(**{k: v.to(d) for k, v in
+                                     st.__dict__.items()})
+                 for d in (cpu, dev)}
+        n = st.pos.shape[1]
+        differ, explained, m_gap, moved = 0, 0, 0.0, 0
+        for i in range(steps):
+            u = torch.tensor(rng.random((B, n), dtype=np.float32))
+            bits = torch.tensor(rng.integers(0, 2 ** 32, (B, n)))
+            ev = {d: draw_events(cfg, params[d], statics[d], state[d], dt,
+                                 u.to(d))[:2] for d in (cpu, dev)}
+            new = {d: step(cfg, params[d], statics[d], state[d], dt,
+                           i * dt, _inject=(u.to(d), bits.to(d)))
+                   for d in (cpu, dev)}
+            diff = ev[cpu][0] != ev[dev][0].cpu()
+            if diff.any():
+                gap = (u[..., None] - ev[cpu][1]).abs().min(-1).values
+                differ += int(diff.sum())
+                explained += int((gap[diff] < 1e-6).sum())
+            else:
+                for k in fields:
+                    a, b = getattr(new[cpu], k), getattr(new[dev], k).cpu()
+                    same = (torch.equal(a.nan_to_num(-1.0),
+                                        b.nan_to_num(-1.0))
+                            if a.is_floating_point() else torch.equal(a, b))
+                    if not same:
+                        raise AssertionError(f"tau-leap card vs CPU, {what}:"
+                                             f" step {i}: {k} differs with "
+                                             "every event equal")
+            if cfg.local_kernel_sigma > 0 and i % 10 == 0:
+                m = [compute_m_field(cfg, statics[d], *occupancy(
+                    state[d].pos, state[d].sigma, state[d].alive,
+                    cfg.L)[1:]).cpu() for d in (cpu, dev)]
+                m_gap = max(m_gap, float((m[0] - m[1]).abs().max()))
+            moved += int((new[dev].pos != state[dev].pos).sum())
+            state = {dev: new[dev], cpu: ParticleState(**{
+                k: v.cpu() for k, v in new[dev].__dict__.items()})}
+        exits = int(state[dev].exit_count.sum())
+        print(f"tau-leap step card vs CPU B={B} L=1000 {what}: {steps} steps"
+              f" equal where the events agree; events that differ "
+              f"{differ}, with u within 1e-6 of a threshold {explained}"
+              + (f"; max |m_card - m_cpu| {m_gap:.3e}"
+                 if cfg.local_kernel_sigma > 0 else "")
+              + f"; {moved} moves, {exits} exits", flush=True)
+        if differ != explained:
+            raise AssertionError(f"tau-leap card vs CPU, {what}: "
+                                 f"{differ - explained} events differ away "
+                                 "from their thresholds")
+        if moved == 0 or (cfg.anchor_positions is not None and exits == 0):
+            raise AssertionError(f"tau-leap card vs CPU, {what}: no moves "
+                                 "or no exits")
+
+
+# 2-particle exact-π cases (tests/test_native_gillespie.py:246-336):
+# (L, K, active model, crowding)
+PI_CASES = {"K=1 bidirectional": (4, 1, "bidirectional", False),
+            "K=2 crowding": (4, 2, "bidirectional", True)}
+
+
+def oracle_checks() -> dict:
+    """(b) The port's copy of the exact CTMC oracle (g++, built at first
+    use) and the τ-leap engine on the card against the exact stationary
+    law π of two particles (``runtime.exact``): the oracle over
+    T=48,000 (frames every 2, the first tenth burnt) within TV 0.02, the
+    τ-leap engine over 1024 replicas (Δt=0.02, T=40, frames every 2, the
+    first fifth burnt) within TV 0.035, rd=0.3, ra=0.7, β=1.2."""
+    import torch
+    from hydrolim_tpu_torch.core.config import (
+        ParticleConfig,
+        make_particle_params,
+    )
+    from hydrolim_tpu_torch.runtime.exact import (
+        total_variation,
+        two_particle_stationary_law,
+    )
+    from hydrolim_tpu_torch.runtime.native import run_exact_gillespie
+    from hydrolim_tpu_torch.sweeps.ensemble import (
+        broadcast_params,
+        run_particle_ensemble,
+    )
+
+    rd, ra, beta = 0.3, 0.7, 1.2
+    walls = {}
+    for what, (L, K, am, crowding) in PI_CASES.items():
+        law = two_particle_stationary_law(L, K, am, rd, ra, beta, crowding)
+
+        def counts_of(cp, cm, burn):
+            c = {}
+            for b in range(cp.shape[0]):
+                for k in range(burn, cp.shape[1]):
+                    key = tuple(cp[b, k]) + tuple(cm[b, k])
+                    c[key] = c.get(key, 0) + 1
+            return c
+
+        cfg = ParticleConfig(L=L, N=2, n_pad=2, init="fixed",
+                             scale_rates=False, local_kernel_sigma=0.0,
+                             periodic=True, site_capacity=K,
+                             active_model=am,
+                             crowding_suppresses_rates=crowding)
+        t0 = time.perf_counter()
+        out = run_exact_gillespie(
+            cfg, make_particle_params(cfg, beta=beta, rate_diffusion=rd,
+                                      rate_active=ra, k_on=0, k_off=0,
+                                      k_exit=0, device="cpu"),
+            np.array([0, 2]), np.array([1, -1]), T=48000.0, obs_dt=2.0,
+            seed=42)
+        t_oracle = time.perf_counter() - t0
+        tv_o, unseen_o = total_variation(law, counts_of(
+            out["counts_p"][None], out["counts_m"][None],
+            out["counts_p"].shape[0] // 10))
+        cfg = ParticleConfig(L=L, N=2, n_pad=8, init="fixed",
+                             scale_rates=False, local_kernel_sigma=0.0,
+                             periodic=True, site_capacity=K,
+                             active_model=am,
+                             crowding_suppresses_rates=crowding)
+        t0 = time.perf_counter()
+        f = run_particle_ensemble(
+            cfg, broadcast_params(cfg, beta=[beta], rate_diffusion=rd,
+                                  rate_active=ra, n_runs=1024,
+                                  device="cuda"),
+            seed=3, T=40.0, obs_dt=2.0, dt=0.02, record_pos=False,
+            device="cuda").frames
+        torch.cuda.synchronize()
+        walls[f"tau-leap exact-pi {what}"] = t_tau = time.perf_counter() - t0
+        cp = np.rint(f.rho_p.cpu().numpy() * 2 / L).astype(int)
+        cm = np.rint(f.rho_m.cpu().numpy() * 2 / L).astype(int)
+        tv_t, unseen_t = total_variation(law, counts_of(cp, cm, 4))
+        print(f"exact pi, {what}: oracle TV {tv_o:.4f} (bound 0.02, "
+              f"{out['n_events']} events, {t_oracle:.2f} s); tau-leap on "
+              f"the card TV {tv_t:.4f} (bound 0.035, 1024 replicas x 2000 "
+              f"steps, {t_tau:.2f} s)", flush=True)
+        if not (tv_o < 0.02 and unseen_o == 0 and tv_t < 0.035
+                and unseen_t == 0):
+            raise AssertionError(f"exact pi, {what}: TV {tv_o}, {tv_t}")
+    return walls
+
+
+def golden_rule(name: str, a, b, se_a, se_b) -> float:
+    """max gap/tolerance of a against b per β, the rule of
+    tests/test_golden.py:146: gap < 3·(se_a + se_b) + 0.02·max(1, |mean b|);
+    raises past it."""
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    tol = (3.0 * (np.asarray(se_a, float) + np.asarray(se_b, float))
+           + 0.02 * max(1.0, abs(float(b.mean()))))
+    ratio = np.abs(a - b) / tol
+    print(f"  {name}: {np.round(a, 5).tolist()} vs "
+          f"{np.round(b, 5).tolist()}; gap/tol "
+          f"{np.round(ratio, 3).tolist()}", flush=True)
+    if not (np.all(np.isfinite(a)) and np.all(ratio < 1.0)):
+        raise AssertionError(f"{name} off the golden rule: {a} vs {b}")
+    return float(ratio.max())
+
+
+def tau_leap_sweep(outdir: str) -> dict:
+    """(c) Path (ii): ``sweep_over_betas(engine='particle')`` in phase 8's
+    configuration (b) at full size (11 β × 3 runs, K=3, N=750, σ=0.002,
+    L=1000, T=20, obs_dt=0.1, 5,174 steps): the τ-leap route, no B3
+    launch; m, v_eff and D_eff per β within the golden rule of phase 8's
+    fused numbers."""
+    import torch
+    from hydrolim_tpu_torch.experiments.particle_beta_sweep import FLAGSHIP
+    from hydrolim_tpu_torch.ops.exclusion_kernel import exclusion_multi_step
+    from hydrolim_tpu_torch.sweeps.beta_sweep import sweep_over_betas
+
+    name = "(b) K=3, N=750, sigma=0.002"
+    exclusion_multi_step.launches = 0
+    t0 = time.perf_counter()
+    save = sweep_over_betas(
+        SLICE_BETAS, n_runs_per_beta=3, ps_kwargs=FLAGSHIP,
+        npz_path=f"{outdir}/tau_leap_sweep.npz", outdir=outdir, seed=0,
+        plot_result=False, engine="particle", device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fused = PHASE8_SWEEPS[name]
+    print(f"tau-leap sweep (ii) {name}: {wall:.2f} s wall on "
+          f"{save['route']} (fused route {fused['wall_s']:.2f} s), "
+          f"{exclusion_multi_step.launches} launches of "
+          f"exclusion_multi_step; golden rule against the fused route:",
+          flush=True)
+    if str(save["route"]) != "tau_leap" or exclusion_multi_step.launches:
+        raise AssertionError("path (ii) left the tau-leap step")
+    for q, mean, se in (("m", "m_means", "m_ses"),
+                        ("v_eff", "means", "ses"),
+                        ("D_eff", "D_means", "D_ses")):
+        golden_rule(q, save[mean], fused[mean], save[se], fused[se])
+    return {"path (ii) sweep": wall}
+
+
+def tau_leap_structure(outdir: str) -> tuple:
+    """(d) Path (i): the local-structure CLI at its full default size
+    (11 β × 3 runs, L=1000, N=900, K=1, walls, σ=0.005, T=40, obs_dt=1,
+    9,828 steps) on ``engine='particle'`` (the τ-leap step, no B3 launch)
+    and on ``'pallas'`` (B3): the npz written (figures skipped without
+    matplotlib); per β m_local_var_mean, low_k_power_mean and var_mean of
+    the two within the golden rule; m_local_var_mean at β=3 above 3× its
+    value at β=0 on both."""
+    import os
+
+    import torch
+    from hydrolim_tpu_torch.experiments import particle_local_structure
+    from hydrolim_tpu_torch.ops.exclusion_kernel import exclusion_multi_step
+
+    res, walls, launches = {}, {}, {}
+    for engine in ("particle", "pallas"):
+        sub = f"{outdir}/structure_{engine}"
+        exclusion_multi_step.launches = 0
+        t0 = time.perf_counter()
+        res[engine] = particle_local_structure.main(outdir=sub,
+                                                    engine=engine,
+                                                    device="cuda")
+        torch.cuda.synchronize()
+        walls[f"path (i) structure {engine}"] = time.perf_counter() - t0
+        launches[engine] = exclusion_multi_step.launches
+        if not os.path.exists(f"{sub}/{particle_local_structure.NPZ}"):
+            raise AssertionError(f"structure sweep {engine}: no npz")
+    print(f"tau-leap structure (i): 'particle' "
+          f"{walls['path (i) structure particle']:.2f} s wall, "
+          f"{launches['particle']} B3 launches; 'pallas' "
+          f"{walls['path (i) structure pallas']:.2f} s, {launches['pallas']}"
+          f" B3 launches; golden rule per beta:", flush=True)
+    if launches["particle"] or not launches["pallas"]:
+        raise AssertionError(f"structure routes launched B3 {launches}")
+    betas = sorted(res["particle"])
+    col = lambda e, k: np.array([res[e][b][k] for b in betas])
+    for q in ("m_local_var", "low_k_power", "var"):
+        golden_rule(q, col("particle", f"{q}_mean"), col("pallas",
+                                                         f"{q}_mean"),
+                    col("particle", f"{q}_se"), col("pallas", f"{q}_se"))
+    for e in res:
+        mv = col(e, "m_local_var_mean")
+        print(f"  {e}: m_local_var beta=0 {mv[0]:.4f}, beta=3 {mv[-1]:.4f}",
+              flush=True)
+        if not mv[-1] > 3.0 * mv[0]:
+            raise AssertionError(f"{e}: m_local_var does not grow: {mv}")
+    return walls, launches["pallas"]
+
+
+def tau_leap_step_rates() -> dict:
+    """(e) The τ-leap step at both paths' shapes
+    (``experiments/profile_tau_leap_step.py``): µs per step by CUDA events
+    over 200 steps, kernels and launch calls per step and the device's busy
+    share from ``torch.profiler`` over 20 steps."""
+    from hydrolim_tpu_torch.experiments import profile_tau_leap_step
+
+    rows = {}
+    for shape in profile_tau_leap_step.SHAPES:
+        r = profile_tau_leap_step.time_step(shape, "cuda")
+        rows[shape] = r
+        print(f"tau-leap step, {shape} (B={r['B']}, n_buf={r['n_buf']}): "
+              f"{r['us_per_step']:.1f} us/step (CUDA events, 200 steps), "
+              f"{r['kernels_per_step']:.1f} kernels and "
+              f"{r['launch_calls_per_step']:.1f} launch calls per step, "
+              f"{r['device_busy_us_per_step']:.1f} us/step of device time "
+              f"(busy {r['device_busy_share']:.1%}; torch.profiler, 20 "
+              f"steps)", flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1932,6 +2273,18 @@ def main() -> int:
         # phase 9: B3 ms per 1000-step call at the sweep shape = µs per step
         slot_step_rates(dev, b3["ms"])
         print("slot-engine driver walls (s): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()),
+              flush=True)
+    with phase("16 tau-leap engine"):
+        check_tau_leap_step(dev)
+        walls = oracle_checks()
+        with tempfile.TemporaryDirectory() as outdir:
+            walls.update(tau_leap_sweep(outdir))
+            w, n = tau_leap_structure(outdir)
+            walls.update(w)
+        b3["launches_per_path"]["local-structure sweep (pallas)"] = n
+        tau_leap_step_rates()
+        print("tau-leap driver walls (s): "
               + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()),
               flush=True)
     for row in (b1, b3):

@@ -18,7 +18,6 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from hydrolim_tpu_torch.core.scope import not_ported
 
 
 def _round_up(x: int, m: int) -> int:
@@ -145,13 +144,27 @@ def make_particle_params(
 def auto_dt(config: ParticleConfig, params: ParticleParams,
             beta_max: Optional[float] = None) -> float:
     """Δt keeping the per-particle per-step event probability below
-    ``config.max_event_prob``, for the default Curie–Weiss flip rate (whose
-    maximum is exp(|β|)).  A custom ``flip_rate_fn`` is not ported."""
-    if config.flip_rate_fn is not None:
-        raise not_ported("a custom flip_rate_fn", "tau-leap")
+    ``config.max_event_prob``: the total-rate bound is
+    ``2·r_diff + r_act + flip_max + k_on + k_off + k_exit``.  For the
+    default Curie–Weiss flip rate flip_max is exp(|β|); a custom
+    ``config.flip_rate_fn`` (a torch callable ``(σ, m, β) → rate``) is
+    probed over σ = ±1, m ∈ linspace(−1, 1, 201) and every |β| of the
+    batch (and ``beta_max``), as the JAX package does."""
     get = lambda v: float(torch.max(torch.as_tensor(v)).item())
     b = beta_max if beta_max is not None else get(params.beta)
-    flip_max = float(np.exp(abs(b)))
+    if config.flip_rate_fn is not None:
+        betas = np.unique(np.abs(np.asarray(
+            torch.as_tensor(params.beta).detach().cpu(), np.float64)).ravel())
+        if beta_max is not None:
+            betas = np.union1d(betas, [abs(float(beta_max))])
+        m_grid = torch.linspace(-1.0, 1.0, 201, dtype=torch.float32)
+        flip_max = max(
+            float(torch.max(torch.as_tensor(config.flip_rate_fn(
+                torch.full_like(m_grid, s), m_grid,
+                torch.tensor(bb, dtype=torch.float32)))))
+            for s in (-1.0, 1.0) for bb in betas)
+    else:
+        flip_max = float(np.exp(abs(b)))
     r_max = (2.0 * get(params.rate_diffusion)
              + get(params.rate_active)
              + flip_max

@@ -7,10 +7,9 @@ ROADMAP.md §A that will port it.
 from __future__ import annotations
 
 ROADMAP_ITEMS = {
-    "tau-leap": "ROADMAP.md §A item 1, the general τ-leap engine",
-    "host": "ROADMAP.md §A item 2, host estimators, structure and figures",
-    "checkpointing": "ROADMAP.md §A item 3, checkpointing",
-    "parallelism": "ROADMAP.md §A item 4, parallelism",
+    "host": "ROADMAP.md §A item 1, the host estimators and figures",
+    "checkpointing": "ROADMAP.md §A item 2, checkpointing",
+    "parallelism": "ROADMAP.md §A item 3, parallelism",
 }
 
 

@@ -1,5 +1,6 @@
 """Anchored binding/exit β-sweep — the reference's commented-out anchored
-configuration run end to end, on the plain-torch anchored slot engine.
+configuration run end to end, on the plain-torch anchored slot engine
+(``--engine particle``: on the general τ-leap step).
 
 The port of the JAX package's ``experiments/run_anchored_exits.py``.
 Reference: PARTICLE_solver_BIOLOGY_EXCLUSION_sweep_beta.py:845-856 (anchors
@@ -23,7 +24,7 @@ where matplotlib is installed, ``exits_vs_beta.png``.  The grid runs on the
 card unless ``--device cpu``.
 
 Usage: python -m hydrolim_tpu_torch.experiments.anchored_exits
-       [--outdir DIR] [--small] [--K 3] [--engine lattice_gas]
+       [--outdir DIR] [--small] [--K 3] [--engine lattice_gas|particle]
        [--device cuda|cpu]
 """
 from __future__ import annotations
@@ -92,7 +93,9 @@ def main(outdir: str = "anchored_exits_out", small: bool = False,
         "region_mean": region_mean.tolist(),
         "region_std": region_std.tolist(), "S_fits": S_fits.tolist(),
         "exit_counts": [len(o["exit_times"]) for o in flat],
-        "n_final": (save["spins_final"] != 0).sum((1, 2)).tolist(),
+        "n_final": ((save["spins_final"] != 0).sum((1, 2)).tolist()
+                    if "spins_final" in save else
+                    [int(o["alive_frames"][-1].sum()) for o in flat]),
         "exit_sites": [np.asarray(o["exit_positions"], int).tolist()
                        for o in flat],
     }

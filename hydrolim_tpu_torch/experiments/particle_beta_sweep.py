@@ -1,16 +1,17 @@
-"""Particle β-sweep — the reference's flagship exclusion experiment, on the
-fused exclusion kernel (B3/B4).
+"""Particle β-sweep — the reference's flagship exclusion experiment.
 
 Reference driver: PARTICLE_solver_BIOLOGY_EXCLUSION_sweep_beta.py:1030-1034
 (β = linspace(0, 3, 11) × 3 runs at L=1000, N=500, T=20, K=1).
 ``--flagship`` runs the flagship capacity instead: K=3, N=750, σ=0.002
 (experiments/run_particle_single.py:24-31).  The whole (β × replicas)
-grid advances as one batch on the card unless ``--device cpu``;
-``--engine lattice_gas`` runs it on the plain-torch slot engines.
+grid advances as one batch on the card unless ``--device cpu``:
+``--engine particle`` (the default, as in the JAX package's CLI) on the
+general τ-leap step, ``fused`` on kernel B3/B4, ``lattice_gas`` on the
+plain-torch slot engines.
 
 Usage: python -m hydrolim_tpu_torch.experiments.particle_beta_sweep
        [--outdir DIR] [--small] [--flagship] [--replot] [--device cuda|cpu]
-       [--engine fused|lattice_gas]
+       [--engine particle|fused|pallas|lattice_gas]
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ FLAGSHIP = dict(site_capacity=3, N=750, local_kernel_sigma=0.002)
 
 def main(outdir: str = "beta_sweep_out", small: bool = False,
          run: bool = True, n_runs: int = None, flagship: bool = False,
-         device: str = "cuda", engine: str = "fused"):
+         device: str = "cuda", engine: str = "particle"):
     beta_values = np.linspace(0, 3, 5 if small else 11)
     over = dict(FLAGSHIP) if flagship else {}
     if small:
@@ -53,8 +54,8 @@ if __name__ == "__main__":
                    help="reload the npz checkpoint instead of re-running")
     p.add_argument("--n-runs", type=int, default=None)
     p.add_argument("--device", default="cuda")
-    p.add_argument("--engine", default="fused",
-                   choices=["fused", "lattice_gas"])
+    p.add_argument("--engine", default="particle",
+                   choices=["particle", "fused", "pallas", "lattice_gas"])
     a = p.parse_args()
     main(a.outdir, a.small, run=not a.replot, n_runs=a.n_runs,
          flagship=a.flagship, device=a.device, engine=a.engine)

@@ -1,5 +1,4 @@
-"""(N, β) double sweep — calibration of the exclusion constants C0/C1/C2,
-on the fused exclusion kernel (B3/B4).
+"""(N, β) double sweep — calibration of the exclusion constants C0/C1/C2.
 
 Reference driver: PARTICLE_solver_BIOLOGY_EXCLUSION_double_sweep.py:851-961
 (N = linspace(50, 950, 19) × 11 β × 4 runs, T=10; per-N (f, g) blocking
@@ -9,11 +8,13 @@ chunks of 44 replicas on the card unless ``--device cpu``.
 
 ``--n-runs`` and ``--seed`` repeat the grid at other statistics (the
 JAX package's VALIDATION.md compares 16-run realizations, seeds 0 and 1);
-``--engine lattice_gas`` runs it on the plain-torch slot engine.
+``--engine`` picks the engine: ``particle`` (the default, as in the JAX
+package's CLI) the general τ-leap step, ``pallas`` kernel B3/B4,
+``lattice_gas`` the plain-torch slot engine.
 
 Usage: python -m hydrolim_tpu_torch.experiments.particle_double_sweep
        [--small] [--outdir DIR] [--device cuda|cpu] [--n-runs N]
-       [--seed S] [--engine pallas|lattice_gas]
+       [--seed S] [--engine particle|pallas|lattice_gas]
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from hydrolim_tpu_torch.sweeps.double_sweep import double_sweep_fused
 
 def main(small: bool = False, outdir: str = "double_sweep_out",
          device: str = "cuda", n_runs: int = None, seed: int = 0,
-         engine: str = "pallas"):
+         engine: str = "particle"):
     if small:
         betas = np.linspace(0, 3, 4)
         Ns = np.linspace(40, 160, 4)
@@ -54,8 +55,8 @@ if __name__ == "__main__":
     p.add_argument("--device", default="cuda")
     p.add_argument("--n-runs", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--engine", default="pallas",
-                   choices=["pallas", "lattice_gas"])
+    p.add_argument("--engine", default="particle",
+                   choices=["particle", "pallas", "lattice_gas"])
     a = p.parse_args()
     main(a.small, a.outdir, a.device, n_runs=a.n_runs, seed=a.seed,
          engine=a.engine)

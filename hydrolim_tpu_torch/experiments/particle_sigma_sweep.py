@@ -1,14 +1,17 @@
-"""(σ, β) double sweep over interaction-kernel widths, on the fused
-exclusion kernel (B3/B4).
+"""(σ, β) double sweep over interaction-kernel widths.
 
 Reference driver: PARTICLE_solver_BIOLOGY_EXCLUSION_sweep_beta_2.py
 :1277-1293 (σ ∈ {1e-4 … 0.3, 0} × 11 β × 5 runs at L=1000, non-periodic),
 the JAX package's ``experiments/run_particle_sigma_sweep.py``.  σ=0.3
 (radius 1200 ≥ L) takes the dense reflect band.  Per-σ npz files make the
 sweep resumable; ``--replot`` redraws from the cross-σ archive.
+``--engine``: ``particle`` (the default, as in the JAX package's CLI) runs
+the general τ-leap step, ``fused``/``pallas`` kernel B3/B4,
+``lattice_gas`` the plain-torch slot engines.
 
 Usage: python -m hydrolim_tpu_torch.experiments.particle_sigma_sweep
        [--small] [--outdir DIR] [--device cuda|cpu] [--replot]
+       [--engine particle|fused|pallas|lattice_gas]
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from hydrolim_tpu_torch.sweeps.sigma_sweep import (
 
 
 def main(small: bool = False, outdir: str = "sigma_sweep_out",
-         run: bool = True, device: str = "cuda"):
+         run: bool = True, device: str = "cuda", engine: str = "particle"):
     if small:
         sigmas = [0.005, 0.05, 0]
         betas = np.linspace(0, 3, 4)
@@ -40,7 +43,7 @@ def main(small: bool = False, outdir: str = "sigma_sweep_out",
         ps, rk, n_runs = None, None, 5
     results = sweep_over_sigmas(sigmas, betas, n_runs_per_beta=n_runs,
                                 run=run, ps_kwargs=ps, run_kwargs=rk,
-                                outdir=outdir, device=device)
+                                outdir=outdir, device=device, engine=engine)
     plot_v_eff_all_sigmas(results, outdir)
     plot_D_eff_all_sigmas(results, outdir)
     plot_v_eff_vs_sigma_all_beta(results, outdir)
@@ -57,5 +60,8 @@ if __name__ == "__main__":
     p.add_argument("--device", default="cuda")
     p.add_argument("--replot", action="store_true",
                    help="reload the cross-sigma archive instead of running")
+    p.add_argument("--engine", default="particle",
+                   choices=["particle", "fused", "pallas", "lattice_gas"])
     a = p.parse_args()
-    main(a.small, a.outdir, run=not a.replot, device=a.device)
+    main(a.small, a.outdir, run=not a.replot, device=a.device,
+         engine=a.engine)

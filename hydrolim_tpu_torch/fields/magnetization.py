@@ -18,7 +18,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from hydrolim_tpu_torch.core.device import to_device
 from hydrolim_tpu_torch.ops.convolve import (
+    gaussian_filter_weights,
     periodic_gaussian_kernel,
     reflect_gaussian_filter,
 )
@@ -26,16 +28,21 @@ from hydrolim_tpu_torch.ops.convolve import (
 
 class MFieldOp(NamedTuple):
     """The periodic smoothing kernel's rfft (complex128), or None where
-    there is none to apply (σ ≤ 0, or the non-periodic reflect filter)."""
+    there is none to apply (σ ≤ 0, or the non-periodic reflect filter);
+    the reflect filter's weights (float32) where that is the smoothing."""
 
     kernel_rfft: Optional[torch.Tensor]
+    reflect_w: Optional[torch.Tensor] = None
 
 
 def build_mfield_op(L: int, dx: float, sigma: float, periodic: bool,
                     device="cuda") -> MFieldOp:
     if sigma > 0 and periodic:
         k = periodic_gaussian_kernel(L, dx, sigma).astype(np.float64)
-        return MFieldOp(torch.fft.rfft(torch.tensor(k, device=device)))
+        return MFieldOp(torch.fft.rfft(to_device(k, device)))
+    if sigma > 0:
+        return MFieldOp(None, to_device(gaussian_filter_weights(sigma / dx),
+                                        device))
     return MFieldOp(None)
 
 
@@ -62,8 +69,8 @@ def local_m_field(counts_p: torch.Tensor, counts_m: torch.Tensor,
         s_conv = _circular_convolve(s, op.kernel_rfft)
         tot_conv = _circular_convolve(tot, op.kernel_rfft)
     else:
-        s_conv = reflect_gaussian_filter(s, sigma_grid)
-        tot_conv = reflect_gaussian_filter(tot, sigma_grid)
+        s_conv = reflect_gaussian_filter(s, sigma_grid, w=op.reflect_w)
+        tot_conv = reflect_gaussian_filter(tot, sigma_grid, w=op.reflect_w)
     pos = tot_conv > 0
     m = torch.where(pos, s_conv / torch.where(pos, tot_conv, 1.0), 0.0)
     return m.clamp(-1.0, 1.0)

@@ -46,17 +46,24 @@ def pde_params(p, device="cuda") -> PDEParams:
 
 def particle_state(st, device="cuda") -> ParticleState:
     """A JAX ``ParticleState`` (one replica, (n_buf,) arrays, or a vmapped
-    batch, (B, n_buf)) → the port's batched (B, n_buf) state: pos, σ and
-    wind int32, alive and bound bool.  The JAX state's PRNG key, birth
-    sites and exit log have no counterpart here."""
+    batch, (B, n_buf)) → the port's batched (B, n_buf) state: pos, σ,
+    wind and the birth sites ``init_bin`` int32, alive and bound bool, and
+    the exit log (count (B,) int32, times (B, E) float32, sites and birth
+    sites (B, E) int32).  The JAX state's PRNG key has no counterpart
+    here: the draws of a JAX run are rebuilt from it where a test needs
+    them."""
     pos = np.asarray(st.pos)
     b = (lambda a: np.asarray(a)) if pos.ndim == 2 \
         else (lambda a: np.asarray(a)[None])
     i32 = lambda a: to_torch(b(a).astype(np.int32), torch.int32, device)
     bool_ = lambda a: to_torch(b(a).astype(bool), torch.bool, device)
-    return ParticleState(pos=i32(st.pos), sigma=i32(st.sigma),
-                         wind=i32(st.wind), alive=bool_(st.alive),
-                         bound=bool_(st.bound))
+    return ParticleState(
+        pos=i32(st.pos), sigma=i32(st.sigma), wind=i32(st.wind),
+        alive=bool_(st.alive), bound=bool_(st.bound),
+        init_bin=i32(st.init_bin), exit_count=i32(st.exit_count),
+        exit_times=to_torch(b(st.exit_times).astype(np.float32),
+                            torch.float32, device),
+        exit_pos=i32(st.exit_pos), exit_init_bin=i32(st.exit_init_bin))
 
 
 # ---------------------------------------------------------------------------

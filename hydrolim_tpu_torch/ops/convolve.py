@@ -44,13 +44,16 @@ def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
 
 
 def reflect_gaussian_filter(x: torch.Tensor, sigma_grid: float,
-                            truncate: float = 4.0) -> torch.Tensor:
+                            truncate: float = 4.0,
+                            w: torch.Tensor = None) -> torch.Tensor:
     """``gaussian_filter1d(x, sigma_grid, mode='reflect')`` on the trailing
     axis in float32: the weighted sum of the 2r+1 windows of the
     reflect-padded signal (the weights are symmetric, so correlation and
-    convolution agree)."""
-    w = torch.tensor(gaussian_filter_weights(sigma_grid, truncate),
-                     device=x.device)
+    convolution agree).  ``w``: the weights already on the device
+    (``gaussian_filter_weights(sigma_grid, truncate)``)."""
+    if w is None:
+        w = torch.tensor(gaussian_filter_weights(sigma_grid, truncate),
+                         device=x.device)
     radius = (w.shape[0] - 1) // 2
     xp = reflect_pad(x.to(torch.float32), radius)
     return (xp.unfold(-1, w.shape[0], 1) * w).sum(-1)

@@ -20,3 +20,14 @@ def masked_bincount(pos: torch.Tensor, weights: torch.Tensor,
                       device=weights.device)
     out.scatter_add_(1, flat_pos, flat_w)
     return out.reshape(out_shape)
+
+
+def occupancy(pos: torch.Tensor, sigma: torch.Tensor, alive: torch.Tensor,
+              L: int):
+    """(occ_total, counts_p, counts_m) per site, float32, batched over the
+    leading dims: the reference's occupancy builder with an alive mask
+    (dead particles weigh 0)."""
+    a = alive.to(torch.float32)
+    counts_p = masked_bincount(pos, a * (sigma > 0), L)
+    counts_m = masked_bincount(pos, a * (sigma < 0), L)
+    return counts_p + counts_m, counts_p, counts_m

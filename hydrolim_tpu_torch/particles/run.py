@@ -15,8 +15,10 @@ Which engine runs the steps follows the configuration only:
   version);
 - a mean-field configuration outside it (walls, Poisson init) runs the
   torch fast path, ``particles.stepper._step_meanfield_global`` per step;
-- anything else (exclusion, local m, anchors, a custom flip rate) needs the
-  general τ-leap step, not ported yet (ROADMAP.md §A item 1).
+- anything else (exclusion, local m, anchors, a custom flip rate) runs the
+  general τ-leap step, ``particles.stepper.step``, in plain torch (some
+  hundred small launches a step on the card); its final state carries the
+  exit log.
 """
 from __future__ import annotations
 
@@ -28,22 +30,22 @@ import numpy as np
 import torch
 
 from hydrolim_tpu_torch.core.config import ParticleConfig, ParticleParams
-from hydrolim_tpu_torch.core.scope import not_ported
-from hydrolim_tpu_torch.fields.magnetization import (
-    build_mfield_op,
-    local_m_field,
-)
+from hydrolim_tpu_torch.fields.magnetization import local_m_field
 from hydrolim_tpu_torch.ops.segment import masked_bincount
 from hydrolim_tpu_torch.ops.stepper_kernel import meanfield_multi_step
 from hydrolim_tpu_torch.particles.stepper import (
     ParticleState,
     _is_meanfield_fast_path,
     _step_meanfield_global,
+    build_static_arrays,
+    step,
+    with_exit_log,
 )
 
 # the routes of ``run_particles`` (``ParticleRunResult.engine``)
 B1_ROUTE = "meanfield_multi_step"
 TORCH_ROUTE = "torch"
+TAU_LEAP_ROUTE = "tau_leap"
 
 
 class ParticleFrames(NamedTuple):
@@ -67,7 +69,7 @@ class ParticleFrames(NamedTuple):
 class ParticleRunResult(NamedTuple):
     frames: ParticleFrames
     final_state: ParticleState
-    engine: str                    # B1_ROUTE or TORCH_ROUTE
+    engine: str                    # B1_ROUTE, TORCH_ROUTE or TAU_LEAP_ROUTE
 
 
 def _record_frame(config: ParticleConfig, mfield_op, state: ParticleState,
@@ -83,8 +85,7 @@ def _record_frame(config: ParticleConfig, mfield_op, state: ParticleState,
     counts_p = masked_bincount(pos, a * (sigma > 0), L)
     counts_m = masked_bincount(pos, a * (sigma < 0), L)
     n_alive = a.sum(-1)
-    denom = (n_alive.clamp(min=1.0) * torch.tensor(
-        config.dx, dtype=torch.float32, device=pos.device))[:, None]
+    denom = (n_alive.clamp(min=1.0) * config.dx)[:, None]
     rho_p = counts_p / denom
     rho_m = counts_m / denom
     total = rho_p + rho_m
@@ -139,17 +140,29 @@ def in_b1_scope(config: ParticleConfig) -> bool:
 
 
 def particle_route(config: ParticleConfig, engine: str = "auto") -> str:
-    """The engine ``run_particles`` takes for ``config``: B1 inside its
-    scope, else the torch fast path; ``engine='xla'`` (the JAX package's
-    name of its fast path) forces the torch fast path."""
-    if not _is_meanfield_fast_path(config):
-        raise not_ported("the particle engine outside the mean-field "
-                         "configuration (exclusion, local m, anchors or a "
-                         "custom flip rate)", "tau-leap")
+    """The engine ``run_particles`` takes for ``config``: the τ-leap step
+    outside the mean-field configuration; inside it B1 where it is in
+    scope, else the torch fast path.  ``engine='xla'`` (the JAX package's
+    name of its XLA path) forces the torch fast path on a mean-field
+    configuration."""
     if engine not in ("auto", "xla"):
         raise ValueError(f"unknown particle engine {engine!r}")
+    if not _is_meanfield_fast_path(config):
+        return TAU_LEAP_ROUTE
     return B1_ROUTE if engine == "auto" and in_b1_scope(config) \
         else TORCH_ROUTE
+
+
+def step_times(frame: int, n_sub: int, obs_dt: float, dt_eff: float):
+    """The start times of frame ``frame``'s sub-steps in float32, as the
+    JAX run computes them: t0 = (frame − 1)·obs_dt, then t0 + k·Δt rounded
+    once (XLA contracts it into a fused multiply-add; the float32 product
+    is exact in float64, so the sum is formed there and rounded once)."""
+    f32 = np.float32
+    t0 = f32((f32(frame) - f32(1.0)) * f32(obs_dt))
+    dt32 = float(f32(dt_eff))
+    return [float(f32(float(t0) + float(f32(k)) * dt32))
+            for k in range(n_sub)]
 
 
 def _batched(v, B: int, device) -> torch.Tensor:
@@ -161,24 +174,30 @@ def run_particles(config: ParticleConfig, params: ParticleParams,
                   state0: ParticleState, *, T: float, obs_dt: float,
                   dt: float, record_pos: bool = True,
                   record_fft: bool = True, seed: int = 0,
-                  engine: str = "auto") -> ParticleRunResult:
+                  engine: str = "auto", _draws=None) -> ParticleRunResult:
     """Run the (B, n_buf) batch ``state0`` to time T, recording frames
     every obs_dt on its device.  ``dt`` is the sub-step target; the
     effective step is obs_dt/ceil(obs_dt/dt) ≤ dt.  Params are (B,) or
     scalar tensors.  All draws come from one ``torch.Generator`` seeded
     with ``seed`` on the state's device: B1's Philox seeds (its counter is
-    ``step0 = (f − 1)·n_sub`` at frame f) or the torch path's uniforms.
-    ``engine``: see ``particle_route``; the route taken is returned."""
+    ``step0 = (f − 1)·n_sub`` at frame f), the torch path's uniforms or
+    the τ-leap step's draws.  ``engine``: see ``particle_route``; the
+    route taken is returned.  On the τ-leap route the state gains its
+    exit log (``with_exit_log``), and an exit is logged at its step's
+    start time (``step_times``).
+
+    Test-only: ``_draws.step(i)`` gives the τ-leap step's ``_inject`` of
+    global step i."""
     route = particle_route(config, engine)
     dev = state0.pos.device
     B = state0.pos.shape[0]
-    if state0.alive is None:
+    if route == TAU_LEAP_ROUTE:
+        state0 = with_exit_log(config, state0)
+    elif state0.alive is None:
         state0 = dataclasses.replace(
             state0, alive=torch.ones_like(state0.pos, dtype=torch.bool))
-    mfield_op = build_mfield_op(config.L, config.dx,
-                                config.local_kernel_sigma, config.periodic,
-                                dev)
-    rec = lambda st: _record_frame(config, mfield_op, st, record_pos,
+    statics = build_static_arrays(config, dev)
+    rec = lambda st: _record_frame(config, statics.mfield_op, st, record_pos,
                                    record_fft)
     M = len(np.arange(0.0, T, obs_dt))
     if M == 0:          # T <= 0: an empty frame stack, not a lone frame 0
@@ -212,6 +231,14 @@ def run_particles(config: ParticleConfig, params: ParticleParams,
             state = dataclasses.replace(state0, **{
                 k: torch.cat([h, getattr(state0, k)[:, N:]], 1)
                 for k, h in zip(("pos", "sigma", "wind"), head)})
+            frames.append(rec(state))
+    elif route == TAU_LEAP_ROUTE:
+        for f in range(1, M):
+            for k, t in enumerate(step_times(f, n_sub, obs_dt, dt_eff)):
+                inject = (None if _draws is None
+                          else _draws.step((f - 1) * n_sub + k))
+                state = step(config, params, statics, state, dt_eff, t,
+                             generator=gen, _inject=inject)
             frames.append(rec(state))
     else:
         for _ in range(1, M):

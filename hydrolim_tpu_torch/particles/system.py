@@ -6,10 +6,12 @@ Constructor keywords and defaults are the JAX package's
 plus ``device``; ``run(T, obs_dt, record_fft, record_var, engine)`` returns
 the same ``out`` dict (:542-557).  Three engines are ported:
 
-- ``engine='particle'`` for the mean-field configuration (no exclusion,
-  global m, no anchors, the default flip rate) through
-  ``particles.run.run_particles``: kernel B1 where it is in scope
-  (periodic, ``init='fixed'``), the torch fast path elsewhere;
+- ``engine='particle'`` (the default) for every configuration through
+  ``particles.run.run_particles``: the general τ-leap step (exclusion,
+  local m, anchors with bind / unbind / exit, crowding, a custom flip
+  rate; the out dict carries the exit log), and on the mean-field
+  configuration kernel B1 where it is in scope (periodic,
+  ``init='fixed'``), the torch fast path elsewhere;
 - ``engine='pallas'`` for the fused exclusion class through
   ``sweeps.fast_exclusion.run_exclusion_sweep`` (kernel B3/B4);
 - ``engine='lattice_gas'`` for any exclusion configuration without
@@ -18,9 +20,8 @@ the same ``out`` dict (:542-557).  Three engines are ported:
 
 The two slot routes tag every particle, so ``pos_list``/``pos_frames``
 carry identities.  Not ported yet, each raising ``NotImplementedError``
-with its ROADMAP.md item: the general τ-leap engine for every other
-configuration under ``'particle'`` (§A item 1), the figures (item 2) and
-``run_checkpointed`` (item 3).
+with its ROADMAP.md item (``core/scope.py``): the figures and
+``run_checkpointed``.
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ from hydrolim_tpu_torch.particles.run import (
     substeps_for,
 )
 from hydrolim_tpu_torch.particles.stepper import ParticleState
+from hydrolim_tpu_torch.sweeps.ensemble import exit_log_lists
 from hydrolim_tpu_torch.sweeps.fast_exclusion import (
     is_fused_exclusion_path,
     run_exclusion_sweep,
@@ -228,12 +230,13 @@ class ParticleSystem:
         with the JAX package's extensions ``pos_frames``/``alive_frames``/
         ``bound_frames``, ``exit_init_bin`` and ``dt_eff``.
 
-        ``engine='particle'``: the mean-field configuration through
-        ``run_particles`` (``last_run_info['engine']`` names the route:
-        kernel B1 or the torch fast path).  ``engine='pallas'``: the fused
-        exclusion class on kernel B3/B4; ``engine='lattice_gas'``: any
-        exclusion configuration without anchors on the slot engine; both
-        with every particle tagged.  ``var_list`` holds the true variances
+        ``engine='particle'``: any configuration through ``run_particles``
+        (``last_run_info['engine']`` names the route: the τ-leap step, or
+        on the mean-field configuration kernel B1 or the torch fast path),
+        with the exit log of the run's final state.  ``engine='pallas'``:
+        the fused exclusion class on kernel B3/B4; ``engine='lattice_gas'``:
+        any exclusion configuration without anchors on the slot engine;
+        both with every particle tagged.  ``var_list`` holds the true variances
         whenever ``record_var`` is set (the JAX package's deviation from a
         reference quirk)."""
         if engine in ("pallas", "lattice_gas"):
@@ -276,10 +279,8 @@ class ParticleSystem:
                              if record_fft else None),
             "var_list": np.asarray(f.var, dtype=float) if record_var
             else None,
-            # the mean-field engine has no exit channel
-            "exit_times": [],
-            "exit_positions": [],
-            "exit_init_bin": [],
+            # the τ-leap step's log; the mean-field routes have none
+            **exit_log_lists(res.final_state, 0, self.config.n_exit_buf),
             "pos_frames": f.pos if self.record_pos else None,
             "alive_frames": f.alive if self.record_pos else None,
             "bound_frames": f.bound if self.record_pos else None,

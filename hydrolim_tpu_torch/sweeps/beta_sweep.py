@@ -7,27 +7,32 @@ Mirrors the JAX package's ``sweeps/beta_sweep.py``
 - ``sweep_over_betas`` (:828-1028): the whole (β × replicas) grid in one
   batch, the five estimators per replica on the device, means ± SE per β,
   the npz checkpoint (``run=False`` reloads it), the (θ, γ) NB fit and the
-  standard figures (where matplotlib is installed).
+  standard figures (where matplotlib is installed);
+- ``sweep_beta_ensemble`` (:56-117), one β with the reference's 14-tuple.
 
-Routes (``run_sweep_grid_lattice_gas``), decided by the configuration and
-the engine name alone:
+Routes, decided by the configuration and the engine name alone:
 
-- anchors (bind / unbind / exit) → the anchored slot engine
-  (``run_lattice_gas_anchored``), whatever the engine;
-- ``engine='lattice_gas'`` (``kernel='xla'``) → the XLA slot engines in
-  plain torch: ``run_lattice_gas`` at K=1, ``run_lattice_gas_k`` above;
-- ``'fused'``, ``'pallas'`` and ``'auto'`` (``kernel='auto'``) → kernel
+- ``engine='particle'`` (the default, as in the JAX package) →
+  ``run_sweep_grid``: the particle engine (``particles.run``) in chunks of
+  replicas — the general τ-leap step outside the mean-field configuration
+  (anchors included), kernel B1 or the torch fast path inside it;
+- the slot routes (``run_sweep_grid_lattice_gas``): anchors (bind /
+  unbind / exit) → the anchored slot engine (``run_lattice_gas_anchored``);
+  ``engine='lattice_gas'`` (``kernel='xla'``) → the XLA slot engines in
+  plain torch, ``run_lattice_gas`` at K=1 and ``run_lattice_gas_k`` above;
+  ``'fused'``, ``'pallas'`` and ``'auto'`` (``kernel='auto'``) → kernel
   B3/B4 where ``is_fused_exclusion_path`` holds, the slot engines
   otherwise (crowding, K > 8).
 
 The route taken is returned with the grid and saved as the sweep's
-``route``.  The particle-centric engine (``engine='particle'``), the host estimators,
-``mesh=`` and ``ckpt_dir=`` are not ported yet: each raises
-``NotImplementedError`` naming its ROADMAP.md item (``core/scope.py``).
+``route``.  The host estimators, ``mesh=``/``n_devices=`` and ``ckpt_dir=``
+are not ported yet: each raises ``NotImplementedError`` naming its
+ROADMAP.md item (``core/scope.py``).
 """
 from __future__ import annotations
 
 from pathlib import Path
+import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
@@ -47,7 +52,14 @@ from hydrolim_tpu_torch.particles.lattice_gas_k import (
     run_lattice_gas_anchored,
     run_lattice_gas_k,
 )
-from hydrolim_tpu_torch.sweeps.ensemble import broadcast_params, ensemble_dt
+from hydrolim_tpu_torch.particles.run import ParticleRunResult
+from hydrolim_tpu_torch.sweeps.ensemble import (
+    broadcast_params,
+    chunk_seed,
+    ensemble_dt,
+    frames_to_out,
+    run_particle_ensemble,
+)
 from hydrolim_tpu_torch.sweeps.fast_exclusion import (
     is_fused_exclusion_path,
     run_exclusion_sweep,
@@ -55,7 +67,7 @@ from hydrolim_tpu_torch.sweeps.fast_exclusion import (
 
 # the JAX package's names of the fused route
 FUSED_ENGINES = ("fused", "pallas", "auto")
-SWEEP_ENGINES = FUSED_ENGINES + ("lattice_gas",)
+SWEEP_ENGINES = ("particle",) + FUSED_ENGINES + ("lattice_gas",)
 
 # the routes of run_sweep_grid_lattice_gas
 FUSED_ROUTE = "exclusion_multi_step"
@@ -64,12 +76,9 @@ SLOT_ROUTE = "lgk_step"
 ANCHORED_ROUTE = "lgk_step anchored"
 
 
-def check_fused_engine(engine: str) -> None:
-    """Accept the names of the fused route and ``'lattice_gas'`` (the slot
-    engines); the particle engine raises with the ROADMAP.md item that
-    ports it."""
-    if engine == "particle":
-        raise not_ported("engine='particle'", "tau-leap")
+def check_engine(engine: str) -> None:
+    """Accept the JAX package's engine names: ``'particle'``, the names of
+    the fused route and ``'lattice_gas'`` (the slot engines)."""
     if engine not in SWEEP_ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
 
@@ -171,6 +180,112 @@ def _profiles(config: ParticleConfig, init_kwargs: Optional[Dict]):
 # the batched sweep core
 # ---------------------------------------------------------------------------
 
+def _rates(ps_kwargs: Dict) -> Dict:
+    return dict(rate_diffusion=float(ps_kwargs["rate_diffusion"]),
+                rate_active=float(ps_kwargs["rate_active"]),
+                k_on=float(ps_kwargs.get("k_on", 0)),
+                k_off=float(ps_kwargs.get("k_off", 0)),
+                k_exit=float(ps_kwargs.get("k_exit", 0)))
+
+
+def run_sweep_grid(beta_values, n_runs: int, ps_kwargs: Dict,
+                   init_kwargs: Optional[Dict], run_kwargs: Dict,
+                   seed: int = 0, chunk_size: int = 256, mesh=None,
+                   n_devices: Optional[int] = None, ckpt_dir=None,
+                   device="cuda"):
+    """The (β × replicas) grid on the particle engine (JAX ``beta_sweep.py:
+    302-396``); returns (config, ``ParticleRunResult`` with leaves (B, …)
+    on ``device``, dt).  Grids larger than ``chunk_size`` replicas run in
+    chunks, the chunk starting at c0 drawing from ``chunk_seed(seed, c0)``
+    (its initial state and its run), so a replica's trajectory does not
+    depend on the chunks before it.  ``res.engine`` names the route."""
+    if mesh is not None or n_devices is not None:
+        raise not_ported("mesh= / n_devices=", "parallelism")
+    if ckpt_dir is not None:
+        raise not_ported("ckpt_dir=", "checkpointing")
+    config = config_from_kwargs(ps_kwargs)
+    rho0_p, rho0_m = _profiles(config, init_kwargs)
+    rates = _rates(ps_kwargs)
+    beta_flat = np.repeat(np.asarray(beta_values, dtype=np.float32), n_runs)
+    B = beta_flat.shape[0]
+    dt = ensemble_dt(config, beta_max=float(np.max(beta_values)), **rates)
+    T, obs_dt = float(run_kwargs["T"]), float(run_kwargs["obs_dt"])
+    chunks = []
+    for c0 in range(0, B, chunk_size):
+        params = broadcast_params(config, beta=beta_flat[c0:c0 + chunk_size],
+                                  device=device, **rates)
+        chunks.append(run_particle_ensemble(
+            config, params, chunk_seed(seed, c0), T=T, obs_dt=obs_dt, dt=dt,
+            rho0_plus=rho0_p, rho0_minus=rho0_m,
+            record_pos=bool(run_kwargs.get("record_pos", True)),
+            record_fft=bool(run_kwargs.get("record_fft", True)),
+            device=device))
+    if len(chunks) == 1:
+        return config, chunks[0], dt
+    cat = lambda *a: None if a[0] is None else torch.cat(a, dim=0)
+    frames = type(chunks[0].frames)(*map(cat, *(c.frames for c in chunks)))
+    final = type(chunks[0].final_state)(**{
+        f.name: cat(*(getattr(c.final_state, f.name) for c in chunks))
+        for f in dataclasses.fields(chunks[0].final_state)})
+    return config, ParticleRunResult(frames, final, chunks[0].engine), dt
+
+
+def _device_estimates(config: ParticleConfig, frames, times, pos, alive
+                      ) -> Dict[str, np.ndarray]:
+    """The five estimators of every replica on the device, as float64
+    numpy arrays keyed by name."""
+    est = batched_estimates(
+        frames.total, frames.m_global, frames.rho_p, times, pos, alive,
+        dx=config.dx, xlim=float(config.xlim),
+        has_positions=pos.shape[-1] > 0)
+    return {k: getattr(est, k).cpu().numpy().astype(float)
+            for k in ("v_eff", "D_eff", "m_mean", "rho_eff", "p_block")}
+
+
+def _stats(vals):
+    """(mean, std (ddof 1), standard error) of one β's replicas."""
+    a = np.asarray(vals, dtype=float)
+    std = float(a.std(ddof=1)) if a.size > 1 else 0.0
+    return float(a.mean()), std, std / np.sqrt(max(1, a.size))
+
+
+def sweep_beta_ensemble(beta, n_runs: int = 10,
+                        ps_kwargs: Optional[Dict] = None,
+                        init_kwargs: Optional[Dict] = None,
+                        run_kwargs: Optional[Dict] = None, rng_seeds=None,
+                        seed: int = 0, estimator: str = "device", mesh=None,
+                        n_devices: Optional[int] = None, device="cuda"):
+    """Single-β ensemble on the particle engine with the reference's
+    14-tuple return (:56-117): (v mean, std, SE, per-run v, out dicts,
+    m mean, std, SE, ρ mean, SE, p_block mean, SE, D mean, SE).  The
+    estimators run on the device (``estimator='device'``); the host
+    estimators are not ported yet."""
+    if estimator != "device":
+        raise not_ported(f"estimator={estimator!r}", "host")
+    ps_kwargs = dict(DEFAULT_PS_KWARGS, **(ps_kwargs or {}))
+    run_kwargs = dict(DEFAULT_RUN_KWARGS, **(run_kwargs or {}))
+    if rng_seeds is not None:
+        seed = int(np.asarray(rng_seeds).flat[0])
+    config, res, _ = run_sweep_grid(np.asarray([beta]), n_runs, ps_kwargs,
+                                    init_kwargs, run_kwargs, seed=seed,
+                                    mesh=mesh, n_devices=n_devices,
+                                    device=device)
+    T, obs_dt = float(run_kwargs["T"]), float(run_kwargs["obs_dt"])
+    f = res.frames
+    est = _device_estimates(config, f, np.arange(0.0, T, obs_dt), f.pos,
+                            f.alive)
+    out_list = [frames_to_out(f, r, config, T, obs_dt,
+                              final_state=res.final_state)
+                for r in range(n_runs)]
+    mean, std, se = _stats(est["v_eff"])
+    m_mean, m_std, m_se = _stats(est["m_mean"])
+    rho_mean, _, rho_se = _stats(est["rho_eff"])
+    block_mean, _, block_se = _stats(est["p_block"])
+    D_mean, _, D_se = _stats(est["D_eff"])
+    return (mean, std, se, est["v_eff"], out_list, m_mean, m_std, m_se,
+            rho_mean, rho_se, block_mean, block_se, D_mean, D_se)
+
+
 def run_sweep_grid_lattice_gas(beta_values, n_runs: int, ps_kwargs: Dict,
                                init_kwargs: Optional[Dict],
                                run_kwargs: Dict, seed: int = 0,
@@ -195,12 +310,7 @@ def run_sweep_grid_lattice_gas(beta_values, n_runs: int, ps_kwargs: Dict,
     if kernel not in ("xla", "auto", "pallas", "fused"):
         raise ValueError(f"unknown kernel {kernel!r}")
     rho0_p, rho0_m = _profiles(config, init_kwargs)
-    rates = dict(
-        rate_diffusion=float(ps_kwargs["rate_diffusion"]),
-        rate_active=float(ps_kwargs["rate_active"]),
-        k_on=float(ps_kwargs.get("k_on", 0)),
-        k_off=float(ps_kwargs.get("k_off", 0)),
-        k_exit=float(ps_kwargs.get("k_exit", 0)))
+    rates = _rates(ps_kwargs)
     params = broadcast_params(config, beta=beta_values, n_runs=n_runs,
                               device=device, **rates)
     dt = ensemble_dt(config, beta_max=float(np.max(beta_values)), **rates)
@@ -290,20 +400,28 @@ def sweep_over_betas(beta_values, n_runs_per_beta: int = 10, run: bool = True,
                      npz_path: str = "beta_sweep_results.npz",
                      outdir: str = ".", seed: int = 0,
                      keep_outs: bool = False, do_fit: bool = True,
-                     plot_result: bool = True, engine: str = "fused",
-                     estimator: str = "device", device="cuda") -> Dict:
+                     plot_result: bool = True, engine: str = "particle",
+                     estimator: str = "device", mesh=None,
+                     n_devices: Optional[int] = None, ckpt_dir=None,
+                     device="cuda") -> Dict:
     """Full β sweep (:828-1028): one batched grid run on ``device`` →
     estimator means ± SE per β → npz checkpoint → (θ, γ) fit and figures.
     ``run=False`` reloads ``npz_path`` and re-fits without simulating.
-    ``engine``: ``'lattice_gas'`` runs the slot engines (``kernel='xla'``);
-    the fused names (``FUSED_ENGINES``) take kernel B3/B4 where it covers
-    the configuration and the slot engines elsewhere (``kernel='auto'``, as
-    the JAX package maps ``'pallas'``).  Beside the JAX package's keys the
-    result holds ``spins_final``, the (β·runs, K, L) slot spins at the end
-    of the run, and ``route``, the engine that ran."""
-    check_fused_engine(engine)
+    ``engine``: ``'particle'`` (the default) runs the particle engine
+    (``run_sweep_grid``; the estimators read the frames' positions and
+    alive masks); ``'lattice_gas'`` the slot engines (``kernel='xla'``);
+    the fused names (``FUSED_ENGINES``) kernel B3/B4 where it covers the
+    configuration and the slot engines elsewhere (``kernel='auto'``, as the
+    JAX package maps ``'pallas'``).  Beside the JAX package's keys the
+    result holds ``route``, the engine that ran, and on the slot routes
+    ``spins_final``, the (β·runs, K, L) slot spins at the end of the run."""
+    check_engine(engine)
     if estimator != "device":
         raise not_ported(f"estimator={estimator!r}", "host")
+    if mesh is not None or n_devices is not None:
+        raise not_ported("mesh= / n_devices=", "parallelism")
+    if ckpt_dir is not None:
+        raise not_ported("ckpt_dir=", "checkpointing")
     beta_values = np.asarray(beta_values, dtype=float)
     ps_kwargs = dict(DEFAULT_PS_KWARGS, **(ps_kwargs or {}))
     run_kwargs = dict(DEFAULT_RUN_KWARGS, **(run_kwargs or {}))
@@ -315,33 +433,37 @@ def sweep_over_betas(beta_values, n_runs_per_beta: int = 10, run: bool = True,
 
     outs = []
     if run:
-        (config, out_for, dt, f, spins_final,
-         route) = run_sweep_grid_lattice_gas(
-            beta_values, n_runs_per_beta, ps_kwargs, init_kwargs,
-            run_kwargs, seed=seed, device=device,
-            kernel="xla" if engine == "lattice_gas" else "auto")
         T, obs_dt = float(run_kwargs["T"]), float(run_kwargs["obs_dt"])
-        tr = f.tracer_pos
-        est = batched_estimates(
-            f.total, f.m_global, f.rho_p, np.arange(0.0, T, obs_dt), tr,
-            tracer_valid_mask(tr), dx=config.dx, xlim=float(config.xlim),
-            has_positions=tr.shape[-1] > 0)
-        est = {k: getattr(est, k).cpu().numpy().astype(float)
-               for k in ("v_eff", "D_eff", "m_mean", "rho_eff", "p_block")}
+        times = np.arange(0.0, T, obs_dt)
+        extra = {}
+        if engine == "particle":
+            config, res, dt = run_sweep_grid(
+                beta_values, n_runs_per_beta, ps_kwargs, init_kwargs,
+                run_kwargs, seed=seed, device=device)
+            f = res.frames
+            est = _device_estimates(config, f, times, f.pos, f.alive)
+            out_for = lambda i: frames_to_out(f, i, config, T, obs_dt,
+                                              final_state=res.final_state)
+            route = res.engine
+        else:
+            (config, out_for, dt, f, spins_final,
+             route) = run_sweep_grid_lattice_gas(
+                beta_values, n_runs_per_beta, ps_kwargs, init_kwargs,
+                run_kwargs, seed=seed, device=device,
+                kernel="xla" if engine == "lattice_gas" else "auto")
+            tr = f.tracer_pos
+            est = _device_estimates(config, f, times, tr,
+                                    tracer_valid_mask(tr))
+            extra["spins_final"] = spins_final.cpu().numpy()
         per_beta = {k: [] for k in _STAT_KEYS}
-        nb, n = len(beta_values), n_runs_per_beta
-
-        def stat(a):
-            std = np.std(a, ddof=1) if len(a) > 1 else 0.0
-            return np.mean(a), std, std / np.sqrt(max(1, len(a)))
-
-        for b in range(nb):
+        n = n_runs_per_beta
+        for b in range(len(beta_values)):
             rows = slice(b * n, (b + 1) * n)
-            vm, vs, vse = stat(est["v_eff"][rows])
-            Dm, _, Dse = stat(est["D_eff"][rows])
-            mm, ms, mse = stat(est["m_mean"][rows])
-            rm, _, rse = stat(est["rho_eff"][rows])
-            bm, _, bse = stat(est["p_block"][rows])
+            vm, vs, vse = _stats(est["v_eff"][rows])
+            Dm, _, Dse = _stats(est["D_eff"][rows])
+            mm, ms, mse = _stats(est["m_mean"][rows])
+            rm, _, rse = _stats(est["rho_eff"][rows])
+            bm, _, bse = _stats(est["p_block"][rows])
             for k, x in zip(_STAT_KEYS, (vm, vs, vse, Dm, Dse, mm, ms, mse,
                                          rm, rse, bm, bse)):
                 per_beta[k].append(x)
@@ -349,8 +471,7 @@ def sweep_over_betas(beta_values, n_runs_per_beta: int = 10, run: bool = True,
                 outs.append([out_for(b * n + r) for r in range(n)])
         arrays = {k: np.asarray(v) for k, v in per_beta.items()}
         save_dict = {"beta_values": beta_values, **arrays,
-                     "ps_kwargs": ps_kwargs, "dt": dt,
-                     "spins_final": spins_final.cpu().numpy(),
+                     "ps_kwargs": ps_kwargs, "dt": dt, **extra,
                      "route": np.str_(route)}
         Path(npz_path).parent.mkdir(parents=True, exist_ok=True)
         np.savez(npz_path, **{k: v for k, v in save_dict.items()

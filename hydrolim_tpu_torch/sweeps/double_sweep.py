@@ -10,14 +10,14 @@ then meta-fitted over x = ρ̄ with f(x) = C0 − C1·x and g(x) = C2/x^{3/2}
 The defaults are ``DOUBLE_SWEEP_PS_KWARGS``, the reference double sweep's
 own physics block (:666-694).
 
-``double_sweep_fused`` runs the whole (N × β × replicas) grid on kernel
-B3/B4 (the JAX package's ``engine='pallas'``, the port's default) or on the
-plain-torch slot engine (``engine='lattice_gas'``, ``run_lattice_gas_k``):
-N enters only through the per-replica Poisson profiles, so one (B, L)
-batch of ``chunk_size`` replicas per call holds any N.  The JAX package's
-default engine, the general τ-leap (``'particle'``), its ``ckpt_dir=``
-chunk ledger and ``n_devices=`` are not ported yet (ROADMAP.md §A items 1,
-3 and 4).
+``double_sweep_fused`` runs the whole (N × β × replicas) grid on the
+particle engine (``engine='particle'``, the default as in the JAX package:
+the general τ-leap step, no positions recorded), on kernel B3/B4
+(``'pallas'``) or on the plain-torch slot engine (``'lattice_gas'``,
+``run_lattice_gas_k``): N enters only through the per-replica Poisson
+profiles, so one (B, L) batch of ``chunk_size`` replicas per call holds
+any N.  The JAX package's ``ckpt_dir=`` chunk ledger and ``n_devices=`` are
+not ported yet (``core/scope.py`` names their ROADMAP.md items).
 """
 from __future__ import annotations
 
@@ -33,12 +33,17 @@ from hydrolim_tpu_torch.observables.batched import batched_estimates
 from hydrolim_tpu_torch.particles.lattice_gas_k import run_lattice_gas_k
 from hydrolim_tpu_torch.sweeps.beta_sweep import (
     DEFAULT_PS_KWARGS,
-    check_fused_engine,
+    check_engine,
     config_from_kwargs,
     make_exp_gradient,
     sweep_over_betas,
 )
-from hydrolim_tpu_torch.sweeps.ensemble import broadcast_params, ensemble_dt
+from hydrolim_tpu_torch.sweeps.ensemble import (
+    broadcast_params,
+    chunk_seed,
+    ensemble_dt,
+    run_particle_ensemble,
+)
 from hydrolim_tpu_torch.sweeps.fast_exclusion import run_exclusion_sweep
 from hydrolim_tpu_torch.theory.meanfield import compute_m_of_beta_non
 
@@ -133,27 +138,23 @@ def _meta_fit(out: Path, list_N_part, L: int, f_fit, f_err, g_fit, g_err,
             "C1_err": float(C1_err), "C2_err": float(np.sqrt(pcov_g[0, 0]))}
 
 
-def chunk_seed(seed: int, c0: int) -> int:
-    """The seed of the replica chunk starting at ``c0``: a pure function of
-    (seed, c0), so a chunk's draws do not depend on the chunks before it."""
-    return int(np.random.SeedSequence([seed, c0]).generate_state(1)[0])
-
-
 def double_sweep_fused(beta_values, list_N_part: Sequence[float],
                        n_runs_per_beta: int = 4,
                        ps_kwargs: Optional[Dict] = None,
                        run_kwargs: Optional[Dict] = None, outdir: str = ".",
                        seed: int = 0, plot_result: bool = True,
-                       chunk_size: int = 44, engine: str = "pallas",
+                       chunk_size: int = 44, engine: str = "particle",
                        n_devices: Optional[int] = None, ckpt_dir=None,
                        device="cuda") -> Dict:
-    """The whole (N × β × replicas) grid on kernel B3/B4 (the fused names)
-    or the slot engine (``'lattice_gas'``) in chunks of ``chunk_size``
-    replicas (per-replica Poisson profiles, (B, L)), each chunk's draws
-    from a generator seeded by ``chunk_seed(seed, c0)``; the
-    blocking estimator runs on the device per chunk, the (f, g) fits and
-    the C0/C1/C2 meta-fit on the host.  Returns the JAX package's keys."""
-    check_fused_engine(engine)
+    """The whole (N × β × replicas) grid on the particle engine
+    (``'particle'``: ``run_particle_ensemble`` without positions, the
+    τ-leap step), kernel B3/B4 (the fused names) or the slot engine
+    (``'lattice_gas'``) in chunks of ``chunk_size`` replicas (per-replica
+    Poisson profiles, (B, L)), each chunk's draws from a generator seeded
+    by ``chunk_seed(seed, c0)``; the blocking estimator runs on the device
+    per chunk, the (f, g) fits and the C0/C1/C2 meta-fit on the host.
+    Returns the JAX package's keys."""
+    check_engine(engine)
     if ckpt_dir is not None:
         raise not_ported("ckpt_dir= (the chunk ledger)", "checkpointing")
     if n_devices is not None:
@@ -187,17 +188,24 @@ def double_sweep_fused(beta_values, list_N_part: Sequence[float],
     T, obs_dt = float(rk["T"]), float(rk["obs_dt"])
     times = np.arange(0.0, T, obs_dt)
 
-    runner = (run_lattice_gas_k if engine == "lattice_gas"
-              else run_exclusion_sweep)
+    record_fft = bool(rk.get("record_fft", False))
     p_block_flat = np.zeros((B,), float)
     for c0 in range(0, B, chunk_size):
         sl = slice(c0, min(c0 + chunk_size, B))
         params_c = broadcast_params(config, beta=flat_beta[sl],
                                     device=device, **rates)
-        frames, _ = runner(
-            config, params_c, T=T, obs_dt=obs_dt, dt=dt,
-            seed=chunk_seed(seed, c0), device=device,
-            rho0_plus=prof_p[sl], rho0_minus=prof_m[sl], record_fft=False)
+        kw = dict(T=T, obs_dt=obs_dt, dt=dt, rho0_plus=prof_p[sl],
+                  rho0_minus=prof_m[sl], record_fft=record_fft,
+                  device=device)
+        if engine == "particle":
+            frames = run_particle_ensemble(config, params_c,
+                                           chunk_seed(seed, c0),
+                                           record_pos=False, **kw).frames
+        else:
+            runner = (run_lattice_gas_k if engine == "lattice_gas"
+                      else run_exclusion_sweep)
+            frames, _ = runner(config, params_c, seed=chunk_seed(seed, c0),
+                               **kw)
         est = batched_estimates(frames.total, frames.m_global, frames.rho_p,
                                 times, dx=config.dx, xlim=float(config.xlim),
                                 has_positions=False)
@@ -230,7 +238,8 @@ def double_sweep(beta_values, list_N_part: Sequence[float],
                  seed: int = 0, plot_result: bool = True,
                  device="cuda") -> Dict:
     """Full (N × β × replicas) pipeline (:851-961), one ``sweep_over_betas``
-    per N on the fused route.  Returns {'N_values', 'f_fit', 'f_err',
+    per N on its default engine (``'particle'``), as in the JAX package.
+    Returns {'N_values', 'f_fit', 'f_err',
     'g_fit', 'g_err', 'C0', 'C1', 'C2', ..., 'per_N'}; also saves
     f_fit.png / g_fit.png where matplotlib is installed."""
     beta_values = np.asarray(beta_values, dtype=float)

@@ -4,8 +4,10 @@ The (β-grid × replicas) batch is one (B, n_buf) state: β enters only
 through the flip rate, so it batches as the leading axis of
 ``ParticleParams``; replicas differ only by their draws.
 ``run_particle_ensemble`` initialises and runs the batch through
-``particles.run.run_particles`` (kernel B1 inside its scope), and
-``frames_to_out`` slices one replica into the reference's ``out`` dict.
+``particles.run.run_particles`` (kernel B1 inside its scope, the τ-leap
+step outside the mean-field configuration), and ``frames_to_out`` slices
+one replica into the reference's ``out`` dict, with its exit log.
+``chunk_seed`` gives each replica chunk of a sweep its own seed.
 """
 from __future__ import annotations
 
@@ -21,8 +23,19 @@ from hydrolim_tpu_torch.core.config import (
     make_particle_params,
 )
 from hydrolim_tpu_torch.particles.init import init_particles
-from hydrolim_tpu_torch.particles.run import ParticleRunResult, run_particles
-from hydrolim_tpu_torch.particles.stepper import ParticleState
+from hydrolim_tpu_torch.particles.run import (
+    TAU_LEAP_ROUTE,
+    ParticleRunResult,
+    particle_route,
+    run_particles,
+)
+from hydrolim_tpu_torch.particles.stepper import ParticleState, with_exit_log
+
+
+def chunk_seed(seed: int, c0: int) -> int:
+    """The seed of the replica chunk starting at ``c0``: a pure function of
+    (seed, c0), so a chunk's draws do not depend on the chunks before it."""
+    return int(np.random.SeedSequence([seed, c0]).generate_state(1)[0])
 
 
 def broadcast_params(config: ParticleConfig, *, beta, rate_diffusion,
@@ -69,7 +82,9 @@ def run_particle_ensemble(config: ParticleConfig, params_b: ParticleParams,
     rows per replica (the (N, β) double sweep: N varies only through the
     Poisson intensities).  The initial state is drawn from a generator
     seeded with ``seed``; the run's draws from one seeded with ``seed + 1``.
-    Returns a ``ParticleRunResult`` with leaves (B, M, ...)."""
+    Outside the mean-field configuration the state is the τ-leap step's
+    (birth sites, an empty exit log).  Returns a ``ParticleRunResult``
+    with leaves (B, M, ...)."""
     B = params_b.beta.shape[0]
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -77,6 +92,8 @@ def run_particle_ensemble(config: ParticleConfig, params_b: ParticleParams,
                         device=device)
     state0 = ParticleState(pos=st.pos, sigma=st.sigma,
                            wind=torch.zeros_like(st.pos), alive=st.alive)
+    if particle_route(config, engine) == TAU_LEAP_ROUTE:
+        state0 = with_exit_log(config, state0)
     return run_particles(config, params_b, state0, T=T, obs_dt=obs_dt,
                          dt=dt, record_pos=record_pos, record_fft=record_fft,
                          seed=seed + 1, engine=engine)
@@ -88,8 +105,9 @@ def frames_to_out(frames, rep_idx: int, config: ParticleConfig, T: float,
     """Slice one replica out of a batched ``ParticleRunResult.frames`` into
     the reference-schema ``out`` dict (numpy, on the host), with the JAX
     package's keys and value types.  Passing the batched ``final_state``
-    adds the exit-event log, which is empty: the port's mean-field engine
-    has no exit channel."""
+    adds the exit-event log (exit_times/exit_positions/exit_init_bin,
+    PARTICLE_solver_CLASS.py:555-556): the τ-leap step's, empty on the
+    mean-field routes, which have no exit channel."""
     g = lambda a: a[rep_idx].detach().cpu().numpy()
     f = frames
     L = config.L
@@ -119,8 +137,24 @@ def frames_to_out(frames, rep_idx: int, config: ParticleConfig, T: float,
         out["pos_frames"] = None
         out["alive_frames"] = None
         out["pos_list"] = None
-    out["exit_times"] = []
-    out["exit_positions"] = []
-    if final_state is not None:
-        out["exit_init_bin"] = []
+    log = exit_log_lists(final_state, rep_idx, config.n_exit_buf)
+    if final_state is None:
+        del log["exit_init_bin"]
+    out.update(log)
+    return out
+
+
+def exit_log_lists(final_state: Optional[ParticleState], rep_idx: int,
+                   n_exit_buf: int) -> Dict[str, list]:
+    """Replica ``rep_idx``'s exit log as the reference's lists
+    (exit_times, exit_positions, exit_init_bin): the first min(count, E)
+    entries of the τ-leap state's log, empty without one."""
+    out = {"exit_times": [], "exit_positions": [], "exit_init_bin": []}
+    if final_state is None or final_state.exit_count is None:
+        return out
+    ec = min(int(final_state.exit_count[rep_idx]), n_exit_buf)
+    for key, log in (("exit_times", final_state.exit_times),
+                     ("exit_positions", final_state.exit_pos),
+                     ("exit_init_bin", final_state.exit_init_bin)):
+        out[key] = list(log[rep_idx, :ec].cpu().numpy())
     return out

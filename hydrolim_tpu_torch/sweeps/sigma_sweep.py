@@ -3,15 +3,15 @@
 The port of the JAX package's ``sweeps/sigma_sweep.py``
 (`PARTICLE_solver_BIOLOGY_EXCLUSION_sweep_beta_2.py`):
 ``sweep_over_sigmas`` (:1030-1075) loops the β-sweep over kernel widths σ
-(σ=0 → global magnetization) on the fused route, kernel B3/B4 (each σ sets
-the smoothing band, one batched call per frame for the (β × replicas)
-grid), saves the per-σ npz and the cross-σ archive, and the four cross-σ
+(σ=0 → global magnetization), one batched (β × replicas) grid per σ,
+saves the per-σ npz and the cross-σ archive, and the four cross-σ
 figures (:1077-1275) are drawn where matplotlib is installed.
 
-``engine`` goes to ``sweep_over_betas``: ``'lattice_gas'`` runs each σ on
-the plain-torch slot engines.  The JAX package's ``ckpt_dir=`` and
-``n_devices=``, and its particle engine (``'particle'``), are not ported
-yet (ROADMAP.md §A).
+``engine`` goes to ``sweep_over_betas``: ``'particle'`` (the default, as
+in the JAX package) runs each σ on the general τ-leap step,
+``'lattice_gas'`` on the plain-torch slot engines, the fused names on
+kernel B3/B4.  The JAX package's ``ckpt_dir=`` and ``n_devices=`` are not
+ported yet (ROADMAP.md §A).
 """
 from __future__ import annotations
 
@@ -51,7 +51,7 @@ def sweep_over_sigmas(sigma_values: Sequence[float], beta_values,
                       run_kwargs: Optional[Dict] = None,
                       outdir: str = ".", seed: int = 0,
                       archive: str = "v_eff_all_sigmas.npz",
-                      resume: bool = True, engine: str = "fused",
+                      resume: bool = True, engine: str = "particle",
                       n_devices: Optional[int] = None, ckpt_dir=None,
                       device="cuda") -> Dict:
     """{σ: {beta, v_mean, v_se, D_mean, D_se, ps_kwargs}} (:1030-1075).
@@ -59,7 +59,8 @@ def sweep_over_sigmas(sigma_values: Sequence[float], beta_values,
     ``resume=True`` reloads σ values whose per-σ npz already exists
     (restart semantics after a crash or interruption); ``run=False``
     reloads the cross-σ archive.  ``engine`` is passed to
-    ``sweep_over_betas`` (its fused names or ``'lattice_gas'``)."""
+    ``sweep_over_betas`` (``'particle'``, its fused names or
+    ``'lattice_gas'``)."""
     if ckpt_dir is not None:
         raise not_ported("ckpt_dir=", "checkpointing")
     if n_devices is not None:

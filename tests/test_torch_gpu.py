@@ -618,3 +618,116 @@ def test_slot_engine_step_equals_b3_kernel(dev, K, sigma, periodic,
     assert exclusion_multi_step.launches == n0 + 30
     assert not torch.equal(spins, torch.sign(_exclusion_inputs(
         dev, B=B, K=K, L=L, sigma=sigma, periodic=periodic, seed=K)[1]))
+
+
+# τ-leap configurations for the card-against-CPU checks: ParticleConfig
+# fields beyond L=1000, N=900, K=3, the fixed init, plus_forward, and the
+# anchor rates where there are anchors
+TAU_LEAP_CASES = {
+    "K=3 local m walls": dict(local_kernel_sigma=0.002, periodic=False),
+    "anchors bind/unbind/exit": dict(
+        local_kernel_sigma=0.002, periodic=False, N=600,
+        anchor_positions=(0.25, 0.6, 0.8), anchor_radius=0.01,
+        exit_buffer=600),
+    "K=12 sort path": dict(site_capacity=12, N=3000, periodic=True,
+                           local_kernel_sigma=0.0),
+}
+
+
+def _tau_leap_inputs(case, dev, B=8):
+    from hydrolim_tpu_torch.particles.init import init_particles
+    from hydrolim_tpu_torch.particles.stepper import (
+        ParticleState,
+        build_static_arrays,
+        with_exit_log,
+    )
+    from hydrolim_tpu_torch.sweeps.ensemble import broadcast_params
+
+    kw = dict(L=1000, N=900, init="fixed", scale_rates=False,
+              site_capacity=3, active_model="plus_forward")
+    kw.update(TAU_LEAP_CASES[case])
+    cfg = ParticleConfig(**kw)
+    rates = dict(rate_diffusion=1.0, rate_active=3.0, k_on=20.0, k_off=2.0,
+                 k_exit=10.0)
+    params = {d: broadcast_params(cfg, beta=np.linspace(0, 3, B),
+                                  device=d, **rates) for d in ("cpu", dev)}
+    gen = torch.Generator().manual_seed(7)
+    st = init_particles(cfg, gen, B=B, device="cpu")
+    state = with_exit_log(cfg, ParticleState(
+        pos=st.pos, sigma=st.sigma, wind=torch.zeros_like(st.pos),
+        alive=st.alive)).__dict__
+    state = {d: ParticleState(**{k: v.to(d) for k, v in state.items()})
+             for d in ("cpu", dev)}
+    statics = {d: build_static_arrays(cfg, d) for d in ("cpu", dev)}
+    return cfg, params, state, statics
+
+
+STATE_FIELDS = ("pos", "wind", "sigma", "bound", "alive", "init_bin",
+                "exit_count", "exit_times", "exit_pos", "exit_init_bin")
+
+
+@pytest.mark.parametrize("case", list(TAU_LEAP_CASES))
+def test_tau_leap_step_on_the_card_equals_cpu(dev, case):
+    """50 steps of the τ-leap step on the card and on the CPU from the
+    same state at the same injected (u, bits), Δt = 0.01: every event
+    equal, or an event that differs has its u within 1e-6 of one of its
+    thresholds (one ulp of m or of a flip rate apart); where the events
+    agree the whole state and exit log are equal.  The card's state goes
+    on."""
+    from hydrolim_tpu_torch.particles.stepper import draw_events, step
+
+    cfg, params, state, statics = _tau_leap_inputs(case, dev)
+    B, n = state["cpu"].pos.shape
+    rng = np.random.default_rng(3)
+    moved = 0
+    for i in range(50):
+        u = torch.tensor(rng.random((B, n), dtype=np.float32))
+        bits = torch.tensor(rng.integers(0, 2 ** 32, (B, n)))
+        ev = {d: draw_events(cfg, params[d], statics[d], state[d], 0.01,
+                             u.to(d))[:2] for d in ("cpu", dev)}
+        new = {d: step(cfg, params[d], statics[d], state[d], 0.01, i * 0.01,
+                       _inject=(u.to(d), bits.to(d))) for d in ("cpu", dev)}
+        diff = ev["cpu"][0] != ev[dev][0].cpu()
+        if diff.any():
+            gap = (u[..., None] - ev["cpu"][1]).abs().min(-1).values
+            assert (gap[diff] < 1e-6).all(), (case, i, gap[diff])
+        else:
+            for k in STATE_FIELDS:
+                a, b = getattr(new["cpu"], k), getattr(new[dev], k).cpu()
+                assert torch.equal(a.nan_to_num(-1.0), b.nan_to_num(-1.0)) \
+                    if a.is_floating_point() else torch.equal(a, b), (case,
+                                                                     i, k)
+        moved += int((new[dev].pos != state[dev].pos).sum())
+        state = {dev: new[dev], "cpu": type(new[dev])(**{
+            k: (v.cpu() if v is not None else None)
+            for k, v in new[dev].__dict__.items()})}
+    assert moved > 0
+    if case.startswith("anchors"):
+        assert int(state[dev].exit_count.sum()) > 0
+
+
+def test_tau_leap_step_and_run_issue_no_host_sync(dev):
+    """Under ``torch.cuda.set_sync_debug_mode('error')`` the τ-leap step
+    (anchors, local m, walls) and a 2-frame ``run_particles`` run without
+    one host synchronisation."""
+    from hydrolim_tpu_torch.particles.run import TAU_LEAP_ROUTE, run_particles
+    from hydrolim_tpu_torch.particles.stepper import step
+
+    cfg, params, state, statics = _tau_leap_inputs(
+        "anchors bind/unbind/exit", dev)
+    st = state[dev]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(5):
+            st = step(cfg, params[dev], statics[dev], st, 0.01, i * 0.01,
+                      generator=gen)
+        res = run_particles(cfg, params[dev], state[dev], T=0.1,
+                            obs_dt=0.05, dt=0.01, seed=2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert res.engine == TAU_LEAP_ROUTE
+    assert res.frames.m_local.shape == (8, 2, 1000)
+    assert torch.isfinite(res.frames.m_local).all()

@@ -125,7 +125,7 @@ def test_double_sweep_small(tmp_path):
     from hydrolim_tpu_torch.experiments import particle_double_sweep
 
     res = particle_double_sweep.main(small=True, outdir=str(tmp_path),
-                                     device="cpu")
+                                     device="cpu", engine="pallas")
     assert set(res) == DOUBLE_SWEEP_KEYS
     assert set(res["per_N"][0]) == {"N", "block_means", "block_ses"}
     assert len(res["per_N"]) == 4 and len(res["per_N"][0]["block_means"]) == 4
@@ -139,21 +139,16 @@ def test_double_sweep_small(tmp_path):
 @pytest.mark.parametrize("engine", ["particle", "lattice_gas"],
                          ids=["particle-item 2", "lattice_gas-item 1"])
 def test_double_sweep_other_engines_raise(engine, tmp_path):
-    """The JAX package's other engines: ``'particle'`` raises naming its
-    ROADMAP.md item (§A item 1, the τ-leap engine); ``'lattice_gas'`` runs
-    the grid on the slot engine (once §A item 1 itself), the JAX package's
-    keys, finite constants, no kernel launch."""
-    if engine == "particle":
-        with pytest.raises(NotImplementedError, match="item 1"):
-            port_ds.double_sweep_fused([1.0], [50], engine=engine,
-                                       device="cpu")
-        return
+    """The JAX package's other engines, which raised before their ports:
+    ``'particle'`` (the default, the τ-leap step) and ``'lattice_gas'``
+    (the slot engine) each run the grid: the JAX package's keys, finite
+    constants, no kernel launch."""
     n0 = exclusion_multi_step.launches
+    kw = dict(engine=engine) if engine != "particle" else {}
     res = port_ds.double_sweep_fused(
         np.linspace(0, 3, 4), [40, 80, 120], n_runs_per_beta=2,
         ps_kwargs=dict(L=100), run_kwargs=dict(T=2.0, obs_dt=0.2),
-        outdir=str(tmp_path), plot_result=False, engine=engine,
-        device="cpu")
+        outdir=str(tmp_path), plot_result=False, device="cpu", **kw)
     assert set(res) == DOUBLE_SWEEP_KEYS
     for k in ("C0", "C1", "C2"):
         assert np.isfinite(res[k]), k
@@ -171,7 +166,7 @@ def test_sigma_sweep_small_and_resume(tmp_path, monkeypatch):
     from hydrolim_tpu_torch.sweeps import sigma_sweep
 
     res = particle_sigma_sweep.main(small=True, outdir=str(tmp_path),
-                                    device="cpu")
+                                    device="cpu", engine="fused")
     assert sorted(res) == [0.0, 0.005, 0.05]
     for r in res.values():
         assert set(r) == {"beta", "v_mean", "v_se", "D_mean", "D_se",
@@ -185,9 +180,11 @@ def test_sigma_sweep_small_and_resume(tmp_path, monkeypatch):
     monkeypatch.setattr(sigma_sweep, "sweep_over_betas", no_run)
     again = sigma_sweep.sweep_over_sigmas(
         [0.005, 0.05, 0], np.linspace(0, 3, 4), n_runs_per_beta=2,
-        ps_kwargs=dict(L=200, N=100), outdir=str(tmp_path), device="cpu")
+        ps_kwargs=dict(L=200, N=100), outdir=str(tmp_path), engine="fused",
+        device="cpu")
     replot = particle_sigma_sweep.main(small=True, outdir=str(tmp_path),
-                                       run=False, device="cpu")
+                                       run=False, device="cpu",
+                                       engine="fused")
     jres = j_sweep([0.005, 0.05, 0], np.linspace(0, 3, 4),
                    n_runs_per_beta=2, ps_kwargs=dict(L=200, N=100),
                    outdir=str(tmp_path), engine="pallas")
@@ -235,20 +232,19 @@ def test_sweep_over_betas_takes_the_jax_fused_names(tmp_path, engine):
 @pytest.mark.parametrize("engine", ["particle", "lattice_gas"],
                          ids=["particle-item 2", "lattice_gas-item 1"])
 def test_sweep_over_betas_other_engines_raise(engine, tmp_path):
-    """``'particle'`` raises naming §A item 1 (the τ-leap engine);
-    ``'lattice_gas'`` runs on the slot engines."""
+    """The engines that raised before their ports now run:
+    ``'particle'`` (the default) on the τ-leap step, ``'lattice_gas'`` on
+    the slot engines."""
     from hydrolim_tpu_torch.sweeps.beta_sweep import sweep_over_betas
 
-    if engine == "particle":
-        with pytest.raises(NotImplementedError, match="item 1"):
-            sweep_over_betas([1.0], engine=engine, device="cpu")
-        return
+    kw = dict(engine=engine) if engine != "particle" else {}
     save = sweep_over_betas([1.0], n_runs_per_beta=2,
                             ps_kwargs=dict(L=64, N=40),
                             run_kwargs=dict(T=2.0, obs_dt=0.2),
                             npz_path=str(tmp_path / "s.npz"), do_fit=False,
-                            plot_result=False, engine=engine, device="cpu")
-    assert str(save["route"]) == "lg_step"
+                            plot_result=False, device="cpu", **kw)
+    assert str(save["route"]) == ("lg_step" if engine == "lattice_gas"
+                                  else "tau_leap")
     assert np.isfinite(save["m_means"]).all()
 
 
@@ -298,3 +294,78 @@ def test_jax_matrix_is_not_scipys_filter_past_L():
         S = ndi.gaussian_filter1d(eye, jcfg.sigma_grid, axis=1,
                                   mode="reflect", truncate=4.0)
         assert (np.abs(M - S).max() > 1e-5) == differs, sigma
+
+
+# (JAX package callable, the port's) whose engine defaults must agree
+ENGINE_DEFAULT_PAIRS = {
+    "sweep_over_betas": ("hydrolim_tpu.sweeps.beta_sweep:sweep_over_betas",
+                         "hydrolim_tpu_torch.sweeps.beta_sweep:"
+                         "sweep_over_betas"),
+    "sweep_over_sigmas": ("hydrolim_tpu.sweeps.sigma_sweep:sweep_over_sigmas",
+                          "hydrolim_tpu_torch.sweeps.sigma_sweep:"
+                          "sweep_over_sigmas"),
+    "double_sweep_fused": ("hydrolim_tpu.sweeps.double_sweep:"
+                           "double_sweep_fused",
+                           "hydrolim_tpu_torch.sweeps.double_sweep:"
+                           "double_sweep_fused"),
+    "sweep_betas_for_structures": (
+        "hydrolim_tpu.sweeps.local_structure:sweep_betas_for_structures",
+        "hydrolim_tpu_torch.sweeps.local_structure:"
+        "sweep_betas_for_structures"),
+    "ParticleSystem.run": ("hydrolim_tpu.particles.system:ParticleSystem.run",
+                           "hydrolim_tpu_torch.particles.system:"
+                           "ParticleSystem.run"),
+}
+
+# (the JAX package's CLI script, the port's CLI module)
+ENGINE_DEFAULT_CLIS = {
+    "beta sweep": ("run_particle_beta_sweep", "particle_beta_sweep"),
+    "double sweep": ("run_particle_double_sweep", "particle_double_sweep"),
+    "sigma sweep": ("run_particle_sigma_sweep", "particle_sigma_sweep"),
+    "local structure": ("run_particle_local_structure",
+                        "particle_local_structure"),
+}
+
+
+def _resolve(spec):
+    import importlib
+
+    mod, name = spec.split(":")
+    obj = importlib.import_module(mod)
+    for part in name.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+@pytest.mark.parametrize("pair", list(ENGINE_DEFAULT_PAIRS))
+def test_engine_defaults_follow_the_jax_package(pair):
+    """The same call with default arguments runs the same engine in both
+    packages: each ``engine=`` default equals the JAX package's."""
+    import inspect
+
+    jax_fn, port_fn = (_resolve(s) for s in ENGINE_DEFAULT_PAIRS[pair])
+    default = lambda f: inspect.signature(f).parameters["engine"].default
+    assert default(port_fn) == default(jax_fn) == "particle", pair
+
+
+@pytest.mark.parametrize("cli", list(ENGINE_DEFAULT_CLIS))
+def test_cli_engine_defaults_follow_the_jax_package(cli):
+    """Each particle CLI's ``--engine`` default and its ``main(engine=)``
+    default equal the JAX package's CLI's."""
+    import importlib
+    import inspect
+    import pathlib
+    import re
+
+    jax_name, port_name = ENGINE_DEFAULT_CLIS[cli]
+    root = pathlib.Path(__file__).parent.parent
+    pat = re.compile(r'add_argument\(\s*"--engine",\s*default="(\w+)"')
+    jax_src = (root / "experiments" / f"{jax_name}.py").read_text()
+    port_mod = importlib.import_module(
+        f"hydrolim_tpu_torch.experiments.{port_name}")
+    port_src = inspect.getsource(port_mod)
+    assert pat.findall(port_src) == pat.findall(jax_src) == ["particle"]
+    jax_main = re.search(r'def main\([^)]*engine: str = "(\w+)"', jax_src,
+                         re.S).group(1)
+    port_main = inspect.signature(port_mod.main).parameters["engine"].default
+    assert port_main == jax_main == "particle"

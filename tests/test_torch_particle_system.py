@@ -313,31 +313,29 @@ def test_meanfield_sweep_auto_outside_b1_scope():
 @pytest.mark.parametrize("call", ["lattice_gas", "exclusion", "checkpoint",
                                   "figures", "flip_rate"])
 def test_out_of_scope_raises_with_its_roadmap_item(call):
-    """Each configuration or call outside the port raises naming its
-    ROADMAP.md item; ``engine='lattice_gas'`` (once §A item 1) now runs
-    an exclusion configuration on the slot engine."""
+    """Each call outside the port raises naming its ROADMAP.md item
+    (``run_checkpointed``, the figures); the configurations that raised
+    before their engines were ported now run: ``engine='lattice_gas'`` on
+    the slot engine, and ``engine='particle'`` with exclusion and local m
+    or with a custom flip rate on the τ-leap step."""
     ps = ParticleSystem(**_ps_kwargs(), device="cpu")
-    if call == "lattice_gas":
-        ps = ParticleSystem(**_ps_kwargs(site_capacity=3,
-                                         local_kernel_sigma=0.01),
-                            device="cpu")
-        out = ps.run(T=1.0, obs_dt=0.5, engine="lattice_gas")
-        assert ps.last_run_info["engine"] == "lgk_step"
+    if call in ("lattice_gas", "exclusion", "flip_rate"):
+        over = (dict(flip_rate_fn=lambda s, m: 1.0 + 0 * s)
+                if call == "flip_rate" else
+                dict(site_capacity=3, local_kernel_sigma=0.01))
+        ps = ParticleSystem(**_ps_kwargs(**over), device="cpu")
+        out = ps.run(T=1.0, obs_dt=0.5, **(
+            dict(engine="lattice_gas") if call == "lattice_gas" else {}))
+        assert ps.last_run_info["engine"] == (
+            "lgk_step" if call == "lattice_gas" else "tau_leap")
         assert len(out["pos_list"]) == 2 and np.isfinite(
             out["m_global"]).all()
         return
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A item"):
-        if call == "exclusion":
-            ParticleSystem(**_ps_kwargs(site_capacity=3,
-                                        local_kernel_sigma=0.01),
-                           device="cpu").run(T=1.0, obs_dt=0.5)
-        elif call == "checkpoint":
+        if call == "checkpoint":
             ps.run_checkpointed(T=1.0, obs_dt=0.5, ckpt_dir="unused")
-        elif call == "figures":
-            ps.plot_individuals({})
         else:
-            ParticleSystem(**_ps_kwargs(flip_rate_fn=lambda s, m: 1.0 + 0 * s),
-                           device="cpu")
+            ps.plot_individuals({})
 
 
 def test_facades_are_exported():

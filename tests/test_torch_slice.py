@@ -207,7 +207,8 @@ def test_slice_exclusion_p_block_k3_golden(tmp_path):
         [0.7], n_runs_per_beta=64, ps_kwargs=ps,
         init_kwargs=dict(rho0_plus=grad[0], rho0_minus=grad[1]),
         run_kwargs=dict(T=6.0, obs_dt=0.25), npz_path=str(tmp_path / "s.npz"),
-        seed=21, do_fit=False, plot_result=False, device="cpu")
+        seed=21, do_fit=False, plot_result=False, engine="fused",
+        device="cpu")
     mean, se = float(save["block_means"][0]), float(save["block_ses"][0])
     assert abs(mean - 0.5964) < max(4.0 * se, 0.028), (mean, se)
     # the npz reload path returns the same table
@@ -230,7 +231,7 @@ def test_slice_exclusion_k1_magnetization_pin(tmp_path):
         betas, n_runs_per_beta=n_runs, ps_kwargs=ps,
         run_kwargs=dict(T=8.0, obs_dt=0.5), npz_path=str(tmp_path / "s.npz"),
         seed=12, keep_outs=True, do_fit=False, plot_result=False,
-        device="cpu")
+        engine="fused", device="cpu")
     m_abs = np.array([[np.abs(o["m_global"][len(o["m_global"]) // 2:]).mean()
                        for o in outs] for outs in save["outs"]])
     assert abs(m_abs[2].mean() - m_fixed_point(2.5)) < 0.06, m_abs[2]
@@ -241,12 +242,22 @@ def test_slice_exclusion_k1_magnetization_pin(tmp_path):
 
 
 def test_package_never_imports_jax():
-    """Importing every module of the port leaves jax out of sys.modules."""
+    """Importing every module of the port leaves jax out of sys.modules;
+    the walk reaches the τ-leap engine's and the local-structure sweep's
+    modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import hydrolim_tpu_torch as p\n"
+        "names = set()\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    names.add(m.name)\n"
+        "new = {'core.device', 'runtime.native', 'runtime.exact',\n"
+        "       'observables.structure', 'sweeps.local_structure',\n"
+        "       'viz.structure_plots', 'experiments.particle_local_structure',\n"
+        "       'particles.stepper', 'ops.segment'}\n"
+        "missing = {n for n in new if p.__name__ + '.' + n not in names}\n"
+        "assert not missing, missing\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k == 'jax' or k.startswith(('jax.', 'hydrolim_tpu.')))\n"
         "assert not bad, bad\n"
