@@ -73,7 +73,22 @@ Phases (each prints one line with its wall time; a failed phase raises):
     launch; path (i), the local-structure sweep at its full default size
     on ``'particle'`` and on ``'pallas'`` (B3) within the golden rule of
     each other; the step's µs, kernels and device-busy share at both
-    paths' shapes, and each path's wall.
+    paths' shapes, and each path's wall;
+17. chunked checkpoint/resume on every route: each run once in one piece
+    (or phase 10's, 11's and 13's run at the same seed), once checkpointed
+    and stopped after one chunk (``stop_after_chunks=1``) and resumed by a
+    fresh call on the same directory; the elements of the stitched result
+    that differ from the run in one piece are counted, and must be 0.  B3:
+    ``sweep_over_betas(engine='fused', ckpt_dir=)`` in phase 8's two
+    configurations; B1: ``ParticleSystem.run_checkpointed`` in phase 11's
+    mean-field configuration; B2: ``IMEXPDE.solve_checkpointed`` at the
+    single run's size, split off the tracer window, and
+    ``run_pde_ensemble(ckpt_dir=)`` at magn2's shape; the plain-torch
+    engines (path (ii) on ``'particle'``, ``run_lattice_gas_k_checkpointed``)
+    at full width, 20 frames deep; the double sweep's chunk ledger (C0, C1,
+    C2 equal); and a real SIGKILL of the fused sweep (a) in a child
+    process, resumed here.  Each route prints both walls, the bytes
+    written and the seconds spent in writes (wall and process CPU).
 
 Phases 11-14 record B3's device time (CUDA events around each launch) and
 its share of each driver's wall time.
@@ -1222,6 +1237,7 @@ def pde_slice(outdir: str) -> dict:
 
     out = driven("single run", lambda: pde_single_run(
         outdir=f"{outdir}/single", device="cuda"))
+    RUNS_IN_ONE_PIECE["single run"] = out
     m_T, m_b = abs(float(out["m_series"][-1])), m_fixed_point(2.0)
     amp = out["fft_amp"]
     print(f"  |m(T)| {m_T:.5f}, m_beta(2) {m_b:.5f} (pin 0.01); fft_amp "
@@ -1380,6 +1396,8 @@ def particle_system_runs() -> dict:
         res = ps.run(T=30.0, obs_dt=0.5)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        if periodic:
+            RUNS_IN_ONE_PIECE["mean-field"] = res
         n = meanfield_multi_step.launches
         m = res["m_global"]
         dev_m = float(np.abs(np.abs(m[len(m) // 2:]) - m_b).mean())
@@ -1468,6 +1486,7 @@ def double_sweep_full(outdir: str) -> dict:
                                          engine="pallas")
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    RUNS_IN_ONE_PIECE["double sweep"] = {k: res[k] for k in DOUBLE_KEYS}
     out = report_wall("double sweep", wall, rows[-1])
     d = {k: abs(res[k] - getattr(bl, k)) / getattr(bl, k)
          for k in ("C0", "C1", "C2")}
@@ -2180,6 +2199,430 @@ def tau_leap_step_rates() -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 17: chunked checkpoint/resume on every route
+# ---------------------------------------------------------------------------
+
+# the runs in one piece of earlier phases, reused where phase 17 repeats
+# them at the same seed: phase 10's single run, phase 11's mean-field run
+# on B1, phase 13's double sweep
+RUNS_IN_ONE_PIECE: dict = {}
+
+# ``pde_single_run``'s facade (sweeps/pde_sweeps.py): IMEX_PDE_solver_run.py
+SINGLE_RUN = dict(L=1000, T=20.0, dt=5e-4, gamma=0.0, lam=0.6, beta=2.0,
+                  bc="periodic", active_model="bidirectional",
+                  gaussian_kernel=True, kernel_sigma=0.005,
+                  snapshot_interval=50, seed=58, device="cuda")
+
+# A child process that runs the fused sweep (a) with a checkpoint
+# directory; it imports the port only.  argv: repo root, outdir, ckpt_dir.
+KILL_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from hydrolim_tpu_torch.sweeps.beta_sweep import sweep_over_betas
+print("READY", flush=True)
+sweep_over_betas(np.linspace(0.0, 3.0, 11), n_runs_per_beta=3,
+                 npz_path=sys.argv[2] + "/child.npz", outdir=sys.argv[2],
+                 seed=0, do_fit=False, plot_result=False, engine="fused",
+                 device="cuda", ckpt_dir=sys.argv[3])
+print("DONE", flush=True)
+"""
+
+
+def count_diff(want, got, what: str) -> tuple:
+    """(elements that differ, elements compared) between two results,
+    field by field and element by element (NaN equals NaN); raises where
+    the two differ in structure, shape or dtype."""
+    if isinstance(want, dict):
+        if sorted(want) != sorted(got):
+            raise AssertionError(f"{what}: keys {sorted(want)} != "
+                                 f"{sorted(got)}")
+        parts = [count_diff(want[k], got[k], f"{what}.{k}") for k in want]
+    elif isinstance(want, (list, tuple)):
+        if len(want) != len(got):
+            raise AssertionError(f"{what}: length {len(want)} != "
+                                 f"{len(got)}")
+        parts = [count_diff(a, b, f"{what}[{i}]")
+                 for i, (a, b) in enumerate(zip(want, got))]
+    elif want is None or got is None:
+        if not (want is None and got is None):
+            raise AssertionError(f"{what}: {want!r} against {got!r}")
+        parts = []
+    else:
+        a, b = np.asarray(want), np.asarray(got)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{what}: {a.dtype}{a.shape} against "
+                                 f"{b.dtype}{b.shape}")
+        if a.dtype.kind in "fc":
+            same = (a == b) | (np.isnan(a) & np.isnan(b))
+        else:
+            same = a == b
+        return int(np.size(same) - np.count_nonzero(same)), int(a.size)
+    return (sum(p[0] for p in parts), sum(p[1] for p in parts))
+
+
+def _as_numpy(x):
+    """A result's tensors and dataclasses as numpy arrays and dicts."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if hasattr(x, "_asdict"):
+        return {k: _as_numpy(v) for k, v in x._asdict().items()}
+    if dataclasses.is_dataclass(x):
+        return {f.name: _as_numpy(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
+    if isinstance(x, (list, tuple)):
+        return [_as_numpy(v) for v in x]
+    return x
+
+
+def ckpt_route(name: str, one_piece, stop, resume, kernels: dict) -> dict:
+    """One route of phase 17: ``one_piece()`` gives the run in one piece
+    and its wall (None where an earlier phase's run is reused);
+    ``stop()`` runs the checkpointed call with ``stop_after_chunks=1``,
+    which must return None; ``resume()`` is a fresh call on the same
+    directory.  Prints both walls, the bytes written and the seconds spent
+    in writes (wall and process CPU), and the count of elements of the
+    stitched result that differ from the run in one piece, which must be
+    0.  Returns the kernels' launches in the checkpointed calls (counts
+    set to 0 just before them)."""
+    import torch
+    from hydrolim_tpu_torch.utils.checkpoint import (
+        WRITE_STATS,
+        reset_write_stats,
+    )
+
+    want, wall_one = one_piece()
+    for k in kernels.values():
+        k.launches = 0
+    reset_write_stats()
+    t0 = time.perf_counter()
+    halted = stop()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if halted is not None:
+        raise AssertionError(f"{name}: stop_after_chunks=1 returned a "
+                             "result")
+    got = resume()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {n: k.launches for n, k in kernels.items()}
+    w = dict(WRITE_STATS)
+    n_diff, n_all = count_diff(_as_numpy(want), _as_numpy(got), name)
+    one = ("reused from its phase" if wall_one is None
+           else f"{wall_one:.3f} s")
+    print(f"checkpoint {name}: in one piece {one}; checkpointed "
+          f"{t2 - t0:.3f} s (stopped after 1 chunk {t1 - t0:.3f} s + "
+          f"resumed {t2 - t1:.3f} s); {w['bytes']} bytes in {w['files']} "
+          f"files; writes: savez_compressed {w['save_s']:.3f} s wall, "
+          f"{w['save_cpu_s']:.3f} s CPU, waiting for each chunk's device "
+          f"work and copy {w['fetch_s']:.3f} s, renames "
+          f"{w['rename_s']:.4f} s; "
+          f"{n_diff} of {n_all} elements differ; launches {launches}",
+          flush=True)
+    if n_diff:
+        raise AssertionError(f"{name}: {n_diff} elements differ from the "
+                             "run in one piece")
+    if not w["files"]:
+        raise AssertionError(f"{name}: nothing was written")
+    return dict(launches=launches, wall_one_s=wall_one,
+                wall_ckpt_s=t2 - t0, bytes=w["bytes"],
+                save_s=w["save_s"], save_cpu_s=w["save_cpu_s"],
+                got=got)
+
+
+def _wall(fn):
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+DOUBLE_KEYS = ("C0", "C1", "C2", "C0_err", "C1_err", "C2_err", "f_fit",
+               "g_fit", "per_N")
+SWEEP_KEYS = ("outs", "means", "stds", "ses", "D_means", "D_ses",
+              "m_means", "m_stds", "m_ses", "rho_means", "rho_ses",
+              "block_means", "block_ses", "dt", "route", "spins_final")
+
+
+def kill_and_resume(outdir: str, want: dict) -> dict:
+    """The fused sweep (a) in a child process, killed by SIGKILL once two
+    of its four chunks are on disk, then resumed in this process: equal to
+    the sweep in one piece."""
+    import os
+    import signal
+
+    import torch
+    from hydrolim_tpu_torch.ops.exclusion_kernel import exclusion_multi_step
+    from hydrolim_tpu_torch.sweeps.beta_sweep import sweep_over_betas
+
+    ck = f"{outdir}/kill_ck"
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    child = subprocess.Popen([sys.executable, "-c", KILL_CHILD, root,
+                              outdir, ck], stdout=subprocess.PIPE, text=True)
+    try:
+        if child.stdout.readline().strip() != "READY":
+            raise AssertionError("the child did not start")
+        deadline = time.perf_counter() + 300
+        while not os.path.exists(f"{ck}/chunk_00001.npz"):
+            if child.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError("the child ended or stalled before "
+                                     "its second chunk")
+            time.sleep(0.005)
+        child.send_signal(signal.SIGKILL)
+        child.wait(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    t_kill = time.perf_counter() - t0
+    on_disk = sorted(os.listdir(ck))
+    exclusion_multi_step.launches = 0
+    t0 = time.perf_counter()
+    got = sweep_over_betas(
+        SLICE_BETAS, n_runs_per_beta=3, npz_path=f"{outdir}/kill.npz",
+        outdir=outdir, seed=0, keep_outs=True, do_fit=False,
+        plot_result=False, engine="fused", device="cuda", ckpt_dir=ck)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_diff, n_all = count_diff(_as_numpy({k: want[k] for k in SWEEP_KEYS}),
+                               _as_numpy({k: got[k] for k in SWEEP_KEYS}),
+                               "killed sweep (a)")
+    print(f"checkpoint SIGKILL, sweep (a): the child killed after "
+          f"{t_kill:.2f} s with {on_disk} on disk (exit code "
+          f"{child.returncode}); resumed here in {wall:.3f} s with "
+          f"{exclusion_multi_step.launches} launches of "
+          f"exclusion_multi_step; {n_diff} of {n_all} elements differ",
+          flush=True)
+    if child.returncode != -signal.SIGKILL or n_diff:
+        raise AssertionError("the killed sweep did not resume equal")
+    return {"checkpoint SIGKILL resume (a)": exclusion_multi_step.launches}
+
+
+def checkpoint_routes(outdir: str) -> dict:
+    """Phase 17: on each route, the run in one piece, the checkpointed run
+    stopped after one chunk (``stop_after_chunks=1``, the call returns
+    None), a fresh call resuming on the same directory, and the count of
+    elements of the stitched result that differ (0 on every route):
+    - B3: ``sweep_over_betas(engine='fused', ckpt_dir=)`` in phase 8's
+      configurations (a) and (b) (B=33, L=1000, 199 frames, chunks of
+      64); the per-β m, v_eff and D_eff and every replica's frames;
+    - B1: ``ParticleSystem.run_checkpointed`` in phase 11's mean-field
+      configuration (N=5000, L=256, 60 frames, chunks of 16) against
+      phase 11's run;
+    - B2: ``IMEXPDE.solve_checkpointed`` through ``pde_single_run`` at the
+      single run's size (40,000 steps, 501 bins; chunks of 125 blocks of
+      50 steps, so the split at step 6,250 is not a multiple of the
+      100-step tracer window) against phase 10's run, and
+      ``run_pde_ensemble(ckpt_dir=)`` at magn2's shape (B=5, σ=0.05,
+      20,000 steps, chunks of 8 blocks of 2,000);
+    - the plain-torch engines at full width, 20 frames deep (chunks of
+      8): ``sweep_over_betas(engine='particle', ckpt_dir=)`` on path (ii)
+      (configuration (b)) and ``run_lattice_gas_k_checkpointed`` at phase
+      15's shape (K=3, B=33, L=1000); no B3 launch;
+    - ``double_sweep_fused(engine='pallas', ckpt_dir=)`` at full size: the
+      chunk ledger, C0, C1 and C2 equal phase 13's;
+    - one real SIGKILL of the fused sweep (a) in a child process.
+    Returns each kernel's launches per path."""
+    import shutil
+
+    from hydrolim_tpu_torch import IMEXPDE, ParticleSystem
+    from hydrolim_tpu_torch.core.config import PDEConfig
+    from hydrolim_tpu_torch.experiments.cross_engine_validation import (
+        GAMMA,
+        LAM,
+    )
+    from hydrolim_tpu_torch.experiments.particle_beta_sweep import FLAGSHIP
+    from hydrolim_tpu_torch.ops.exclusion_kernel import exclusion_multi_step
+    from hydrolim_tpu_torch.ops.pde_kernel import pde_multi_step
+    from hydrolim_tpu_torch.ops.stepper_kernel import meanfield_multi_step
+    from hydrolim_tpu_torch.particles.lattice_gas_k import run_lattice_gas_k
+    from hydrolim_tpu_torch.sweeps.beta_sweep import (
+        DEFAULT_PS_KWARGS,
+        config_from_kwargs,
+        make_exp_gradient,
+        sweep_over_betas,
+    )
+    from hydrolim_tpu_torch.sweeps.double_sweep import double_sweep_fused
+    from hydrolim_tpu_torch.sweeps.ensemble import (
+        broadcast_params,
+        ensemble_dt,
+    )
+    from hydrolim_tpu_torch.sweeps.pde_sweeps import (
+        pde_single_run,
+        run_pde_ensemble,
+    )
+    from hydrolim_tpu_torch.utils.checkpoint import (
+        pde_solve_checkpointed,
+        run_lattice_gas_k_checkpointed,
+        run_particles_checkpointed,
+    )
+
+    kernels = {"meanfield_multi_step": meanfield_multi_step,
+               "pde_multi_step": pde_multi_step,
+               "exclusion_multi_step": exclusion_multi_step}
+    per_path = {name: {} for name in kernels}
+    t_phase = time.perf_counter()
+
+    n_routes = []
+
+    def route(name, one_piece, stop, resume, *, expect, none=()):
+        n_routes.append(name)
+        d = f"{outdir}/ck{len(n_routes)}"
+        row = ckpt_route(name, one_piece, lambda: stop(d),
+                         lambda: resume(d), kernels)
+        shutil.rmtree(d, ignore_errors=True)
+        for k in expect:
+            if row["launches"][k] <= 0:
+                raise AssertionError(f"{name}: {k} never launched")
+            per_path[k][f"checkpoint {name}"] = row["launches"][k]
+        for k in none:
+            if row["launches"][k]:
+                raise AssertionError(f"{name}: {k} launched")
+        return row
+
+    # -- B3: the fused sweep in phase 8's two configurations --------------
+    def sweep(over, engine="fused", **kw):
+        save = sweep_over_betas(
+            SLICE_BETAS, n_runs_per_beta=3, ps_kwargs=over or None,
+            npz_path=f"{outdir}/sweep.npz", outdir=outdir, seed=0,
+            keep_outs=True, do_fit=False, plot_result=False, engine=engine,
+            device="cuda", **kw)
+        return None if save is None else {k: save[k] for k in SWEEP_KEYS
+                                          if k in save}
+
+    sweep_a = None
+    for label, over in (("sweep (a) fused", {}),
+                        ("sweep (b) fused", FLAGSHIP)):
+        row = route(label, lambda: _wall(lambda: sweep(over)),
+                    lambda d: sweep(over, ckpt_dir=d, stop_after_chunks=1),
+                    lambda d: sweep(over, ckpt_dir=d),
+                    expect=("exclusion_multi_step",))
+        sweep_a = sweep_a or row["got"]
+    per_path["exclusion_multi_step"].update(kill_and_resume(outdir, sweep_a))
+
+    # -- B1: ParticleSystem in phase 11's mean-field configuration --------
+    def b1_system():
+        return ParticleSystem(
+            L=256, xlim=1, rate_diffusion=GAMMA * 256 ** 2,
+            rate_active=LAM * 256, beta=2.0, init="fixed", N=5000,
+            scale_rates=False, local_kernel_sigma=0.0, periodic=True,
+            site_capacity=None, active_model="bidirectional", rng=1,
+            device="cuda")
+
+    def b1_stop(d):
+        ps = b1_system()
+        state0 = ps.init_particles()          # the draws of run()
+        return run_particles_checkpointed(
+            ps.config, ps.params, state0, T=30.0, obs_dt=0.5, dt=ps.dt,
+            ckpt_dir=d, chunk_frames=16, record_pos=ps.record_pos,
+            record_fft=False, seed=ps._next_seed(), stop_after_chunks=1)
+
+    mf = RUNS_IN_ONE_PIECE.get("mean-field")
+    route("ParticleSystem mean-field (B1)",
+          (lambda: (mf, None)) if mf is not None else
+          (lambda: _wall(lambda: b1_system().run(T=30.0, obs_dt=0.5))),
+          b1_stop,
+          lambda d: b1_system().run_checkpointed(T=30.0, obs_dt=0.5,
+                                                 ckpt_dir=d,
+                                                 chunk_frames=16),
+          expect=("meanfield_multi_step",))
+
+    # -- B2: the single run through the facade, the magn2 ensemble -------
+    def facade():
+        s = IMEXPDE(outdir=f"{outdir}/single", **SINGLE_RUN)
+        s.initialize(mode="homogeneous", rho0=1.0, noise=0.3)
+        return s
+
+    def single_stop(d):
+        s = facade()
+        assert 125 * 50 % s.config.tracer_window   # a split off the window
+        return pde_solve_checkpointed(
+            s._solve_config(), s.params, s.rho_p, s.rho_m, s.tracers,
+            s.generator, ckpt_dir=d, chunk_blocks=125, stop_after_chunks=1)
+
+    single = RUNS_IN_ONE_PIECE.get("single run")
+    route("IMEXPDE single run (B2)",
+          (lambda: (single, None)) if single is not None else
+          (lambda: _wall(lambda: pde_single_run(
+              outdir=f"{outdir}/single", device="cuda"))),
+          single_stop,
+          lambda d: pde_single_run(outdir=f"{outdir}/single", ckpt_dir=d,
+                                   device="cuda"),
+          expect=("pde_multi_step",))
+
+    magn2 = PDEConfig(L=1000, T=10.0, dt=5e-4, bc="periodic",
+                      active_model="bidirectional", gaussian_kernel=True,
+                      kernel_sigma=0.05, snapshot_interval=2000, fft_kmax=8)
+    ens = dict(gamma=0.2, lam=0.6, n_runs=5, seed=100, n_tracers=1000,
+               device="cuda", fetch_snapshots=False)
+    route("PDE ensemble magn2 (B2)",
+          lambda: _wall(lambda: run_pde_ensemble(magn2, [0.75], **ens)[0]),
+          lambda d: run_pde_ensemble(magn2, [0.75], ckpt_dir=d,
+                                     stop_after_chunks=1, **ens),
+          lambda d: run_pde_ensemble(magn2, [0.75], ckpt_dir=d, **ens)[0],
+          expect=("pde_multi_step",))
+
+    # -- the plain-torch engines, 20 frames deep --------------------------
+    short = dict(T=2.0, obs_dt=0.1)
+    route("sweep (b) particle, path (ii)",
+          lambda: _wall(lambda: sweep(FLAGSHIP, "particle",
+                                      run_kwargs=short)),
+          lambda d: sweep(FLAGSHIP, "particle", run_kwargs=short,
+                          ckpt_dir=d, chunk_frames=8, stop_after_chunks=1),
+          lambda d: sweep(FLAGSHIP, "particle", run_kwargs=short,
+                          ckpt_dir=d, chunk_frames=8),
+          expect=(), none=("exclusion_multi_step",))
+    ps = dict(DEFAULT_PS_KWARGS, **FLAGSHIP)
+    config = config_from_kwargs(ps)
+    rates = dict(rate_diffusion=float(ps["rate_diffusion"]),
+                 rate_active=float(ps["rate_active"]))
+    grad = make_exp_gradient(L=config.L, N=config.N, frac_plus=0.75,
+                             decay_length=0.35, anchor_positions=None)
+    params = broadcast_params(config, beta=SLICE_BETAS, n_runs=3,
+                              device="cuda", **rates)
+    lgk = dict(short, dt=ensemble_dt(config, beta_max=3.0, **rates), seed=0,
+               device="cuda", rho0_plus=grad[2], rho0_minus=grad[3],
+               n_tracers=config.n_buf)
+    route("lgk_step, phase 15's shape",
+          lambda: _wall(lambda: run_lattice_gas_k(config, params, **lgk)),
+          lambda d: run_lattice_gas_k_checkpointed(
+              config, params, ckpt_dir=d, chunk_frames=8,
+              stop_after_chunks=1, **lgk),
+          lambda d: run_lattice_gas_k_checkpointed(
+              config, params, ckpt_dir=d, chunk_frames=8, **lgk),
+          expect=(), none=("exclusion_multi_step",))
+
+    # -- the double sweep's chunk ledger ----------------------------------
+    def double(**kw):
+        res = double_sweep_fused(
+            np.linspace(0, 3, 11), np.linspace(50, 950, 19),
+            n_runs_per_beta=4, run_kwargs=dict(T=10, obs_dt=0.1),
+            outdir=f"{outdir}/double", seed=0, plot_result=False,
+            engine="pallas", device="cuda", **kw)
+        return None if res is None else {k: res[k] for k in DOUBLE_KEYS}
+
+    ds = RUNS_IN_ONE_PIECE.get("double sweep")
+    row = route("double sweep ledger (B3)",
+                (lambda: (ds, None)) if ds is not None else
+                (lambda: _wall(double)),
+                lambda d: double(ckpt_dir=d, stop_after_chunks=1),
+                lambda d: double(ckpt_dir=d),
+                expect=("exclusion_multi_step",))
+    print(f"  double sweep resumed: C0 {row['got']['C0']:.6f}, C1 "
+          f"{row['got']['C1']:.6f}, C2 {row['got']['C2']:.6f}", flush=True)
+    print(f"phase 17 took {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+    return per_path
+
+
 def main() -> int:
     import torch
 
@@ -2287,7 +2730,12 @@ def main() -> int:
         print("tau-leap driver walls (s): "
               + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()),
               flush=True)
-    for row in (b1, b3):
+    with phase("17 checkpoint"):
+        with tempfile.TemporaryDirectory() as outdir:
+            per_path = checkpoint_routes(outdir)
+        for name, paths in per_path.items():
+            rows[name]["launches_per_path"].update(paths)
+    for row in rows.values():
         row["launches"] = sum(row["launches_per_path"].values())
 
     print(json.dumps({"kernels": list(rows.values())}))

@@ -7,9 +7,8 @@ ROADMAP.md §A that will port it.
 from __future__ import annotations
 
 ROADMAP_ITEMS = {
-    "host": "ROADMAP.md §A item 1, the host estimators and figures",
-    "checkpointing": "ROADMAP.md §A item 2, checkpointing",
-    "parallelism": "ROADMAP.md §A item 3, parallelism",
+    "host": "ROADMAP.md §A item 1, the figures",
+    "parallelism": "ROADMAP.md §A item 2, parallelism",
 }
 
 

@@ -10,11 +10,12 @@ chunks of 44 replicas on the card unless ``--device cpu``.
 JAX package's VALIDATION.md compares 16-run realizations, seeds 0 and 1);
 ``--engine`` picks the engine: ``particle`` (the default, as in the JAX
 package's CLI) the general τ-leap step, ``pallas`` kernel B3/B4,
-``lattice_gas`` the plain-torch slot engine.
+``lattice_gas`` the plain-torch slot engine.  ``--ckpt-dir DIR`` keeps
+the chunk ledger there; a rerun with it runs only the missing chunks.
 
 Usage: python -m hydrolim_tpu_torch.experiments.particle_double_sweep
        [--small] [--outdir DIR] [--device cuda|cpu] [--n-runs N]
-       [--seed S] [--engine particle|pallas|lattice_gas]
+       [--seed S] [--engine particle|pallas|lattice_gas] [--ckpt-dir DIR]
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from hydrolim_tpu_torch.sweeps.double_sweep import double_sweep_fused
 
 def main(small: bool = False, outdir: str = "double_sweep_out",
          device: str = "cuda", n_runs: int = None, seed: int = 0,
-         engine: str = "particle"):
+         engine: str = "particle", ckpt_dir: str = None):
     if small:
         betas = np.linspace(0, 3, 4)
         Ns = np.linspace(40, 160, 4)
@@ -39,7 +40,8 @@ def main(small: bool = False, outdir: str = "double_sweep_out",
         kw = dict(n_runs_per_beta=n_runs or 4,
                   run_kwargs=dict(T=10, obs_dt=0.1))
     res = double_sweep_fused(betas, Ns, outdir=outdir, device=device,
-                             seed=seed, engine=engine, **kw)
+                             seed=seed, engine=engine, ckpt_dir=ckpt_dir,
+                             **kw)
     print("f(rho):", np.round(res["f_fit"], 3))
     print("g(rho):", np.round(res["g_fit"], 3))
     print(f"C0={res['C0']:.6f} ± {res['C0_err']:.6f}  C1={res['C1']:.6f} ± "
@@ -57,6 +59,8 @@ if __name__ == "__main__":
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--engine", default="particle",
                    choices=["particle", "pallas", "lattice_gas"])
+    p.add_argument("--ckpt-dir", default=None,
+                   help="chunk-ledger dir (rerun on it to resume)")
     a = p.parse_args()
     main(a.small, a.outdir, a.device, n_runs=a.n_runs, seed=a.seed,
-         engine=a.engine)
+         engine=a.engine, ckpt_dir=a.ckpt_dir)

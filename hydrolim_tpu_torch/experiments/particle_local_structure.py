@@ -10,10 +10,13 @@ runs 4 β × 2 runs at L=200, N=180 on a torus, T=4, obs_dt=0.2.
 ``--engine``: ``particle`` (the default, as in the JAX package's CLI) runs
 the general τ-leap step, ``pallas`` kernel B3/B4, ``lattice_gas`` the
 plain-torch slot engines; on the card unless ``--device cpu``.
+``--ckpt-dir DIR`` checkpoints the grid in flight (``particle`` and
+``lattice_gas``); a rerun with it resumes.
 
 Usage: python -m hydrolim_tpu_torch.experiments.particle_local_structure
        [--small] [--outdir DIR] [--replot]
        [--engine particle|lattice_gas|pallas] [--device cuda|cpu]
+       [--ckpt-dir DIR]
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ NPZ = "beta_sweep_local_structure.npz"
 
 
 def main(small: bool = False, outdir: str = "local_structure_out",
-         run: bool = True, engine: str = "particle", device: str = "cuda"):
+         run: bool = True, engine: str = "particle", device: str = "cuda",
+         ckpt_dir: str = None):
     npz = Path(outdir) / NPZ
     if small:
         betas = np.linspace(0, 3, 4)
@@ -46,7 +50,8 @@ def main(small: bool = False, outdir: str = "local_structure_out",
     if run:
         results = sweep_betas_for_structures(betas, n_runs, ps_kwargs=ps,
                                              run_kwargs=rk, keep_outs=True,
-                                             engine=engine, device=device)
+                                             engine=engine, device=device,
+                                             ckpt_dir=ckpt_dir)
         npz.parent.mkdir(parents=True, exist_ok=True)
         save_structure_results(results, str(npz))
     else:
@@ -68,6 +73,9 @@ if __name__ == "__main__":
     p.add_argument("--engine", default="particle",
                    choices=["particle", "lattice_gas", "pallas"])
     p.add_argument("--device", default="cuda")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="mid-run checkpoint/resume dir ('particle' and "
+                        "'lattice_gas'; rerun on it to resume)")
     a = p.parse_args()
     main(a.small, a.outdir, run=not a.replot, engine=a.engine,
-         device=a.device)
+         device=a.device, ckpt_dir=a.ckpt_dir)

@@ -7,11 +7,12 @@ the JAX package's ``experiments/run_particle_sigma_sweep.py``.  σ=0.3
 sweep resumable; ``--replot`` redraws from the cross-σ archive.
 ``--engine``: ``particle`` (the default, as in the JAX package's CLI) runs
 the general τ-leap step, ``fused``/``pallas`` kernel B3/B4,
-``lattice_gas`` the plain-torch slot engines.
+``lattice_gas`` the plain-torch slot engines.  ``--ckpt-dir DIR``
+checkpoints each σ's grid in flight (one subdirectory per σ).
 
 Usage: python -m hydrolim_tpu_torch.experiments.particle_sigma_sweep
        [--small] [--outdir DIR] [--device cuda|cpu] [--replot]
-       [--engine particle|fused|pallas|lattice_gas]
+       [--engine particle|fused|pallas|lattice_gas] [--ckpt-dir DIR]
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ from hydrolim_tpu_torch.sweeps.sigma_sweep import (
 
 
 def main(small: bool = False, outdir: str = "sigma_sweep_out",
-         run: bool = True, device: str = "cuda", engine: str = "particle"):
+         run: bool = True, device: str = "cuda", engine: str = "particle",
+         ckpt_dir: str = None):
     if small:
         sigmas = [0.005, 0.05, 0]
         betas = np.linspace(0, 3, 4)
@@ -43,7 +45,8 @@ def main(small: bool = False, outdir: str = "sigma_sweep_out",
         ps, rk, n_runs = None, None, 5
     results = sweep_over_sigmas(sigmas, betas, n_runs_per_beta=n_runs,
                                 run=run, ps_kwargs=ps, run_kwargs=rk,
-                                outdir=outdir, device=device, engine=engine)
+                                outdir=outdir, device=device, engine=engine,
+                                ckpt_dir=ckpt_dir)
     plot_v_eff_all_sigmas(results, outdir)
     plot_D_eff_all_sigmas(results, outdir)
     plot_v_eff_vs_sigma_all_beta(results, outdir)
@@ -62,6 +65,9 @@ if __name__ == "__main__":
                    help="reload the cross-sigma archive instead of running")
     p.add_argument("--engine", default="particle",
                    choices=["particle", "fused", "pallas", "lattice_gas"])
+    p.add_argument("--ckpt-dir", default=None,
+                   help="mid-run checkpoint/resume dir, one subdirectory "
+                        "per sigma (rerun on it to resume)")
     a = p.parse_args()
     main(a.small, a.outdir, run=not a.replot, device=a.device,
-         engine=a.engine)
+         engine=a.engine, ckpt_dir=a.ckpt_dir)

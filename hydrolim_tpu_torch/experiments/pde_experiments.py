@@ -4,10 +4,13 @@ Reference drivers: IMEX_PDE_solver_run.py, IMEX_PDE_solver_run_sweep.py,
 IMEX_PDE_solver_run_sweep_magn{,2}.py; the counterpart of the JAX
 package's ``experiments/run_pde_experiments.py``.  Each command writes
 ``<which>.json`` with its results into ``--outdir`` (the figures too,
-where matplotlib is installed).
+where matplotlib is installed).  ``--ckpt-dir DIR`` checkpoints the solve
+in flight (``solve_checkpointed`` for ``single``, ``ckpt_dir=`` of the
+sweeps); a rerun with it resumes.
 
 Usage: python -m hydrolim_tpu_torch.experiments.pde_experiments
        {single,beta,magn,magn2} [--small] [--outdir DIR] [--device cuda|cpu]
+       [--ckpt-dir DIR]
 """
 from __future__ import annotations
 
@@ -60,18 +63,21 @@ def _jsonable(x):
 
 
 def main(which: str, small: bool = False, outdir: str = "pde_out",
-         device: str = "cuda"):
+         device: str = "cuda", ckpt_dir: str = None):
     if which == "single":
         kw = dict(L=128, T=2.0, dt=1e-3) if small else {}
-        r = pde_single_run(outdir=outdir, device=device, **kw)
+        r = pde_single_run(outdir=outdir, device=device, ckpt_dir=ckpt_dir,
+                           **kw)
         print("final m:", r["m_series"][-1])
     elif which == "beta":
         if small:
             r = pde_beta_sweep(np.linspace(0, 3, 4), n_runs=2, T=6.0,
                                t_min=4.0, t_max=6.0, L=128, dt=1e-3,
-                               n_tracers=200, outdir=outdir, device=device)
+                               n_tracers=200, outdir=outdir, device=device,
+                               ckpt_dir=ckpt_dir)
         else:
-            r = pde_beta_sweep(outdir=outdir, device=device)
+            r = pde_beta_sweep(outdir=outdir, device=device,
+                               ckpt_dir=ckpt_dir)
         print("v(beta):", np.round(r["v_mean"], 4))
         print("D(beta):", np.round(r["D_mean"], 4))
     elif which in ("magn", "magn2"):
@@ -79,7 +85,7 @@ def main(which: str, small: bool = False, outdir: str = "pde_out",
                   kernel_sigma_values=[0.005, 0.05, 1.0], n_runs=2) \
             if small else {}
         r = pde_kernel_sigma_sweep(variant=which, outdir=outdir,
-                                   device=device, **kw)
+                                   device=device, ckpt_dir=ckpt_dir, **kw)
         print("final |m| per sigma:",
               {s: float(np.mean(v[:, -1])) for s, v in r["m"].items()})
     else:
@@ -97,5 +103,7 @@ if __name__ == "__main__":
     p.add_argument("--small", action="store_true")
     p.add_argument("--outdir", default="pde_out")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="mid-run checkpoint/resume dir (rerun on it to resume)")
     a = p.parse_args()
-    main(a.which, a.small, a.outdir, a.device)
+    main(a.which, a.small, a.outdir, a.device, ckpt_dir=a.ckpt_dir)

@@ -299,6 +299,82 @@ def _init_tracers(occ0: torch.Tensor, bits: torch.Tensor, n_tracers: int
     return idx.to(torch.int32), vals > 0
 
 
+class LgRun:
+    """The fixed parts of one K = 1 run (JAX ``lattice_gas.py:331``): the
+    frame grid, the smoothing band and the recorder.  ``start`` draws the
+    carry of frame 0 (occupancy, tracer sites and windings, the phantom-tag
+    mask, the generator); ``run_range`` records frames [lo, hi) and returns
+    the carry after them.  Every draw is the generator's next, in global
+    step order, so ranges stitch bit for bit given the carry
+    (``utils.checkpoint.run_lattice_gas_checkpointed``).
+
+    Test-only: ``_draws`` replaces the draws (``tracer_bits(shape)`` and
+    ``step(i)`` → ``_inject`` of global step i)."""
+
+    route = "lg_step"
+    frames_type = LatticeGasFrames
+
+    def __init__(self, config: ParticleConfig, params_b: ParticleParams, *,
+                 T: float, obs_dt: float, dt: float, record_fft: bool,
+                 n_tracers: int, device, _draws=None):
+        assert config.site_capacity == 1
+        self.config, self.params_b = config, params_b
+        self.device = torch.device(device)
+        self.n_frames, self.n_sub, self.dt_eff = frame_grid(T, obs_dt, dt)
+        self.n_t = min(n_tracers, config.L)
+        self.band = build_smoothing_band(config, self.device)
+        mfield_op = build_mfield_op(config.L, config.dx,
+                                    config.local_kernel_sigma,
+                                    config.periodic, self.device)
+        self.rec = lambda o: _lg_record_counts(
+            config, mfield_op, (o == 1).to(torch.float32),
+            (o == -1).to(torch.float32), record_fft)
+        self._draws = _draws
+
+    def start(self, seed: int, rho0_plus=None, rho0_minus=None,
+              _occ0: Optional[torch.Tensor] = None) -> dict:
+        B, L = self.params_b.beta.shape[0], self.config.L
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        occ = (lg_init(self.config, gen, rho0_plus, rho0_minus, B=B,
+                       device=self.device)
+               if _occ0 is None else _occ0.to(self.device))
+        bits = (tracer_bits((B, L), gen, self.device) if self._draws is None
+                else self._draws.tracer_bits((B, L)))
+        site, valid = _init_tracers(occ, bits, self.n_t)
+        return dict(occ=occ, site=site, wind=torch.zeros_like(site),
+                    valid=valid, gen=gen)
+
+    def run_range(self, carry: dict, lo: int, hi: int):
+        config, L = self.config, self.config.L
+        occ, site, wind, valid = (carry[k] for k in ("occ", "site", "wind",
+                                                     "valid"))
+        gen, n_sub = carry["gen"], self.n_sub
+        frames, tracks = [], []
+        if lo == 0:
+            frames.append(self.rec(occ))
+            tracks.append(tracer_record(site, wind, valid, L))
+        for f in range(max(lo, 1), hi):
+            for s in range(n_sub):
+                inject = (None if self._draws is None
+                          else self._draws.step((f - 1) * n_sub + s))
+                occ, (mr, ml, _) = lg_step(config, self.params_b, self.band,
+                                           occ, self.dt_eff, generator=gen,
+                                           _inject=inject)
+                if self.n_t:
+                    site, wind = follow_tracers(
+                        site, wind, mr.gather(1, site.long()),
+                        ml.gather(1, site.long()), L, config.periodic)
+            frames.append(self.rec(occ))
+            tracks.append(tracer_record(site, wind, valid, L))
+        return (stack_frames(frames, torch.stack(tracks, dim=1)),
+                dict(occ=occ, site=site, wind=wind, valid=valid, gen=gen))
+
+    @staticmethod
+    def final(carry: dict) -> torch.Tensor:
+        return carry["occ"]
+
+
 def run_lattice_gas(config: ParticleConfig, params_b: ParticleParams, *,
                     T: float, obs_dt: float, dt: float, seed: int = 0,
                     device="cuda", rho0_plus=None, rho0_minus=None,
@@ -310,45 +386,15 @@ def run_lattice_gas(config: ParticleConfig, params_b: ParticleParams, *,
     ``device``; with ``n_tracers`` > 0 the tagged particles' unwrapped
     positions, ``TRACER_INVALID`` for phantoms) and the final (B, L)
     occupancy.  All draws come from one generator seeded with ``seed``:
-    the initial field, the tracer keys, then each step's.
+    the initial field, the tracer keys, then each step's.  The run is one
+    ``LgRun.run_range`` over every frame.
 
     Test-only: ``_occ0`` replaces the initial field and ``_draws`` the
     draws (``tracer_bits(shape)`` and ``step(i)`` → ``_inject`` of global
     step i)."""
-    assert config.site_capacity == 1
-    device = torch.device(device)
-    B = params_b.beta.shape[0]
-    L = config.L
-    M, n_sub, dt_eff = frame_grid(T, obs_dt, dt)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    occ = (lg_init(config, gen, rho0_plus, rho0_minus, B=B, device=device)
-           if _occ0 is None else _occ0.to(device))
-    n_t = min(n_tracers, L)
-    bits = (tracer_bits((B, L), gen, device) if _draws is None
-            else _draws.tracer_bits((B, L)))
-    site, valid = _init_tracers(occ, bits, n_t)
-    wind = torch.zeros_like(site)
-    band = build_smoothing_band(config, device)
-    mfield_op = build_mfield_op(L, config.dx, config.local_kernel_sigma,
-                                config.periodic, device)
-
-    def rec(o):
-        return _lg_record_counts(config, mfield_op, (o == 1).to(torch.float32),
-                                 (o == -1).to(torch.float32), record_fft)
-
-    frames = [rec(occ)]
-    tracks = [tracer_record(site, wind, valid, L)]
-    for f in range(1, M):
-        for s in range(n_sub):
-            inject = (None if _draws is None
-                      else _draws.step((f - 1) * n_sub + s))
-            occ, (mr, ml, _) = lg_step(config, params_b, band, occ, dt_eff,
-                                       generator=gen, _inject=inject)
-            if n_t:
-                site, wind = follow_tracers(
-                    site, wind, mr.gather(1, site.long()),
-                    ml.gather(1, site.long()), L, config.periodic)
-        frames.append(rec(occ))
-        tracks.append(tracer_record(site, wind, valid, L))
-    return stack_frames(frames, torch.stack(tracks, dim=1)), occ
+    run = LgRun(config, params_b, T=T, obs_dt=obs_dt, dt=dt,
+                record_fft=record_fft, n_tracers=n_tracers, device=device,
+                _draws=_draws)
+    frames, carry = run.run_range(
+        run.start(seed, rho0_plus, rho0_minus, _occ0), 0, run.n_frames)
+    return frames, run.final(carry)

@@ -318,6 +318,81 @@ def _slot_recorder(config: ParticleConfig, record_fft: bool, device):
     return rec
 
 
+class LgkRun:
+    """The fixed parts of one K-slot run (JAX ``lattice_gas_k.py:421``):
+    the frame grid, the smoothing band and the recorder.  ``start`` draws
+    the carry of frame 0 (slots, tracer sites, slots and windings, the
+    phantom-tag mask, the generator); ``run_range`` records frames
+    [lo, hi) and returns the carry after them, so ranges stitch bit for
+    bit given the carry (``utils.checkpoint.run_lattice_gas_k_checkpointed``).
+
+    Test-only: ``_draws`` as in ``run_lattice_gas_k``."""
+
+    route = "lgk_step"
+    frames_type = LatticeGasFrames
+
+    def __init__(self, config: ParticleConfig, params_b: ParticleParams, *,
+                 T: float, obs_dt: float, dt: float, record_fft: bool,
+                 n_tracers: int, device, _draws=None):
+        assert config.exclusion, "lattice-gas engines require site_capacity"
+        assert config.anchor_positions is None, (
+            "anchors run on run_lattice_gas_anchored")
+        self.config, self.params_b = config, params_b
+        self.device = torch.device(device)
+        self.n_frames, self.n_sub, self.dt_eff = frame_grid(T, obs_dt, dt)
+        self.n_t = min(n_tracers, config.K * config.L)
+        self.band = build_smoothing_band(config, self.device)
+        self.rec = _slot_recorder(config, record_fft, self.device)
+        self._draws = _draws
+
+    def start(self, seed: int, rho0_plus=None, rho0_minus=None,
+              _slots0: Optional[torch.Tensor] = None) -> dict:
+        B = self.params_b.beta.shape[0]
+        KL = self.config.K * self.config.L
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        slots = _initial_slots(self.config, gen, rho0_plus, rho0_minus, B,
+                               self.device, _slots0)
+        bits = (tracer_bits((B, KL), gen, self.device)
+                if self._draws is None
+                else self._draws.tracer_bits((B, KL)))
+        site, slot, valid = _init_tracers_k(slots, bits, self.n_t)
+        return dict(slots=slots, site=site, slot=slot,
+                    wind=torch.zeros_like(site), valid=valid, gen=gen)
+
+    def run_range(self, carry: dict, lo: int, hi: int):
+        config, L = self.config, self.config.L
+        slots, site, slot, wind, valid = (
+            carry[k] for k in ("slots", "site", "slot", "wind", "valid"))
+        gen, n_sub, B = carry["gen"], self.n_sub, slots.shape[0]
+        frames, tracks = [], []
+        if lo == 0:
+            frames.append(self.rec(slots))
+            tracks.append(tracer_record(site, wind, valid, L))
+        for f in range(max(lo, 1), hi):
+            for s in range(n_sub):
+                inject = (None if self._draws is None
+                          else self._draws.step((f - 1) * n_sub + s))
+                slots, (mr, ml, _, new_k), _ = lgk_step(
+                    config, self.params_b, self.band, slots, self.dt_eff,
+                    generator=gen, _inject=inject)
+                if self.n_t:
+                    flat = (slot * L + site).long()
+                    take = lambda a: a.reshape(B, -1).gather(1, flat)
+                    slot = take(new_k)
+                    site, wind = follow_tracers(site, wind, take(mr),
+                                                take(ml), L, config.periodic)
+            frames.append(self.rec(slots))
+            tracks.append(tracer_record(site, wind, valid, L))
+        return (stack_frames(frames, torch.stack(tracks, dim=1)),
+                dict(slots=slots, site=site, slot=slot, wind=wind,
+                     valid=valid, gen=gen))
+
+    @staticmethod
+    def final(carry: dict) -> torch.Tensor:
+        return carry["slots"]
+
+
 def run_lattice_gas_k(config: ParticleConfig, params_b: ParticleParams, *,
                       T: float, obs_dt: float, dt: float, seed: int = 0,
                       device="cuda", rho0_plus=None, rho0_minus=None,
@@ -331,47 +406,17 @@ def run_lattice_gas_k(config: ParticleConfig, params_b: ParticleParams, *,
     ``rho0_plus/minus`` are (L,) or per-replica (B, L) Poisson profiles
     (the (N, β) double sweep).  All draws come from one generator seeded
     with ``seed``: the initial field, the tracer keys, then each step's.
+    The run is one ``LgkRun.run_range`` over every frame.
 
     Test-only: ``_slots0`` replaces the initial field and ``_draws`` the
     draws (``tracer_bits(shape)`` and ``step(i)`` → ``_inject`` of global
     step i)."""
-    assert config.exclusion, "lattice-gas engines require site_capacity"
-    assert config.anchor_positions is None, (
-        "anchors run on run_lattice_gas_anchored")
-    device = torch.device(device)
-    B = params_b.beta.shape[0]
-    K, L = config.K, config.L
-    M, n_sub, dt_eff = frame_grid(T, obs_dt, dt)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    slots = _initial_slots(config, gen, rho0_plus, rho0_minus, B, device,
-                           _slots0)
-    n_t = min(n_tracers, K * L)
-    bits = (tracer_bits((B, K * L), gen, device) if _draws is None
-            else _draws.tracer_bits((B, K * L)))
-    site, slot, valid = _init_tracers_k(slots, bits, n_t)
-    wind = torch.zeros_like(site)
-    band = build_smoothing_band(config, device)
-    rec = _slot_recorder(config, record_fft, device)
-
-    frames = [rec(slots)]
-    tracks = [tracer_record(site, wind, valid, L)]
-    for f in range(1, M):
-        for s in range(n_sub):
-            inject = (None if _draws is None
-                      else _draws.step((f - 1) * n_sub + s))
-            slots, (mr, ml, _, new_k), _ = lgk_step(
-                config, params_b, band, slots, dt_eff, generator=gen,
-                _inject=inject)
-            if n_t:
-                flat = (slot * L + site).long()
-                take = lambda a: a.reshape(B, -1).gather(1, flat)
-                slot = take(new_k)
-                site, wind = follow_tracers(site, wind, take(mr), take(ml),
-                                            L, config.periodic)
-        frames.append(rec(slots))
-        tracks.append(tracer_record(site, wind, valid, L))
-    return stack_frames(frames, torch.stack(tracks, dim=1)), slots
+    run = LgkRun(config, params_b, T=T, obs_dt=obs_dt, dt=dt,
+                 record_fft=record_fft, n_tracers=n_tracers, device=device,
+                 _draws=_draws)
+    frames, carry = run.run_range(
+        run.start(seed, rho0_plus, rho0_minus, _slots0), 0, run.n_frames)
+    return frames, run.final(carry)
 
 
 def run_lattice_gas_anchored(config: ParticleConfig,

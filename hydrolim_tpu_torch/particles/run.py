@@ -170,6 +170,121 @@ def _batched(v, B: int, device) -> torch.Tensor:
                            device=device).reshape(-1).expand(B)
 
 
+STATE_FIELDS = tuple(f.name for f in dataclasses.fields(ParticleState))
+
+
+class ParticleRun:
+    """The fixed parts of one run of a (B, n_buf) batch: the route, the
+    frame grid (``n_frames`` frames of ``n_sub`` sub-steps of ``dt_eff``)
+    and the frame recorder.  ``start`` makes the carry of frame 0 (the
+    state, B1's Philox seeds, the ``torch.Generator``); ``run_range``
+    records frames [lo, hi) and returns the carry after frame hi − 1.
+    Every draw and every counter is a function of the global frame and
+    step index, so a run split into ranges is the run in one piece, bit
+    for bit, given the carry (``utils.checkpoint`` saves it between
+    ranges).
+
+    The carry is a dict: the state's fields by name (None where the state
+    has none), ``seeds`` ((B,) int32 on B1's route, else None) and
+    ``gen``, the generator."""
+
+    def __init__(self, config: ParticleConfig, params: ParticleParams, *,
+                 T: float, obs_dt: float, dt: float, record_pos: bool,
+                 record_fft: bool, engine: str, device, _draws=None):
+        self.config, self.params = config, params
+        self.route = particle_route(config, engine)
+        self.device = torch.device(device)
+        self.statics = build_static_arrays(config, self.device)
+        self.record_pos, self.record_fft = record_pos, record_fft
+        self.obs_dt = obs_dt
+        self.n_frames = len(np.arange(0.0, T, obs_dt))
+        self.n_sub = substeps_for(obs_dt, dt) if self.n_frames else 0
+        self.dt_eff = obs_dt / self.n_sub if self.n_frames else 0.0
+        self._draws = _draws
+
+    def prepare(self, state0: ParticleState) -> ParticleState:
+        """``state0`` as the route carries it: on the τ-leap route with its
+        exit log (``with_exit_log``), elsewhere with an alive mask."""
+        if self.route == TAU_LEAP_ROUTE:
+            return with_exit_log(self.config, state0)
+        if state0.alive is None:
+            return dataclasses.replace(
+                state0, alive=torch.ones_like(state0.pos, dtype=torch.bool))
+        return state0
+
+    def record(self, state: ParticleState) -> ParticleFrames:
+        return _record_frame(self.config, self.statics.mfield_op, state,
+                             self.record_pos, self.record_fft)
+
+    def start(self, state0: ParticleState, seed: int) -> dict:
+        """The carry of frame 0: ``state0`` (prepared), the generator seeded
+        with ``seed`` and, on B1's route, the Philox seeds drawn from it."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        seeds = None
+        if self.route == B1_ROUTE:
+            N = self.config.N
+            if not bool(state0.alive[:, :N].all()) or \
+                    bool(state0.alive[:, N:].any()):
+                raise ValueError("kernel B1 runs the first N buffer "
+                                 "entries: the state's alive entries must "
+                                 "be exactly those (the 'fixed' init)")
+            seeds = torch.randint(0, 2 ** 31 - 1, (state0.pos.shape[0],),
+                                  generator=gen, device=self.device,
+                                  dtype=torch.int32)
+        return dict({f: getattr(state0, f) for f in STATE_FIELDS},
+                    seeds=seeds, gen=gen)
+
+    @staticmethod
+    def state(carry: dict) -> ParticleState:
+        return ParticleState(**{f: carry[f] for f in STATE_FIELDS})
+
+    def run_range(self, carry: dict, lo: int, hi: int):
+        """Frames [lo, hi) (leaves (B, hi − lo, ...)) and the carry after
+        them; frame 0 is the carried state as it is."""
+        config, params, gen = self.config, self.params, carry["gen"]
+        state = self.state(carry)
+        n_sub, dt_eff = self.n_sub, self.dt_eff
+        frames = [self.record(state)] if lo == 0 else []
+        f0 = max(lo, 1)
+        if self.route == B1_ROUTE and hi > f0:
+            N, B, dev = config.N, state.pos.shape[0], self.device
+            scal = torch.stack([_batched(v, B, dev) for v in (
+                params.beta, params.rate_diffusion, params.rate_active)],
+                dim=1).contiguous()
+            bidi = config.active_model == "bidirectional"
+            head = [getattr(state, k)[:, :N].contiguous()
+                    for k in ("pos", "sigma", "wind")]
+            for f in range(f0, hi):
+                head = list(meanfield_multi_step(
+                    scal, carry["seeds"], *head, L=config.L, k_steps=n_sub,
+                    dt=dt_eff, bidirectional=bidi, step0=(f - 1) * n_sub,
+                    generator=gen))
+                state = dataclasses.replace(state, **{
+                    k: torch.cat([h, getattr(state, k)[:, N:]], 1)
+                    for k, h in zip(("pos", "sigma", "wind"), head)})
+                frames.append(self.record(state))
+        elif self.route == TAU_LEAP_ROUTE:
+            for f in range(f0, hi):
+                for k, t in enumerate(step_times(f, n_sub, self.obs_dt,
+                                                 dt_eff)):
+                    inject = (None if self._draws is None
+                              else self._draws.step((f - 1) * n_sub + k))
+                    state = step(config, params, self.statics, state,
+                                 dt_eff, t, generator=gen, _inject=inject)
+                frames.append(self.record(state))
+        else:
+            for _ in range(f0, hi):
+                for _ in range(n_sub):
+                    state = _step_meanfield_global(config, params, state,
+                                                   dt_eff, generator=gen)
+                frames.append(self.record(state))
+        stacked = ParticleFrames(*(torch.stack(leaf, dim=1)
+                                   for leaf in zip(*frames)))
+        return stacked, dict({f: getattr(state, f) for f in STATE_FIELDS},
+                             seeds=carry["seeds"], gen=gen)
+
+
 def run_particles(config: ParticleConfig, params: ParticleParams,
                   state0: ParticleState, *, T: float, obs_dt: float,
                   dt: float, record_pos: bool = True,
@@ -184,68 +299,19 @@ def run_particles(config: ParticleConfig, params: ParticleParams,
     the τ-leap step's draws.  ``engine``: see ``particle_route``; the
     route taken is returned.  On the τ-leap route the state gains its
     exit log (``with_exit_log``), and an exit is logged at its step's
-    start time (``step_times``).
+    start time (``step_times``).  The run is one ``ParticleRun.run_range``
+    over every frame (``utils.checkpoint.run_particles_checkpointed``
+    runs the same ranges in chunks).
 
     Test-only: ``_draws.step(i)`` gives the τ-leap step's ``_inject`` of
     global step i."""
-    route = particle_route(config, engine)
-    dev = state0.pos.device
-    B = state0.pos.shape[0]
-    if route == TAU_LEAP_ROUTE:
-        state0 = with_exit_log(config, state0)
-    elif state0.alive is None:
-        state0 = dataclasses.replace(
-            state0, alive=torch.ones_like(state0.pos, dtype=torch.bool))
-    statics = build_static_arrays(config, dev)
-    rec = lambda st: _record_frame(config, statics.mfield_op, st, record_pos,
-                                   record_fft)
-    M = len(np.arange(0.0, T, obs_dt))
-    if M == 0:          # T <= 0: an empty frame stack, not a lone frame 0
-        empty = ParticleFrames(*(f[:, None][:, :0] for f in rec(state0)))
-        return ParticleRunResult(empty, state0, route)
-    n_sub = substeps_for(obs_dt, dt)
-    dt_eff = obs_dt / n_sub
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    frames = [rec(state0)]
-    state = state0
-    if route == B1_ROUTE:
-        N = config.N
-        if not bool(state.alive[:, :N].all()) or \
-                bool(state.alive[:, N:].any()):
-            raise ValueError("kernel B1 runs the first N buffer entries: "
-                             "the state's alive entries must be exactly "
-                             "those (the 'fixed' init)")
-        scal = torch.stack([_batched(v, B, dev) for v in (
-            params.beta, params.rate_diffusion, params.rate_active)],
-            dim=1).contiguous()
-        seeds = torch.randint(0, 2 ** 31 - 1, (B,), generator=gen,
-                              device=dev, dtype=torch.int32)
-        bidi = config.active_model == "bidirectional"
-        head = [t[:, :N].contiguous() for t in (state.pos, state.sigma,
-                                                state.wind)]
-        for f in range(1, M):
-            head = list(meanfield_multi_step(
-                scal, seeds, *head, L=config.L, k_steps=n_sub, dt=dt_eff,
-                bidirectional=bidi, step0=(f - 1) * n_sub, generator=gen))
-            state = dataclasses.replace(state0, **{
-                k: torch.cat([h, getattr(state0, k)[:, N:]], 1)
-                for k, h in zip(("pos", "sigma", "wind"), head)})
-            frames.append(rec(state))
-    elif route == TAU_LEAP_ROUTE:
-        for f in range(1, M):
-            for k, t in enumerate(step_times(f, n_sub, obs_dt, dt_eff)):
-                inject = (None if _draws is None
-                          else _draws.step((f - 1) * n_sub + k))
-                state = step(config, params, statics, state, dt_eff, t,
-                             generator=gen, _inject=inject)
-            frames.append(rec(state))
-    else:
-        for _ in range(1, M):
-            for _ in range(n_sub):
-                state = _step_meanfield_global(config, params, state, dt_eff,
-                                               generator=gen)
-            frames.append(rec(state))
-    stacked = ParticleFrames(*(torch.stack(leaf, dim=1)
-                               for leaf in zip(*frames)))
-    return ParticleRunResult(stacked, state, route)
+    run = ParticleRun(config, params, T=T, obs_dt=obs_dt, dt=dt,
+                      record_pos=record_pos, record_fft=record_fft,
+                      engine=engine, device=state0.pos.device, _draws=_draws)
+    state0 = run.prepare(state0)
+    if run.n_frames == 0:  # T <= 0: an empty frame stack, not a lone frame 0
+        empty = ParticleFrames(*(f[:, None][:, :0]
+                                 for f in run.record(state0)))
+        return ParticleRunResult(empty, state0, run.route)
+    frames, carry = run.run_range(run.start(state0, seed), 0, run.n_frames)
+    return ParticleRunResult(frames, run.state(carry), run.route)

@@ -19,12 +19,14 @@ the same ``out`` dict (:542-557).  Three engines are ported:
   (``particles.lattice_gas_k.run_lattice_gas_k``).
 
 The two slot routes tag every particle, so ``pos_list``/``pos_frames``
-carry identities.  Not ported yet, each raising ``NotImplementedError``
-with its ROADMAP.md item (``core/scope.py``): the figures and
-``run_checkpointed``.
+carry identities.  ``run_checkpointed`` runs ``'particle'`` or
+``'lattice_gas'`` in chunks, resumable (``utils/checkpoint.py``).  Not
+ported yet, each raising ``NotImplementedError`` with its ROADMAP.md item
+(``core/scope.py``): the figures.
 """
 from __future__ import annotations
 
+import functools
 import inspect
 from typing import Any, Callable, Dict, Optional
 
@@ -50,6 +52,10 @@ from hydrolim_tpu_torch.sweeps.ensemble import exit_log_lists
 from hydrolim_tpu_torch.sweeps.fast_exclusion import (
     is_fused_exclusion_path,
     run_exclusion_sweep,
+)
+from hydrolim_tpu_torch.utils.checkpoint import (
+    run_lattice_gas_k_checkpointed,
+    run_particles_checkpointed,
 )
 
 
@@ -246,8 +252,35 @@ class ParticleSystem:
         res = self.run_raw(T=T, obs_dt=obs_dt, record_fft=record_fft)
         return self._frames_to_out(res, T, obs_dt, record_fft, record_var)
 
-    def run_checkpointed(self, *args, **kwargs) -> Dict[str, Any]:
-        raise not_ported("ParticleSystem.run_checkpointed", "checkpointing")
+    def run_checkpointed(self, T: float = 10.0, obs_dt: float = 0.01,
+                         *, ckpt_dir, chunk_frames: int = 64,
+                         record_fft: bool = False, record_var: bool = False,
+                         resume: bool = True,
+                         engine: str = "particle") -> Dict[str, Any]:
+        """Preemption-safe ``run``: the frames run in chunks of
+        ``chunk_frames`` with an atomic checkpoint (frames and the carry:
+        state, B1's seeds, the generator's state) after each, through
+        ``utils.checkpoint.run_particles_checkpointed`` on every route of
+        ``engine='particle'``.  A killed run resumes from the newest
+        complete chunk when called again on a system made with the same
+        ``rng`` (the initial state and the run's seed are drawn as ``run``
+        draws them), and the out dict is bit-identical to ``run``'s.
+        ``engine='lattice_gas'`` checkpoints the slot engine instead
+        (``run_lattice_gas_k_checkpointed``), as the JAX facade does."""
+        if engine == "lattice_gas":
+            return self._run_slots(T, obs_dt, record_fft, record_var, engine,
+                                   ckpt=dict(ckpt_dir=ckpt_dir,
+                                             chunk_frames=chunk_frames,
+                                             resume=resume))
+        assert engine == "particle", engine
+        state0 = self.init_particles()
+        res = run_particles_checkpointed(
+            self.config, self.params, state0, T=T, obs_dt=obs_dt,
+            dt=self._dt, ckpt_dir=ckpt_dir, chunk_frames=chunk_frames,
+            record_pos=self.record_pos, record_fft=record_fft,
+            resume=resume, seed=self._next_seed())
+        self.last_run_info = {"engine": res.engine}
+        return self._frames_to_out(res, T, obs_dt, record_fft, record_var)
 
     def _frames_to_out(self, res: ParticleRunResult, T: float,
                        obs_dt: float, record_fft: bool,
@@ -288,12 +321,13 @@ class ParticleSystem:
         }
 
     def _run_slots(self, T: float, obs_dt: float, record_fft: bool,
-                   record_var: bool, engine: str) -> Dict[str, Any]:
+                   record_var: bool, engine: str,
+                   ckpt: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         """Single run on a slot route, the JAX facade's
         ``_run_lattice_gas``: kernel B3/B4 (``'pallas'``) or the slot
-        engine (``'lattice_gas'``, its ``kernel='xla'``).  Every particle
-        is a tagged tracer, so ``pos_list``/``pos_frames`` carry exact
-        identities."""
+        engine (``'lattice_gas'``, its ``kernel='xla'``; checkpointed with
+        the keywords ``ckpt``).  Every particle is a tagged tracer, so
+        ``pos_list``/``pos_frames`` carry exact identities."""
         config = self.config
         if engine == "pallas" and not (config.exclusion
                                        and is_fused_exclusion_path(config)):
@@ -313,8 +347,14 @@ class ParticleSystem:
                                        for k in ("beta", "rate_diffusion",
                                                  "rate_active", "k_on",
                                                  "k_off", "k_exit")))
-        runner = (run_exclusion_sweep if engine == "pallas"
-                  else run_lattice_gas_k)
+        if ckpt is not None:
+            assert engine == "lattice_gas", (
+                "checkpointing uses the XLA slot engine")
+            runner = functools.partial(run_lattice_gas_k_checkpointed,
+                                       **ckpt)
+        else:
+            runner = (run_exclusion_sweep if engine == "pallas"
+                      else run_lattice_gas_k)
         frames, _ = runner(
             config, params_b, T=T, obs_dt=obs_dt, dt=self._dt,
             seed=self._next_seed(), device=self.device,

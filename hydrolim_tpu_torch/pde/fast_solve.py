@@ -1,10 +1,10 @@
 """Fused PDE solve on kernel B2.
 
-``pde_solve_fused`` advances the whole (β × runs) batch chunk by chunk, one
-``pde_multi_step`` call per ``snapshot_interval`` steps (the last chunk
-shorter when the interval does not divide the run), and returns the
-per-step records (m, Var, v_eff, D_eff and the rfft re/im at every kmax),
-the chunk-start snapshots and the final fields.  Semantics follow the XLA
+``pde_solve_fused`` advances the whole (β × runs) batch block by block
+(``PDERun``), one ``pde_multi_step`` call per ``snapshot_interval`` steps
+(the last block shorter when the interval does not divide the run), and
+returns the per-step records (m, Var, v_eff, D_eff and the rfft re/im at
+every kmax), the block-start snapshots and the final fields.  Semantics follow the XLA
 ``pde_solve`` of the JAX package: record at state n, tracer update at n, no
 field step at n = nsteps; the snapshots are the states at the multiples of
 the interval.
@@ -147,93 +147,151 @@ def _rfft_ri(total: torch.Tensor, kmax: int, L: int) -> torch.Tensor:
     return torch.stack([X.real, X.imag], dim=-1).to(torch.float32)
 
 
+class PDERun:
+    """The fixed parts of one batched fused solve on the device of
+    ``device``: the kernel's modes and operands, its scalars and the
+    snapshot-block grid, ``n_blocks = ceil((nsteps + 1) / interval)``
+    blocks (the JAX package's), block b starting at step
+    n0 = b·interval, the last one holding the final iteration.
+
+    ``start`` makes the carry of block 0 (fields, tracers with their
+    displacement ring, B2's Philox seeds drawn from the generator, the
+    generator); ``run_range`` runs blocks [lo, hi): for each its snapshot
+    (where kept), one ``pde_multi_step`` call with ``step0 = n0`` over the
+    block's steps, and in the last block the final iteration (record and
+    tracer update at n = nsteps, no field step).  Its records are the
+    per-iteration rows (B, n, 4 + 2·kmax): m, Var, v_eff, D_eff and the
+    rfft re/im.  The ring slot and the D_eff window are functions of the
+    global step, so ranges stitch bit for bit given the carry
+    (``utils.checkpoint.pde_solve_checkpointed``); ``finish`` assembles
+    the ``PDESolveResult``."""
+
+    route = "pde_multi_step"
+
+    def __init__(self, config: PDEConfig, params_b: PDEParams, *, device,
+                 keep_snapshots: bool = True):
+        gamma_b = params_b.gamma.reshape(-1)
+        gamma = float(gamma_b[0])
+        if not bool(torch.all(gamma_b == gamma_b[0])):
+            raise ValueError("pde_solve_fused needs a uniform gamma")
+        if config.n_tracers < 1:
+            raise ValueError("pde_solve_fused needs n_tracers >= 1")
+        self.config, self.params_b = config, params_b
+        self.device = dev = torch.device(device)
+        self.keep_snapshots = keep_snapshots
+        (self.m_mode, self.solve_mode, self.smooth,
+         self.solve) = kernel_operands(config, gamma, dev)
+        B = params_b.beta.reshape(-1).shape[0]
+        self.scal = torch.zeros((B, 4), dtype=torch.float32, device=dev)
+        self.scal[:, 0] = params_b.beta.reshape(-1)
+        self.scal[:, 1] = params_b.lam.reshape(-1)
+        self.scal[:, 2] = gamma
+        self.n_blocks = -(-(config.nsteps + 1) // config.snapshot_interval)
+
+    def start(self, rho_p0: torch.Tensor, rho_m0: torch.Tensor,
+              tracers0: TracerState, generator: torch.Generator) -> dict:
+        f32 = lambda t: t.to(device=self.device,
+                             dtype=torch.float32).contiguous()
+        seeds = torch.randint(0, 2 ** 31 - 1, (rho_p0.shape[0],),
+                              generator=generator, device=self.device,
+                              dtype=torch.int32)
+        return dict(rho_p=f32(rho_p0), rho_m=f32(rho_m0),
+                    pos=f32(tracers0.unwrapped), spin=f32(tracers0.spin),
+                    hist=f32(tracers0.hist), seeds=seeds, gen=generator)
+
+    def _final_row(self, rho_p, rho_m, pos, spin, hist, gen):
+        """The final iteration's record row (B, 1, 4 + 2·kmax); m as the
+        XLA path takes it (the full circulant, also for a narrow kernel)."""
+        config, dev = self.config, self.device
+        m_field = pde_magnetization(rho_p, rho_m, build_smooth_op(config, dev),
+                                    kernel_sigma=config.kernel_sigma)
+        total = rho_p + rho_m
+        tr = TracerState(pos=torch.remainder(pos, config.xlim),
+                         unwrapped=pos, spin=spin.to(torch.int32), hist=hist)
+        _, v_f, D_f = _tracer_update(config, self.params_b, m_field, tr,
+                                     config.nsteps, generator=gen)
+        ri = _rfft_ri(total, config.kmax, config.L)
+        col = lambda a: a[:, None]
+        return torch.cat([col(m_field.mean(-1)),
+                          col(total.var(-1, unbiased=False)), col(v_f),
+                          col(D_f), ri[..., 0], ri[..., 1]], dim=1)[:, None]
+
+    def run_range(self, carry: dict, lo: int, hi: int):
+        config = self.config
+        L, dt, nsteps = config.L, config.dt, config.nsteps
+        interval = config.snapshot_interval
+        rho_p, rho_m, pos, spin, hist = (
+            carry[k] for k in ("rho_p", "rho_m", "pos", "spin", "hist"))
+        seeds, gen = carry["seeds"], carry["gen"]
+        recs, snaps, m_snaps = [], [], []
+        for b in range(lo, hi):
+            n0 = b * interval
+            if self.keep_snapshots:
+                snaps.append(rho_p + rho_m)
+                m_snaps.append(rho_p - rho_m)
+            k = min(interval, nsteps - n0)
+            if k > 0:
+                rho_p, rho_m, pos, spin, hist, rec = pde_multi_step(
+                    self.scal, seeds, n0, rho_p, rho_m, pos, spin, hist,
+                    self.solve, self.smooth, L=L, n_t=config.n_tracers,
+                    window=config.tracer_window, k_steps=k, dt=dt,
+                    xlim=config.xlim, periodic=config.bc == "periodic",
+                    m_mode=self.m_mode, solve_mode=self.solve_mode,
+                    bidirectional=config.active_model == "bidirectional",
+                    kmax_rec=config.kmax, generator=gen)
+                recs.append(rec)
+            if b == self.n_blocks - 1:
+                recs.append(self._final_row(rho_p, rho_m, pos, spin, hist,
+                                            gen))
+        B = rho_p.shape[0]
+        stack = lambda xs: (torch.stack(xs, dim=1) if xs else
+                            torch.zeros((B, 0, L), device=self.device))
+        records = dict(recs=torch.cat(recs, dim=1), snaps=stack(snaps),
+                       m_snaps=stack(m_snaps))
+        return records, dict(rho_p=rho_p, rho_m=rho_m, pos=pos, spin=spin,
+                             hist=hist, seeds=seeds, gen=gen)
+
+    def finish(self, records: dict, carry: dict) -> PDESolveResult:
+        """The result of the whole grid from its stitched records (rows of
+        iterations 0…nsteps) and the last carry."""
+        config = self.config
+        kmax, dt = config.kmax, config.dt
+        recs = records["recs"]
+        snapshots = records["snaps"]
+        B, n_snap = snapshots.shape[0], snapshots.shape[1]
+        snap_times = (torch.arange(n_snap, dtype=torch.float32,
+                                   device=self.device)
+                      * (config.snapshot_interval * dt)).expand(B, n_snap)
+        col = lambda j: recs[:, :, j].contiguous()
+        fft_ri = torch.stack([recs[:, :, 4:4 + kmax],
+                              recs[:, :, 4 + kmax:4 + 2 * kmax]], -1)
+        records_ = PDERecord(m_mean=col(0), var=col(1), fft_ri=fft_ri,
+                             v_eff=col(2), D_eff=col(3))
+        if config.record_every > 1:
+            e = config.record_every
+            records_ = PDERecord(*(getattr(records_, f)[:, ::e] for f in
+                                   ("m_mean", "var", "fft_ri", "v_eff",
+                                    "D_eff")))
+        return PDESolveResult(rho_p=carry["rho_p"], rho_m=carry["rho_m"],
+                              records=records_, snapshots=snapshots,
+                              m_snapshots=records["m_snaps"],
+                              snap_times=snap_times)
+
+
 def pde_solve_fused(config: PDEConfig, params_b: PDEParams,
                     rho_p0: torch.Tensor, rho_m0: torch.Tensor,
                     tracers0: TracerState, generator: torch.Generator,
                     keep_snapshots: bool = True) -> PDESolveResult:
-    """Batched fused solve on the device of ``rho_p0``.
+    """Batched fused solve on the device of ``rho_p0``: one
+    ``PDERun.run_range`` over every snapshot block.
 
     ``generator`` (on that device) seeds the kernel's Philox streams and
     supplies the plain version's draws and the final iteration's."""
-    gamma_b = params_b.gamma.reshape(-1)
-    gamma = float(gamma_b[0])
-    if not bool(torch.all(gamma_b == gamma_b[0])):
-        raise ValueError("pde_solve_fused needs a uniform gamma")
-    if config.n_tracers < 1:
-        raise ValueError("pde_solve_fused needs n_tracers >= 1")
-    dev = rho_p0.device
-    B, L, dt = rho_p0.shape[0], config.L, config.dt
-    n_t, W, kmax = config.n_tracers, config.tracer_window, config.kmax
-    nsteps, interval = config.nsteps, config.snapshot_interval
-    starts = list(range(0, nsteps, interval))
-    m_mode, solve_mode, smooth, solve = kernel_operands(config, gamma, dev)
-    periodic = config.bc == "periodic"
-
-    f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
-    scal = torch.zeros((B, 4), dtype=torch.float32, device=dev)
-    scal[:, 0] = params_b.beta.reshape(-1)
-    scal[:, 1] = params_b.lam.reshape(-1)
-    scal[:, 2] = gamma
-    seeds = torch.randint(0, 2 ** 31 - 1, (B,), generator=generator,
-                          device=dev, dtype=torch.int32)
-    rho_p, rho_m = f32(rho_p0), f32(rho_m0)
-    pos, spin = f32(tracers0.unwrapped), f32(tracers0.spin)
-    hist = f32(tracers0.hist)
-
-    recs, snaps, m_snaps = [], [], []
-    for n0 in starts:
-        if keep_snapshots:
-            snaps.append(rho_p + rho_m)
-            m_snaps.append(rho_p - rho_m)
-        rho_p, rho_m, pos, spin, hist, rec = pde_multi_step(
-            scal, seeds, n0, rho_p, rho_m, pos, spin, hist, solve, smooth,
-            L=L, n_t=n_t, window=W, k_steps=min(interval, nsteps - n0),
-            dt=dt, xlim=config.xlim, periodic=periodic, m_mode=m_mode,
-            solve_mode=solve_mode,
-            bidirectional=config.active_model == "bidirectional",
-            kmax_rec=kmax, generator=generator)
-        recs.append(rec)
-    recs = torch.cat(recs, dim=1)                    # (B, nsteps, 4 + 2k)
-
-    # final iteration (n = nsteps): record + tracer update, no step; m as
-    # the XLA path takes it (the full circulant, also for a narrow kernel)
-    m_field = pde_magnetization(rho_p, rho_m, build_smooth_op(config, dev),
-                                kernel_sigma=config.kernel_sigma)
-    total = rho_p + rho_m
-    tr = TracerState(pos=torch.remainder(pos, config.xlim), unwrapped=pos,
-                     spin=spin.to(torch.int32), hist=hist)
-    _, v_f, D_f = _tracer_update(config, params_b, m_field, tr, nsteps,
-                                 generator=generator)
-    cat = lambda a, b: torch.cat([a, b[:, None]], dim=1)
-    m_mean = cat(recs[:, :, 0], m_field.mean(-1))
-    var = cat(recs[:, :, 1], total.var(-1, unbiased=False))
-    v_eff = cat(recs[:, :, 2], v_f)
-    D_eff = cat(recs[:, :, 3], D_f)
-    per = torch.stack([recs[:, :, 4:4 + kmax],
-                       recs[:, :, 4 + kmax:4 + 2 * kmax]], -1)
-    fft_ri = torch.cat([per, _rfft_ri(total, kmax, L)[:, None]], dim=1)
-    if keep_snapshots:
-        if nsteps % interval == 0:      # the final state is a block start
-            snaps.append(total)
-            m_snaps.append(rho_p - rho_m)
-        snapshots = torch.stack(snaps, dim=1)
-        m_snapshots = torch.stack(m_snaps, dim=1)
-        snap_times = (torch.arange(len(snaps), dtype=torch.float32,
-                                   device=dev) * (interval * dt)).expand(
-            B, len(snaps))
-    else:
-        snapshots = torch.zeros((B, 0, L), device=dev)
-        m_snapshots = torch.zeros((B, 0, L), device=dev)
-        snap_times = torch.zeros((B, 0), device=dev)
-    records = PDERecord(m_mean=m_mean, var=var, fft_ri=fft_ri, v_eff=v_eff,
-                        D_eff=D_eff)
-    if config.record_every > 1:
-        e = config.record_every
-        records = PDERecord(*(getattr(records, f)[:, ::e] for f in
-                              ("m_mean", "var", "fft_ri", "v_eff", "D_eff")))
-    return PDESolveResult(rho_p=rho_p, rho_m=rho_m, records=records,
-                          snapshots=snapshots, m_snapshots=m_snapshots,
-                          snap_times=snap_times)
+    run = PDERun(config, params_b, device=rho_p0.device,
+                 keep_snapshots=keep_snapshots)
+    records, carry = run.run_range(
+        run.start(rho_p0, rho_m0, tracers0, generator), 0, run.n_blocks)
+    return run.finish(records, carry)
 
 
 def result_to_numpy(res: PDESolveResult) -> PDESolveResult:

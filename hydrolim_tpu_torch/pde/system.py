@@ -6,7 +6,8 @@ after IMEX_PDE_solver_class.py:13-29) plus ``device``;
 and ``plot_all()``/``plot_individual()`` keep the same names and output
 schema.  ``solve()`` runs ``pde_solve_fused`` — kernel B2 on the card —
 with per-step spectra at every ``kmax`` (the full rfft by default), as the
-JAX facade's default XLA solve records them.
+JAX facade's default XLA solve records them; ``solve_checkpointed()`` runs
+the same solve in chunks of snapshot blocks, resumable.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from hydrolim_tpu_torch.pde.fast_solve import (
 )
 from hydrolim_tpu_torch.pde.init import pde_initialize
 from hydrolim_tpu_torch.pde.stepper import PDESolveResult
+from hydrolim_tpu_torch.utils.checkpoint import pde_solve_checkpointed
 
 
 class IMEXPDE:
@@ -127,11 +129,34 @@ class IMEXPDE:
         ``engine`` takes the JAX package's names, which all run it
         (``fast_solve.PDE_ENGINES``)."""
         check_pde_engine(engine)
-        cfg = self.config if self.config.n_tracers == self.n_tracers \
-            else dataclasses.replace(self.config, n_tracers=self.n_tracers)
-        res = result_to_numpy(pde_solve_fused(
+        cfg = self._solve_config()
+        self._keep(pde_solve_fused(cfg, self.params, self.rho_p, self.rho_m,
+                                   self.tracers, self.generator))
+
+    def solve_checkpointed(self, *, ckpt_dir, chunk_blocks: int = 8,
+                           resume: bool = True) -> None:
+        """Preemption-safe ``solve``: the snapshot blocks run in chunks of
+        ``chunk_blocks`` with an atomic checkpoint (block records and the
+        carry: fields, tracers and their displacement ring, B2's seeds,
+        the generator's state) after each, through
+        ``utils.checkpoint.pde_solve_checkpointed``.  A killed solve
+        resumes from the newest complete chunk when called again on a
+        facade made and initialised as before, and the result is
+        bit-identical to ``solve``'s; the facade's generator ends where
+        ``solve`` leaves it."""
+        cfg = self._solve_config()
+        self._keep(pde_solve_checkpointed(
             cfg, self.params, self.rho_p, self.rho_m, self.tracers,
-            self.generator))
+            self.generator, ckpt_dir=ckpt_dir, chunk_blocks=chunk_blocks,
+            resume=resume))
+
+    def _solve_config(self) -> PDEConfig:
+        return self.config if self.config.n_tracers == self.n_tracers \
+            else dataclasses.replace(self.config, n_tracers=self.n_tracers)
+
+    def _keep(self, result: PDESolveResult) -> None:
+        """Keep replica 0 of a batched solve's result, on the host."""
+        res = result_to_numpy(result)
         first = lambda a: a[0]
         self._result = PDESolveResult(
             rho_p=first(res.rho_p), rho_m=first(res.rho_m),

@@ -25,14 +25,15 @@ Routes, decided by the configuration and the engine name alone:
   otherwise (crowding, K > 8).
 
 The route taken is returned with the grid and saved as the sweep's
-``route``.  The host estimators, ``mesh=``/``n_devices=`` and ``ckpt_dir=``
-are not ported yet: each raises ``NotImplementedError`` naming its
-ROADMAP.md item (``core/scope.py``).
+``route``.  ``estimator='host'`` runs the NumPy estimators per replica;
+``ckpt_dir=`` checkpoints every route but the anchored engine, as the JAX
+package does.  ``mesh=``/``n_devices=`` are not ported yet: they raise
+``NotImplementedError`` naming their ROADMAP.md item (``core/scope.py``).
 """
 from __future__ import annotations
 
-from pathlib import Path
 import dataclasses
+from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
@@ -42,6 +43,13 @@ from hydrolim_tpu_torch.core.config import ParticleConfig
 from hydrolim_tpu_torch.core.scope import not_ported
 from hydrolim_tpu_torch.fit.veff_fit import fit_and_plot_v_eff
 from hydrolim_tpu_torch.observables.batched import batched_estimates
+from hydrolim_tpu_torch.observables.estimators import (
+    compute_blocking_probability,
+    compute_D_eff_active,
+    compute_mean_magnetization,
+    compute_rho_eff,
+    compute_v_eff_and_window,
+)
 from hydrolim_tpu_torch.particles.init import eval_profile
 from hydrolim_tpu_torch.particles.lattice_gas import (
     LatticeGasFrames,
@@ -57,12 +65,18 @@ from hydrolim_tpu_torch.sweeps.ensemble import (
     broadcast_params,
     chunk_seed,
     ensemble_dt,
+    ensemble_states,
     frames_to_out,
     run_particle_ensemble,
 )
 from hydrolim_tpu_torch.sweeps.fast_exclusion import (
     is_fused_exclusion_path,
     run_exclusion_sweep,
+)
+from hydrolim_tpu_torch.utils.checkpoint import (
+    run_lattice_gas_checkpointed,
+    run_lattice_gas_k_checkpointed,
+    run_particle_ensemble_checkpointed,
 )
 
 # the JAX package's names of the fused route
@@ -192,17 +206,24 @@ def run_sweep_grid(beta_values, n_runs: int, ps_kwargs: Dict,
                    init_kwargs: Optional[Dict], run_kwargs: Dict,
                    seed: int = 0, chunk_size: int = 256, mesh=None,
                    n_devices: Optional[int] = None, ckpt_dir=None,
-                   device="cuda"):
+                   chunk_frames: int = 64,
+                   stop_after_chunks: Optional[int] = None, device="cuda"):
     """The (β × replicas) grid on the particle engine (JAX ``beta_sweep.py:
     302-396``); returns (config, ``ParticleRunResult`` with leaves (B, …)
     on ``device``, dt).  Grids larger than ``chunk_size`` replicas run in
     chunks, the chunk starting at c0 drawing from ``chunk_seed(seed, c0)``
     (its initial state and its run), so a replica's trajectory does not
-    depend on the chunks before it.  ``res.engine`` names the route."""
+    depend on the chunks before it.  ``res.engine`` names the route.
+
+    ``ckpt_dir=`` makes each replica chunk preemption-safe on the time
+    axis (``utils.checkpoint.run_particle_ensemble_checkpointed`` in
+    ``chunk_frames``-frame chunks, one subdirectory ``replicas_<c0>`` per
+    replica chunk); the result is bit-identical to the run without it.
+    ``stop_after_chunks=k`` halts each replica chunk's run after ``k`` new
+    chunks and returns ``None`` if one is incomplete (the checkpoint
+    drivers' simulated-preemption hook)."""
     if mesh is not None or n_devices is not None:
         raise not_ported("mesh= / n_devices=", "parallelism")
-    if ckpt_dir is not None:
-        raise not_ported("ckpt_dir=", "checkpointing")
     config = config_from_kwargs(ps_kwargs)
     rho0_p, rho0_m = _profiles(config, init_kwargs)
     rates = _rates(ps_kwargs)
@@ -211,15 +232,30 @@ def run_sweep_grid(beta_values, n_runs: int, ps_kwargs: Dict,
     dt = ensemble_dt(config, beta_max=float(np.max(beta_values)), **rates)
     T, obs_dt = float(run_kwargs["T"]), float(run_kwargs["obs_dt"])
     chunks = []
+    record = dict(record_pos=bool(run_kwargs.get("record_pos", True)),
+                  record_fft=bool(run_kwargs.get("record_fft", True)))
     for c0 in range(0, B, chunk_size):
         params = broadcast_params(config, beta=beta_flat[c0:c0 + chunk_size],
                                   device=device, **rates)
-        chunks.append(run_particle_ensemble(
-            config, params, chunk_seed(seed, c0), T=T, obs_dt=obs_dt, dt=dt,
-            rho0_plus=rho0_p, rho0_minus=rho0_m,
-            record_pos=bool(run_kwargs.get("record_pos", True)),
-            record_fft=bool(run_kwargs.get("record_fft", True)),
-            device=device))
+        cs = chunk_seed(seed, c0)
+        if ckpt_dir is None:
+            chunks.append(run_particle_ensemble(
+                config, params, cs, T=T, obs_dt=obs_dt, dt=dt,
+                rho0_plus=rho0_p, rho0_minus=rho0_m, device=device,
+                **record))
+            continue
+        # run_particle_ensemble's draws: the states from cs, the run cs + 1
+        states = ensemble_states(config, params.beta.shape[0], cs,
+                                 rho0_plus=rho0_p, rho0_minus=rho0_m,
+                                 device=device)
+        res = run_particle_ensemble_checkpointed(
+            config, params, states, T=T, obs_dt=obs_dt, dt=dt,
+            ckpt_dir=Path(ckpt_dir) / f"replicas_{c0:05d}",
+            chunk_frames=chunk_frames, stop_after_chunks=stop_after_chunks,
+            seed=cs + 1, **record)
+        if res is None:
+            return None
+        chunks.append(res)
     if len(chunks) == 1:
         return config, chunks[0], dt
     cat = lambda *a: None if a[0] is None else torch.cat(a, dim=0)
@@ -242,6 +278,40 @@ def _device_estimates(config: ParticleConfig, frames, times, pos, alive
             for k in ("v_eff", "D_eff", "m_mean", "rho_eff", "p_block")}
 
 
+class _PsShim:
+    """Minimal ``ps``-like object for the host estimators' signatures."""
+
+    def __init__(self, config: ParticleConfig):
+        self.config = config
+        self.L = config.L
+        self.dx = config.dx
+        self.K = config.site_capacity
+        self.xlim = config.xlim
+
+
+def _estimates_for_replica(out: Dict, ps: _PsShim):
+    """The five host estimators of one replica's out dict (JAX
+    ``beta_sweep.py:397-404``)."""
+    mean_v, v_ts, times, si, ei, frac = compute_v_eff_and_window(out, ps)
+    D_eff = compute_D_eff_active(out, ps, si, ei)
+    m_mean = compute_mean_magnetization(out, si, ei)
+    rho_eff = compute_rho_eff(out, si, ei,
+                              xlim=float(getattr(ps, "xlim", 1.0)))
+    block = compute_blocking_probability(out, si, ei)
+    return mean_v, D_eff, m_mean, rho_eff, block
+
+
+def _host_estimates(config: ParticleConfig, out_for, B: int
+                    ) -> Dict[str, np.ndarray]:
+    """The five estimators of every replica on the host
+    (``estimator='host'``), keyed as ``_device_estimates``'s."""
+    ps = _PsShim(config)
+    rows = np.asarray([_estimates_for_replica(out_for(i), ps)
+                       for i in range(B)], dtype=float).reshape(B, 5)
+    return {k: rows[:, j] for j, k in enumerate(
+        ("v_eff", "D_eff", "m_mean", "rho_eff", "p_block"))}
+
+
 def _stats(vals):
     """(mean, std (ddof 1), standard error) of one β's replicas."""
     a = np.asarray(vals, dtype=float)
@@ -258,10 +328,8 @@ def sweep_beta_ensemble(beta, n_runs: int = 10,
     """Single-β ensemble on the particle engine with the reference's
     14-tuple return (:56-117): (v mean, std, SE, per-run v, out dicts,
     m mean, std, SE, ρ mean, SE, p_block mean, SE, D mean, SE).  The
-    estimators run on the device (``estimator='device'``); the host
-    estimators are not ported yet."""
-    if estimator != "device":
-        raise not_ported(f"estimator={estimator!r}", "host")
+    estimators run on the device (``estimator='device'``, the default) or
+    per replica on the host (``'host'``, ``observables/estimators.py``)."""
     ps_kwargs = dict(DEFAULT_PS_KWARGS, **(ps_kwargs or {}))
     run_kwargs = dict(DEFAULT_RUN_KWARGS, **(run_kwargs or {}))
     if rng_seeds is not None:
@@ -272,11 +340,14 @@ def sweep_beta_ensemble(beta, n_runs: int = 10,
                                     device=device)
     T, obs_dt = float(run_kwargs["T"]), float(run_kwargs["obs_dt"])
     f = res.frames
-    est = _device_estimates(config, f, np.arange(0.0, T, obs_dt), f.pos,
-                            f.alive)
     out_list = [frames_to_out(f, r, config, T, obs_dt,
                               final_state=res.final_state)
                 for r in range(n_runs)]
+    if estimator == "device":
+        est = _device_estimates(config, f, np.arange(0.0, T, obs_dt), f.pos,
+                                f.alive)
+    else:
+        est = _host_estimates(config, out_list.__getitem__, n_runs)
     mean, std, se = _stats(est["v_eff"])
     m_mean, m_std, m_se = _stats(est["m_mean"])
     rho_mean, _, rho_se = _stats(est["rho_eff"])
@@ -290,7 +361,10 @@ def run_sweep_grid_lattice_gas(beta_values, n_runs: int, ps_kwargs: Dict,
                                init_kwargs: Optional[Dict],
                                run_kwargs: Dict, seed: int = 0,
                                n_tracers: Optional[int] = None,
-                               kernel: str = "fused", device="cuda"):
+                               kernel: str = "fused", ckpt_dir=None,
+                               chunk_frames: int = 64,
+                               stop_after_chunks: Optional[int] = None,
+                               device="cuda"):
     """(β × replicas) grid on the slot engines (JAX ``beta_sweep.py:
     158-266``); returns (config, out_for(i) accessor, dt, frames, the final
     (B, K, L) slot spins, the route taken).  Tagged tracers give the
@@ -304,7 +378,15 @@ def run_sweep_grid_lattice_gas(beta_values, n_runs: int, ps_kwargs: Dict,
     B3/B4 or a ``ValueError``.  Anchors run the anchored engine under every
     kernel, as in the JAX package.  The route (one of ``FUSED_ROUTE``,
     ``K1_ROUTE``, ``SLOT_ROUTE``, ``ANCHORED_ROUTE``) is decided by the
-    configuration and the kernel name alone."""
+    configuration and the kernel name alone.
+
+    ``ckpt_dir=`` runs the grid in ``chunk_frames``-frame chunks,
+    resumable and bit-identical: the fused route through
+    ``run_exclusion_sweep(ckpt_dir=)``, the slot engines through
+    ``run_lattice_gas_checkpointed`` / ``run_lattice_gas_k_checkpointed``.
+    The anchored engine ignores it, as in the JAX package.
+    ``stop_after_chunks=k`` halts after ``k`` new chunks and returns
+    ``None`` if the run is incomplete."""
     config = config_from_kwargs(ps_kwargs)
     assert config.exclusion, "lattice-gas engines require site_capacity"
     if kernel not in ("xla", "auto", "pallas", "fused"):
@@ -334,14 +416,22 @@ def run_sweep_grid_lattice_gas(beta_values, n_runs: int, ps_kwargs: Dict,
                          "configuration class (K<=8, no anchors/crowding, "
                          "default flip rate)")
     if kernel != "xla" and fused:
-        frames, spins_final = run_exclusion_sweep(config, params, **kw)
-        route = FUSED_ROUTE
+        runner, route = run_exclusion_sweep, FUSED_ROUTE
     elif config.K == 1:
-        frames, occ = run_lattice_gas(config, params, **kw)
-        spins_final, route = occ[:, None, :], K1_ROUTE
+        runner, route = (run_lattice_gas if ckpt_dir is None
+                         else run_lattice_gas_checkpointed), K1_ROUTE
     else:
-        frames, spins_final = run_lattice_gas_k(config, params, **kw)
-        route = SLOT_ROUTE
+        runner, route = (run_lattice_gas_k if ckpt_dir is None
+                         else run_lattice_gas_k_checkpointed), SLOT_ROUTE
+    if ckpt_dir is not None:
+        kw.update(ckpt_dir=ckpt_dir, chunk_frames=chunk_frames,
+                  stop_after_chunks=stop_after_chunks)
+    out = runner(config, params, **kw)
+    if out is None:
+        return None
+    frames, spins_final = out
+    if route == K1_ROUTE:
+        spins_final = spins_final[:, None, :]
     return (config, _lattice_gas_out_accessor(frames, times), dt, frames,
             spins_final, route)
 
@@ -403,7 +493,9 @@ def sweep_over_betas(beta_values, n_runs_per_beta: int = 10, run: bool = True,
                      plot_result: bool = True, engine: str = "particle",
                      estimator: str = "device", mesh=None,
                      n_devices: Optional[int] = None, ckpt_dir=None,
-                     device="cuda") -> Dict:
+                     chunk_frames: int = 64,
+                     stop_after_chunks: Optional[int] = None,
+                     device="cuda") -> Optional[Dict]:
     """Full β sweep (:828-1028): one batched grid run on ``device`` →
     estimator means ± SE per β → npz checkpoint → (θ, γ) fit and figures.
     ``run=False`` reloads ``npz_path`` and re-fits without simulating.
@@ -414,14 +506,24 @@ def sweep_over_betas(beta_values, n_runs_per_beta: int = 10, run: bool = True,
     configuration and the slot engines elsewhere (``kernel='auto'``, as the
     JAX package maps ``'pallas'``).  Beside the JAX package's keys the
     result holds ``route``, the engine that ran, and on the slot routes
-    ``spins_final``, the (β·runs, K, L) slot spins at the end of the run."""
+    ``spins_final``, the (β·runs, K, L) slot spins at the end of the run.
+
+    ``estimator='device'`` (the default) evaluates the five estimators of
+    every replica in one batched pass on the device
+    (``observables/batched.py``); ``'host'`` runs the per-replica NumPy
+    estimators (``observables/estimators.py``) on each replica's out dict.
+
+    ``ckpt_dir=`` makes the in-flight grid preemption-safe on every route
+    (``run_sweep_grid`` for ``'particle'``, ``run_sweep_grid_lattice_gas``
+    for the fused route and the slot engines; the anchored engine ignores
+    it, as in the JAX package), in ``chunk_frames``-frame chunks; a rerun
+    on the same directory resumes, and the result equals the sweep's
+    without it.  ``stop_after_chunks=k`` halts the grid after ``k`` new
+    chunks and returns ``None`` if it is incomplete (the checkpoint
+    drivers' simulated-preemption hook)."""
     check_engine(engine)
-    if estimator != "device":
-        raise not_ported(f"estimator={estimator!r}", "host")
     if mesh is not None or n_devices is not None:
         raise not_ported("mesh= / n_devices=", "parallelism")
-    if ckpt_dir is not None:
-        raise not_ported("ckpt_dir=", "checkpointing")
     beta_values = np.asarray(beta_values, dtype=float)
     ps_kwargs = dict(DEFAULT_PS_KWARGS, **(ps_kwargs or {}))
     run_kwargs = dict(DEFAULT_RUN_KWARGS, **(run_kwargs or {}))
@@ -436,25 +538,36 @@ def sweep_over_betas(beta_values, n_runs_per_beta: int = 10, run: bool = True,
         T, obs_dt = float(run_kwargs["T"]), float(run_kwargs["obs_dt"])
         times = np.arange(0.0, T, obs_dt)
         extra = {}
+        ck = dict(ckpt_dir=ckpt_dir, chunk_frames=chunk_frames,
+                  stop_after_chunks=stop_after_chunks)
         if engine == "particle":
-            config, res, dt = run_sweep_grid(
-                beta_values, n_runs_per_beta, ps_kwargs, init_kwargs,
-                run_kwargs, seed=seed, device=device)
+            grid = run_sweep_grid(beta_values, n_runs_per_beta, ps_kwargs,
+                                  init_kwargs, run_kwargs, seed=seed,
+                                  device=device, **ck)
+            if grid is None:
+                return None
+            config, res, dt = grid
             f = res.frames
-            est = _device_estimates(config, f, times, f.pos, f.alive)
+            pos, alive = f.pos, f.alive
             out_for = lambda i: frames_to_out(f, i, config, T, obs_dt,
                                               final_state=res.final_state)
             route = res.engine
         else:
-            (config, out_for, dt, f, spins_final,
-             route) = run_sweep_grid_lattice_gas(
+            grid = run_sweep_grid_lattice_gas(
                 beta_values, n_runs_per_beta, ps_kwargs, init_kwargs,
                 run_kwargs, seed=seed, device=device,
-                kernel="xla" if engine == "lattice_gas" else "auto")
-            tr = f.tracer_pos
-            est = _device_estimates(config, f, times, tr,
-                                    tracer_valid_mask(tr))
+                kernel="xla" if engine == "lattice_gas" else "auto", **ck)
+            if grid is None:
+                return None
+            config, out_for, dt, f, spins_final, route = grid
+            pos = f.tracer_pos
+            alive = tracer_valid_mask(pos)
             extra["spins_final"] = spins_final.cpu().numpy()
+        if estimator == "device":
+            est = _device_estimates(config, f, times, pos, alive)
+        else:
+            est = _host_estimates(config, out_for,
+                                  len(beta_values) * n_runs_per_beta)
         per_beta = {k: [] for k in _STAT_KEYS}
         n = n_runs_per_beta
         for b in range(len(beta_values)):

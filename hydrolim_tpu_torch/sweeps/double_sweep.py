@@ -16,8 +16,8 @@ the general τ-leap step, no positions recorded), on kernel B3/B4
 (``'pallas'``) or on the plain-torch slot engine (``'lattice_gas'``,
 ``run_lattice_gas_k``): N enters only through the per-replica Poisson
 profiles, so one (B, L) batch of ``chunk_size`` replicas per call holds
-any N.  The JAX package's ``ckpt_dir=`` chunk ledger and ``n_devices=`` are
-not ported yet (``core/scope.py`` names their ROADMAP.md items).
+any N.  ``ckpt_dir=`` keeps the JAX package's chunk ledger; ``n_devices=``
+is not ported yet (``core/scope.py`` names its ROADMAP.md item).
 """
 from __future__ import annotations
 
@@ -31,8 +31,11 @@ from hydrolim_tpu_torch.core.scope import not_ported
 from hydrolim_tpu_torch.fit.veff_fit import _pyplot
 from hydrolim_tpu_torch.observables.batched import batched_estimates
 from hydrolim_tpu_torch.particles.lattice_gas_k import run_lattice_gas_k
+from hydrolim_tpu_torch.particles.run import particle_route
 from hydrolim_tpu_torch.sweeps.beta_sweep import (
     DEFAULT_PS_KWARGS,
+    FUSED_ROUTE,
+    SLOT_ROUTE,
     check_engine,
     config_from_kwargs,
     make_exp_gradient,
@@ -45,6 +48,12 @@ from hydrolim_tpu_torch.sweeps.ensemble import (
     run_particle_ensemble,
 )
 from hydrolim_tpu_torch.sweeps.fast_exclusion import run_exclusion_sweep
+from hydrolim_tpu_torch.sweeps.persistence import config_hash
+from hydrolim_tpu_torch.utils.checkpoint import (
+    _atomic_savez,
+    _resume_prefix,
+    run_identity,
+)
 from hydrolim_tpu_torch.theory.meanfield import compute_m_of_beta_non
 
 # The reference's double sweep runs a DIFFERENT physics configuration than
@@ -145,7 +154,9 @@ def double_sweep_fused(beta_values, list_N_part: Sequence[float],
                        seed: int = 0, plot_result: bool = True,
                        chunk_size: int = 44, engine: str = "particle",
                        n_devices: Optional[int] = None, ckpt_dir=None,
-                       device="cuda") -> Dict:
+                       resume: bool = True,
+                       stop_after_chunks: Optional[int] = None,
+                       device="cuda") -> Optional[Dict]:
     """The whole (N × β × replicas) grid on the particle engine
     (``'particle'``: ``run_particle_ensemble`` without positions, the
     τ-leap step), kernel B3/B4 (the fused names) or the slot engine
@@ -153,10 +164,18 @@ def double_sweep_fused(beta_values, list_N_part: Sequence[float],
     Poisson profiles, (B, L)), each chunk's draws from a generator seeded
     by ``chunk_seed(seed, c0)``; the blocking estimator runs on the device
     per chunk, the (f, g) fits and the C0/C1/C2 meta-fit on the host.
-    Returns the JAX package's keys."""
+    Returns the JAX package's keys.
+
+    ``ckpt_dir=`` keeps a chunk ledger: each replica chunk's blocking
+    probabilities are written atomically (``chunk_<c0:07d>.npz``) after
+    the chunk completes, and a resumed call (``resume=True``) runs only
+    the chunks whose entry is missing; chunks draw from
+    ``chunk_seed(seed, c0)``, so the result is bit-identical to an
+    uninterrupted run.  ``chunk_size`` is part of the ledger's hash (it
+    sets the seeds), as are the package, the route and the device type.
+    ``stop_after_chunks=k`` runs at most ``k`` new chunks and returns
+    ``None`` if the grid is incomplete (with or without a ledger)."""
     check_engine(engine)
-    if ckpt_dir is not None:
-        raise not_ported("ckpt_dir= (the chunk ledger)", "checkpointing")
     if n_devices is not None:
         raise not_ported("n_devices=", "parallelism")
     beta_values = np.asarray(beta_values, dtype=float)
@@ -190,8 +209,35 @@ def double_sweep_fused(beta_values, list_N_part: Sequence[float],
 
     record_fft = bool(rk.get("record_fft", False))
     p_block_flat = np.zeros((B,), float)
+    ledger = None
+    if ckpt_dir is not None:
+        # kwarg values go to config_hash unmangled (it normalises arrays
+        # by value and callables by name)
+        ledger = Path(ckpt_dir)
+        ledger.mkdir(parents=True, exist_ok=True)
+        route = {"particle": particle_route(config),
+                 "lattice_gas": SLOT_ROUTE}.get(engine, FUSED_ROUTE)
+        run_hash = config_hash({
+            "beta_values": beta_values.tolist(),
+            "list_N_part": list_N_part.tolist(), "nr": nr,
+            "base": dict(base), "rk": dict(rk), "seed": seed,
+            "chunk_size": chunk_size, "engine": engine,
+            **run_identity(route, device)})
+        _resume_prefix(ledger, run_hash, what="double sweep", resume=resume,
+                       chunk_size=chunk_size, n_units=B,
+                       size_key="chunk_size", unit_key="B",
+                       adopt_chunk_size=False, scan_prefix=False)
+    executed = 0
     for c0 in range(0, B, chunk_size):
         sl = slice(c0, min(c0 + chunk_size, B))
+        if ledger is not None:
+            cpath = ledger / f"chunk_{c0:07d}.npz"
+            if cpath.exists():
+                with np.load(cpath) as z:
+                    p_block_flat[sl] = z["p_block"]
+                continue
+        if stop_after_chunks is not None and executed >= stop_after_chunks:
+            return None
         params_c = broadcast_params(config, beta=flat_beta[sl],
                                     device=device, **rates)
         kw = dict(T=T, obs_dt=obs_dt, dt=dt, rho0_plus=prof_p[sl],
@@ -210,6 +256,10 @@ def double_sweep_fused(beta_values, list_N_part: Sequence[float],
                                 times, dx=config.dx, xlim=float(config.xlim),
                                 has_positions=False)
         p_block_flat[sl] = est.p_block.cpu().numpy()
+        if ledger is not None:
+            _atomic_savez(ledger / f"chunk_{c0:07d}.npz",
+                          p_block=p_block_flat[sl])
+        executed += 1
 
     K = int(base["site_capacity"])
     f_fit, f_err, g_fit, g_err, per_N_out = [], [], [], [], []

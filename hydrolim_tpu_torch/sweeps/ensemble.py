@@ -3,9 +3,10 @@
 The (β-grid × replicas) batch is one (B, n_buf) state: β enters only
 through the flip rate, so it batches as the leading axis of
 ``ParticleParams``; replicas differ only by their draws.
-``run_particle_ensemble`` initialises and runs the batch through
-``particles.run.run_particles`` (kernel B1 inside its scope, the τ-leap
-step outside the mean-field configuration), and ``frames_to_out`` slices
+``run_particle_ensemble`` initialises (``ensemble_states``) and runs the
+batch through ``particles.run.run_particles`` (kernel B1 inside its scope,
+the τ-leap step outside the mean-field configuration), and
+``frames_to_out`` slices
 one replica into the reference's ``out`` dict, with its exit log.
 ``chunk_seed`` gives each replica chunk of a sweep its own seed.
 """
@@ -70,6 +71,25 @@ def ensemble_dt(config: ParticleConfig, *, beta_max: float, rate_diffusion,
     return auto_dt(config, p, beta_max=beta_max)
 
 
+def ensemble_states(config: ParticleConfig, B: int, seed: int, *,
+                    rho0_plus: Optional[np.ndarray] = None,
+                    rho0_minus: Optional[np.ndarray] = None,
+                    engine: str = "auto", device="cuda") -> ParticleState:
+    """The B replicas' initial state, drawn from a generator seeded with
+    ``seed`` (``rho0_plus/minus`` as in ``run_particle_ensemble``); outside
+    the mean-field configuration the τ-leap step's (birth sites, an empty
+    exit log)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    st = init_particles(config, gen, rho0_plus, rho0_minus, B=B,
+                        device=device)
+    state0 = ParticleState(pos=st.pos, sigma=st.sigma,
+                           wind=torch.zeros_like(st.pos), alive=st.alive)
+    if particle_route(config, engine) == TAU_LEAP_ROUTE:
+        state0 = with_exit_log(config, state0)
+    return state0
+
+
 def run_particle_ensemble(config: ParticleConfig, params_b: ParticleParams,
                           seed: int = 0, *, T: float, obs_dt: float,
                           dt: float, rho0_plus: Optional[np.ndarray] = None,
@@ -81,19 +101,13 @@ def run_particle_ensemble(config: ParticleConfig, params_b: ParticleParams,
     ``rho0_plus/minus`` are (L,) profiles shared by the batch or (B, L)
     rows per replica (the (N, β) double sweep: N varies only through the
     Poisson intensities).  The initial state is drawn from a generator
-    seeded with ``seed``; the run's draws from one seeded with ``seed + 1``.
-    Outside the mean-field configuration the state is the τ-leap step's
-    (birth sites, an empty exit log).  Returns a ``ParticleRunResult``
-    with leaves (B, M, ...)."""
-    B = params_b.beta.shape[0]
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    st = init_particles(config, gen, rho0_plus, rho0_minus, B=B,
-                        device=device)
-    state0 = ParticleState(pos=st.pos, sigma=st.sigma,
-                           wind=torch.zeros_like(st.pos), alive=st.alive)
-    if particle_route(config, engine) == TAU_LEAP_ROUTE:
-        state0 = with_exit_log(config, state0)
+    seeded with ``seed`` (``ensemble_states``); the run's draws from one
+    seeded with ``seed + 1`` (``utils.checkpoint.
+    run_particle_ensemble_checkpointed`` runs the same in chunks).
+    Returns a ``ParticleRunResult`` with leaves (B, M, ...)."""
+    state0 = ensemble_states(config, params_b.beta.shape[0], seed,
+                             rho0_plus=rho0_plus, rho0_minus=rho0_minus,
+                             engine=engine, device=device)
     return run_particles(config, params_b, state0, T=T, obs_dt=obs_dt,
                          dt=dt, record_pos=record_pos, record_fft=record_fft,
                          seed=seed + 1, engine=engine)

@@ -13,12 +13,13 @@ Supported configuration class (the reference flagship,
 PARTICLE_solver_BIOLOGY_EXCLUSION.py:55-94): site exclusion with capacity
 K ≤ 8, periodic or non-periodic, plus_forward or bidirectional hops,
 global or Gaussian local m, default CW flip rate, no anchors, no crowding
-suppression.  The JAX runner's ``mesh=``, ``ckpt_dir=`` and ``r_batch=``
-options are not ported yet.
+suppression.  ``ckpt_dir=`` runs it in chunks of frames, resumable
+(``FusedRun``); the JAX runner's ``mesh=`` and ``r_batch=`` options are not
+ported.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,6 +40,14 @@ from hydrolim_tpu_torch.particles.lattice_gas import (
     tracer_bits,
 )
 from hydrolim_tpu_torch.particles.lattice_gas_k import lgk_init
+from hydrolim_tpu_torch.sweeps.persistence import config_hash
+from hydrolim_tpu_torch.utils.checkpoint import (
+    _config_fields,
+    _digest,
+    _params_lists,
+    run_chunked,
+    run_identity,
+)
 
 
 def is_fused_exclusion_path(config: ParticleConfig) -> bool:
@@ -125,75 +134,143 @@ def unwrap_tracer_sites(raw: torch.Tensor, L: int,
                        int(TRACER_INVALID)).to(torch.int32)
 
 
+class FusedRun:
+    """The fixed parts of one fused-kernel run: the frame grid, the kernel
+    scalars, the smoothing band and the recorder.  ``start`` draws the
+    carry of frame 0 (payload slots, tracer tags and their mask, the
+    kernel's Philox seeds, the generator); ``run_range`` advances frames
+    [lo, hi) (frame f launches with ``step0 = (f − 1)·n_sub``) and returns
+    their records and raw tracer sites (B, hi − lo, n_t) with the carry
+    after them, so ranges stitch bit for bit given the carry."""
+
+    route = "exclusion_multi_step"
+
+    def __init__(self, config: ParticleConfig, params_b: ParticleParams, *,
+                 T: float, obs_dt: float, dt: float, record_fft: bool,
+                 n_tracers: int, device):
+        assert is_fused_exclusion_path(config), (
+            "run_exclusion_sweep requires the fused-kernel configuration "
+            f"class (K<={MAX_K} exclusion, no anchors/crowding, default "
+            "flip rate)")
+        self.config, self.params_b = config, params_b
+        self.device = torch.device(device)
+        self.n_frames, self.n_sub, self.dt_eff = frame_grid(T, obs_dt, dt)
+        self.n_tracers = n_tracers
+        L = config.L
+        if config.periodic and n_tracers > 0:
+            # per-frame minimal-image unwrapping is ambiguous once a frame's
+            # expected event count (drift and both diffusion directions)
+            # reaches L/2: fail loudly instead of folding displacements
+            ev = float(torch.max(params_b.rate_active)
+                       + 2.0 * torch.max(params_b.rate_diffusion))
+            if ev * obs_dt >= L / 2:
+                raise ValueError(
+                    f"obs_dt={obs_dt} gives ~{ev * obs_dt:.0f} expected "
+                    f"events per frame >= L/2={L // 2}: per-frame "
+                    "minimal-image unwrapping of tracer winding would be "
+                    "ambiguous — use a smaller obs_dt")
+        self.scal = torch.stack([params_b.beta, params_b.rate_diffusion,
+                                 params_b.rate_active], dim=1).to(
+            device=self.device, dtype=torch.float32).contiguous()
+        self.band = build_smoothing_band(config, self.device)
+        self.rec = _record_fn(config, record_fft, self.device)
+
+    def start(self, seed: int, rho0_plus=None, rho0_minus=None) -> dict:
+        config, dev = self.config, self.device
+        B = self.params_b.beta.shape[0]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        slots = init_payload_slots(config, gen, rho0_plus, rho0_minus, B=B,
+                                   device=dev)
+        if self.n_tracers > 0:
+            tags, valid = _init_tags(slots, gen, min(self.n_tracers,
+                                                     config.K * config.L))
+        else:
+            tags = torch.zeros((B, 0), dtype=torch.int32, device=dev)
+            valid = torch.zeros((B, 0), dtype=torch.bool, device=dev)
+        seeds = torch.randint(0, 2 ** 31 - 1, (B,), generator=gen,
+                              device=dev, dtype=torch.int32)
+        return dict(slots=slots, tags=tags, valid=valid, seeds=seeds,
+                    gen=gen)
+
+    def run_range(self, carry: dict, lo: int, hi: int):
+        config, n_sub = self.config, self.n_sub
+        slots, tags, valid = carry["slots"], carry["tags"], carry["valid"]
+        bidi = config.active_model == "bidirectional"
+        records, raws = [], []
+
+        def record(sl):
+            frame, raw = self.rec(sl, tags, valid)
+            records.append(frame)
+            raws.append(raw)
+
+        if lo == 0:
+            record(slots)
+        for f in range(max(lo, 1), hi):
+            slots = exclusion_multi_step(
+                self.scal, carry["seeds"], slots, self.band, k_steps=n_sub,
+                dt=self.dt_eff, periodic=config.periodic,
+                bidirectional=bidi, step0=(f - 1) * n_sub,
+                generator=carry["gen"])
+            record(slots)
+        out = stack_frames(records, torch.stack(raws, dim=1))._asdict()
+        out["raw"] = out.pop("tracer_pos")
+        return out, dict(carry, slots=slots)
+
+    def finish(self, records: dict, carry: dict):
+        """(frames with the tracers unwrapped over the whole grid, the
+        final slot spins) from the stitched records and the last carry."""
+        tracer_pos = unwrap_tracer_sites(records["raw"].movedim(1, 0),
+                                         self.config.L,
+                                         self.config.periodic).movedim(0, 1)
+        fields = {k: v for k, v in records.items() if k != "raw"}
+        return (LatticeGasFrames(**fields, tracer_pos=tracer_pos),
+                torch.sign(carry["slots"]).to(torch.int32))
+
+
 def run_exclusion_sweep(config: ParticleConfig, params_b: ParticleParams, *,
                         T: float, obs_dt: float, dt: float, seed: int = 0,
                         device="cuda", rho0_plus=None, rho0_minus=None,
-                        record_fft: bool = True, n_tracers: int = 0
-                        ) -> Tuple[LatticeGasFrames, torch.Tensor]:
+                        record_fft: bool = True, n_tracers: int = 0,
+                        ckpt_dir=None, chunk_frames: int = 64,
+                        resume: bool = True,
+                        stop_after_chunks: Optional[int] = None
+                        ) -> Optional[Tuple[LatticeGasFrames, torch.Tensor]]:
     """Fused-kernel exclusion sweep over the batch of ``params_b``.
 
     Returns batched ``LatticeGasFrames`` of tensors on ``device`` (leaves
     (B, M, …), ``tracer_pos`` unwrapped with ``TRACER_INVALID``) and the
-    final (B, K, L) int32 slot spins.  All draws come from one ``torch.Generator``
-    seeded with ``seed`` on ``device``: the initial field, the tracer tags,
-    the kernel's Philox seeds and, on the CPU, the plain version's bits.
-    """
-    assert is_fused_exclusion_path(config), (
-        "run_exclusion_sweep requires the fused-kernel configuration class "
-        f"(K<={MAX_K} exclusion, no anchors/crowding, default flip rate)")
-    device = torch.device(device)
-    B = params_b.beta.shape[0]
-    K, L = config.K, config.L
-    M, n_sub, dt_eff = frame_grid(T, obs_dt, dt)
+    final (B, K, L) int32 slot spins.  All draws come from one
+    ``torch.Generator`` seeded with ``seed`` on ``device``: the initial
+    field, the tracer tags, the kernel's Philox seeds and, on the CPU, the
+    plain version's bits.  The run is one ``FusedRun.run_range`` over
+    every frame.
 
-    if config.periodic and n_tracers > 0:
-        # per-frame minimal-image unwrapping is ambiguous once a frame's
-        # expected event count (drift and both diffusion directions)
-        # reaches L/2: fail loudly instead of folding displacements
-        ev = float(torch.max(params_b.rate_active)
-                   + 2.0 * torch.max(params_b.rate_diffusion))
-        if ev * obs_dt >= L / 2:
-            raise ValueError(
-                f"obs_dt={obs_dt} gives ~{ev * obs_dt:.0f} expected events "
-                f"per frame >= L/2={L // 2}: per-frame minimal-image "
-                "unwrapping of tracer winding would be ambiguous — use a "
-                "smaller obs_dt")
-
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    slots = init_payload_slots(config, gen, rho0_plus, rho0_minus, B=B,
-                               device=device)
-    if n_tracers > 0:
-        tags, valid = _init_tags(slots, gen, min(n_tracers, K * L))
-    else:
-        tags = torch.zeros((B, 0), dtype=torch.int32, device=device)
-        valid = torch.zeros((B, 0), dtype=torch.bool, device=device)
-
-    scal = torch.stack([params_b.beta, params_b.rate_diffusion,
-                        params_b.rate_active], dim=1).to(
-        device=device, dtype=torch.float32).contiguous()
-    seeds = torch.randint(0, 2 ** 31 - 1, (B,), generator=gen, device=device,
-                          dtype=torch.int32)
-    band = build_smoothing_band(config, device)
-    bidi = config.active_model == "bidirectional"
-    rec = _record_fn(config, record_fft, device)
-
-    records, raws = [], []
-
-    def record(sl):
-        frame, raw = rec(sl, tags, valid)
-        records.append(frame)
-        raws.append(raw)
-
-    record(slots)
-    for f in range(1, M):
-        slots = exclusion_multi_step(
-            scal, seeds, slots, band, k_steps=n_sub, dt=dt_eff,
-            periodic=config.periodic, bidirectional=bidi,
-            step0=(f - 1) * n_sub, generator=gen)
-        record(slots)
-
-    tracer_pos = unwrap_tracer_sites(torch.stack(raws), L,    # (M, B, n_t)
-                                     config.periodic).movedim(0, 1)
-    return stack_frames(records, tracer_pos), torch.sign(slots).to(
-        torch.int32)
+    ``ckpt_dir=`` makes the run preemption-safe (the JAX package's
+    ``_run_fused_checkpointed``): the frames run in ``chunk_frames``-frame
+    chunks, each chunk's records and raw tracer sites written atomically
+    with the carry (payload slots, tags, seeds, the generator's state);
+    frame f's Philox counter is ``(f − 1)·n_sub``, so the stitched result
+    is bit-identical to the run in one piece, the tracers unwrapped over
+    the whole grid after stitching.  Returns ``None`` when
+    ``stop_after_chunks`` halted an incomplete run."""
+    run = FusedRun(config, params_b, T=T, obs_dt=obs_dt, dt=dt,
+                   record_fft=record_fft, n_tracers=n_tracers, device=device)
+    start = lambda: run.start(seed, rho0_plus, rho0_minus)
+    if ckpt_dir is None:
+        records, carry = run.run_range(start(), 0, run.n_frames)
+        return run.finish(records, carry)
+    run_hash = config_hash({
+        "fused_config": _config_fields(config),
+        "params": _params_lists(params_b), "T": T, "obs_dt": obs_dt,
+        "dt": dt, "seed": seed, "record_fft": record_fft,
+        "n_tracers": n_tracers, "rho0_plus": _digest(rho0_plus),
+        "rho0_minus": _digest(rho0_minus),
+        **run_identity(run.route, run.device)})
+    out = run_chunked(ckpt_dir, run_hash, what="fused exclusion run",
+                      n_units=run.n_frames, chunk_size=chunk_frames,
+                      size_key="chunk_frames", unit_key="n_frames",
+                      resume=resume, stop_after_chunks=stop_after_chunks,
+                      device=run.device, start=start,
+                      run_range=run.run_range)
+    return None if out is None else run.finish(*out)

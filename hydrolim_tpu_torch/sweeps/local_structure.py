@@ -16,11 +16,14 @@ the device:
   at K=1, ``run_lattice_gas_k`` above).
 
 The structure observables need no particle identity, so the slot routes
-tag no tracers.  ``n_devices=`` and ``ckpt_dir=`` are not ported yet
-(``core/scope.py`` names their ROADMAP.md items).
+tag no tracers.  ``ckpt_dir=`` checkpoints the ``'particle'`` and
+``'lattice_gas'`` routes (``utils/checkpoint.py``); ``'pallas'`` refuses it,
+as in the JAX package.  ``n_devices=`` is not ported yet (``core/scope.py``
+names its ROADMAP.md item).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -45,6 +48,10 @@ from hydrolim_tpu_torch.sweeps.ensemble import (
 from hydrolim_tpu_torch.sweeps.fast_exclusion import (
     is_fused_exclusion_path,
     run_exclusion_sweep,
+)
+from hydrolim_tpu_torch.utils.checkpoint import (
+    run_lattice_gas_checkpointed,
+    run_lattice_gas_k_checkpointed,
 )
 
 STRUCTURE_ENGINES = ("particle", "lattice_gas", "pallas")
@@ -125,11 +132,10 @@ def _lattice_gas_outs(beta_values, n_runs, ps_kwargs, init_kwargs,
     """The (β × replicas) grid on a slot route, as reference-schema out
     dicts per replica (``out_for(i)``): ``kernel='xla'`` the plain-torch
     slot engines, ``'auto'``/``'pallas'`` kernel B3/B4, which must cover
-    the configuration (``is_fused_exclusion_path``)."""
+    the configuration (``is_fused_exclusion_path``).  ``ckpt_dir=`` runs
+    the slot engines' checkpointed runners (``kernel='xla'`` only)."""
     if n_devices is not None:
         raise not_ported("n_devices=", "parallelism")
-    if ckpt_dir is not None:
-        raise not_ported("ckpt_dir=", "checkpointing")
     config = config_from_kwargs(ps_kwargs)
     assert config.exclusion, "lattice-gas engines require site_capacity"
     if kernel != "xla":
@@ -140,6 +146,13 @@ def _lattice_gas_outs(beta_values, n_runs, ps_kwargs, init_kwargs,
         runner = run_exclusion_sweep
     else:
         runner = run_lattice_gas_k if config.K > 1 else run_lattice_gas
+    if ckpt_dir is not None:
+        assert kernel == "xla", (
+            "ckpt_dir requires the XLA lattice-gas engines (the fused "
+            "Pallas route runs uncheckpointed)")
+        runner = functools.partial(
+            run_lattice_gas_k_checkpointed if config.K > 1
+            else run_lattice_gas_checkpointed, ckpt_dir=ckpt_dir)
     rho0_p, rho0_m = _profiles(config, init_kwargs)
     rates = dict(rate_diffusion=float(ps_kwargs["rate_diffusion"]),
                  rate_active=float(ps_kwargs["rate_active"]))
@@ -193,14 +206,17 @@ def sweep_betas_for_structures(beta_values, n_runs_per_beta: int,
         init_kwargs = dict(rho0_plus=g[0], rho0_minus=g[1])
     beta_values = np.asarray(beta_values, dtype=float)
     T, obs_dt = float(run_kwargs["T"]), float(run_kwargs["obs_dt"])
+    if ckpt_dir is not None:
+        assert engine in ("lattice_gas", "particle"), (
+            "ckpt_dir requires engine='lattice_gas' or 'particle' (the "
+            "fused Pallas route runs uncheckpointed)")
     if engine == "particle":
         if n_devices is not None:
             raise not_ported("n_devices=", "parallelism")
-        if ckpt_dir is not None:
-            raise not_ported("ckpt_dir=", "checkpointing")
         config, res, _ = run_sweep_grid(beta_values, n_runs_per_beta,
                                         ps_kwargs, init_kwargs, run_kwargs,
-                                        seed=seed, device=device)
+                                        seed=seed, ckpt_dir=ckpt_dir,
+                                        device=device)
         out_for = lambda i: frames_to_out(res.frames, i, config, T, obs_dt,
                                           final_state=res.final_state)
     else:

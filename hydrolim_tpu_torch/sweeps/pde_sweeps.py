@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -27,6 +27,7 @@ from hydrolim_tpu_torch.pde.fast_solve import (
 )
 from hydrolim_tpu_torch.pde.init import pde_initialize
 from hydrolim_tpu_torch.theory.meanfield import compute_m_of_beta
+from hydrolim_tpu_torch.utils.checkpoint import run_pde_ensemble_checkpointed
 
 
 def run_pde_ensemble(config: PDEConfig, beta_values, *, gamma: float,
@@ -34,13 +35,26 @@ def run_pde_ensemble(config: PDEConfig, beta_values, *, gamma: float,
                      mode: str = "homogeneous", rho0: float = 1.0,
                      noise: float = 0.3, n_tracers: int = 1000,
                      engine: str = "xla", device="cuda",
-                     fetch_snapshots: bool = True):
+                     fetch_snapshots: bool = True, ckpt_dir=None,
+                     stop_after_chunks: Optional[int] = None):
     """Batched (β × runs) solve on ``device``; returns the result as numpy
     arrays and the flattened β array.  Every draw comes from one
     ``torch.Generator`` seeded with ``seed``.  ``engine`` takes the JAX
     package's names, which all run the fused solve
-    (``fast_solve.PDE_ENGINES``)."""
+    (``fast_solve.PDE_ENGINES``).
+
+    ``ckpt_dir=`` makes the in-flight batch preemption-safe: the solve
+    runs through ``utils.checkpoint.run_pde_ensemble_checkpointed`` (kernel
+    B2 in chunks of snapshot blocks; bit-identical stitched result).  As
+    in the JAX package, ``engine='pallas'`` refuses it (AssertionError)
+    and ``'xla'`` and ``'auto'`` checkpoint.  ``stop_after_chunks=k``
+    halts after ``k`` new chunks and returns ``None`` if the run is
+    incomplete (the simulated-preemption hook of the checkpoint drivers)."""
     check_pde_engine(engine)
+    if ckpt_dir is not None:
+        assert engine != "pallas", (
+            "ckpt_dir requires the XLA path (the fused Pallas kernel runs "
+            "uncheckpointed); use engine='xla' or 'auto'")
     if float(gamma) == 0.0 and config.diffusion_solver == "auto":
         config = dataclasses.replace(config, diffusion_solver="identity")
     if config.n_tracers != n_tracers:
@@ -57,15 +71,24 @@ def run_pde_ensemble(config: PDEConfig, beta_values, *, gamma: float,
     rho_p, rho_m, tracers = pde_initialize(
         config, gen, B=B, mode=mode, rho0=rho0, noise=noise,
         n_tracers=n_tracers, device=device)
-    res = pde_solve_fused(config, params_b, rho_p, rho_m, tracers, gen,
-                          keep_snapshots=fetch_snapshots)
+    if ckpt_dir is None:
+        res = pde_solve_fused(config, params_b, rho_p, rho_m, tracers, gen,
+                              keep_snapshots=fetch_snapshots)
+    else:
+        res = run_pde_ensemble_checkpointed(
+            config, params_b, rho_p, rho_m, tracers, gen, ckpt_dir=ckpt_dir,
+            keep_snapshots=fetch_snapshots,
+            stop_after_chunks=stop_after_chunks)
+        if res is None:
+            return None
     return result_to_numpy(res), flat_beta
 
 
 def pde_single_run(outdir: str = "IMEX_output", seed: int = 58,
-                   device="cuda", **overrides):
+                   ckpt_dir=None, device="cuda", **overrides):
     """Single-run driver (IMEX_PDE_solver_run.py:7-34) through the
-    ``IMEXPDE`` facade; returns ``get_output()``."""
+    ``IMEXPDE`` facade; returns ``get_output()``.  ``ckpt_dir=`` routes
+    the solve through the facade's ``solve_checkpointed``."""
     from hydrolim_tpu_torch.pde.system import IMEXPDE
 
     kw = dict(L=1000, T=20.0, dt=5e-4, gamma=0.0, lam=0.6, beta=2.0,
@@ -75,7 +98,10 @@ def pde_single_run(outdir: str = "IMEX_output", seed: int = 58,
     kw.update(overrides)
     solver = IMEXPDE(**kw)
     solver.initialize(mode="homogeneous", rho0=1.0, noise=0.3)
-    solver.solve()
+    if ckpt_dir is not None:
+        solver.solve_checkpointed(ckpt_dir=ckpt_dir)
+    else:
+        solver.solve()
     solver.plot_all()
     solver.plot_individual()
     return solver.get_output()
@@ -87,10 +113,12 @@ def pde_beta_sweep(beta_values=None, n_runs: int = 3, T: float = 40.0,
                    kernel_sigma: float = 1e5 - 10, L: int = 1000,
                    dt: float = 5e-4, seed: int = 0, n_tracers: int = 1000,
                    outdir: str = ".", plot_result: bool = True,
-                   engine: str = "xla", device="cuda") -> Dict:
+                   engine: str = "xla", ckpt_dir=None,
+                   device="cuda") -> Dict:
     """β sweep with theory overlay.  v per run is |nanmean v_eff(t)| over
-    [t_min, t_max]; D per run is nanmean D_eff(t) there.  ``engine`` as in
-    ``run_pde_ensemble``; the figures need matplotlib."""
+    [t_min, t_max]; D per run is nanmean D_eff(t) there.  ``engine`` and
+    ``ckpt_dir`` as in ``run_pde_ensemble``; the figures need
+    matplotlib."""
     if beta_values is None:
         beta_values = np.linspace(0, 3, 11)
     beta_values = np.asarray(beta_values, dtype=float)
@@ -101,7 +129,7 @@ def pde_beta_sweep(beta_values=None, n_runs: int = 3, T: float = 40.0,
     res, _ = run_pde_ensemble(config, beta_values, gamma=gamma, lam=lam,
                               n_runs=n_runs, seed=seed, n_tracers=n_tracers,
                               engine=engine, device=device,
-                              fetch_snapshots=False)
+                              fetch_snapshots=False, ckpt_dir=ckpt_dir)
     t = np.linspace(0, T, config.nsteps + 1)
     mask = (t >= t_min) & (t <= t_max)
 
@@ -164,12 +192,13 @@ def pde_kernel_sigma_sweep(kernel_sigma_values=None, n_runs: int = 5,
                            L: int = 1000, dt: float = 5e-4, lam: float = 0.6,
                            n_tracers: int = 1000, outdir: str = ".",
                            plot_result: bool = True, record_every: int = 1,
-                           engine: str = "xla", device="cuda",
-                           **overrides) -> Dict:
+                           engine: str = "xla", ckpt_dir=None,
+                           device="cuda", **overrides) -> Dict:
     """Kernel-σ sweep: per-σ time series of |m|, |v_eff|, D_eff, Var(t)
     (mean ± std bands across runs).  One batched ensemble of ``n_runs`` per
     σ, seeded ``base_seed + 1000·k_idx`` (the reference's per-σ seed
-    scheme, :64)."""
+    scheme, :64).  ``ckpt_dir=`` checkpoints each σ's ensemble in its own
+    subdirectory ``sigma_<σ:.4g>`` (``run_pde_ensemble``)."""
     if kernel_sigma_values is None:
         kernel_sigma_values = REFERENCE_KERNEL_SIGMAS
     v = dict(MAGN_VARIANTS[variant])
@@ -187,7 +216,9 @@ def pde_kernel_sigma_sweep(kernel_sigma_values=None, n_runs: int = 5,
                                   n_runs=n_runs,
                                   seed=base_seed + 1000 * k_idx,
                                   n_tracers=n_tracers, engine=engine,
-                                  device=device, fetch_snapshots=False)
+                                  device=device, fetch_snapshots=False,
+                                  ckpt_dir=None if ckpt_dir is None else
+                                  str(Path(ckpt_dir) / f"sigma_{sigma:.4g}"))
         n_rec = config.n_records        # nsteps+1 thinned by record_every
         m_results[sigma] = np.abs(res.records.m_mean[:, :n_rec])
         v_results[sigma] = np.abs(res.records.v_eff[:, :n_rec])

@@ -10,8 +10,8 @@ figures (:1077-1275) are drawn where matplotlib is installed.
 ``engine`` goes to ``sweep_over_betas``: ``'particle'`` (the default, as
 in the JAX package) runs each σ on the general τ-leap step,
 ``'lattice_gas'`` on the plain-torch slot engines, the fused names on
-kernel B3/B4.  The JAX package's ``ckpt_dir=`` and ``n_devices=`` are not
-ported yet (ROADMAP.md §A).
+kernel B3/B4.  ``ckpt_dir=`` checkpoints each σ's grid in its own
+subdirectory; ``n_devices=`` is not ported yet (ROADMAP.md §A).
 """
 from __future__ import annotations
 
@@ -60,9 +60,12 @@ def sweep_over_sigmas(sigma_values: Sequence[float], beta_values,
     (restart semantics after a crash or interruption); ``run=False``
     reloads the cross-σ archive.  ``engine`` is passed to
     ``sweep_over_betas`` (``'particle'``, its fused names or
-    ``'lattice_gas'``)."""
-    if ckpt_dir is not None:
-        raise not_ported("ckpt_dir=", "checkpointing")
+    ``'lattice_gas'``).
+
+    ``ckpt_dir=`` additionally makes the σ in flight preemption-safe: each
+    σ's grid runs through ``sweep_over_betas(ckpt_dir=)`` with its own
+    subdirectory ``<ckpt_dir>/sigma_<σ:.4g>``, so a kill mid-σ resumes from
+    the newest complete chunk instead of restarting that σ's grid."""
     if n_devices is not None:
         raise not_ported("n_devices=", "parallelism")
     out = Path(outdir)
@@ -86,7 +89,9 @@ def sweep_over_sigmas(sigma_values: Sequence[float], beta_values,
                 beta_values, n_runs_per_beta=n_runs_per_beta, run=True,
                 ps_kwargs=pk, run_kwargs=run_kwargs, npz_path=str(npz_path),
                 outdir=str(out), seed=seed + 1000 * k_idx, do_fit=False,
-                plot_result=False, engine=engine, device=device)
+                plot_result=False, engine=engine, device=device,
+                ckpt_dir=None if ckpt_dir is None
+                else str(Path(ckpt_dir) / f"sigma_{sigma:.4g}"))
         results[float(sigma)] = {
             "beta": beta_values,
             "v_mean": save_dict["means"],

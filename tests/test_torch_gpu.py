@@ -731,3 +731,128 @@ def test_tau_leap_step_and_run_issue_no_host_sync(dev):
     assert res.engine == TAU_LEAP_ROUTE
     assert res.frames.m_local.shape == (8, 2, 1000)
     assert torch.isfinite(res.frames.m_local).all()
+
+
+# ---------------------------------------------------------------------------
+# chunked checkpoint/resume on the card: the run in chunks, stopped and
+# resumed from disk, equals the run in one piece bit for bit
+# ---------------------------------------------------------------------------
+
+def _equal_tree(a, b, what):
+    for name, x in a.items():
+        y = b[name]
+        if x is None:
+            assert y is None, f"{what}.{name}"
+            continue
+        assert x.dtype == y.dtype and x.shape == y.shape, f"{what}.{name}"
+        assert x.device == y.device, f"{what}.{name}"
+        assert torch.equal(x.nan_to_num(7.0) if x.is_floating_point() else x,
+                           y.nan_to_num(7.0) if y.is_floating_point() else y
+                           ), f"{what}.{name}"
+
+
+def test_b1_route_chunked_equals_one_piece(dev, tmp_path):
+    """``run_particles_checkpointed`` on B1's route (periodic mean field,
+    the fixed init): stopped after one 3-frame chunk and resumed, frames
+    and final state equal the unsplit run's; B1 launched."""
+    import dataclasses
+
+    from hydrolim_tpu_torch.particles.run import B1_ROUTE, run_particles
+    from hydrolim_tpu_torch.sweeps.ensemble import (
+        broadcast_params,
+        ensemble_states,
+    )
+    from hydrolim_tpu_torch.utils.checkpoint import (
+        run_particles_checkpointed,
+    )
+
+    cfg = ParticleConfig(L=64, N=96, init="fixed", scale_rates=False,
+                         periodic=True, site_capacity=None,
+                         local_kernel_sigma=0.0)
+    p = broadcast_params(cfg, beta=[0.8, 2.0], rate_diffusion=5.0,
+                         rate_active=3.0, device=dev)
+    st = ensemble_states(cfg, 2, 3, device=dev)
+    run = dict(T=1.0, obs_dt=0.1, dt=0.005, seed=11)
+    want = run_particles(cfg, p, st, **run)
+    assert want.engine == B1_ROUTE
+    ck = dict(ckpt_dir=tmp_path / "ck", chunk_frames=3)
+    assert run_particles_checkpointed(cfg, p, st, stop_after_chunks=1,
+                                      **run, **ck) is None
+    meanfield_multi_step.launches = 0
+    got = run_particles_checkpointed(cfg, p, st, **run, **ck)
+    assert meanfield_multi_step.launches == 7          # frames 4..10
+    _equal_tree(want.frames._asdict(), got.frames._asdict(), "frames")
+    asdict = lambda s: {f.name: getattr(s, f.name)
+                        for f in dataclasses.fields(s)}
+    _equal_tree(asdict(want.final_state), asdict(got.final_state), "state")
+
+
+def test_b2_chunked_equals_one_piece_across_a_window_split(dev, tmp_path):
+    """``pde_solve_checkpointed`` on B2 (smooth m, exact solve): chunks of
+    3 blocks of 10 steps split at step 30, which is not a multiple of the
+    tracer window (14 steps); stopped after one chunk and resumed, every
+    record, snapshot and the final fields equal the unsplit solve's, and
+    both leave the generator in the same state."""
+    from hydrolim_tpu_torch.core.config import PDEParams
+    from hydrolim_tpu_torch.pde.fast_solve import pde_solve_fused
+    from hydrolim_tpu_torch.utils.checkpoint import pde_solve_checkpointed
+
+    cfg = PDEConfig(L=96, T=0.087, dt=1e-3, bc="periodic",
+                    active_model="bidirectional", gaussian_kernel=True,
+                    kernel_sigma=0.05, snapshot_interval=10, fft_kmax=12,
+                    tracer_window_time=0.014, n_tracers=24)
+    assert cfg.tracer_window == 14 and 30 % cfg.tracer_window
+    full = lambda v: torch.full((2,), v, device=dev)
+    params = PDEParams(gamma=full(0.2), lam=full(0.6),
+                       beta=torch.tensor([0.5, 2.0], device=dev))
+
+    def inputs():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(4)
+        return (*pde_initialize(cfg, gen, B=2, mode="homogeneous",
+                                noise=0.3, n_tracers=24, device=dev), gen)
+
+    *x, gen_a = inputs()
+    want = pde_solve_fused(cfg, params, *x, gen_a)
+    *x, gen_b = inputs()
+    ck = dict(ckpt_dir=tmp_path / "ck", chunk_blocks=3)
+    assert pde_solve_checkpointed(cfg, params, *x, gen_b,
+                                  stop_after_chunks=1, **ck) is None
+    *x, gen_b = inputs()
+    pde_multi_step.launches = 0
+    got = pde_solve_checkpointed(cfg, params, *x, gen_b, **ck)
+    assert pde_multi_step.launches == 6                # blocks 3..8
+    fields = lambda r: dict(rho_p=r.rho_p, rho_m=r.rho_m,
+                            snapshots=r.snapshots, m_snapshots=r.m_snapshots,
+                            snap_times=r.snap_times,
+                            **{k: getattr(r.records, k) for k in (
+                                "m_mean", "var", "fft_ri", "v_eff", "D_eff")})
+    _equal_tree(fields(want), fields(got), "pde")
+    assert torch.equal(gen_a.get_state(), gen_b.get_state())
+
+
+@pytest.mark.parametrize("K,sigma,periodic", [(3, 0.02, False),
+                                              (1, 0.0, True)])
+def test_b3_chunked_equals_one_piece(dev, tmp_path, K, sigma, periodic):
+    """``run_exclusion_sweep(ckpt_dir=)`` on B3: 4-frame chunks, stopped
+    after one and resumed; frames, unwrapped tracer positions and the
+    final slots equal the unsplit run's."""
+    from hydrolim_tpu_torch.sweeps.ensemble import broadcast_params
+    from hydrolim_tpu_torch.sweeps.fast_exclusion import run_exclusion_sweep
+
+    cfg = ParticleConfig(L=200, N=150 * K, init="fixed", scale_rates=False,
+                         periodic=periodic, site_capacity=K,
+                         local_kernel_sigma=sigma)
+    p = broadcast_params(cfg, beta=[0.5, 2.5], rate_diffusion=0.5,
+                         rate_active=3.0, n_runs=2, device=dev)
+    run = dict(T=1.5, obs_dt=0.1, dt=0.01, seed=3, device=dev,
+               n_tracers=64)
+    want = run_exclusion_sweep(cfg, p, **run)
+    ck = dict(ckpt_dir=tmp_path / "ck", chunk_frames=4)
+    assert run_exclusion_sweep(cfg, p, stop_after_chunks=1, **run,
+                               **ck) is None
+    exclusion_multi_step.launches = 0
+    got = run_exclusion_sweep(cfg, p, **run, **ck)
+    assert exclusion_multi_step.launches == 11         # frames 4..14
+    _equal_tree(want[0]._asdict(), got[0]._asdict(), "frames")
+    assert torch.equal(want[1], got[1])

@@ -312,13 +312,22 @@ def test_meanfield_sweep_auto_outside_b1_scope():
 
 @pytest.mark.parametrize("call", ["lattice_gas", "exclusion", "checkpoint",
                                   "figures", "flip_rate"])
-def test_out_of_scope_raises_with_its_roadmap_item(call):
-    """Each call outside the port raises naming its ROADMAP.md item
-    (``run_checkpointed``, the figures); the configurations that raised
-    before their engines were ported now run: ``engine='lattice_gas'`` on
-    the slot engine, and ``engine='particle'`` with exclusion and local m
-    or with a custom flip rate on the τ-leap step."""
+def test_out_of_scope_raises_with_its_roadmap_item(call, tmp_path):
+    """Each call outside the port raises naming its ROADMAP.md item (the
+    figures); the calls that raised before their ports now run:
+    ``engine='lattice_gas'`` on the slot engine, ``engine='particle'``
+    with exclusion and local m or with a custom flip rate on the τ-leap
+    step, and ``run_checkpointed``, which returns ``run``'s out dict."""
     ps = ParticleSystem(**_ps_kwargs(), device="cpu")
+    if call == "checkpoint":
+        want = ParticleSystem(**_ps_kwargs(), device="cpu").run(
+            T=1.0, obs_dt=0.5)
+        got = ps.run_checkpointed(T=1.0, obs_dt=0.5, ckpt_dir=tmp_path)
+        assert sorted(got) == sorted(want)
+        for k in ("m_global", "pos_frames", "total_list"):
+            np.testing.assert_array_equal(got[k], want[k])
+        assert (tmp_path / "manifest.json").exists()
+        return
     if call in ("lattice_gas", "exclusion", "flip_rate"):
         over = (dict(flip_rate_fn=lambda s, m: 1.0 + 0 * s)
                 if call == "flip_rate" else
@@ -332,10 +341,7 @@ def test_out_of_scope_raises_with_its_roadmap_item(call):
             out["m_global"]).all()
         return
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A item"):
-        if call == "checkpoint":
-            ps.run_checkpointed(T=1.0, obs_dt=0.5, ckpt_dir="unused")
-        else:
-            ps.plot_individuals({})
+        ps.plot_individuals({})
 
 
 def test_facades_are_exported():

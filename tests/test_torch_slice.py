@@ -244,7 +244,7 @@ def test_slice_exclusion_k1_magnetization_pin(tmp_path):
 def test_package_never_imports_jax():
     """Importing every module of the port leaves jax out of sys.modules;
     the walk reaches the τ-leap engine's and the local-structure sweep's
-    modules."""
+    modules, and the checkpointing slice's."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import hydrolim_tpu_torch as p\n"
@@ -255,7 +255,9 @@ def test_package_never_imports_jax():
         "new = {'core.device', 'runtime.native', 'runtime.exact',\n"
         "       'observables.structure', 'sweeps.local_structure',\n"
         "       'viz.structure_plots', 'experiments.particle_local_structure',\n"
-        "       'particles.stepper', 'ops.segment'}\n"
+        "       'particles.stepper', 'ops.segment', 'utils.checkpoint',\n"
+        "       'sweeps.persistence', 'observables.estimators',\n"
+        "       'experiments.measure_ckpt_overhead'}\n"
         "missing = {n for n in new if p.__name__ + '.' + n not in names}\n"
         "assert not missing, missing\n"
         "bad = sorted(k for k in sys.modules\n"
