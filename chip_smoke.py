@@ -9,7 +9,9 @@ Phases (each prints one line with its wall time; a failed phase raises):
 3. kernel B1 against its plain PyTorch version on the card, injected bits,
    under its own plan and under every cluster size and state mode its
    launch plan can reach (``B1_PLANS``: registers, shared memory, device
-   memory);
+   memory), and at the critical-scaling driver's shape (L=8, zero motion
+   rates, B=64, N=1024 and 16,384, β ∈ {0.5, 1.0}: σ moves, pos and wind
+   stay);
 4. kernel B2 against its plain PyTorch version on the card, injected bits,
    in every mode (``B2_CASES``: global / pointwise / narrow / smooth m,
    periodic / Neumann, bidirectional / anchored_minus, exact / banded /
@@ -88,7 +90,17 @@ Phases (each prints one line with its wall time; a failed phase raises):
     at full width, 20 frames deep; the double sweep's chunk ledger (C0, C1,
     C2 equal); and a real SIGKILL of the fused sweep (a) in a child
     process, resumed here.  Each route prints both walls, the bytes
-    written and the seconds spent in writes (wall and process CPU).
+    written and the seconds spent in writes (wall and process CPU);
+18. the single-card drivers at full size on ``device='cuda'``: the
+    critical-scaling driver on B1 (its slope asserts; B1 launched, no step
+    of the torch fast path or the τ-leap step; per N the wall and B1's
+    device time), the convergence driver (the torch fast path and
+    ``pde_step``; its slope asserts; the walls of the PDE solution and of
+    each ladder point), the flagship single run's driver on ``'particle'``
+    and ``'lattice_gas'`` (the JAX facade's keys, ids conserved, occupancy
+    ≤ 3, the drift velocity, the walls), the kinesin fit, and the launcher
+    (``python -m hydrolim_tpu_torch critical-scaling --small`` in a
+    subprocess, and every command's ``--help``).
 
 Phases 11-14 record B3's device time (CUDA events around each launch) and
 its share of each driver's wall time.
@@ -225,7 +237,68 @@ def check_b1(dev) -> float:
                 raise AssertionError(f"{what}: the state did not move")
             if not (got[2] != 0).any():
                 raise AssertionError(f"{what}: no particle wrapped")
-    return max(float(err), check_b1_plans(dev, gen))
+    return max(float(err), check_b1_plans(dev, gen),
+               check_b1_critical(dev, gen))
+
+
+def check_b1_critical(dev, gen) -> float:
+    """B1 at the critical-scaling driver's shape: L=8, zero motion rates,
+    B=64 (β ∈ {0.5, 1.0} × 32 runs), the driver's dt (``ensemble_dt`` at
+    β=1), N=1024 and 16,384, 100 steps of injected bits under the wrapper's
+    own plan.  pos, σ and wind must be EQUAL to the plain version's.  With
+    no motion only σ moves: σ must change and pos and wind must stay as
+    they were (phase 3's "moved" / "wrapped" expectations do not apply).
+    Returns the max abs difference (0)."""
+    import torch
+    from hydrolim_tpu_torch.core.config import ParticleConfig
+    from hydrolim_tpu_torch.ops.stepper_kernel import (
+        coresident_clusters,
+        launch_plan,
+        meanfield_multi_step,
+        meanfield_multi_step_plain,
+    )
+    from hydrolim_tpu_torch.sweeps.ensemble import ensemble_dt
+
+    B, L, k = 64, 8, 100
+    scal = torch.tensor([[b, 0.0, 0.0] for b in (0.5, 1.0) for _ in range(32)],
+                        dtype=torch.float32, device=dev)
+    seeds = torch.zeros(B, dtype=torch.int32, device=dev)
+    for N in (1024, 16_384):
+        dt = ensemble_dt(ParticleConfig(
+            L=L, N=N, n_pad=N, init="fixed", scale_rates=False,
+            local_kernel_sigma=0.0, periodic=True, site_capacity=None,
+            active_model="bidirectional"), beta_max=1.0, rate_diffusion=0.0,
+            rate_active=0.0)
+        plan = launch_plan(B, N, L, k, coresident_clusters(0, N, L))
+        pos = torch.randint(0, L, (B, N), generator=gen, device=dev,
+                            dtype=torch.int32)
+        sig = torch.randint(0, 2, (B, N), generator=gen, device=dev,
+                            dtype=torch.int32) * 2 - 1
+        wind = torch.randint(-2, 3, (B, N), generator=gen, device=dev,
+                             dtype=torch.int32)
+        kw = dict(L=L, k_steps=k, dt=dt, bidirectional=True,
+                  noise=randbits((B, k, N), gen, dev))
+        got = meanfield_multi_step(scal, seeds, pos, sig, wind, **kw)
+        want = meanfield_multi_step_plain(scal, seeds, pos, sig, wind, **kw)
+        torch.cuda.synchronize()
+        what = (f"B1 critical-scaling shape B={B} N={N} L={L} dt={dt:.5f} "
+                f"(plan C={plan.shape.cluster} {plan.shape.mode}, "
+                f"{plan.shape.threads} threads, "
+                f"{plan.shape.groups_per_cta} groups per CTA, "
+                f"{plan.waves} wave(s))")
+        for name, a, b in zip(("pos", "sigma", "wind"), got, want):
+            bad = int((a != b).sum())
+            if bad:
+                raise AssertionError(f"{what}: {name} differs at {bad} of "
+                                     f"{a.numel()} particles")
+        if not (torch.equal(got[0], pos) and torch.equal(got[2], wind)):
+            raise AssertionError(f"{what}: a particle moved at zero rates")
+        flipped = float((got[1] != sig).float().mean())
+        if flipped == 0.0:
+            raise AssertionError(f"{what}: no spin flipped")
+        print(f"{what}: equal over {k} steps; pos and wind unchanged, "
+              f"{flipped:.3%} of spins differ from the start", flush=True)
+    return 0.0
 
 
 # B1's plans: (N, L, forced cluster size, the state mode it must take)
@@ -2623,6 +2696,206 @@ def checkpoint_routes(outdir: str) -> dict:
     return per_path
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the single-card drivers
+# ---------------------------------------------------------------------------
+
+def critical_scaling_full(outdir: str) -> dict:
+    """The critical-scaling driver's ``main()`` at full size on the card:
+    N ∈ {1024, 4096, 16384} × β ∈ {0.5, 1.0} × 32 runs (B=64), L=8, zero
+    motion rates, T = 8√N, 200 frames.  Its own asserts hold the slopes.
+    It must run on B1 (launches > 0) and take no step of the torch fast
+    path or the τ-leap step.  Per N: the wall, B1's launches and device
+    time (CUDA events around each launch) and its share of the wall."""
+    import torch
+    from hydrolim_tpu_torch.experiments import critical_scaling as cs
+    from hydrolim_tpu_torch.ops.pde_kernel import kernel_ms
+    from hydrolim_tpu_torch.ops.stepper_kernel import meanfield_multi_step
+    from hydrolim_tpu_torch.particles import run as prun
+
+    steps = {"torch": 0, "tau_leap": 0}
+    orig = dict(torch=prun._step_meanfield_global, tau_leap=prun.step,
+                ens=cs.run_particle_ensemble)
+
+    def counted(name):
+        def f(*a, **kw):
+            steps[name] += 1
+            return orig[name](*a, **kw)
+        return f
+
+    per_n = []
+
+    def ensemble(config, *a, **kw):
+        n0, e0 = meanfield_multi_step.launches, \
+            len(meanfield_multi_step.events)
+        t0 = time.perf_counter()
+        res = orig["ens"](config, *a, **kw)
+        torch.cuda.synchronize()
+        per_n.append(dict(
+            N=config.N, wall_s=time.perf_counter() - t0,
+            launches=meanfield_multi_step.launches - n0,
+            kernel_ms=kernel_ms(meanfield_multi_step.events[e0:]),
+            route=res.engine))
+        return res
+
+    prun._step_meanfield_global = counted("torch")
+    prun.step = counted("tau_leap")
+    cs.run_particle_ensemble = ensemble
+    meanfield_multi_step.launches = 0
+    meanfield_multi_step.events = []
+    try:
+        t0 = time.perf_counter()
+        rec = cs.main(["--outdir", outdir, "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        launches = meanfield_multi_step.launches
+        dev_s = kernel_ms(meanfield_multi_step.events) / 1e3
+    finally:
+        prun._step_meanfield_global = orig["torch"]
+        prun.step = orig["tau_leap"]
+        cs.run_particle_ensemble = orig["ens"]
+        meanfield_multi_step.events = None
+    for row in per_n:
+        share = row["kernel_ms"] / 1e3 / row["wall_s"]
+        print(f"  critical scaling N={row['N']}: {row['wall_s']:.3f} s wall "
+              f"({row['route']}), {row['launches']} launches of "
+              f"meanfield_multi_step, kernel {row['kernel_ms'] / 1e3:.4f} s "
+              f"on the device ({share:.2%} of the wall)", flush=True)
+    print(f"critical scaling: slopes {rec['slope_subcritical']:.4f} "
+          f"(beta=0.5, bounds (-0.62, -0.38)) and "
+          f"{rec['slope_critical']:.4f} (beta=1, bounds (-0.35, -0.15)); "
+          f"{wall:.3f} s wall, {launches} launches of meanfield_multi_step, "
+          f"kernel {dev_s:.4f} s on the device ({dev_s / wall:.2%} of the "
+          f"wall); fast-path steps {steps['torch']}, tau-leap steps "
+          f"{steps['tau_leap']}", flush=True)
+    if launches <= 0 or any(r["route"] != prun.B1_ROUTE for r in per_n):
+        raise AssertionError("critical scaling did not run on B1")
+    if steps["torch"] or steps["tau_leap"]:
+        raise AssertionError(f"critical scaling stepped off B1: {steps}")
+    return dict(wall_s=wall, launches=launches, kernel_s=dev_s,
+                slopes=(rec["slope_subcritical"], rec["slope_critical"]))
+
+
+def convergence_full(outdir: str) -> dict:
+    """The convergence driver's ``main()`` at full size on the card: L=128,
+    β=1.5, the PDE solution (``pde_step``, plain torch) and six N from 500
+    to 16,000 × 8 runs on the torch fast path (Poisson init, outside B1's
+    scope).  Its own asserts hold both slopes in (−0.75, −0.25)."""
+    from hydrolim_tpu_torch.experiments import convergence
+    from hydrolim_tpu_torch.ops.pde_kernel import pde_multi_step
+    from hydrolim_tpu_torch.ops.stepper_kernel import meanfield_multi_step
+
+    meanfield_multi_step.launches = pde_multi_step.launches = 0
+    t0 = time.perf_counter()
+    rec = convergence.main(["--outdir", outdir, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    print(f"convergence: slopes m(t) {rec['slope_m']:.4f}, rho(x,T) "
+          f"{rec['slope_rho']:.4f} (bounds (-0.75, -0.25)); {wall:.3f} s "
+          f"wall: PDE solution {rec['wall_pde_s']:.3f} s, ladder "
+          + ", ".join(f"N={n} {w:.3f} s" for n, w in zip(rec["Ns"],
+                                                          rec["wall_s"]))
+          + f"; B1 launches {meanfield_multi_step.launches}, B2 launches "
+          f"{pde_multi_step.launches}", flush=True)
+    return dict(wall_s=wall, slopes=(rec["slope_m"], rec["slope_rho"]))
+
+
+def particle_single_full(outdir: str) -> dict:
+    """The flagship single run's driver (``particle_single.main()``, L=1000,
+    N=750, K=3, σ=0.002, walls, T=20) on ``engine='particle'`` (the τ-leap
+    step) and ``'lattice_gas'`` (the slot engine): the JAX facade's out
+    keys, all N ids alive in all 40 frames, occupancy ≤ 3; the drift
+    velocity ``plot_individuals`` returns without matplotlib, the wall and
+    the step count of each."""
+    import torch
+    from hydrolim_tpu_torch.experiments import particle_single
+
+    walls = {}
+    for engine in ("particle", "lattice_gas"):
+        t0 = time.perf_counter()
+        out, v = particle_single.main(f"{outdir}/{engine}", engine=engine,
+                                      device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        what = f"particle single run (engine={engine!r})"
+        if sorted(out) != REF_OUT_KEYS:
+            raise AssertionError(f"{what}: out keys {sorted(out)} != "
+                                 f"{REF_OUT_KEYS}")
+        if len(out["pos_list"]) != 40 or \
+                any(len(p) != 750 for p in out["pos_list"]) or \
+                (out["alive_frames"].sum(-1) != 750).any():
+            raise AssertionError(f"{what}: a particle id was lost")
+        occ = max(int(np.bincount(p, minlength=1000).max())
+                  for p in out["pos_list"])
+        if occ > 3:
+            raise AssertionError(f"{what}: occupancy {occ} > K=3")
+        if not np.isfinite(v):
+            raise AssertionError(f"{what}: drift velocity {v}")
+        n_steps = round(20.0 / out["dt_eff"])
+        print(f"{what}: {wall:.3f} s wall, {n_steps} steps (dt_eff "
+              f"{out['dt_eff']:.4e}, {wall / n_steps * 1e3:.3f} ms per "
+              f"step); keys equal the JAX facade's, 750 ids in all 40 "
+              f"frames, max occupancy {occ}; COM drift velocity {v:.6f}",
+              flush=True)
+        walls[engine] = wall
+    return walls
+
+
+def launcher_checks(outdir: str) -> None:
+    """``python -m hydrolim_tpu_torch``: ``critical-scaling --small`` in a
+    subprocess (rc 0, its JSON read back, its slopes within the bounds),
+    then every command's ``--help`` through the launcher's ``main`` in this
+    process (rc 0; ``large-lattice`` non-zero, naming its ROADMAP.md
+    item; sixteen subprocesses would spend 28–35 s starting up)."""
+    from pathlib import Path
+
+    from hydrolim_tpu_torch.__main__ import _COMMANDS
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "hydrolim_tpu_torch", "critical-scaling",
+         "--small", "--outdir", outdir], cwd=root, capture_output=True,
+        text=True, timeout=300)
+    if run.returncode != 0:
+        raise AssertionError(f"critical-scaling --small: rc "
+                             f"{run.returncode}\n{run.stderr[-2000:]}")
+    rec = json.loads((Path(outdir) / "critical_scaling.json").read_text())
+    if not (-0.62 < rec["slope_subcritical"] < -0.38
+            and -0.35 < rec["slope_critical"] < -0.15):
+        raise AssertionError(f"critical-scaling --small slopes {rec}")
+    print(f"python -m hydrolim_tpu_torch critical-scaling --small: rc 0 in "
+          f"{time.perf_counter() - t0:.2f} s, slopes "
+          f"{rec['slope_subcritical']:.4f} / {rec['slope_critical']:.4f}",
+          flush=True)
+
+    import io
+
+    from hydrolim_tpu_torch import __main__ as launcher
+
+    def help_rc(cmd):
+        """``python -m hydrolim_tpu_torch <cmd> --help`` in this process:
+        the launcher's return value, or the driver's exit code."""
+        out, argv = io.StringIO(), list(sys.argv)
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(out):
+                rc = launcher.main([cmd, "--help"])
+        except SystemExit as e:
+            rc = e.code or 0
+        finally:
+            sys.argv = argv
+        return cmd, rc, out.getvalue()
+
+    t0 = time.perf_counter()
+    results = [help_rc(cmd) for cmd in _COMMANDS]
+    for cmd, rc, text in results:
+        refused = cmd == "large-lattice"
+        if refused != (rc != 0) or (refused and "parallelism" not in text):
+            raise AssertionError(f"{cmd} --help: rc {rc}\n{text[-1000:]}")
+    print(f"--help of {len(results)} commands: rc 0 for all but "
+          f"large-lattice (refused, naming ROADMAP.md's parallelism item); "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2735,6 +3008,21 @@ def main() -> int:
             per_path = checkpoint_routes(outdir)
         for name, paths in per_path.items():
             rows[name]["launches_per_path"].update(paths)
+    with phase("18 single-card drivers"):
+        t_phase = time.perf_counter()
+        with tempfile.TemporaryDirectory() as outdir:
+            b1["launches_per_path"]["critical scaling"] = \
+                critical_scaling_full(f"{outdir}/cs")["launches"]
+            convergence_full(f"{outdir}/conv")
+            particle_single_full(f"{outdir}/single")
+            from hydrolim_tpu_torch.fit.real_data import main as fit_main
+            fit = fit_main(f"{outdir}/fit")
+            print(f"kinesin fit: k={fit['k']}, beta={fit['beta']:.6f}, "
+                  f"lambda={fit['lam']:.6f}, chi2={fit['chi2']:.6f} "
+                  f"(TASEP-LK {fit['chi2_tasep_lk']:.6f})", flush=True)
+            launcher_checks(f"{outdir}/launcher")
+        print(f"phase 18 took {time.perf_counter() - t_phase:.2f} s",
+              flush=True)
     for row in rows.values():
         row["launches"] = sum(row["launches_per_path"].values())
 

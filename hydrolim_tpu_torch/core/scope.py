@@ -7,8 +7,7 @@ ROADMAP.md §A that will port it.
 from __future__ import annotations
 
 ROADMAP_ITEMS = {
-    "host": "ROADMAP.md §A item 1, the figures",
-    "parallelism": "ROADMAP.md §A item 2, parallelism",
+    "parallelism": "ROADMAP.md §A item 1, parallelism",
 }
 
 

@@ -288,7 +288,8 @@ def meanfield_multi_step_planned(plan: B1Plan, scalars, seeds, pos, sigma,
         raise ValueError(f"meanfield_multi_step: a plan for {sh} does not "
                          f"fit n={n}, L={L}")
     fn = _lib().meanfield_multi_step_launch
-    stream = ctypes.c_void_p(torch.cuda.current_stream(pos.device).cuda_stream)
+    cur = torch.cuda.current_stream(pos.device)
+    stream = ctypes.c_void_p(cur.cuda_stream)
     state = (pos, sigma, wind)
     s0 = 0
     while True:
@@ -297,14 +298,24 @@ def meanfield_multi_step_planned(plan: B1Plan, scalars, seeds, pos, sigma,
         nz = (ctypes.c_void_p(noise.data_ptr() + 4 * s0 * n)
               if noise is not None else ctypes.c_void_p(0))
         meanfield_multi_step.launches += 1
+        if meanfield_multi_step.events is not None:
+            meanfield_multi_step.events.append(
+                [torch.cuda.Event(enable_timing=True) for _ in range(2)])
+            meanfield_multi_step.events[-1][0].record(cur)
         rc = fn(ptr(scalars), ptr(seeds), step0 + s0, *map(ptr, state),
                 *map(ptr, out), nz, k_steps, B, n, L, k, dt,
                 int(bidirectional), _MODES[sh.mode], sh.groups_per_thread,
                 sh.cluster, sh.threads, sh.groups_per_cta, stream)
         check_cuda(rc, "meanfield_multi_step")
+        if meanfield_multi_step.events is not None:
+            meanfield_multi_step.events[-1][1].record(cur)
         state, s0 = out, s0 + k
         if s0 >= k_steps:
             return state
 
 
+# launches of the kernel; and, while ``events`` is a list, a pair of CUDA
+# events around each launch (``pde_kernel.kernel_ms`` sums them) — off by
+# default
 meanfield_multi_step.launches = 0
+meanfield_multi_step.events = None

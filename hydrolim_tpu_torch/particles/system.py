@@ -20,9 +20,10 @@ the same ``out`` dict (:542-557).  Three engines are ported:
 
 The two slot routes tag every particle, so ``pos_list``/``pos_frames``
 carry identities.  ``run_checkpointed`` runs ``'particle'`` or
-``'lattice_gas'`` in chunks, resumable (``utils/checkpoint.py``).  Not
-ported yet, each raising ``NotImplementedError`` with its ROADMAP.md item
-(``core/scope.py``): the figures.
+``'lattice_gas'`` in chunks, resumable (``utils/checkpoint.py``).  The
+figure methods (``visualize_all``, ``plot_individuals``,
+``animate_profiles``, ``show_realtime``) draw through ``viz/`` on the host,
+and skip the figures where matplotlib is not installed.
 """
 from __future__ import annotations
 
@@ -38,7 +39,6 @@ from hydrolim_tpu_torch.core.config import (
     auto_dt,
     make_particle_params,
 )
-from hydrolim_tpu_torch.core.scope import not_ported
 from hydrolim_tpu_torch.particles.init import eval_profile, init_particles
 from hydrolim_tpu_torch.particles.lattice_gas import tracer_valid_mask
 from hydrolim_tpu_torch.particles.lattice_gas_k import run_lattice_gas_k
@@ -401,16 +401,24 @@ class ParticleSystem:
 
     # -- visualization (PARTICLE_solver_CLASS.py:561-1093) ------------------
     def visualize_all(self, out, **kw):
-        raise not_ported("ParticleSystem.visualize_all", "host")
+        from hydrolim_tpu_torch.viz.particle_plots import visualize_all
+        return visualize_all(self, out, **kw)
 
     def plot_individuals(self, out, **kw):
-        raise not_ported("ParticleSystem.plot_individuals", "host")
+        from hydrolim_tpu_torch.viz.particle_plots import plot_individuals
+        return plot_individuals(self, out, **kw)
 
     def animate_profiles(self, out, **kw):
-        raise not_ported("ParticleSystem.animate_profiles", "host")
+        from hydrolim_tpu_torch.viz.particle_plots import animate_profiles
+        return animate_profiles(self, out, **kw)
 
     def show_realtime(self, out, **kw):
-        raise not_ported("ParticleSystem.show_realtime", "host")
+        """Interactive looping playback of the profile series — the
+        reference's vispy realtime canvas (PARTICLE_solver_CLASS.py:980-
+        1093); see viz/realtime.py for the backend ladder."""
+        from hydrolim_tpu_torch.viz.realtime import show_profiles
+        kw.setdefault("xlim", self.config.xlim)
+        return show_profiles(out, **kw)
 
     @staticmethod
     def empirical_densities_from_particles(pos, sigma, L, dx, total_norm=None):

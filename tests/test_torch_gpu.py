@@ -148,6 +148,41 @@ def test_b1_split_call_equals_unsplit_plain(dev):
     assert int((got[2] - wind).abs().max()) > 0    # the wrap branch ran
 
 
+@pytest.mark.parametrize("N", [1024, 16_384])
+def test_b1_at_the_critical_scaling_shape_equals_plain(dev, N):
+    """The critical-scaling driver's shape: L=8, zero motion rates, B=64
+    (β ∈ {0.5, 1.0} × 32 runs), its dt (0.03679 at β=1), injected bits
+    under the wrapper's own plan.  The integers equal the plain version's;
+    only σ moves (pos and wind stay as they are)."""
+    from hydrolim_tpu_torch.sweeps.ensemble import ensemble_dt
+
+    B, L, k = 64, 8, 60
+    dt = ensemble_dt(ParticleConfig(
+        L=L, N=N, n_pad=N, init="fixed", scale_rates=False,
+        local_kernel_sigma=0.0, periodic=True, site_capacity=None,
+        active_model="bidirectional"), beta_max=1.0, rate_diffusion=0.0,
+        rate_active=0.0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(N)
+    pos = torch.randint(0, L, (B, N), generator=gen, device=dev,
+                        dtype=torch.int32)
+    sig = torch.randint(0, 2, (B, N), generator=gen, device=dev,
+                        dtype=torch.int32) * 2 - 1
+    wind = torch.randint(-2, 3, (B, N), generator=gen, device=dev,
+                         dtype=torch.int32)
+    scal = torch.tensor([[b, 0.0, 0.0] for b in (0.5, 1.0) for _ in range(32)],
+                        device=dev)
+    seeds = torch.zeros(B, dtype=torch.int32, device=dev)
+    kw = dict(L=L, k_steps=k, dt=dt, bidirectional=True,
+              noise=_bits((B, k, N), gen, dev))
+    got = meanfield_multi_step(scal, seeds, pos, sig, wind, **kw)
+    want = meanfield_multi_step_plain(scal, seeds, pos, sig, wind, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(got[0], pos) and torch.equal(got[2], wind)
+    assert not torch.equal(got[1], sig)
+
+
 def test_b1_native_stream_is_the_same_under_every_plan(dev):
     """Native Philox: the same (seed, step0) gives the same state whatever
     the cluster size and state mode; and the wrapper's own plan seats every

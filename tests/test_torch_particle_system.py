@@ -314,10 +314,11 @@ def test_meanfield_sweep_auto_outside_b1_scope():
                                   "figures", "flip_rate"])
 def test_out_of_scope_raises_with_its_roadmap_item(call, tmp_path):
     """Each call outside the port raises naming its ROADMAP.md item (the
-    figures); the calls that raised before their ports now run:
-    ``engine='lattice_gas'`` on the slot engine, ``engine='particle'``
+    replica-parallel sweeps); the calls that raised before their ports now
+    run: ``engine='lattice_gas'`` on the slot engine, ``engine='particle'``
     with exclusion and local m or with a custom flip rate on the τ-leap
-    step, and ``run_checkpointed``, which returns ``run``'s out dict."""
+    step, ``run_checkpointed``, which returns ``run``'s out dict, and the
+    figure methods (``plot_individuals`` returns the drift velocity)."""
     ps = ParticleSystem(**_ps_kwargs(), device="cpu")
     if call == "checkpoint":
         want = ParticleSystem(**_ps_kwargs(), device="cpu").run(
@@ -340,8 +341,13 @@ def test_out_of_scope_raises_with_its_roadmap_item(call, tmp_path):
         assert len(out["pos_list"]) == 2 and np.isfinite(
             out["m_global"]).all()
         return
+    out = ps.run(T=1.0, obs_dt=0.25)
+    assert np.isfinite(ps.plot_individuals(out, outdir=str(tmp_path)))
+    assert (tmp_path / "Effective_drift_velocity.png").exists()
+    from hydrolim_tpu_torch.sweeps.beta_sweep import sweep_over_betas
+
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A item"):
-        ps.plot_individuals({})
+        sweep_over_betas([1.0], n_devices=2, device="cpu")
 
 
 def test_facades_are_exported():

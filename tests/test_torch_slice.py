@@ -244,7 +244,9 @@ def test_slice_exclusion_k1_magnetization_pin(tmp_path):
 def test_package_never_imports_jax():
     """Importing every module of the port leaves jax out of sys.modules;
     the walk reaches the τ-leap engine's and the local-structure sweep's
-    modules, and the checkpointing slice's."""
+    modules, the checkpointing slice's, and the single-card entry points'
+    (figures, the kinesin fit, the utilities, the physics drivers and the
+    launcher)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import hydrolim_tpu_torch as p\n"
@@ -257,7 +259,12 @@ def test_package_never_imports_jax():
         "       'viz.structure_plots', 'experiments.particle_local_structure',\n"
         "       'particles.stepper', 'ops.segment', 'utils.checkpoint',\n"
         "       'sweeps.persistence', 'observables.estimators',\n"
-        "       'experiments.measure_ckpt_overhead'}\n"
+        "       'experiments.measure_ckpt_overhead', '__main__',\n"
+        "       'fit.datasets', 'fit.real_data', 'viz.cross_engine',\n"
+        "       'viz.particle_plots', 'viz.realtime', 'utils.profiling',\n"
+        "       'utils.debug', 'experiments.particle_single',\n"
+        "       'experiments.real_data_fit', 'experiments.convergence',\n"
+        "       'experiments.critical_scaling'}\n"
         "missing = {n for n in new if p.__name__ + '.' + n not in names}\n"
         "assert not missing, missing\n"
         "bad = sorted(k for k in sys.modules\n"
