@@ -100,7 +100,22 @@ Phases (each prints one line with its wall time; a failed phase raises):
     and ``'lattice_gas'`` (the JAX facade's keys, ids conserved, occupancy
     ≤ 3, the drift velocity, the walls), the kinesin fit, and the launcher
     (``python -m hydrolim_tpu_torch critical-scaling --small`` in a
-    subprocess, and every command's ``--help``).
+    subprocess, and every command's ``--help``);
+19. replica-axis parallelism and the large lattice: with
+    ``devices=["cuda:0", "cuda:0"]`` (two blocks of a sweep mesh on the
+    one card), ``sweep_over_betas`` on B1's route at the main path's
+    width, ``run_exclusion_sweep`` at sweep (b)'s shape on B3 and
+    ``run_pde_ensemble`` on B2, each equal to its one-device run bit for
+    bit, with its kernel's launches; a world of one process over NCCL
+    (``initialize_multihost``), equal to the run without it; the
+    large-lattice driver at full size (L=65,536) with its asserts, both
+    walls, the site updates per second and ``lg_step``'s µs per step.  A
+    single card shows no scaling number, and the phase says so.
+
+Phases 3, 4 and 7 also launch each kernel on rows [b0, b0 + n) of a batch
+(``b0`` > 0, the blocks of a sweep mesh): native Philox output equal to
+the whole batch's launch's rows bit for bit, and the kernel at b0 > 0
+against its plain version at injected bits.
 
 Phases 11-14 record B3's device time (CUDA events around each launch) and
 its share of each driver's wall time.
@@ -2843,8 +2858,8 @@ def launcher_checks(outdir: str) -> None:
     """``python -m hydrolim_tpu_torch``: ``critical-scaling --small`` in a
     subprocess (rc 0, its JSON read back, its slopes within the bounds),
     then every command's ``--help`` through the launcher's ``main`` in this
-    process (rc 0; ``large-lattice`` non-zero, naming its ROADMAP.md
-    item; sixteen subprocesses would spend 28–35 s starting up)."""
+    process (rc 0 for all sixteen; sixteen subprocesses would spend
+    28–35 s starting up)."""
     from pathlib import Path
 
     from hydrolim_tpu_torch.__main__ import _COMMANDS
@@ -2888,12 +2903,365 @@ def launcher_checks(outdir: str) -> None:
     t0 = time.perf_counter()
     results = [help_rc(cmd) for cmd in _COMMANDS]
     for cmd, rc, text in results:
-        refused = cmd == "large-lattice"
-        if refused != (rc != 0) or (refused and "parallelism" not in text):
+        if rc != 0:
             raise AssertionError(f"{cmd} --help: rc {rc}\n{text[-1000:]}")
-    print(f"--help of {len(results)} commands: rc 0 for all but "
-          f"large-lattice (refused, naming ROADMAP.md's parallelism item); "
+    print(f"--help of {len(results)} commands: rc 0 for all; "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phases 3, 4, 7: a launch of rows [b0, b0 + n) (the blocks of a sweep mesh)
+# ---------------------------------------------------------------------------
+
+def _rows_equal(what: str, got, whole, rows) -> None:
+    for i, (a, b) in enumerate(zip(got, whole)):
+        bad = int((a != b[rows]).sum())
+        if bad:
+            raise AssertionError(f"{what}: output {i} differs from the whole "
+                                 f"launch's rows at {bad} of {a.numel()}")
+
+
+def check_b1_b0(dev) -> None:
+    """B1 at the main path's shape (B=33, N=5000, L=256, its rates and dt,
+    500 steps, native Philox): the launches of rows [0, 11), [11, 22) and
+    [22, 33) with b0 = 0, 11, 22 equal the whole launch's rows bit for
+    bit; at injected bits the kernel at b0=11 equals its plain version."""
+    import torch
+    from hydrolim_tpu_torch.core.config import ParticleConfig
+    from hydrolim_tpu_torch.experiments.cross_engine_validation import (
+        GAMMA,
+        LAM,
+    )
+    from hydrolim_tpu_torch.ops.stepper_kernel import (
+        meanfield_multi_step,
+        meanfield_multi_step_plain,
+    )
+    from hydrolim_tpu_torch.sweeps.ensemble import ensemble_dt
+
+    B, N, L, k = 33, 5000, 256, 500
+    rd, ra = GAMMA * L ** 2, LAM * L
+    dt = ensemble_dt(ParticleConfig(L=L, N=N, n_pad=N, init="fixed",
+                                    scale_rates=False, local_kernel_sigma=0.0,
+                                    periodic=True, site_capacity=None,
+                                    active_model="bidirectional"),
+                     beta_max=3.0, rate_diffusion=rd, rate_active=ra)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    pos = torch.randint(0, L, (B, N), generator=gen, device=dev,
+                        dtype=torch.int32)
+    sig = torch.randint(0, 2, (B, N), generator=gen, device=dev,
+                        dtype=torch.int32) * 2 - 1
+    wind = torch.zeros_like(pos)
+    scal = torch.tensor([[b, rd, ra] for b in np.linspace(0.0, 3.0, B)],
+                        dtype=torch.float32, device=dev)
+    seeds = torch.randint(0, 2 ** 31 - 1, (B,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    kw = dict(L=L, k_steps=k, dt=dt, bidirectional=True, step0=4000)
+    whole = meanfield_multi_step(scal, seeds, pos, sig, wind, **kw)
+    rows_of = lambda r: [t[r].contiguous() for t in (scal, seeds, pos, sig,
+                                                     wind)]
+    for b0 in (0, 11, 22):
+        rows = slice(b0, b0 + 11)
+        _rows_equal(f"B1 rows [{b0}, {b0 + 11})",
+                    meanfield_multi_step(*rows_of(rows), b0=b0, **kw),
+                    whole, rows)
+    rows = slice(11, 22)
+    noise = randbits((11, 100, N), gen, dev)
+    kw = dict(L=L, k_steps=100, dt=dt, bidirectional=True, noise=noise,
+              b0=11)
+    got = meanfield_multi_step(*rows_of(rows), **kw)
+    want = meanfield_multi_step_plain(*rows_of(rows), **kw)
+    _rows_equal("B1 b0=11 kernel vs plain", got, want, slice(None))
+    print("B1 b0: rows [0, 11), [11, 22), [22, 33) launched at b0 = 0, 11, "
+          "22 equal the whole launch's (500 native steps, B=33, N=5000, "
+          "L=256); kernel = plain at b0=11 (100 injected steps)", flush=True)
+
+
+def check_b2_b0(dev) -> None:
+    """B2 at the PDE slice's shape (global m, exact solve, L=1000, 1000
+    tracers, B=8, 300 native steps): rows [4, 8) launched at b0=4 equal the
+    whole launch's rows bit for bit; at injected bits the kernel at b0=4
+    holds its plain version to phase 4's tolerances."""
+    import torch
+    from hydrolim_tpu_torch.ops.pde_kernel import (
+        pde_multi_step,
+        pde_multi_step_plain,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    config, _, ops, scal, state = b2_inputs(
+        dev, gen, dict(gaussian_kernel=True, kernel_sigma=2e5), dict(B=8))
+    seeds = torch.randint(0, 2 ** 31 - 1, (8,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    kw = dict(b2_kwargs(config, ops), k_steps=300)
+    whole = pde_multi_step(scal, seeds, 600, *state, ops[3], ops[2], **kw)
+    rows = slice(4, 8)
+    part = [t[rows].contiguous() for t in [scal, seeds] + state]
+    got = pde_multi_step(part[0], part[1], 600, *part[2:], ops[3], ops[2],
+                         b0=4, **kw)
+    _rows_equal("B2 rows [4, 8)", got, whole, rows)
+    kw = dict(kw, k_steps=100, b0=4,
+              noise=randbits((4, 100, 3, config.n_tracers), gen, dev))
+    got = pde_multi_step(part[0], part[1], 0, *part[2:], ops[3], ops[2],
+                         **kw)
+    want = pde_multi_step_plain(part[0], part[1], 0, *part[2:], ops[3],
+                                ops[2], **kw)
+    errs = [held(f"B2 b0=4 {name}", got[i], want[i], rtol, atol)
+            for name, i, rtol, atol in (("rho_p", 0, 2e-4, 1e-7),
+                                        ("rho_m", 1, 2e-4, 1e-7),
+                                        ("tracer pos", 2, 1e-4, 1e-5))]
+    if not torch.equal(got[3], want[3]):
+        raise AssertionError("B2 b0=4: tracer spins differ")
+    print("B2 b0: rows [4, 8) launched at b0=4 equal the whole launch's "
+          "(300 native steps, B=8, L=1000, 1000 tracers); kernel vs plain "
+          "at b0=4 (100 injected steps), max |diff| (share of tolerance): "
+          + ", ".join(f"{e:.2e} ({s:.3f})" for e, s in errs), flush=True)
+
+
+def check_b3_b0(dev) -> None:
+    """B3 at sweep (b)'s shape (B=33, K=3, L=1000, σ=0.002, walls, 300
+    native steps): rows [0, 17) and [17, 33) launched at b0 = 0 and 17
+    equal the whole launch's rows bit for bit; at injected bits the kernel
+    at b0=17 equals its plain version."""
+    import torch
+    from hydrolim_tpu_torch.ops.exclusion_kernel import (
+        exclusion_multi_step,
+        exclusion_multi_step_plain,
+    )
+
+    B, K, L = 33, 3, 1000
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    slots, band = exclusion_state(dev, gen, B=B, K=K, L=L, sigma=0.002,
+                                  periodic=False, N=750)
+    scal = torch.stack([torch.linspace(0.0, 3.0, B, device=dev),
+                        torch.full((B,), 0.02, device=dev),
+                        torch.full((B,), 5.0, device=dev)], 1).contiguous()
+    seeds = torch.randint(0, 2 ** 31 - 1, (B,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    kw = dict(k_steps=300, dt=3.98e-3, periodic=False, bidirectional=False,
+              step0=900)
+    whole = exclusion_multi_step(scal, seeds, slots, band, **kw)
+    for lo, hi in ((0, 17), (17, 33)):
+        rows = slice(lo, hi)
+        got = exclusion_multi_step(scal[rows].contiguous(), seeds[rows],
+                                   slots[rows].contiguous(), band, b0=lo,
+                                   **kw)
+        _rows_equal(f"B3 rows [{lo}, {hi})", [got], [whole], rows)
+    rows = slice(17, 33)
+    kw = dict(k_steps=100, dt=3.98e-3, periodic=False, bidirectional=False,
+              b0=17, noise=randbits((16, 100, 2, K, L), gen, dev))
+    args = (scal[rows].contiguous(), seeds[rows], slots[rows].contiguous(),
+            band)
+    _rows_equal("B3 b0=17 kernel vs plain",
+                [exclusion_multi_step(*args, **kw)],
+                [exclusion_multi_step_plain(*args, **kw)], slice(None))
+    print("B3 b0: rows [0, 17), [17, 33) launched at b0 = 0, 17 equal the "
+          "whole launch's (300 native steps, B=33, K=3, L=1000, sigma=0.002);"
+          " kernel = plain at b0=17 (100 injected steps)", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 19: replica-axis parallelism and the large lattice
+# ---------------------------------------------------------------------------
+
+TWO_BLOCKS = ["cuda:0", "cuda:0"]
+
+
+def _same(what: str, a, b) -> None:
+    """Every array leaf of ``a`` and ``b`` equal (NaN equals NaN)."""
+    from hydrolim_tpu_torch.parallel.mesh import tree_map
+
+    leaves = []
+    tree_map(lambda x, y: leaves.append((x, y)), a, b)
+    bad = 0
+    for x, y in leaves:
+        x, y = _as_numpy(x), _as_numpy(y)
+        if isinstance(x, np.ndarray) and x.dtype != object:
+            if x.shape != y.shape or not np.array_equal(
+                    x, y, equal_nan=x.dtype.kind == "f"):
+                bad += 1
+    if bad:
+        raise AssertionError(f"{what}: {bad} of {len(leaves)} leaves differ "
+                             "from the one-device run")
+
+
+def sharded_sweeps(outdir: str) -> dict:
+    """With ``devices=["cuda:0", "cuda:0"]`` (a mesh of two blocks on the
+    one card), each sweep equals its one-device run bit for bit and runs
+    through its kernel: ``sweep_over_betas`` on B1's route at the main
+    path's width (11 β × 3 runs, L=256, N=5000, depth cut to T=3),
+    ``run_exclusion_sweep`` at sweep (b)'s shape on B3 (33 replicas, K=3,
+    L=1000, σ=0.002, every particle tagged, T=2) and ``run_pde_ensemble``
+    on B2 (magn2's 5 runs, L=1000, 1000 tracers, T=1).  Then a world of
+    one process over NCCL (``initialize_multihost``, ``global_sweep_mesh``)
+    runs the first sweep again, equal to the run without it.  Returns each
+    kernel's launches in the sharded runs."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from hydrolim_tpu_torch.core.config import ParticleConfig, PDEConfig
+    from hydrolim_tpu_torch.experiments.cross_engine_validation import (
+        GAMMA,
+        LAM,
+    )
+    from hydrolim_tpu_torch.ops.exclusion_kernel import exclusion_multi_step
+    from hydrolim_tpu_torch.ops.pde_kernel import pde_multi_step
+    from hydrolim_tpu_torch.ops.stepper_kernel import meanfield_multi_step
+    from hydrolim_tpu_torch.parallel.distributed import (
+        global_sweep_mesh,
+        initialize_multihost,
+    )
+    from hydrolim_tpu_torch.parallel.mesh import sweep_mesh
+    from hydrolim_tpu_torch.sweeps.beta_sweep import sweep_over_betas
+    from hydrolim_tpu_torch.sweeps.ensemble import (
+        broadcast_params,
+        ensemble_dt,
+    )
+    from hydrolim_tpu_torch.sweeps.fast_exclusion import (
+        run_exclusion_sweep,
+    )
+    from hydrolim_tpu_torch.sweeps.pde_sweeps import run_pde_ensemble
+
+    counters = {"meanfield_multi_step": meanfield_multi_step,
+                "exclusion_multi_step": exclusion_multi_step,
+                "pde_multi_step": pde_multi_step}
+    launches = {}
+
+    def twice(name: str, kernel: str, run):
+        """The one-device run, then the sharded one (counted)."""
+        t0 = time.perf_counter()
+        want = run(None)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        counters[kernel].launches = 0
+        got = run(sweep_mesh(devices=TWO_BLOCKS))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        n = counters[kernel].launches
+        launches[kernel] = launches.get(kernel, 0) + n
+        if n <= 0:
+            raise AssertionError(f"{name}: the sharded run never launched "
+                                 f"{kernel}")
+        _same(name, want, got)
+        print(f"{name}: 2 blocks on {TWO_BLOCKS} equal the one-device run; "
+              f"{n} launches of {kernel} in the sharded run; walls "
+              f"{t1 - t0:.2f} s (one device), {t2 - t1:.2f} s (2 blocks)",
+              flush=True)
+        return want
+
+    L, N = 256, 5000
+    ps = dict(L=L, xlim=1, N=N, init="fixed", scale_rates=False,
+              local_kernel_sigma=0.0, periodic=True, site_capacity=None,
+              active_model="bidirectional", rate_diffusion=GAMMA * L * L,
+              rate_active=LAM * L, minus_anchor=False)
+    sweep_kw = dict(n_runs_per_beta=3, ps_kwargs=ps,
+                    run_kwargs=dict(T=3.0, obs_dt=0.5), seed=5,
+                    do_fit=False, plot_result=False, engine="particle",
+                    device="cuda", npz_path=f"{outdir}/mf.npz")
+    keys = ("means", "D_means", "m_means", "rho_means", "block_means")
+    mf = twice("sweep_over_betas, B1 route (11 beta x 3 runs, L=256, "
+               "N=5000, T=3)", "meanfield_multi_step",
+               lambda mesh: {k: v for k, v in sweep_over_betas(
+                   SLICE_BETAS, mesh=mesh, **sweep_kw).items() if k in keys
+                   or k == "route"})
+    if str(mf["route"]) != "meanfield_multi_step":
+        raise AssertionError(f"the mean-field sweep took {mf['route']}")
+
+    cfg = ParticleConfig(L=1000, N=750, init="fixed", scale_rates=False,
+                         local_kernel_sigma=0.002, periodic=False,
+                         site_capacity=3)
+    params = broadcast_params(cfg, beta=SLICE_BETAS, rate_diffusion=0.02,
+                              rate_active=5.0, n_runs=3, device="cuda")
+    dt = ensemble_dt(cfg, beta_max=3.0, rate_diffusion=0.02,
+                     rate_active=5.0)
+    twice("run_exclusion_sweep, B3 (33 replicas, K=3, L=1000, "
+          "sigma=0.002, 750 tracers, T=2)", "exclusion_multi_step",
+          lambda mesh: run_exclusion_sweep(
+              cfg, params, mesh=mesh, T=2.0, obs_dt=0.1, dt=dt, seed=7,
+              device="cuda", n_tracers=750))
+
+    pcfg = PDEConfig(L=1000, T=1.0, dt=5e-4, bc="periodic",
+                     active_model="bidirectional", gaussian_kernel=True,
+                     kernel_sigma=0.05, snapshot_interval=2000, fft_kmax=8)
+    twice("run_pde_ensemble, B2 (5 runs, L=1000, 1000 tracers, sigma=0.05, "
+          "T=1)", "pde_multi_step",
+          lambda mesh: run_pde_ensemble(
+              pcfg, [0.75], gamma=0.2, lam=0.6, n_runs=5, seed=100,
+              n_tracers=1000, device="cuda", fetch_snapshots=False,
+              mesh=mesh)[0])
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    initialize_multihost(f"localhost:{port}", 1, 0)
+    try:
+        backend = dist.get_backend()
+        mesh = global_sweep_mesh(devices=TWO_BLOCKS)
+        got = sweep_over_betas(SLICE_BETAS, mesh=mesh, **sweep_kw)
+    finally:
+        dist.destroy_process_group()
+    _same("world of one", {k: mf[k] for k in keys},
+          {k: got[k] for k in keys})
+    print(f"world of one process over {backend} (initialize_multihost, "
+          f"global_sweep_mesh of {len(mesh.record())} blocks): the B1 sweep "
+          "equals the run without it", flush=True)
+    return launches
+
+
+def large_lattice_full(outdir: str) -> None:
+    """The large-lattice driver at full size on the card (L=65,536, N=L/2,
+    two β, T=4: 532 ``lg_step``s; the banded PDE, 1500 steps per β) with
+    its asserts; both walls, the site updates per second, and
+    ``lg_step``'s µs per step at L=65,536 timed alone (CUDA events around
+    200 steps after 20 warm-up steps)."""
+    import torch
+    from hydrolim_tpu_torch.core.config import ParticleConfig
+    from hydrolim_tpu_torch.experiments import large_lattice as ll
+    from hydrolim_tpu_torch.ops.exclusion_kernel import build_smoothing_band
+    from hydrolim_tpu_torch.particles.lattice_gas import lg_init, lg_step
+    from hydrolim_tpu_torch.sweeps.ensemble import (
+        broadcast_params,
+        ensemble_dt,
+    )
+
+    rec = ll.main(outdir=outdir, device="cuda")
+    part, pde = rec["particle"], rec["pde"]
+    print(f"large lattice (L={rec['L']}, N={rec['N']}): lattice gas "
+          f"{part['wall_s']:.3f} s for {part['steps']} steps x 2 replicas "
+          f"({part['site_updates_per_s']:.4e} site updates/s, "
+          f"{part['us_per_step']:.1f} us per step with its records); PDE "
+          f"(banded) {pde['wall_s']:.3f} s for {pde['steps']} steps "
+          f"({pde['site_updates_per_s']:.4e} site updates/s); m_super "
+          f"{part['m_super']:.4f} vs m_beta {part['m_theory']:.4f}",
+          flush=True)
+    L = rec["L"]
+    cfg = ParticleConfig(L=L, xlim=1, N=L // 2, init="fixed",
+                         scale_rates=False, local_kernel_sigma=0.0,
+                         periodic=True, site_capacity=1,
+                         active_model="bidirectional")
+    params = broadcast_params(cfg, beta=ll.BETAS, rate_diffusion=ll.RD,
+                              rate_active=ll.RA, device="cuda")
+    dt = ensemble_dt(cfg, beta_max=2.5, rate_diffusion=ll.RD,
+                     rate_active=ll.RA)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    occ = lg_init(cfg, gen, B=2, device="cuda")
+    band = build_smoothing_band(cfg, "cuda")
+    state = [occ]
+
+    def steps(n):
+        for _ in range(n):
+            state[0] = lg_step(cfg, params, band, state[0], dt,
+                               generator=gen)[0]
+
+    steps(20)
+    us = cuda_ms(lambda: steps(200)) * 1e3 / 200
+    print(f"lg_step at L={L}, B=2: {us:.1f} us per step (CUDA events around "
+          "200 steps; L=1000's 2192-3071 us in PERF.md, phase 15)",
+          flush=True)
 
 
 def main() -> int:
@@ -2935,8 +3303,10 @@ def main() -> int:
                   flush=True)
     with phase("3 B1 vs plain"):
         rows["meanfield_multi_step"]["max_abs_err"] = check_b1(dev)
+        check_b1_b0(dev)
     with phase("4 B2 vs plain"):
         rows["pde_multi_step"]["max_abs_err"] = check_b2(dev)
+        check_b2_b0(dev)
     with phase("5 main path"):
         with tempfile.TemporaryDirectory() as outdir:
             for name, n in main_path(outdir).items():
@@ -2946,6 +3316,7 @@ def main() -> int:
             rows[name].update(t)
     with phase("7 B3/B4 vs plain"):
         rows["exclusion_multi_step"]["max_abs_err"] = check_b3(dev)
+        check_b3_b0(dev)
     with phase("8 exclusion sweep"):
         with tempfile.TemporaryDirectory() as outdir:
             rows["exclusion_multi_step"].update(slice_path(outdir))
@@ -3023,6 +3394,15 @@ def main() -> int:
             launcher_checks(f"{outdir}/launcher")
         print(f"phase 18 took {time.perf_counter() - t_phase:.2f} s",
               flush=True)
+    with phase("19 parallelism and the large lattice"):
+        with tempfile.TemporaryDirectory() as outdir:
+            for name, n in sharded_sweeps(outdir).items():
+                rows[name]["launches_per_path"][
+                    "sharded sweep, 2 blocks on one card"] = n
+            large_lattice_full(f"{outdir}/ll")
+        print(f"scaling: this host has {torch.cuda.device_count()} card(s); "
+              "the blocks above share one card, so no scaling number "
+              "(speed-up over cards) can be measured here", flush=True)
     for row in rows.values():
         row["launches"] = sum(row["launches_per_path"].values())
 

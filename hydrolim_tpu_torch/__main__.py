@@ -12,10 +12,8 @@ from __future__ import annotations
 import runpy
 import sys
 
-from hydrolim_tpu_torch.core.scope import not_ported
-
-# command -> (driver module under hydrolim_tpu_torch.experiments, or None
-# where it is not ported yet, and the help line)
+# command -> (driver module under hydrolim_tpu_torch.experiments, and the
+# help line)
 _COMMANDS = {
     "beta-sweep": ("particle_beta_sweep", "particle β-sweep (flagship)"),
     "sigma-sweep": ("particle_sigma_sweep", "(σ, β) double sweep"),
@@ -32,7 +30,7 @@ _COMMANDS = {
     "convergence": ("convergence", "hydrodynamic-limit rate (N^-1/2)"),
     "critical-scaling": ("critical_scaling",
                          "critical fluctuation exponent"),
-    "large-lattice": (None, "L=65536 sharded lattice"),
+    "large-lattice": ("large_lattice", "L=65536 lattice, one card"),
     "pde-phase-diagram": ("pde_phase_diagram",
                           "(β, σ) PDE phase plane, 1024 replicas"),
     "particle-phase-diagram": ("particle_phase_diagram",
@@ -66,10 +64,6 @@ def main(argv=None) -> int:
         print(f"unknown command {cmd!r}\n\n{_usage()}", file=sys.stderr)
         return 2
     module, _ = _COMMANDS[cmd]
-    if module is None:
-        print(f"{cmd}: {not_ported('the sharded large-lattice driver', 'parallelism')}",
-              file=sys.stderr)
-        return 3
     # the drivers parse sys.argv under `if __name__ == "__main__"` — run
     # them exactly as ``python -m`` would
     sys.argv = [cmd] + argv[1:]

@@ -67,7 +67,8 @@
 //
 // Random bits: injected (noise, (B, k, 2, K, L) uint32 held in int32;
 // draw 0 = event, 1 = priority) or native Philox4x32-10 with key
-// (seed[b], b) and counter (k*L + x, step0 + s, 0, 0), words 0 and 1.
+// (seed[b], b0 + b), b0 the global index of the launch's first replica,
+// and counter (k*L + x, step0 + s, 0, 0), words 0 and 1.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,6 +96,7 @@ struct Params {
   const float* scal;
   const int* seeds;
   int step0;
+  int b0;
   const int* slots_in;
   int* slots_out;
   const int* noise;
@@ -239,7 +241,7 @@ exclusion_kernel(const Params a) {
   const float dt = a.dt;
   const float p_dif = __fmul_rn(a.scal[3 * b + 1], dt);
   const float p_act = __fmul_rn(a.scal[3 * b + 2], dt);
-  const uint2 key = make_uint2((uint32_t)a.seeds[b], (uint32_t)b);
+  const uint2 key = make_uint2((uint32_t)a.seeds[b], (uint32_t)(a.b0 + b));
   const size_t off = (size_t)b * KL;
 
   // P1: the window's slots, occupancy and signed count
@@ -607,7 +609,8 @@ extern "C" int exclusion_max_active_clusters(int K, int L, int W, int C,
 }
 
 extern "C" int exclusion_multi_step_launch(
-    const float* scal, const int* seeds, int step0, const int* slots_in,
+    const float* scal, const int* seeds, int step0, int b0,
+    const int* slots_in,
     int* slots_out, const int* noise, const int* band_idx,
     const float* band_w, const float* band_taps, const int* band_rot, int W,
     int radius, int lo,
@@ -619,7 +622,7 @@ extern "C" int exclusion_multi_step_launch(
   cudaError_t e = configure(fn, K, L, W, C, halo, threads, band_w == nullptr,
                             B, false, stream, cfg, attr);
   if (e != cudaSuccess) return (int)e;
-  const Params p{scal,     seeds,   step0, slots_in, slots_out, noise,
+  const Params p{scal,     seeds,   step0, b0, slots_in, slots_out, noise,
                  band_idx, band_w,  band_taps, band_rot, W, radius, lo,
                  hi,       L,       k_steps,   dt,   periodic,  bidirectional,
                  C,        halo};

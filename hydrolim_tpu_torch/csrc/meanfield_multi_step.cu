@@ -50,7 +50,7 @@
 //     meanfield_max_active_clusters reports, so all B clusters run at once.
 //
 // The function is the parent kernel's bit for bit: the same Philox key
-// (seed[b], b) and counter (group g, step0 + s), the same threshold
+// (seed[b], b0 + b) and counter (group g, step0 + s), the same threshold
 // arithmetic (__fmul_rn/__fadd_rn, expf), an exact integer sum(sigma) and
 // m = (float)S / (float)N over the true N.
 //
@@ -78,6 +78,7 @@ struct Params {
   const float* scal;
   const int* seeds;
   int step0;
+  int b0;  // the global index of the launch's first replica (its key)
   const int *pos_in, *sig_in, *wnd_in;
   int *pos_out, *sig_out, *wnd_out;
   const int* noise;  // this launch's first step; (B, noise_k, n)
@@ -279,7 +280,7 @@ meanfield_kernel(const Params a) {
   // every CTA of the cluster runs, its slots cleared, before any push
   cluster_sync();
   replica_push(local, slots, 0u, C, rank);
-  const uint2 key = make_uint2((uint32_t)a.seeds[b], (uint32_t)b);
+  const uint2 key = make_uint2((uint32_t)a.seeds[b], (uint32_t)(a.b0 + b));
   const int* nz0 = a.noise ? a.noise + (size_t)b * a.noise_k * n : nullptr;
   // registers: the bits of the thread's first group are drawn one step
   // ahead, while the step's barrier completes
@@ -433,7 +434,7 @@ extern "C" int meanfield_max_active_clusters(int mode, int P, int C,
 }
 
 extern "C" int meanfield_multi_step_launch(
-    const float* scal, const int* seeds, int step0, const int* pos_in,
+    const float* scal, const int* seeds, int step0, int b0, const int* pos_in,
     const int* sig_in, const int* wnd_in, int* pos_out, int* sig_out,
     int* wnd_out, const int* noise, int noise_k, int B, int n, int L,
     int k_steps, float dt, int bidirectional, int mode, int P, int C,
@@ -444,7 +445,7 @@ extern "C" int meanfield_multi_step_launch(
   cudaError_t e = configure(fn, mode, C, B, threads, groups_per_cta, stream,
                             cfg, attr);
   if (e != cudaSuccess) return (int)e;
-  const Params p{scal,    seeds,   step0,   pos_in,  sig_in, wnd_in,
+  const Params p{scal,    seeds,   step0,   b0,      pos_in,  sig_in, wnd_in,
                  pos_out, sig_out, wnd_out, noise,   noise_k, n,
                  L,       k_steps, groups_per_cta,    C,      dt,
                  bidirectional};

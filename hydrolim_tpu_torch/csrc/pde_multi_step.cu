@@ -62,7 +62,8 @@
 // (still the single run's bottleneck at 501 bins).
 //
 // Random bits: injected (noise, (B, k, 3, n_t) uint32 held in int32: flip,
-// Box-Muller u2, u3) or native Philox with key (seed[b], b) and counter
+// Box-Muller u2, u3) or native Philox with key (seed[b], b0 + b), b0 the
+// global index of the launch's first replica, and counter
 // (tracer, step0 + s, 0, 0), whose first three words are the three draws.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -278,6 +279,7 @@ struct Args {
   const float* scal;  // (B, 4) [beta, lam, gamma, 0]
   const int* seeds;
   int step0;
+  int b0;
   const float *rp_in, *rm_in, *pos_in, *spin_in, *hist_in;
   float *rp_out, *rm_out, *pos_out, *spin_out, *hist_out, *recs;
   const double* scan;        // (4, L) [1/pivot, c', alpha, z] (exact solve)
@@ -320,7 +322,7 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
   const float dt = a.dt, dx = a.dx;
   const size_t foff = (size_t)b * L, toff = (size_t)b * n_t;
   const int rw = 4 + 2 * kmax;
-  const uint2 key = make_uint2((uint32_t)a.seeds[b], (uint32_t)b);
+  const uint2 key = make_uint2((uint32_t)a.seeds[b], (uint32_t)(a.b0 + b));
 
   for (int x = tid; x < L; x += kThreads) {
     P[x] = a.rp_in[foff + x];
@@ -576,7 +578,8 @@ extern "C" size_t pde_multi_step_smem_bytes(int L, int n_t, int local_m,
 }
 
 extern "C" int pde_multi_step_launch(
-    const float* scal, const int* seeds, int step0, const float* rp_in,
+    const float* scal, const int* seeds, int step0, int b0,
+    const float* rp_in,
     const float* rm_in, const float* pos_in, const float* spin_in,
     const float* hist_in, float* rp_out, float* rm_out, float* pos_out,
     float* spin_out, float* hist_out, float* recs, const double* scan,
@@ -586,7 +589,7 @@ extern "C" int pde_multi_step_launch(
     int sv_nb, int sv_ns, int sv_len, int part_floats, int periodic,
     int bidirectional, float dt, float dx, float xlim, float v_last,
     float fac, float w_dt, float w_2dt, void* stream) {
-  Args a{scal,     seeds,      step0,       rp_in,   rm_in,    pos_in,
+  Args a{scal,     seeds,      step0,       b0,      rp_in,   rm_in,    pos_in,
          spin_in,  hist_in,    rp_out,      rm_out,  pos_out,  spin_out,
          hist_out, recs,       scan,        solve_taps, smooth_taps, trig,
          noise,    L,          n_t,         window,  k_steps,  kmax,

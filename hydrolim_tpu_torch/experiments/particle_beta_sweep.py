@@ -13,6 +13,7 @@ flight; a rerun with it resumes.
 Usage: python -m hydrolim_tpu_torch.experiments.particle_beta_sweep
        [--outdir DIR] [--small] [--flagship] [--replot] [--device cuda|cpu]
        [--engine particle|fused|pallas|lattice_gas] [--ckpt-dir DIR]
+       [--n-devices N]
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ FLAGSHIP = dict(site_capacity=3, N=750, local_kernel_sigma=0.002)
 def main(outdir: str = "beta_sweep_out", small: bool = False,
          run: bool = True, n_runs: int = None, flagship: bool = False,
          device: str = "cuda", engine: str = "particle",
-         ckpt_dir: str = None):
+         ckpt_dir: str = None, n_devices: int = None):
     beta_values = np.linspace(0, 3, 5 if small else 11)
     over = dict(FLAGSHIP) if flagship else {}
     if small:
@@ -38,7 +39,7 @@ def main(outdir: str = "beta_sweep_out", small: bool = False,
         beta_values, n_runs_per_beta=n_runs or (2 if small else 3), run=run,
         ps_kwargs=over or None, run_kwargs=rk,
         npz_path=f"{outdir}/beta_sweep_results.npz", outdir=outdir, seed=0,
-        device=device, engine=engine, ckpt_dir=ckpt_dir)
+        device=device, engine=engine, ckpt_dir=ckpt_dir, n_devices=n_devices)
     print("v_eff(beta):", np.round(save["means"], 4))
     print("D_eff(beta):", np.round(save["D_means"], 4))
     print("p_block(beta):", np.round(save["block_means"], 4))
@@ -58,9 +59,12 @@ if __name__ == "__main__":
     p.add_argument("--device", default="cuda")
     p.add_argument("--engine", default="particle",
                    choices=["particle", "fused", "pallas", "lattice_gas"])
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="split the (beta x runs) batch over this many cards "
+                        "(the results equal the one-card run)")
     p.add_argument("--ckpt-dir", default=None,
                    help="mid-run checkpoint/resume dir (rerun on it to resume)")
     a = p.parse_args()
     main(a.outdir, a.small, run=not a.replot, n_runs=a.n_runs,
          flagship=a.flagship, device=a.device, engine=a.engine,
-         ckpt_dir=a.ckpt_dir)
+         ckpt_dir=a.ckpt_dir, n_devices=a.n_devices)

@@ -28,7 +28,8 @@ from hydrolim_tpu_torch.sweeps.double_sweep import double_sweep_fused
 
 def main(small: bool = False, outdir: str = "double_sweep_out",
          device: str = "cuda", n_runs: int = None, seed: int = 0,
-         engine: str = "particle", ckpt_dir: str = None):
+         engine: str = "particle", ckpt_dir: str = None,
+         n_devices: int = None):
     if small:
         betas = np.linspace(0, 3, 4)
         Ns = np.linspace(40, 160, 4)
@@ -41,7 +42,7 @@ def main(small: bool = False, outdir: str = "double_sweep_out",
                   run_kwargs=dict(T=10, obs_dt=0.1))
     res = double_sweep_fused(betas, Ns, outdir=outdir, device=device,
                              seed=seed, engine=engine, ckpt_dir=ckpt_dir,
-                             **kw)
+                             n_devices=n_devices, **kw)
     print("f(rho):", np.round(res["f_fit"], 3))
     print("g(rho):", np.round(res["g_fit"], 3))
     print(f"C0={res['C0']:.6f} ± {res['C0_err']:.6f}  C1={res['C1']:.6f} ± "
@@ -59,8 +60,11 @@ if __name__ == "__main__":
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--engine", default="particle",
                    choices=["particle", "pallas", "lattice_gas"])
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="split the (beta x runs) batch over this many cards "
+                        "(the results equal the one-card run)")
     p.add_argument("--ckpt-dir", default=None,
                    help="chunk-ledger dir (rerun on it to resume)")
     a = p.parse_args()
     main(a.small, a.outdir, a.device, n_runs=a.n_runs, seed=a.seed,
-         engine=a.engine, ckpt_dir=a.ckpt_dir)
+         engine=a.engine, ckpt_dir=a.ckpt_dir, n_devices=a.n_devices)

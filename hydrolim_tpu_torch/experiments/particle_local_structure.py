@@ -37,7 +37,7 @@ NPZ = "beta_sweep_local_structure.npz"
 
 def main(small: bool = False, outdir: str = "local_structure_out",
          run: bool = True, engine: str = "particle", device: str = "cuda",
-         ckpt_dir: str = None):
+         ckpt_dir: str = None, n_devices: int = None):
     npz = Path(outdir) / NPZ
     if small:
         betas = np.linspace(0, 3, 4)
@@ -51,7 +51,8 @@ def main(small: bool = False, outdir: str = "local_structure_out",
         results = sweep_betas_for_structures(betas, n_runs, ps_kwargs=ps,
                                              run_kwargs=rk, keep_outs=True,
                                              engine=engine, device=device,
-                                             ckpt_dir=ckpt_dir)
+                                             ckpt_dir=ckpt_dir,
+                                             n_devices=n_devices)
         npz.parent.mkdir(parents=True, exist_ok=True)
         save_structure_results(results, str(npz))
     else:
@@ -73,9 +74,12 @@ if __name__ == "__main__":
     p.add_argument("--engine", default="particle",
                    choices=["particle", "lattice_gas", "pallas"])
     p.add_argument("--device", default="cuda")
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="split the (beta x runs) batch over this many cards "
+                        "(the results equal the one-card run)")
     p.add_argument("--ckpt-dir", default=None,
                    help="mid-run checkpoint/resume dir ('particle' and "
                         "'lattice_gas'; rerun on it to resume)")
     a = p.parse_args()
     main(a.small, a.outdir, run=not a.replot, engine=a.engine,
-         device=a.device, ckpt_dir=a.ckpt_dir)
+         device=a.device, ckpt_dir=a.ckpt_dir, n_devices=a.n_devices)

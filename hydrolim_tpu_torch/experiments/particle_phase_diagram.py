@@ -7,7 +7,9 @@ interaction range σ) plane of the K=3 exclusion model — 32 β × 2 seeds =
 (L=1000, N=1500, K=3, T=20, ~5000 Δt steps), periodic and bidirectional,
 with the global-m row (σ=0, the Curie–Weiss limit, β_c = 1) last.  Each σ
 is one ``run_exclusion_sweep`` call on ``device`` (σ sets the smoothing
-band); rows whose band is wider than a cluster's halo budget run at
+band; ``--engine`` takes the JAX names: ``auto``, ``pallas`` and
+``pallas_rb`` run B3, ``xla`` the plain-torch K-slot engine, and the JSON
+records each row's route in ``engines_used``); rows whose band is wider than a cluster's halo budget run at
 cluster size 1, and σ ≥ ~0.1 at L=1000 takes the dense periodic band.
 
 Read-outs per (β, σ), as in the PDE twin (``pde_phase_diagram``):
@@ -16,7 +18,7 @@ Read-outs per (β, σ), as in the PDE twin (``pde_phase_diagram``):
 
 Usage: python -m hydrolim_tpu_torch.experiments.particle_phase_diagram
        [--small] [--outdir DIR] [--device cuda|cpu] [--pde-json FILE]
-       [--replot]
+       [--engine auto|pallas|pallas_rb|xla] [--replot]
 """
 from __future__ import annotations
 
@@ -31,7 +33,10 @@ import torch
 from hydrolim_tpu_torch.core.config import ParticleConfig, auto_dt
 from hydrolim_tpu_torch.fit.veff_fit import _pyplot
 from hydrolim_tpu_torch.sweeps.ensemble import broadcast_params
-from hydrolim_tpu_torch.sweeps.fast_exclusion import run_exclusion_sweep
+from hydrolim_tpu_torch.sweeps.fast_exclusion import (
+    exclusion_route,
+    run_exclusion_sweep,
+)
 
 # σ grid of the PDE twin (so the boundary overlay shares rows); σ=0 is the
 # global-m mean-field row
@@ -39,7 +44,8 @@ FULL_SIGMAS = list(np.geomspace(0.002, 2.0, 15)) + [0.0]
 
 
 def run_grid(beta_values, sigma_values, n_seeds, *, L, N, K, T, obs_dt,
-             rate_diffusion, rate_active, seed=0, device="cuda"):
+             rate_diffusion, rate_active, seed=0, device="cuda",
+             engine="auto"):
     """One fused exclusion call per frame and σ; σ ≤ 0 means global m.
 
     Returns (n_sigma, n_beta) grids of the late-window order parameter and
@@ -66,7 +72,7 @@ def run_grid(beta_values, sigma_values, n_seeds, *, L, N, K, T, obs_dt,
         t0 = time.perf_counter()
         frames, _ = run_exclusion_sweep(
             config, params, T=T, obs_dt=obs_dt, dt=dt, seed=seed + si,
-            device=device, record_fft=False, n_tracers=0)
+            device=device, record_fft=False, n_tracers=0, engine=engine)
         M = frames.m_global.shape[1]
         late = torch.as_tensor(np.arange(M) * obs_dt >= 0.6 * T,
                                device=frames.total.device)
@@ -85,8 +91,8 @@ def run_grid(beta_values, sigma_values, n_seeds, *, L, N, K, T, obs_dt,
                 sigma=list(map(float, sigma_values)), n_seeds=n_seeds,
                 L=L, N=N, K=K, T=T, obs_dt=obs_dt,
                 rate_diffusion=rate_diffusion, rate_active=rate_active,
-                device=str(device),
-                engines_used=["fused"] * len(sigma_values),
+                device=str(device), engine=engine,
+                engines_used=[exclusion_route(engine)] * len(sigma_values),
                 m=m_grid.tolist(), band=band_grid.tolist(),
                 row_wall_s=walls, row_steps=steps,
                 replicas=len(sigma_values) * nb * n_seeds,
@@ -199,16 +205,18 @@ def check_physics(data):
 
 
 def main(small: bool = False, outdir: str = ".", device: str = "cuda",
-         pde_json=None):
+         pde_json=None, engine: str = "auto"):
     os.makedirs(outdir, exist_ok=True)
     if small:
         data = run_grid(np.linspace(0, 3, 6), [0.02, 0.1, 0.0], 1,
                         L=128, N=96, K=3, T=6.0, obs_dt=0.5,
-                        rate_diffusion=0.02, rate_active=5.0, device=device)
+                        rate_diffusion=0.02, rate_active=5.0, device=device,
+                        engine=engine)
     else:
         data = run_grid(np.linspace(0, 3, 32), FULL_SIGMAS, 2,
                         L=1000, N=1500, K=3, T=20.0, obs_dt=0.25,
-                        rate_diffusion=0.02, rate_active=5.0, device=device)
+                        rate_diffusion=0.02, rate_active=5.0, device=device,
+                        engine=engine)
     print(f"# aggregate exclusion throughput: "
           f"{data['aggregate_particle_steps_per_s']:.3e} particle-steps/s "
           f"over {data['replicas']} replicas")
@@ -223,6 +231,10 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--small", action="store_true",
                     help="CPU smoke: 6 beta x 3 sigma x 1 seed, L=128")
+    ap.add_argument("--engine", default="auto",
+                    choices=["auto", "pallas", "pallas_rb", "xla"],
+                    help="auto/pallas/pallas_rb: kernel B3; xla: the "
+                         "plain-torch K-slot engine")
     ap.add_argument("--outdir", default=".")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--pde-json", default=None,
@@ -234,4 +246,4 @@ if __name__ == "__main__":
         with open(os.path.join(a.outdir, "particle_phase_diagram.json")) as f:
             plot_grid(json.load(f), a.outdir, pde_json=a.pde_json)
     else:
-        main(a.small, a.outdir, a.device, a.pde_json)
+        main(a.small, a.outdir, a.device, a.pde_json, engine=a.engine)

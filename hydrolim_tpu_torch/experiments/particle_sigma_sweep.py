@@ -32,7 +32,7 @@ from hydrolim_tpu_torch.sweeps.sigma_sweep import (
 
 def main(small: bool = False, outdir: str = "sigma_sweep_out",
          run: bool = True, device: str = "cuda", engine: str = "particle",
-         ckpt_dir: str = None):
+         ckpt_dir: str = None, n_devices: int = None):
     if small:
         sigmas = [0.005, 0.05, 0]
         betas = np.linspace(0, 3, 4)
@@ -46,7 +46,7 @@ def main(small: bool = False, outdir: str = "sigma_sweep_out",
     results = sweep_over_sigmas(sigmas, betas, n_runs_per_beta=n_runs,
                                 run=run, ps_kwargs=ps, run_kwargs=rk,
                                 outdir=outdir, device=device, engine=engine,
-                                ckpt_dir=ckpt_dir)
+                                ckpt_dir=ckpt_dir, n_devices=n_devices)
     plot_v_eff_all_sigmas(results, outdir)
     plot_D_eff_all_sigmas(results, outdir)
     plot_v_eff_vs_sigma_all_beta(results, outdir)
@@ -65,9 +65,12 @@ if __name__ == "__main__":
                    help="reload the cross-sigma archive instead of running")
     p.add_argument("--engine", default="particle",
                    choices=["particle", "fused", "pallas", "lattice_gas"])
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="split the (beta x runs) batch over this many cards "
+                        "(the results equal the one-card run)")
     p.add_argument("--ckpt-dir", default=None,
                    help="mid-run checkpoint/resume dir, one subdirectory "
                         "per sigma (rerun on it to resume)")
     a = p.parse_args()
     main(a.small, a.outdir, run=not a.replot, device=a.device,
-         engine=a.engine, ckpt_dir=a.ckpt_dir)
+         engine=a.engine, ckpt_dir=a.ckpt_dir, n_devices=a.n_devices)

@@ -6,11 +6,14 @@ package's ``experiments/run_pde_experiments.py``.  Each command writes
 ``<which>.json`` with its results into ``--outdir`` (the figures too,
 where matplotlib is installed).  ``--ckpt-dir DIR`` checkpoints the solve
 in flight (``solve_checkpointed`` for ``single``, ``ckpt_dir=`` of the
-sweeps); a rerun with it resumes.
+sweeps); a rerun with it resumes.  ``--engine`` takes the JAX names, each
+the one fused solve (kernel B2); the JSON records the name and the route.
+``--n-devices N`` splits the sweeps' (β × runs) batch over N cards
+(``parallel.mesh``; the single run is one replica).
 
 Usage: python -m hydrolim_tpu_torch.experiments.pde_experiments
        {single,beta,magn,magn2} [--small] [--outdir DIR] [--device cuda|cpu]
-       [--ckpt-dir DIR]
+       [--engine xla|auto|pallas] [--n-devices N] [--ckpt-dir DIR]
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
+from hydrolim_tpu_torch.pde.fast_solve import PDERun
 from hydrolim_tpu_torch.sweeps.pde_sweeps import (
     pde_beta_sweep,
     pde_kernel_sigma_sweep,
@@ -63,7 +67,8 @@ def _jsonable(x):
 
 
 def main(which: str, small: bool = False, outdir: str = "pde_out",
-         device: str = "cuda", ckpt_dir: str = None):
+         device: str = "cuda", ckpt_dir: str = None, engine: str = "xla",
+         n_devices: int = None):
     if which == "single":
         kw = dict(L=128, T=2.0, dt=1e-3) if small else {}
         r = pde_single_run(outdir=outdir, device=device, ckpt_dir=ckpt_dir,
@@ -74,10 +79,12 @@ def main(which: str, small: bool = False, outdir: str = "pde_out",
             r = pde_beta_sweep(np.linspace(0, 3, 4), n_runs=2, T=6.0,
                                t_min=4.0, t_max=6.0, L=128, dt=1e-3,
                                n_tracers=200, outdir=outdir, device=device,
-                               ckpt_dir=ckpt_dir)
+                               ckpt_dir=ckpt_dir, engine=engine,
+                               n_devices=n_devices)
         else:
             r = pde_beta_sweep(outdir=outdir, device=device,
-                               ckpt_dir=ckpt_dir)
+                               ckpt_dir=ckpt_dir, engine=engine,
+                               n_devices=n_devices)
         print("v(beta):", np.round(r["v_mean"], 4))
         print("D(beta):", np.round(r["D_mean"], 4))
     elif which in ("magn", "magn2"):
@@ -85,15 +92,17 @@ def main(which: str, small: bool = False, outdir: str = "pde_out",
                   kernel_sigma_values=[0.005, 0.05, 1.0], n_runs=2) \
             if small else {}
         r = pde_kernel_sigma_sweep(variant=which, outdir=outdir,
-                                   device=device, ckpt_dir=ckpt_dir, **kw)
+                                   device=device, ckpt_dir=ckpt_dir,
+                                   engine=engine, n_devices=n_devices, **kw)
         print("final |m| per sigma:",
               {s: float(np.mean(v[:, -1])) for s, v in r["m"].items()})
     else:
         raise SystemExit(f"unknown experiment {which!r}")
     out = Path(outdir)
     out.mkdir(parents=True, exist_ok=True)
-    (out / f"{which}.json").write_text(json.dumps(_jsonable(_summary(which,
-                                                                      r))))
+    summary = dict(_summary(which, r), engine=engine, route=PDERun.route,
+                   n_devices=n_devices)
+    (out / f"{which}.json").write_text(json.dumps(_jsonable(summary)))
     return r
 
 
@@ -103,7 +112,15 @@ if __name__ == "__main__":
     p.add_argument("--small", action="store_true")
     p.add_argument("--outdir", default="pde_out")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--engine", default="xla",
+                   choices=["xla", "auto", "pallas"],
+                   help="the JAX engine names; each runs the fused solve "
+                        "(kernel B2)")
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="split the (beta x runs) batch of 'beta', 'magn' "
+                        "and 'magn2' over this many cards")
     p.add_argument("--ckpt-dir", default=None,
                    help="mid-run checkpoint/resume dir (rerun on it to resume)")
     a = p.parse_args()
-    main(a.which, a.small, a.outdir, a.device, ckpt_dir=a.ckpt_dir)
+    main(a.which, a.small, a.outdir, a.device, ckpt_dir=a.ckpt_dir,
+         engine=a.engine, n_devices=a.n_devices)

@@ -4,7 +4,9 @@ The counterpart of the JAX package's ``experiments/run_pde_phase_diagram.py``:
 32 β × 16 σ × 2 seeds = 1024 replicas at the reference per-replica scale
 (L=1000, dt=5e-4, T=10, 64 tracers).  Each σ is one batched solve of
 32 β × n_seeds replicas (σ sets the smoothing operand, shared by the
-batch).
+batch).  ``--engine`` takes the JAX names (``auto``, ``pallas``, ``xla``),
+which all run the one fused solve (``pde.fast_solve.PDE_ENGINES``); the
+JSON records the name given and the route taken.
 
 Read-outs per (β, σ):
 - order parameter |⟨m⟩_t| (abs of the late-window time mean): the flocking
@@ -12,7 +14,8 @@ Read-outs per (β, σ):
 - band contrast std_x(ρ)/mean_x(ρ) at final time (spatial structure).
 
 Usage: python -m hydrolim_tpu_torch.experiments.pde_phase_diagram
-       [--small] [--outdir DIR] [--device cuda|cpu] [--replot]
+       [--small] [--outdir DIR] [--device cuda|cpu]
+       [--engine auto|pallas|xla] [--replot]
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import numpy as np
 
 from hydrolim_tpu_torch.core.config import PDEConfig
 from hydrolim_tpu_torch.fit.veff_fit import _pyplot
+from hydrolim_tpu_torch.pde.fast_solve import PDERun
 from hydrolim_tpu_torch.sweeps.pde_sweeps import run_pde_ensemble
 
 # σ from ~2 grid sites (narrow taps) through the full circulant to the
@@ -33,7 +37,7 @@ FULL_SIGMAS = list(np.geomspace(0.002, 2.0, 15)) + [1e5 - 10]
 
 
 def run_grid(beta_values, sigma_values, n_seeds, *, L, T, dt, gamma, lam,
-             n_tracers, seed=0, device="cuda"):
+             n_tracers, seed=0, device="cuda", engine="auto"):
     """One batched solve per σ; returns a dict of (n_sigma, n_beta) grids
     and each row's wall time."""
     nb, ns = len(beta_values), n_seeds
@@ -54,7 +58,7 @@ def run_grid(beta_values, sigma_values, n_seeds, *, L, T, dt, gamma, lam,
         res, _ = run_pde_ensemble(config, beta_values, gamma=gamma, lam=lam,
                                   n_runs=ns, seed=seed + si,
                                   n_tracers=n_tracers, device=device,
-                                  fetch_snapshots=False)
+                                  fetch_snapshots=False, engine=engine)
         walls.append(time.perf_counter() - t0)
         m_ts = res.records.m_mean[:, :nsteps + 1]
         v_ts = res.records.v_eff[:, :nsteps + 1]
@@ -70,6 +74,7 @@ def run_grid(beta_values, sigma_values, n_seeds, *, L, T, dt, gamma, lam,
     return dict(beta=list(map(float, beta_values)),
                 sigma=list(map(float, sigma_values)), n_seeds=n_seeds,
                 L=L, T=T, dt=dt, gamma=gamma, lam=lam, device=str(device),
+                engine=engine, route=PDERun.route,
                 m=m_grid.tolist(), band=band_grid.tolist(),
                 v=v_grid.tolist(), row_wall_s=walls,
                 replicas=len(sigma_values) * nb * n_seeds,
@@ -129,16 +134,17 @@ def check_physics(data):
     assert 0.8 <= cross <= 1.6, cross
 
 
-def main(small: bool = False, outdir: str = ".", device: str = "cuda"):
+def main(small: bool = False, outdir: str = ".", device: str = "cuda",
+         engine: str = "auto"):
     os.makedirs(outdir, exist_ok=True)
     if small:
         data = run_grid(np.linspace(0, 3, 6), [0.02, 0.2, 9e4], 1,
                         L=128, T=0.5, dt=1e-3, gamma=0.2, lam=0.6,
-                        n_tracers=16, device=device)
+                        n_tracers=16, device=device, engine=engine)
     else:
         data = run_grid(np.linspace(0, 3, 32), FULL_SIGMAS, 2,
                         L=1000, T=10.0, dt=5e-4, gamma=0.2, lam=0.6,
-                        n_tracers=64, device=device)
+                        n_tracers=64, device=device, engine=engine)
     print(f"# aggregate throughput: "
           f"{data['aggregate_replica_steps_per_s']:.4e} replica-steps/s "
           f"over {data['replicas']} replicas")
@@ -154,6 +160,9 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--small", action="store_true",
                     help="CPU smoke: 6 beta x 3 sigma x 1 seed, L=128")
+    ap.add_argument("--engine", default="auto",
+                    choices=["auto", "pallas", "xla"],
+                    help="the JAX engine names; each runs the fused solve")
     ap.add_argument("--outdir", default=".")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--replot", action="store_true",
@@ -163,4 +172,4 @@ if __name__ == "__main__":
         with open(os.path.join(a.outdir, "pde_phase_diagram.json")) as f:
             plot_grid(json.load(f), a.outdir)
     else:
-        main(a.small, a.outdir, a.device)
+        main(a.small, a.outdir, a.device, engine=a.engine)

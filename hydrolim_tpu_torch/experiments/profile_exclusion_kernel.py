@@ -21,10 +21,11 @@ the kernel's wrapper has taken since it was first ported, so the same
 script times an older checkout of the package: put that checkout first on
 ``PYTHONPATH`` and run this file by its path (a shape the older wrapper
 refuses prints its message).  ``--clusters 1,2,4`` times each forced
-cluster size instead (this checkout only).
+cluster size instead (this checkout only).  ``--quick`` is a short run of
+the same shapes: one timed call of at most 200 steps each.
 
 Usage: PYTHONPATH=<checkout> python <this file> [--calls 3] [--tag NAME]
-       [--shapes bench,flagship,...] [--clusters 1,2,4]
+       [--shapes bench,flagship,...] [--clusters 1,2,4] [--quick]
 """
 from __future__ import annotations
 
@@ -62,10 +63,15 @@ def card() -> str:
         text=True).stdout.strip().splitlines()[0]
 
 
-def run(name: str, calls: int, tag: str, cluster=None) -> dict:
+QUICK_STEPS = 200
+
+
+def run(name: str, calls: int, tag: str, cluster=None,
+        max_steps=None) -> dict:
     sh = {**dict(betas=np.linspace(0.0, 3.0, 11), rd=0.02, dt=DT,
                  inject=False), **SHAPES[name]}
-    B, K, L, k = sh["B"], sh["K"], sh["L"], sh["k"]
+    B, K, L = sh["B"], sh["K"], sh["L"]
+    k = sh["k"] if max_steps is None else min(sh["k"], max_steps)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -130,11 +136,13 @@ def run(name: str, calls: int, tag: str, cluster=None) -> dict:
 
 
 def main(calls: int = 3, tag: str = "", shapes=tuple(SHAPES),
-         clusters=None) -> list:
+         clusters=None, quick: bool = False) -> list:
     if not torch.cuda.is_available():
         raise SystemExit("profile_exclusion_kernel: needs a CUDA device")
-    return [run(name, calls, tag, C) for name in shapes
-            for C in clusters or [None]]
+    if quick:
+        calls = 1
+    return [run(name, calls, tag, C, QUICK_STEPS if quick else None)
+            for name in shapes for C in clusters or [None]]
 
 
 if __name__ == "__main__":
@@ -144,6 +152,10 @@ if __name__ == "__main__":
     p.add_argument("--shapes", default=",".join(SHAPES))
     p.add_argument("--clusters", default="",
                    help="comma-separated forced cluster sizes")
+    p.add_argument("--quick", action="store_true",
+                   help=f"one timed call of at most {QUICK_STEPS} steps "
+                        "per shape")
     a = p.parse_args()
     main(a.calls, a.tag, a.shapes.split(","),
-         [int(c) for c in a.clusters.split(",")] if a.clusters else None)
+         [int(c) for c in a.clusters.split(",")] if a.clusters else None,
+         quick=a.quick)

@@ -6,8 +6,10 @@ up, then each path once timed (host clock, the card synchronised at the
 end): the exclusion β-sweep on kernel B3 in its two
 configurations (11 β × 3 runs, L=1000, T=20; no fit), the same sweep (b)
 on the τ-leap step and on the slot engine cut to 40 frames, the mean-field
-``ParticleSystem`` run on kernel B1 (L=256, N=5000, T=10) and the PDE
-single run on kernel B2 (40,000 steps).  Prints one JSON line.
+``ParticleSystem`` run on kernel B1 (L=256, N=5000, T=10), the PDE
+single run on kernel B2 (40,000 steps) and a PDE ensemble on B2 (11 β × 3
+runs, L=1000, 1000 tracers, 4000 steps: its final record row runs replica
+by replica).  Prints one JSON line.
 
 Usage (against an older checkout, in turns: old, new, new, old):
     PYTHONPATH=<tree> python hydrolim_tpu_torch/experiments/time_driver_walls.py
@@ -34,10 +36,14 @@ def _wall(fn, device: str) -> float:
 
 def main(tag: str, device: str = "cuda") -> dict:
     from hydrolim_tpu_torch import ParticleSystem
+    from hydrolim_tpu_torch.core.config import PDEConfig
     from hydrolim_tpu_torch.experiments.particle_beta_sweep import FLAGSHIP
     from hydrolim_tpu_torch.ops._build import build_kernel_library
     from hydrolim_tpu_torch.sweeps.beta_sweep import sweep_over_betas
-    from hydrolim_tpu_torch.sweeps.pde_sweeps import pde_single_run
+    from hydrolim_tpu_torch.sweeps.pde_sweeps import (
+        pde_single_run,
+        run_pde_ensemble,
+    )
 
     betas = np.linspace(0.0, 3.0, 11)
     out = tempfile.mkdtemp(prefix="driver_walls_")
@@ -56,6 +62,15 @@ def main(tag: str, device: str = "cuda") -> dict:
                        active_model="bidirectional", rng=1,
                        device=device).run(T=10.0, obs_dt=0.5)
 
+    def pde_ensemble():
+        config = PDEConfig(L=1000, T=2.0, dt=5e-4, bc="periodic",
+                           active_model="bidirectional", gaussian_kernel=True,
+                           kernel_sigma=0.05, snapshot_interval=2000,
+                           fft_kmax=8)
+        run_pde_ensemble(config, betas, gamma=0.2, lam=0.6, n_runs=3,
+                         seed=0, n_tracers=1000, device=device,
+                         fetch_snapshots=False)
+
     short = dict(T=4.0, obs_dt=0.1)
     paths = {
         "fused (a)": sweep("fused", {}),
@@ -65,6 +80,7 @@ def main(tag: str, device: str = "cuda") -> dict:
         "B1 mean field, T=10": mean_field,
         "PDE single run": lambda: pde_single_run(outdir=f"{out}/pde",
                                                  device=device),
+        "PDE ensemble, 33 replicas": pde_ensemble,
     }
     if torch.device(device).type == "cuda":   # no nvcc inside a timing
         for kernel in ("meanfield_multi_step", "pde_multi_step",

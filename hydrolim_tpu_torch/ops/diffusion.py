@@ -82,6 +82,15 @@ def diffusion_solve(op, rho: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "identity":
         return rho
     if kind == "dense":
+        if rho.device.type == "cpu":
+            # one matrix-vector product per row: a (rows, L)·(L, L) CPU
+            # product sums in an order that depends on the row count, and
+            # the ordered phase amplifies that last-bit difference (1.7e-4
+            # relative in m after 120 steps at β = 2.4), so a batch split
+            # into blocks would leave the whole batch's run
+            flat = rho.reshape(-1, rho.shape[-1])
+            return torch.stack([torch.mv(op, r) for r in flat]).reshape(
+                rho.shape)
         return torch.matmul(rho, op.T)
     if kind == "banded":
         return banded_circular_conv(rho, op)

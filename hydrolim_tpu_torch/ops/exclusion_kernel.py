@@ -29,8 +29,10 @@ and compaction carry payloads intact.  Per step:
 
 Randomness is injected (``noise``: (B, k, 2, K, L) int32 bits, draw 0 =
 event, 1 = priority) or native: the kernel draws Philox4x32-10 with key
-(seed, replica) and counter (slot·L + site, ``step0`` + step), words 0 and
-1 of one call; the plain version draws from ``generator``.
+(seed, ``b0`` + replica) and counter (slot·L + site, ``step0`` + step),
+words 0 and 1 of one call, so a launch of rows [b0, b0 + n) of a batch
+draws what the launch of the whole batch draws for them; the plain version
+draws from ``generator``.
 
 Launch plan (``exclusion_launch_plan``, a pure function tested on the CPU):
 a thread-block cluster of C ≤ 8 CTAs per replica, CTA r owning the sites
@@ -58,6 +60,7 @@ from hydrolim_tpu_torch.ops.convolve import (
     periodic_gaussian_kernel,
 )
 from hydrolim_tpu_torch.ops.stepper_kernel import _check, bits_to_uniform
+from hydrolim_tpu_torch.parallel import draws
 
 SOURCE = "hydrolim_tpu_torch/csrc/exclusion_multi_step.cu"
 REPLACES = ("hydrolim_tpu/ops/pallas_exclusion.py:403 and "
@@ -392,8 +395,7 @@ def _shift_left(x: torch.Tensor, periodic: bool, fill) -> torch.Tensor:
 
 
 def _draw_bits(shape, generator, device) -> torch.Tensor:
-    return torch.randint(0, 2 ** 32, shape, generator=generator,
-                         device=device, dtype=torch.int64)
+    return draws.randint(0, 2 ** 32, shape, generator, device, torch.int64)
 
 
 def step_thresholds(slots: torch.Tensor, scalars: torch.Tensor,
@@ -439,13 +441,14 @@ def exclusion_multi_step_plain(scalars: torch.Tensor, seeds: torch.Tensor,
                                band: Optional[SmoothingBand] = None, *,
                                k_steps: int, dt: float, periodic: bool,
                                bidirectional: bool, step0: int = 0,
+                               b0: int = 0,
                                noise: Optional[torch.Tensor] = None,
                                generator: Optional[torch.Generator] = None,
                                tally: Optional[dict] = None
                                ) -> torch.Tensor:
     """Plain PyTorch version: the kernel's steps in the same order on
-    (B, K, L) tensors.  ``seeds`` and ``step0`` select the kernel's native
-    stream and are not used here; without ``noise`` the bits come from
+    (B, K, L) tensors.  ``seeds``, ``step0`` and ``b0`` select the kernel's
+    native stream and are not used here; without ``noise`` the bits come from
     ``generator``.  Bit operations run in int64.  A ``tally`` dict, if
     given, accumulates the admission candidates and the admitted ones
     (keys 'candidates', 'admitted'), so a check can see refusals."""
@@ -525,7 +528,7 @@ def exclusion_multi_step(scalars: torch.Tensor, seeds: torch.Tensor,
                          band: Optional[SmoothingBand] = None, *,
                          k_steps: int, dt: float, periodic: bool,
                          bidirectional: bool, step0: int = 0,
-                         noise: Optional[torch.Tensor] = None,
+                         b0: int = 0, noise: Optional[torch.Tensor] = None,
                          generator: Optional[torch.Generator] = None
                          ) -> torch.Tensor:
     """Advance k exclusion steps; returns the new (B, K, L) slots.
@@ -537,11 +540,12 @@ def exclusion_multi_step(scalars: torch.Tensor, seeds: torch.Tensor,
       band: the local-m smoothing (``build_smoothing_band``); None for the
         global m.
       step0: global step index of the first step (native-mode counter).
+      b0: global index of the first replica (native-mode key).
       noise: optional (B, k_steps, 2, K, L) int32 random bits.
       generator: the plain version's source of bits (CPU, no noise).
     """
     kw = dict(k_steps=k_steps, dt=dt, periodic=periodic,
-              bidirectional=bidirectional, step0=step0, noise=noise)
+              bidirectional=bidirectional, step0=step0, b0=b0, noise=noise)
     if slots.device.type == "cpu":
         return exclusion_multi_step_plain(scalars, seeds, slots, band,
                                           generator=generator, **kw)
@@ -581,6 +585,8 @@ def exclusion_multi_step(scalars: torch.Tensor, seeds: torch.Tensor,
             f"{MAX_CLUSTER} CTAs holds ({MAX_SMEM} bytes each)")
     if not (0 <= step0 and step0 + k_steps < 2 ** 31):
         raise ValueError(f"step0 out of range: {step0}")
+    if not 0 <= b0 < 2 ** 31 - B:
+        raise ValueError(f"b0 out of range: {b0}")
     plan = card_plan(B, K, L, band, periodic, dev.index or 0)
     return exclusion_multi_step_planned(plan, scalars, seeds, slots, band,
                                         **kw)
@@ -602,7 +608,7 @@ def card_plan(B: int, K: int, L: int, band: Optional[SmoothingBand],
 def _lib():
     lib = load_kernel_library("exclusion_multi_step")
     fn = lib.exclusion_multi_step_launch
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                    + [ctypes.c_float] + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
@@ -643,6 +649,7 @@ def exclusion_multi_step_planned(plan: ExclusionPlan, scalars, seeds, slots,
                                  band: Optional[SmoothingBand] = None, *,
                                  k_steps: int, dt: float, periodic: bool,
                                  bidirectional: bool, step0: int = 0,
+                                 b0: int = 0,
                                  noise: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
     """``exclusion_multi_step`` on CUDA tensors under a given plan (the
@@ -665,7 +672,7 @@ def exclusion_multi_step_planned(plan: ExclusionPlan, scalars, seeds, slots,
             [torch.cuda.Event(enable_timing=True) for _ in range(2)])
         exclusion_multi_step.events[-1][0].record(stream)
     rc = _lib().exclusion_multi_step_launch(
-        ptr(scalars), ptr(seeds), step0, ptr(slots), ptr(out), ptr(noise),
+        ptr(scalars), ptr(seeds), step0, b0, ptr(slots), ptr(out), ptr(noise),
         *(ptr(getattr(band, f) if band is not None else None)
           for f in ("idx", "w", "taps", "rot")),
         W, *((band.radius, band.lo, band.hi) if band is not None

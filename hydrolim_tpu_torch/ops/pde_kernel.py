@@ -21,8 +21,10 @@ records (B, k, 4 + 2·kmax_rec) = [m_mean, Var, v_eff, D_eff, rfft re (k
 bins), rfft im (k bins)] of the total density ÷ L.  ``interop`` converts the
 TPU kernel's padded lane layouts.  Randomness is either injected (``noise``:
 (B, k, 3, n_t) uint32 bits held in int32 — tracer flip, Box–Muller u2, u3)
-or native: Philox4x32-10 in the kernel, key (seed, replica), counter
-(tracer, ``step0`` + step); the plain version draws from ``generator``.
+or native: Philox4x32-10 in the kernel, key (seed, ``b0`` + replica),
+counter (tracer, ``step0`` + step), so a launch of rows [b0, b0 + n) of a
+batch draws what the launch of the whole batch draws for them; the plain
+version draws from ``generator``.
 """
 from __future__ import annotations
 
@@ -256,13 +258,14 @@ def pde_multi_step_plain(scal, seeds, step0: int, rho_p, rho_m, pos, spin,
                          n_t: int, window: int, k_steps: int, dt: float,
                          xlim: float, periodic: bool, m_mode: str,
                          solve_mode: str, bidirectional: bool,
-                         kmax_rec: int = 0,
+                         kmax_rec: int = 0, b0: int = 0,
                          noise: Optional[torch.Tensor] = None,
                          generator: Optional[torch.Generator] = None):
     """Plain PyTorch version of ``pde_multi_step`` (same arguments and
-    returns).  ``seeds`` select the kernel's native stream and are not
-    used here; without ``noise`` the draws come from ``generator``."""
-    del seeds
+    returns).  ``seeds`` and ``b0`` select the kernel's native stream and
+    are not used here; without ``noise`` the draws come from
+    ``generator``."""
+    del seeds, b0
     config = PDEConfig(L=L, xlim=xlim, dt=dt,
                        bc="periodic" if periodic else "neumann",
                        active_model=("bidirectional" if bidirectional
@@ -318,7 +321,8 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
                    n_t: int, window: int, k_steps: int, dt: float,
                    xlim: float, periodic: bool, m_mode: str, solve_mode: str,
                    bidirectional: bool,
-                   kmax_rec: int = 0, noise: Optional[torch.Tensor] = None,
+                   kmax_rec: int = 0, b0: int = 0,
+                   noise: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None):
     """Advance k IMEX steps (fields + tracers).
 
@@ -335,6 +339,7 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
       smooth: ``build_smooth_operands`` for ``m_mode`` 'narrow' or
         'smooth' (None otherwise).
       kmax_rec: rfft bins recorded per step (any number up to L//2 + 1).
+      b0: global index of the first replica (native-mode key).
       noise: optional (B, k_steps, 3, n_t) int32 random bits.
 
     Returns (rho_p, rho_m, pos, spin, hist, recs), recs
@@ -344,7 +349,7 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
     kw = dict(L=L, n_t=n_t, window=window, k_steps=k_steps, dt=dt,
               xlim=xlim, periodic=periodic, m_mode=m_mode,
               solve_mode=solve_mode, bidirectional=bidirectional,
-              kmax_rec=kmax_rec, noise=noise, generator=generator)
+              kmax_rec=kmax_rec, b0=b0, noise=noise, generator=generator)
     if rho_p.device.type == "cpu":
         return pde_multi_step_plain(*args, **kw)
     if rho_p.device.type != "cuda":
@@ -371,10 +376,10 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
     if noise is not None:
         _check(noise, "noise", torch.int32, (B, k_steps, 3, n_t), dev)
     if L < 3 or n_t < 1 or window < 1 or not 0 <= step0 < 2 ** 31 - k_steps \
-            or not 0 <= kmax_rec <= L // 2 + 1:
+            or not 0 <= kmax_rec <= L // 2 + 1 or not 0 <= b0 < 2 ** 31 - B:
         raise ValueError(f"pde_multi_step: L={L}, n_t={n_t}, "
                          f"window={window}, step0={step0}, "
-                         f"kmax_rec={kmax_rec}")
+                         f"kmax_rec={kmax_rec}, b0={b0}")
     lib = load_kernel_library("pde_multi_step")
     lib.pde_multi_step_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.pde_multi_step_smem_bytes.restype = ctypes.c_size_t
@@ -408,7 +413,7 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
     recs = torch.empty((B, k_steps, 4 + 2 * kmax_rec), dtype=torch.float32,
                        device=dev)
     fn = lib.pde_multi_step_launch
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] * 16 + [ctypes.c_int] * 17
                    + [ctypes.c_float] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -418,7 +423,8 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
         pde_multi_step.events.append(
             [torch.cuda.Event(enable_timing=True) for _ in range(2)])
         pde_multi_step.events[-1][0].record(stream)
-    rc = fn(ptr(scal), ptr(seeds), step0, ptr(rho_p), ptr(rho_m), ptr(pos),
+    rc = fn(ptr(scal), ptr(seeds), step0, b0, ptr(rho_p), ptr(rho_m),
+            ptr(pos),
             ptr(spin), ptr(hist), *[ptr(t) for t in outs], ptr(recs),
             ptr(fac.scan if fac is not None else None), ptr(taps["solve"]),
             ptr(taps["smoothing"]), ptr(trig), ptr(noise), B, L, n_t, window,

@@ -10,9 +10,11 @@ Layout: unpadded (B, n) int32 pos/σ/wind; ``interop`` converts the TPU
 kernel's (B, ⌈n/128⌉, 128) lanes.  Randomness is either injected
 (``noise``: (B, k, n) uint32 bits held in int32, mapped to uniforms as
 ``(bits & 0xFFFFFF)·2⁻²⁴`` like the TPU kernel) or native: the kernel draws
-Philox4x32-10 with key (seed, replica) and counter (particle group,
-``step0`` + step), so advancing ``step0`` by k per call gives every call an
-independent stream; the plain version draws from ``generator``.
+Philox4x32-10 with key (seed, ``b0`` + replica) and counter (particle
+group, ``step0`` + step), so advancing ``step0`` by k per call gives every
+call an independent stream, and a launch of rows [b0, b0 + n) of a batch
+draws what the launch of the whole batch draws for them; the plain version
+draws from ``generator``.
 
 Launch plan (``launch_plan``, a pure function tested on the CPU): a
 thread-block cluster of C ≤ 8 CTAs per replica, the state packed on chip (in
@@ -152,13 +154,13 @@ def meanfield_multi_step_plain(scalars: torch.Tensor, seeds: torch.Tensor,
                                pos: torch.Tensor, sigma: torch.Tensor,
                                wind: torch.Tensor, *, L: int, k_steps: int,
                                dt: float, bidirectional: bool,
-                               step0: int = 0,
+                               step0: int = 0, b0: int = 0,
                                noise: Optional[torch.Tensor] = None,
                                generator: Optional[torch.Generator] = None
                                ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version: k steps of ``_step_meanfield_global``.
-    ``seeds`` and ``step0`` select the kernel's native stream and are not
-    used here; without ``noise`` the uniforms come from ``generator``."""
+    ``seeds``, ``step0`` and ``b0`` select the kernel's native stream and
+    are not used here; without ``noise`` the uniforms come from ``generator``."""
     B, n = pos.shape
     config = ParticleConfig(
         L=L, N=n, init="fixed", scale_rates=False, local_kernel_sigma=0.0,
@@ -186,7 +188,7 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 
 def _check_inputs(scalars, seeds, pos, sigma, wind, noise, k_steps,
-                  step0) -> None:
+                  step0, b0=0) -> None:
     B, n = pos.shape
     dev = pos.device
     _check(scalars, "scalars", torch.float32, (B, 3), dev)
@@ -197,13 +199,15 @@ def _check_inputs(scalars, seeds, pos, sigma, wind, noise, k_steps,
         _check(noise, "noise", torch.int32, (B, k_steps, n), dev)
     if not (0 <= step0 and step0 + k_steps < 2 ** 31):
         raise ValueError(f"step0 out of range: {step0}")
+    if not 0 <= b0 < 2 ** 31 - B:
+        raise ValueError(f"b0 out of range: {b0}")
 
 
 def meanfield_multi_step(scalars: torch.Tensor, seeds: torch.Tensor,
                          pos: torch.Tensor, sigma: torch.Tensor,
                          wind: torch.Tensor, *, L: int, k_steps: int,
                          dt: float, bidirectional: bool, step0: int = 0,
-                         noise: Optional[torch.Tensor] = None,
+                         b0: int = 0, noise: Optional[torch.Tensor] = None,
                          generator: Optional[torch.Generator] = None
                          ) -> Tuple[torch.Tensor, ...]:
     """Advance k mean-field steps; returns new (pos, σ, wind).
@@ -215,13 +219,16 @@ def meanfield_multi_step(scalars: torch.Tensor, seeds: torch.Tensor,
       pos/sigma/wind: (B, n) int32, pos in [0, L) and σ in {−1, 0, +1}; n
         is the true particle count and normalizes m.
       step0: global step index of the first step (native-mode counter).
+      b0: global index of the first replica (native-mode key): a shard of
+        rows [b0, b0 + B) of a batch draws what the whole batch's launch
+        draws for those rows.
       noise: optional (B, k_steps, n) int32 random bits.
       generator: the plain version's source of uniforms (CPU, no noise).
     """
     if pos.device.type == "cpu":
         return meanfield_multi_step_plain(
             scalars, seeds, pos, sigma, wind, L=L, k_steps=k_steps, dt=dt,
-            bidirectional=bidirectional, step0=step0, noise=noise,
+            bidirectional=bidirectional, step0=step0, b0=b0, noise=noise,
             generator=generator)
     if pos.device.type != "cuda":
         raise ValueError(f"meanfield_multi_step: unsupported device "
@@ -233,13 +240,13 @@ def meanfield_multi_step(scalars: torch.Tensor, seeds: torch.Tensor,
     return meanfield_multi_step_planned(plan, scalars, seeds, pos, sigma,
                                         wind, L=L, k_steps=k_steps, dt=dt,
                                         bidirectional=bidirectional,
-                                        step0=step0, noise=noise)
+                                        step0=step0, b0=b0, noise=noise)
 
 
 def _lib():
     lib = load_kernel_library("meanfield_multi_step")
     fn = lib.meanfield_multi_step_launch
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                    + [ctypes.c_float] + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
@@ -276,12 +283,14 @@ def coresident_clusters(device_index: int, n: int, L: int,
 def meanfield_multi_step_planned(plan: B1Plan, scalars, seeds, pos, sigma,
                                  wind, *, L: int, k_steps: int, dt: float,
                                  bidirectional: bool, step0: int = 0,
+                                 b0: int = 0,
                                  noise: Optional[torch.Tensor] = None):
     """``meanfield_multi_step`` on CUDA tensors under a given plan (the
     wrapper's own, or one that ``launch_plan(..., cluster=C, mode=M)``
     forces, to compare cluster sizes and state modes): one launch per
     ``plan.steps_per_launch`` steps, ``step0`` advanced between them."""
-    _check_inputs(scalars, seeds, pos, sigma, wind, noise, k_steps, step0)
+    _check_inputs(scalars, seeds, pos, sigma, wind, noise, k_steps, step0,
+                  b0)
     B, n = pos.shape
     sh = plan.shape
     if sh != cta_shape(n, L, sh.cluster, sh.mode):
@@ -302,7 +311,7 @@ def meanfield_multi_step_planned(plan: B1Plan, scalars, seeds, pos, sigma,
             meanfield_multi_step.events.append(
                 [torch.cuda.Event(enable_timing=True) for _ in range(2)])
             meanfield_multi_step.events[-1][0].record(cur)
-        rc = fn(ptr(scalars), ptr(seeds), step0 + s0, *map(ptr, state),
+        rc = fn(ptr(scalars), ptr(seeds), step0 + s0, b0, *map(ptr, state),
                 *map(ptr, out), nz, k_steps, B, n, L, k, dt,
                 int(bidirectional), _MODES[sh.mode], sh.groups_per_thread,
                 sh.cluster, sh.threads, sh.groups_per_cta, stream)

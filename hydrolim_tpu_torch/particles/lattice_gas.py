@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from hydrolim_tpu_torch.core.config import ParticleConfig, ParticleParams
+from hydrolim_tpu_torch.core.scope import not_ported
 from hydrolim_tpu_torch.fields.magnetization import (
     MFieldOp,
     build_mfield_op,
@@ -48,6 +49,7 @@ from hydrolim_tpu_torch.ops.exclusion_kernel import (
     build_smoothing_band,
 )
 from hydrolim_tpu_torch.particles.run import substeps_for
+from hydrolim_tpu_torch.parallel import draws
 
 # Invalid-tracer sentinel for ``LatticeGasFrames.tracer_pos``.  Unwrapped
 # positions are signed (a net-leftward walker crosses 0), so validity cannot
@@ -228,9 +230,8 @@ def lg_step(config: ParticleConfig, params: ParticleParams,
     t2 = t1 + r_right * dt32
     t3 = t2 + c * dt32
     if _inject is None:
-        u = torch.rand(occ.shape, generator=generator, device=dev, dtype=f32)
-        tie = torch.rand(occ.shape, generator=generator, device=dev,
-                         dtype=f32) < 0.5
+        u = draws.rand(occ.shape, generator, dev, f32)
+        tie = draws.rand(occ.shape, generator, dev, f32) < 0.5
     else:
         u, tie = _inject
     ev_left = u < t1
@@ -318,6 +319,8 @@ class LgRun:
                  T: float, obs_dt: float, dt: float, record_fft: bool,
                  n_tracers: int, device, _draws=None):
         assert config.site_capacity == 1
+        self._kw = dict(T=T, obs_dt=obs_dt, dt=dt, record_fft=record_fft,
+                        n_tracers=n_tracers, _draws=_draws)
         self.config, self.params_b = config, params_b
         self.device = torch.device(device)
         self.n_frames, self.n_sub, self.dt_eff = frame_grid(T, obs_dt, dt)
@@ -330,6 +333,12 @@ class LgRun:
             config, mfield_op, (o == 1).to(torch.float32),
             (o == -1).to(torch.float32), record_fft)
         self._draws = _draws
+
+    def for_rows(self, params_b: ParticleParams, device, b0: int) -> "LgRun":
+        """The same run over a block of the batch on ``device``
+        (``parallel.mesh.ShardedRun``); its draws are the generator's, so
+        ``b0`` is not used."""
+        return LgRun(self.config, params_b, **self._kw, device=device)
 
     def start(self, seed: int, rho0_plus=None, rho0_minus=None,
               _occ0: Optional[torch.Tensor] = None) -> dict:
@@ -379,6 +388,7 @@ def run_lattice_gas(config: ParticleConfig, params_b: ParticleParams, *,
                     T: float, obs_dt: float, dt: float, seed: int = 0,
                     device="cuda", rho0_plus=None, rho0_minus=None,
                     record_fft: bool = True, n_tracers: int = 0,
+                    occ_sharding=None, mesh=None,
                     _occ0: Optional[torch.Tensor] = None, _draws=None
                     ) -> Tuple[LatticeGasFrames, torch.Tensor]:
     """The K = 1 engine over the batch of ``params_b`` (JAX
@@ -387,14 +397,27 @@ def run_lattice_gas(config: ParticleConfig, params_b: ParticleParams, *,
     positions, ``TRACER_INVALID`` for phantoms) and the final (B, L)
     occupancy.  All draws come from one generator seeded with ``seed``:
     the initial field, the tracer keys, then each step's.  The run is one
-    ``LgRun.run_range`` over every frame.
+    ``LgRun.run_range`` over every frame.  ``mesh=`` splits the batch
+    over a sweep mesh (``parallel.mesh.ShardedRun``); ``occ_sharding=``
+    (the lattice axis over a mesh) raises ``not_ported``.
 
     Test-only: ``_occ0`` replaces the initial field and ``_draws`` the
     draws (``tracer_bits(shape)`` and ``step(i)`` → ``_inject`` of global
     step i)."""
+    from hydrolim_tpu_torch.parallel.mesh import shard_run
+
+    check_occ_sharding(occ_sharding)
     run = LgRun(config, params_b, T=T, obs_dt=obs_dt, dt=dt,
                 record_fft=record_fft, n_tracers=n_tracers, device=device,
                 _draws=_draws)
-    frames, carry = run.run_range(
-        run.start(seed, rho0_plus, rho0_minus, _occ0), 0, run.n_frames)
+    carry = run.start(seed, rho0_plus, rho0_minus, _occ0)
+    frames, carry = shard_run(mesh, run, params_b).run_range(
+        carry, 0, run.n_frames)
     return frames, run.final(carry)
+
+
+def check_occ_sharding(occ_sharding) -> None:
+    """``occ_sharding=`` places the lattice axis on a mesh: not ported."""
+    if occ_sharding is not None:
+        raise not_ported("occ_sharding= (the lattice axis over a mesh)",
+                         "lattice sharding")

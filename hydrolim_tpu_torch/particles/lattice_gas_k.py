@@ -47,9 +47,11 @@ from hydrolim_tpu_torch.ops.exclusion_kernel import (
     build_smoothing_band,
 )
 from hydrolim_tpu_torch.particles.init import init_particles
+from hydrolim_tpu_torch.parallel import draws
 from hydrolim_tpu_torch.particles.lattice_gas import (
     LatticeGasFrames,
     _lg_record_counts,
+    check_occ_sharding,
     follow_tracers,
     frame_grid,
     rate_col,
@@ -174,11 +176,9 @@ def lgk_step(config: ParticleConfig, params: ParticleParams,
     t6 = t5 + rate_exit * dt32
     assert K * L < (1 << 17), "slot priority pack supports K*L < 131072"
     if _inject is None:
-        u = torch.rand(slots.shape, generator=generator, device=dev,
-                       dtype=f32)
-        prio = slot_priorities(torch.randint(
-            0, 2 ** 32, slots.shape, generator=generator, device=dev,
-            dtype=torch.int64))
+        u = draws.rand(slots.shape, generator, dev, f32)
+        prio = slot_priorities(draws.randint(
+            0, 2 ** 32, slots.shape, generator, dev, torch.int64))
     else:
         u, prio = _inject
     ev_left = u < t1
@@ -337,6 +337,8 @@ class LgkRun:
         assert config.exclusion, "lattice-gas engines require site_capacity"
         assert config.anchor_positions is None, (
             "anchors run on run_lattice_gas_anchored")
+        self._kw = dict(T=T, obs_dt=obs_dt, dt=dt, record_fft=record_fft,
+                        n_tracers=n_tracers, _draws=_draws)
         self.config, self.params_b = config, params_b
         self.device = torch.device(device)
         self.n_frames, self.n_sub, self.dt_eff = frame_grid(T, obs_dt, dt)
@@ -344,6 +346,13 @@ class LgkRun:
         self.band = build_smoothing_band(config, self.device)
         self.rec = _slot_recorder(config, record_fft, self.device)
         self._draws = _draws
+
+    def for_rows(self, params_b: ParticleParams, device, b0: int
+                 ) -> "LgkRun":
+        """The same run over a block of the batch on ``device``
+        (``parallel.mesh.ShardedRun``); its draws are the generator's, so
+        ``b0`` is not used."""
+        return LgkRun(self.config, params_b, **self._kw, device=device)
 
     def start(self, seed: int, rho0_plus=None, rho0_minus=None,
               _slots0: Optional[torch.Tensor] = None) -> dict:
@@ -397,6 +406,7 @@ def run_lattice_gas_k(config: ParticleConfig, params_b: ParticleParams, *,
                       T: float, obs_dt: float, dt: float, seed: int = 0,
                       device="cuda", rho0_plus=None, rho0_minus=None,
                       record_fft: bool = True, n_tracers: int = 0,
+                      occ_sharding=None, mesh=None,
                       _slots0: Optional[torch.Tensor] = None, _draws=None
                       ) -> Tuple[LatticeGasFrames, torch.Tensor]:
     """The K-slot engine over the batch of ``params_b`` (JAX
@@ -406,17 +416,112 @@ def run_lattice_gas_k(config: ParticleConfig, params_b: ParticleParams, *,
     ``rho0_plus/minus`` are (L,) or per-replica (B, L) Poisson profiles
     (the (N, β) double sweep).  All draws come from one generator seeded
     with ``seed``: the initial field, the tracer keys, then each step's.
-    The run is one ``LgkRun.run_range`` over every frame.
+    The run is one ``LgkRun.run_range`` over every frame; ``mesh=`` and
+    ``occ_sharding=`` as in ``run_lattice_gas``.
 
     Test-only: ``_slots0`` replaces the initial field and ``_draws`` the
     draws (``tracer_bits(shape)`` and ``step(i)`` → ``_inject`` of global
     step i)."""
+    from hydrolim_tpu_torch.parallel.mesh import shard_run
+
+    check_occ_sharding(occ_sharding)
     run = LgkRun(config, params_b, T=T, obs_dt=obs_dt, dt=dt,
                  record_fft=record_fft, n_tracers=n_tracers, device=device,
                  _draws=_draws)
-    frames, carry = run.run_range(
-        run.start(seed, rho0_plus, rho0_minus, _slots0), 0, run.n_frames)
+    carry = run.start(seed, rho0_plus, rho0_minus, _slots0)
+    frames, carry = shard_run(mesh, run, params_b).run_range(
+        carry, 0, run.n_frames)
     return frames, run.final(carry)
+
+
+class AnchoredRun:
+    """The fixed parts of one anchored run (JAX ``lattice_gas_k.py:463-
+    539``): the frame grid, the band, the anchor mask and the recorder.
+    ``start`` draws the carry of frame 0 (slots, the exit log and its
+    count, the float32 step time, the generator); ``run_range`` records
+    frames [lo, hi) and returns the carry after them.  Test-only:
+    ``_draws`` as in ``run_lattice_gas_k`` (``tracer_bits`` is not
+    called)."""
+
+    route = "lgk_step anchored"
+
+    def __init__(self, config: ParticleConfig, params_b: ParticleParams, *,
+                 T: float, obs_dt: float, dt: float, record_fft: bool,
+                 device, _draws=None):
+        assert config.exclusion and config.anchor_positions is not None
+        self._kw = dict(T=T, obs_dt=obs_dt, dt=dt, record_fft=record_fft,
+                        _draws=_draws)
+        self.config, self.params_b = config, params_b
+        self.device = torch.device(device)
+        self.n_frames, self.n_sub, self.dt_eff = frame_grid(T, obs_dt, dt)
+        self.band = build_smoothing_band(config, self.device)
+        self.rec = _slot_recorder(config, record_fft, self.device)
+        self.is_anchor = torch.as_tensor(config.anchor_mask(),
+                                         device=self.device)
+        self._draws = _draws
+
+    def for_rows(self, params_b: ParticleParams, device, b0: int
+                 ) -> "AnchoredRun":
+        """The same run over a block of the batch on ``device``
+        (``parallel.mesh.ShardedRun``); ``b0`` is not used."""
+        return AnchoredRun(self.config, params_b, **self._kw, device=device)
+
+    def start(self, seed: int, rho0_plus=None, rho0_minus=None,
+              _slots0: Optional[torch.Tensor] = None) -> dict:
+        B, E, dev = self.params_b.beta.shape[0], self.config.n_exit_buf, \
+            self.device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        slots = _initial_slots(self.config, gen, rho0_plus, rho0_minus, B,
+                               dev, _slots0)
+        # one spare column E takes every entry that is not written (dropped)
+        return dict(slots=slots,
+                    ec=torch.zeros((B,), dtype=torch.int32, device=dev),
+                    et=torch.full((B, E + 1), float("nan"),
+                                  dtype=torch.float32, device=dev),
+                    ep=torch.zeros((B, E + 1), dtype=torch.int32,
+                                   device=dev),
+                    t=np.float32(0.0), gen=gen)
+
+    def run_range(self, carry: dict, lo: int, hi: int):
+        config, params_b, dev = self.config, self.params_b, self.device
+        K, L, E = config.K, config.L, config.n_exit_buf
+        slots, ec, et, ep, t, gen = (carry[k] for k in (
+            "slots", "ec", "et", "ep", "t", "gen"))
+        B = slots.shape[0]
+        sites_flat = (torch.arange(K * L, dtype=torch.int32, device=dev)
+                      % L).expand(B, K * L)
+        dt32 = np.float32(self.dt_eff)
+        n_sub = self.n_sub
+        frames = [self.rec(slots)] if lo == 0 else []
+        for f in range(max(lo, 1), hi):
+            for s in range(n_sub):
+                inject = (None if self._draws is None
+                          else self._draws.step((f - 1) * n_sub + s))
+                slots, _, exiting = lgk_step(
+                    config, params_b, self.band, slots, self.dt_eff,
+                    generator=gen, is_anchor=self.is_anchor, _inject=inject)
+                exf = exiting.reshape(B, -1).to(torch.int32)
+                slot_idx = ec[:, None] + exf.cumsum(1, dtype=torch.int32) - 1
+                write = (exf > 0) & (slot_idx < E)
+                col = torch.where(write, slot_idx, E).long()
+                et = et.scatter(1, col, torch.where(
+                    write, torch.tensor(t, device=dev), float("nan")))
+                ep = ep.scatter(1, col, torch.where(write, sites_flat, 0))
+                ec = ec + exf.sum(1, dtype=torch.int32)
+                t = np.float32(t + dt32)
+            frames.append(self.rec(slots))
+        no_tracers = torch.zeros((B, len(frames), 0), dtype=torch.int32,
+                                 device=dev)
+        return (stack_frames(frames, no_tracers),
+                dict(slots=slots, ec=ec, et=et, ep=ep, t=t, gen=gen))
+
+    @staticmethod
+    def final(carry: dict):
+        """(final slots, (exit_count, exit_times, exit_pos))."""
+        E = carry["et"].shape[1] - 1
+        return carry["slots"], (carry["ec"], carry["et"][:, :E].contiguous(),
+                                carry["ep"][:, :E].contiguous())
 
 
 def run_lattice_gas_anchored(config: ParticleConfig,
@@ -425,7 +530,7 @@ def run_lattice_gas_anchored(config: ParticleConfig,
                              device="cuda", rho0_plus=None, rho0_minus=None,
                              record_fft: bool = True,
                              _slots0: Optional[torch.Tensor] = None,
-                             _draws=None):
+                             _draws=None, mesh=None):
     """Anchored run, bind / unbind / immobilise / exit live (JAX
     ``lattice_gas_k.py:463-539``).  Returns ``(frames, slots,
     (exit_count, exit_times, exit_pos))``, batch-leading tensors on
@@ -436,49 +541,15 @@ def run_lattice_gas_anchored(config: ParticleConfig,
     float32 t + Δt as the JAX scan does, at the site of its slot; a step's
     exits enter in slot-major order (flat index k·L + x), and exits past
     the buffer are dropped.  ``_slots0`` and ``_draws`` as in
-    ``run_lattice_gas_k`` (``_draws.tracer_bits`` is not called)."""
-    assert config.exclusion and config.anchor_positions is not None
-    device = torch.device(device)
-    B = params_b.beta.shape[0]
-    K, L = config.K, config.L
-    E = config.n_exit_buf
-    M, n_sub, dt_eff = frame_grid(T, obs_dt, dt)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    slots = _initial_slots(config, gen, rho0_plus, rho0_minus, B, device,
-                           _slots0)
-    band = build_smoothing_band(config, device)
-    rec = _slot_recorder(config, record_fft, device)
-    is_anchor = torch.as_tensor(config.anchor_mask(), device=device)
-    sites_flat = (torch.arange(K * L, dtype=torch.int32, device=device)
-                  % L).expand(B, K * L)
+    ``run_lattice_gas_k`` (``_draws.tracer_bits`` is not called).  The
+    run is one ``AnchoredRun.run_range`` over every frame; ``mesh=``
+    splits the batch over a sweep mesh (``parallel.mesh.ShardedRun``)."""
+    from hydrolim_tpu_torch.parallel.mesh import shard_run
 
-    ec = torch.zeros((B,), dtype=torch.int32, device=device)
-    # one spare column E takes every entry that is not written (dropped)
-    et = torch.full((B, E + 1), float("nan"), dtype=torch.float32,
-                    device=device)
-    ep = torch.zeros((B, E + 1), dtype=torch.int32, device=device)
-    t = np.float32(0.0)
-    dt32 = np.float32(dt_eff)
-    frames = [rec(slots)]
-    for f in range(1, M):
-        for s in range(n_sub):
-            inject = (None if _draws is None
-                      else _draws.step((f - 1) * n_sub + s))
-            slots, _, exiting = lgk_step(
-                config, params_b, band, slots, dt_eff, generator=gen,
-                is_anchor=is_anchor, _inject=inject)
-            exf = exiting.reshape(B, -1).to(torch.int32)
-            slot_idx = ec[:, None] + exf.cumsum(1, dtype=torch.int32) - 1
-            write = (exf > 0) & (slot_idx < E)
-            col = torch.where(write, slot_idx, E).long()
-            et.scatter_(1, col, torch.where(
-                write, torch.tensor(t, device=device), float("nan")))
-            ep.scatter_(1, col, torch.where(write, sites_flat, 0))
-            ec = ec + exf.sum(1, dtype=torch.int32)
-            t = np.float32(t + dt32)
-        frames.append(rec(slots))
-    no_tracers = torch.zeros((B, len(frames), 0), dtype=torch.int32,
-                             device=device)
-    return (stack_frames(frames, no_tracers), slots,
-            (ec, et[:, :E].contiguous(), ep[:, :E].contiguous()))
+    run = AnchoredRun(config, params_b, T=T, obs_dt=obs_dt, dt=dt,
+                      record_fft=record_fft, device=device, _draws=_draws)
+    run = shard_run(mesh, run, params_b)
+    frames, carry = run.run_range(
+        run.start(seed, rho0_plus, rho0_minus, _slots0), 0, run.n_frames)
+    slots, log = run.final(carry)
+    return frames, slots, log

@@ -186,12 +186,16 @@ class ParticleRun:
 
     The carry is a dict: the state's fields by name (None where the state
     has none), ``seeds`` ((B,) int32 on B1's route, else None) and
-    ``gen``, the generator."""
+    ``gen``, the generator.  ``b0`` is the global index of the batch's
+    first replica, B1's Philox key (``for_rows``)."""
 
     def __init__(self, config: ParticleConfig, params: ParticleParams, *,
                  T: float, obs_dt: float, dt: float, record_pos: bool,
-                 record_fft: bool, engine: str, device, _draws=None):
-        self.config, self.params = config, params
+                 record_fft: bool, engine: str, device, _draws=None,
+                 b0: int = 0):
+        self._kw = dict(T=T, obs_dt=obs_dt, dt=dt, record_pos=record_pos,
+                        record_fft=record_fft, engine=engine, _draws=_draws)
+        self.config, self.params, self.b0 = config, params, b0
         self.route = particle_route(config, engine)
         self.device = torch.device(device)
         self.statics = build_static_arrays(config, self.device)
@@ -201,6 +205,13 @@ class ParticleRun:
         self.n_sub = substeps_for(obs_dt, dt) if self.n_frames else 0
         self.dt_eff = obs_dt / self.n_sub if self.n_frames else 0.0
         self._draws = _draws
+
+    def for_rows(self, params: ParticleParams, device, b0: int
+                 ) -> "ParticleRun":
+        """The same run over rows [b0, b0 + len(params)) of the batch on
+        ``device`` (one block of ``parallel.mesh.ShardedRun``)."""
+        return ParticleRun(self.config, params, **self._kw, device=device,
+                           b0=b0)
 
     def prepare(self, state0: ParticleState) -> ParticleState:
         """``state0`` as the route carries it: on the τ-leap route with its
@@ -259,7 +270,7 @@ class ParticleRun:
                 head = list(meanfield_multi_step(
                     scal, carry["seeds"], *head, L=config.L, k_steps=n_sub,
                     dt=dt_eff, bidirectional=bidi, step0=(f - 1) * n_sub,
-                    generator=gen))
+                    b0=self.b0, generator=gen))
                 state = dataclasses.replace(state, **{
                     k: torch.cat([h, getattr(state, k)[:, N:]], 1)
                     for k, h in zip(("pos", "sigma", "wind"), head)})
@@ -289,7 +300,8 @@ def run_particles(config: ParticleConfig, params: ParticleParams,
                   state0: ParticleState, *, T: float, obs_dt: float,
                   dt: float, record_pos: bool = True,
                   record_fft: bool = True, seed: int = 0,
-                  engine: str = "auto", _draws=None) -> ParticleRunResult:
+                  engine: str = "auto", _draws=None,
+                  mesh=None) -> ParticleRunResult:
     """Run the (B, n_buf) batch ``state0`` to time T, recording frames
     every obs_dt on its device.  ``dt`` is the sub-step target; the
     effective step is obs_dt/ceil(obs_dt/dt) ≤ dt.  Params are (B,) or
@@ -301,10 +313,13 @@ def run_particles(config: ParticleConfig, params: ParticleParams,
     exit log (``with_exit_log``), and an exit is logged at its step's
     start time (``step_times``).  The run is one ``ParticleRun.run_range``
     over every frame (``utils.checkpoint.run_particles_checkpointed``
-    runs the same ranges in chunks).
+    runs the same ranges in chunks).  ``mesh=`` splits the batch over a
+    sweep mesh (``parallel.mesh.ShardedRun``); the result is the same.
 
     Test-only: ``_draws.step(i)`` gives the τ-leap step's ``_inject`` of
     global step i."""
+    from hydrolim_tpu_torch.parallel.mesh import shard_run
+
     run = ParticleRun(config, params, T=T, obs_dt=obs_dt, dt=dt,
                       record_pos=record_pos, record_fft=record_fft,
                       engine=engine, device=state0.pos.device, _draws=_draws)
@@ -313,5 +328,7 @@ def run_particles(config: ParticleConfig, params: ParticleParams,
         empty = ParticleFrames(*(f[:, None][:, :0]
                                  for f in run.record(state0)))
         return ParticleRunResult(empty, state0, run.route)
-    frames, carry = run.run_range(run.start(state0, seed), 0, run.n_frames)
+    carry = run.start(state0, seed)
+    frames, carry = shard_run(mesh, run, params).run_range(carry, 0,
+                                                           run.n_frames)
     return ParticleRunResult(frames, run.state(carry), run.route)

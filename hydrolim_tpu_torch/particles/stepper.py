@@ -40,6 +40,7 @@ from hydrolim_tpu_torch.fields.magnetization import (
     local_m_field,
 )
 from hydrolim_tpu_torch.ops.segment import occupancy
+from hydrolim_tpu_torch.parallel import draws
 
 # event codes
 EV_NONE, EV_LEFT, EV_RIGHT, EV_FWD, EV_FLIP, EV_BIND, EV_UNBIND, EV_EXIT = \
@@ -285,10 +286,8 @@ def _resolve_conflicts_segmin(config: ParticleConfig, bits: torch.Tensor,
 def tau_leap_draws(shape, generator: Optional[torch.Generator], device):
     """One step's draws: a float32 uniform and 32 random bits (int64) per
     particle."""
-    u = torch.rand(shape, generator=generator, dtype=torch.float32,
-                   device=device)
-    bits = torch.randint(0, 2 ** 32, shape, generator=generator,
-                         dtype=torch.int64, device=device)
+    u = draws.rand(shape, generator, device, torch.float32)
+    bits = draws.randint(0, 2 ** 32, shape, generator, device, torch.int64)
     return u, bits
 
 
@@ -454,8 +453,7 @@ def _step_meanfield_global(config: ParticleConfig, params: ParticleParams,
 
     is_plus = sigma > 0
     if u_override is None:
-        u = torch.rand((B, n), generator=generator, dtype=f32,
-                       device=pos.device)
+        u = draws.rand((B, n), generator, pos.device, f32)
     else:
         u = u_override
 

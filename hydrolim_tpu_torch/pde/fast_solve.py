@@ -15,6 +15,8 @@ budget: an exact solve needs no (L, L) matrix here.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -22,6 +24,7 @@ from hydrolim_tpu_torch.core.config import PDEConfig, PDEParams
 from hydrolim_tpu_torch.fields.magnetization import pde_magnetization
 from hydrolim_tpu_torch.ops.convolve import periodic_gaussian_kernel
 from hydrolim_tpu_torch.ops.diffusion import banded_kernel
+from hydrolim_tpu_torch.parallel import draws
 from hydrolim_tpu_torch.ops.pde_kernel import (
     build_smooth_operands,
     build_solve_operands,
@@ -142,6 +145,12 @@ def kernel_operands(config: PDEConfig, gamma: float, device="cuda"):
     return m_mode, solve_mode, smooth, solve
 
 
+def _replica(v, i: int):
+    """Replica i's value of a per-replica parameter (a scalar as it is)."""
+    t = torch.as_tensor(v)
+    return t.reshape(-1)[i:i + 1] if t.numel() > 1 else v
+
+
 def _rfft_ri(total: torch.Tensor, kmax: int, L: int) -> torch.Tensor:
     X = torch.fft.rfft(total, dim=-1)[..., :kmax] / L
     return torch.stack([X.real, X.imag], dim=-1).to(torch.float32)
@@ -169,7 +178,8 @@ class PDERun:
     route = "pde_multi_step"
 
     def __init__(self, config: PDEConfig, params_b: PDEParams, *, device,
-                 keep_snapshots: bool = True):
+                 keep_snapshots: bool = True, b0: int = 0):
+        self.b0 = b0
         gamma_b = params_b.gamma.reshape(-1)
         gamma = float(gamma_b[0])
         if not bool(torch.all(gamma_b == gamma_b[0])):
@@ -188,6 +198,13 @@ class PDERun:
         self.scal[:, 2] = gamma
         self.n_blocks = -(-(config.nsteps + 1) // config.snapshot_interval)
 
+    def for_rows(self, params_b: PDEParams, device, b0: int) -> "PDERun":
+        """The same solve over rows [b0, b0 + len(params_b)) of the batch
+        on ``device``: B2 keys their streams on their global index
+        (``parallel.mesh.ShardedRun``)."""
+        return PDERun(self.config, params_b, device=device,
+                      keep_snapshots=self.keep_snapshots, b0=b0)
+
     def start(self, rho_p0: torch.Tensor, rho_m0: torch.Tensor,
               tracers0: TracerState, generator: torch.Generator) -> dict:
         f32 = lambda t: t.to(device=self.device,
@@ -201,20 +218,40 @@ class PDERun:
 
     def _final_row(self, rho_p, rho_m, pos, spin, hist, gen):
         """The final iteration's record row (B, 1, 4 + 2·kmax); m as the
-        XLA path takes it (the full circulant, also for a narrow kernel)."""
+        XLA path takes it (the full circulant, also for a narrow kernel).
+        The tracer draws are made for the batch, as ``_tracer_update``
+        makes them; every transform and reduction then runs on one replica
+        at a time, so a replica's row does not depend on which replicas
+        share the call (the blocks of ``parallel.mesh.ShardedRun``): on the
+        card a batched matmul, FFT or row reduction picks its algorithm by
+        the row count, and the row would differ from the one-device run's
+        in its last bits."""
         config, dev = self.config, self.device
-        m_field = pde_magnetization(rho_p, rho_m, build_smooth_op(config, dev),
-                                    kernel_sigma=config.kernel_sigma)
-        total = rho_p + rho_m
-        tr = TracerState(pos=torch.remainder(pos, config.xlim),
-                         unwrapped=pos, spin=spin.to(torch.int32), hist=hist)
-        _, v_f, D_f = _tracer_update(config, self.params_b, m_field, tr,
-                                     config.nsteps, generator=gen)
-        ri = _rfft_ri(total, config.kmax, config.L)
-        col = lambda a: a[:, None]
-        return torch.cat([col(m_field.mean(-1)),
-                          col(total.var(-1, unbiased=False)), col(v_f),
-                          col(D_f), ri[..., 0], ri[..., 1]], dim=1)[:, None]
+        smooth = build_smooth_op(config, dev)
+        flip_u = draws.rand(pos.shape, gen, pos.device)
+        z = draws.randn(pos.shape, gen, pos.device)
+        rows = []
+        for i in range(rho_p.shape[0]):
+            r = slice(i, i + 1)
+            m_field = pde_magnetization(rho_p[r], rho_m[r], smooth,
+                                        kernel_sigma=config.kernel_sigma)
+            total = rho_p[r] + rho_m[r]
+            tr = TracerState(pos=torch.remainder(pos[r], config.xlim),
+                             unwrapped=pos[r], spin=spin[r].to(torch.int32),
+                             hist=hist[r])
+            params = PDEParams(**{
+                f.name: _replica(getattr(self.params_b, f.name), i)
+                for f in dataclasses.fields(PDEParams)})
+            _, v_f, D_f = _tracer_update(config, params, m_field, tr,
+                                         config.nsteps,
+                                         _inject=(flip_u[r], z[r]))
+            ri = _rfft_ri(total, config.kmax, config.L)
+            col = lambda a: a[:, None]
+            rows.append(torch.cat([col(m_field.mean(-1)),
+                                   col(total.var(-1, unbiased=False)),
+                                   col(v_f), col(D_f), ri[..., 0],
+                                   ri[..., 1]], dim=1))
+        return torch.cat(rows)[:, None]
 
     def run_range(self, carry: dict, lo: int, hi: int):
         config = self.config
@@ -238,7 +275,7 @@ class PDERun:
                     xlim=config.xlim, periodic=config.bc == "periodic",
                     m_mode=self.m_mode, solve_mode=self.solve_mode,
                     bidirectional=config.active_model == "bidirectional",
-                    kmax_rec=config.kmax, generator=gen)
+                    kmax_rec=config.kmax, b0=self.b0, generator=gen)
                 recs.append(rec)
             if b == self.n_blocks - 1:
                 recs.append(self._final_row(rho_p, rho_m, pos, spin, hist,
@@ -281,16 +318,21 @@ class PDERun:
 def pde_solve_fused(config: PDEConfig, params_b: PDEParams,
                     rho_p0: torch.Tensor, rho_m0: torch.Tensor,
                     tracers0: TracerState, generator: torch.Generator,
-                    keep_snapshots: bool = True) -> PDESolveResult:
+                    keep_snapshots: bool = True, mesh=None) -> PDESolveResult:
     """Batched fused solve on the device of ``rho_p0``: one
     ``PDERun.run_range`` over every snapshot block.
 
     ``generator`` (on that device) seeds the kernel's Philox streams and
-    supplies the plain version's draws and the final iteration's."""
+    supplies the plain version's draws and the final iteration's.
+    ``mesh=`` splits the batch over a sweep mesh: each block launches B2
+    on its rows with their global index (``parallel.mesh.ShardedRun``)."""
+    from hydrolim_tpu_torch.parallel.mesh import shard_run
+
     run = PDERun(config, params_b, device=rho_p0.device,
                  keep_snapshots=keep_snapshots)
-    records, carry = run.run_range(
-        run.start(rho_p0, rho_m0, tracers0, generator), 0, run.n_blocks)
+    carry = run.start(rho_p0, rho_m0, tracers0, generator)
+    records, carry = shard_run(mesh, run, params_b).run_range(
+        carry, 0, run.n_blocks)
     return run.finish(records, carry)
 
 

@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from hydrolim_tpu_torch.core.config import PDEConfig, PDEParams
+from hydrolim_tpu_torch.parallel import draws
 from hydrolim_tpu_torch.fields.magnetization import (
     MFieldOp,
     build_mfield_op,
@@ -191,10 +192,8 @@ def _tracer_update(config: PDEConfig, params: PDEParams, m_field,
     m_loc = torch.gather(m_field, -1, idx)
     rate = cw_rate(tr.spin.to(torch.float32), m_loc, beta)
     if _inject is None:
-        flip_u = torch.rand(tr.pos.shape, generator=generator,
-                            device=tr.pos.device)
-        z = torch.randn(tr.pos.shape, generator=generator,
-                        device=tr.pos.device)
+        flip_u = draws.rand(tr.pos.shape, generator, tr.pos.device)
+        z = draws.randn(tr.pos.shape, generator, tr.pos.device)
     else:
         flip_u, z = _inject
     flip = flip_u < rate * dt

@@ -27,8 +27,11 @@ Routes, decided by the configuration and the engine name alone:
 The route taken is returned with the grid and saved as the sweep's
 ``route``.  ``estimator='host'`` runs the NumPy estimators per replica;
 ``ckpt_dir=`` checkpoints every route but the anchored engine, as the JAX
-package does.  ``mesh=``/``n_devices=`` are not ported yet: they raise
-``NotImplementedError`` naming their ROADMAP.md item (``core/scope.py``).
+package does.  ``mesh=``/``n_devices=`` split the flattened (β × replicas) batch over a
+sweep mesh on every route (``parallel.mesh``): the real replicas equal the
+one-device run's bit for bit, and the sweep's npz records every block's
+device (``devices``).  Only the kernel routes can gain wall time from more
+cards; the host-bound plain-torch routes cannot (``parallel.mesh``).
 """
 from __future__ import annotations
 
@@ -40,7 +43,6 @@ import numpy as np
 import torch
 
 from hydrolim_tpu_torch.core.config import ParticleConfig
-from hydrolim_tpu_torch.core.scope import not_ported
 from hydrolim_tpu_torch.fit.veff_fit import fit_and_plot_v_eff
 from hydrolim_tpu_torch.observables.batched import batched_estimates
 from hydrolim_tpu_torch.observables.estimators import (
@@ -50,6 +52,8 @@ from hydrolim_tpu_torch.observables.estimators import (
     compute_rho_eff,
     compute_v_eff_and_window,
 )
+from hydrolim_tpu_torch.parallel.distributed import is_primary
+from hydrolim_tpu_torch.parallel.mesh import resolve_sweep_mesh
 from hydrolim_tpu_torch.particles.init import eval_profile
 from hydrolim_tpu_torch.particles.lattice_gas import (
     LatticeGasFrames,
@@ -221,9 +225,15 @@ def run_sweep_grid(beta_values, n_runs: int, ps_kwargs: Dict,
     replica chunk); the result is bit-identical to the run without it.
     ``stop_after_chunks=k`` halts each replica chunk's run after ``k`` new
     chunks and returns ``None`` if one is incomplete (the checkpoint
-    drivers' simulated-preemption hook)."""
-    if mesh is not None or n_devices is not None:
-        raise not_ported("mesh= / n_devices=", "parallelism")
+    drivers' simulated-preemption hook).
+
+    ``mesh=``/``n_devices=`` split each chunk's batch over a sweep mesh
+    (``parallel.mesh.resolve_sweep_mesh``).  The chunk stride never depends on the
+    mesh, each chunk's initial state is drawn for its real replicas, and
+    the run is the one-device run bit for bit; a checkpoint's carry is the
+    one-device run's, so a resume may use another mesh.  Only B1's route
+    can gain wall time from more cards (``parallel.mesh``)."""
+    mesh = resolve_sweep_mesh(mesh, n_devices, device)
     config = config_from_kwargs(ps_kwargs)
     rho0_p, rho0_m = _profiles(config, init_kwargs)
     rates = _rates(ps_kwargs)
@@ -242,7 +252,7 @@ def run_sweep_grid(beta_values, n_runs: int, ps_kwargs: Dict,
             chunks.append(run_particle_ensemble(
                 config, params, cs, T=T, obs_dt=obs_dt, dt=dt,
                 rho0_plus=rho0_p, rho0_minus=rho0_m, device=device,
-                **record))
+                mesh=mesh, **record))
             continue
         # run_particle_ensemble's draws: the states from cs, the run cs + 1
         states = ensemble_states(config, params.beta.shape[0], cs,
@@ -252,7 +262,7 @@ def run_sweep_grid(beta_values, n_runs: int, ps_kwargs: Dict,
             config, params, states, T=T, obs_dt=obs_dt, dt=dt,
             ckpt_dir=Path(ckpt_dir) / f"replicas_{c0:05d}",
             chunk_frames=chunk_frames, stop_after_chunks=stop_after_chunks,
-            seed=cs + 1, **record)
+            seed=cs + 1, mesh=mesh, **record)
         if res is None:
             return None
         chunks.append(res)
@@ -361,8 +371,9 @@ def run_sweep_grid_lattice_gas(beta_values, n_runs: int, ps_kwargs: Dict,
                                init_kwargs: Optional[Dict],
                                run_kwargs: Dict, seed: int = 0,
                                n_tracers: Optional[int] = None,
-                               kernel: str = "fused", ckpt_dir=None,
-                               chunk_frames: int = 64,
+                               kernel: str = "fused", mesh=None,
+                               n_devices: Optional[int] = None,
+                               ckpt_dir=None, chunk_frames: int = 64,
                                stop_after_chunks: Optional[int] = None,
                                device="cuda"):
     """(β × replicas) grid on the slot engines (JAX ``beta_sweep.py:
@@ -386,7 +397,12 @@ def run_sweep_grid_lattice_gas(beta_values, n_runs: int, ps_kwargs: Dict,
     ``run_lattice_gas_checkpointed`` / ``run_lattice_gas_k_checkpointed``.
     The anchored engine ignores it, as in the JAX package.
     ``stop_after_chunks=k`` halts after ``k`` new chunks and returns
-    ``None`` if the run is incomplete."""
+    ``None`` if the run is incomplete.
+
+    ``mesh=``/``n_devices=`` split the batch over a sweep mesh on every
+    route, the real replicas the one-device run's bit for bit; only B3's
+    route can gain wall time from more cards (``parallel.mesh``)."""
+    mesh = resolve_sweep_mesh(mesh, n_devices, device)
     config = config_from_kwargs(ps_kwargs)
     assert config.exclusion, "lattice-gas engines require site_capacity"
     if kernel not in ("xla", "auto", "pallas", "fused"):
@@ -403,7 +419,7 @@ def run_sweep_grid_lattice_gas(beta_values, n_runs: int, ps_kwargs: Dict,
               record_fft=bool(run_kwargs.get("record_fft", True)))
     if config.anchor_positions is not None:
         frames, slots, exit_log = run_lattice_gas_anchored(config, params,
-                                                           **kw)
+                                                           mesh=mesh, **kw)
         return (config, _lattice_gas_out_accessor(frames, times, exit_log),
                 dt, frames, torch.sign(slots).to(torch.int32),
                 ANCHORED_ROUTE)
@@ -426,7 +442,7 @@ def run_sweep_grid_lattice_gas(beta_values, n_runs: int, ps_kwargs: Dict,
     if ckpt_dir is not None:
         kw.update(ckpt_dir=ckpt_dir, chunk_frames=chunk_frames,
                   stop_after_chunks=stop_after_chunks)
-    out = runner(config, params, **kw)
+    out = runner(config, params, mesh=mesh, **kw)
     if out is None:
         return None
     frames, spins_final = out
@@ -520,10 +536,19 @@ def sweep_over_betas(beta_values, n_runs_per_beta: int = 10, run: bool = True,
     on the same directory resumes, and the result equals the sweep's
     without it.  ``stop_after_chunks=k`` halts the grid after ``k`` new
     chunks and returns ``None`` if it is incomplete (the checkpoint
-    drivers' simulated-preemption hook)."""
+    drivers' simulated-preemption hook).
+
+    ``mesh=``/``n_devices=`` split the (β × replicas) batch over a sweep
+    mesh (the JAX package's virtual devices have no counterpart, so
+    ``n_devices`` beyond the host's cards raises; pass
+    ``mesh=parallel.mesh.sweep_mesh(devices=[...])`` to repeat a device).
+    Every route's real replicas equal the one-device run's bit for bit;
+    the npz records each block's device (``devices``).  Only the kernel
+    routes can gain wall time from more cards (``parallel.mesh``).  Under a multi-process mesh
+    (``parallel.distributed``) every process returns the result and only
+    the primary writes the npz and the figures."""
     check_engine(engine)
-    if mesh is not None or n_devices is not None:
-        raise not_ported("mesh= / n_devices=", "parallelism")
+    mesh = resolve_sweep_mesh(mesh, n_devices, device)
     beta_values = np.asarray(beta_values, dtype=float)
     ps_kwargs = dict(DEFAULT_PS_KWARGS, **(ps_kwargs or {}))
     run_kwargs = dict(DEFAULT_RUN_KWARGS, **(run_kwargs or {}))
@@ -539,7 +564,7 @@ def sweep_over_betas(beta_values, n_runs_per_beta: int = 10, run: bool = True,
         times = np.arange(0.0, T, obs_dt)
         extra = {}
         ck = dict(ckpt_dir=ckpt_dir, chunk_frames=chunk_frames,
-                  stop_after_chunks=stop_after_chunks)
+                  stop_after_chunks=stop_after_chunks, mesh=mesh)
         if engine == "particle":
             grid = run_sweep_grid(beta_values, n_runs_per_beta, ps_kwargs,
                                   init_kwargs, run_kwargs, seed=seed,
@@ -583,15 +608,19 @@ def sweep_over_betas(beta_values, n_runs_per_beta: int = 10, run: bool = True,
             if keep_outs:
                 outs.append([out_for(b * n + r) for r in range(n)])
         arrays = {k: np.asarray(v) for k, v in per_beta.items()}
+        blocks = ([str(device)] if mesh is None else
+                  [b["device"] + (f"@{b['process']}" if "process" in b
+                                  else "") for b in mesh.record()])
         save_dict = {"beta_values": beta_values, **arrays,
                      "ps_kwargs": ps_kwargs, "dt": dt, **extra,
-                     "route": np.str_(route)}
-        Path(npz_path).parent.mkdir(parents=True, exist_ok=True)
-        np.savez(npz_path, **{k: v for k, v in save_dict.items()
-                              if k != "ps_kwargs"},
-                 ps_kwargs=np.asarray(
-                     {k: v for k, v in ps_kwargs.items()
-                      if not callable(v)}, dtype=object))
+                     "route": np.str_(route), "devices": np.asarray(blocks)}
+        if is_primary():
+            Path(npz_path).parent.mkdir(parents=True, exist_ok=True)
+            np.savez(npz_path, **{k: v for k, v in save_dict.items()
+                                  if k != "ps_kwargs"},
+                     ps_kwargs=np.asarray(
+                         {k: v for k, v in ps_kwargs.items()
+                          if not callable(v)}, dtype=object))
     else:
         data = np.load(npz_path, allow_pickle=True)
         save_dict = dict(data)
@@ -605,9 +634,9 @@ def sweep_over_betas(beta_values, n_runs_per_beta: int = 10, run: bool = True,
             arrays["ses"], arrays["m_means"], arrays["m_stds"],
             arrays["m_ses"], arrays["rho_means"], arrays["rho_ses"],
             arrays["block_means"], arrays["block_ses"],
-            plot_result=plot_result, outdir=outdir)
+            plot_result=plot_result and is_primary(), outdir=outdir)
         save_dict.update(popt=popt, pcov=pcov, fit_out=fit_out)
-        if plot_result:
+        if plot_result and is_primary():
             from hydrolim_tpu_torch.viz.sweep_plots import plot_D_eff_vs_beta
 
             plot_D_eff_vs_beta(beta_values, arrays["D_means"],

@@ -27,9 +27,10 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 from scipy.optimize import curve_fit
 
-from hydrolim_tpu_torch.core.scope import not_ported
 from hydrolim_tpu_torch.fit.veff_fit import _pyplot
 from hydrolim_tpu_torch.observables.batched import batched_estimates
+from hydrolim_tpu_torch.parallel.distributed import is_primary
+from hydrolim_tpu_torch.parallel.mesh import resolve_sweep_mesh
 from hydrolim_tpu_torch.particles.lattice_gas_k import run_lattice_gas_k
 from hydrolim_tpu_torch.particles.run import particle_route
 from hydrolim_tpu_torch.sweeps.beta_sweep import (
@@ -47,11 +48,13 @@ from hydrolim_tpu_torch.sweeps.ensemble import (
     ensemble_dt,
     run_particle_ensemble,
 )
-from hydrolim_tpu_torch.sweeps.fast_exclusion import run_exclusion_sweep
+from hydrolim_tpu_torch.sweeps.fast_exclusion import (
+    run_exclusion_sweep,
+)
 from hydrolim_tpu_torch.sweeps.persistence import config_hash
 from hydrolim_tpu_torch.utils.checkpoint import (
     _atomic_savez,
-    _resume_prefix,
+    _shared_prefix,
     run_identity,
 )
 from hydrolim_tpu_torch.theory.meanfield import compute_m_of_beta_non
@@ -174,10 +177,16 @@ def double_sweep_fused(beta_values, list_N_part: Sequence[float],
     uninterrupted run.  ``chunk_size`` is part of the ledger's hash (it
     sets the seeds), as are the package, the route and the device type.
     ``stop_after_chunks=k`` runs at most ``k`` new chunks and returns
-    ``None`` if the grid is incomplete (with or without a ledger)."""
+    ``None`` if the grid is incomplete (with or without a ledger).
+
+    ``n_devices=`` splits each
+    chunk's batch over a sweep mesh (``parallel.mesh``); the chunk stride
+    and seeds never depend on it, the real replicas equal the one-device
+    run's bit for bit, and it stays out of the ledger's hash, so a ledger
+    written on one mesh resumes on another.  Only the fused names (kernel
+    B3) can gain wall time from more cards (``parallel.mesh``)."""
     check_engine(engine)
-    if n_devices is not None:
-        raise not_ported("n_devices=", "parallelism")
+    mesh = resolve_sweep_mesh(None, n_devices, device)
     beta_values = np.asarray(beta_values, dtype=float)
     list_N_part = np.asarray(list_N_part, dtype=float)
     out = Path(outdir)
@@ -223,7 +232,7 @@ def double_sweep_fused(beta_values, list_N_part: Sequence[float],
             "base": dict(base), "rk": dict(rk), "seed": seed,
             "chunk_size": chunk_size, "engine": engine,
             **run_identity(route, device)})
-        _resume_prefix(ledger, run_hash, what="double sweep", resume=resume,
+        _shared_prefix(ledger, run_hash, what="double sweep", resume=resume,
                        chunk_size=chunk_size, n_units=B,
                        size_key="chunk_size", unit_key="B",
                        adopt_chunk_size=False, scan_prefix=False)
@@ -246,17 +255,18 @@ def double_sweep_fused(beta_values, list_N_part: Sequence[float],
         if engine == "particle":
             frames = run_particle_ensemble(config, params_c,
                                            chunk_seed(seed, c0),
-                                           record_pos=False, **kw).frames
+                                           record_pos=False, mesh=mesh,
+                                           **kw).frames
         else:
             runner = (run_lattice_gas_k if engine == "lattice_gas"
                       else run_exclusion_sweep)
             frames, _ = runner(config, params_c, seed=chunk_seed(seed, c0),
-                               **kw)
+                               mesh=mesh, **kw)
         est = batched_estimates(frames.total, frames.m_global, frames.rho_p,
                                 times, dx=config.dx, xlim=float(config.xlim),
                                 has_positions=False)
         p_block_flat[sl] = est.p_block.cpu().numpy()
-        if ledger is not None:
+        if ledger is not None and is_primary():
             _atomic_savez(ledger / f"chunk_{c0:07d}.npz",
                           p_block=p_block_flat[sl])
         executed += 1
@@ -277,7 +287,7 @@ def double_sweep_fused(beta_values, list_N_part: Sequence[float],
         per_N_out.append({"N": float(N_part), "block_means": block_means,
                           "block_ses": block_ses})
     res = _meta_fit(out, list_N_part, L, f_fit, f_err, g_fit, g_err,
-                    plot_result)
+                    plot_result and is_primary())
     res["per_N"] = per_N_out
     return res
 

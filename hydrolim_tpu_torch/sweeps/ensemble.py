@@ -95,7 +95,7 @@ def run_particle_ensemble(config: ParticleConfig, params_b: ParticleParams,
                           dt: float, rho0_plus: Optional[np.ndarray] = None,
                           rho0_minus: Optional[np.ndarray] = None,
                           record_pos: bool = True, record_fft: bool = True,
-                          engine: str = "auto", device="cuda"
+                          engine: str = "auto", device="cuda", mesh=None
                           ) -> ParticleRunResult:
     """Initialise and run B = len(params_b.beta) replicas on ``device``.
     ``rho0_plus/minus`` are (L,) profiles shared by the batch or (B, L)
@@ -104,13 +104,14 @@ def run_particle_ensemble(config: ParticleConfig, params_b: ParticleParams,
     seeded with ``seed`` (``ensemble_states``); the run's draws from one
     seeded with ``seed + 1`` (``utils.checkpoint.
     run_particle_ensemble_checkpointed`` runs the same in chunks).
-    Returns a ``ParticleRunResult`` with leaves (B, M, ...)."""
+    Returns a ``ParticleRunResult`` with leaves (B, M, ...).  ``mesh=``
+    splits the run's batch over a sweep mesh (``run_particles``)."""
     state0 = ensemble_states(config, params_b.beta.shape[0], seed,
                              rho0_plus=rho0_plus, rho0_minus=rho0_minus,
                              engine=engine, device=device)
     return run_particles(config, params_b, state0, T=T, obs_dt=obs_dt,
                          dt=dt, record_pos=record_pos, record_fft=record_fft,
-                         seed=seed + 1, engine=engine)
+                         seed=seed + 1, engine=engine, mesh=mesh)
 
 
 def frames_to_out(frames, rep_idx: int, config: ParticleConfig, T: float,

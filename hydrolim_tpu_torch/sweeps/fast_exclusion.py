@@ -14,8 +14,10 @@ PARTICLE_solver_BIOLOGY_EXCLUSION.py:55-94): site exclusion with capacity
 K ≤ 8, periodic or non-periodic, plus_forward or bidirectional hops,
 global or Gaussian local m, default CW flip rate, no anchors, no crowding
 suppression.  ``ckpt_dir=`` runs it in chunks of frames, resumable
-(``FusedRun``); the JAX runner's ``mesh=`` and ``r_batch=`` options are not
-ported.
+(``FusedRun``); ``mesh=`` splits the batch over a sweep mesh.  The JAX
+runner's ``r_batch=`` (its replica-row batch R of kernel B4) has no
+counterpart: B3 runs one cluster per replica, so no draw shape depends on
+R or on the mesh.
 """
 from __future__ import annotations
 
@@ -39,7 +41,11 @@ from hydrolim_tpu_torch.particles.lattice_gas import (
     top_keys,
     tracer_bits,
 )
-from hydrolim_tpu_torch.particles.lattice_gas_k import lgk_init
+from hydrolim_tpu_torch.particles.lattice_gas_k import (
+    lgk_init,
+    run_lattice_gas_k,
+)
+from hydrolim_tpu_torch.parallel.mesh import pad_batch, shard_run, tree_map
 from hydrolim_tpu_torch.sweeps.persistence import config_hash
 from hydrolim_tpu_torch.utils.checkpoint import (
     _config_fields,
@@ -47,6 +53,7 @@ from hydrolim_tpu_torch.utils.checkpoint import (
     _params_lists,
     run_chunked,
     run_identity,
+    run_lattice_gas_k_checkpointed,
 )
 
 
@@ -147,7 +154,10 @@ class FusedRun:
 
     def __init__(self, config: ParticleConfig, params_b: ParticleParams, *,
                  T: float, obs_dt: float, dt: float, record_fft: bool,
-                 n_tracers: int, device):
+                 n_tracers: int, device, b0: int = 0):
+        self._kw = dict(T=T, obs_dt=obs_dt, dt=dt, record_fft=record_fft,
+                        n_tracers=n_tracers)
+        self.b0 = b0
         assert is_fused_exclusion_path(config), (
             "run_exclusion_sweep requires the fused-kernel configuration "
             f"class (K<={MAX_K} exclusion, no anchors/crowding, default "
@@ -174,6 +184,14 @@ class FusedRun:
             device=self.device, dtype=torch.float32).contiguous()
         self.band = build_smoothing_band(config, self.device)
         self.rec = _record_fn(config, record_fft, self.device)
+
+    def for_rows(self, params_b: ParticleParams, device, b0: int
+                 ) -> "FusedRun":
+        """The same run over rows [b0, b0 + len(params_b)) of the batch
+        on ``device``: B3 keys their streams on their global index
+        (``parallel.mesh.ShardedRun``)."""
+        return FusedRun(self.config, params_b, **self._kw, device=device,
+                        b0=b0)
 
     def start(self, seed: int, rho0_plus=None, rho0_minus=None) -> dict:
         config, dev = self.config, self.device
@@ -210,7 +228,7 @@ class FusedRun:
             slots = exclusion_multi_step(
                 self.scal, carry["seeds"], slots, self.band, k_steps=n_sub,
                 dt=self.dt_eff, periodic=config.periodic,
-                bidirectional=bidi, step0=(f - 1) * n_sub,
+                bidirectional=bidi, step0=(f - 1) * n_sub, b0=self.b0,
                 generator=carry["gen"])
             record(slots)
         out = stack_frames(records, torch.stack(raws, dim=1))._asdict()
@@ -232,6 +250,8 @@ def run_exclusion_sweep(config: ParticleConfig, params_b: ParticleParams, *,
                         T: float, obs_dt: float, dt: float, seed: int = 0,
                         device="cuda", rho0_plus=None, rho0_minus=None,
                         record_fft: bool = True, n_tracers: int = 0,
+                        engine: str = "auto", mesh=None,
+                        b_real: Optional[int] = None,
                         ckpt_dir=None, chunk_frames: int = 64,
                         resume: bool = True,
                         stop_after_chunks: Optional[int] = None
@@ -253,13 +273,52 @@ def run_exclusion_sweep(config: ParticleConfig, params_b: ParticleParams, *,
     frame f's Philox counter is ``(f − 1)·n_sub``, so the stitched result
     is bit-identical to the run in one piece, the tracers unwrapped over
     the whole grid after stitching.  Returns ``None`` when
-    ``stop_after_chunks`` halted an incomplete run."""
-    run = FusedRun(config, params_b, T=T, obs_dt=obs_dt, dt=dt,
+    ``stop_after_chunks`` halted an incomplete run.
+
+    ``engine`` takes the JAX package's names: ``'auto'``, ``'pallas'`` and
+    ``'pallas_rb'`` run kernel B3 (B4's layout is B3's kernel here);
+    ``'xla'`` runs the plain-torch K-slot engine, ``run_lattice_gas_k``
+    (``run_lattice_gas_k_checkpointed`` under ``ckpt_dir=``), whose final
+    slots are returned as spins (``exclusion_route`` names the route).
+
+    ``mesh=`` (a 1-D sweep mesh, ``parallel.mesh.sweep_mesh``) splits the
+    replica batch over the mesh's devices (``parallel.mesh.ShardedRun``):
+    each block launches B3 on its rows with their global index ``b0``, so
+    the result is the one-device run's.  Any B runs on any mesh (the
+    runner pads to the mesh multiple); ``b_real=``, the JAX package's
+    true replica count of a batch it padded, is taken as there: the
+    initial state is drawn for the first ``b_real`` rows, and the pad rows
+    of the result repeat the last real replica."""
+    route = exclusion_route(engine)
+    B_call = int(params_b.beta.shape[0])
+    b_real = B_call if b_real is None else int(b_real)
+    if not 0 < b_real <= B_call:
+        raise ValueError(f"b_real={b_real} outside 1..{B_call}")
+    params_real = tree_map(lambda x: x[:b_real] if isinstance(
+        x, torch.Tensor) and x.ndim else x, params_b)
+    if route == SLOT_ROUTE:
+        kw = dict(T=T, obs_dt=obs_dt, dt=dt, seed=seed, device=device,
+                  rho0_plus=rho0_plus, rho0_minus=rho0_minus,
+                  record_fft=record_fft, n_tracers=n_tracers, mesh=mesh)
+        if ckpt_dir is None:
+            out = run_lattice_gas_k(config, params_real, **kw)
+        else:
+            out = run_lattice_gas_k_checkpointed(
+                config, params_real, ckpt_dir=ckpt_dir,
+                chunk_frames=chunk_frames, resume=resume,
+                stop_after_chunks=stop_after_chunks, **kw)
+        if out is None:
+            return None
+        frames, slots = out
+        return pad_batch((frames, torch.sign(slots).to(torch.int32)),
+                         B_call, b_real)
+    run = FusedRun(config, params_real, T=T, obs_dt=obs_dt, dt=dt,
                    record_fft=record_fft, n_tracers=n_tracers, device=device)
     start = lambda: run.start(seed, rho0_plus, rho0_minus)
+    ranged = shard_run(mesh, run, params_real)
     if ckpt_dir is None:
-        records, carry = run.run_range(start(), 0, run.n_frames)
-        return run.finish(records, carry)
+        records, carry = ranged.run_range(start(), 0, run.n_frames)
+        return pad_batch(run.finish(records, carry), B_call, b_real)
     run_hash = config_hash({
         "fused_config": _config_fields(config),
         "params": _params_lists(params_b), "T": T, "obs_dt": obs_dt,
@@ -272,5 +331,19 @@ def run_exclusion_sweep(config: ParticleConfig, params_b: ParticleParams, *,
                       size_key="chunk_frames", unit_key="n_frames",
                       resume=resume, stop_after_chunks=stop_after_chunks,
                       device=run.device, start=start,
-                      run_range=run.run_range)
-    return None if out is None else run.finish(*out)
+                      run_range=ranged.run_range)
+    return (None if out is None
+            else pad_batch(run.finish(*out), B_call, b_real))
+
+
+# the JAX package's engine names of the fused sweep
+EXCLUSION_ENGINES = ("auto", "pallas", "pallas_rb", "xla")
+SLOT_ROUTE = "lgk_step"
+
+
+def exclusion_route(engine: str) -> str:
+    """The route ``run_exclusion_sweep`` takes for a JAX engine name:
+    ``'xla'`` the plain-torch K-slot engine, every other name kernel B3."""
+    if engine not in EXCLUSION_ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
+    return SLOT_ROUTE if engine == "xla" else FusedRun.route

@@ -28,7 +28,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from hydrolim_tpu_torch.core.scope import not_ported
+from hydrolim_tpu_torch.parallel.mesh import resolve_sweep_mesh
 from hydrolim_tpu_torch.observables.structure import (
     extract_structure_observables_from_out,
 )
@@ -133,9 +133,9 @@ def _lattice_gas_outs(beta_values, n_runs, ps_kwargs, init_kwargs,
     dicts per replica (``out_for(i)``): ``kernel='xla'`` the plain-torch
     slot engines, ``'auto'``/``'pallas'`` kernel B3/B4, which must cover
     the configuration (``is_fused_exclusion_path``).  ``ckpt_dir=`` runs
-    the slot engines' checkpointed runners (``kernel='xla'`` only)."""
-    if n_devices is not None:
-        raise not_ported("n_devices=", "parallelism")
+    the slot engines' checkpointed runners (``kernel='xla'`` only);
+    ``n_devices=`` splits the batch over a sweep mesh."""
+    mesh = resolve_sweep_mesh(None, n_devices, device)
     config = config_from_kwargs(ps_kwargs)
     assert config.exclusion, "lattice-gas engines require site_capacity"
     if kernel != "xla":
@@ -161,7 +161,8 @@ def _lattice_gas_outs(beta_values, n_runs, ps_kwargs, init_kwargs,
     dt = ensemble_dt(config, beta_max=float(np.max(beta_values)), **rates)
     T, obs_dt = float(run_kwargs["T"]), float(run_kwargs["obs_dt"])
     frames, _ = runner(config, params, T=T, obs_dt=obs_dt, dt=dt, seed=seed,
-                       device=device, rho0_plus=rho0_p, rho0_minus=rho0_m)
+                       device=device, rho0_plus=rho0_p, rho0_minus=rho0_m,
+                       mesh=mesh)
     frames = type(frames)(*(a.cpu().numpy() for a in frames))
     times = np.arange(0.0, T, obs_dt)
 
@@ -192,7 +193,9 @@ def sweep_betas_for_structures(beta_values, n_runs_per_beta: int,
                                ckpt_dir=None, device="cuda") -> Dict:
     """β grid → {β: ensemble results} (:167-193), the whole (β × replicas)
     grid in one batch on ``device``; ``engine`` names the route (module
-    docstring)."""
+    docstring).  ``n_devices=`` splits the batch over a sweep mesh on
+    every route, the one-device result bit for bit; only ``'pallas'``
+    (kernel B3) can gain wall time from more cards (``parallel.mesh``)."""
     if engine not in STRUCTURE_ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     ps_kwargs = dict(DEFAULT_STRUCTURE_PS_KWARGS, **(ps_kwargs or {}))
@@ -211,12 +214,10 @@ def sweep_betas_for_structures(beta_values, n_runs_per_beta: int,
             "ckpt_dir requires engine='lattice_gas' or 'particle' (the "
             "fused Pallas route runs uncheckpointed)")
     if engine == "particle":
-        if n_devices is not None:
-            raise not_ported("n_devices=", "parallelism")
         config, res, _ = run_sweep_grid(beta_values, n_runs_per_beta,
                                         ps_kwargs, init_kwargs, run_kwargs,
                                         seed=seed, ckpt_dir=ckpt_dir,
-                                        device=device)
+                                        device=device, n_devices=n_devices)
         out_for = lambda i: frames_to_out(res.frames, i, config, T, obs_dt,
                                           final_state=res.final_state)
     else:

@@ -20,6 +20,8 @@ import torch
 
 from hydrolim_tpu_torch.core.config import PDEConfig, PDEParams
 from hydrolim_tpu_torch.fit.veff_fit import _pyplot
+from hydrolim_tpu_torch.parallel.distributed import is_primary
+from hydrolim_tpu_torch.parallel.mesh import resolve_sweep_mesh
 from hydrolim_tpu_torch.pde.fast_solve import (
     check_pde_engine,
     pde_solve_fused,
@@ -35,7 +37,8 @@ def run_pde_ensemble(config: PDEConfig, beta_values, *, gamma: float,
                      mode: str = "homogeneous", rho0: float = 1.0,
                      noise: float = 0.3, n_tracers: int = 1000,
                      engine: str = "xla", device="cuda",
-                     fetch_snapshots: bool = True, ckpt_dir=None,
+                     fetch_snapshots: bool = True, mesh=None,
+                     n_devices: Optional[int] = None, ckpt_dir=None,
                      stop_after_chunks: Optional[int] = None):
     """Batched (β × runs) solve on ``device``; returns the result as numpy
     arrays and the flattened β array.  Every draw comes from one
@@ -49,8 +52,16 @@ def run_pde_ensemble(config: PDEConfig, beta_values, *, gamma: float,
     in the JAX package, ``engine='pallas'`` refuses it (AssertionError)
     and ``'xla'`` and ``'auto'`` checkpoint.  ``stop_after_chunks=k``
     halts after ``k`` new chunks and returns ``None`` if the run is
-    incomplete (the simulated-preemption hook of the checkpoint drivers)."""
+    incomplete (the simulated-preemption hook of the checkpoint drivers).
+
+    ``mesh=``/``n_devices=`` split the flattened (β × runs) batch over a sweep mesh
+    (``parallel.mesh``).  In the JAX package the fused Pallas engine runs
+    on one chip and ignores the mesh; here every engine name is kernel B2,
+    so the mesh splits B2's batch: each block launches B2 on its rows with
+    their global index ``b0`` (its plain version on the CPU), and the
+    result is the one-device run's bit for bit."""
     check_pde_engine(engine)
+    mesh = resolve_sweep_mesh(mesh, n_devices, device)
     if ckpt_dir is not None:
         assert engine != "pallas", (
             "ckpt_dir requires the XLA path (the fused Pallas kernel runs "
@@ -73,12 +84,12 @@ def run_pde_ensemble(config: PDEConfig, beta_values, *, gamma: float,
         n_tracers=n_tracers, device=device)
     if ckpt_dir is None:
         res = pde_solve_fused(config, params_b, rho_p, rho_m, tracers, gen,
-                              keep_snapshots=fetch_snapshots)
+                              keep_snapshots=fetch_snapshots, mesh=mesh)
     else:
         res = run_pde_ensemble_checkpointed(
             config, params_b, rho_p, rho_m, tracers, gen, ckpt_dir=ckpt_dir,
             keep_snapshots=fetch_snapshots,
-            stop_after_chunks=stop_after_chunks)
+            stop_after_chunks=stop_after_chunks, mesh=mesh)
         if res is None:
             return None
     return result_to_numpy(res), flat_beta
@@ -113,12 +124,12 @@ def pde_beta_sweep(beta_values=None, n_runs: int = 3, T: float = 40.0,
                    kernel_sigma: float = 1e5 - 10, L: int = 1000,
                    dt: float = 5e-4, seed: int = 0, n_tracers: int = 1000,
                    outdir: str = ".", plot_result: bool = True,
-                   engine: str = "xla", ckpt_dir=None,
-                   device="cuda") -> Dict:
+                   engine: str = "xla", n_devices: Optional[int] = None,
+                   ckpt_dir=None, device="cuda") -> Dict:
     """β sweep with theory overlay.  v per run is |nanmean v_eff(t)| over
-    [t_min, t_max]; D per run is nanmean D_eff(t) there.  ``engine`` and
-    ``ckpt_dir`` as in ``run_pde_ensemble``; the figures need
-    matplotlib."""
+    [t_min, t_max]; D per run is nanmean D_eff(t) there.  ``engine``,
+    ``n_devices`` and ``ckpt_dir`` as in
+    ``run_pde_ensemble``; the figures need matplotlib."""
     if beta_values is None:
         beta_values = np.linspace(0, 3, 11)
     beta_values = np.asarray(beta_values, dtype=float)
@@ -129,7 +140,8 @@ def pde_beta_sweep(beta_values=None, n_runs: int = 3, T: float = 40.0,
     res, _ = run_pde_ensemble(config, beta_values, gamma=gamma, lam=lam,
                               n_runs=n_runs, seed=seed, n_tracers=n_tracers,
                               engine=engine, device=device,
-                              fetch_snapshots=False, ckpt_dir=ckpt_dir)
+                              fetch_snapshots=False, ckpt_dir=ckpt_dir,
+                              n_devices=n_devices)
     t = np.linspace(0, T, config.nsteps + 1)
     mask = (t >= t_min) & (t <= t_max)
 
@@ -147,7 +159,7 @@ def pde_beta_sweep(beta_values=None, n_runs: int = 3, T: float = 40.0,
     v_mean, v_err = np.array(v_mean), np.array(v_err)
     D_mean, D_err = np.array(D_mean), np.array(D_err)
 
-    plt = _pyplot() if plot_result else None
+    plt = _pyplot() if plot_result and is_primary() else None
     if plt is not None:
         beta_dense = np.linspace(beta_values.min(),
                                  max(beta_values.max(), 1e-9), 400)
@@ -192,13 +204,16 @@ def pde_kernel_sigma_sweep(kernel_sigma_values=None, n_runs: int = 5,
                            L: int = 1000, dt: float = 5e-4, lam: float = 0.6,
                            n_tracers: int = 1000, outdir: str = ".",
                            plot_result: bool = True, record_every: int = 1,
-                           engine: str = "xla", ckpt_dir=None,
+                           engine: str = "xla",
+                           n_devices: Optional[int] = None, ckpt_dir=None,
                            device="cuda", **overrides) -> Dict:
     """Kernel-σ sweep: per-σ time series of |m|, |v_eff|, D_eff, Var(t)
     (mean ± std bands across runs).  One batched ensemble of ``n_runs`` per
     σ, seeded ``base_seed + 1000·k_idx`` (the reference's per-σ seed
     scheme, :64).  ``ckpt_dir=`` checkpoints each σ's ensemble in its own
-    subdirectory ``sigma_<σ:.4g>`` (``run_pde_ensemble``)."""
+    subdirectory ``sigma_<σ:.4g>`` (``run_pde_ensemble``); ``n_devices``
+    splits each σ's ensemble over a sweep mesh.  The
+    overrides replace the variant's keys (``MAGN_VARIANTS``)."""
     if kernel_sigma_values is None:
         kernel_sigma_values = REFERENCE_KERNEL_SIGMAS
     v = dict(MAGN_VARIANTS[variant])
@@ -217,6 +232,7 @@ def pde_kernel_sigma_sweep(kernel_sigma_values=None, n_runs: int = 5,
                                   seed=base_seed + 1000 * k_idx,
                                   n_tracers=n_tracers, engine=engine,
                                   device=device, fetch_snapshots=False,
+                                  n_devices=n_devices,
                                   ckpt_dir=None if ckpt_dir is None else
                                   str(Path(ckpt_dir) / f"sigma_{sigma:.4g}"))
         n_rec = config.n_records        # nsteps+1 thinned by record_every
@@ -225,7 +241,7 @@ def pde_kernel_sigma_sweep(kernel_sigma_values=None, n_runs: int = 5,
         D_results[sigma] = res.records.D_eff[:, :n_rec]
         var_results[sigma] = res.records.var[:, :n_rec]
 
-    if plot_result:
+    if plot_result and is_primary():
         _plot_magn_bands(kernel_sigma_values, m_results, v_results,
                          D_results, var_results, T, outdir)
     return dict(m=m_results, v=v_results, D=D_results, var=var_results,

@@ -20,8 +20,8 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
-from hydrolim_tpu_torch.core.scope import not_ported
 from hydrolim_tpu_torch.fit.veff_fit import _pyplot, derived_rates
+from hydrolim_tpu_torch.parallel.distributed import is_primary
 from hydrolim_tpu_torch.sweeps.beta_sweep import (
     DEFAULT_PS_KWARGS,
     sweep_over_betas,
@@ -65,9 +65,9 @@ def sweep_over_sigmas(sigma_values: Sequence[float], beta_values,
     ``ckpt_dir=`` additionally makes the σ in flight preemption-safe: each
     σ's grid runs through ``sweep_over_betas(ckpt_dir=)`` with its own
     subdirectory ``<ckpt_dir>/sigma_<σ:.4g>``, so a kill mid-σ resumes from
-    the newest complete chunk instead of restarting that σ's grid."""
-    if n_devices is not None:
-        raise not_ported("n_devices=", "parallelism")
+    the newest complete chunk instead of restarting that σ's grid.
+    ``n_devices=`` splits each σ's grid over a sweep mesh,
+    as in ``sweep_over_betas``."""
     out = Path(outdir)
     out.mkdir(parents=True, exist_ok=True)
     beta_values = np.asarray(beta_values, dtype=float)
@@ -90,6 +90,7 @@ def sweep_over_sigmas(sigma_values: Sequence[float], beta_values,
                 ps_kwargs=pk, run_kwargs=run_kwargs, npz_path=str(npz_path),
                 outdir=str(out), seed=seed + 1000 * k_idx, do_fit=False,
                 plot_result=False, engine=engine, device=device,
+                n_devices=n_devices,
                 ckpt_dir=None if ckpt_dir is None
                 else str(Path(ckpt_dir) / f"sigma_{sigma:.4g}"))
         results[float(sigma)] = {
@@ -100,7 +101,8 @@ def sweep_over_sigmas(sigma_values: Sequence[float], beta_values,
             "D_se": save_dict["D_ses"],
             "ps_kwargs": {k: v for k, v in pk.items() if not callable(v)},
         }
-    np.savez(out / archive, results=np.asarray(results, dtype=object))
+    if is_primary():
+        np.savez(out / archive, results=np.asarray(results, dtype=object))
     return results
 
 

@@ -20,6 +20,9 @@ Layout of ``ckpt_dir`` (the JAX package's)::
 
 Chunk files are written atomically (``np.savez_compressed`` to a tmp file,
 then ``os.replace``), so a kill at any point leaves a consistent prefix.
+In a multi-process run (``parallel.distributed``) every process holds the
+whole carry, the primary alone writes, and every process reads the
+directory back (it must be one they share).
 The manifest's ``run_hash`` covers the configuration, the parameters, the
 grid, the recording flags, the seed or the initial state, and beyond the
 JAX package's: the package, the route and the device type.  The JAX
@@ -49,7 +52,9 @@ import numpy as np
 import torch
 
 from hydrolim_tpu_torch.core.config import ParticleConfig, ParticleParams
-from hydrolim_tpu_torch.particles.lattice_gas import LgRun
+from hydrolim_tpu_torch.parallel.distributed import is_primary, process_count
+from hydrolim_tpu_torch.parallel.mesh import shard_run
+from hydrolim_tpu_torch.particles.lattice_gas import LgRun, check_occ_sharding
 from hydrolim_tpu_torch.particles.lattice_gas_k import LgkRun
 from hydrolim_tpu_torch.particles.run import (
     ParticleFrames,
@@ -193,6 +198,30 @@ def _resume_prefix(ckpt_dir: Path, run_hash: str, *, what: str,
     return chunk_size, n_chunks, done
 
 
+def _shared_prefix(ckpt_dir: Path, run_hash: str, **kw):
+    """``_resume_prefix`` for every process of a run: the primary process
+    alone checks the manifest, deletes relics and writes the manifest
+    (``parallel.distributed.is_primary``), and its answer is broadcast to
+    the others (the directory is one the processes share)."""
+    if process_count() == 1:
+        return _resume_prefix(ckpt_dir, run_hash, **kw)
+    import torch.distributed as dist
+
+    out = [_resume_prefix(ckpt_dir, run_hash, **kw) if is_primary()
+           else None]
+    dist.broadcast_object_list(out, src=0)
+    return out[0]
+
+
+def _barrier() -> None:
+    """Every process of a multi-process run waits for the others (the
+    primary's chunk files are on disk past it)."""
+    if process_count() > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
 # ---------------------------------------------------------------------------
 # the chunk loop
 # ---------------------------------------------------------------------------
@@ -264,12 +293,14 @@ def _pipelined_chunks(ckpt_dir: Path, carry, *, done: int, n_chunks: int,
     ``[lo, hi)``, each a dict of tensors (the carry may also hold None and
     generators).  Returns the final carry, or ``None`` when
     ``stop_after_chunks`` halted an incomplete run (the pending chunk is
-    flushed first, preserving the prefix)."""
+    flushed first, preserving the prefix).  In a multi-process run only
+    the primary process writes."""
     pending = None
+    writes = is_primary()
 
     def _flush():
         nonlocal pending
-        if pending is not None:
+        if pending is not None and writes:
             c_, copy = pending
             _atomic_savez(_chunk_path(ckpt_dir, c_), **copy.arrays())
             pending = None
@@ -282,7 +313,7 @@ def _pipelined_chunks(ckpt_dir: Path, carry, *, done: int, n_chunks: int,
         lo = c * chunk_size
         hi = min((c + 1) * chunk_size, n_units)
         records, carry = run_chunk(carry, lo, hi)
-        copy = _HostCopy(records, carry)
+        copy = _HostCopy(records, carry) if writes else None
         _flush()
         pending = (c, copy)
         executed += 1
@@ -307,7 +338,7 @@ def run_chunked(ckpt_dir, run_hash: str, *, what: str, n_units: int,
     device = torch.device(device)
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    chunk_size, n_chunks, done = _resume_prefix(
+    chunk_size, n_chunks, done = _shared_prefix(
         ckpt_dir, run_hash, what=what, resume=resume, chunk_size=chunk_size,
         n_units=n_units, size_key=size_key, unit_key=unit_key, extra=extra)
     carry = (_load_chunk(_chunk_path(ckpt_dir, done - 1), device)[1]
@@ -316,6 +347,7 @@ def run_chunked(ckpt_dir, run_hash: str, *, what: str, n_units: int,
                               chunk_size=chunk_size, n_units=n_units,
                               run_chunk=run_range,
                               stop_after_chunks=stop_after_chunks)
+    _barrier()
     if carry is None:
         return None
     # stitch from disk, so the result is what a resumed process rebuilds
@@ -371,14 +403,16 @@ def _named(run_range: Callable) -> Callable:
 def _particles_chunked(what: str, tag: dict, config: ParticleConfig,
                        params: ParticleParams, state0, *, T, obs_dt, dt,
                        ckpt_dir, chunk_frames, record_pos, record_fft,
-                       resume, stop_after_chunks, seed, engine, _draws):
+                       resume, stop_after_chunks, seed, engine, _draws,
+                       mesh=None):
     run = ParticleRun(config, params, T=T, obs_dt=obs_dt, dt=dt,
                       record_pos=record_pos, record_fft=record_fft,
                       engine=engine, device=state0.pos.device, _draws=_draws)
     if run.n_frames == 0:
         return run_particles(config, params, state0, T=T, obs_dt=obs_dt,
                              dt=dt, record_pos=record_pos,
-                             record_fft=record_fft, seed=seed, engine=engine)
+                             record_fft=record_fft, seed=seed, engine=engine,
+                             mesh=mesh)
     run_hash = config_hash({
         **tag, "config": _config_fields(config),
         "params": _params_lists(params), "T": T, "obs_dt": obs_dt, "dt": dt,
@@ -391,7 +425,8 @@ def _particles_chunked(what: str, tag: dict, config: ParticleConfig,
         unit_key="n_frames", resume=resume,
         stop_after_chunks=stop_after_chunks, device=run.device,
         start=lambda: run.start(run.prepare(state0), seed),
-        run_range=_named(run.run_range), extra={"obs_dt": obs_dt, "T": T})
+        run_range=_named(shard_run(mesh, run, params).run_range),
+        extra={"obs_dt": obs_dt, "T": T})
     if out is None:
         return None
     records, carry = out
@@ -404,7 +439,7 @@ def run_particles_checkpointed(
         obs_dt: float, dt: float, ckpt_dir, chunk_frames: int = 64,
         record_pos: bool = True, record_fft: bool = True,
         resume: bool = True, stop_after_chunks: Optional[int] = None,
-        seed: int = 0, engine: str = "auto", _draws=None
+        seed: int = 0, engine: str = "auto", _draws=None, mesh=None
 ) -> Optional[ParticleRunResult]:
     """Checkpointed equivalent of :func:`run_particles` (same arguments,
     ``seed`` and ``engine`` included, and the same return on every route:
@@ -425,13 +460,15 @@ def run_particles_checkpointed(
 
     Returns the stitched :class:`ParticleRunResult` (frames and final
     state on ``state0``'s device) once all chunks exist, bit-identical to
-    :func:`run_particles` on the same inputs."""
+    :func:`run_particles` on the same inputs.  ``mesh=`` as in
+    :func:`run_particles`: the carry on disk is the one-device run's, so a
+    run stopped on one mesh resumes on another."""
     return _particles_chunked(
         "run", {}, config, params, state0, T=T, obs_dt=obs_dt, dt=dt,
         ckpt_dir=ckpt_dir, chunk_frames=chunk_frames, record_pos=record_pos,
         record_fft=record_fft, resume=resume,
         stop_after_chunks=stop_after_chunks, seed=seed, engine=engine,
-        _draws=_draws)
+        _draws=_draws, mesh=mesh)
 
 
 def run_particle_ensemble_checkpointed(
@@ -440,15 +477,15 @@ def run_particle_ensemble_checkpointed(
         chunk_frames: int = 64, record_pos: bool = True,
         record_fft: bool = True, resume: bool = True,
         stop_after_chunks: Optional[int] = None, seed: int = 0,
-        engine: str = "auto") -> Optional[ParticleRunResult]:
+        engine: str = "auto", mesh=None) -> Optional[ParticleRunResult]:
     """Checkpointed equivalent of
     :func:`hydrolim_tpu_torch.sweeps.ensemble.run_particle_ensemble` on
     prebuilt batched initial states ``states0`` (its run's generator
     seeded with ``seed``): the (β × runs) batch advances through the frame
     grid in ``chunk_frames``-frame chunks, every replica's carry
     checkpointed after each, with the guarantees of
-    :func:`run_particles_checkpointed`.  The initial states are hashed by
-    digest of each field."""
+    :func:`run_particles_checkpointed` (``mesh=`` included).  The initial
+    states are hashed by digest of each field."""
     tag = {"states0": {f.name: _digest(getattr(states0, f.name))
                        for f in dataclasses.fields(states0)}}
     return _particles_chunked(
@@ -456,7 +493,7 @@ def run_particle_ensemble_checkpointed(
         obs_dt=obs_dt, dt=dt, ckpt_dir=ckpt_dir, chunk_frames=chunk_frames,
         record_pos=record_pos, record_fft=record_fft, resume=resume,
         stop_after_chunks=stop_after_chunks, seed=seed, engine=engine,
-        _draws=None)
+        _draws=None, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -466,7 +503,7 @@ def run_particle_ensemble_checkpointed(
 def _slot_chunked(run, tag: str, config, params_b, *, T, obs_dt, dt,
                   ckpt_dir, chunk_frames, seed, rho0_plus, rho0_minus,
                   record_fft, n_tracers, resume, stop_after_chunks, _init0,
-                  _draws):
+                  _draws, mesh=None):
     """Shared checkpoint driver of the slot engines (the JAX package's
     ``_run_lg_family_checkpointed``): ``run`` is the engine's range runner
     (``LgRun`` or ``LgkRun``); ``_init0`` the test-only initial field."""
@@ -486,7 +523,7 @@ def _slot_chunked(run, tag: str, config, params_b, *, T, obs_dt, dt,
         unit_key="n_frames", resume=resume,
         stop_after_chunks=stop_after_chunks, device=run.device,
         start=lambda: run.start(seed, rho0_plus, rho0_minus, _init0),
-        run_range=_named(run.run_range))
+        run_range=_named(shard_run(mesh, run, params_b).run_range))
     if out is None:
         return None
     records, carry = out
@@ -498,7 +535,8 @@ def run_lattice_gas_k_checkpointed(
         chunk_frames: int = 64, seed: int = 0, device="cuda",
         rho0_plus=None, rho0_minus=None, record_fft: bool = True,
         n_tracers: int = 0, resume: bool = True,
-        stop_after_chunks: Optional[int] = None, _slots0=None, _draws=None):
+        stop_after_chunks: Optional[int] = None, occ_sharding=None,
+        mesh=None, _slots0=None, _draws=None):
     """Checkpointed equivalent of
     :func:`hydrolim_tpu_torch.particles.lattice_gas_k.run_lattice_gas_k`
     (same arguments and return: batched ``(frames, final_slots)`` on
@@ -507,7 +545,10 @@ def run_lattice_gas_k_checkpointed(
     The batched frame grid runs in ``chunk_frames``-frame chunks with an
     atomic checkpoint of each chunk's frames plus the carry (slot field,
     tracer sites/slots/windings, the phantom-tag mask, the generator's
-    state); the stitched result is bit-identical to the unsplit run."""
+    state); the stitched result is bit-identical to the unsplit run.
+    ``mesh=`` and ``occ_sharding=`` as in ``run_lattice_gas_k``; the carry
+    on disk is the one-device run's, so a resume may use another mesh."""
+    check_occ_sharding(occ_sharding)
     run = LgkRun(config, params_b, T=T, obs_dt=obs_dt, dt=dt,
                  record_fft=record_fft, n_tracers=n_tracers, device=device,
                  _draws=_draws)
@@ -516,7 +557,8 @@ def run_lattice_gas_k_checkpointed(
         ckpt_dir=ckpt_dir, chunk_frames=chunk_frames, seed=seed,
         rho0_plus=rho0_plus, rho0_minus=rho0_minus, record_fft=record_fft,
         n_tracers=n_tracers, resume=resume,
-        stop_after_chunks=stop_after_chunks, _init0=_slots0, _draws=_draws)
+        stop_after_chunks=stop_after_chunks, _init0=_slots0, _draws=_draws,
+        mesh=mesh)
 
 
 def run_lattice_gas_checkpointed(
@@ -524,10 +566,12 @@ def run_lattice_gas_checkpointed(
         chunk_frames: int = 64, seed: int = 0, device="cuda",
         rho0_plus=None, rho0_minus=None, record_fft: bool = True,
         n_tracers: int = 0, resume: bool = True,
-        stop_after_chunks: Optional[int] = None, _occ0=None, _draws=None):
+        stop_after_chunks: Optional[int] = None, occ_sharding=None,
+        mesh=None, _occ0=None, _draws=None):
     """Checkpointed equivalent of the K=1 engine
     :func:`hydrolim_tpu_torch.particles.lattice_gas.run_lattice_gas` —
     same contract and bit-identity guarantee as the K-slot variant."""
+    check_occ_sharding(occ_sharding)
     run = LgRun(config, params_b, T=T, obs_dt=obs_dt, dt=dt,
                 record_fft=record_fft, n_tracers=n_tracers, device=device,
                 _draws=_draws)
@@ -536,7 +580,8 @@ def run_lattice_gas_checkpointed(
         ckpt_dir=ckpt_dir, chunk_frames=chunk_frames, seed=seed,
         rho0_plus=rho0_plus, rho0_minus=rho0_minus, record_fft=record_fft,
         n_tracers=n_tracers, resume=resume,
-        stop_after_chunks=stop_after_chunks, _init0=_occ0, _draws=_draws)
+        stop_after_chunks=stop_after_chunks, _init0=_occ0, _draws=_draws,
+        mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -546,7 +591,7 @@ def run_lattice_gas_checkpointed(
 def _pde_chunked(what: str, tag: str, config, params_b, rho_p0, rho_m0,
                  tracers0, generator: torch.Generator, *, ckpt_dir,
                  chunk_blocks: int, resume: bool, keep_snapshots: bool,
-                 stop_after_chunks: Optional[int]):
+                 stop_after_chunks: Optional[int], mesh=None):
     run = PDERun(config, params_b, device=rho_p0.device,
                  keep_snapshots=keep_snapshots)
     run_hash = config_hash({
@@ -564,7 +609,7 @@ def _pde_chunked(what: str, tag: str, config, params_b, rho_p0, rho_m0,
         unit_key="n_blocks", resume=resume,
         stop_after_chunks=stop_after_chunks, device=run.device,
         start=lambda: run.start(rho_p0, rho_m0, tracers0, generator),
-        run_range=run.run_range)
+        run_range=shard_run(mesh, run, params_b).run_range)
     if out is None:
         return None
     records, carry = out
@@ -606,16 +651,19 @@ def run_pde_ensemble_checkpointed(config, params_b, rho_p0, rho_m0,
                                   ckpt_dir, chunk_blocks: int = 8,
                                   resume: bool = True,
                                   keep_snapshots: bool = True,
-                                  stop_after_chunks: Optional[int] = None):
+                                  stop_after_chunks: Optional[int] = None,
+                                  mesh=None):
     """Checkpointed equivalent of the batched solve inside
     :func:`hydrolim_tpu_torch.sweeps.pde_sweeps.run_pde_ensemble`: the
     whole (β × runs) batch advances together, as in
     :func:`pde_solve_checkpointed`.  ``keep_snapshots=False`` stores
     zero-width snapshot stacks in the chunk files (the sweep drivers
     discard them); the flag is part of the run hash, so chunks of mixed
-    snapshot width never stitch."""
+    snapshot width never stitch.  ``mesh=`` splits the batch over a sweep
+    mesh (``pde_solve_fused``); the carry on disk is the one-device
+    run's."""
     return _pde_chunked("PDE ensemble", "pde_ensemble", config, params_b,
                         rho_p0, rho_m0, tracers0, generator,
                         ckpt_dir=ckpt_dir, chunk_blocks=chunk_blocks,
                         resume=resume, keep_snapshots=keep_snapshots,
-                        stop_after_chunks=stop_after_chunks)
+                        stop_after_chunks=stop_after_chunks, mesh=mesh)

@@ -1,10 +1,12 @@
 """The port's launcher, ``python -m hydrolim_tpu_torch <command>``, against
 the JAX package's (``python -m hydrolim_tpu``): the same command names in
 the same order, every command's ``--help`` served by the port's driver
-(exit 0), ``large-lattice`` refused naming its ROADMAP.md item, an
-unknown command refused with 2.  The ``--help`` calls run in-process (the
+(exit 0), every flag of every JAX driver accepted by the port's
+(read from the JAX driver's text, without importing it), ``large-lattice``
+refusing what splits the lattice axis, an unknown command refused with 2.  The ``--help`` calls run in-process (the
 drivers' imports are shared); the launcher's own ``--help`` runs as a
 subprocess."""
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -28,8 +30,7 @@ def test_help_lists_the_jax_launchers_commands():
     assert lines[0].startswith("usage: python -m hydrolim_tpu_torch")
 
 
-@pytest.mark.parametrize("cmd", [c for c in JAX_COMMANDS
-                                 if c != "large-lattice"])
+@pytest.mark.parametrize("cmd", list(JAX_COMMANDS))
 def test_every_command_help_exits_0(cmd, monkeypatch, capsys):
     monkeypatch.setattr(sys, "argv", list(sys.argv))
     with pytest.raises(SystemExit) as e:
@@ -42,9 +43,36 @@ def test_every_command_help_exits_0(cmd, monkeypatch, capsys):
         assert "--device" in out            # runs on the card by default
 
 
-def test_large_lattice_names_the_parallelism_item(capsys):
-    assert launcher.main(["large-lattice", "--help"]) != 0
-    assert "ROADMAP.md §A item 1, parallelism" in capsys.readouterr().err
+def test_large_lattice_names_the_parallelism_item(monkeypatch):
+    """``large-lattice`` runs on one device; ``--n-devices`` > 1 and
+    ``--grid`` split the lattice axis and raise naming ROADMAP.md's
+    lattice-sharding item."""
+    monkeypatch.setattr(sys, "argv", list(sys.argv))
+    for extra in (["--n-devices", "2"], ["--grid"]):
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP\.md §A item 1, lattice-axis"):
+            launcher.main(["large-lattice", "--small", "--device", "cpu",
+                           *extra])
+
+
+def _jax_flags(module: str) -> list:
+    """The ``--flags`` a JAX driver's parser declares, read as text."""
+    text = (REPO / "experiments" / f"{module}.py").read_text()
+    return re.findall(r'add_argument\(\s*"(--[\w-]+)"', text)
+
+
+@pytest.mark.parametrize("cmd", list(JAX_COMMANDS))
+def test_every_jax_flag_is_a_port_flag(cmd, monkeypatch, capsys):
+    """C5: each flag of the JAX driver (``--engine``, ``--n-devices``,
+    ``--grid``, ``--quick`` included) is in the port driver's ``--help``,
+    so a JAX command line parses under ``python -m hydrolim_tpu_torch``."""
+    flags = _jax_flags(JAX_COMMANDS[cmd][0])
+    monkeypatch.setattr(sys, "argv", list(sys.argv))
+    with pytest.raises(SystemExit):
+        launcher.main([cmd, "--help"])
+    out = capsys.readouterr().out
+    missing = [f for f in flags if not re.search(re.escape(f) + r"\b", out)]
+    assert not missing, (cmd, missing)
 
 
 def test_unknown_command_returns_2(capsys):

@@ -891,3 +891,84 @@ def test_b3_chunked_equals_one_piece(dev, tmp_path, K, sigma, periodic):
     assert exclusion_multi_step.launches == 11         # frames 4..14
     _equal_tree(want[0]._asdict(), got[0]._asdict(), "frames")
     assert torch.equal(want[1], got[1])
+
+
+# ---------------------------------------------------------------------------
+# b0: a launch of rows [b0, b0 + n) draws the whole batch's launch's streams
+# ---------------------------------------------------------------------------
+
+def test_b1_rows_at_b0_equal_the_whole_launch(dev):
+    """Native Philox keyed on (seed[b], b0 + b): rows [2, 5) launched with
+    b0=2 equal rows [2, 5) of the whole batch's launch bit for bit, and at
+    injected bits the kernel at b0 > 0 equals its plain version."""
+    B, N, L, k = 6, 5000, 256, 300
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    scal, pos, sig, wind = _b1_state(dev, gen, B, N, L)
+    seeds = torch.arange(11, 11 + B, dtype=torch.int32, device=dev)
+    kw = dict(L=L, k_steps=k, dt=0.01, bidirectional=True, step0=77)
+    whole = meanfield_multi_step(scal, seeds, pos, sig, wind, **kw)
+    rows = slice(2, 5)
+    part = meanfield_multi_step(*(t[rows].contiguous() for t in (
+        scal, seeds, pos, sig, wind)), b0=2, **kw)
+    for a, b in zip(part, whole):
+        assert torch.equal(a, b[rows])
+    noise = _bits((3, 20, N), gen, dev)
+    args = [t[rows].contiguous() for t in (scal, seeds, pos, sig, wind)]
+    kw = dict(L=L, k_steps=20, dt=0.01, bidirectional=True, noise=noise)
+    for a, b in zip(meanfield_multi_step(*args, b0=2, **kw),
+                    meanfield_multi_step_plain(*args, b0=2, **kw)):
+        assert torch.equal(a, b)
+
+
+def test_b3_rows_at_b0_equal_the_whole_launch(dev):
+    """As B1's, at global and local m."""
+    B, K, L = 6, 3, 1000
+    for sigma in (0.0, 0.002):
+        gen, slots, scal, band = _exclusion_inputs(
+            dev, B=B, K=K, L=L, sigma=sigma, periodic=False, seed=7)
+        seeds = torch.arange(3, 3 + B, dtype=torch.int32, device=dev)
+        kw = dict(k_steps=300, dt=0.01, periodic=False, bidirectional=False,
+                  step0=123)
+        whole = exclusion_multi_step(scal, seeds, slots, band, **kw)
+        rows = slice(3, 6)
+        part = exclusion_multi_step(scal[rows].contiguous(), seeds[rows],
+                                    slots[rows].contiguous(), band, b0=3,
+                                    **kw)
+        assert torch.equal(part, whole[rows]), f"sigma={sigma}"
+        noise = _bits((3, 20, 2, K, L), gen, dev)
+        kw = dict(k_steps=20, dt=0.01, periodic=False, bidirectional=False,
+                  noise=noise)
+        args = (scal[rows].contiguous(), seeds[rows],
+                slots[rows].contiguous(), band)
+        assert torch.equal(exclusion_multi_step(*args, b0=3, **kw),
+                           exclusion_multi_step_plain(*args, b0=3, **kw))
+
+
+def test_b2_rows_at_b0_equal_the_whole_launch(dev):
+    """As B1's: native tracer draws keyed on the global replica index."""
+    from hydrolim_tpu_torch.pde.fast_solve import kernel_operands
+
+    B, n_t, W, k, L = 4, 200, 10, 40, 256
+    config = PDEConfig(L=L, dt=5e-4, n_tracers=n_t, fft_kmax=8,
+                       tracer_window_time=W * 5e-4 * (1 + 1e-9))
+    m_mode, solve_mode, smooth, solve = kernel_operands(config, 0.2, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    rp, rm, tr = pde_initialize(config, gen, B=B, mode="homogeneous",
+                                noise=0.3, n_tracers=n_t, device=dev)
+    scal = torch.tensor([[b, 0.6, 0.2, 0.0] for b in (0.5, 1.5, 2.0, 3.0)],
+                        device=dev)
+    seeds = torch.arange(5, 5 + B, dtype=torch.int32, device=dev)
+    state = [rp, rm, tr.unwrapped, tr.spin.float(), tr.hist]
+    kw = dict(L=L, n_t=n_t, window=W, k_steps=k, dt=5e-4, xlim=1.0,
+              periodic=True, m_mode=m_mode, solve_mode=solve_mode,
+              bidirectional=True, kmax_rec=config.kmax)
+    whole = pde_multi_step(scal, seeds, 7, *state, solve, smooth, **kw)
+    rows = slice(1, 3)
+    part = pde_multi_step(scal[rows].contiguous(), seeds[rows], 7,
+                          *(t[rows].contiguous() for t in state), solve,
+                          smooth, b0=1, **kw)
+    for a, b in zip(part, whole):       # the records hold NaN v/D at first
+        torch.testing.assert_close(a, b[rows], rtol=0, atol=0,
+                                   equal_nan=True)

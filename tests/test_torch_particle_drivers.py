@@ -208,7 +208,8 @@ def test_particle_phase_diagram_small(tmp_path):
     m = np.asarray(rec["m"])
     assert m.shape == (3, 6) and np.asarray(rec["band"]).shape == (3, 6)
     assert m[-1, 0] < 0.3 and m[-1, -1] > 0.7
-    assert rec["engines_used"] == ["fused"] * 3
+    assert rec["engine"] == "auto"
+    assert rec["engines_used"] == ["exclusion_multi_step"] * 3
     assert len(rec["row_wall_s"]) == len(rec["row_steps"]) == 3
 
 

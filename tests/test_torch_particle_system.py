@@ -313,9 +313,9 @@ def test_meanfield_sweep_auto_outside_b1_scope():
 @pytest.mark.parametrize("call", ["lattice_gas", "exclusion", "checkpoint",
                                   "figures", "flip_rate"])
 def test_out_of_scope_raises_with_its_roadmap_item(call, tmp_path):
-    """Each call outside the port raises naming its ROADMAP.md item (the
-    replica-parallel sweeps); the calls that raised before their ports now
-    run: ``engine='lattice_gas'`` on the slot engine, ``engine='particle'``
+    """The calls that raised before their ports now run (the sweeps'
+    ``n_devices=`` too: past the host's devices it raises ``ValueError``,
+    as the port fakes no devices): ``engine='lattice_gas'`` on the slot engine, ``engine='particle'``
     with exclusion and local m or with a custom flip rate on the τ-leap
     step, ``run_checkpointed``, which returns ``run``'s out dict, and the
     figure methods (``plot_individuals`` returns the drift velocity)."""
@@ -346,7 +346,7 @@ def test_out_of_scope_raises_with_its_roadmap_item(call, tmp_path):
     assert (tmp_path / "Effective_drift_velocity.png").exists()
     from hydrolim_tpu_torch.sweeps.beta_sweep import sweep_over_betas
 
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A item"):
+    with pytest.raises(ValueError, match="this host has 1 cpu device"):
         sweep_over_betas([1.0], n_devices=2, device="cpu")
 
 
