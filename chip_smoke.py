@@ -110,7 +110,17 @@ Phases (each prints one line with its wall time; a failed phase raises):
     (``initialize_multihost``), equal to the run without it; the
     large-lattice driver at full size (L=65,536) with its asserts, both
     walls, the site updates per second and ``lg_step``'s µs per step.  A
-    single card shows no scaling number, and the phase says so.
+    single card shows no scaling number, and the phase says so;
+20. lattice-axis halo sharding on the one card (``parallel.spatial``, no
+    kernel of its own): ``run_lattice_gas`` and ``run_lattice_gas_k`` at
+    the exclusion sweep's (a) and (b) shapes on four segments
+    (``space_mesh(devices=["cuda:0"] * 4)``) and on a (2, 2) ('sweep',
+    'space') grid, 0 elements differing from the one-device run; a
+    checkpointed ``lgk`` run stopped on the mesh and resumed unsharded;
+    the large lattice at full width on 1, 2 and 4 segments with its
+    asserts, the particle half bit for bit and the PDE half within its
+    stated tolerance; the walls, ``lg_step``'s µs per step and the halo
+    layer's counters.
 
 Phases 3, 4 and 7 also launch each kernel on rows [b0, b0 + n) of a batch
 (``b0`` > 0, the blocks of a sweep mesh): native Philox output equal to
@@ -3264,6 +3274,166 @@ def large_lattice_full(outdir: str) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: lattice sharding on the one card
+# ---------------------------------------------------------------------------
+
+FOUR_SEGMENTS = ["cuda:0"] * 4
+
+
+def _counters_line(c: dict, S: int, periodic: bool) -> str:
+    """The halo layer's counters, with the halo bytes per boundary and
+    step: a row of S segments has S boundaries on a torus, S − 1 between
+    walls."""
+    per = c["halo_bytes"] / max(c["steps"], 1) / (S if periodic else S - 1)
+    return (f"{c['steps']} steps, {c['halo_copies']} halo copies "
+            f"({c['halo_bytes']} B, {per:.0f} B per "
+            f"boundary and step), {c['allreduces']} all-reduces "
+            f"({c['allreduce_bytes']} B), {c['step_gathers']} full-field "
+            f"gathers inside a step, {c['frame_gathers']} at frame ends "
+            f"({c['gather_bytes']} B), {c['draw_bytes']} B of full-width "
+            "draws")
+
+
+def lattice_sharding(outdir: str) -> dict:
+    """(a) ``run_lattice_gas`` at sweep (a)'s shape (33 replicas, K=1,
+    N=500, L=1000, σ=0.005, walls, the exp-gradient Poisson init, every
+    particle tagged, 4 frames of 26 steps) and ``run_lattice_gas_k`` at
+    sweep (b)'s (K=3, N=750, σ=0.002) on ``space_mesh(devices=["cuda:0"]
+    * 4)``; (b) both on a (2, 2) ``grid_mesh`` of the same devices; each
+    against its one-device run (timed after a warm-up call), every frame
+    field and the final field, element by element.  (c) The large lattice at full width (L=65,536,
+    N=L/2, B=2, 532 steps; the PDE half 1500 steps a β) on 1, 2 and 4
+    segments: the driver's asserts (inside its halves), the particle half
+    bit for bit, the PDE half within ``SHARDED_PDE_RTOL``.  (d)
+    ``run_lattice_gas_k_checkpointed`` at (a)'s lgk run, stopped after one
+    chunk on the 4-segment mesh and resumed unsharded.  The walls, the
+    halo counters and ``lg_step``'s µs per step (with the frame records)
+    at L=65,536 on 1, 2 and 4 segments."""
+    import torch
+    from hydrolim_tpu_torch.experiments import large_lattice as ll
+    from hydrolim_tpu_torch.experiments.particle_beta_sweep import FLAGSHIP
+    from hydrolim_tpu_torch.parallel.halo import counters
+    from hydrolim_tpu_torch.parallel.spatial import (
+        grid_mesh,
+        grid_sharding,
+        space_mesh,
+        space_sharding,
+    )
+    from hydrolim_tpu_torch.particles.lattice_gas import run_lattice_gas
+    from hydrolim_tpu_torch.particles.lattice_gas_k import run_lattice_gas_k
+    from hydrolim_tpu_torch.sweeps import beta_sweep
+    from hydrolim_tpu_torch.sweeps.ensemble import (
+        broadcast_params,
+        ensemble_dt,
+    )
+    from hydrolim_tpu_torch.utils.checkpoint import (
+        run_lattice_gas_k_checkpointed,
+    )
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def held(name, want, got, S, periodic, wall_one, wall_sh):
+        bad, n = count_diff(_as_numpy(want), _as_numpy(got), name)
+        print(f"{name}: {bad} of {n} elements differ from the one-device "
+              f"run; walls {wall_one:.3f} s (one device), {wall_sh:.3f} s "
+              f"({S} segments); "
+              f"{_counters_line(counters.as_dict(), S, periodic)}",
+              flush=True)
+        if bad:
+            raise AssertionError(f"{name}: {bad} elements differ")
+
+    walls = {}
+    runs = {}
+    four = space_mesh(devices=FOUR_SEGMENTS)
+    grid = grid_mesh(2, 2, devices=FOUR_SEGMENTS)
+    for tag, over, run in (("lg (a)", {}, run_lattice_gas),
+                           ("lgk (b)", FLAGSHIP, run_lattice_gas_k)):
+        ps = dict(beta_sweep.DEFAULT_PS_KWARGS, **over)
+        cfg = beta_sweep.config_from_kwargs(ps)
+        grad = beta_sweep.make_exp_gradient(
+            L=cfg.L, N=cfg.N, frac_plus=0.75, decay_length=0.35,
+            anchor_positions=None)
+        rates = dict(rate_diffusion=0.02, rate_active=5.0)
+        params = broadcast_params(cfg, beta=SLICE_BETAS, n_runs=3,
+                                  device="cuda", **rates)
+        kw = dict(T=0.4, obs_dt=0.1, dt=ensemble_dt(cfg, beta_max=3.0,
+                                                    **rates),
+                  seed=9, device="cuda", rho0_plus=grad[2],
+                  rho0_minus=grad[3], n_tracers=cfg.N)
+        slots = cfg.K > 1
+        run(cfg, params, **kw)             # warm-up: the first call's set-up
+        want, w1 = timed(lambda: run(cfg, params, **kw))
+        runs[tag] = (cfg, params, kw, want)
+        for where, sh, S in (
+                ("4 segments", space_sharding(four, slots=slots), 4),
+                ("(2, 2) grid", grid_sharding(grid, slots=slots), 2)):
+            counters.reset()
+            got, w2 = timed(lambda: run(cfg, params, occ_sharding=sh, **kw))
+            held(f"{tag} on a {where} of one card", want, got, S,
+                 cfg.periodic, w1, w2)
+            walls[f"{tag}, {where}"] = w2
+        walls[f"{tag}, one device"] = w1
+
+    cfg, params, kw, want = runs["lgk (b)"]
+    ck = f"{outdir}/ck"
+    counters.reset()
+    if run_lattice_gas_k_checkpointed(
+            cfg, params, ckpt_dir=ck, chunk_frames=2, stop_after_chunks=1,
+            occ_sharding=space_sharding(four, slots=True), **kw) is not None:
+        raise AssertionError("the checkpointed run did not stop")
+    got, w = timed(lambda: run_lattice_gas_k_checkpointed(
+        cfg, params, ckpt_dir=ck, chunk_frames=2, **kw))
+    held("lgk (b) checkpointed: a chunk on 4 segments, resumed unsharded",
+         want, got, 4, cfg.periodic, walls["lgk (b), one device"], w)
+
+    L = 65536
+    part, pde = {}, {}
+    for S in (1, 2, 4):
+        mesh = None if S == 1 else space_mesh(devices=["cuda:0"] * S)
+        counters.reset()
+        part[S] = ll.particle_half(L, 0, "cuda", mesh)
+        c_part = counters.as_dict()
+        counters.reset()
+        pde[S] = ll.pde_half(L, False, 0, "cuda", mesh)
+        c_pde = counters.as_dict()
+        r = part[S]["record"]
+        walls[f"large lattice particle half, {S} segment(s)"] = r["wall_s"]
+        walls[f"large lattice PDE half, {S} segment(s)"] = \
+            pde[S]["record"]["wall_s"]
+        line = (f"large lattice on {S} segment(s) of one card: particle half "
+                f"{r['wall_s']:.3f} s for {r['steps']} steps x 2 replicas, "
+                f"lg_step {r['us_per_step']:.1f} us per step with its "
+                f"records; PDE half {pde[S]['record']['wall_s']:.3f} s for "
+                f"{pde[S]['record']['steps']} steps")
+        if S > 1:
+            bad, n = count_diff(
+                {k: part[1][k] for k in ("occ", "m_traj", "total")},
+                {k: part[S][k] for k in ("occ", "m_traj", "total")},
+                f"particle half on {S} segments")
+            rel = ll.pde_max_rel(pde[1], pde[S])
+            line += (f"; particle half: {bad} of {n} elements differ from "
+                     f"one segment; PDE half: largest relative difference "
+                     f"{rel:.3e} (bound {ll.SHARDED_PDE_RTOL:g}); particle "
+                     f"counters: {_counters_line(c_part, S, True)}; PDE "
+                     f"counters: {_counters_line(c_pde, S, True)}")
+            print(line, flush=True)
+            if bad:
+                raise AssertionError(f"the particle half on {S} segments "
+                                     f"differs in {bad} elements")
+            if not rel < ll.SHARDED_PDE_RTOL:
+                raise AssertionError(f"the PDE half on {S} segments is "
+                                     f"{rel:.3e} from one segment")
+        else:
+            print(line, flush=True)
+    return walls
+
+
 def main() -> int:
     import torch
 
@@ -3403,6 +3573,15 @@ def main() -> int:
         print(f"scaling: this host has {torch.cuda.device_count()} card(s); "
               "the blocks above share one card, so no scaling number "
               "(speed-up over cards) can be measured here", flush=True)
+    with phase("20 lattice sharding"):
+        with tempfile.TemporaryDirectory() as outdir:
+            walls = lattice_sharding(outdir)
+        print("lattice-sharding walls (s): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()),
+              flush=True)
+        print("the segments share one card: their halo copies are "
+              "same-device copies (no NVLink), so no cross-card number is "
+              "measured here", flush=True)
     for row in rows.values():
         row["launches"] = sum(row["launches_per_path"].values())
 

@@ -30,7 +30,7 @@ _COMMANDS = {
     "convergence": ("convergence", "hydrodynamic-limit rate (N^-1/2)"),
     "critical-scaling": ("critical_scaling",
                          "critical fluctuation exponent"),
-    "large-lattice": ("large_lattice", "L=65536 lattice, one card"),
+    "large-lattice": ("large_lattice", "L=65536 sharded lattice"),
     "pde-phase-diagram": ("pde_phase_diagram",
                           "(β, σ) PDE phase plane, 1024 replicas"),
     "particle-phase-diagram": ("particle_phase_diagram",

@@ -19,12 +19,18 @@ which is skipped where matplotlib is not installed.
 The JAX driver shards the lattice axis over a 'space' mesh (``--n-devices
 8``, on virtual CPU devices where the host has fewer).  Both arrays fit one
 card whole (two replicas of 65,536 sites take a few MB), and the port
-fakes no devices, so here ``--n-devices`` defaults to 1; any value that
-splits the lattice axis (``--n-devices`` > 1, ``--grid``) raises
-``not_ported`` naming the lattice-sharding item of ROADMAP.md.
+fakes no devices, so here ``--n-devices`` defaults to 1.  ``--n-devices
+N`` > 1 splits the lattice axis over N of the host's devices
+(``parallel.spatial.space_mesh``; more than the host has raises
+``ValueError``): the particle half on ``space_sharding``, bit for bit the
+unsharded half, and the PDE half on ``parallel.spatial.PDEFields``, whose
+mass sums reassociate.  ``--grid`` runs the particle half on a (2 'sweep' ×
+N/2 'space') ``grid_mesh`` instead.  ``particle_half`` and ``pde_half``
+take a mesh, which may repeat a device (``space_mesh(devices=[...])``).
 
 Usage: python -m hydrolim_tpu_torch.experiments.large_lattice [--small]
-       [--outdir DIR] [--seed N] [--device cuda|cpu] [--n-devices 1]
+       [--outdir DIR] [--seed N] [--device cuda|cpu] [--n-devices N]
+       [--grid]
 """
 from __future__ import annotations
 
@@ -41,15 +47,18 @@ from hydrolim_tpu_torch.core.config import (
     PDEConfig,
     make_pde_params,
 )
-from hydrolim_tpu_torch.core.scope import not_ported
 from hydrolim_tpu_torch.fit.veff_fit import _pyplot
+from hydrolim_tpu_torch.parallel.mesh import select_devices
+from hydrolim_tpu_torch.parallel.spatial import (
+    PDEFields,
+    grid_mesh,
+    grid_sharding,
+    space_mesh,
+    space_sharding,
+)
 from hydrolim_tpu_torch.particles.lattice_gas import run_lattice_gas
 from hydrolim_tpu_torch.particles.run import substeps_for
-from hydrolim_tpu_torch.pde.stepper import (
-    build_pde_ops,
-    magnetization,
-    pde_step,
-)
+from hydrolim_tpu_torch.pde.stepper import build_pde_ops, magnetization
 from hydrolim_tpu_torch.sweeps.ensemble import broadcast_params, ensemble_dt
 from hydrolim_tpu_torch.theory.meanfield import m_fixed_point
 
@@ -59,19 +68,46 @@ RD, RA = 0.5, 2.0
 LAM = 0.6
 
 
-def check_mesh(n_devices: int, grid: bool) -> None:
-    """Refuse what splits the lattice axis (not ported)."""
-    if grid:
-        raise not_ported("large-lattice --grid (the 'sweep' x 'space' "
-                         "grid mesh)", "lattice sharding")
-    if n_devices > 1:
-        raise not_ported(f"large-lattice --n-devices {n_devices} (the "
-                         "lattice over a 'space' mesh)", "lattice sharding")
+# The sharded PDE half against the unsharded one: its float32 mass sums
+# reassociate segment by segment, each step's renormalization differs by
+# an ulp or so, and the difference walks over the run's steps.  The bound,
+# on m(t), the mass and the final density, each relative to its largest
+# magnitude, is held by tests/test_torch_spatial.py (L=4096, 300 steps a
+# beta, 2 and 4 segments: at most 8.0e-6 on the CPU) and by chip_smoke.py
+# phase 20 (L=65,536, 1500 steps).
+SHARDED_PDE_RTOL = 5e-5
 
 
-def particle_half(L: int, seed: int, device) -> dict:
+def pde_max_rel(a: dict, b: dict) -> float:
+    """The largest difference of two ``pde_half`` results' m(t), mass and
+    final density, each relative to the first's largest magnitude."""
+    out = 0.0
+    for key in ("m_series", "mass", "rho_fin"):
+        for beta, x in a[key].items():
+            y = b[key][beta]
+            out = max(out, float(np.abs(x - y).max() / np.abs(x).max()))
+    return out
+
+
+def meshes(n_devices: int, grid: bool, device):
+    """(particle mesh, PDE mesh) of the driver's flags: None and None on
+    one device; a 'space' mesh over the first ``n_devices`` of the host's
+    devices of ``device``'s type for both; with ``grid`` the particle half
+    on a (2, N/2) ('sweep', 'space') grid (the JAX driver's)."""
+    kind = torch.device(device).type
+    smesh = (space_mesh(n_devices, select_devices(n_devices, kind))
+             if n_devices > 1 else None)
+    if not grid:
+        return smesh, smesh
+    n_space = max(n_devices // 2, 1)
+    return grid_mesh(2, n_space, select_devices(2 * n_space, kind)), smesh
+
+
+def particle_half(L: int, seed: int, device, mesh=None) -> dict:
     """The lattice gas at L sites, N = L/2, the two β: its frames, final
-    occupancy, wall and step count, with the driver's asserts."""
+    occupancy, wall and step count, with the driver's asserts.  ``mesh``:
+    None, a 'space' mesh (``space_sharding``) or a ('sweep', 'space') grid
+    (``grid_sharding``)."""
     N = L // 2
     config = ParticleConfig(L=L, xlim=1, N=N, init="fixed",
                             scale_rates=False, local_kernel_sigma=0.0,
@@ -85,8 +121,11 @@ def particle_half(L: int, seed: int, device) -> dict:
             else (lambda: None))
     sync()
     t0 = time.perf_counter()
+    shard = (None if mesh is None else grid_sharding(mesh)
+             if mesh.devices.ndim == 2 else space_sharding(mesh))
     frames, occ = run_lattice_gas(config, params, T=T, obs_dt=OBS_DT, dt=dt,
-                                  seed=seed, device=device, record_fft=False)
+                                  seed=seed, device=device, record_fft=False,
+                                  occ_sharding=shard)
     m_traj = frames.m_global.abs().cpu().numpy()           # (2, M)
     n_final = occ.abs().reshape(2, -1).sum(-1).cpu().numpy()
     wall = time.perf_counter() - t0
@@ -102,7 +141,8 @@ def particle_half(L: int, seed: int, device) -> dict:
                             site_updates_per_s=2 * L * n_steps / wall,
                             us_per_step=1e6 * wall / n_steps,
                             m_sub=m_lo, m_super=m_hi, m_theory=m_th),
-                total=frames.total[:, -1].cpu().numpy(), m_traj=m_traj)
+                total=frames.total[:, -1].cpu().numpy(), m_traj=m_traj,
+                occ=occ.cpu().numpy())
 
 
 def pde_rho0(L: int, seed: int, bi: int) -> np.ndarray:
@@ -128,28 +168,32 @@ def pde_grid(L: int, small: bool):
 
 
 def pde_run(config: PDEConfig, gamma: float, beta: float, rec_every: int,
-            rho0: np.ndarray, device):
+            rho0: np.ndarray, device, mesh=None):
     """``pde_step`` from (1.2·ρ₀[0], 0.8·ρ₀[1]) (a seeded magnetization
     imbalance) for the config's steps; every ``rec_every`` steps the mean
     m and the mass.  Returns (m_t, mass_t, final total density) as
-    numpy."""
+    numpy.  ``mesh``: a 'space' mesh the fields are split over
+    (``parallel.spatial.PDEFields``; the records' sums all-reduced)."""
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32).to(device)
     params = make_pde_params(gamma=gamma, lam=LAM, beta=float(beta),
                              device=device)
     ops = build_pde_ops(config, gamma, device)
-    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32).to(device)
-    rp, rm = as_t(1.2 * rho0[0]), as_t(0.8 * rho0[1])
+    rho = PDEFields(config, params, ops, as_t(1.2 * rho0[0]),
+                    as_t(0.8 * rho0[1]), mesh)
     m_t, mass_t = [], []
     for _ in range(config.nsteps // rec_every):
         for _ in range(rec_every):
-            rp, rm = pde_step(config, params, ops, rp, rm)
-        m_t.append(magnetization(config, ops, rp, rm).mean())
-        mass_t.append((rp + rm).sum())
+            rho.step()
+        m_t.append(rho.mean(lambda o, p, m: magnetization(config, o, p, m)))
+        mass_t.append(rho.sum(lambda o, p, m: p + m))
     host = lambda xs: torch.stack(xs).cpu().numpy()
+    rp, rm = rho.fields()
     return host(m_t), host(mass_t), (rp + rm).cpu().numpy()
 
 
-def pde_half(L: int, small: bool, seed: int, device) -> dict:
-    """Both β on the banded PDE, with the driver's asserts."""
+def pde_half(L: int, small: bool, seed: int, device, mesh=None) -> dict:
+    """Both β on the banded PDE, with the driver's asserts; ``mesh``: a
+    'space' mesh the fields are split over."""
     config, gamma, rec_every = pde_grid(L, small)
     nsteps, dt = config.nsteps, config.dt
     sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
@@ -157,10 +201,12 @@ def pde_half(L: int, small: bool, seed: int, device) -> dict:
     sync()
     t0 = time.perf_counter()
     m_series, rho_fin = {}, {}
+    masses = {}
     for bi, beta in enumerate(BETAS):
         m_t, mass, rho = pde_run(config, gamma, beta, rec_every,
-                                 pde_rho0(L, seed, bi), device)
+                                 pde_rho0(L, seed, bi), device, mesh)
         m_series[float(beta)], rho_fin[float(beta)] = m_t, rho
+        masses[float(beta)] = mass
         assert abs(mass[-1] - mass[0]) / mass[0] < 1e-4, (
             "PDE mass not conserved", mass[0], mass[-1])
     wall = time.perf_counter() - t0
@@ -184,10 +230,11 @@ def pde_half(L: int, small: bool, seed: int, device) -> dict:
     assert lo[-1] < lo[0], "sub-critical m must decay"
     assert hi[-1] > hi[0], "super-critical m must grow"
     return dict(record=record, m_series=m_series, rho_fin=rho_fin,
-                rec_every=rec_every)
+                mass=masses, rec_every=rec_every)
 
 
-def plot_overview(outdir: str, L: int, part: dict, pde: dict) -> None:
+def plot_overview(outdir: str, L: int, part: dict, pde: dict,
+                  where: str = "one device") -> None:
     plt = _pyplot()
     if plt is None:
         return
@@ -213,28 +260,43 @@ def plot_overview(outdir: str, L: int, part: dict, pde: dict) -> None:
     axes[1, 1].set_title("PDE |m|(t)")
     for ax in axes.flat:
         ax.legend(fontsize=8)
-    fig.suptitle(f"L={L} lattice on one device")
+    fig.suptitle(f"L={L} lattice, particle half on {where}")
     fig.tight_layout()
     fig.savefig(os.path.join(outdir, "large_lattice_overview.png"), dpi=120)
     plt.close(fig)
 
 
+def _mesh_name(mesh) -> str:
+    if mesh is None:
+        return "one device"
+    if mesh.devices.ndim == 2:
+        return (f"(2 'sweep' x {mesh.devices.shape[1]} 'space') grid of "
+                f"{mesh.devices.size} devices")
+    return f"'space' axis of {mesh.devices.size} devices"
+
+
 def main(outdir: str = "large_lattice_out", small: bool = False,
          seed: int = 0, device: str = "cuda", n_devices: int = 1,
          grid: bool = False) -> dict:
-    check_mesh(n_devices, grid)
+    pmesh, smesh = meshes(n_devices, grid, device)
     L = 4096 if small else 65536
     os.makedirs(outdir, exist_ok=True)
     record = {"L": L, "N": L // 2, "n_devices": n_devices,
-              "particle_mesh": "none", "device": str(device)}
-    print(f"# one {torch.device(device).type} device, L={L}", flush=True)
-    part = particle_half(L, seed, device)
+              "particle_mesh": ("2d-grid" if grid else "1d-space"
+                                if pmesh is not None else "none"),
+              "device": str(device),
+              "mesh": {"particle": None if pmesh is None else pmesh.record(),
+                       "pde": None if smesh is None else smesh.record()}}
+    print(f"# {torch.device(device).type}: particle half on "
+          f"{_mesh_name(pmesh)}, PDE half on {_mesh_name(smesh)}, L={L}",
+          flush=True)
+    part = particle_half(L, seed, device, pmesh)
     record["particle"] = part["record"]
     print(f"# lattice gas: {part['record']['wall_s']:.1f} s for "
           f"{part['record']['steps']} steps x 2 replicas "
           f"({part['record']['site_updates_per_s']:.3e} site-updates/s, "
           f"{part['record']['us_per_step']:.1f} us/step)", flush=True)
-    pde = pde_half(L, small, seed, device)
+    pde = pde_half(L, small, seed, device, smesh)
     record["pde"] = pde["record"]
     print(f"# pde (banded): {pde['record']['wall_s']:.1f} s for "
           f"{pde['record']['steps'] // 2} steps x 2 betas "
@@ -242,7 +304,7 @@ def main(outdir: str = "large_lattice_out", small: bool = False,
           flush=True)
     with open(os.path.join(outdir, "wall_time.json"), "w") as f:
         json.dump(record, f, indent=1)
-    plot_overview(outdir, L, part, pde)
+    plot_overview(outdir, L, part, pde, _mesh_name(pmesh))
     print(json.dumps({k: v for k, v in record.items() if k != "L"}))
     return record
 
@@ -254,11 +316,14 @@ if __name__ == "__main__":
                    help="L=4096, 300 PDE steps (a quick CPU run)")
     p.add_argument("--n-devices", type=int, default=1,
                    help="1 (the default): one device holds the whole "
-                        "lattice; > 1 splits the lattice axis, which is not "
-                        "ported (the JAX driver's 8 ran on virtual devices)")
+                        "lattice; N > 1 splits the lattice axis over N of "
+                        "the host's devices (no virtual devices: more than "
+                        "the host has raises)")
     p.add_argument("--grid", action="store_true",
-                   help="the JAX driver's 'sweep' x 'space' grid mesh: not "
-                        "ported")
+                   help="2-D mesh for the particle run: the two beta "
+                        "replicas ride a 'sweep' axis of 2 while 'space' "
+                        "splits the lattice over n_devices/2 "
+                        "(parallel.spatial.grid_mesh)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     a = p.parse_args()

@@ -17,6 +17,15 @@ by repeating its last row, and every shard takes its rows of that
 what they draw in the one-device run, and the generator ends where the
 one-device run leaves it.  The shards must ask in lockstep: the tape holds
 a draw until every shard has taken its rows.
+
+A lattice split over a 'space' mesh axis (``parallel.spatial``) takes the
+same draws by columns: a ``ColumnStream`` hands a segment the columns of
+its window (its sites and the halo it recomputes, wrapping on a torus) of
+the full-width draw, made once per draw at the run's width L from the
+run's generator — or from a row block's ``ShardStream`` on a ('sweep',
+'space') grid — in the one-device order (``ColumnTape``).  Each step thus
+makes one full-width draw on the controlling device, as the one-device
+run does, and the segments copy out their columns.
 """
 from __future__ import annotations
 
@@ -91,28 +100,83 @@ class ShardStream:
         return self.tape.take(self.shard, kind, args, shape, device, dtype)
 
 
+class ColumnTape:
+    """The draws of one step of a lattice split into segments: draw j is
+    made once at the full width ``L`` from ``source`` (the run's generator,
+    or a row block's ``ShardStream``) on ``device``, and each segment i
+    takes its window's columns ``layer.take(draw, i)``
+    (``parallel.halo.HaloLayer``).  A draw is dropped when every segment
+    has taken it."""
+
+    def __init__(self, source, device, layer):
+        self.source, self.device, self.layer = source, device, layer
+        self._taken = {i: 0 for i in layer.local}
+        self._held: Dict[int, list] = {}
+        self.bytes_drawn = 0
+
+    def take(self, seg: int, kind: str, args: tuple, shape, device,
+             dtype) -> torch.Tensor:
+        j = self._taken[seg]
+        self._taken[seg] = j + 1
+        key = (kind, args, tuple(shape[:-1]), dtype)
+        held = self._held.get(j)
+        if held is None:
+            full = draw(kind, args, tuple(shape[:-1]) + (self.layer.L,),
+                        self.source, self.device, dtype)
+            self.bytes_drawn += full.numel() * full.element_size()
+            held = self._held[j] = [key, full, len(self._taken)]
+        elif held[0] != key:
+            raise RuntimeError(f"segment {seg}'s draw {j} is {key}, another "
+                               f"segment's is {held[0]}: the segments ran "
+                               "out of step")
+        out = self.layer.take(held[1], seg)
+        if out.shape[-1] != shape[-1]:
+            raise ValueError(f"segment {seg} drew {tuple(shape)} for a "
+                             f"window of {out.shape[-1]} columns")
+        held[2] -= 1
+        if held[2] == 0:
+            del self._held[j]
+        return out
+
+
+class ColumnStream:
+    """Segment ``seg``'s view of a ``ColumnTape``, passed to an engine where
+    it takes a generator."""
+
+    def __init__(self, tape: ColumnTape, seg: int):
+        self.tape, self.seg = tape, seg
+
+    def take(self, kind: str, args: tuple, shape, device, dtype):
+        return self.tape.take(self.seg, kind, args, shape, device, dtype)
+
+
+_STREAMS = (ShardStream, ColumnStream)
+
+
+def draw(kind: str, args: tuple, shape, source, device, dtype
+         ) -> torch.Tensor:
+    """One draw of ``kind`` ('rand', 'randn' or 'randint' with ``args`` =
+    (low, high)) from a generator or a stream."""
+    if isinstance(source, _STREAMS):
+        return source.take(kind, args, shape, device, dtype)
+    return _draw(kind, args, shape, source, device, dtype)
+
+
 def rand(shape, generator=None, device=None, dtype=None) -> torch.Tensor:
     """``torch.rand(shape, generator=, device=, dtype=)``, or a shard's rows
-    of it (``ShardStream``)."""
-    if isinstance(generator, ShardStream):
-        return generator.take("rand", (), shape, device, dtype)
-    return torch.rand(shape, generator=generator, device=device, dtype=dtype)
+    of it (``ShardStream``) or a segment's columns (``ColumnStream``)."""
+    return draw("rand", (), shape, generator, device, dtype)
 
 
 def randn(shape, generator=None, device=None, dtype=None) -> torch.Tensor:
     """``torch.randn``, as ``rand``."""
-    if isinstance(generator, ShardStream):
-        return generator.take("randn", (), shape, device, dtype)
-    return torch.randn(shape, generator=generator, device=device, dtype=dtype)
+    return draw("randn", (), shape, generator, device, dtype)
 
 
 def randint(low: int, high: int, shape, generator=None, device=None,
             dtype=None) -> torch.Tensor:
     """``torch.randint(low, high, shape, ...)``, as ``rand``."""
-    if isinstance(generator, ShardStream):
-        return generator.take("randint", (low, high), shape, device, dtype)
-    return torch.randint(low, high, shape, generator=generator,
-                         device=device, dtype=dtype)
+    return draw("randint", (low, high), shape, generator, device, dtype)
 
 
 def shard_streams(generator: Optional[torch.Generator], B: int, Bp: int,
@@ -125,3 +189,28 @@ def shard_streams(generator: Optional[torch.Generator], B: int, Bp: int,
     tape = DrawTape(generator, B, Bp, bounds)
     return {i: ShardStream(tape, i) for i in bounds}
 
+
+def column_streams(source, device, layer) -> Dict[int, ColumnStream]:
+    """One ``ColumnStream`` per local segment of ``layer`` over a fresh
+    tape of ``source``."""
+    tape = ColumnTape(source, device, layer)
+    return {i: ColumnStream(tape, i) for i in layer.local}
+
+
+class RowDraws:
+    """Rows [b0, b0 + n) of injected draws (the tests' ``_draws``: every
+    ``step(i)`` tensor leads with the batch), the last row repeated past
+    the batch as ``mesh.pad_batch`` pads: a block's share of them."""
+
+    def __init__(self, draws, b0: int, n: int):
+        self.draws, self.b0, self.n = draws, b0, n
+
+    def step(self, i: int):
+        def rows(x):
+            x = x[self.b0:self.b0 + self.n]
+            if x.shape[0] < self.n:
+                x = torch.cat([x, x[-1:].expand(self.n - x.shape[0],
+                                                *x.shape[1:])])
+            return x
+
+        return tuple(rows(x) for x in self.draws.step(i))

@@ -40,10 +40,17 @@ the multi-card measurement).
 No device is faked: ``n_devices`` beyond the host's cards raises.  An
 explicit ``devices=[...]`` list may repeat a device (the port's
 counterpart of the JAX package's virtual CPU devices): the tests run
-``["cpu"] * 8`` and the card check ``["cuda:0", "cuda:0"]``.  The mesh's
-second axis (``'part'`` of ``make_mesh``) splits the particle or lattice
-axis: a mesh with one raises ``not_ported`` naming the lattice-sharding
-item (``core/scope.py``).
+``["cpu"] * 8`` and the card check ``["cuda:0", "cuda:0"]``.
+
+A 2-D mesh (``make_mesh``'s ('sweep', 'part'), ``parallel.spatial.
+grid_mesh``'s ('sweep', 'space')) splits the batch over its rows, as the
+JAX package's ``shard_batch`` puts the batch on its first axis.  The
+sweep drivers keep the particle axis whole, as the JAX package's do, so
+a row's block runs on the row's first device (``SweepMesh.record`` says
+so); ``shard_particle_state`` places a particle state with the JAX
+package's ('sweep', 'part') spec rule and ``gather_particle_state``
+brings it back.  The lattice axis over 'space' is
+``parallel.spatial``'s.
 """
 from __future__ import annotations
 
@@ -53,7 +60,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from hydrolim_tpu_torch.core.scope import not_ported
 from hydrolim_tpu_torch.parallel.draws import shard_streams
 
 
@@ -74,12 +80,10 @@ class SweepMesh:
         return dict(zip(self.axis_names, self.devices.shape))
 
     def sweep_devices(self) -> List[torch.device]:
-        """The device of each block of the sweep axis; a mesh that also
-        splits a second axis raises ``not_ported``."""
-        if self.devices.ndim > 1 and int(np.prod(self.devices.shape[1:])) > 1:
-            raise not_ported(f"a mesh that splits its {self.axis_names[1]!r}"
-                             " axis", "lattice sharding")
-        return list(self.devices.reshape(-1)[:self.devices.shape[0]])
+        """The device of each block of the sweep axis: on a 2-D mesh the
+        first device of each row."""
+        rows = self.devices.reshape(self.devices.shape[0], -1)
+        return list(rows[:, 0])
 
     def is_local(self, i: int) -> bool:
         """True where block i runs in this process."""
@@ -88,12 +92,19 @@ class SweepMesh:
         return self.ranks is None or self.ranks[i] == process_index()
 
     def record(self) -> List[dict]:
-        """Every block's device (and owning process), for a driver's
-        JSON."""
-        return [dict(block=i, device=str(d),
-                     **({} if self.ranks is None else
-                        dict(process=self.ranks[i])))
-                for i, d in enumerate(self.devices.reshape(-1))]
+        """Every block's device (and owning process), for a driver's JSON.
+        On a 2-D mesh a block is a row: its first device runs the batch
+        block, and the row's devices are listed under the second axis's
+        name ('part': the particle axis stays whole on the row's first
+        device; 'space': the row's lattice segments)."""
+        if self.devices.ndim == 1:
+            return [dict(block=i, device=str(d),
+                         **({} if self.ranks is None else
+                            dict(process=self.ranks[i])))
+                    for i, d in enumerate(self.devices)]
+        return [dict(block=i, device=str(row[0]),
+                     **{self.axis_names[1]: [str(d) for d in row]})
+                for i, row in enumerate(self.devices)]
 
 
 def _factor2(n: int) -> Tuple[int, int]:
@@ -145,9 +156,9 @@ def make_mesh(n_devices: Optional[int] = None,
               axis_names: Tuple[str, str] = ("sweep", "part"),
               devices=None) -> SweepMesh:
     """2-D mesh over the devices (most-square factorization); device
-    selection per :func:`select_devices`.  Its second axis splits the
-    particle axis, which is not ported: a driver given this mesh with a
-    second axis of more than one device raises ``not_ported``."""
+    selection per :func:`select_devices`.  A sweep driver given it splits
+    the batch over the first axis and runs each row's block on the row's
+    first device; ``shard_particle_state`` places a state on both axes."""
     devices = _take(select_devices(n_devices) if devices is None else devices,
                     n_devices)
     a, b = _factor2(len(devices))
@@ -176,8 +187,6 @@ def resolve_sweep_mesh(mesh: Optional[SweepMesh], n_devices: Optional[int],
     if mesh is None and n_devices is not None and n_devices > 1:
         mesh = sweep_mesh(n_devices, select_devices(
             n_devices, None if device is None else torch.device(device).type))
-    if mesh is not None:
-        mesh.sweep_devices()        # a split particle axis raises here
     if mesh is not None and device is not None:
         want = torch.device(device).type
         kinds = {torch.device(d).type for d in mesh.devices.reshape(-1)}
@@ -340,11 +349,108 @@ def _all_gather_blocks(blocks: Dict[int, object]) -> Dict[int, object]:
     return out
 
 
-def shard_particle_state(mesh: SweepMesh, state, batched: bool = True):
-    """The JAX package's particle-axis placement (``'part'``): not ported
-    — it splits the particle buffer across devices."""
-    raise not_ported("shard_particle_state (particle-axis sharding)",
-                     "lattice sharding")
+class Spec:
+    """A leaf's placement: the JAX ``PartitionSpec``'s axis name (or None)
+    for each leading dimension; ``tuple(spec)`` gives them."""
+
+    __slots__ = ("axes",)
+
+    def __init__(self, *axes):
+        self.axes = axes
+
+    def __iter__(self):
+        return iter(self.axes)
+
+    def __eq__(self, other):
+        return tuple(self) == tuple(other)
+
+    def __repr__(self):
+        return f"Spec{self.axes!r}"
+
+
+@dataclasses.dataclass
+class PlacedState:
+    """A state placed on a 2-D mesh: ``blocks[(i, j)]`` is its tree on
+    ``mesh.devices[i, j]``, ``specs`` the tree of each leaf's ``Spec``."""
+
+    mesh: SweepMesh
+    specs: object
+    blocks: Dict[Tuple[int, int], object]
+
+
+def _part_spec(x, sweep: str, part: str, batched: bool) -> Spec:
+    """The JAX package's rule (``parallel/mesh.py:179-197``)."""
+    if not _is_array(x):
+        return Spec()
+    if not batched:
+        return Spec(part) if x.ndim >= 1 and x.shape[0] > 16 else Spec()
+    if x.ndim >= 2 and x.shape[1] > 16:              # (B, n_buf, ...)
+        return Spec(sweep, part)
+    return Spec(sweep) if x.ndim >= 1 else Spec()
+
+
+def _split(n: int, parts: int, what: str) -> int:
+    if n % parts:
+        raise ValueError(f"{what}: {n} is not a multiple of the mesh axis's "
+                         f"{parts} devices")
+    return n // parts
+
+
+def shard_particle_state(mesh: SweepMesh, state, batched: bool = True
+                         ) -> PlacedState:
+    """Place a (batched) particle state on a 2-D mesh with the JAX
+    package's spec rule: (B, n_buf, ...) leaves split over ('sweep',
+    'part'), other per-replica leaves over 'sweep' only, an unbatched
+    buffer over 'part'; the rest is copied to every device.  Placement
+    never changes a value (``gather_particle_state`` brings the state
+    back).  No engine steps a state split on 'part', as none in the JAX
+    package does: the sweep drivers keep the particle axis whole."""
+    if mesh.devices.ndim != 2:
+        raise ValueError("shard_particle_state takes a 2-D mesh (make_mesh)")
+    sweep, part = mesh.axis_names[:2]
+    n_sw, n_pt = mesh.devices.shape
+    specs = tree_map(lambda x: _part_spec(x, sweep, part, batched), state)
+
+    def block(i, j):
+        dev = mesh.devices[i, j]
+
+        def put(x, spec):
+            if not _is_array(x):
+                return x
+            x = torch.as_tensor(x)
+            for d, ax in enumerate(spec):
+                k, n = (i, n_sw) if ax == sweep else (j, n_pt)
+                per = _split(x.shape[d], n, f"axis {d} over {ax!r}")
+                x = x.narrow(d, k * per, per)
+            return x.to(dev)
+
+        return tree_map(put, state, specs)
+
+    return PlacedState(mesh, specs, {(i, j): block(i, j)
+                                     for i in range(n_sw)
+                                     for j in range(n_pt)})
+
+
+def gather_particle_state(placed: PlacedState, device):
+    """The state of ``shard_particle_state`` back on ``device``, whole."""
+    mesh = placed.mesh
+    sweep, part = mesh.axis_names[:2]
+    n_sw, n_pt = mesh.devices.shape
+    blocks = [placed.blocks[(i, j)] for i in range(n_sw)
+              for j in range(n_pt)]
+
+    def join(spec, *xs):
+        if not isinstance(xs[0], torch.Tensor):
+            return xs[0]
+        grid = [[xs[i * n_pt + j].to(device) for j in range(n_pt)]
+                for i in range(n_sw)]
+        axes = tuple(spec)
+        rows = [torch.cat(r, axes.index(part)) if part in axes else r[0]
+                for r in grid]
+        return torch.cat(rows, axes.index(sweep)) if sweep in axes \
+            else rows[0]
+
+    return tree_map(join, placed.specs, *blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -362,9 +468,12 @@ class ShardedRun:
     gathered back after the range, and the blocks advance one unit
     (frame or snapshot block) at a time in lockstep, each drawing its rows
     of the one-device draws (``parallel.draws``).  Every tensor of a carry
-    leads with the batch axis; its generator stays on ``run.device``."""
+    leads with the batch axis; its generator stays on ``run.device``.
+    ``block_run(i, params_i, device_i, b0)`` makes block i's runner
+    (default ``run.for_rows``; a ('sweep', 'space') grid splits each
+    block's lattice over its row, ``parallel.spatial``)."""
 
-    def __init__(self, mesh: SweepMesh, run, params):
+    def __init__(self, mesh: SweepMesh, run, params, block_run=None):
         self.run, self.mesh = run, mesh
         devices = mesh.sweep_devices()
         kinds = {d.type for d in devices}
@@ -375,7 +484,9 @@ class ShardedRun:
         blocks, self.Bp = pad_and_shard(mesh, params, self.B)
         per = self.Bp // len(devices)
         self.bounds = {i: (i * per, (i + 1) * per) for i in blocks}
-        self.runs = {i: run.for_rows(blocks[i], devices[i], b0=lo)
+        block_run = block_run or (lambda i, p, dev, b0: run.for_rows(
+            p, dev, b0=b0))
+        self.runs = {i: block_run(i, blocks[i], devices[i], lo)
                      for i, (lo, _) in self.bounds.items()}
         self.devices = devices
 

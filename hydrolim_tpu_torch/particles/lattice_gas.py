@@ -28,16 +28,24 @@ Differences from the JAX package, each by necessity:
 - Tracer tags are chosen by a stable descending sort of their keys
   (``top_keys``): ``jax.lax.top_k`` returns ties in index order, and
   ``torch.topk`` promises no order for ties on CUDA.
+
+The window form.  ``lg_step`` (and ``lattice_gas_k.lgk_step``) also step a
+window of the lattice: ``x0`` is the global site of its first column and
+``m`` the step's global m, all-reduced from the segments' sums.  This is
+how a lattice split over a 'space' mesh axis steps
+(``parallel.spatial.LatticeRun``): each segment runs the unchanged step
+law on its columns and ``step_halo`` recomputed halo columns on each
+side, whose ends the in-window rolls pollute, and keeps its own columns.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from hydrolim_tpu_torch.core.config import ParticleConfig, ParticleParams
-from hydrolim_tpu_torch.core.scope import not_ported
 from hydrolim_tpu_torch.fields.magnetization import (
     MFieldOp,
     build_mfield_op,
@@ -169,6 +177,52 @@ def frame_grid(T: float, obs_dt: float, dt: float) -> Tuple[int, int, float]:
 
 
 # ---------------------------------------------------------------------------
+# the window form
+# ---------------------------------------------------------------------------
+
+def step_halo(band: Optional[SmoothingBand], periodic: bool) -> int:
+    """Halo columns a window needs on each side so that a step of
+    ``lg_step`` or ``lgk_step`` leaves its own columns as the full-width
+    step does: the dependency radius of the step.  A site's new state
+    reads the acceptance of moves into it and out to its neighbours; an
+    acceptance reads the events of the sites on either side; an event
+    reads the freeness of its targets — the occupancy three sites out.
+    m enters only the flip of its own site, and reads the band's inputs
+    ``reach`` sites out (none with global m, which is all-reduced)."""
+    if band is None:
+        return 3
+    return max(3, band.reach_wrap if periodic else band.reach)
+
+
+def window_sites(x0: int, n: int, L: int, device) -> torch.Tensor:
+    """Global sites of a window of ``n`` columns from site ``x0``."""
+    return (x0 + torch.arange(n, device=device)) % L
+
+
+def window_band(band: Optional[SmoothingBand], x0: int, n: int, L: int,
+                device) -> Optional[SmoothingBand]:
+    """The smoothing band of a window: the rows of its sites, each input
+    site mapped to its window column.  Inputs outside the window read
+    column 0; only the rows within ``reach`` of the window's ends read
+    them, and the step drops those columns."""
+    if band is None:
+        return None
+    sites = window_sites(x0, n, L, band.idx.device)
+    idx = (band.idx[sites].long() - x0) % L
+    idx = torch.where(idx < n, idx, 0).to(torch.int32)
+    return dataclasses.replace(band, idx=idx.to(device),
+                               w=band.w[sites].to(device))
+
+
+def global_m(sums: torch.Tensor) -> torch.Tensor:
+    """Global m, (B, 1) float32, from the all-reduced (B, 2) integer sums
+    (Σσ, Σ|σ|): the full-width ``band_m``'s ratio bit for bit, since its
+    float32 sums of integer counts are exact."""
+    f32 = torch.float32
+    return sums[:, :1].to(f32) / sums[:, 1:].to(f32).clamp(min=1.0)
+
+
+# ---------------------------------------------------------------------------
 # the K = 1 step
 # ---------------------------------------------------------------------------
 
@@ -178,7 +232,8 @@ def _roll(x, shift):
 
 def lg_step(config: ParticleConfig, params: ParticleParams,
             band: Optional[SmoothingBand], occ: torch.Tensor, dt: float, *,
-            generator: Optional[torch.Generator] = None, _inject=None):
+            generator: Optional[torch.Generator] = None, _inject=None,
+            x0: Optional[int] = None, m: Optional[torch.Tensor] = None):
     """One synchronous Δt step on the (B, L) int32 occupancy field (JAX
     ``lattice_gas.py:40``).  Params are (B,) or scalar tensors; ``band``
     is the local-m smoothing (``build_smoothing_band``), None for global
@@ -190,6 +245,10 @@ def lg_step(config: ParticleConfig, params: ParticleParams,
     JAX engine's arithmetic: t2 = t1 + (r_dif + r_act)·Δt, where kernel B3
     adds r_dif·Δt and r_act·Δt (the two round alike at most rates, not at
     all).
+
+    Window form: with ``x0``, ``occ`` is a window of the lattice whose
+    column 0 is the global site ``x0`` (``band`` then the window's,
+    ``window_band``), and ``m`` (B, 1) replaces global m's ratio.
 
     Returns ``(occ_new, (moved_right, moved_left, flipped))``, the flags in
     the source layout (site → site ± 1) for tracer tracking."""
@@ -203,7 +262,7 @@ def lg_step(config: ParticleConfig, params: ParticleParams,
     is_minus = occ == -1
     sigma = occ.to(f32)
 
-    m_field = band_m(sigma, is_occ.to(f32), band)
+    m_field = band_m(sigma, is_occ.to(f32), band) if m is None else m
     flip_fn = config.flip_rate_fn or (lambda s, m, b: torch.exp(-b * s * m))
     c = torch.where(is_occ, flip_fn(sigma, m_field, rate_col(params.beta)),
                     0.0)
@@ -211,7 +270,8 @@ def lg_step(config: ParticleConfig, params: ParticleParams,
     right_empty = _roll(occ, -1) == 0          # occ[i+1] == 0
     left_empty = _roll(occ, 1) == 0            # occ[i-1] == 0
     if not config.periodic:
-        idx = torch.arange(L, device=dev)
+        idx = (torch.arange(L, device=dev) if x0 is None else
+               window_sites(x0, occ.shape[-1], L, dev))
         right_empty = right_empty & (idx < L - 1)
         left_empty = left_empty & (idx > 0)
 
@@ -300,7 +360,82 @@ def _init_tracers(occ0: torch.Tensor, bits: torch.Tensor, n_tracers: int
     return idx.to(torch.int32), vals > 0
 
 
-class LgRun:
+def run_frames(run, carry: dict, lo: int, hi: int, *, advance=None,
+               split=None, join=None):
+    """Frames [lo, hi) of a slot run (``LgRun``, ``LgkRun``) from its carry:
+    frame 0 records the carry's field, each later frame advances
+    ``run.n_sub`` steps and records.  ``advance(state, tracers, gen,
+    inject)`` takes one step (default ``run.advance``, the full-width
+    step); ``split`` and ``join`` turn the field into the state it steps
+    and back (default: the field itself; ``parallel.spatial.LatticeRun``
+    splits it into segments).  Returns ``(frames, carry)``."""
+    advance = advance or run.advance
+    L, n_sub = run.config.L, run.n_sub
+    field, valid, gen = carry[run.field], carry["valid"], carry["gen"]
+    tr = {k: carry[k] for k in run.tracer_keys}
+    frames, tracks = [], []
+
+    def record():
+        frames.append(run.rec(field))
+        tracks.append(tracer_record(tr["site"], tr["wind"], valid, L))
+
+    if lo == 0:
+        record()
+    state = None
+    for f in range(max(lo, 1), hi):
+        if state is None:
+            state = field if split is None else split(field)
+        for s in range(n_sub):
+            inject = (None if run._draws is None
+                      else run._draws.step((f - 1) * n_sub + s))
+            state, tr = advance(state, tr, gen, inject)
+        field = state if join is None else join(state)
+        record()
+    return (stack_frames(frames, torch.stack(tracks, dim=1)),
+            {**carry, run.field: field, **tr})
+
+
+class SlotRun:
+    """What ``LgRun`` and ``LgkRun`` share: the frame loop
+    (``run_frames``) and one full-width step with its tracers
+    (``advance``).  An engine gives ``field`` (its carry's state key),
+    ``tracer_keys``, ``step`` (the engine's step, window form included),
+    ``tracer_index``, ``follow`` and ``seg_sums``."""
+
+    def run_range(self, carry: dict, lo: int, hi: int):
+        return run_frames(self, carry, lo, hi)
+
+    def for_rows(self, params_b: ParticleParams, device, b0: int):
+        """The same run over a block of the batch on ``device``
+        (``parallel.mesh.ShardedRun``); its draws are the generator's, so
+        ``b0`` only picks the block's rows of injected draws."""
+        kw = dict(self._kw)
+        if self._draws is not None:
+            kw["_draws"] = draws.RowDraws(self._draws, b0,
+                                          params_b.beta.shape[0])
+        return type(self)(self.config, params_b, **kw, device=device)
+
+    def tracer_values(self, flags, tr: dict, col: torch.Tensor, n: int):
+        """Each flag of a step (leading (B, ...), last axis n columns) at
+        the tracers' entries, column ``col``."""
+        idx = self.tracer_index(tr, col, n)
+        B = idx.shape[0]
+        return [f.reshape(B, -1).gather(1, idx) for f in flags]
+
+    def advance(self, field, tr: dict, gen, inject):
+        field, flags = self.step(field, self.params_b, self.band, gen,
+                                 inject)
+        if self.n_t:
+            tr = self.follow(tr, self.tracer_values(
+                flags, tr, tr["site"].long(), self.config.L))
+        return field, tr
+
+    @classmethod
+    def final(cls, carry: dict) -> torch.Tensor:
+        return carry[cls.field]
+
+
+class LgRun(SlotRun):
     """The fixed parts of one K = 1 run (JAX ``lattice_gas.py:331``): the
     frame grid, the smoothing band and the recorder.  ``start`` draws the
     carry of frame 0 (occupancy, tracer sites and windings, the phantom-tag
@@ -314,6 +449,8 @@ class LgRun:
 
     route = "lg_step"
     frames_type = LatticeGasFrames
+    field = "occ"
+    tracer_keys = ("site", "wind")
 
     def __init__(self, config: ParticleConfig, params_b: ParticleParams, *,
                  T: float, obs_dt: float, dt: float, record_fft: bool,
@@ -334,12 +471,6 @@ class LgRun:
             (o == -1).to(torch.float32), record_fft)
         self._draws = _draws
 
-    def for_rows(self, params_b: ParticleParams, device, b0: int) -> "LgRun":
-        """The same run over a block of the batch on ``device``
-        (``parallel.mesh.ShardedRun``); its draws are the generator's, so
-        ``b0`` is not used."""
-        return LgRun(self.config, params_b, **self._kw, device=device)
-
     def start(self, seed: int, rho0_plus=None, rho0_minus=None,
               _occ0: Optional[torch.Tensor] = None) -> dict:
         B, L = self.params_b.beta.shape[0], self.config.L
@@ -354,34 +485,26 @@ class LgRun:
         return dict(occ=occ, site=site, wind=torch.zeros_like(site),
                     valid=valid, gen=gen)
 
-    def run_range(self, carry: dict, lo: int, hi: int):
-        config, L = self.config, self.config.L
-        occ, site, wind, valid = (carry[k] for k in ("occ", "site", "wind",
-                                                     "valid"))
-        gen, n_sub = carry["gen"], self.n_sub
-        frames, tracks = [], []
-        if lo == 0:
-            frames.append(self.rec(occ))
-            tracks.append(tracer_record(site, wind, valid, L))
-        for f in range(max(lo, 1), hi):
-            for s in range(n_sub):
-                inject = (None if self._draws is None
-                          else self._draws.step((f - 1) * n_sub + s))
-                occ, (mr, ml, _) = lg_step(config, self.params_b, self.band,
-                                           occ, self.dt_eff, generator=gen,
-                                           _inject=inject)
-                if self.n_t:
-                    site, wind = follow_tracers(
-                        site, wind, mr.gather(1, site.long()),
-                        ml.gather(1, site.long()), L, config.periodic)
-            frames.append(self.rec(occ))
-            tracks.append(tracer_record(site, wind, valid, L))
-        return (stack_frames(frames, torch.stack(tracks, dim=1)),
-                dict(occ=occ, site=site, wind=wind, valid=valid, gen=gen))
+    def step(self, occ, params, band, gen, inject, x0=None, m=None):
+        occ, (mr, ml, _) = lg_step(self.config, params, band, occ,
+                                   self.dt_eff, generator=gen,
+                                   _inject=inject, x0=x0, m=m)
+        return occ, (mr, ml)
 
     @staticmethod
-    def final(carry: dict) -> torch.Tensor:
-        return carry["occ"]
+    def tracer_index(tr: dict, col: torch.Tensor, n: int) -> torch.Tensor:
+        return col
+
+    def follow(self, tr: dict, vals) -> dict:
+        site, wind = follow_tracers(tr["site"], tr["wind"], *vals,
+                                    self.config.L, self.config.periodic)
+        return dict(site=site, wind=wind)
+
+    @staticmethod
+    def seg_sums(occ: torch.Tensor) -> torch.Tensor:
+        """(B, 2) int64 (Σσ, Σ|σ|) of a segment's columns."""
+        return torch.stack([occ.sum(-1, dtype=torch.int64),
+                            (occ != 0).sum(-1)], -1)
 
 
 def run_lattice_gas(config: ParticleConfig, params_b: ParticleParams, *,
@@ -399,25 +522,20 @@ def run_lattice_gas(config: ParticleConfig, params_b: ParticleParams, *,
     the initial field, the tracer keys, then each step's.  The run is one
     ``LgRun.run_range`` over every frame.  ``mesh=`` splits the batch
     over a sweep mesh (``parallel.mesh.ShardedRun``); ``occ_sharding=``
-    (the lattice axis over a mesh) raises ``not_ported``.
+    splits the lattice axis over a 'space' mesh, or the batch and the
+    lattice over a ('sweep', 'space') grid (``parallel.spatial``).  Both
+    return the one-device run bit for bit.
 
     Test-only: ``_occ0`` replaces the initial field and ``_draws`` the
     draws (``tracer_bits(shape)`` and ``step(i)`` → ``_inject`` of global
     step i)."""
-    from hydrolim_tpu_torch.parallel.mesh import shard_run
+    from hydrolim_tpu_torch.parallel.spatial import sharded_run
 
-    check_occ_sharding(occ_sharding)
     run = LgRun(config, params_b, T=T, obs_dt=obs_dt, dt=dt,
                 record_fft=record_fft, n_tracers=n_tracers, device=device,
                 _draws=_draws)
     carry = run.start(seed, rho0_plus, rho0_minus, _occ0)
-    frames, carry = shard_run(mesh, run, params_b).run_range(
+    frames, carry = sharded_run(run, params_b, mesh=mesh,
+                                occ_sharding=occ_sharding).run_range(
         carry, 0, run.n_frames)
     return frames, run.final(carry)
-
-
-def check_occ_sharding(occ_sharding) -> None:
-    """``occ_sharding=`` places the lattice axis on a mesh: not ported."""
-    if occ_sharding is not None:
-        raise not_ported("occ_sharding= (the lattice axis over a mesh)",
-                         "lattice sharding")

@@ -50,15 +50,15 @@ from hydrolim_tpu_torch.particles.init import init_particles
 from hydrolim_tpu_torch.parallel import draws
 from hydrolim_tpu_torch.particles.lattice_gas import (
     LatticeGasFrames,
+    SlotRun,
     _lg_record_counts,
-    check_occ_sharding,
     follow_tracers,
     frame_grid,
     rate_col,
     stack_frames,
     top_keys,
     tracer_bits,
-    tracer_record,
+    window_sites,
 )
 
 EMPTY_PRIO = 0xFFFFFFFF          # no candidate: after every priority
@@ -74,17 +74,29 @@ def _slot_ids(K: int, L: int, device: torch.device) -> torch.Tensor:
     return torch.arange(K * L, dtype=torch.int64, device=device).reshape(K, L)
 
 
-def slot_priorities(bits: torch.Tensor) -> torch.Tensor:
+def slot_priorities(bits: torch.Tensor,
+                    ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Unique priorities from (…, K, L) int64 random bits: the high 15
-    bits random, the low 17 the flat slot id."""
+    bits random, the low 17 the flat slot id (``ids``: a window's global
+    slot ids, ``window_slot_ids``)."""
     K, L = bits.shape[-2:]
-    return (bits & _PRIO_HI) | _slot_ids(K, L, bits.device)
+    return (bits & _PRIO_HI) | (_slot_ids(K, L, bits.device) if ids is None
+                                else ids)
+
+
+def window_slot_ids(K: int, L: int, x0: int, n: int, device
+                    ) -> torch.Tensor:
+    """(K, n) global flat slot ids k·L + x of a window of ``n`` columns
+    from site ``x0``."""
+    return (torch.arange(K, dtype=torch.int64, device=device)[:, None] * L
+            + window_sites(x0, n, L, device))
 
 
 def lgk_step(config: ParticleConfig, params: ParticleParams,
              band: Optional[SmoothingBand], slots: torch.Tensor, dt: float,
              *, generator: Optional[torch.Generator] = None,
-             is_anchor: Optional[torch.Tensor] = None, _inject=None):
+             is_anchor: Optional[torch.Tensor] = None, _inject=None,
+             x0: Optional[int] = None, m: Optional[torch.Tensor] = None):
     """One synchronous Δt step on the (…, K, L) slot field (JAX
     ``lattice_gas_k.py:57``).  Params are (B,) or scalar tensors; ``band``
     the local-m smoothing (``build_smoothing_band``), None for global m.
@@ -100,11 +112,17 @@ def lgk_step(config: ParticleConfig, params: ParticleParams,
     arithmetic (t2 = t1 + (r_dif + r_act)·Δt; kernel B3 adds r_dif·Δt and
     r_act·Δt — the two round alike at most rates, not at all).
 
+    Window form (``lattice_gas.lg_step``): with ``x0``, ``slots`` is a
+    window whose column 0 is the global site ``x0``; the walls and the
+    priorities' slot ids are the global ones, and ``m`` (B, 1) replaces
+    global m's ratio.
+
     Returns ``(slots_new, (acc_right_src, acc_left_src, flipped, new_k),
     exiting)``: movement and flip flags in the source layout, each slot's
     destination slot index (tracer tracking) and the per-slot exit mask."""
     K, L = config.K, config.L
-    assert slots.shape[-2:] == (K, L)
+    n = slots.shape[-1]
+    assert slots.shape[-2] == K and (x0 is not None or n == L)
     f32 = torch.float32
     dev = slots.device
     dt32 = torch.tensor(dt, dtype=f32, device=dev)
@@ -118,7 +136,8 @@ def lgk_step(config: ParticleConfig, params: ParticleParams,
     counts_m = is_minus.sum(-2).to(f32)
     occ_tot = counts_p + counts_m                       # (…, L)
 
-    m_field = band_m(counts_p - counts_m, occ_tot, band)[..., None, :]
+    m_field = (band_m(counts_p - counts_m, occ_tot, band) if m is None
+               else m)[..., None, :]
     flip_fn = config.flip_rate_fn or (lambda s, m, b: torch.exp(-b * s * m))
     c = torch.where(occupied, flip_fn(s_f, m_field, rate_col(params.beta, 2)),
                     0.0)
@@ -127,7 +146,8 @@ def lgk_step(config: ParticleConfig, params: ParticleParams,
     right_free = _roll(occ_tot, -1) < K
     left_free = _roll(occ_tot, 1) < K
     if not config.periodic:
-        idx = torch.arange(L, device=dev)
+        idx = (torch.arange(L, device=dev) if x0 is None else
+               window_sites(x0, n, L, dev))
         right_free = right_free & (idx < L - 1)
         left_free = left_free & (idx > 0)
     right_free = right_free[..., None, :]
@@ -178,7 +198,8 @@ def lgk_step(config: ParticleConfig, params: ParticleParams,
     if _inject is None:
         u = draws.rand(slots.shape, generator, dev, f32)
         prio = slot_priorities(draws.randint(
-            0, 2 ** 32, slots.shape, generator, dev, torch.int64))
+            0, 2 ** 32, slots.shape, generator, dev, torch.int64),
+            None if x0 is None else window_slot_ids(K, L, x0, n, dev))
     else:
         u, prio = _inject
     ev_left = u < t1
@@ -194,7 +215,13 @@ def lgk_step(config: ParticleConfig, params: ParticleParams,
     # candidates into site j: right-movers of j−1, left-movers of j+1;
     # admission = the free capacity's smallest priorities, K rounds of a
     # cross-slot min (unique priorities: the same as sort-and-threshold)
-    cand = torch.cat([_roll(right_prio, 1), _roll(left_prio, -1)], -2)
+    from_left, from_right = _roll(right_prio, 1), _roll(left_prio, -1)
+    if x0 is not None and not config.periodic:
+        # a window's rolls wrap its own ends: no candidate crosses a wall
+        # (on the full lattice the walls' own rates already see to it)
+        from_left = torch.where(idx > 0, from_left, EMPTY_PRIO)
+        from_right = torch.where(idx < L - 1, from_right, EMPTY_PRIO)
+    cand = torch.cat([from_left, from_right], -2)
     free = (K - occ_tot)[..., None, :]
     accept = torch.zeros_like(cand, dtype=torch.bool)
     for r in range(K):
@@ -226,7 +253,7 @@ def lgk_step(config: ParticleConfig, params: ParticleParams,
     nz = combined != 0
     nzb = nz.cumsum(-2) - nz.to(torch.int64)           # exclusive count
     dest = torch.where(nz, nzb, 3 * K)
-    packed = combined.new_zeros(combined.shape[:-2] + (3 * K + 1, L))
+    packed = combined.new_zeros(combined.shape[:-2] + (3 * K + 1, n))
     packed.scatter_(-2, dest, combined)
     slots_new = packed[..., :K, :]
 
@@ -318,7 +345,7 @@ def _slot_recorder(config: ParticleConfig, record_fft: bool, device):
     return rec
 
 
-class LgkRun:
+class LgkRun(SlotRun):
     """The fixed parts of one K-slot run (JAX ``lattice_gas_k.py:421``):
     the frame grid, the smoothing band and the recorder.  ``start`` draws
     the carry of frame 0 (slots, tracer sites, slots and windings, the
@@ -330,6 +357,8 @@ class LgkRun:
 
     route = "lgk_step"
     frames_type = LatticeGasFrames
+    field = "slots"
+    tracer_keys = ("site", "slot", "wind")
 
     def __init__(self, config: ParticleConfig, params_b: ParticleParams, *,
                  T: float, obs_dt: float, dt: float, record_fft: bool,
@@ -347,13 +376,6 @@ class LgkRun:
         self.rec = _slot_recorder(config, record_fft, self.device)
         self._draws = _draws
 
-    def for_rows(self, params_b: ParticleParams, device, b0: int
-                 ) -> "LgkRun":
-        """The same run over a block of the batch on ``device``
-        (``parallel.mesh.ShardedRun``); its draws are the generator's, so
-        ``b0`` is not used."""
-        return LgkRun(self.config, params_b, **self._kw, device=device)
-
     def start(self, seed: int, rho0_plus=None, rho0_minus=None,
               _slots0: Optional[torch.Tensor] = None) -> dict:
         B = self.params_b.beta.shape[0]
@@ -369,37 +391,29 @@ class LgkRun:
         return dict(slots=slots, site=site, slot=slot,
                     wind=torch.zeros_like(site), valid=valid, gen=gen)
 
-    def run_range(self, carry: dict, lo: int, hi: int):
-        config, L = self.config, self.config.L
-        slots, site, slot, wind, valid = (
-            carry[k] for k in ("slots", "site", "slot", "wind", "valid"))
-        gen, n_sub, B = carry["gen"], self.n_sub, slots.shape[0]
-        frames, tracks = [], []
-        if lo == 0:
-            frames.append(self.rec(slots))
-            tracks.append(tracer_record(site, wind, valid, L))
-        for f in range(max(lo, 1), hi):
-            for s in range(n_sub):
-                inject = (None if self._draws is None
-                          else self._draws.step((f - 1) * n_sub + s))
-                slots, (mr, ml, _, new_k), _ = lgk_step(
-                    config, self.params_b, self.band, slots, self.dt_eff,
-                    generator=gen, _inject=inject)
-                if self.n_t:
-                    flat = (slot * L + site).long()
-                    take = lambda a: a.reshape(B, -1).gather(1, flat)
-                    slot = take(new_k)
-                    site, wind = follow_tracers(site, wind, take(mr),
-                                                take(ml), L, config.periodic)
-            frames.append(self.rec(slots))
-            tracks.append(tracer_record(site, wind, valid, L))
-        return (stack_frames(frames, torch.stack(tracks, dim=1)),
-                dict(slots=slots, site=site, slot=slot, wind=wind,
-                     valid=valid, gen=gen))
+    def step(self, slots, params, band, gen, inject, x0=None, m=None):
+        slots, (mr, ml, _, new_k), _ = lgk_step(
+            self.config, params, band, slots, self.dt_eff, generator=gen,
+            _inject=inject, x0=x0, m=m)
+        return slots, (new_k, mr, ml)
 
     @staticmethod
-    def final(carry: dict) -> torch.Tensor:
-        return carry["slots"]
+    def tracer_index(tr: dict, col: torch.Tensor, n: int) -> torch.Tensor:
+        return tr["slot"].long() * n + col
+
+    def follow(self, tr: dict, vals) -> dict:
+        new_k, mr, ml = vals
+        site, wind = follow_tracers(tr["site"], tr["wind"], mr, ml,
+                                    self.config.L, self.config.periodic)
+        return dict(site=site, slot=new_k, wind=wind)
+
+    @staticmethod
+    def seg_sums(slots: torch.Tensor) -> torch.Tensor:
+        """(B, 2) int64 (Σσ, Σ|σ|) of a segment's slots (bound ±2 count
+        with their spin)."""
+        return torch.stack([torch.sign(slots).sum((-2, -1),
+                                                  dtype=torch.int64),
+                            (slots != 0).sum((-2, -1))], -1)
 
 
 def run_lattice_gas_k(config: ParticleConfig, params_b: ParticleParams, *,
@@ -417,19 +431,20 @@ def run_lattice_gas_k(config: ParticleConfig, params_b: ParticleParams, *,
     (the (N, β) double sweep).  All draws come from one generator seeded
     with ``seed``: the initial field, the tracer keys, then each step's.
     The run is one ``LgkRun.run_range`` over every frame; ``mesh=`` and
-    ``occ_sharding=`` as in ``run_lattice_gas``.
+    ``occ_sharding=`` (here ``space_sharding(mesh, slots=True)`` or
+    ``grid_sharding(mesh, slots=True)``) as in ``run_lattice_gas``.
 
     Test-only: ``_slots0`` replaces the initial field and ``_draws`` the
     draws (``tracer_bits(shape)`` and ``step(i)`` → ``_inject`` of global
     step i)."""
-    from hydrolim_tpu_torch.parallel.mesh import shard_run
+    from hydrolim_tpu_torch.parallel.spatial import sharded_run
 
-    check_occ_sharding(occ_sharding)
     run = LgkRun(config, params_b, T=T, obs_dt=obs_dt, dt=dt,
                  record_fft=record_fft, n_tracers=n_tracers, device=device,
                  _draws=_draws)
     carry = run.start(seed, rho0_plus, rho0_minus, _slots0)
-    frames, carry = shard_run(mesh, run, params_b).run_range(
+    frames, carry = sharded_run(run, params_b, mesh=mesh,
+                                occ_sharding=occ_sharding).run_range(
         carry, 0, run.n_frames)
     return frames, run.final(carry)
 

@@ -106,10 +106,11 @@ def magnetization(config: PDEConfig, ops: PDEOps, rho_p, rho_m):
                              kernel_sigma=config.kernel_sigma)
 
 
-def pde_step(config: PDEConfig, params: PDEParams, ops: PDEOps,
-             rho_p: torch.Tensor, rho_m: torch.Tensor, m=None):
-    """One IMEX step.  ``m`` is the magnetization of the pre-step
-    densities (computed if not given)."""
+def pde_update(config: PDEConfig, params: PDEParams, ops: PDEOps,
+               rho_p: torch.Tensor, rho_m: torch.Tensor, m=None):
+    """The IMEX step before its mass renormalization: ``(rho_p1, rho_m1,
+    rho_p2, rho_m2)``, the fields after the implicit diffusion and after
+    advection, reaction and the positivity clip."""
     dt, dx, bc = config.dt, config.dx, config.bc
     if m is None:
         m = magnetization(config, ops, rho_p, rho_m)
@@ -129,12 +130,36 @@ def pde_step(config: PDEConfig, params: PDEParams, ops: PDEOps,
         rho_m2 = torch.clamp(rho_m1 - dt * R_p, min=0.0)
         adv_p = -lam * upwind_derivative(rho_p_star, +1, dx, bc)
         rho_p2 = torch.clamp(rho_p_star + dt * adv_p, min=0.0)
+    return rho_p1, rho_m1, rho_p2, rho_m2
 
+
+def pde_step(config: PDEConfig, params: PDEParams, ops: PDEOps,
+             rho_p: torch.Tensor, rho_m: torch.Tensor, m=None):
+    """One IMEX step.  ``m`` is the magnetization of the pre-step
+    densities (computed if not given)."""
+    rho_p1, rho_m1, rho_p2, rho_m2 = pde_update(config, params, ops, rho_p,
+                                                rho_m, m)
     # mass renormalization against the post-diffusion mass
     M0 = (rho_p1 + rho_m1).sum(-1, keepdim=True)
     M1 = (rho_p2 + rho_m2).sum(-1, keepdim=True)
     scale = M0 / torch.clamp(M1, min=1e-30)
     return rho_p2 * scale, rho_m2 * scale
+
+
+def pde_halo(config: PDEConfig, ops: PDEOps) -> int:
+    """Halo columns a window of the PDE step needs on each side: the
+    banded solve's radius, plus 1 for the upwind difference.  A 'space'
+    split runs periodic fields with pointwise m and the banded or no
+    solve, as the JAX package's large-lattice driver does (a dense solve
+    couples every site to every other)."""
+    if (config.bc != "periodic" or config.gaussian_kernel
+            or ops.kind not in ("banded", "identity")):
+        raise ValueError(
+            "a 'space'-split PDE step takes periodic fields, pointwise m "
+            f"and the banded or no solve (got bc={config.bc!r}, "
+            f"gaussian_kernel={config.gaussian_kernel}, solve {ops.kind!r})")
+    r = 0 if ops.kind == "identity" else (ops.banded_w.shape[0] - 1) // 2
+    return r + 1
 
 
 # ---------------------------------------------------------------------------

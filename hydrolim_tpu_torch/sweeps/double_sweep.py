@@ -17,7 +17,7 @@ the general τ-leap step, no positions recorded), on kernel B3/B4
 ``run_lattice_gas_k``): N enters only through the per-replica Poisson
 profiles, so one (B, L) batch of ``chunk_size`` replicas per call holds
 any N.  ``ckpt_dir=`` keeps the JAX package's chunk ledger; ``n_devices=``
-is not ported yet (``core/scope.py`` names its ROADMAP.md item).
+splits each chunk's batch over a sweep mesh (``parallel.mesh``).
 """
 from __future__ import annotations
 

@@ -18,8 +18,8 @@ the device:
 The structure observables need no particle identity, so the slot routes
 tag no tracers.  ``ckpt_dir=`` checkpoints the ``'particle'`` and
 ``'lattice_gas'`` routes (``utils/checkpoint.py``); ``'pallas'`` refuses it,
-as in the JAX package.  ``n_devices=`` is not ported yet (``core/scope.py``
-names its ROADMAP.md item).
+as in the JAX package.  ``n_devices=`` splits the batch over a sweep mesh
+(``parallel.mesh``).
 """
 from __future__ import annotations
 

@@ -11,7 +11,8 @@ figures (:1077-1275) are drawn where matplotlib is installed.
 in the JAX package) runs each σ on the general τ-leap step,
 ``'lattice_gas'`` on the plain-torch slot engines, the fused names on
 kernel B3/B4.  ``ckpt_dir=`` checkpoints each σ's grid in its own
-subdirectory; ``n_devices=`` is not ported yet (ROADMAP.md §A).
+subdirectory; ``n_devices=`` splits each σ's batch over a sweep mesh
+(``parallel.mesh``).
 """
 from __future__ import annotations
 

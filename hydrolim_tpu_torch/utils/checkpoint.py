@@ -54,7 +54,8 @@ import torch
 from hydrolim_tpu_torch.core.config import ParticleConfig, ParticleParams
 from hydrolim_tpu_torch.parallel.distributed import is_primary, process_count
 from hydrolim_tpu_torch.parallel.mesh import shard_run
-from hydrolim_tpu_torch.particles.lattice_gas import LgRun, check_occ_sharding
+from hydrolim_tpu_torch.parallel.spatial import sharded_run
+from hydrolim_tpu_torch.particles.lattice_gas import LgRun
 from hydrolim_tpu_torch.particles.lattice_gas_k import LgkRun
 from hydrolim_tpu_torch.particles.run import (
     ParticleFrames,
@@ -503,10 +504,12 @@ def run_particle_ensemble_checkpointed(
 def _slot_chunked(run, tag: str, config, params_b, *, T, obs_dt, dt,
                   ckpt_dir, chunk_frames, seed, rho0_plus, rho0_minus,
                   record_fft, n_tracers, resume, stop_after_chunks, _init0,
-                  _draws, mesh=None):
+                  _draws, mesh=None, occ_sharding=None):
     """Shared checkpoint driver of the slot engines (the JAX package's
     ``_run_lg_family_checkpointed``): ``run`` is the engine's range runner
-    (``LgRun`` or ``LgkRun``); ``_init0`` the test-only initial field."""
+    (``LgRun`` or ``LgkRun``); ``_init0`` the test-only initial field.
+    Neither ``mesh`` nor ``occ_sharding`` is hashed: the carry on disk is
+    the one-device run's."""
     if run.n_frames < 1:
         raise ValueError("T <= 0: nothing to checkpoint")
     run_hash = config_hash({
@@ -523,7 +526,8 @@ def _slot_chunked(run, tag: str, config, params_b, *, T, obs_dt, dt,
         unit_key="n_frames", resume=resume,
         stop_after_chunks=stop_after_chunks, device=run.device,
         start=lambda: run.start(seed, rho0_plus, rho0_minus, _init0),
-        run_range=_named(shard_run(mesh, run, params_b).run_range))
+        run_range=_named(sharded_run(run, params_b, mesh=mesh,
+                                     occ_sharding=occ_sharding).run_range))
     if out is None:
         return None
     records, carry = out
@@ -547,8 +551,8 @@ def run_lattice_gas_k_checkpointed(
     tracer sites/slots/windings, the phantom-tag mask, the generator's
     state); the stitched result is bit-identical to the unsplit run.
     ``mesh=`` and ``occ_sharding=`` as in ``run_lattice_gas_k``; the carry
-    on disk is the one-device run's, so a resume may use another mesh."""
-    check_occ_sharding(occ_sharding)
+    on disk is the one-device run's, so a run stopped on a mesh or a
+    lattice split resumes on another, or on none, bit for bit."""
     run = LgkRun(config, params_b, T=T, obs_dt=obs_dt, dt=dt,
                  record_fft=record_fft, n_tracers=n_tracers, device=device,
                  _draws=_draws)
@@ -558,7 +562,7 @@ def run_lattice_gas_k_checkpointed(
         rho0_plus=rho0_plus, rho0_minus=rho0_minus, record_fft=record_fft,
         n_tracers=n_tracers, resume=resume,
         stop_after_chunks=stop_after_chunks, _init0=_slots0, _draws=_draws,
-        mesh=mesh)
+        mesh=mesh, occ_sharding=occ_sharding)
 
 
 def run_lattice_gas_checkpointed(
@@ -571,7 +575,6 @@ def run_lattice_gas_checkpointed(
     """Checkpointed equivalent of the K=1 engine
     :func:`hydrolim_tpu_torch.particles.lattice_gas.run_lattice_gas` —
     same contract and bit-identity guarantee as the K-slot variant."""
-    check_occ_sharding(occ_sharding)
     run = LgRun(config, params_b, T=T, obs_dt=obs_dt, dt=dt,
                 record_fft=record_fft, n_tracers=n_tracers, device=device,
                 _draws=_draws)
@@ -581,7 +584,7 @@ def run_lattice_gas_checkpointed(
         rho0_plus=rho0_plus, rho0_minus=rho0_minus, record_fft=record_fft,
         n_tracers=n_tracers, resume=resume,
         stop_after_chunks=stop_after_chunks, _init0=_occ0, _draws=_draws,
-        mesh=mesh)
+        mesh=mesh, occ_sharding=occ_sharding)
 
 
 # ---------------------------------------------------------------------------

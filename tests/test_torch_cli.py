@@ -43,16 +43,19 @@ def test_every_command_help_exits_0(cmd, monkeypatch, capsys):
         assert "--device" in out            # runs on the card by default
 
 
-def test_large_lattice_names_the_parallelism_item(monkeypatch):
-    """``large-lattice`` runs on one device; ``--n-devices`` > 1 and
-    ``--grid`` split the lattice axis and raise naming ROADMAP.md's
-    lattice-sharding item."""
+def test_large_lattice_names_the_parallelism_item(monkeypatch, tmp_path):
+    """``large-lattice --n-devices 2`` and ``--grid`` split the lattice
+    axis over devices the host must have: the CPU is one device, and the
+    port fakes none, so both raise ``ValueError`` naming the counts
+    before anything is written (the sharded halves on repeated devices:
+    ``tests/test_torch_spatial.py``)."""
     monkeypatch.setattr(sys, "argv", list(sys.argv))
     for extra in (["--n-devices", "2"], ["--grid"]):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md §A item 1, lattice-axis"):
+        with pytest.raises(ValueError, match="n_devices=2 but this host "
+                                             "has 1 cpu device"):
             launcher.main(["large-lattice", "--small", "--device", "cpu",
-                           *extra])
+                           "--outdir", str(tmp_path), *extra])
+    assert not (tmp_path / "wall_time.json").exists()
 
 
 def _jax_flags(module: str) -> list:

@@ -972,3 +972,51 @@ def test_b2_rows_at_b0_equal_the_whole_launch(dev):
     for a, b in zip(part, whole):       # the records hold NaN v/D at first
         torch.testing.assert_close(a, b[rows], rtol=0, atol=0,
                                    equal_nan=True)
+
+
+# ---------------------------------------------------------------------------
+# the lattice over a 'space' mesh of four segments of the one card
+# ---------------------------------------------------------------------------
+
+FOUR = ["cuda:0"] * 4
+
+
+@pytest.mark.parametrize("engine", ["lg", "lgk", "grid"])
+def test_lattice_sharding_on_the_card_equals_one_device(dev, engine):
+    """``run_lattice_gas`` (K=1) and ``run_lattice_gas_k`` (K=3, local m,
+    walls) with the lattice over ``space_mesh(devices=["cuda:0"] * 4)``,
+    and both on a (2, 2) ``grid_mesh``, equal the one-device run bit for
+    bit on the card: every frame field and the final field."""
+    from hydrolim_tpu_torch.parallel.spatial import (
+        grid_mesh,
+        grid_sharding,
+        space_mesh,
+        space_sharding,
+    )
+    from hydrolim_tpu_torch.particles.lattice_gas import run_lattice_gas
+    from hydrolim_tpu_torch.particles.lattice_gas_k import run_lattice_gas_k
+    from hydrolim_tpu_torch.sweeps.ensemble import broadcast_params
+
+    k1 = ParticleConfig(L=1000, N=500, init="fixed", scale_rates=False,
+                        local_kernel_sigma=0.0, periodic=True,
+                        site_capacity=1, active_model="bidirectional")
+    k3 = ParticleConfig(L=1000, N=750, init="fixed", scale_rates=False,
+                        local_kernel_sigma=0.002, periodic=False,
+                        site_capacity=3)
+    kw = dict(T=0.3, obs_dt=0.1, dt=0.005, seed=1, device=dev, n_tracers=16)
+    runs = []
+    for cfg, run in ((k1, run_lattice_gas), (k3, run_lattice_gas_k)):
+        slots = cfg.K > 1
+        if engine == "grid":
+            sh = grid_sharding(grid_mesh(2, 2, devices=FOUR), slots=slots)
+        elif (engine == "lgk") != slots:
+            continue
+        else:
+            sh = space_sharding(space_mesh(devices=FOUR), slots=slots)
+        p = broadcast_params(cfg, beta=np.linspace(0.5, 2.5, 5),
+                             rate_diffusion=1.0, rate_active=3.0, device=dev)
+        runs.append((run(cfg, p, **kw), run(cfg, p, occ_sharding=sh, **kw)))
+    for (fa, oa), (fb, ob) in runs:
+        assert torch.equal(oa, ob)
+        for name in fa._fields:
+            assert torch.equal(getattr(fa, name), getattr(fb, name)), name

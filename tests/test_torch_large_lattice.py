@@ -11,8 +11,9 @@ CPU, against the JAX package's ``experiments/run_large_lattice.py``.
   same ρ₀, at the driver's --small grid.  The tolerance is the JAX
   package's own spread, measured here: the same run with its exact ('fft')
   solve in place of the banded one.
-- ``--n-devices 2`` and ``--grid`` split the lattice axis: they raise
-  ``not_ported`` naming ROADMAP.md's lattice-sharding item.
+- The driver's halves with the lattice split over a 'space' mesh, and
+  ``--n-devices``/``--grid`` past the host's devices, are held in
+  ``tests/test_torch_spatial.py``.
 """
 import json
 import sys
@@ -109,12 +110,3 @@ def test_pde_half_agrees_with_the_jax_driver(bi):
     assert np.abs(m_p - m_j).max() <= spread_m
     assert np.abs(rho_p - rho_j).max() <= spread_rho
     np.testing.assert_allclose(mass_p, mass_j, rtol=1e-5)
-
-
-@pytest.mark.parametrize("extra", [["--n-devices", "2"], ["--grid"]])
-def test_splitting_the_lattice_axis_is_not_ported(extra, tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md §A item 1, lattice-axis halo"):
-        launcher.main(["large-lattice", "--small", "--device", "cpu",
-                       "--outdir", str(tmp_path), *extra])
-    assert not (tmp_path / "wall_time.json").exists()

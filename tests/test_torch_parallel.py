@@ -5,8 +5,8 @@ on the CPU.
   same inputs: ``_factor2`` and ``make_mesh``'s shape, ``pad_batch``
   (non-batch leaves untouched), ``pad_and_shard`` → ``gather_batch``,
   ``resolve_sweep_mesh``'s precedence; and what the port refuses: more
-  ``n_devices`` than the host has (no virtual-device fallback), a mesh
-  whose second axis splits the particle axis.
+  ``n_devices`` than the host has (no virtual-device fallback).  The
+  'part' and 'space' axes are held in ``tests/test_torch_spatial.py``.
 - Every route of a range runner split over ``devices=["cpu"] * 8`` (B=6
   padded to 8, one row a block) against the port's one-device run, as
   ``tests/test_parallel.py`` holds the JAX package: bit for bit on every
@@ -27,8 +27,9 @@ on the CPU.
   default mesh gives each process its own device; on a host with cards
   each process of a multi-process run gets its own card.
 - The signature test (fault C6): every public JAX entry point outside
-  ``parallel/`` that takes ``n_devices`` or ``mesh`` has its port taking
-  the same.
+  ``parallel/`` that takes ``n_devices``, ``mesh`` or ``occ_sharding``
+  has its port taking the same, and so does every public function of
+  ``parallel/spatial.py``.
 """
 import ast
 import hashlib
@@ -167,24 +168,6 @@ def test_n_devices_past_the_host_raises():
         pm.resolve_sweep_mesh(None, 2, device=CPU)
     with pytest.raises(ValueError, match="need 9 devices, have 8"):
         pm.sweep_mesh(9, devices=EIGHT)
-
-
-def test_a_mesh_that_splits_the_particle_axis_is_not_ported():
-    from hydrolim_tpu_torch.sweeps.beta_sweep import run_sweep_grid
-
-    ps, rk = _sweep_kwargs()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A item 1"):
-        run_sweep_grid([1.0], 2, ps, None, rk, mesh=pm.make_mesh(
-            devices=EIGHT), device=CPU)
-    with pytest.raises(NotImplementedError, match="halo sharding"):
-        pm.shard_particle_state(pm.make_mesh(devices=EIGHT), None)
-    p = broadcast_params(ParticleConfig(L=64, N=40, site_capacity=1,
-                                        init="fixed"), beta=[1.0],
-                         rate_diffusion=0.5, rate_active=2.0, device=CPU)
-    with pytest.raises(NotImplementedError, match="occ_sharding"):
-        run_lattice_gas(ParticleConfig(L=64, N=40, site_capacity=1,
-                                       init="fixed"), p, occ_sharding=object(),
-                        device=CPU, **RUN)
 
 
 # ---------------------------------------------------------------------------
@@ -596,11 +579,22 @@ def _entry_points(root: Path, names) -> dict:
     return out
 
 
+def _public_functions(path: Path) -> dict:
+    """{name: argument names} of a module's public functions."""
+    return {node.name: [a.arg for a in node.args.args
+                        + node.args.kwonlyargs]
+            for node in ast.parse(path.read_text()).body
+            if isinstance(node, ast.FunctionDef)
+            and not node.name.startswith("_")}
+
+
 def test_every_jax_n_devices_and_mesh_entry_point_has_its_port():
     """Each public JAX function outside ``parallel/`` taking ``n_devices``,
     ``mesh`` or ``occ_sharding`` has a port at the same path taking the
-    same; the mesh helpers of ``parallel/mesh.py`` are held above, and
-    ``parallel/spatial.py`` is the lattice-sharding item."""
+    same; every public function of ``parallel/spatial.py`` has its port
+    with the same argument names; the mesh helpers of ``parallel/mesh.py``
+    are held above.  No item of the scope table is left, and no
+    ``not_ported`` call."""
     from hydrolim_tpu_torch.core.scope import ROADMAP_ITEMS
 
     names = ("n_devices", "mesh", "occ_sharding")
@@ -612,6 +606,18 @@ def test_every_jax_n_devices_and_mesh_entry_point_has_its_port():
         for a in names:
             if a in args:
                 assert a in port_eps[key], (key, a)
+    jax_sp = _public_functions(REPO / "hydrolim_tpu/parallel/spatial.py")
+    port_sp = _public_functions(REPO / "hydrolim_tpu_torch/parallel/"
+                                "spatial.py")
+    assert sorted(jax_sp) == ["grid_mesh", "grid_sharding", "space_mesh",
+                              "space_sharding"]
+    for name, args in jax_sp.items():
+        assert port_sp.get(name) == args, name
     assert "parallelism" not in ROADMAP_ITEMS
+    assert "lattice sharding" not in ROADMAP_ITEMS
     for path in (REPO / "hydrolim_tpu_torch").rglob("*.py"):
-        assert '"parallelism")' not in path.read_text(), path
+        text = path.read_text()
+        assert '"parallelism")' not in text, path
+        assert '"lattice sharding")' not in text, path
+        if path.name != "scope.py":
+            assert "not_ported(" not in text, path
