@@ -4,8 +4,8 @@
 Phases (each prints one line with its wall time; a failed phase raises):
 
 1. device: a CUDA card, its name and power limit (nvidia-smi), versions;
-2. build: the three CUDA kernels from ``hydrolim_tpu_torch/csrc``, one
-   nvcc process each, all started together;
+2. build: the four CUDA kernels from ``hydrolim_tpu_torch/csrc`` (B1, B2's
+   step and its spectra, B3), one nvcc process each, all started together;
 3. kernel B1 against its plain PyTorch version on the card, injected bits,
    under its own plan and under every cluster size and state mode its
    launch plan can reach (``B1_PLANS``: registers, shared memory, device
@@ -16,20 +16,27 @@ Phases (each prints one line with its wall time; a failed phase raises):
    in every mode (``B2_CASES``: global / pointwise / narrow / smooth m,
    periodic / Neumann, bidirectional / anchored_minus, exact / banded /
    no solve, L=8192, the facade's 501 spectral bins, an odd n_t and an
-   odd L);
+   odd L), every call's bins on the spectra kernel; the same calls with
+   their density scratch cut into pieces equal to them; the spectra
+   kernel alone against its plain version at 501 bins;
 5. the micro↔macro main path at full size (the cross-engine driver on
    ``device='cuda'``, native Philox streams) with its physics pins, and the
    proof that it ran through B1 and B2 (launch counters);
 6. throughput of B1 at the main path's and the headline shapes (with the
    plan's cluster size and state mode) and of B2 at the main path's shape,
-   kernel and plain version, and B2's µs per step in each mode at the PDE
-   slice's shapes with its bound;
+   kernel and plain version, B2's µs per step in each mode at the PDE
+   slice's shapes with its bound (every row's bins on the spectra kernel;
+   ``torch.fft.rfft`` of the density rows as the library yardstick), and
+   the spectra kernel at the single run's shape;
 7. kernel B3/B4 against its plain version on the card, injected bits, in
    four configurations at 4 and 33 replicas and L = 1000 and 999, under
    the launch plan and under every cluster size it allows, at L=8192
-   (K=3, past one block's shared memory) and on the dense reflect and
-   periodic bands (every row reads all L sites): slots equal, state moved,
-   admission refused somewhere, ids conserved, occupancy ≤ K;
+   (K=3, past one block's shared memory) and on the three wide bands (the
+   dense reflect and periodic bands, every row reading all L sites, and
+   σ=0.1's 801 taps; the plan's C > 1 on the exchanged count field):
+   slots equal, state moved, admission refused somewhere, ids conserved,
+   occupancy ≤ K; native Philox at the wide bands' driver shapes, the
+   plan's C equal to C=1;
 8. the exclusion β-sweep at full size (``sweep_over_betas`` on
    ``device='cuda'``, native Philox) in the reference configuration and at
    the flagship capacity, with its checks, where its wall time went, the
@@ -37,11 +44,15 @@ Phases (each prints one line with its wall time; a failed phase raises):
    per configuration);
 9. throughput of B3/B4 at the JAX bench's flagship shape and at the
    sweep's 33 replicas: the plan it takes, the kernel (and per forced
-   cluster size, C = 1…8), the plain version and the bound;
+   cluster size, C = 1…8), the plain version and the bound; and the three
+   wide bands at their drivers' shapes under the plan and at C=1, with
+   ``torch.matmul`` of the (cnt, occ) fields by the dense band as the
+   yardstick for m;
 10. the PDE slice at full size on ``device='cuda'``: the magn2 kernel-σ
     sweep, the single run through the ``IMEXPDE`` facade and the (β × σ)
-    phase diagram, with their pins, B2's launches on each and the kernel's
-    device time against each driver's wall time;
+    phase diagram, with their pins, B2's and the spectra kernel's
+    launches on each and the kernels' device time against each driver's
+    wall time;
 11. ``ParticleSystem``: the reference's flagship single run on
     ``engine='pallas'`` (B3/B4; its out-dict keys, ids conserved,
     occupancy ≤ K), a mean-field run on B1 and one with walls on the torch
@@ -142,6 +153,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -173,6 +185,25 @@ def cuda_ms(fn, reps: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_device_ms(fn, reps: int = 20):
+    """Mean device time per call of ``fn()`` in ms, the summed time of the
+    card's kernels under ``torch.profiler`` over ``reps`` calls: without
+    the host's gaps between short calls, which events around the calls
+    count.  None where the profiler records no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None
+    return sum(e.device_time_total for e in kernels) / reps / 1e3
+
+
 def randbits(shape, gen, dev):
     """Uniform uint32 bits held in int32."""
     import torch
@@ -189,6 +220,14 @@ def randbits(shape, gen, dev):
 # the work depends on the data, from this run's inputs.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+
+
+def spectra_ops(rows: int, L: int, kmax: int) -> float:
+    """The fewest operations for the first kmax rfft bins of ``rows`` real
+    rows of L: the direct sum (2·L·2·kmax, an FMA being two) or a real
+    FFT's 5/2·L·log2 L (half the radix-2 count of a complex FFT),
+    whichever is smaller."""
+    return rows * min(4.0 * L * kmax, 2.5 * L * math.log2(L))
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -481,23 +520,35 @@ def b2_kwargs(config, ops) -> dict:
                 kmax_rec=config.kmax)
 
 
-def check_b2(dev) -> float:
+def check_b2(dev) -> tuple:
     """Every mode of B2 (``B2_CASES``) against its plain version on the
     card: injected bits, β spread over the replicas, two chained 150-step
     calls.  Tolerances of the JAX package's kernel-logic test: fields rtol
     2e-4 / atol 1e-7, tracers and ring rtol 1e-4 / atol 1e-5, spins equal,
     v and D rtol 5e-4 / atol 1e-6 with the NaN prefix; records: m atol
     1e-5, Var rtol 1e-3, spectra rtol 1e-4 / atol 1e-8.  Each check prints
-    its max error and its share of the tolerance.  Returns the max abs
-    field difference."""
+    its max error and its share of the tolerance.  Every call's spectra
+    take the spectra kernel (one launch per call), and the same calls with
+    the density scratch cut into pieces of 40 steps (4 launches of each
+    kernel a call) must EQUAL them, state and records.  For the 501-bin
+    case, the spectra kernel alone against ``pde_spectra_plain`` on (1,
+    150, L) rows of its initial density with 1% uniform noise: rtol 1e-4,
+    atol 1e-6 (the noise's bins are sums of L terms of size ~1, rounded in
+    another order than cuBLAS's; √L·2⁻²⁴·1.5/L·L ≈ 3e-6 is float32's
+    typical error of such a sum).  Returns the max abs field difference
+    and the spectra kernel's max abs difference."""
     import torch
+    from hydrolim_tpu_torch.ops import pde_kernel
     from hydrolim_tpu_torch.ops.pde_kernel import (
         pde_multi_step,
         pde_multi_step_plain,
+        pde_spectra,
+        pde_spectra_plain,
     )
 
-    k = 150
-    err = 0.0
+    k, piece = 150, 40
+    err = spectra_err = 0.0
+    budget = pde_kernel.SPECTRA_SCRATCH_BYTES
     for what, modes, over, shape in B2_CASES:
         gen = torch.Generator(device=dev)
         gen.manual_seed(2)
@@ -507,8 +558,9 @@ def check_b2(dev) -> float:
         B, n_t, W = scal.shape[0], config.n_tracers, config.tracer_window
         seeds = torch.zeros(B, dtype=torch.int32, device=dev)
         noise = randbits((B, 2 * k, 3, n_t), gen, dev)
-        start, sp = list(sk), list(sk)
-        rk, rpl = [], []
+        start, sp, ss = list(sk), list(sk), list(sk)
+        rk, rpl, rst = [], [], []
+        n0, m0 = pde_spectra.launches, pde_multi_step.launches
         for c in range(2):
             kw = dict(b2_kwargs(config, ops), k_steps=k,
                       noise=noise[:, c * k:(c + 1) * k].contiguous())
@@ -516,10 +568,46 @@ def check_b2(dev) -> float:
                                      ops[2], **kw)
             *sp, r2 = pde_multi_step_plain(scal, seeds, c * k, *sp, ops[3],
                                            ops[2], **kw)
+            pde_kernel.SPECTRA_SCRATCH_BYTES = 4 * B * piece * config.L
+            try:
+                *ss, r3 = pde_multi_step(scal, seeds, c * k, *ss, ops[3],
+                                         ops[2], **kw)
+            finally:
+                pde_kernel.SPECTRA_SCRATCH_BYTES = budget
             rk.append(r1)
             rpl.append(r2)
+            rst.append(r3)
         torch.cuda.synchronize()
+        cuts = -(-k // piece)
+        if (pde_spectra.launches - n0, pde_multi_step.launches - m0) != (
+                2 + 2 * cuts, 2 + 2 * cuts):
+            raise AssertionError(
+                f"B2 {what}: {pde_multi_step.launches - m0} step and "
+                f"{pde_spectra.launches - n0} spectra launches, want "
+                f"{2 + 2 * cuts} of each")
         rk, rpl = torch.cat(rk, 1), torch.cat(rpl, 1)
+        torch.testing.assert_close(torch.cat(rst, 1), rk, rtol=0, atol=0,
+                                   equal_nan=True)
+        for a_, b_ in zip(ss, sk):
+            if not torch.equal(a_, b_):
+                raise AssertionError(f"B2 {what}: the state differs when "
+                                     "the scratch is cut into pieces")
+        print(f"B2 {what}: the calls cut into pieces of {piece} steps "
+              f"({cuts} launches of each kernel a call) EQUAL the calls in "
+              "one launch", flush=True)
+        if config.kmax > 100:
+            dens = (start[0] + start[1])[:, None, :] * (1.0 + 0.01 * (
+                torch.rand((B, k, config.L), generator=gen, device=dev)
+                - 0.5))
+            recs = torch.zeros((B, k, 4 + 2 * config.kmax), device=dev)
+            pde_spectra(dens, recs, config.kmax)
+            spectra_err, share = held(
+                f"B2 {what}: spectra kernel", recs[..., 4:],
+                pde_spectra_plain(dens, config.kmax), 1e-4, 1e-6)
+            print(f"B2 spectra kernel (rows {B * k}, L {config.L}, "
+                  f"{config.kmax} bins) vs pde_spectra_plain: max abs "
+                  f"{spectra_err:.2e} ({share:.3f} of the tolerance)",
+                  flush=True)
         what = f"B2 {what}"
         res = {}
         for name, i, rtol, atol in (("rho_p", 0, 2e-4, 1e-7),
@@ -547,7 +635,7 @@ def check_b2(dev) -> float:
                   f"{n} {e:.2e} ({s:.3f})" for n, (e, s) in res.items()),
               flush=True)
         err = max(err, res["rho_p"][0], res["rho_m"][0])
-    return err
+    return err, spectra_err
 
 
 # ---------------------------------------------------------------------------
@@ -556,14 +644,15 @@ def check_b2(dev) -> float:
 
 def main_path(outdir: str) -> dict:
     from hydrolim_tpu_torch.experiments import cross_engine_validation as cev
-    from hydrolim_tpu_torch.ops.pde_kernel import pde_multi_step
+    from hydrolim_tpu_torch.ops.pde_kernel import pde_multi_step, pde_spectra
     from hydrolim_tpu_torch.ops.stepper_kernel import meanfield_multi_step
 
     meanfield_multi_step.launches = 0
-    pde_multi_step.launches = 0
+    pde_multi_step.launches = pde_spectra.launches = 0
     res = cev.main(small=False, outdir=outdir, device="cuda")
     launches = {"meanfield_multi_step": meanfield_multi_step.launches,
-                "pde_multi_step": pde_multi_step.launches}
+                "pde_multi_step": pde_multi_step.launches,
+                "pde_spectra": pde_spectra.launches}
     print("main-path launches:", launches, flush=True)
     for name, n in launches.items():
         if n <= 0:
@@ -719,7 +808,55 @@ def throughput(dev) -> dict:
           f"{B * k / (plain_ms / 1e3):.4e} replica-steps/s "
           f"({plain_ms:.1f} ms)", flush=True)
     out["pde_multi_step"]["per_mode"] = throughput_b2_modes(dev, gen)
+    out["pde_spectra"] = throughput_spectra(dev, gen)
     return out
+
+
+def throughput_spectra(dev, gen) -> dict:
+    """The spectra kernel at the ``IMEXPDE`` single run's shape: one
+    call's (1, 50, L=1000) density rows, 501 bins (CUDA events over 20
+    calls after a warm-up), its plain version, the library yardstick
+    ``torch.fft.rfft`` over the same rows (the port never calls it), and
+    its bound: the rows, the trig table and the bins moved once, and the
+    fewest operations for the bins (``spectra_ops``: at 501 bins a real
+    FFT's).  The events around such short calls count the host's gaps
+    between them, so ``ms`` and ``library_ms`` are the kernels' own
+    device time (``kernel_device_ms``), where the profiler records it, and
+    ``call_ms``, ``library_call_ms`` the events' time per call."""
+    import torch
+    from hydrolim_tpu_torch.ops.pde_kernel import (
+        pde_spectra,
+        pde_spectra_plain,
+    )
+
+    B, k, L, kmax = 1, 50, 1000, 501
+    dens = 0.5 + torch.rand((B, k, L), generator=gen, device=dev)
+    recs = torch.zeros((B, k, 4 + 2 * kmax), device=dev)
+    pde_spectra(dens, recs, kmax)
+    call_ms = cuda_ms(lambda: pde_spectra(dens, recs, kmax), reps=20)
+    dev_ms = kernel_device_ms(lambda: pde_spectra(dens, recs, kmax))
+    pde_spectra_plain(dens, kmax)
+    plain_ms = cuda_ms(lambda: pde_spectra_plain(dens, kmax), reps=20)
+    torch.fft.rfft(dens, dim=-1)
+    lib_call_ms = cuda_ms(lambda: torch.fft.rfft(dens, dim=-1), reps=20)
+    lib_dev_ms = kernel_device_ms(lambda: torch.fft.rfft(dens, dim=-1))
+    b = bound(4 * (B * k * L + 2 * L + B * k * 2 * kmax),
+              spectra_ops(B * k, L, kmax))
+    ms = call_ms if dev_ms is None else dev_ms
+    b["library_ms"] = lib_call_ms if lib_dev_ms is None else lib_dev_ms
+
+    def us(t):
+        return "not measured" if t is None else f"{t * 1e3:.2f} us"
+
+    print(f"B2 spectra kernel ({B * k} rows, L={L}, {kmax} bins): "
+          f"{us(dev_ms)} of device time a call (torch.profiler), "
+          f"{call_ms * 1e3:.2f} us a call (events around 20 calls); bound "
+          f"{b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}); plain "
+          f"{plain_ms * 1e3:.1f} us; torch.fft.rfft {us(lib_dev_ms)} of "
+          f"device time, {lib_call_ms * 1e3:.2f} us a call", flush=True)
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                library_call_ms=lib_call_ms,
+                shape=dict(B=B, k=k, L=L, kmax=kmax), **b)
 
 
 # B2's step time per mode at the PDE slice's shapes: (label, PDEConfig
@@ -741,6 +878,7 @@ def _b2_rate_rows():
     rows.append(("pointwise, banded, L=8192, B=4, n_t=64",
                  dict(diffusion_solver="banded"),
                  dict(L=8192, B=4, n_t=64, W=20, dt=2e-7), 2000))
+    # the single run's step, its 501 bins on the spectra kernel
     rows.append(("the single run: narrow sigma=0.005, none, kmax 501, B=1",
                  dict(gaussian_kernel=True, kernel_sigma=0.005),
                  dict(B=1, gamma=0.0, kmax=501), 50))
@@ -751,13 +889,13 @@ def b2_step_bound(config, ops, B: int, k: int) -> dict:
     """Bytes: the fields, tracers and ring in and out, the records out.
     Operations per replica-step (an FMA is two): ~30 per site (m, upwind
     advection, CW reaction, tridiagonal solve, clip, renormalisation), ~24
-    per tracer, 4 per site and spectral bin, and the taps: 4·(2r+1) per
-    site for the narrow smoothing and the banded solve, 4·L per site
-    (2·L² FMAs) for the full circulant."""
+    per tracer, the spectra's fewest (``spectra_ops``), and the taps:
+    4·(2r+1) per site for the narrow smoothing and the banded solve, 4·L
+    per site (2·L² FMAs) for the full circulant."""
     m_mode, solve_mode, smooth, solve = ops
     L, n_t, W, kmax = (config.L, config.n_tracers, config.tracer_window,
                        config.kmax)
-    per_site = 30 + 4 * kmax
+    per_site = 30
     if smooth is not None:
         per_site += 4 * (2 * smooth.radius + 1) if m_mode == "narrow" \
             else 4 * L
@@ -765,13 +903,18 @@ def b2_step_bound(config, ops, B: int, k: int) -> dict:
         per_site += 4 * (solve.weights.shape[0])
     return bound(4 * (2 * 2 * B * L + 2 * 3 * B * n_t + 2 * B * W * n_t
                       + B * k * (4 + 2 * kmax)),
-                 k * B * (per_site * L + 24 * n_t))
+                 k * B * (per_site * L + 24 * n_t)
+                 + spectra_ops(k * B, L, kmax))
 
 
 def throughput_b2_modes(dev, gen) -> list:
     """B2's µs per step in each mode at the slice's shapes (native
-    Philox, CUDA events over 3 calls after a warm-up), its bound, and the
-    plain version's µs per step (one 20-step call)."""
+    Philox, CUDA events over 3 calls after a warm-up), its bound, the
+    plain version's µs per step (one 20-step call), and with spectral
+    bins the library yardstick per step: ``torch.fft.rfft`` over the
+    call's (B, k, L) density rows (the port never calls it).  The step
+    kernel's launches a call (more than one where the density scratch is
+    cut into pieces) are counted."""
     import torch
     from hydrolim_tpu_torch.ops.pde_kernel import (
         pde_multi_step,
@@ -785,24 +928,36 @@ def throughput_b2_modes(dev, gen) -> list:
         seeds = torch.arange(B, dtype=torch.int32, device=dev)
         kw = dict(b2_kwargs(config, ops), k_steps=k)
         args = (scal, seeds, 0, *state, ops[3], ops[2])
+        n0 = pde_multi_step.launches
         pde_multi_step(*args, **kw)                     # warm-up
+        pieces = pde_multi_step.launches - n0
         ms = cuda_ms(lambda: pde_multi_step(*args, **kw), reps=3)
         pk = 20
         pde_multi_step_plain(*args, generator=gen, **dict(kw, k_steps=2))
         plain_ms = cuda_ms(lambda: pde_multi_step_plain(
             *args, generator=gen, **dict(kw, k_steps=pk)))
+        lib_us = None
+        if config.kmax:
+            dens = torch.rand((B, k, config.L), generator=gen, device=dev)
+            torch.fft.rfft(dens, dim=-1)
+            lib_us = cuda_ms(lambda: torch.fft.rfft(dens, dim=-1),
+                             reps=20) * 1e3 / k
         b = b2_step_bound(config, ops, B, k)
         row = dict(label=label, m_mode=ops[0], solve_mode=ops[1], B=B,
                    L=config.L, n_t=config.n_tracers, steps_per_call=k,
-                   us_per_step=ms * 1e3 / k,
+                   launches_per_call=pieces, us_per_step=ms * 1e3 / k,
                    plain_us_per_step=plain_ms * 1e3 / pk,
                    bound_us_per_step=b["bound_ms"] * 1e3 / k,
-                   bound_by=b["bound_by"])
+                   bound_by=b["bound_by"], library_us_per_step=lib_us)
         rows.append(row)
         print(f"B2 {label}: {row['us_per_step']:.2f} us/step "
-              f"({B * k / (ms / 1e3):.4e} replica-steps/s); bound "
-              f"{row['bound_us_per_step']:.4f} us/step ({b['bound_by']}); "
-              f"plain {row['plain_us_per_step']:.1f} us/step", flush=True)
+              f"({B * k / (ms / 1e3):.4e} replica-steps/s; {pieces} "
+              f"launches a call); bound {row['bound_us_per_step']:.4f} "
+              "us/step "
+              f"({b['bound_by']}); plain {row['plain_us_per_step']:.1f} "
+              f"us/step" + (f"; torch.fft.rfft of the densities "
+                            f"{lib_us:.3f} us/step" if lib_us else ""),
+              flush=True)
     return rows
 
 
@@ -843,7 +998,10 @@ def check_b3(dev) -> float:
     move, some admission round must refuse a candidate (the plain
     version's tally), particle ids must be conserved and occupancy ≤ K.
     Then L=8192 at K=3 (more than one block's shared memory) under every
-    cluster size that holds it, and the two dense bands at L=1000 (C=1).
+    cluster size that holds it, and the three wide bands at L=1000 (the
+    dense reflect and periodic bands and σ=0.1's 801 taps), whose plan
+    takes C > 1 on the exchanged count field.  Last, native Philox at the
+    wide bands' driver shapes (B=64 and 55): the plan's C EQUAL to C=1.
     Returns the max abs difference (0)."""
     import torch
     from hydrolim_tpu_torch.ops.exclusion_kernel import (
@@ -861,11 +1019,14 @@ def check_b3(dev) -> float:
              for c in B3_CHECKS]
     cases.append((4, 8192, "local m sigma=0.002, non-periodic, K=3", 3,
                   0.002, False, False))
-    # the dense bands (every row reads all L sites; C=1): the sigma
-    # sweep's sigma=0.3 (reflect radius 1200 >= L) and the particle phase
-    # diagram's sigma=2.0 (2r+1 >= L on the torus)
+    # the wide bands (the plan: C > 1 on the exchanged count field): the
+    # sigma sweep's sigma=0.3 (reflect radius 1200 >= L, every row reads
+    # all L sites) and sigma=0.1 (801 taps), the particle phase diagram's
+    # sigma=2.0 (2r+1 >= L on the torus)
     cases.append((4, 1000, "dense reflect band sigma=0.3, non-periodic, "
                   "K=1", 1, 0.3, False, False))
+    cases.append((4, 1000, "reflect band sigma=0.1 (801 taps), "
+                  "non-periodic, K=1", 1, 0.1, False, False))
     cases.append((4, 1000, "dense periodic band sigma=2.0, bidirectional",
                   3, 2.0, True, True))
     for B, L, what, K, sigma, periodic, bidi in cases:
@@ -927,11 +1088,49 @@ def check_b3(dev) -> float:
             sizes.append(C)
         if not sizes:
             raise AssertionError(f"{what}: no cluster size fits")
+        plan = card_plan(B, K, L, band, periodic)
+        if sigma >= 0.1 and not (plan.cluster > 1 and plan.exchange
+                                 and sizes == list(range(1, 9))):
+            raise AssertionError(f"{what}: plan {plan}, sizes {sizes}")
         print(f"{what}: equal over {2 * kws[0]['k_steps']} steps under the "
-              f"plan (C={card_plan(B, K, L, band, periodic).cluster}) and "
+              f"plan (C={plan.cluster}"
+              f"{', exchanged counts' if plan.exchange else ''}) and "
               f"C={sizes}; admission {tally['admitted']} of "
               f"{tally['candidates']} candidates", flush=True)
+    for what, B, K, sigma, periodic in WIDE_BANDS:
+        slots0, band = exclusion_state(dev, gen, B=B, K=K, L=1000,
+                                       sigma=sigma, periodic=periodic,
+                                       N=500 * K)
+        plan = card_plan(B, K, 1000, band, periodic)
+        scal = torch.stack([torch.linspace(0.0, 3.0, B, device=dev),
+                            torch.full((B,), 0.02, device=dev),
+                            torch.full((B,), 5.0, device=dev)],
+                           1).contiguous()
+        seeds = torch.arange(B, dtype=torch.int32, device=dev)
+        kw = dict(k_steps=500, dt=4e-3, periodic=periodic,
+                  bidirectional=periodic, step0=7)
+        ref = exclusion_multi_step_planned(
+            card_plan(B, K, 1000, band, periodic, cluster=1), scal, seeds,
+            slots0, band, **kw)
+        got = exclusion_multi_step(scal, seeds, slots0, band, **kw)
+        torch.cuda.synchronize()
+        bad = int((got != ref).sum())
+        if bad or torch.equal(got, slots0) or not plan.exchange:
+            raise AssertionError(f"B3/B4 {what}: {bad} slots differ from "
+                                 f"C=1 under the plan {plan}")
+        print(f"B3/B4 {what}: native Philox, 500 steps under the plan "
+              f"(C={plan.cluster}, exchanged counts) EQUAL to C=1 "
+              f"(0 of {got.numel()} differ)", flush=True)
     return float(err)
+
+
+# the drivers' wide bands at L=1000: (label, B, K, σ, periodic)
+WIDE_BANDS = (
+    ("particle phase diagram, dense periodic sigma=2.0, B=64", 64, 3, 2.0,
+     True),
+    ("sigma sweep, dense reflect sigma=0.3, B=55", 55, 1, 0.3, False),
+    ("sigma sweep, reflect sigma=0.1 (801 taps), B=55", 55, 1, 0.1, False),
+)
 
 
 # ---------------------------------------------------------------------------
@@ -1274,8 +1473,73 @@ def throughput_b3(dev) -> dict:
         ms=ms, plain_ms=plain_ms, plan=dict(cluster=plan.cluster,
                                             halo=plan.halo,
                                             threads=plan.threads),
-        us_per_step_by_cluster=table, **b3_bound(slots, band, 1000))
+        us_per_step_by_cluster=table, **b3_bound(slots, band, 1000),
+        wide_bands=[wide_band_rate(dev, gen, *row) for row in WIDE_BANDS])
     return out
+
+
+def wide_band_rate(dev, gen, what, B, K, sigma, periodic) -> dict:
+    """One of the drivers' wide bands at its shape (L=1000, N=500·K, β
+    over [0, 3], rd=0.02, ra=5, dt=4e-3, native Philox): µs per step
+    under the plan (C > 1, exchanged counts) and at C=1 (two 1000-step
+    calls each after a warm-up), the plain version's (5 steps), the
+    bound, and the library yardstick for m alone: one ``torch.matmul`` of
+    the stacked (cnt, occ) fields (2B, L) by the dense (L, L) band (the
+    port never calls it)."""
+    import torch
+    from hydrolim_tpu_torch.ops.exclusion_kernel import (
+        card_plan,
+        exclusion_multi_step_plain,
+        exclusion_multi_step_planned,
+    )
+
+    L = 1000
+    slots, band = exclusion_state(dev, gen, B=B, K=K, L=L, sigma=sigma,
+                                  periodic=periodic, N=500 * K)
+    scal = torch.stack([torch.linspace(0.0, 3.0, B, device=dev),
+                        torch.full((B,), 0.02, device=dev),
+                        torch.full((B,), 5.0, device=dev)], 1).contiguous()
+    seeds = torch.arange(B, dtype=torch.int32, device=dev)
+    kw = dict(dt=4e-3, periodic=periodic, bidirectional=periodic)
+    us = {}
+    for C in (None, 1):
+        plan = card_plan(B, K, L, band, periodic, cluster=C)
+        state = [slots, 0]
+
+        def call(k=1000):
+            state[0] = exclusion_multi_step_planned(
+                plan, scal, seeds, state[0], band, k_steps=k,
+                step0=state[1] * k, **kw)
+            state[1] += 1
+
+        call()
+        us[plan.cluster] = float(np.mean([cuda_ms(call) for _ in range(2)]))
+        if C is None:
+            main = plan
+    exclusion_multi_step_plain(scal, seeds, slots, band, k_steps=1,
+                               generator=gen, **kw)
+    plain_us = cuda_ms(lambda: exclusion_multi_step_plain(
+        scal, seeds, slots, band, k_steps=5, generator=gen, **kw)) * 1e3 / 5
+    dense = torch.zeros((L, L), device=dev)
+    dense.index_put_((torch.arange(L, device=dev)[:, None].expand(
+        -1, band.idx.shape[1]), band.idx.long()), band.w, accumulate=True)
+    counts = torch.rand((2 * B, L), generator=gen, device=dev)
+    torch.matmul(counts, dense.T)
+    lib_us = cuda_ms(lambda: torch.matmul(counts, dense.T), reps=20) * 1e3
+    W = band.idx.shape[1]
+    b = b3_bound_counts(B, K, L, W, int((slots != 0).sum()), 1)
+    row = dict(shape=what, B=B, K=K, taps=W, cluster=main.cluster,
+               exchange=main.exchange, us_per_step=us[main.cluster],
+               us_per_step_c1=us[1], plain_us_per_step=plain_us,
+               bound_us_per_step=b["bound_ms"] * 1e3,
+               bound_by=b["bound_by"], library_m_us_per_step=lib_us)
+    print(f"B3 {what}: {W} taps, plan C={main.cluster} (exchanged counts: "
+          f"{main.exchange}) {row['us_per_step']:.3f} us/step, C=1 "
+          f"{row['us_per_step_c1']:.3f}; bound "
+          f"{row['bound_us_per_step']:.3f} us/step ({b['bound_by']}); "
+          f"plain {plain_us:.1f} us/step; torch.matmul of (cnt, occ) by "
+          f"the dense band {lib_us:.2f} us", flush=True)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1284,9 +1548,11 @@ def throughput_b3(dev) -> dict:
 
 def pde_slice(outdir: str) -> dict:
     """The three finite-σ PDE drivers at the JAX package's full sizes on
-    ``device='cuda'``, each with its pins, its B2 launches (counts set to
-    0 just before it) and the kernel's device time (CUDA events around each
-    launch) against its wall time:
+    ``device='cuda'``, each with its pins, its B2 launches and those of
+    the spectra kernel (counts set to 0 just before it; one spectra launch
+    per step launch, and a chunk whose density scratch passes its budget
+    launches both kernels several times) and the kernels' device time
+    (CUDA events around each call) against its wall time:
     - ``pde_kernel_sigma_sweep(variant='magn2')``: 5 σ × 5 runs, L=1000,
       T=10, 1000 tracers; mean over runs of |m(T)| < 1e-2 at every σ;
     - ``pde_single_run()``: L=1000, T=20 (40,000 steps), σ=0.005, 1000
@@ -1296,32 +1562,44 @@ def pde_slice(outdir: str) -> dict:
       tracers) with its ``check_physics`` pins."""
     import torch
     from hydrolim_tpu_torch.experiments import pde_phase_diagram
-    from hydrolim_tpu_torch.ops.pde_kernel import kernel_ms, pde_multi_step
+    from hydrolim_tpu_torch.ops.pde_kernel import (
+        kernel_ms,
+        pde_multi_step,
+        pde_spectra,
+    )
     from hydrolim_tpu_torch.sweeps.pde_sweeps import (
         pde_kernel_sigma_sweep,
         pde_single_run,
     )
     from hydrolim_tpu_torch.theory.meanfield import m_fixed_point
 
-    launches = {}
+    launches = {"pde_multi_step": {}, "pde_spectra": {}}
 
     def driven(name, fn):
-        pde_multi_step.launches = 0
-        pde_multi_step.events = []
+        pde_multi_step.launches = pde_spectra.launches = 0
+        pde_multi_step.events, pde_spectra.events = [], []
         t0 = time.perf_counter()
         try:
             out = fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             device_s = kernel_ms(pde_multi_step.events) / 1e3
+            spectra_s = kernel_ms(pde_spectra.events) / 1e3
         finally:
             events, pde_multi_step.events = pde_multi_step.events, None
-        n = launches[name] = pde_multi_step.launches
-        print(f"{name}: {wall:.2f} s wall, {n} launches of pde_multi_step, "
-              f"kernel {device_s:.3f} s on the device "
-              f"({device_s / wall:.1%} of the wall)", flush=True)
-        if n <= 0 or len(events) != n:
+            pde_spectra.events = None
+        n = launches["pde_multi_step"][name] = pde_multi_step.launches
+        n_sp = pde_spectra.launches
+        print(f"{name}: {wall:.2f} s wall, {n} launches of pde_multi_step "
+              f"and {n_sp} of pde_spectra, kernels {device_s:.3f} s on the "
+              f"device ({device_s / wall:.1%} of the wall; the spectra "
+              f"kernel {spectra_s:.3f} s of it)", flush=True)
+        if n <= 0 or not 0 < len(events) <= n:
             raise AssertionError(f"{name} never launched pde_multi_step")
+        if n_sp != n:
+            raise AssertionError(f"{name}: {n_sp} launches of pde_spectra "
+                                 f"for {n} of pde_multi_step")
+        launches["pde_spectra"][name] = n_sp
         return out
 
     sweep = driven("sigma sweep magn2", lambda: pde_kernel_sigma_sweep(
@@ -2539,7 +2817,7 @@ def checkpoint_routes(outdir: str) -> dict:
     )
     from hydrolim_tpu_torch.experiments.particle_beta_sweep import FLAGSHIP
     from hydrolim_tpu_torch.ops.exclusion_kernel import exclusion_multi_step
-    from hydrolim_tpu_torch.ops.pde_kernel import pde_multi_step
+    from hydrolim_tpu_torch.ops.pde_kernel import pde_multi_step, pde_spectra
     from hydrolim_tpu_torch.ops.stepper_kernel import meanfield_multi_step
     from hydrolim_tpu_torch.particles.lattice_gas_k import run_lattice_gas_k
     from hydrolim_tpu_torch.sweeps.beta_sweep import (
@@ -2565,6 +2843,7 @@ def checkpoint_routes(outdir: str) -> dict:
 
     kernels = {"meanfield_multi_step": meanfield_multi_step,
                "pde_multi_step": pde_multi_step,
+               "pde_spectra": pde_spectra,
                "exclusion_multi_step": exclusion_multi_step}
     per_path = {name: {} for name in kernels}
     t_phase = time.perf_counter()
@@ -2654,7 +2933,7 @@ def checkpoint_routes(outdir: str) -> dict:
           single_stop,
           lambda d: pde_single_run(outdir=f"{outdir}/single", ckpt_dir=d,
                                    device="cuda"),
-          expect=("pde_multi_step",))
+          expect=("pde_multi_step", "pde_spectra"))
 
     magn2 = PDEConfig(L=1000, T=10.0, dt=5e-4, bc="periodic",
                       active_model="bidirectional", gaussian_kernel=True,
@@ -2666,7 +2945,7 @@ def checkpoint_routes(outdir: str) -> dict:
           lambda d: run_pde_ensemble(magn2, [0.75], ckpt_dir=d,
                                      stop_after_chunks=1, **ens),
           lambda d: run_pde_ensemble(magn2, [0.75], ckpt_dir=d, **ens)[0],
-          expect=("pde_multi_step",))
+          expect=("pde_multi_step", "pde_spectra"))
 
     # -- the plain-torch engines, 20 frames deep --------------------------
     short = dict(T=2.0, obs_dt=0.1)
@@ -3449,11 +3728,15 @@ def main() -> int:
     from hydrolim_tpu_torch.ops._build import BUILD_DIR, build_kernel_library
 
     dev = torch.device("cuda", 0)
-    kinds = {"meanfield_multi_step": stepper_kernel,
-             "pde_multi_step": pde_kernel,
-             "exclusion_multi_step": exclusion_kernel}
-    rows = {name: dict(name=name, route="cuda", source=mod.SOURCE,
-                       replaces=mod.REPLACES) for name, mod in kinds.items()}
+    kinds = {"meanfield_multi_step": (stepper_kernel.SOURCE,
+                                      stepper_kernel.REPLACES),
+             "pde_multi_step": (pde_kernel.SOURCE, pde_kernel.REPLACES),
+             "pde_spectra": (pde_kernel.SPECTRA_SOURCE,
+                             pde_kernel.SPECTRA_REPLACES),
+             "exclusion_multi_step": (exclusion_kernel.SOURCE,
+                                      exclusion_kernel.REPLACES)}
+    rows = {name: dict(name=name, route="cuda", source=src, replaces=rep)
+            for name, (src, rep) in kinds.items()}
 
     with phase("1 device"):
         smi = subprocess.run(
@@ -3475,7 +3758,8 @@ def main() -> int:
         rows["meanfield_multi_step"]["max_abs_err"] = check_b1(dev)
         check_b1_b0(dev)
     with phase("4 B2 vs plain"):
-        rows["pde_multi_step"]["max_abs_err"] = check_b2(dev)
+        (rows["pde_multi_step"]["max_abs_err"],
+         rows["pde_spectra"]["max_abs_err"]) = check_b2(dev)
         check_b2_b0(dev)
     with phase("5 main path"):
         with tempfile.TemporaryDirectory() as outdir:
@@ -3498,8 +3782,11 @@ def main() -> int:
             per_path = pde_slice(outdir)["launches_per_path"]
         row = rows["pde_multi_step"]
         row["launches_per_path"] = dict(main_path=row["launches"],
-                                        **per_path)
+                                        **per_path["pde_multi_step"])
         row["launches"] = sum(row["launches_per_path"].values())
+        row = rows["pde_spectra"]
+        row["launches_per_path"] = dict(main_path=row["launches"],
+                                        **per_path["pde_spectra"])
     b3 = rows["exclusion_multi_step"]
     b3["launches_per_path"] = {"exclusion beta-sweep": b3["launches"]}
     b1 = rows["meanfield_multi_step"]

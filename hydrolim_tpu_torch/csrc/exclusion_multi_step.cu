@@ -9,17 +9,31 @@
 // What bounds it on an H100: a step couples each site to its neighbours
 // three times over (neighbour occupancy gates the hops, admission at the
 // destination decides who leaves the source, the new slots gather the
-// incomers), and with local m each site reads a band of 2r+1 sites.  So a
+// incomers), and with local m each site reads a band of W sites.  So a
 // step is a chain of phases with a barrier between each.  Per slot-step the
 // work is a few float compares, one expf and one Philox call per particle,
 // and at most 4K^2 integer compares per site for admission; the bytes are
 // the replica's slots, read and written once per call.  Neither bytes nor
-// the issue rate bound it, but latency: each phase is a chain of dependent
-// shared-memory loads per site (the band's taps in P2, the candidates in
-// P3, the incomers in P4), so a phase over a CTA's sites takes its
-// longest chain times its passes.  One block per replica took 6.2 us per
-// step at L=1000 (B=33 used 33 of 132 SMs), 2.7 us at L=250 and 30.6 us at
-// L=4000; PERF.md section 5 has where the redesigned step's time goes.
+// the issue rate bound the narrow-band and global-m steps, but latency:
+// each phase is a chain of dependent shared-memory loads per site (the
+// band's taps in P2, the candidates in P3, the incomers in P4), so a phase
+// over a CTA's sites takes its longest chain times its passes.  One block
+// per replica took 6.2 us per step at L=1000 (B=33 used 33 of 132 SMs),
+// 2.7 us at L=250 and 30.6 us at L=4000; PERF.md section 5 has where the
+// redesigned step's time goes.
+//
+// A wide or dense band (W of several hundred to L taps: the sigma sweep's
+// sigma=0.1 and 0.3, the phase diagram's sigma >= ~0.1 on the torus) is
+// bound by the issue rate instead: each row is W dependent rounded
+// multiply-adds on two sums, 4 FP32 instructions a tap that the law keeps
+// (no FMA, no reordering), so B*L*W*4/32 warp instructions a step over the
+// card's 4 schedulers per SM.  What held it back was the band's read:
+// rows outside the interior read their W weights one row per thread from
+// device memory (32 cache lines per warp load), and the halo that carried
+// the band's inputs (reach + 2 >= L/2) kept such a band on one CTA, one SM
+// per replica.  The design below reads every weight from shared memory or
+// coalesced, and spreads such a replica over a cluster by exchanging the
+// counts instead of the slots.
 //
 // Design:
 //   - a thread-block cluster of C <= 8 CTAs per replica; CTA r owns the
@@ -49,12 +63,36 @@
 //     thresholds for one particle rather than for one slot row of its site.
 //   - three block barriers per step, over the CTA's ~seg/32 warps.  K is a
 //     template parameter (1..8), so the candidate loops unroll.
+//   - the band (local m): each row's taps read the count array (cnt, occ
+//     as float2, continued periodically past its ends by band_pad entries)
+//     at consecutive entries from the row's first input, stepping back W
+//     entries where its rotation krot wraps, with no branch per tap (a
+//     branch per tap kept each tap's loads from overlapping the last's:
+//     one load latency a tap); the weights come from the rotation vector
+//     utaps, held twice over in shared memory, where every row of the warp
+//     rotates it (a periodic band, dense or not; a reflect band's
+//     interior), else from the transposed table in device memory, four
+//     taps interleaved, (W/4, L, 4): lane x reads the 16 bytes of taps
+//     4q..4q+3 of its row, a warp 512 contiguous bytes.  Every replica
+//     reads the table from L2 each step, so these rows are bound by L2's
+//     rate, not by the FP32 issue.  (One tap a load in a (W, L) table
+//     streamed at ~1.75 TB/s whatever C.)
+//     A row of no rotation reads its index table
+//     (ops/exclusion_kernel.kernel_rotation).
+//   - a band whose halo does not fit a cluster (exchange): the segments
+//     keep a halo of 3 sites of slots, which the local phases need, and
+//     every CTA keeps the whole lattice's count field, which only m reads:
+//     after its P4 each CTA pushes its segment's (cnt, occ), tagged with
+//     the step, into the field mailbox of every CTA of the cluster
+//     (double-buffered by step parity), and at the end of the step polls
+//     its own mailbox for the whole field.  So a dense band runs on C CTAs
+//     of C SMs, and the plan's C equals C = 1 bit for bit.
 //   - no tensor cores and no TMA: the smoothing sums must run in ascending
 //     input order with one rounded multiply and one rounded add per tap (the
 //     plain version's bit equality), which a tensor-core product reorders;
 //     and the slots are read and written once per call, so no bytes are
 //     worth an asynchronous pipeline.
-//   - the launch plan (C, h, threads) is chosen in Python
+//   - the launch plan (C, h, exchange, threads) is chosen in Python
 //     (ops/exclusion_kernel.exclusion_launch_plan) from the co-resident
 //     cluster count that exclusion_max_active_clusters reports.
 //
@@ -62,8 +100,9 @@
 // with __fmul_rn/__fadd_rn/__fdiv_rn (never contracted into an FMA), in
 // the plain version's order; the smoothing sums run in the band row's
 // (ascending input) order.  A tap of weight 0 adds +-0 to a sum that is
-// never -0, so it may read any site: a wall's row reads a clamped one for
-// its taps past the wall.  expf is the card's, as torch.exp's on the card.
+// never -0, so it may read any site: a wall's row reads a pad of the count
+// array for its taps past the wall.  expf is the card's, as torch.exp's on
+// the card.
 //
 // Random bits: injected (noise, (B, k, 2, K, L) uint32 held in int32;
 // draw 0 = event, 1 = priority) or native Philox4x32-10 with key
@@ -102,11 +141,13 @@ struct Params {
   const int* noise;
   const int* band_idx;
   const float* band_w;
-  const float* band_taps;
-  const int* band_rot;
-  int W, radius, lo, hi, L, k_steps;
+  const float* band_wt;
+  const float* band_utaps;
+  const int* band_krot;
+  const int* band_on;
+  int W, radius, L, k_steps;
   float dt;
-  int periodic, bidirectional, cluster, halo;
+  int periodic, bidirectional, cluster, halo, exchange;
 };
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -117,17 +158,33 @@ __host__ __device__ inline int window_cap(int L, int C, int h) {
   return C == 1 ? L : cdiv(L, C) + 2 * h;
 }
 
+// Entries kept past each end of a count array for a band of W taps.
+__host__ __device__ inline int band_pad(int W) { return W ? W / 2 + 4 : 0; }
+
 // Dynamic shared memory of one CTA (ops/exclusion_kernel.cta_smem_bytes):
-// the halo mailboxes, global m's tagged partials, two (K, window) slot
-// buffers, three (window,) site arrays, (K, window) priorities and events,
-// the band's W interior taps and a K-byte draw queue per thread.
+// the halo mailboxes, global m's tagged partials, with `exchange` the count
+// field's mailbox and the field, the window's (cnt, occ) (padded where the
+// band reads it), two (K, window) slot buffers, the admission masks, (K,
+// window) priorities and events, the band's rotation vector twice over and
+// a K-byte draw queue per thread.
 __host__ __device__ inline size_t smem_bytes(int K, int L, int W, int C,
                                              int h, int threads,
-                                             bool global_m) {
+                                             bool global_m, bool exchange) {
   const size_t win = (size_t)window_cap(L, C, h);
+  const size_t P = (size_t)band_pad(W);
   return (C == 1 ? 0 : (size_t)32 * K * h) +
-         (global_m ? (size_t)8 * kSlotWords : 0) + (size_t)(13 * K + 12) * win +
-         4 * (size_t)W + (size_t)K * threads;
+         (global_m ? (size_t)8 * kSlotWords : 0) +
+         (exchange ? 24 * (size_t)L + 16 * P : 16 * P) +
+         (size_t)(13 * K + 12) * win + 8 * (size_t)W + (size_t)K * threads;
+}
+
+// f[j] and, where j lies within `P` of an end, its copy past the other end
+// (the array continued periodically: f[j - n] = f[j + n] = f[j]).
+__device__ __forceinline__ void put_count(float2* f, int n, int P, int j,
+                                          float2 v) {
+  f[j] = v;
+  if (j >= n - P) f[j - n] = v;
+  if (j < P) f[j + n] = v;
 }
 
 __device__ __forceinline__ int warp_sum(int v) {
@@ -177,6 +234,48 @@ __device__ __forceinline__ int replica_poll(const uint64_t* slots,
   return warp_sum(s);
 }
 
+// One band row's W taps, each one rounded multiply and one rounded add
+// per sum, in tap order: tap t reads f[t] before the row's rotation wraps
+// (t < tA) and f[t - W] after it; kWrap false: no lane of the warp wraps,
+// and the taps read f[t] with no select.  No branch per tap, so the loads
+// of the unrolled taps are in flight together; every lane of a warp runs
+// the same taps at the same t.
+template <bool kWrap>
+__device__ __forceinline__ void band_tap(const float2* __restrict__ f,
+                                         int t, int tA, int W, float w,
+                                         float& c0, float& c1) {
+  const float2 v = f[kWrap && t >= tA ? t - W : t];
+  c0 = __fadd_rn(c0, __fmul_rn(w, v.x));
+  c1 = __fadd_rn(c1, __fmul_rn(w, v.y));
+}
+
+// The weights from the rotation vector in shared memory, w_t = wq[t].
+template <bool kWrap>
+__device__ __forceinline__ void band_row_shared(
+    const float2* __restrict__ f, const float* __restrict__ wq, int W,
+    int tA, float& c0, float& c1) {
+#pragma unroll 8
+  for (int t = 0; t < W; ++t) band_tap<kWrap>(f, t, tA, W, wq[t], c0, c1);
+}
+
+// The weights from the table, four taps of the row in one 16-byte load
+// (w_{4q+i} = wq[q * L].i; lane x reads x's, so a warp's loads are 512
+// contiguous bytes); the taps past W have weight 0 and add +0.
+template <bool kWrap>
+__device__ __forceinline__ void band_row_table(
+    const float2* __restrict__ f, const float4* __restrict__ wq, int L,
+    int W, int tA, float& c0, float& c1) {
+  const int W4 = (W + 3) / 4;
+#pragma unroll 4
+  for (int q = 0; q < W4; ++q) {
+    const float4 w = __ldg(wq + (size_t)q * L);
+    band_tap<kWrap>(f, 4 * q, tA, W, w.x, c0, c1);
+    band_tap<kWrap>(f, 4 * q + 1, tA, W, w.y, c0, c1);
+    band_tap<kWrap>(f, 4 * q + 2, tA, W, w.z, c0, c1);
+    band_tap<kWrap>(f, 4 * q + 3, tA, W, w.w, c0, c1);
+  }
+}
+
 template <int K>
 __global__ void __launch_bounds__(kMaxThreads)
 exclusion_kernel(const Params a) {
@@ -190,6 +289,7 @@ exclusion_kernel(const Params a) {
   const int KL = K * L;
   const bool periodic = a.periodic != 0;
   const bool local_m = a.band_w != nullptr;
+  const bool exch = a.exchange != 0;
 
   // the segment [s_lo, s_lo + seg) and its window of Wn sites: local site
   // z is the global site base + z (mod L on a torus)
@@ -202,16 +302,22 @@ exclusion_kernel(const Params a) {
   const int base = s_lo - hl < 0 ? s_lo - hl + L : s_lo - hl;
   const bool wrap = periodic && C == 1;   // the window is the whole torus
 
+  // count arrays (cnt, occ as float2), continued P entries past each end:
+  // the exchanged field of the whole lattice, and the window's own (padded
+  // where the band reads it)
+  const int P = band_pad(W);
+  const int Pw = local_m && !exch ? P : 0;
   uint64_t* mbox = smem64;                      // [2][2 sides][K][h]
   uint64_t* gslot = mbox + (C > 1 ? 4 * K * h : 0);
-  int* cur = reinterpret_cast<int*>(gslot + (local_m ? 0 : kSlotWords));
-  int* nxt = cur + K * Wn;                      // (K, Wn) slots
-  int* occ = nxt + K * Wn;                      // (Wn,) occupancy
-  int* cnt = occ + Wn;                          // (Wn,) signed count
-  int* inmask = cnt + Wn;                       // (Wn,) admitted incomers
+  uint64_t* fbox = gslot + (local_m ? 0 : kSlotWords);  // [2][L] (exch)
+  float2* field = reinterpret_cast<float2*>(fbox + (exch ? 2 * L : 0)) + P;
+  float2* cf = field - P + (exch ? L + 2 * P : 0) + Pw;   // (Wn,)
+  int* cur = reinterpret_cast<int*>(cf + Wn + Pw);        // (K, Wn) slots
+  int* nxt = cur + K * Wn;
+  int* inmask = nxt + K * Wn;                   // (Wn,) admitted incomers
   uint32_t* prio = reinterpret_cast<uint32_t*>(inmask + Wn);  // (K, Wn)
-  float* taps = reinterpret_cast<float*>(prio + K * Wn);      // (W,)
-  int8_t* ev = reinterpret_cast<int8_t*>(taps + W);           // (K, Wn)
+  float* utaps = reinterpret_cast<float*>(prio + K * Wn);     // (2W,)
+  int8_t* ev = reinterpret_cast<int8_t*>(utaps + 2 * W);      // (K, Wn)
   uint8_t* queue = reinterpret_cast<uint8_t*>(ev + K * Wn) + warp * 32 * K;
 
   auto gsite = [&](int z) { return base + z >= L ? base + z - L : base + z; };
@@ -227,37 +333,45 @@ exclusion_kernel(const Params a) {
   const int p2_lo = hl - (has_l ? 2 : 0), p2_hi = hl + seg + (has_r ? 2 : 0);
   const int p3_lo = hl - (has_l ? 1 : 0), p3_hi = hl + seg + (has_r ? 1 : 0);
   const int left_rank = (rank + C - 1) % C, right_rank = (rank + 1) % C;
+  const float2 zero2 = make_float2(0.f, 0.f);
 
   for (int i = tid; i < 4 * K * h && C > 1; i += nt)
     mbox[i] = (uint64_t)kNoTag << 32;
   for (int i = tid; i < kSlotWords && !local_m; i += nt)
     gslot[i] = (uint64_t)kNoTag << 32;
-  // Sites g in [lo, hi) read inputs g - radius + t with band_taps (the
-  // band's builder checked that their rows are exactly these): the taps
-  // come from shared memory and the inputs need no index table.  The other
-  // sites read their row of the band from global memory.
-  for (int t = tid; t < W && a.lo < a.hi; t += nt) taps[t] = a.band_taps[t];
+  for (int i = tid; i < 2 * L && exch; i += nt)
+    fbox[i] = (uint64_t)kNoTag << 32;
+  // the pads where no copy lands (an array shorter than its pads) stay 0
+  for (int i = tid; i < 2 * P && exch; i += nt)
+    field[i < P ? i - P : L + i - P] = zero2;
+  for (int i = tid; i < 2 * Pw; i += nt)
+    cf[i < Pw ? i - Pw : Wn + i - Pw] = zero2;
+  for (int t = tid; t < 2 * W; t += nt)
+    utaps[t] = a.band_utaps[t < W ? t : t - W];
   const float neg_beta = -a.scal[3 * b];
   const float dt = a.dt;
   const float p_dif = __fmul_rn(a.scal[3 * b + 1], dt);
   const float p_act = __fmul_rn(a.scal[3 * b + 2], dt);
   const uint2 key = make_uint2((uint32_t)a.seeds[b], (uint32_t)(a.b0 + b));
   const size_t off = (size_t)b * KL;
+  __syncthreads();
 
-  // P1: the window's slots, occupancy and signed count
-  for (int z = tid; z < Wn; z += nt) {
-    const int g = gsite(z);
+  // P1: the window's slots, occupancy and signed count; the field's
+  auto site_counts = [&](int g, int* dst, int z) {
     int o = 0, c = 0;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int v = a.slots_in[off + k * L + g];
-      cur[k * Wn + z] = v;
+      if (dst) dst[k * Wn + z] = v;
       o += v != 0;
       c += (v > 0) - (v < 0);
     }
-    occ[z] = o;
-    cnt[z] = c;
-  }
+    return make_float2((float)c, (float)o);
+  };
+  for (int z = tid; z < Wn; z += nt)
+    put_count(cf, Wn, Pw, z, site_counts(gsite(z), cur, z));
+  for (int i = tid; i < L && exch; i += nt)
+    put_count(field, L, P, i, site_counts(i, nullptr, 0));
   // global m: the replica's exact sums; N is conserved through the call
   int S = 0, N = 0;
   if (!local_m) {
@@ -282,41 +396,53 @@ exclusion_kernel(const Params a) {
   // every CTA of the cluster runs, its mailboxes cleared, before any push
   cluster_sync();
 
-  // A row of the band whose tap t reads the input g - radius + ((t + rot)
-  // mod W) (ops/exclusion_kernel.band_rotation: every row of a periodic or
-  // reflect band) needs no index table: the interior's rows (rot 0, the
-  // taps in shared memory), the walls' (rot 0, their own weights) and the
-  // wrap's (their inputs in ascending site order start past the wrap).  So
-  // the lanes of a warp run one loop whatever their rows; an input past a
-  // wall has weight 0 and reads a clamped site.
-  const bool wrap_m = periodic;
-  auto band_m = [&](int g, int z) {
+  // m of row g (window site z), called by every lane of the warp (`live`
+  // for a site of the P2 range).  A row of rotation rot reads its inputs
+  // zc - radius + ((t + rot) mod W) (ops/exclusion_kernel.band_rotation),
+  // zc its site in the count array: in the field, where they wrap at the
+  // lattice's ends as the array's periodic continuation does, or in the
+  // window, which holds every input of a weight != 0 (an input past a
+  // wall has weight 0 and reads a pad).  Weights: the rotation vector
+  // where every row of the warp rotates it, else the transposed table.  A
+  // row of no rotation (-1) reads its index table.
+  auto band_m = [&](int g, int z, bool live) {
+    const float2* f = exch ? field : cf;
+    const int n = exch ? L : Wn;
+    const int zc = live ? (exch ? g : z) : 0;
+    int rot = live ? a.band_krot[g] : 0;
+    const bool runs = rot != -1;
+    rot = rot >= 0 ? rot : (rot == -1 ? 0 : -2 - rot);
+    const bool on = __all_sync(kFull, !live || !runs || a.band_on[g] != 0);
+    // the row's first input in f, and the tap where its inputs step back
+    // W entries; a row of all n sites reads them from its first input
+    // within the array (a dense band's rows read 0..L-1: no step back)
+    int s0 = zc - a.radius + rot, tA = W - rot;
+    if (W == n) {
+      s0 = s0 < 0 ? s0 + n : (s0 >= n ? s0 - n : s0);
+      tA = n - s0;
+    }
+    // a lane off the band (a site past the range, a row of no rotation)
+    // reads the array's first W entries and drops its sums
+    if (!live) s0 = 0, tA = W;
+    const bool wraps = __any_sync(kFull, tA < W);
     float c0 = 0.f, c1 = 0.f;
-    const bool inner = g >= a.lo && g < a.hi;
-    int rot = inner ? 0 : a.band_rot[g];
-    if (wrap_m && rot <= -2) rot = -2 - rot;   // a rotation around the torus
-    if (rot >= 0) {
-      const float* wp = inner ? taps : a.band_w + (size_t)g * W;
-      const int z0 = z - a.radius;
-      int u = rot;
-      for (int t = 0; t < W; ++t) {
-        int i = z0 + u;
-        if (wrap) i = i < 0 ? i + Wn : (i >= Wn ? i - Wn : i);
-        else i = min(max(i, 0), Wn - 1);
-        const float w = wp[t];
-        c0 = __fadd_rn(c0, __fmul_rn(w, (float)cnt[i]));
-        c1 = __fadd_rn(c1, __fmul_rn(w, (float)occ[i]));
-        u = u + 1 == W ? 0 : u + 1;
-      }
-    } else {
+    const float2* fr = f + s0;
+    const float* ws = utaps + rot;
+    const float4* wt = reinterpret_cast<const float4*>(a.band_wt) + g;
+    if (on && wraps) band_row_shared<true>(fr, ws, W, tA, c0, c1);
+    else if (on) band_row_shared<false>(fr, ws, W, tA, c0, c1);
+    else if (wraps) band_row_table<true>(fr, wt, L, W, tA, c0, c1);
+    else band_row_table<false>(fr, wt, L, W, tA, c0, c1);
+    if (!runs) c0 = c1 = 0.f;
+    if (live && !runs) {
       const int* bi = a.band_idx + (size_t)g * W;
       const float* bw = a.band_w + (size_t)g * W;
       for (int t = 0; t < W; ++t) {
         const float w = bw[t];
         if (w == 0.f) continue;     // its input may lie outside the window
-        const int i = lsite(bi[t]);
-        c0 = __fadd_rn(c0, __fmul_rn(w, (float)cnt[i]));
-        c1 = __fadd_rn(c1, __fmul_rn(w, (float)occ[i]));
+        const float2 v = f[exch ? bi[t] : lsite(bi[t])];
+        c0 = __fadd_rn(c0, __fmul_rn(w, v.x));
+        c1 = __fadd_rn(c1, __fmul_rn(w, v.y));
       }
     }
     const float m = c1 > 0.f ? __fdiv_rn(c0, c1) : 0.f;
@@ -324,6 +450,7 @@ exclusion_kernel(const Params a) {
   };
 
   const float n_f = fmaxf((float)N, 1.0f);
+  const float kf = (float)K;
   for (int s = 0; s < a.k_steps; ++s) {
     const bool more = s + 1 < a.k_steps;
     const uint32_t tag = (uint32_t)s + 1u;    // the tag of this step's output
@@ -339,13 +466,15 @@ exclusion_kernel(const Params a) {
     // occupied slots, compacted) the event and the priority
     for (int z0 = p2_lo + (tid & ~31); z0 < p2_hi; z0 += nt) {
       const int z = z0 + lane;
+      const bool live = z < p2_hi;
       float m = m_glob;
+      if (local_m) m = band_m(live ? gsite(z) : 0, z, live);
       int gates = 0;
       unsigned occb = 0;
-      if (z < p2_hi) {
-        if (local_m) m = band_m(gsite(z), z);
+      if (live) {
         const int zl = lleft(z), zr = lright(z);
-        gates = (zl >= 0 && occ[zl] < K ? 1 : 0) | (zr >= 0 && occ[zr] < K ? 2 : 0);
+        gates = (zl >= 0 && cf[zl].y < kf ? 1 : 0) |
+                (zr >= 0 && cf[zr].y < kf ? 2 : 0);
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           if (cur[k * Wn + z] != 0) {
@@ -421,7 +550,7 @@ exclusion_kernel(const Params a) {
     // P3: admission at each destination site
     for (int x = p3_lo + tid; x < p3_hi; x += nt) {
       const int xl = lleft(x), xr = lright(x);
-      const int free_ = K - occ[x];
+      const int free_ = K - (int)cf[x].y;
       int mask = 0;
       if (free_ > 0) {
         uint32_t c[2 * K];
@@ -490,9 +619,16 @@ exclusion_kernel(const Params a) {
         if ((in >> (K + k)) & 1) push(cur[k * Wn + xr]);
 #pragma unroll
       for (int k = 0; k < K; ++k) nxt[k * Wn + x] = out[k];
-      occ[x] = o;
-      cnt[x] = cs;
+      put_count(cf, Wn, Pw, x, make_float2((float)cs, (float)o));
       ls += cs;
+      if (exch && more) {    // the site's counts to every CTA's field
+        const uint64_t word =
+            tagged(tag, (int)(((uint32_t)cs & 0xFFFFu) | ((uint32_t)o << 16)));
+        const int g = gsite(x);
+        for (int r = 0; r < C; ++r)
+          static_cast<volatile uint64_t*>(
+              cg::this_cluster().map_shared_rank(fbox, r))[par * L + g] = word;
+      }
       const int so = x - hl;
       if (to_l && so < h) {
 #pragma unroll
@@ -530,8 +666,22 @@ exclusion_kernel(const Params a) {
           o += v != 0;
           c += (v > 0) - (v < 0);
         }
-        occ[z] = o;
-        cnt[z] = c;
+        put_count(cf, Wn, Pw, z, make_float2((float)c, (float)o));
+      }
+    }
+    // the next step's count field, from every CTA's pushes
+    if (exch && more) {
+      const volatile uint64_t* box = fbox + par * L;
+      for (int i = tid; i < L; i += nt) {
+        uint64_t w;
+        unsigned polls = 0;
+        for (w = box[i]; (uint32_t)(w >> 32) != tag; w = box[i]) {
+          if (++polls == kMaxPolls) __trap();
+          __nanosleep(32);
+        }
+        const uint32_t v = (uint32_t)w;    // cnt in the low 16 bits
+        put_count(field, L, P, i, make_float2((float)(int16_t)(v & 0xFFFFu),
+                                              (float)(v >> 16)));
       }
     }
     __syncthreads();
@@ -567,14 +717,14 @@ KernelFn pick(int K) {
 // `spread`: ask for more shared memory than half an SM holds, so that the
 // occupancy query counts clusters with every CTA on an SM of its own.
 cudaError_t configure(KernelFn fn, int K, int L, int W, int C, int h,
-                      int threads, bool global_m, int B, bool spread,
-                      void* stream, cudaLaunchConfig_t& cfg,
+                      int threads, bool global_m, bool exchange, int B,
+                      bool spread, void* stream, cudaLaunchConfig_t& cfg,
                       cudaLaunchAttribute& attr) {
   if (!fn || C < 1 || C > kMaxCluster || threads < 32 ||
       threads > kMaxThreads || threads % 32 || (C > 1 && h < 1) ||
-      (C > 1 && L / C < 2 * h))
+      (C > 1 && L / C < 2 * h) || (exchange && (C == 1 || global_m)))
     return cudaErrorInvalidValue;
-  size_t smem = smem_bytes(K, L, W, C, h, threads, global_m);
+  size_t smem = smem_bytes(K, L, W, C, h, threads, global_m, exchange);
   if (spread && smem < kHalfSm) smem = kHalfSm;
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -598,34 +748,36 @@ cudaError_t configure(KernelFn fn, int K, int L, int W, int C, int h,
 // How many clusters of this shape the card holds at once, a CTA per SM.
 extern "C" int exclusion_max_active_clusters(int K, int L, int W, int C,
                                              int halo, int threads,
-                                             int global_m, int* out) {
+                                             int global_m, int exchange,
+                                             int* out) {
   const KernelFn fn = pick(K);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t e = configure(fn, K, L, W, C, halo, threads, global_m != 0, 1,
-                            true, nullptr, cfg, attr);
+  cudaError_t e = configure(fn, K, L, W, C, halo, threads, global_m != 0,
+                            exchange != 0, 1, true, nullptr, cfg, attr);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveClusters(out, fn, &cfg);
 }
 
 extern "C" int exclusion_multi_step_launch(
     const float* scal, const int* seeds, int step0, int b0,
-    const int* slots_in,
-    int* slots_out, const int* noise, const int* band_idx,
-    const float* band_w, const float* band_taps, const int* band_rot, int W,
-    int radius, int lo,
-    int hi, int B, int K, int L, int k_steps, float dt, int periodic,
-    int bidirectional, int C, int halo, int threads, void* stream) {
+    const int* slots_in, int* slots_out, const int* noise,
+    const int* band_idx, const float* band_w, const float* band_wt,
+    const float* band_utaps, const int* band_krot, const int* band_on,
+    int W, int radius, int B, int K, int L, int k_steps, float dt,
+    int periodic, int bidirectional, int C, int halo, int threads,
+    int exchange, void* stream) {
   const KernelFn fn = pick(K);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t e = configure(fn, K, L, W, C, halo, threads, band_w == nullptr,
-                            B, false, stream, cfg, attr);
+                            exchange != 0, B, false, stream, cfg, attr);
   if (e != cudaSuccess) return (int)e;
-  const Params p{scal,     seeds,   step0, b0, slots_in, slots_out, noise,
-                 band_idx, band_w,  band_taps, band_rot, W, radius, lo,
-                 hi,       L,       k_steps,   dt,   periodic,  bidirectional,
-                 C,        halo};
+  const Params p{scal,       seeds,     step0,    b0,       slots_in,
+                 slots_out,  noise,     band_idx, band_w,   band_wt,
+                 band_utaps, band_krot, band_on,  W,        radius,
+                 L,          k_steps,   dt,       periodic, bidirectional,
+                 C,          halo,      exchange};
   e = cudaLaunchKernelEx(&cfg, fn, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -57,9 +57,13 @@
 //     bidirectional branch, or in anchored_minus (reaction first, then the
 //     advection of rho_+* alone, read across a barrier).
 // Tracers take one thread each; their windowed displacement ring stays in
-// device memory, touched once per tracer-step.  Spectra: one warp per
-// (bin, re|im) sums total(x) * table[(k x) mod L]; lane 0 writes the record
-// (still the single run's bottleneck at 501 bins).
+// device memory, touched once per tracer-step.  Spectra: no later step
+// reads them, so they are off the step's chain: with kmax > 0 each step
+// stores its total density row into a (B, k, L) scratch (coalesced, and
+// marked evict-first, __stcs, so that a scratch of many steps does not
+// push the tracers' ring out of L2) and the spectra kernel
+// (csrc/pde_spectra.cu), launched right after on the same stream,
+// computes all the steps' bins across the card.
 //
 // Random bits: injected (noise, (B, k, 3, n_t) uint32 held in int32: flip,
 // Box-Muller u2, u3) or native Philox with key (seed[b], b0 + b), b0 the
@@ -285,7 +289,7 @@ struct Args {
   const double* scan;        // (4, L) [1/pivot, c', alpha, z] (exact solve)
   const float* solve_taps;   // (1 + sv_ns*sv_len,) padded taps (banded)
   const float* smooth_taps;  // (1 + sm_ns*sm_len,) padded taps (smoothed m)
-  const float* trig;         // (2, L) [cos, sin](2 pi j / L) or null
+  float* dens;               // (B, k, L) total density per step (kmax > 0)
   const int* noise;
   int L, n_t, window, k_steps, kmax, m_mode, solve_mode;
   int sm_nb, sm_ns, sm_len, sv_nb, sv_ns, sv_len;  // circulant plans
@@ -298,7 +302,6 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
   // L and n_t
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
   const int L = a.L, n_t = a.n_t, kmax = a.kmax;
   const bool local_m = a.m_mode != kGlobal;
 
@@ -340,12 +343,15 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
   for (int s = 0; s < a.k_steps; ++s) {
     const int n = a.step0 + s;
     float* row = a.recs + ((size_t)b * a.k_steps + s) * rw;
+    float* drow =
+        a.dens ? a.dens + ((size_t)b * a.k_steps + s) * L : nullptr;
 
     // -- magnetization of the pre-step densities --------------------------
     if (a.m_mode == kTaps) {
       for (int x = tid; x < L; x += kThreads) {
         Q[x] = P[x] - M[x];
         N[x] = P[x] + M[x];
+        if (drow) __stcs(drow + x, N[x]);
       }
       __syncthreads();
     }
@@ -363,6 +369,7 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
     } else {
       for (int x = tid; x < L; x += kThreads) {
         const float p = P[x], q = M[x];
+        if (drow) __stcs(drow + x, p + q);
         if (a.m_mode == kGlobal) {
           vA[0] += p - q;
         } else {
@@ -377,22 +384,6 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
     const float m_glob = vA[0] / (vA[1] + 1e-12f);
     const float m_mean = local_m ? vA[0] * inv_L : m_glob;
     const float t_mean = vA[1] * inv_L;
-
-    // -- spectra: one warp per (bin, re|im) -------------------------------
-    for (int q = warp; q < 2 * kmax; q += kWarps) {
-      const int k = q < kmax ? q : q - kmax;
-      const float* tab = a.trig + (q < kmax ? 0 : L);
-      const int step_k = (int)((32LL * k) % L);
-      int kx = (int)(((long long)k * lane) % L);
-      float acc = 0.f;
-      for (int x = lane; x < L; x += 32) {
-        acc += (P[x] + M[x]) * __ldg(tab + kx);
-        kx += step_k;
-        if (kx >= L) kx -= L;
-      }
-      acc = warp_sum(acc);
-      if (lane == 0) row[4 + q] = q < kmax ? acc * inv_L : -acc * inv_L;
-    }
 
     // -- tracers: CW flip, Euler-Maruyama, displacement ring --------------
     const int* nz =
@@ -583,19 +574,20 @@ extern "C" int pde_multi_step_launch(
     const float* rm_in, const float* pos_in, const float* spin_in,
     const float* hist_in, float* rp_out, float* rm_out, float* pos_out,
     float* spin_out, float* hist_out, float* recs, const double* scan,
-    const float* solve_taps, const float* smooth_taps, const float* trig,
-    const int* noise, int B, int L, int n_t, int window, int k_steps,
-    int kmax, int m_mode, int solve_mode, int sm_nb, int sm_ns, int sm_len,
-    int sv_nb, int sv_ns, int sv_len, int part_floats, int periodic,
-    int bidirectional, float dt, float dx, float xlim, float v_last,
-    float fac, float w_dt, float w_2dt, void* stream) {
-  Args a{scal,     seeds,      step0,       b0,      rp_in,   rm_in,    pos_in,
-         spin_in,  hist_in,    rp_out,      rm_out,  pos_out,  spin_out,
-         hist_out, recs,       scan,        solve_taps, smooth_taps, trig,
-         noise,    L,          n_t,         window,  k_steps,  kmax,
-         m_mode,   solve_mode, sm_nb,       sm_ns,   sm_len,   sv_nb,
-         sv_ns,    sv_len,     periodic,    bidirectional, dt, dx,
-         xlim,     v_last,     fac,         w_dt,    w_2dt};
+    const float* solve_taps, const float* smooth_taps, float* dens,
+    const int* noise, int B, int L, int n_t, int window,
+    int k_steps, int kmax, int m_mode, int solve_mode, int sm_nb, int sm_ns,
+    int sm_len, int sv_nb, int sv_ns, int sv_len, int part_floats,
+    int periodic, int bidirectional, float dt, float dx, float xlim,
+    float v_last, float fac, float w_dt, float w_2dt, void* stream) {
+  Args a{scal,     seeds,      step0,   b0,      rp_in,       rm_in,
+         pos_in,   spin_in,    hist_in, rp_out,  rm_out,      pos_out,
+         spin_out, hist_out,   recs,    scan,    solve_taps,  smooth_taps,
+         dens,     noise,      L,       n_t,     window,
+         k_steps,  kmax,       m_mode,  solve_mode, sm_nb,    sm_ns,
+         sm_len,   sv_nb,      sv_ns,   sv_len,  periodic,    bidirectional,
+         dt,       dx,         xlim,    v_last,  fac,         w_dt,
+         w_2dt};
   const size_t smem =
       pde_multi_step_smem_bytes(L, n_t, m_mode != kGlobal, part_floats);
   cudaError_t e = cudaFuncSetAttribute(

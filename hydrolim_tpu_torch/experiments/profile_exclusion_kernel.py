@@ -12,7 +12,11 @@ advanced by k per call) at:
 - the flagship shape with one knob changed: global m, injected bits, K=1
   (N=500, σ=0.005: the reference sweep's shape), B = 1, 132, 264, L = 250,
   4000 (N = 3L/4; 65 taps at L=4000) and 8192 (past one block's shared
-  memory), in 1000-step calls.
+  memory), in 1000-step calls;
+- the three wide bands of the drivers, in 1000-step calls: the σ sweep's
+  σ=0.1 (801 taps) and σ=0.3 (the dense reflect band), B=55 (11 β × 5),
+  K=1, N=500, rd=0.002, walls; the particle phase diagram's σ=2 (the dense
+  periodic band), B=64 (32 β × 2), K=3, N=1500, periodic, bidirectional.
 Each row carries the card (``nvidia-smi``'s name and power limit) and a
 SHA-1 of the slots after the warm-up call (k steps from the same initial
 slots), which depends only on the function, so two checkouts that compute
@@ -53,6 +57,12 @@ SHAPES = {
     **{f"B={B}": dict(FLAGSHIP, B=B, k=1000) for B in (1, 132, 264)},
     **{f"L={L}": dict(FLAGSHIP, L=L, N=3 * L // 4, k=1000)
        for L in (250, 4000, 8192)},
+    **{f"sigma={s} walls": dict(FLAGSHIP, B=55, K=1, N=500, sigma=s,
+                                rd=0.002, reps=5, k=1000)
+       for s in (0.1, 0.3)},
+    "sigma=2 torus": dict(FLAGSHIP, B=64, N=1500, sigma=2.0, periodic=True,
+                          bidirectional=True, betas=np.linspace(0, 3, 32),
+                          reps=2, k=1000),
 }
 
 
@@ -69,19 +79,20 @@ QUICK_STEPS = 200
 def run(name: str, calls: int, tag: str, cluster=None,
         max_steps=None) -> dict:
     sh = {**dict(betas=np.linspace(0.0, 3.0, 11), rd=0.02, dt=DT,
-                 inject=False), **SHAPES[name]}
-    B, K, L = sh["B"], sh["K"], sh["L"]
+                 inject=False, periodic=False, bidirectional=False, reps=3),
+          **SHAPES[name]}
+    B, K, L, periodic = sh["B"], sh["K"], sh["L"], sh["periodic"]
     k = sh["k"] if max_steps is None else min(sh["k"], max_steps)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     cfg = ParticleConfig(L=L, N=sh["N"], init="fixed", scale_rates=False,
-                         local_kernel_sigma=sh["sigma"], periodic=False,
+                         local_kernel_sigma=sh["sigma"], periodic=periodic,
                          site_capacity=K)
     band = (exclusion_kernel.build_smoothing_band(cfg, dev)
             if sh["sigma"] > 0 else None)
     slots = fast_exclusion.init_payload_slots(cfg, gen, B=B, device=dev)
-    betas = np.resize(np.repeat(sh["betas"], 3), B)
+    betas = np.resize(np.repeat(sh["betas"], sh["reps"]), B)
     scal = torch.tensor([[b, sh["rd"], 5.0] for b in betas],
                         dtype=torch.float32, device=dev)
     seeds = torch.arange(B, dtype=torch.int32, device=dev)
@@ -91,12 +102,12 @@ def run(name: str, calls: int, tag: str, cluster=None,
     row = dict(tag=tag, row=name, B=B, K=K, L=L, N=sh["N"],
                sigma=sh["sigma"], k_steps=k, injected=sh["inject"],
                card=card())
-    kw = dict(k_steps=k, dt=sh["dt"], periodic=False, bidirectional=False,
-              noise=noise)
+    kw = dict(k_steps=k, dt=sh["dt"], periodic=periodic,
+              bidirectional=sh["bidirectional"], noise=noise)
     step = exclusion_kernel.exclusion_multi_step
     if cluster is not None:
         try:
-            plan = exclusion_kernel.card_plan(B, K, L, band, False,
+            plan = exclusion_kernel.card_plan(B, K, L, band, periodic,
                                               cluster=cluster)
         except ValueError as e:
             print(json.dumps(dict(row, cluster=cluster, refused=str(e))),
@@ -107,7 +118,7 @@ def run(name: str, calls: int, tag: str, cluster=None,
             plan, *a, **kw_)
     elif hasattr(exclusion_kernel, "card_plan"):     # the wrapper's own
         row["plan"] = dataclasses.asdict(exclusion_kernel.card_plan(
-            B, K, L, band, False))
+            B, K, L, band, periodic))
     state = [slots, 0]
 
     def call():

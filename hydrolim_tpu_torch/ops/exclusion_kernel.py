@@ -36,12 +36,23 @@ draws from ``generator``.
 
 Launch plan (``exclusion_launch_plan``, a pure function tested on the CPU):
 a thread-block cluster of C ≤ 8 CTAs per replica, CTA r owning the sites
-``segments(L, C)[r]`` plus ``halo_width`` sites of state on each side
-(``cta_window``).  Among the C whose windows fit shared memory, whose
-segments are at least two halos wide and that seat all B clusters at once
-with a CTA per SM (``cudaOccupancyMaxActiveClusters``), the smallest that
-brings a CTA to ``SITES_PER_CTA`` sites.  ``card_plan`` asks the card;
+``segments(L, C)[r]`` plus a halo of slots on each side (``cta_window``):
+``halo_width`` sites, so that the halo also carries the band's inputs, or,
+where that halo does not fit (a wide or dense band), ``SLOT_HALO`` sites
+of slots beside a count field of the whole lattice that the cluster's CTAs
+exchange each step (``cta_mode``; ``exchange``).  Among the C whose
+windows fit shared memory, whose segments are at least two halos wide and
+that seat all B clusters at once with a CTA per SM
+(``cudaOccupancyMaxActiveClusters``), the smallest that brings a CTA to
+``SITES_PER_CTA`` sites.  ``card_plan`` asks the card;
 ``exclusion_multi_step_planned`` runs a given (or forced) plan.
+
+The band's layouts for the kernel (``SmoothingBand``): the rows as a
+transposed table ``wt`` with four taps interleaved (a lane reads four taps
+of its row in one 16-byte load, a warp's loads coalesce), and the weights
+by input offset ``utaps`` that the rows marked ``on_taps`` rotate (every
+row of a periodic band, the interior of a reflect band), held in shared
+memory; ``krot`` tells each row's inputs.
 """
 from __future__ import annotations
 
@@ -80,6 +91,7 @@ SLOT_BYTES = 2 * MAX_CLUSTER * 32 * 8   # global m's tagged Σσ partials
 # 3.44 and 125-200 (C=5-8) 3.41-3.46; at L=250 one CTA of 250 sites took
 # 2.96 against 3.17 at C=4.
 SITES_PER_CTA = 256
+SLOT_HALO = 3                 # slots the local phases read past a segment
 _SENT = 0x7FFFFFFF            # "no candidate": sorts after every priority
 _MASK_HI = 0x7FFFFFF0         # 27 random bits; the low 4 carry the row id
 _PERIODIC_TAIL = 1e-7         # periodic band: the cut tail's share of mass
@@ -97,19 +109,32 @@ def cta_threads(L: int, C: int) -> int:
                                        32))
 
 
+def band_pad(W: int) -> int:
+    """Entries the kernel keeps past each end of a count array for a band
+    of W taps (0: global m), as the array's periodic continuation: a row's
+    inputs run at most W//2 + 1 sites past either end, and its taps padded
+    to a multiple of 4 (weight 0) three more."""
+    return W // 2 + 4 if W else 0
+
+
 def cta_smem_bytes(K: int, L: int, W: int, C: int, halo: int,
-                   global_m: bool) -> int:
+                   global_m: bool, exchange: bool = False) -> int:
     """Dynamic shared memory of one CTA (the kernel's ``smem_bytes``): the
     halo mailboxes (2 step parities × 2 sides × K × halo tagged 64-bit
-    words), global m's tagged partials, two (K, window) int32 slot buffers,
-    (K, window) int32 priorities and int8 events, three (window,) int32
-    site arrays, the band's W taps (float32) and a K-byte draw queue per
-    thread.  The window is L at C=1, else the longest segment and two
-    halos."""
+    words), global m's tagged partials, with ``exchange`` the count field's
+    mailbox (2 parities × L tagged words) and the field itself (L float2
+    and ``band_pad`` on each side), the window's (cnt, occ) float2 (with
+    ``band_pad`` on each side where the band reads the window), two (K,
+    window) int32 slot buffers, (K, window) int32 priorities and int8
+    events, the window's int32 admission masks, the band's taps twice over
+    (float32) and a K-byte draw queue per thread.  The window is L at C=1,
+    else the longest segment and two halos."""
     window = L if C == 1 else _cdiv(L, C) + 2 * halo
+    P = band_pad(W)
     return ((0 if C == 1 else 32 * K * halo)
-            + (SLOT_BYTES if global_m else 0) + (13 * K + 12) * window
-            + 4 * W + K * cta_threads(L, C))
+            + (SLOT_BYTES if global_m else 0)
+            + (24 * L + 16 * P if exchange else 16 * P)
+            + (13 * K + 12) * window + 8 * W + K * cta_threads(L, C))
 
 
 def segments(L: int, C: int) -> list:
@@ -150,15 +175,34 @@ def halo_width(band: Optional["SmoothingBand"], periodic: bool) -> int:
     reads events two out, and an event reads the occupancy three out and
     (local m) the band's inputs ``reach`` + 2 out."""
     if band is None:
-        return 3
-    return max(3, (band.reach_wrap if periodic else band.reach) + 2)
+        return SLOT_HALO
+    return max(SLOT_HALO, (band.reach_wrap if periodic else band.reach) + 2)
 
 
-def cluster_fits(K: int, L: int, W: int, C: int, halo: int) -> bool:
+def cluster_fits(K: int, L: int, W: int, C: int, halo: int,
+                 exchange: bool = False) -> bool:
     """A cluster of C CTAs can run the call: each segment at least two
-    halos wide, and the window's shared memory within the block's."""
+    halos wide, and the window's shared memory within the block's.  With
+    ``exchange`` (a band at C > 1 only) the band reads the exchanged count
+    field and ``halo`` is the slots' own."""
+    if exchange and (C == 1 or W == 0):
+        return False
     return ((C == 1 or L // C >= 2 * halo)
-            and cta_smem_bytes(K, L, W, C, halo, W == 0) <= MAX_SMEM)
+            and cta_smem_bytes(K, L, W, C, halo, W == 0, exchange)
+            <= MAX_SMEM)
+
+
+def cta_mode(K: int, L: int, W: int, C: int,
+             halo: int) -> Optional[Tuple[int, bool]]:
+    """(halo, exchange) of a cluster of C CTAs: the band's own ``halo``
+    where it fits (0 at C=1), else, for a band at C > 1, ``SLOT_HALO``
+    sites of slots and the exchanged count field; None where neither
+    fits."""
+    if cluster_fits(K, L, W, C, halo):
+        return (halo if C > 1 else 0), False
+    if cluster_fits(K, L, W, C, SLOT_HALO, True):
+        return SLOT_HALO, True
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +212,7 @@ class ExclusionPlan:
     threads: int
     smem: int
     waves: int             # ⌈B / co-resident clusters⌉, a CTA per SM
+    exchange: bool = False  # the band reads the exchanged count field
 
 
 def exclusion_launch_plan(B: int, K: int, L: int, W: int, halo: int,
@@ -176,12 +221,14 @@ def exclusion_launch_plan(B: int, K: int, L: int, W: int, halo: int,
     """The plan of one call (W = 0: global m).  ``coresident[C]`` is how
     many clusters of C CTAs the card holds at once with every CTA on an
     SM of its own (absent or 0: cannot launch).  Among the C ≤ 8 that fit
-    (``cluster_fits``) with the fewest waves, the smallest C whose CTA
-    holds at most ``SITES_PER_CTA`` sites, else the one with the fewest.
-    ``cluster`` forces C."""
+    (``cta_mode``) with the fewest waves, the smallest C whose CTA holds at
+    most ``SITES_PER_CTA`` sites, else the one with the fewest.
+    ``cluster`` forces C.  A band whose ``halo`` does not fit a C > 1 runs
+    there on the exchanged count field."""
     sizes = [cluster] if cluster else range(1, MAX_CLUSTER + 1)
+    modes = {C: cta_mode(K, L, W, C, halo) for C in sizes}
     ok = [C for C in sizes
-          if cluster_fits(K, L, W, C, halo) and int(coresident.get(C, 0)) > 0]
+          if modes[C] is not None and int(coresident.get(C, 0)) > 0]
     if not ok:
         raise ValueError(f"exclusion_multi_step: no cluster size of "
                          f"{list(sizes)} fits K={K}, L={L}, W={W}, halo "
@@ -191,9 +238,10 @@ def exclusion_launch_plan(B: int, K: int, L: int, W: int, halo: int,
     cands = [C for C in ok if waves[C] == fewest]
     small = [C for C in cands if _cdiv(L, C) <= SITES_PER_CTA]
     C = min(small) if small else max(cands)
-    h = halo if C > 1 else 0
+    h, ex = modes[C]
     return ExclusionPlan(C, h, cta_threads(L, C),
-                         cta_smem_bytes(K, L, W, C, h, W == 0), fewest)
+                         cta_smem_bytes(K, L, W, C, h, W == 0, ex), fewest,
+                         ex)
 
 
 # ---------------------------------------------------------------------------
@@ -203,25 +251,29 @@ def exclusion_launch_plan(B: int, K: int, L: int, W: int, halo: int,
 @dataclasses.dataclass(frozen=True)
 class SmoothingBand:
     """Per output site x: input sites ``idx[x]`` (ascending) and float32
-    weights ``w[x]`` (0 on padding entries), both (L, W).  The sites x in
-    the interior [lo, hi) read the same (W,) ``taps`` at the inputs
-    x − radius + t: ``idx[x, t] = x − radius + t`` and ``w[x] = taps``
-    bit for bit, checked where the band is built.  The kernel serves those
-    taps from shared memory and reads the other rows from ``idx``/``w``.
-    ``rot`` (L,) int32: each row's rotation (``band_rotation``).
-    ``reach`` and ``reach_wrap``: the farthest input (weight ≠ 0, or an
-    interior tap) from its output site, along the line and around the
-    torus."""
+    weights ``w[x]`` (0 on padding entries), both (L, W); ``radius`` =
+    (W − 1) // 2.  ``reach`` and ``reach_wrap``: the farthest input
+    (weight ≠ 0, or a tap of the interior, ``band_interior``) from its
+    output site, along the line and around the torus.
+
+    The kernel's layouts (``smoothing_band`` builds them; the plain version
+    reads only ``idx`` and ``w``): ``wt`` (⌈W/4⌉, L, 4) float32, ``w``
+    transposed with four taps interleaved, wt[q, x, i] = w[x, 4q + i] (0
+    past W; ``band_table``); ``krot`` (L,) int32, the rotation the kernel
+    reads each row's inputs by (``kernel_rotation``); ``utaps`` (W,)
+    float32, the weights by input offset that the rows with ``on_taps``
+    (L,) int32 set rotate: w[x, t] = utaps[(t + rot) mod W] bit for bit
+    (``rotation_taps``)."""
 
     idx: torch.Tensor
     w: torch.Tensor
-    taps: torch.Tensor
-    rot: torch.Tensor
     radius: int
-    lo: int
-    hi: int
     reach: int
     reach_wrap: int
+    wt: Optional[torch.Tensor] = None
+    krot: Optional[torch.Tensor] = None
+    utaps: Optional[torch.Tensor] = None
+    on_taps: Optional[torch.Tensor] = None
 
 
 def _periodic_radius(k: np.ndarray) -> int:
@@ -320,23 +372,64 @@ def band_rotation(idx: np.ndarray, w: np.ndarray,
     return np.where(lin, rot, np.where(wrap, -2 - rot, -1)).astype(np.int32)
 
 
+def kernel_rotation(idx: np.ndarray, w: np.ndarray,
+                    periodic: bool = True) -> np.ndarray:
+    """``band_rotation`` as the kernel reads rows: a dense band's rows (W =
+    L, each reading all L sites in ascending order) count as rotations
+    around the lattice's ends at walls too, since the kernel reads them
+    from a count array of the whole lattice continued periodically past
+    its ends."""
+    return band_rotation(idx, w, periodic or idx.shape[1] == idx.shape[0])
+
+
+def rotation_taps(w: np.ndarray, krot: np.ndarray
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """(utaps (W,) float32, on (L,) int32): the weights of the middle row
+    by input offset, utaps[(t + rot) mod W] = w[L//2, t], and the rows
+    whose weights are that vector rotated by their own ``krot``, bit for
+    bit (every row of a periodic band, dense or not; a reflect band's
+    interior).  All 0 where the middle row has no rotation."""
+    L, W = w.shape
+    rot = np.where(krot <= -2, -2 - krot, krot).astype(np.int64)
+    utaps = np.zeros(W, np.float32)
+    if krot[L // 2] == -1:
+        return utaps, np.zeros(L, np.int32)
+    utaps[(np.arange(W) + rot[L // 2]) % W] = w[L // 2]
+    rows = utaps[(np.arange(W)[None, :] + rot[:, None]) % W]
+    on = (krot != -1) & (rows.view(np.uint32) == w.view(np.uint32)).all(1)
+    return utaps, on.astype(np.int32)
+
+
+def band_table(w: np.ndarray) -> np.ndarray:
+    """The kernel's (⌈W/4⌉, L, 4) table of the (L, W) weights, tap 4q + i
+    of row x at [q, x, i] and zeros past W, so that a lane reads four taps
+    of its row in one 16-byte load and a warp's loads are contiguous."""
+    L, W = w.shape
+    t = np.zeros((L, -(-W // 4) * 4), np.float32)
+    t[:, :W] = w
+    return np.ascontiguousarray(t.reshape(L, -1, 4).transpose(1, 0, 2))
+
+
 def smoothing_band(idx: np.ndarray, w: np.ndarray, device="cuda",
                    periodic: bool = True) -> SmoothingBand:
-    """The band of (L, W) input sites and weights, with its interior, its
-    rows' rotations and its reach."""
-    taps, radius, lo, hi = band_interior(idx, w)
+    """The band of (L, W) input sites and weights, with its reach and the
+    kernel's layouts."""
+    _, radius, lo, hi = band_interior(idx, w)
     L, W = idx.shape
     d = np.abs(idx.astype(np.int64) - np.arange(L)[:, None])[w != 0]
     inner = max(radius, W - 1 - radius) if lo < hi else 0
     reach = max(int(d.max(initial=0)), inner)
     reach_wrap = max(int(np.minimum(d, L - d).max(initial=0)), inner)
+    krot = kernel_rotation(idx, w, periodic)
+    utaps, on = rotation_taps(w, krot)
     return SmoothingBand(idx=torch.tensor(idx, device=device),
                          w=torch.tensor(w, device=device),
-                         taps=torch.tensor(taps, device=device),
-                         rot=torch.tensor(band_rotation(idx, w, periodic),
-                                          device=device),
-                         radius=radius, lo=lo, hi=hi, reach=reach,
-                         reach_wrap=reach_wrap)
+                         radius=radius, reach=reach,
+                         reach_wrap=reach_wrap,
+                         wt=torch.tensor(band_table(w), device=device),
+                         krot=torch.tensor(krot, device=device),
+                         utaps=torch.tensor(utaps, device=device),
+                         on_taps=torch.tensor(on, device=device))
 
 
 def build_smoothing_band(config: ParticleConfig,
@@ -567,17 +660,21 @@ def exclusion_multi_step(scalars: torch.Tensor, seeds: torch.Tensor,
     W = 0
     if band is not None:
         W = band.idx.shape[1]
+        if band.wt is None:
+            raise ValueError("band: no kernel layouts (build it with "
+                             "smoothing_band)")
         _check(band.idx, "band.idx", torch.int32, (L, W), dev)
         _check(band.w, "band.w", torch.float32, (L, W), dev)
-        _check(band.taps, "band.taps", torch.float32, (W,), dev)
-        _check(band.rot, "band.rot", torch.int32, (L,), dev)
-        radius, lo, hi = band.radius, band.lo, band.hi
-        if not (0 <= lo <= hi <= L and (lo == hi or (
-                lo >= radius and hi + W - 1 - radius <= L))):
-            raise ValueError(f"band interior [{lo}, {hi}) with radius "
-                             f"{radius} and W={W} reads outside 0..{L}")
+        _check(band.wt, "band.wt", torch.float32, ((W + 3) // 4, L, 4),
+               dev)
+        _check(band.utaps, "band.utaps", torch.float32, (W,), dev)
+        _check(band.krot, "band.krot", torch.int32, (L,), dev)
+        _check(band.on_taps, "band.on_taps", torch.int32, (L,), dev)
+        if band.radius != (W - 1) // 2:
+            raise ValueError(f"band radius {band.radius} with W={W}: the "
+                             f"kernel reads rows of radius (W - 1) // 2")
     halo = halo_width(band, periodic)
-    if not any(cluster_fits(K, L, W, C, halo)
+    if not any(cta_mode(K, L, W, C, halo)
                for C in range(1, MAX_CLUSTER + 1)):
         raise ValueError(
             f"exclusion_multi_step: K·L = {K}·{L} (band W={W}, halo {halo}) "
@@ -609,12 +706,12 @@ def _lib():
     lib = load_kernel_library("exclusion_multi_step")
     fn = lib.exclusion_multi_step_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                   + [ctypes.c_float] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     occ = lib.exclusion_max_active_clusters
-    occ.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    occ.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
     occ.restype = ctypes.c_int
     return lib
 
@@ -626,20 +723,21 @@ def exclusion_max_active_clusters(device_index: int, K: int, L: int, W: int,
     (W = 0: global m) with every CTA on an SM of its own}, from
     ``cudaOccupancyMaxActiveClusters`` asked for CTAs whose shared memory
     leaves no room for a second (the kernel itself takes what its window
-    needs); 0 where the cluster does not fit (``cluster_fits``) or cannot
-    launch.  The GPCs decide what this seats: on an H100 clusters of 4
-    seat 32, not 33."""
+    needs), each C in its ``cta_mode``; 0 where the cluster does not fit
+    or cannot launch.  The GPCs decide what this seats: on an H100
+    clusters of 4 seat 32, not 33."""
     lib = _lib()
     out = {}
     with torch.cuda.device(device_index):
         for C in range(1, MAX_CLUSTER + 1):
             out[C] = 0
-            if not cluster_fits(K, L, W, C, halo):
+            mode = cta_mode(K, L, W, C, halo)
+            if mode is None:
                 continue
-            h = halo if C > 1 else 0
+            h, ex = mode
             cnt = ctypes.c_int(0)
             rc = lib.exclusion_max_active_clusters(
-                K, L, W, C, h, cta_threads(L, C), int(W == 0),
+                K, L, W, C, h, cta_threads(L, C), int(W == 0), int(ex),
                 ctypes.byref(cnt))
             out[C] = cnt.value if rc == 0 else 0
     return out
@@ -659,9 +757,10 @@ def exclusion_multi_step_planned(plan: ExclusionPlan, scalars, seeds, slots,
     B, K, L = slots.shape
     W = 0 if band is None else band.idx.shape[1]
     C = plan.cluster
-    halo = halo_width(band, periodic)
+    halo = SLOT_HALO if plan.exchange else halo_width(band, periodic)
     if plan.halo != (halo if C > 1 else 0) or not cluster_fits(
-            K, L, W, C, halo) or plan.threads != cta_threads(L, C):
+            K, L, W, C, halo, plan.exchange) or \
+            plan.threads != cta_threads(L, C):
         raise ValueError(f"exclusion_multi_step: {plan} does not fit K={K}, "
                          f"L={L}, W={W}, halo {halo}")
     out = torch.empty_like(slots)
@@ -674,11 +773,11 @@ def exclusion_multi_step_planned(plan: ExclusionPlan, scalars, seeds, slots,
     rc = _lib().exclusion_multi_step_launch(
         ptr(scalars), ptr(seeds), step0, b0, ptr(slots), ptr(out), ptr(noise),
         *(ptr(getattr(band, f) if band is not None else None)
-          for f in ("idx", "w", "taps", "rot")),
-        W, *((band.radius, band.lo, band.hi) if band is not None
-             else (0, 0, 0)),
-        B, K, L, k_steps, dt, int(periodic), int(bidirectional), C,
-        plan.halo, plan.threads, ctypes.c_void_p(stream.cuda_stream))
+          for f in ("idx", "w", "wt", "utaps", "krot", "on_taps")),
+        W, 0 if band is None else band.radius, B, K, L, k_steps, dt,
+        int(periodic), int(bidirectional), C, plan.halo, plan.threads,
+        int(plan.exchange),
+        ctypes.c_void_p(stream.cuda_stream))
     check_cuda(rc, "exclusion_multi_step")
     if exclusion_multi_step.events is not None:
         exclusion_multi_step.events[-1][1].record(stream)

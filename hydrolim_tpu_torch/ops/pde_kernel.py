@@ -18,8 +18,14 @@ Modes, as in the TPU kernel:
 
 Layout: unpadded (B, L) fields, (B, n_t) tracers, (B, window, n_t) ring,
 records (B, k, 4 + 2·kmax_rec) = [m_mean, Var, v_eff, D_eff, rfft re (k
-bins), rfft im (k bins)] of the total density ÷ L.  ``interop`` converts the
-TPU kernel's padded lane layouts.  Randomness is either injected (``noise``:
+bins), rfft im (k bins)] of the total density ÷ L.  The spectra are off
+the steps' chain: each step stores its density row into a (B, k, L)
+scratch and a second kernel (``pde_spectra``, ``csrc/pde_spectra.cu``)
+computes every step's bins across the card right after; where that
+scratch would pass ``SPECTRA_SCRATCH_BYTES`` the call runs as several
+launches of fewer steps (``spectra_plan``), which give the same values
+bit for bit.  ``interop`` converts the TPU kernel's padded lane
+layouts.  Randomness is either injected (``noise``:
 (B, k, 3, n_t) uint32 bits held in int32 — tracer flip, Box–Muller u2, u3)
 or native: Philox4x32-10 in the kernel, key (seed, ``b0`` + replica),
 counter (tracer, ``step0`` + step), so a launch of rows [b0, b0 + n) of a
@@ -56,6 +62,12 @@ from hydrolim_tpu_torch.pde.stepper import (
 
 SOURCE = "hydrolim_tpu_torch/csrc/pde_multi_step.cu"
 REPLACES = "hydrolim_tpu/ops/pallas_pde.py:337"
+SPECTRA_SOURCE = "hydrolim_tpu_torch/csrc/pde_spectra.cu"
+SPECTRA_REPLACES = "hydrolim_tpu/ops/pallas_pde.py:288 (in :337)"
+# The most bytes of one launch's (B, k, L) float32 density scratch; a call
+# whose scratch would be larger runs in pieces of fewer steps.
+SPECTRA_SCRATCH_BYTES = 256 << 20
+SPECTRA_THREADS = 512         # threads of a block of the spectra kernel
 SMEM_LIMIT = 232_448          # bytes of shared memory one block may use
 KERNEL_THREADS = 1024         # one block per replica
 KBLOCK = 9                    # sites per work unit of the blocked circulant
@@ -252,6 +264,98 @@ def _spectra(total: torch.Tensor, mats: torch.Tensor, L: int) -> torch.Tensor:
                       -(total @ mats[1]) * inv_L], dim=-1)
 
 
+@dataclasses.dataclass(frozen=True)
+class SpectraPlan:
+    """How a call's spectra are computed: the DFT's split L = n1·n2 of the
+    spectra kernel, its rows (steps) per block, and the steps per launch
+    of the step kernel, whose density scratch must fit
+    ``SPECTRA_SCRATCH_BYTES``."""
+
+    n1: int
+    rows_per_block: int
+    piece: int
+
+
+def spectra_split(L: int) -> int:
+    """n1 of the spectra kernel's split L = n1·n2: the smallest divisor of
+    L at least √L (40 at L = 1000; L itself for a prime L, the direct
+    sum)."""
+    return next(d for d in range(math.isqrt(L - 1) + 1, L + 1) if L % d == 0)
+
+
+def spectra_smem_bytes(L: int, kmax: int, n1: int, rows: int) -> int:
+    """Shared memory of a block of the spectra kernel: the (2, L) table,
+    ``rows`` density rows and their stage-1 sums (n2·min(n1, kmax) complex
+    values a row)."""
+    per = (L // n1) * min(n1, kmax)
+    return 4 * (2 * L + rows * (L + 2 * per))
+
+
+def spectra_plan(B: int, k_steps: int, L: int, kmax: int) -> SpectraPlan:
+    """The spectra kernel's split (``spectra_split``) and rows per block
+    (about one stage-1 sum per thread, at most 16 rows, within shared
+    memory), and the steps per launch of the step kernel: all of them
+    while the (B, k, L) float32 scratch fits ``SPECTRA_SCRATCH_BYTES``,
+    else as many as fit (at least one)."""
+    n1 = spectra_split(L)
+    per = (L // n1) * min(n1, kmax)
+    rows = max(1, min(16, SPECTRA_THREADS // per))
+    while rows > 1 and spectra_smem_bytes(L, kmax, n1, rows) > SMEM_LIMIT:
+        rows -= 1
+    piece = max(1, min(k_steps, SPECTRA_SCRATCH_BYTES // (4 * B * L)))
+    return SpectraPlan(n1, rows, piece)
+
+
+def pde_spectra_plain(dens: torch.Tensor, kmax: int) -> torch.Tensor:
+    """Plain version of ``pde_spectra``: (..., L) densities → (..., 2·kmax)
+    [re, im] of their first kmax rfft bins ÷ L."""
+    L = dens.shape[-1]
+    return _spectra(dens, spectra_mats(L, kmax, dens.device), L)
+
+
+def pde_spectra(dens: torch.Tensor, recs: torch.Tensor, kmax: int) -> None:
+    """Write the spectra of (B, k, L) float32 densities into columns 4.. of
+    the (B, k, 4 + 2·kmax) records, in place.  On CUDA tensors the kernel
+    (``csrc/pde_spectra.cu``); on CPU tensors ``pde_spectra_plain``."""
+    B, k, L = dens.shape
+    if dens.device.type == "cpu":
+        recs[..., 4:] = pde_spectra_plain(dens, kmax)
+        return
+    if dens.device.type != "cuda":
+        raise ValueError(f"pde_spectra: unsupported device {dens.device}")
+    _check(dens, "dens", torch.float32, (B, k, L), dens.device)
+    _check(recs, "recs", torch.float32, (B, k, 4 + 2 * kmax), dens.device)
+    if not 1 <= kmax <= L // 2 + 1:
+        raise ValueError(f"pde_spectra: kmax={kmax} with L={L}")
+    plan = spectra_plan(B, k, L, kmax)
+    smem = spectra_smem_bytes(L, kmax, plan.n1, plan.rows_per_block)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"pde_spectra: L={L}, kmax={kmax} need {smem} B of "
+                         f"shared memory per block, more than {SMEM_LIMIT}")
+    fn = load_kernel_library("pde_spectra").pde_spectra_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dens.device)
+    pde_spectra.launches += 1
+    if pde_spectra.events is not None:
+        pde_spectra.events.append(
+            [torch.cuda.Event(enable_timing=True) for _ in range(2)])
+        pde_spectra.events[-1][0].record(stream)
+    rc = fn(ptr(dens), ptr(trig_table(L, dens.device)), ptr(recs), B * k, L,
+            kmax, 4 + 2 * kmax, plan.n1, plan.rows_per_block,
+            ctypes.c_void_p(stream.cuda_stream))
+    check_cuda(rc, "pde_spectra")
+    if pde_spectra.events is not None:
+        pde_spectra.events[-1][1].record(stream)
+
+
+# launches of the spectra kernel, and its events while a list (as
+# ``pde_multi_step``'s)
+pde_spectra.launches = 0
+pde_spectra.events = None
+
+
 def pde_multi_step_plain(scal, seeds, step0: int, rho_p, rho_m, pos, spin,
                          hist, solve: Optional[SolveOperands],
                          smooth: Optional[SmoothOperands] = None, *, L: int,
@@ -408,36 +512,49 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
         taps[name] = _kernel_taps(ops, *plans[name][1:])
     part_floats = max(ns * L if ns > 1 else 0
                       for _, ns, _ in plans.values())
-    trig = trig_table(L, dev) if kmax_rec > 0 else None
-    outs = [torch.empty_like(t) for t in (rho_p, rho_m, pos, spin, hist)]
-    recs = torch.empty((B, k_steps, 4 + 2 * kmax_rec), dtype=torch.float32,
-                       device=dev)
+    sp = spectra_plan(B, k_steps, L, kmax_rec) if kmax_rec else None
+    piece = sp.piece if sp else k_steps
+    dens = (torch.empty(B * piece * L, dtype=torch.float32, device=dev)
+            if sp else None)
     fn = lib.pde_multi_step_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] * 16 + [ctypes.c_int] * 17
                    + [ctypes.c_float] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    pde_multi_step.launches += 1
     stream = torch.cuda.current_stream(dev)
     if pde_multi_step.events is not None:
         pde_multi_step.events.append(
             [torch.cuda.Event(enable_timing=True) for _ in range(2)])
         pde_multi_step.events[-1][0].record(stream)
-    rc = fn(ptr(scal), ptr(seeds), step0, b0, ptr(rho_p), ptr(rho_m),
-            ptr(pos),
-            ptr(spin), ptr(hist), *[ptr(t) for t in outs], ptr(recs),
-            ptr(fac.scan if fac is not None else None), ptr(taps["solve"]),
-            ptr(taps["smoothing"]), ptr(trig), ptr(noise), B, L, n_t, window,
-            k_steps, kmax_rec, _M_CODES[m_mode], _SOLVE_CODES[solve_mode],
-            *plans["smoothing"], *plans["solve"], part_floats,
-            int(periodic), int(bidirectional), dt, xlim / L, xlim,
-            0.0 if fac is None else fac.v_last,
-            0.0 if fac is None else fac.fac, window * dt, 2.0 * window * dt,
-            ctypes.c_void_p(stream.cuda_stream))
-    check_cuda(rc, "pde_multi_step")
-    if pde_multi_step.events is not None:
+    state, parts = (rho_p, rho_m, pos, spin, hist), []
+    for s0 in range(0, k_steps, piece):            # one piece unless the
+        kp = min(piece, k_steps - s0)              # scratch is too large
+        outs = [torch.empty_like(t) for t in state]
+        recs = torch.empty((B, kp, 4 + 2 * kmax_rec), dtype=torch.float32,
+                           device=dev)
+        d = dens[:B * kp * L].view(B, kp, L) if sp else None
+        nz = (noise if noise is None or kp == k_steps
+              else noise[:, s0:s0 + kp].contiguous())
+        pde_multi_step.launches += 1
+        rc = fn(ptr(scal), ptr(seeds), step0 + s0, b0,
+                *[ptr(t) for t in state], *[ptr(t) for t in outs],
+                ptr(recs), ptr(fac.scan if fac is not None else None),
+                ptr(taps["solve"]), ptr(taps["smoothing"]), ptr(d), ptr(nz),
+                B, L, n_t, window, kp, kmax_rec, _M_CODES[m_mode],
+                _SOLVE_CODES[solve_mode], *plans["smoothing"],
+                *plans["solve"], part_floats, int(periodic),
+                int(bidirectional), dt, xlim / L, xlim,
+                0.0 if fac is None else fac.v_last,
+                0.0 if fac is None else fac.fac, window * dt,
+                2.0 * window * dt, ctypes.c_void_p(stream.cuda_stream))
+        check_cuda(rc, "pde_multi_step")
+        if d is not None:
+            pde_spectra(d, recs, kmax_rec)
+        state = outs
+        parts.append(recs)
+    if pde_multi_step.events is not None:      # the steps and their spectra
         pde_multi_step.events[-1][1].record(stream)
-    return (*outs, recs)
+    return (*state, parts[0] if len(parts) == 1 else torch.cat(parts, 1))
 
 
 # launches of the kernel; and, while ``events`` is a list, a pair of CUDA

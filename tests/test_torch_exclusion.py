@@ -255,28 +255,32 @@ def test_band_weights_match_jax_conv_matrix(periodic, sigma_grid):
 @pytest.mark.parametrize("periodic", [True, False])
 @pytest.mark.parametrize("sigma_grid", [2, 5, 20])
 def test_band_interior_rows_are_its_taps(periodic, sigma_grid):
-    """The interior the kernel serves from one row of taps: every row in
-    [lo, hi) is those taps at x − radius + t, bit for bit; away from the
-    walls and the wrap every site is interior; a row that breaks the
-    translation invariance falls out of the interior."""
-    from hydrolim_tpu_torch.ops.exclusion_kernel import smoothing_band
+    """The band's interior (``band_interior``), one row of taps translated:
+    every row in [lo, hi) is those taps at x − radius + t, bit for bit;
+    away from the walls and the wrap every site is interior; a row that
+    breaks the translation invariance falls out of the interior."""
+    from hydrolim_tpu_torch.ops.exclusion_kernel import (
+        band_interior,
+        smoothing_band,
+    )
 
     L = 200
     idx, w = band_weights(ParticleConfig(**_config(L, 3, sigma_grid / L,
                                                    periodic)))
     W = idx.shape[1]
     band = smoothing_band(idx, w, device=CPU)
-    r, lo, hi = band.radius, band.lo, band.hi
+    taps, r, lo, hi = band_interior(idx, w)
+    assert r == band.radius
     for x in range(lo, hi):
         np.testing.assert_array_equal(idx[x], x - r + np.arange(W))
-        np.testing.assert_array_equal(w[x], band.taps.numpy())
+        np.testing.assert_array_equal(w[x], taps)
     if W < L:
         assert (lo, hi) == (r, L - r)
         bent = w.copy()
         bent[L // 3, 0] += 1e-3
-        b2 = smoothing_band(idx, bent, device=CPU)
-        assert not b2.lo <= L // 3 < b2.hi
-        assert b2.hi - b2.lo >= (L - 2 * r) // 2
+        _, _, lo2, hi2 = band_interior(idx, bent)
+        assert not lo2 <= L // 3 < hi2
+        assert hi2 - lo2 >= (L - 2 * r) // 2
     else:                                       # the full torus: no interior
         assert lo == hi
 

@@ -21,6 +21,7 @@ from hydrolim_tpu_torch.ops.exclusion_kernel import (
     MAX_CLUSTER,
     MAX_SMEM,
     SITES_PER_CTA,
+    SLOT_HALO,
     SmoothingBand,
     band_rotation,
     band_weights,
@@ -36,6 +37,7 @@ from hydrolim_tpu_torch.ops.exclusion_kernel import (
     smooth_with_band,
     smoothing_band,
 )
+from test_torch_exclusion_bands import emulate_exchange
 
 
 @pytest.fixture(autouse=True)
@@ -90,8 +92,7 @@ def _window_band(band, sites, L, periodic):
     out = (idx < 0) | (idx >= len(sites))
     w[out], idx[out] = 0.0, 0
     return SmoothingBand(torch.tensor(idx, dtype=torch.int32),
-                         torch.tensor(w), band.taps, band.rot, band.radius, 0,
-                         0, 0, 0)
+                         torch.tensor(w), band.radius, 0, 0)
 
 
 def emulate(scal, slots, band, noise, *, C, halo, dt, periodic,
@@ -142,25 +143,34 @@ B, STEPS, DT = 2, 40, 0.02
 @pytest.mark.parametrize("case", list(CASES))
 def test_cluster_decomposition_equals_plain(case, C):
     """40 steps at injected bits: the segments stepped from their windows
-    EQUAL the plain version; a C whose segments are narrower than two halos
-    is refused by the plan instead."""
+    EQUAL the plain version.  A C whose segments are narrower than two
+    halos takes the exchanged count field instead where it has a band and
+    that fits (its decomposition, ``emulate_exchange``, EQUALS the plain
+    version too), and is refused by the plan otherwise."""
     K, L, sigma, periodic, bidi, bent = CASES[case]
     band = _band(K, L, sigma, periodic, bent)
     W = 0 if band is None else band.idx.shape[1]
     halo = halo_width(band, periodic)
     seats = {c: 64 for c in range(1, MAX_CLUSTER + 1)}
+    exchange = False
     if not cluster_fits(K, L, W, C, halo):
         assert C > 1 and L // C < 2 * halo
-        with pytest.raises(ValueError, match="no cluster size"):
-            exclusion_launch_plan(B, K, L, W, halo, seats, cluster=C)
-        return
+        exchange = bool(W) and cluster_fits(K, L, W, C, SLOT_HALO, True)
+        if not exchange:
+            with pytest.raises(ValueError, match="no cluster size"):
+                exclusion_launch_plan(B, K, L, W, halo, seats, cluster=C)
+            return
     plan = exclusion_launch_plan(B, K, L, W, halo, seats, cluster=C)
-    assert plan.cluster == C and plan.halo == (halo if C > 1 else 0)
+    assert (plan.cluster, plan.exchange) == (C, exchange)
+    assert plan.halo == (SLOT_HALO if exchange else halo if C > 1 else 0)
     slots, scal, noise = _inputs(B, K, L, STEPS, seed=L + K + C)
     kw = dict(dt=DT, periodic=periodic, bidirectional=bidi)
     want = exclusion_multi_step_plain(scal, None, slots, band, k_steps=STEPS,
                                       noise=noise, **kw)
-    got = emulate(scal, slots, band, noise, C=C, halo=halo, **kw)
+    if exchange:
+        got = emulate_exchange(scal, slots, band, noise, C=C, **kw)
+    else:
+        got = emulate(scal, slots, band, noise, C=C, halo=halo, **kw)
     assert torch.equal(got, want)
     assert not torch.equal(want, slots)
 
@@ -264,13 +274,18 @@ def test_plan_past_one_block():
 
 def test_plan_wide_band_takes_one_cta():
     """A periodic band that spans most of the torus (σ=0.05 at L=1000: 533
-    taps, reach 266) has a halo wider than half of any segment: C=1."""
+    taps, reach 266) has a halo wider than half of any segment, so no
+    cluster carries it in its halo: the plan takes C > 1 on the exchanged
+    count field, with slot halos of ``SLOT_HALO`` sites."""
     band = _band(3, 1000, 0.05, True)
     W = band.idx.shape[1]
     assert (W, band.reach_wrap) == (533, 266)
     halo = halo_width(band, True)
     plan = exclusion_launch_plan(16, 3, 1000, W, halo, SEATS)
-    assert (plan.cluster, plan.halo) == (1, 0)
+    assert plan.cluster > 1 and plan.exchange
+    assert plan.halo == SLOT_HALO
+    assert plan.smem == cta_smem_bytes(3, 1000, W, plan.cluster, SLOT_HALO,
+                                       False, True)
     assert not any(cluster_fits(3, 1000, W, C, halo)
                    for C in range(2, MAX_CLUSTER + 1))
 
@@ -287,7 +302,8 @@ def test_band_rows_by_rotation_equal_the_band(case):
         case, (3, 1000, 0.05, True, False, False) if "periodic" in case
         else (3, 1000, 0.02, False, False, False))
     band = _band(K, L, sigma, periodic, bent)
-    rot = band.rot.long()
+    rot = torch.from_numpy(band_rotation(band.idx.numpy(), band.w.numpy(),
+                                         periodic)).long()
     assert bool((rot != -1).all())
     if not periodic:
         assert bool((rot >= 0).all())

@@ -11,6 +11,8 @@ import torch
 
 from hydrolim_tpu_torch.core.config import ParticleConfig, PDEConfig
 from hydrolim_tpu_torch.ops.exclusion_kernel import (
+    band_interior,
+    band_rotation,
     band_weights,
     build_smoothing_band,
     card_plan,
@@ -22,6 +24,8 @@ from hydrolim_tpu_torch.ops.exclusion_kernel import (
 from hydrolim_tpu_torch.ops.pde_kernel import (
     pde_multi_step,
     pde_multi_step_plain,
+    pde_spectra,
+    pde_spectra_plain,
 )
 from hydrolim_tpu_torch.ops.stepper_kernel import (
     coresident_clusters,
@@ -389,7 +393,8 @@ def test_b3_kernel_equals_plain_on_a_bent_band(dev):
     w = w.copy()
     w[L // 3] *= 1.5
     band = smoothing_band(idx, w, device=dev)
-    assert not band.lo <= L // 3 < band.hi
+    _, _, lo, hi = band_interior(idx, w)
+    assert not lo <= L // 3 < hi
     gen, slots, scal, _ = _exclusion_inputs(dev, B=B, K=K, L=L, sigma=0.0,
                                             periodic=False, seed=4)
     seeds = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -455,9 +460,10 @@ def _b3_plan(dev, B, K, L, band, periodic, C=None):
 @pytest.mark.parametrize("B", [4, 33])
 @pytest.mark.parametrize("config", list(B3_CONFIGS))
 def test_b3_kernel_equals_plain_under_every_cluster_size(dev, config, B, L):
-    """40 steps at injected bits under each cluster size the plan allows
-    (C ≤ 8; the periodic σ=0.02 band, 215 taps, allows C ≤ 4): slots EQUAL
-    to the plain version's."""
+    """40 steps at injected bits under each cluster size C ≤ 8 (the
+    periodic σ=0.02 band, 215 taps, carries its band in the halo up to
+    C=4 and reads the exchanged count field past it): slots EQUAL to the
+    plain version's."""
     K, sigma, periodic, bidi = B3_CONFIGS[config]
     k = 40
     gen, slots, scal, band = _exclusion_inputs(
@@ -479,7 +485,7 @@ def test_b3_kernel_equals_plain_under_every_cluster_size(dev, config, B, L):
         assert exclusion_multi_step.launches == n0 + 1
         assert torch.equal(got, want), f"C={C}"
         ran.append(C)
-    assert ran == (list(range(1, 5)) if sigma == 0.02 else list(range(1, 9)))
+    assert ran == list(range(1, 9))
 
 
 def test_b3_band_rows_of_any_form_under_every_cluster_size(dev):
@@ -497,7 +503,7 @@ def test_b3_band_rows_of_any_form_under_every_cluster_size(dev):
         w[L // 3] *= 1.5
         idx[L // 2], w[L // 2] = idx[L // 2, ::-1], w[L // 2, ::-1]
         band = smoothing_band(idx, w, device=dev)
-        assert int(band.rot[L // 2]) == -1
+        assert band_rotation(idx, w, periodic)[L // 2] == -1
         gen, slots, scal, _ = _exclusion_inputs(
             dev, B=B, K=K, L=L, sigma=0.0, periodic=periodic, seed=6)
         seeds = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -555,15 +561,19 @@ def test_b3_past_one_block(dev):
 @pytest.mark.parametrize("sigma,periodic", [
     (0.3, False),      # the σ sweep's σ=0.3: reflect radius 1200 ≥ L
     (2.0, True),       # the phase diagram's σ=2.0: 2r+1 ≥ L on the torus
+    (0.1, False),      # the σ sweep's σ=0.1: 801 taps
 ])
 def test_b3_dense_band_equals_plain(dev, sigma, periodic):
-    """The dense bands (every row reading all L sites; C=1): 40 steps at
-    injected bits, slots EQUAL to the plain version's."""
+    """The wide and dense bands, on the exchanged count field at the
+    plan's C > 1: 40 steps at injected bits, slots EQUAL to the plain
+    version's under the plan and every C ≤ 8; native Philox at the plan's
+    C EQUAL to C=1."""
     B, K, L, k = 4, 3, 1000, 40
     gen, slots, scal, band = _exclusion_inputs(
         dev, B=B, K=K, L=L, sigma=sigma, periodic=periodic, seed=7)
-    assert tuple(band.idx.shape) == (L, L)
-    assert card_plan(B, K, L, band, periodic).cluster == 1
+    assert tuple(band.idx.shape) == (L, 801 if sigma == 0.1 else L)
+    plan = card_plan(B, K, L, band, periodic)
+    assert plan.cluster > 1 and plan.exchange
     seeds = torch.zeros(B, dtype=torch.int32, device=dev)
     kw = dict(k_steps=k, dt=0.02, periodic=periodic, bidirectional=periodic,
               noise=_bits((B, k, 2, K, L), gen, dev))
@@ -571,6 +581,75 @@ def test_b3_dense_band_equals_plain(dev, sigma, periodic):
     want = exclusion_multi_step_plain(scal, seeds, slots, band, **kw)
     assert torch.equal(got, want)
     assert not torch.equal(got, slots)
+    for C in range(1, 9):
+        got = exclusion_multi_step_planned(
+            _b3_plan(dev, B, K, L, band, periodic, C), scal, seeds, slots,
+            band, **kw)
+        assert torch.equal(got, want), f"C={C}"
+    kw = dict(k_steps=300, dt=0.02, periodic=periodic,
+              bidirectional=periodic, step0=11)
+    seeds = torch.arange(B, dtype=torch.int32, device=dev)
+    ref = exclusion_multi_step_planned(_b3_plan(dev, B, K, L, band, periodic,
+                                                1), scal, seeds, slots,
+                                       band, **kw)
+    assert torch.equal(exclusion_multi_step(scal, seeds, slots, band, **kw),
+                       ref)
+    assert not torch.equal(ref, slots)
+
+
+@pytest.mark.parametrize("kmax", [8, 40, 501])
+def test_b2_spectra_kernel_equals_plain(dev, kmax, monkeypatch):
+    """The spectra computed by ``pde_spectra`` from the step's densities
+    are within the spectra tolerance (rtol 1e-4, atol 1e-8) of the plain
+    version; a call whose density scratch is cut into pieces of 7 steps
+    (9 launches of each kernel) EQUALS the call in one launch, fields,
+    tracers and records, at injected bits and under native Philox; the
+    spectra kernel alone against ``pde_spectra_plain`` on uniform random
+    rows in [0.5, 1.5), whose bins are sums of L terms of size ~1 in
+    another order than cuBLAS's: rtol 1e-4, atol 1e-6 (√L·2⁻²⁴·1.5,
+    float32's typical rounding of such a sum, over L = 1000 is 3e-6)."""
+    from hydrolim_tpu_torch.ops import pde_kernel
+    from hydrolim_tpu_torch.pde.fast_solve import kernel_operands
+
+    B, L, k = 2, 1000, 60
+    config = PDEConfig(L=L, dt=5e-4, n_tracers=64, gaussian_kernel=True,
+                       kernel_sigma=0.005, fft_kmax=kmax,
+                       tracer_window_time=20 * 5e-4 * (1 + 1e-9))
+    m_mode, solve_mode, smooth, solve = kernel_operands(config, 0.0, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(kmax)
+    rp, rm, tr = pde_initialize(config, gen, B=B, mode="homogeneous",
+                                noise=0.3, n_tracers=64, device=dev)
+    args = (torch.tensor([[1.5, 0.6, 0.0, 0.0]] * B, device=dev),
+            torch.zeros(B, dtype=torch.int32, device=dev), 0, rp, rm,
+            tr.unwrapped, tr.spin.float(), tr.hist, solve, smooth)
+    kw = dict(L=L, n_t=64, window=config.tracer_window, k_steps=k,
+              dt=config.dt, xlim=config.xlim, periodic=True, m_mode=m_mode,
+              solve_mode=solve_mode, bidirectional=True, kmax_rec=kmax)
+    noise = _bits((B, k, 3, 64), gen, dev)
+    for nz in (noise, None):
+        n0, m0 = pde_spectra.launches, pde_multi_step.launches
+        whole = pde_multi_step(*args, noise=nz, **kw)
+        assert (pde_spectra.launches - n0, pde_multi_step.launches - m0) \
+            == (1, 1)
+        with monkeypatch.context() as mp:
+            mp.setattr(pde_kernel, "SPECTRA_SCRATCH_BYTES", 4 * B * 7 * L)
+            cut = pde_multi_step(*args, noise=nz, **kw)
+        assert (pde_spectra.launches - n0, pde_multi_step.launches - m0) \
+            == (10, 10)
+        for a, b in zip(whole, cut):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    kw["noise"] = noise
+    sep = pde_multi_step(*args, **kw)[-1]
+    want = pde_multi_step_plain(*args, **kw)[-1]
+    torch.testing.assert_close(sep[..., 4:], want[..., 4:], rtol=1e-4,
+                               atol=1e-8)
+    dens = torch.rand((3, 7, L), generator=gen, device=dev) + 0.5
+    recs = torch.zeros((3, 7, 4 + 2 * kmax), device=dev)
+    pde_spectra(dens, recs, kmax)
+    torch.testing.assert_close(recs[..., 4:], pde_spectra_plain(dens, kmax),
+                               rtol=1e-4, atol=1e-6)
+    assert not recs[..., :4].any()
 
 
 @pytest.mark.parametrize("periodic", [True, False])

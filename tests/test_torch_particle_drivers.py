@@ -14,6 +14,7 @@ import torch
 
 from hydrolim_tpu_torch.core.config import ParticleConfig
 from hydrolim_tpu_torch.ops.exclusion_kernel import (
+    band_rotation,
     build_smoothing_band,
     exclusion_multi_step,
     halo_width,
@@ -265,7 +266,7 @@ def test_dense_reflect_band_is_scipys_filter(L, sigma):
     assert int(4.0 * cfg.sigma_grid + 0.5) >= L
     assert tuple(band.idx.shape) == (L, L)
     assert (band.idx.numpy() == np.arange(L)).all()
-    rot = band.rot.numpy()
+    rot = band_rotation(band.idx.numpy(), band.w.numpy(), False)
     assert ((rot == -1) | (rot >= 0)).all() and (rot == -1).sum() >= L - 1
     x = np.random.default_rng(L).integers(-3, 4, (3, L)).astype(np.float32)
     got = smooth_with_band(torch.tensor(x), band).numpy()
