@@ -133,6 +133,22 @@ Phases (each prints one line with its wall time; a failed phase raises):
     stated tolerance; the walls, ``lg_step``'s µs per step and the halo
     layer's counters.
 
+21. B2 on a cluster of CTAs per replica: (a) the L=8192 banded row
+    (pointwise, B=4) under every cluster size the card launches, 0
+    elements differing from C=1 (native Philox and injected bits), each
+    against the plain version; (b) ``run_pde_ensemble`` at L=65,536 with
+    the large-lattice recipe (β ∈ {0.5, 2.5}, 64 tracers, 8 bins, 1500
+    steps, the banded solve), counters reset just before it and read just
+    after, with the large-lattice driver's asserts (mass, dm/dt against
+    the CW law) and its density at every snapshot against the plain
+    ``pde_step`` from the same initial fields; (c) ``pde_beta_sweep`` at
+    L=16,384, 65,536 and 131,072 and ``IMEXPDE.solve`` at 16,384 and
+    65,536, and a Neumann ``IMEXPDE`` at L=16,384 (narrow m, the exact
+    solve across the cluster) against the plain version; (d) the full
+    smoothing circulant at L=16,384, and the banded and the exact solve at
+    L=131,072, against the plain version; (e) ``profile_pde_kernel.py --mode cluster``: µs per step at
+    every cluster size the plan allows, and the plan's choice.
+
 Phases 3, 4 and 7 also launch each kernel on rows [b0, b0 + n) of a batch
 (``b0`` > 0, the blocks of a sweep mesh): native Philox output equal to
 the whole batch's launch's rows bit for bit, and the kernel at b0 > 0
@@ -228,6 +244,16 @@ def spectra_ops(rows: int, L: int, kmax: int) -> float:
     FFT's 5/2·L·log2 L (half the radix-2 count of a complex FFT),
     whichever is smaller."""
     return rows * min(4.0 * L * kmax, 2.5 * L * math.log2(L))
+
+
+def circulant_ops(L: int, r: int) -> float:
+    """The fewest operations for one symmetric circular convolution of a
+    real field of L sites by 2r+1 taps (r < L/2; the full circulant is r =
+    L//2): the direct sum with each pair of taps folded (r adds, r FMAs
+    and one multiply a site: 3r + 1) or a real FFT there and back
+    (2 · 5/2·L·log2 L) with the real spectrum of the symmetric taps
+    between (L), whichever is smaller."""
+    return min((3.0 * r + 1.0) * L, 5.0 * L * math.log2(L) + L)
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -451,6 +477,52 @@ def held(what: str, got, want, rtol: float, atol: float) -> tuple:
     return err, share
 
 
+# The Var record's atol, as a share of the run's largest Var (each check
+# prints it): Var scales with the lattice and the fields' noise, from
+# ~1e-8 at L=1000 to ~1e-10 and below past 16,384 sites, and the kernel's
+# Var differs from the plain version's by a few 1e-6 of the largest at
+# most, so a constant atol would pass any Var at the large lattices.
+VAR_ATOL = 1e-5
+
+
+def b2_against_plain(what: str, kernel_out, plain_out, W: int) -> dict:
+    """Phase 4's tolerances: fields rtol 2e-4 / atol 1e-7, tracers and ring
+    rtol 1e-4 / atol 1e-5, spins equal, v and D rtol 5e-4 / atol 1e-6
+    with the NaN prefix of a run from step 0 (``W`` steps), m atol 1e-5,
+    Var rtol 1e-3 / atol ``VAR_ATOL`` of the run's largest Var, spectra
+    rtol 1e-4 / atol 1e-8.  Prints and returns each check's (max error,
+    share of the tolerance)."""
+    import torch
+
+    sk, rk = kernel_out[:5], kernel_out[5]
+    sp, rp = plain_out[:5], plain_out[5]
+    res = {}
+    for name, i, rtol, atol in (("rho_p", 0, 2e-4, 1e-7),
+                                ("rho_m", 1, 2e-4, 1e-7),
+                                ("tracer pos", 2, 1e-4, 1e-5),
+                                ("ring", 4, 1e-4, 1e-5)):
+        res[name] = held(f"{what} {name}", sk[i], sp[i], rtol, atol)
+    if not torch.equal(sk[3], sp[3]):
+        raise AssertionError(f"{what}: tracer spins differ")
+    for col, name in ((2, "v_eff"), (3, "D_eff")):
+        if not rk[:, :W, col].isnan().all():
+            raise AssertionError(f"{what}: {name} NaN prefix")
+        res[name] = held(f"{what} {name}", rk[..., col], rp[..., col], 5e-4,
+                         1e-6)
+    res["m"] = held(f"{what} m", rk[..., 0], rp[..., 0], 0.0, 1e-5)
+    res["Var"] = held(f"{what} Var", rk[..., 1], rp[..., 1], 1e-3,
+                      VAR_ATOL * float(rp[..., 1].abs().max()))
+    if rk.shape[-1] > 4:
+        res["spectra"] = held(f"{what} spectra", rk[..., 4:], rp[..., 4:],
+                              1e-4, 1e-8)
+    print(f"{what}: spins equal; max |kernel - plain| (share of the "
+          "tolerance): " + ", ".join(f"{n} {e:.2e} ({s:.3f})"
+                                     for n, (e, s) in res.items())
+          + f"; largest Var {float(rp[..., 1].abs().max()):.2e}",
+          flush=True)
+    return res
+
+
 # Kernel B2's covering set: (label, expected (m_mode, solve_mode), PDEConfig
 # fields beyond the defaults, shape).  Defaults: L=1000, B=4, n_t=1000,
 # window 100, dt=5e-4, γ=0.2, periodic, bidirectional, kmax 8, two chained
@@ -487,29 +559,6 @@ B2_CASES = (
 )
 
 
-def b2_inputs(dev, gen, over: dict, shape: dict):
-    """(config, γ, operands, scal, state) of one B2 shape."""
-    import torch
-    from hydrolim_tpu_torch.core.config import PDEConfig
-    from hydrolim_tpu_torch.pde.fast_solve import kernel_operands
-    from hydrolim_tpu_torch.pde.init import pde_initialize
-
-    sh = dict(L=1000, B=4, n_t=1000, W=100, dt=5e-4, gamma=0.2, kmax=8)
-    sh.update(shape)
-    config = PDEConfig(L=sh["L"], dt=sh["dt"], n_tracers=sh["n_t"],
-                       tracer_window_time=sh["W"] * sh["dt"] * (1 + 1e-9),
-                       fft_kmax=sh["kmax"], **over)
-    assert config.tracer_window == sh["W"]
-    ops = kernel_operands(config, sh["gamma"], dev)
-    rp, rm, tr = pde_initialize(config, gen, B=sh["B"], mode="homogeneous",
-                                noise=0.3, n_tracers=sh["n_t"], device=dev)
-    scal = torch.tensor([[b, 0.6, sh["gamma"], 0.0]
-                         for b in np.linspace(0.5, 3.0, sh["B"])],
-                        dtype=torch.float32, device=dev)
-    state = [rp, rm, tr.unwrapped, tr.spin.float(), tr.hist]
-    return config, sh["gamma"], ops, scal, state
-
-
 def b2_kwargs(config, ops) -> dict:
     m_mode, solve_mode, _, _ = ops
     return dict(L=config.L, n_t=config.n_tracers, window=config.tracer_window,
@@ -526,7 +575,8 @@ def check_b2(dev) -> tuple:
     calls.  Tolerances of the JAX package's kernel-logic test: fields rtol
     2e-4 / atol 1e-7, tracers and ring rtol 1e-4 / atol 1e-5, spins equal,
     v and D rtol 5e-4 / atol 1e-6 with the NaN prefix; records: m atol
-    1e-5, Var rtol 1e-3, spectra rtol 1e-4 / atol 1e-8.  Each check prints
+    1e-5, Var rtol 1e-3 / atol ``VAR_ATOL`` of the largest, spectra rtol
+    1e-4 / atol 1e-8.  Each check prints
     its max error and its share of the tolerance.  Every call's spectra
     take the spectra kernel (one launch per call), and the same calls with
     the density scratch cut into pieces of 40 steps (4 launches of each
@@ -538,6 +588,7 @@ def check_b2(dev) -> tuple:
     typical error of such a sum).  Returns the max abs field difference
     and the spectra kernel's max abs difference."""
     import torch
+    from hydrolim_tpu_torch.experiments.profile_pde_kernel import b2_inputs
     from hydrolim_tpu_torch.ops import pde_kernel
     from hydrolim_tpu_torch.ops.pde_kernel import (
         pde_multi_step,
@@ -552,7 +603,7 @@ def check_b2(dev) -> tuple:
     for what, modes, over, shape in B2_CASES:
         gen = torch.Generator(device=dev)
         gen.manual_seed(2)
-        config, gamma, ops, scal, sk = b2_inputs(dev, gen, over, shape)
+        config, gamma, ops, scal, sk = b2_inputs(dev, over, shape, gen)
         if ops[:2] != modes:
             raise AssertionError(f"B2 {what}: routed to {ops[:2]}")
         B, n_t, W = scal.shape[0], config.n_tracers, config.tracer_window
@@ -608,32 +659,10 @@ def check_b2(dev) -> tuple:
                   f"{config.kmax} bins) vs pde_spectra_plain: max abs "
                   f"{spectra_err:.2e} ({share:.3f} of the tolerance)",
                   flush=True)
-        what = f"B2 {what}"
-        res = {}
-        for name, i, rtol, atol in (("rho_p", 0, 2e-4, 1e-7),
-                                    ("rho_m", 1, 2e-4, 1e-7),
-                                    ("tracer pos", 2, 1e-4, 1e-5),
-                                    ("ring", 4, 1e-4, 1e-5)):
-            res[name] = held(f"{what} {name}", sk[i], sp[i], rtol, atol)
-        if not torch.equal(sk[3], sp[3]):
-            raise AssertionError(f"{what}: tracer spins differ")
-        for col, name in ((2, "v_eff"), (3, "D_eff")):
-            if not rk[:, :W, col].isnan().all():
-                raise AssertionError(f"{what}: {name} NaN prefix")
-            res[name] = held(f"{what} {name}", rk[..., col], rpl[..., col],
-                             5e-4, 1e-6)
-        res["m"] = held(f"{what} m", rk[..., 0], rpl[..., 0], 0.0, 1e-5)
-        res["Var"] = held(f"{what} Var", rk[..., 1], rpl[..., 1], 1e-3,
-                          1e-11)
-        res["spectra"] = held(f"{what} spectra", rk[..., 4:], rpl[..., 4:],
-                              1e-4, 1e-8)
+        res = b2_against_plain(f"B2 {what}", (*sk, rk), (*sp, rpl), W)
         if torch.equal(sk[0], start[0]) or torch.equal(sk[2], start[2]):
-            raise AssertionError(f"{what}: the fields or tracers did not "
+            raise AssertionError(f"B2 {what}: the fields or tracers did not "
                                  "move")
-        print(f"{what}: spins equal; max |kernel - plain| (share of the "
-              "tolerance): " + ", ".join(
-                  f"{n} {e:.2e} ({s:.3f})" for n, (e, s) in res.items()),
-              flush=True)
         err = max(err, res["rho_p"][0], res["rho_m"][0])
     return err, spectra_err
 
@@ -859,52 +888,25 @@ def throughput_spectra(dev, gen) -> dict:
                 shape=dict(B=B, k=k, L=L, kmax=kmax), **b)
 
 
-# B2's step time per mode at the PDE slice's shapes: (label, PDEConfig
-# fields beyond the defaults, shape (as in B2_CASES), steps per kernel
-# call).  B=5 is the σ sweep's (1000 tracers), B=64 the phase diagram's
-# (64 tracers); both L=1000, dt=5e-4, γ=0.2 (the exact solve), kmax 8.
-def _b2_rate_rows():
-    rows = []
-    for B, n_t in ((5, 1000), (64, 64)):
-        for m, over in (("global", dict(gaussian_kernel=True,
-                                        kernel_sigma=2e5)),
-                        ("pointwise", {}),
-                        ("narrow sigma=0.005", dict(gaussian_kernel=True,
-                                                    kernel_sigma=0.005)),
-                        ("smooth sigma=0.05", dict(gaussian_kernel=True,
-                                                   kernel_sigma=0.05))):
-            rows.append((f"{m}, exact, B={B}, n_t={n_t}", over,
-                         dict(B=B, n_t=n_t), 2000))
-    rows.append(("pointwise, banded, L=8192, B=4, n_t=64",
-                 dict(diffusion_solver="banded"),
-                 dict(L=8192, B=4, n_t=64, W=20, dt=2e-7), 2000))
-    # the single run's step, its 501 bins on the spectra kernel
-    rows.append(("the single run: narrow sigma=0.005, none, kmax 501, B=1",
-                 dict(gaussian_kernel=True, kernel_sigma=0.005),
-                 dict(B=1, gamma=0.0, kmax=501), 50))
-    return rows
-
-
 def b2_step_bound(config, ops, B: int, k: int) -> dict:
     """Bytes: the fields, tracers and ring in and out, the records out.
     Operations per replica-step (an FMA is two): ~30 per site (m, upwind
     advection, CW reaction, tridiagonal solve, clip, renormalisation), ~24
-    per tracer, the spectra's fewest (``spectra_ops``), and the taps:
-    4·(2r+1) per site for the narrow smoothing and the banded solve, 4·L
-    per site (2·L² FMAs) for the full circulant."""
+    per tracer, the spectra's fewest (``spectra_ops``), and the
+    circulants' fewest (``circulant_ops``): the smoothing of ρ₊ − ρ₋ and
+    ρ₊ + ρ₋ (the narrow taps or the full circulant) and the banded solve
+    of ρ₊ and ρ₋, two fields each."""
     m_mode, solve_mode, smooth, solve = ops
     L, n_t, W, kmax = (config.L, config.n_tracers, config.tracer_window,
                        config.kmax)
-    per_site = 30
+    per_step = 30.0 * L + 24.0 * n_t
     if smooth is not None:
-        per_site += 4 * (2 * smooth.radius + 1) if m_mode == "narrow" \
-            else 4 * L
+        per_step += 2 * circulant_ops(L, smooth.radius)
     if solve_mode == "banded":
-        per_site += 4 * (solve.weights.shape[0])
+        per_step += 2 * circulant_ops(L, (solve.weights.shape[0] - 1) // 2)
     return bound(4 * (2 * 2 * B * L + 2 * 3 * B * n_t + 2 * B * W * n_t
                       + B * k * (4 + 2 * kmax)),
-                 k * B * (per_site * L + 24 * n_t)
-                 + spectra_ops(k * B, L, kmax))
+                 k * B * per_step + spectra_ops(k * B, L, kmax))
 
 
 def throughput_b2_modes(dev, gen) -> list:
@@ -916,14 +918,18 @@ def throughput_b2_modes(dev, gen) -> list:
     kernel's launches a call (more than one where the density scratch is
     cut into pieces) are counted."""
     import torch
+    from hydrolim_tpu_torch.experiments.profile_pde_kernel import (
+        ROWS,
+        b2_inputs,
+    )
     from hydrolim_tpu_torch.ops.pde_kernel import (
         pde_multi_step,
         pde_multi_step_plain,
     )
 
     rows = []
-    for label, over, shape, k in _b2_rate_rows():
-        config, _, ops, scal, state = b2_inputs(dev, gen, over, shape)
+    for label, over, shape, k in ROWS:
+        config, _, ops, scal, state = b2_inputs(dev, over, shape, gen)
         B = scal.shape[0]
         seeds = torch.arange(B, dtype=torch.int32, device=dev)
         kw = dict(b2_kwargs(config, ops), k_steps=k)
@@ -3272,6 +3278,7 @@ def check_b2_b0(dev) -> None:
     whole launch's rows bit for bit; at injected bits the kernel at b0=4
     holds its plain version to phase 4's tolerances."""
     import torch
+    from hydrolim_tpu_torch.experiments.profile_pde_kernel import b2_inputs
     from hydrolim_tpu_torch.ops.pde_kernel import (
         pde_multi_step,
         pde_multi_step_plain,
@@ -3280,7 +3287,7 @@ def check_b2_b0(dev) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(19)
     config, _, ops, scal, state = b2_inputs(
-        dev, gen, dict(gaussian_kernel=True, kernel_sigma=2e5), dict(B=8))
+        dev, dict(gaussian_kernel=True, kernel_sigma=2e5), dict(B=8), gen)
     seeds = torch.randint(0, 2 ** 31 - 1, (8,), generator=gen, device=dev,
                           dtype=torch.int32)
     kw = dict(b2_kwargs(config, ops), k_steps=300)
@@ -3713,6 +3720,393 @@ def lattice_sharding(outdir: str) -> dict:
     return walls
 
 
+# ---------------------------------------------------------------------------
+# phase 21: B2 on a cluster of CTAs per replica
+# ---------------------------------------------------------------------------
+
+def _differ(a, b) -> int:
+    """Elements of two tensors that differ (NaN equals NaN)."""
+    import torch
+
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b)) \
+        if a.is_floating_point() else a == b
+    return int(same.numel() - int(same.sum()))
+
+
+def b2_every_cluster(dev) -> None:
+    """(a) The L=8192 banded bench row (pointwise, B=4, 64 tracers, window
+    20, dt=2e-7) under every cluster size the plan allows: native Philox
+    and injected bits, each 0 elements differing from C=1 in the fields,
+    tracers, ring and records, and each held against the plain version."""
+    import torch
+    from hydrolim_tpu_torch.experiments.profile_pde_kernel import b2_inputs
+    from hydrolim_tpu_torch.ops import pde_kernel as pk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    over, shape = dict(diffusion_solver="banded"), dict(
+        L=8192, n_t=64, W=20, dt=2e-7)
+    config, _, ops, scal, state = b2_inputs(dev, over, shape, gen)
+    B, n_t, k = scal.shape[0], config.n_tracers, 150
+    seeds = torch.arange(B, dtype=torch.int32, device=dev) + 7
+    kw = dict(b2_kwargs(config, ops), k_steps=k)
+    noise = randbits((B, k, 3, n_t), gen, dev)
+    circ = pk.call_circulants(config.L, ops[0], ops[1], ops[2], ops[3])
+    co = pk.card_coresident(dev.index or 0, config.L, n_t, ops[0], circ)
+    sizes = [C for C in pk.CLUSTER_SIZES if co[C] > 0]
+    if sizes[0] != 1 or len(sizes) < 3:
+        raise AssertionError(f"B2 L=8192: cluster sizes {sizes}")
+    runs = {}
+    for C in sizes:
+        plan = pk.pde_launch_plan(B, config.L, n_t, ops[0], circ, co,
+                                  cluster=C)
+        runs[C] = [pk.pde_multi_step_planned(
+            plan, scal, seeds, 0, *state, ops[3], ops[2], noise=nz, **kw)
+            for nz in (None, noise)]
+    torch.cuda.synchronize()
+    plain = pk.pde_multi_step_plain(scal, seeds, 0, *state, ops[3], ops[2],
+                                    noise=noise, **kw)
+    plan_c = pk.pde_launch_plan(B, config.L, n_t, ops[0], circ, co).cluster
+    for C in sizes:
+        n_diff = [sum(_differ(a, b) for a, b in zip(runs[C][i], runs[1][i]))
+                  for i in (0, 1)]
+        n_all = sum(t.numel() for t in runs[C][0])
+        if n_diff != [0, 0]:
+            raise AssertionError(f"B2 L=8192 at C={C}: {n_diff} of {n_all} "
+                                 "elements differ from C=1 (native, "
+                                 "injected)")
+        print(f"B2 L=8192 banded at C={C} (plan C {plan_c}, seg "
+              f"{8192 // C}): 0 of {n_all} elements differ from C=1, "
+              "native and injected", flush=True)
+        b2_against_plain(f"B2 L=8192 banded at C={C}", runs[C][1], plain,
+                          config.tracer_window)
+
+
+def _recipe_config(L: int, **over):
+    """The large-lattice driver's PDE recipe at L: dt = 0.5·dx/λ, γ =
+    2.5·dx²/dt, 1500 steps, periodic, the auto solver (banded past 8192),
+    pointwise m, 64 tracers, 8 bins."""
+    from hydrolim_tpu_torch.core.config import PDEConfig
+    from hydrolim_tpu_torch.experiments import large_lattice as ll
+
+    dt = 0.5 / L / ll.LAM
+    gamma = 2.5 / L / L / dt
+    kw = dict(L=L, T=1500 * dt, dt=dt, bc="periodic", n_tracers=64,
+              fft_kmax=8, snapshot_interval=375, tracer_window_time=20 * dt)
+    kw.update(over)
+    return PDEConfig(**kw), gamma
+
+
+def _plain_snapshots(L: int, beta: float, rho0, steps: list, dev) -> list:
+    """The large-lattice driver's plain ``pde_step`` loop
+    (``large_lattice.pde_run``: its config, operators and initial fields
+    1.2·ρ₀[0], 0.8·ρ₀[1]), the total density at each of ``steps``."""
+    import torch
+    from hydrolim_tpu_torch.core.config import make_pde_params
+    from hydrolim_tpu_torch.experiments import large_lattice as ll
+    from hydrolim_tpu_torch.parallel.spatial import PDEFields
+    from hydrolim_tpu_torch.pde.stepper import build_pde_ops
+
+    grid, gamma, _ = ll.pde_grid(L, small=False)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32).to(dev)
+    rho = PDEFields(grid, make_pde_params(gamma=gamma, lam=ll.LAM,
+                                          beta=beta, device=dev),
+                    build_pde_ops(grid, gamma, dev), as_t(1.2 * rho0[0]),
+                    as_t(0.8 * rho0[1]))
+    out, n = [], 0
+    for target in steps:
+        for _ in range(target - n):
+            rho.step()
+        n = target
+        rp, rm = rho.fields()
+        out.append((rp + rm).cpu().numpy())
+    return out
+
+
+def b2_large_ensemble(dev, L: int = 65_536) -> dict:
+    """(b) ``run_pde_ensemble`` at full width, L=65,536, β ∈ {0.5, 2.5},
+    64 tracers, 8 bins, the large-lattice recipe (1500 steps, the banded
+    solve) from the driver's initial fields (its seeded draw, ρ₊ = 1.2·ρ₀,
+    ρ₋ = 0.8·ρ₀: ``large_lattice.pde_rho0``), with the driver's asserts:
+    mass to 1e-4, dm/dt within 15% of the Curie–Weiss law 2(sinh βm − m
+    cosh βm), m decaying below β=1 and growing above.  The counters are
+    set to 0 just before the run and read just after.  Its total density
+    at every snapshot (steps 375, 750, 1125, 1500) is held against the
+    driver's plain ``pde_step`` loop from the same fields, to n·2⁻²³ of
+    scale after n steps, one float32 ulp of scale a step: the kernel
+    rounds its sums, taps and fused multiply-adds otherwise than torch,
+    and on fields this close to stationary the differences accumulate
+    instead of decaying (``profile_pde_kernel.py --mode drift`` measures
+    the same at smaller L).  Printed beside it: the difference per step,
+    its split into the masses' ratio and the rest (the kernel's density
+    rescaled to the plain mass), and each route's mass against step
+    0's."""
+    import torch
+    from hydrolim_tpu_torch.experiments import large_lattice as ll
+    from hydrolim_tpu_torch.ops.pde_kernel import pde_multi_step, pde_spectra
+    from hydrolim_tpu_torch.sweeps import pde_sweeps
+
+    seed = 0
+    config, gamma = _recipe_config(L)
+    betas = np.asarray(ll.BETAS, np.float32)
+    rho0 = [ll.pde_rho0(L, seed, bi) for bi in range(len(betas))]
+    draw = pde_sweeps.pde_initialize
+
+    def driver_fields(*args, **kw):
+        _, _, tracers = draw(*args, **kw)
+        f = lambda c, i: torch.tensor(np.stack([c * r[i] for r in rho0]),
+                                      dtype=torch.float32, device=dev)
+        return f(1.2, 0), f(0.8, 1), tracers
+
+    pde_sweeps.pde_initialize = driver_fields
+    try:
+        pde_multi_step.launches = pde_spectra.launches = 0
+        t0 = time.perf_counter()
+        res, _ = pde_sweeps.run_pde_ensemble(
+            config, betas, gamma=gamma, lam=ll.LAM, n_runs=1, seed=seed,
+            n_tracers=64, device=dev)
+        wall = time.perf_counter() - t0
+        launches = {"pde_multi_step": pde_multi_step.launches,
+                    "pde_spectra": pde_spectra.launches}
+    finally:
+        pde_sweeps.pde_initialize = draw
+    if min(launches.values()) < 1:
+        raise AssertionError(f"phase 21 ensemble: launches {launches}")
+    nsteps, dt = config.nsteps, config.dt
+    mass0 = res.snapshots[:, 0].astype(np.float64).sum(-1)
+    mass1 = (res.rho_p + res.rho_m).astype(np.float64).sum(-1)
+    if not (np.abs(mass1 - mass0) / mass0 < 1e-4).all():
+        raise AssertionError(f"phase 21 ensemble: mass {mass0} -> {mass1}")
+    m = res.records.m_mean
+    rates = []
+    for i, beta in enumerate(betas):
+        rate = float((m[i, -1] - m[i, 0]) / (nsteps * dt))
+        mid = 0.5 * float(m[i, 0] + m[i, -1])
+        th = 2.0 * (np.sinh(beta * mid) - mid * np.cosh(beta * mid))
+        if not abs(rate - th) < 0.15 * abs(th) + 1e-3:
+            raise AssertionError(f"phase 21 ensemble beta={beta}: dm/dt "
+                                 f"{rate} against the CW law {th}")
+        rates.append((round(rate, 6), round(float(th), 6)))
+    if not (m[0, -1] < m[0, 0] and m[1, -1] > m[1, 0]):
+        raise AssertionError(f"phase 21 ensemble: m {m[:, [0, -1]]}")
+    if not np.isfinite(res.records.fft_ri).all():
+        raise AssertionError("phase 21 ensemble: spectra not finite")
+    steps = [config.snapshot_interval * j
+             for j in range(1, res.snapshots.shape[1])]
+    if steps[-1] != nsteps:
+        raise AssertionError(f"phase 21 ensemble: snapshots at {steps}")
+    t0 = time.perf_counter()
+    rows = []
+    for i, beta in enumerate(betas):
+        plain = _plain_snapshots(L, float(beta), rho0[i], steps, dev)
+        for j, (n, want) in enumerate(zip(steps, plain)):
+            got = res.snapshots[i, j + 1].astype(np.float64)
+            want = want.astype(np.float64)
+            scale = np.abs(want).max()
+            ratio = got.sum() / want.sum()
+            rows.append(dict(
+                beta=float(beta), n=n,
+                diff=float(np.abs(got - want).max() / scale),
+                mass=float(abs(ratio - 1.0)),
+                rest=float(np.abs(got / ratio - want).max() / scale),
+                drift=(float(got.sum() / mass0[i] - 1.0),
+                       float(want.sum() / mass0[i] - 1.0))))
+    plain_wall = time.perf_counter() - t0
+    for r in rows:
+        print(f"phase 21 ensemble beta={r['beta']} step {r['n']}: total "
+              f"density {r['diff']:.3e} of scale from the plain pde_step "
+              f"({r['diff'] / r['n'] / 2.0 ** -23:.3f} x 2^-23 a step); "
+              f"the masses' ratio {r['mass']:.3e}, the rest "
+              f"{r['rest']:.3e}; mass from step 0: kernel "
+              f"{r['drift'][0]:+.3e}, plain {r['drift'][1]:+.3e}",
+              flush=True)
+        if not r["diff"] < r["n"] * 2.0 ** -23:
+            raise AssertionError(
+                f"phase 21 ensemble beta={r['beta']}: {r['diff']:.3e} of "
+                f"scale from the plain pde_step at step {r['n']} (bound "
+                f"{r['n'] * 2.0 ** -23:.3e})")
+    worst = max(r["diff"] for r in rows if r["n"] == nsteps)
+    print(f"run_pde_ensemble L={L}, 2 x {nsteps} steps, 64 tracers, 8 bins: "
+          f"{wall:.3f} s, launches {launches}; dm/dt (measured, CW law) "
+          f"{rates}; final density {worst:.3e} of scale from the driver's "
+          f"plain pde_step (bound {nsteps * 2.0 ** -23:.3e}; "
+          f"{plain_wall:.3f} s for the same steps)", flush=True)
+    return launches
+
+
+def b2_large_entry_points(dev, outdir: str) -> None:
+    """``pde_beta_sweep`` at L = 16,384, 65,536 and 131,072 and
+    ``IMEXPDE.solve`` at L = 16,384 and 65,536 on the card, each through
+    both kernels (no ValueError, no plain route), and (c) a Neumann ``IMEXPDE`` at L = 16,384 with a narrow
+    Gaussian m (the exact solve across the cluster; 100 steps of the
+    recipe) held against the plain version on the card from the same
+    initial fields: the fields (the tracers' draws differ, and the fields
+    do not read them) and the m and Var records at phase 4's tolerances."""
+    import torch
+    from hydrolim_tpu_torch.core.config import PDEConfig
+    from hydrolim_tpu_torch.ops.pde_kernel import (
+        pde_multi_step,
+        pde_multi_step_plain,
+        pde_spectra,
+    )
+    from hydrolim_tpu_torch.pde.fast_solve import kernel_operands
+    from hydrolim_tpu_torch.pde.system import IMEXPDE
+    from hydrolim_tpu_torch.sweeps.pde_sweeps import pde_beta_sweep
+
+    for L in (16_384, 65_536, 131_072):
+        config, gamma = _recipe_config(L)
+        pde_multi_step.launches = pde_spectra.launches = 0
+        t0 = time.perf_counter()
+        out = pde_beta_sweep([0.5, 2.5], n_runs=1, T=0.08, t_min=0.06,
+                             t_max=0.08, gamma=gamma, L=L, dt=config.dt,
+                             n_tracers=64, outdir=outdir, plot_result=False,
+                             device=dev)
+        wall = time.perf_counter() - t0
+        n = (pde_multi_step.launches, pde_spectra.launches)
+        if min(n) < 1 or not np.isfinite(out["v_mean"]).all():
+            raise AssertionError(f"pde_beta_sweep L={L}: launches {n}, "
+                                 f"v {out['v_mean']}")
+        # the sweep's own configuration (sweeps/pde_sweeps.pde_beta_sweep)
+        sweep = PDEConfig(L=L, T=0.08, dt=config.dt, bc="periodic",
+                          gaussian_kernel=True, kernel_sigma=1e5 - 10,
+                          fft_kmax=8)
+        m_mode, solve_mode, _, _ = kernel_operands(sweep, gamma, dev)
+        print(f"pde_beta_sweep L={L} (T=0.08, {sweep.nsteps} steps, "
+              f"{m_mode} m, {solve_mode} solve): v {out['v_mean']}, D "
+              f"{out['D_mean']}, launches {n}, {wall:.3f} s", flush=True)
+    for L, bc, steps in ((16_384, "neumann", 100), (65_536, "periodic", 40)):
+        config, gamma = _recipe_config(L)
+        pde_multi_step.launches = pde_spectra.launches = 0
+        s = IMEXPDE(L=L, T=steps * config.dt, dt=config.dt, gamma=gamma,
+                    lam=0.6, beta=2.5, bc=bc, gaussian_kernel=True,
+                    kernel_sigma=5e-4 * 16_384 / L, snapshot_interval=50,
+                    fft_kmax=8, outdir=outdir, seed=9, device=dev)
+        s.initialize(mode="homogeneous", rho0=1.0, noise=0.3, n_tracers=64)
+        rp0, rm0, tr0 = s.rho_p.clone(), s.rho_m.clone(), s.tracers
+        s.solve()
+        out = s.get_output()
+        n = (pde_multi_step.launches, pde_spectra.launches)
+        if min(n) < 1:
+            raise AssertionError(f"IMEXPDE L={L}: launches {n}")
+        m_mode, solve_mode, smooth, solve = kernel_operands(
+            s.config, gamma, dev)
+        print(f"IMEXPDE L={L} {bc}: {m_mode} m, {solve_mode} solve, "
+              f"launches {n}", flush=True)
+        if bc != "neumann":
+            continue
+        scal = torch.tensor([[2.5, 0.6, gamma, 0.0]], device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        *sp, rp_ = pde_multi_step_plain(
+            scal, None, 0, rp0, rm0, tr0.unwrapped, tr0.spin.float(),
+            tr0.hist, solve, smooth, L=L, n_t=64,
+            window=s.config.tracer_window, k_steps=steps, dt=config.dt,
+            xlim=s.config.xlim, periodic=False, m_mode=m_mode,
+            solve_mode=solve_mode, bidirectional=True, kmax_rec=8,
+            generator=gen)
+        res = {}
+        for name, got, want in (("rho_p", out["rho_p"], sp[0]),
+                                ("rho_m", out["rho_m"], sp[1])):
+            res[name] = held(f"IMEXPDE L={L} {name}",
+                             torch.as_tensor(got, device=dev).reshape(
+                                 want.shape), want, 2e-4, 1e-7)
+        res["m"] = held(f"IMEXPDE L={L} m", torch.as_tensor(
+            out["m_series"][:steps], device=dev), rp_[0, :, 0], 0.0, 1e-5)
+        res["Var"] = held(f"IMEXPDE L={L} Var", torch.as_tensor(
+            out["var_series"][:steps], device=dev), rp_[0, :, 1], 1e-3,
+            VAR_ATOL * float(rp_[0, :, 1].abs().max()))
+        print(f"IMEXPDE L={L} neumann ({m_mode} m, {solve_mode} solve) "
+              "against the plain version, max |kernel - plain| (share of "
+              "the tolerance): " + ", ".join(
+                  f"{k} {e:.2e} ({sh:.3f})" for k, (e, sh) in res.items())
+              + f"; largest Var {float(rp_[0, :, 1].abs().max()):.2e}",
+              flush=True)
+
+
+# (d)'s shapes: (label, PDEConfig fields, shape, steps, the modes)
+B2_LARGE_PLAIN = (
+    ("L=16384 smooth (full circulant)",
+     dict(gaussian_kernel=True, kernel_sigma=0.05),
+     dict(L=16_384, B=1, n_t=64, W=2, dt=2e-7), 6, ("smooth", "exact")),
+    ("L=131072 global, banded (the recipe)",
+     dict(gaussian_kernel=True, kernel_sigma=2e5),
+     dict(L=131_072, B=1, n_t=64, W=2), 8, ("global", "banded")),
+    ("L=131072 pointwise, neumann, exact (the recipe)", dict(bc="neumann"),
+     dict(L=131_072, B=1, n_t=64, W=2), 8, ("pointwise", "exact")),
+)
+
+
+def b2_large_against_plain(dev) -> None:
+    """(d) The full smoothing circulant at L = 16,384 (σ=0.05, the exact
+    solve, B=1, 64 tracers, 6 steps), and at L = 131,072, the largest
+    lattice a cluster serves with a global or pointwise m, the banded
+    solve (global m) and the exact one (pointwise m, Neumann; 8 steps of
+    the large-lattice recipe each): the card's plan against the plain
+    version on the card at injected bits."""
+    import torch
+    from hydrolim_tpu_torch.experiments.profile_pde_kernel import (
+        _recipe,
+        b2_inputs,
+    )
+    from hydrolim_tpu_torch.ops import pde_kernel as pk
+
+    for label, over, shape, k, modes in B2_LARGE_PLAIN:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(22)
+        if "dt" not in shape:
+            shape = dict(shape, **_recipe(shape["L"]))
+        config, _, ops, scal, state = b2_inputs(dev, over, shape, gen)
+        if ops[:2] != modes:
+            raise AssertionError(f"B2 {label}: routed to {ops[:2]}")
+        kw = dict(b2_kwargs(config, ops), k_steps=k,
+                  noise=randbits((1, k, 3, 64), gen, dev))
+        seeds = torch.zeros(1, dtype=torch.int32, device=dev)
+        got = pk.pde_multi_step(scal, seeds, 0, *state, ops[3], ops[2],
+                                **kw)
+        want = pk.pde_multi_step_plain(scal, seeds, 0, *state, ops[3],
+                                       ops[2], **kw)
+        circ = pk.call_circulants(config.L, ops[0], ops[1], ops[2], ops[3])
+        plan = pk.card_plan(dev.index or 0, 1, config.L, 64, ops[0],
+                            tuple(sorted(circ.items())))
+        print(f"B2 {label}: plan C={plan.cluster}, segment {plan.seg}, "
+              f"{plan.smem} B of shared memory a CTA", flush=True)
+        b2_against_plain(f"B2 {label}", got, want, config.tracer_window)
+
+
+def b2_cluster_times(dev) -> None:
+    """(e) ``profile_pde_kernel.py --mode cluster`` in a child process
+    (its JSON rows: µs per step at every cluster size the plan allows),
+    each row with its bound (``b2_step_bound`` at the row's shape)."""
+    import os
+
+    from hydrolim_tpu_torch.experiments import profile_pde_kernel as pp
+
+    bounds = {}
+    for label, over, shape, k in pp.ROWS + pp.LARGE:
+        config, _, ops, scal, _ = pp.b2_inputs(dev, over, shape)
+        b = b2_step_bound(config, ops, scal.shape[0], k)
+        bounds[label] = (b["bound_ms"] * 1e3 / k, b["bound_by"])
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run(
+        [sys.executable, "-m",
+         "hydrolim_tpu_torch.experiments.profile_pde_kernel", "--mode",
+         "cluster", "--calls", "2", "--tag", "phase 21"],
+        capture_output=True, text=True, env=env, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"profile_pde_kernel --mode cluster: "
+                             f"{res.stderr[-2000:]}")
+    for line in res.stdout.splitlines():
+        row = json.loads(line)
+        at = ", ".join(f"C={C} {np.mean(us):.2f}"
+                       for C, us in row["us_per_step_at_C"].items())
+        bd, by = bounds[row["label"]]
+        print(f"B2 {row['label']}: us/step {at}; plan C="
+              f"{row['plan_cluster']}; bound {bd:.4f} us/step ({by})",
+              flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3869,6 +4263,15 @@ def main() -> int:
         print("the segments share one card: their halo copies are "
               "same-device copies (no NVLink), so no cross-card number is "
               "measured here", flush=True)
+    with phase("21 B2 on a cluster"):
+        b2_every_cluster(dev)
+        with tempfile.TemporaryDirectory() as outdir:
+            for name, n in b2_large_ensemble(dev).items():
+                rows[name]["launches_per_path"][
+                    "large-L ensemble, L=65536 (phase 21)"] = n
+            b2_large_entry_points(dev, outdir)
+        b2_large_against_plain(dev)
+        b2_cluster_times(dev)
     for row in rows.values():
         row["launches"] = sum(row["launches_per_path"].values())
 

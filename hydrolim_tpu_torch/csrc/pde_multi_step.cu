@@ -8,116 +8,209 @@
 // bins.
 //
 // What bounds it on an H100: per step a replica is a few thousand flops on
-// 2*L field values and n_t tracers, plus 2*L^2 FMAs with the full smoothing
-// circulant -- too little work per replica to be bound by bandwidth, and
-// every reduction (m, Var, tracer mean and variance, mass renormalisation)
-// is a block-wide barrier.  The parent kernel spent ~37 of its ~43 us
-// exact-solve step in two threads running Thomas' recurrences, and its full
-// circulant (one site per thread, two shared-memory loads per pair of
-// FMAs) ~46 us on top.  The TPU kernel's dense (L, L) matrices are not
-// carried over: at L = 1000 each is 4 MB and does not fit shared memory.
+// 2*L field values and n_t tracers (2*(2r+1)*L FMAs for a banded solve or
+// a narrow smoothing, 2*L^2 with the full smoothing circulant): too little
+// work per replica to be bound by bandwidth, and every reduction (m, Var,
+// tracer mean and variance, mass renormalisation) is a barrier.  On one
+// CTA a replica's taps run on one SM (the L = 8192 banded step: 127 taps x
+// 2 fields x 8192 sites, ~9 us at full issue), and one CTA's shared memory
+// holds 5 fields of at most ~11,600 sites.
 //
-// Design: one CTA per replica, looping over the chunk's k steps.  The two
-// fields, two scratch fields and, for a local magnetization, the m field
-// live in shared memory (5*L floats: 160 KB at L = 8192), with a buffer of
-// the circulant's partial sums where it fits.  What is the same for every
-// replica -- the tridiagonal factors, the padded tap tables, the cos/sin
-// table -- is read from device memory through L1.
-//   - m: pointwise (P-M)/(P+M), or the blocked circulant on the numerator
-//     and denominator; kept per site in shared memory, read by the tracer
-//     gather at int(mod(pos, xlim)/dx) mod L.
-//   - the blocked circulant sum_d w(d) (x[i-d] + x[i+d]) (indices mod L)
-//     serves the narrow smoothing, the full circulant (d up to L/2; for
-//     even L the host halves the d = L/2 tap, so its pair adds it once) and
-//     the banded solve.  A thread computes kBlock consecutive sites of one
-//     field over one slice of the taps, sliding two windows through
-//     registers (a circular buffer whose slots rotate at compile time), so
-//     tap d -> d+1 loads one new value per side for kBlock outputs; kBlock
-//     is odd, so a warp's loads at stride kBlock are free of bank
-//     conflicts; one field at a time keeps the windows within the 64
-//     registers a thread of a 1024-thread block has.  The slices' partial
-//     sums meet in shared memory in slice order.  The host
-//     pads the tap table with zeros to whole slices (ops/pde_kernel.py
-//     tap_plan).  What remains is the sums' own FP32 work, 2*L^2 FMAs per
-//     step for the full circulant.
-//   - exact solve (1+2c) x_i - a_i x_{i-1} - c x_{i+1} = rho_i: both sweeps
-//     of Thomas are first-order affine recurrences with coefficients fixed
-//     from step to step (forward y_i = alpha_i y_{i-1} + inv_i rho_i, back
-//     x_i = y_i - c'_i x_{i+1}), so each runs as a block scan of affine
-//     maps: a run of consecutive sites per thread composed in registers, a
-//     warp scan by shuffle, one cross-warp level (the warp totals through
-//     shared memory, composed by a shuffle scan); the two fields at once on
-//     the two halves of the block.  Neumann's mirrored last row carries 2c
-//     in a_i; periodic adds a Sherman-Morrison correction for the corners
-//     from x_0 and x_{L-1}, applied where the next phase reads the solved
-//     fields.  Factors come from the host in float64 (ops/diffusion.py); the
-//     scan composes its maps in float64 (latency-bound, so at little cost)
-//     and stores f32 fields, closer to the exact solve than f32 Thomas.
+// Design: a thread-block cluster of C = 1, 2, 4, 8 or 16 CTAs per replica
+// (ops/pde_kernel.py pde_launch_plan picks C).  The lattice is padded to
+// Lp = the next power of two, and CTA r owns sites [r*seg, (r+1)*seg) of
+// it, seg = Lp / C, and tracers [r*tseg, (r+1)*tseg), tseg = ntp / C (ntp
+// = n_t padded to a power of two).  Its fields live in its shared memory;
+// a neighbour's sites are read through distributed shared memory
+// (cluster.map_shared_rank) after a cluster barrier.  C = 1 is the same
+// code, with block barriers for cluster barriers.
+//
+// Every result is the same bit for bit at every C, because no arithmetic
+// depends on which CTA does it:
+//   - a sum over sites (or tracers) is the adjacent-pairing binary tree
+//     over the Lp (ntp) padded leaves: a warp's butterfly over 32 sites, a
+//     tree over the warp's chunks, over the CTA's 16 warps, over the C
+//     CTAs, each an aligned power-of-two range of the one tree (padding
+//     adds 0.0, exactly);
+//   - the circulant sum_d w(d) (x[i-d] + x[i+d]) (indices mod L) serves the
+//     narrow smoothing, the full circulant (d up to L/2; for even L the
+//     host halves the d = L/2 tap, so its pair adds it once) and the banded
+//     solve.  Its law: the taps are cut into ns slices of `len` taps
+//     (ops/pde_kernel.py tap_plan, a function of L and the radius), each
+//     site's slice is one fused multiply-add chain in tap order, and the
+//     slices' sums are added in slice order.  A thread computes kBlock
+//     consecutive sites of one field over one slice, sliding two windows
+//     through registers (a circular buffer whose slots rotate at compile
+//     time, so tap d -> d+1 loads one new value per side for kBlock
+//     outputs; kBlock is odd, so loads at stride kBlock are free of bank
+//     conflicts).  The inputs it reads -- the segment and `tb` taps of
+//     ring on each side, wrapping around the lattice -- are first staged
+//     from the cluster into this CTA's shared memory; past one stage of
+//     taps (the full circulant at large L) the taps run in passes, the
+//     chains' partial sums kept in shared memory between them;
+//   - the exact solve (1+2c) x_i - a_i x_{i-1} - c x_{i+1} = rho_i: both
+//     sweeps of Thomas are first-order affine recurrences with coefficients
+//     fixed from step to step (forward y_i = alpha_i y_{i-1} + inv_i rho_i,
+//     back x_i = y_i - c'_i x_{i+1}), so each runs as a scan of affine maps
+//     over 16 tiles of 32 runs of `run` = Lp/512 (at least 1) sites: a run
+//     composed in registers, a 32-lane shuffle scan per tile, the tiles'
+//     totals exchanged through distributed shared memory and scanned the
+//     same way in every CTA; the two fields at once on the two halves of
+//     the block.  Neumann's mirrored last row carries 2c in a_i; periodic
+//     adds a Sherman-Morrison correction for the corners from x_0 (CTA 0)
+//     and x_{L-1} (the last CTA), applied where the next phase reads the
+//     solved fields.  Factors come from the host in float64
+//     (ops/diffusion.py); the scan composes its maps in float64 and stores
+//     f32 fields;
 //   - upwind advection, CW reaction, clip and mass renormalisation, in the
 //     bidirectional branch, or in anchored_minus (reaction first, then the
-//     advection of rho_+* alone, read across a barrier).
-// Tracers take one thread each; their windowed displacement ring stays in
-// device memory, touched once per tracer-step.  Spectra: no later step
-// reads them, so they are off the step's chain: with kmax > 0 each step
-// stores its total density row into a (B, k, L) scratch (coalesced, and
-// marked evict-first, __stcs, so that a scratch of many steps does not
-// push the tracers' ring out of L2) and the spectra kernel
-// (csrc/pde_spectra.cu), launched right after on the same stream,
-// computes all the steps' bins across the card.
+//     advection of rho_+* alone, read across a barrier); a segment's edge
+//     reads its neighbour's site through distributed shared memory.
+// Cluster barriers per step: the three reductions (m; Var and the tracers'
+// mean displacement; the masses and the tracers' variance), one before a
+// smoothing's staging, one after a banded solve, three in an exact solve
+// and one in anchored_minus.
+// Tracers take one thread each, in the CTA that owns them; a tracer reads
+// m at int(mod(pos, xlim)/dx) mod L from the CTA owning that site; their
+// windowed displacement ring stays in device memory, touched once per
+// tracer-step.  Spectra: no later step reads them, so they are off the
+// step's chain: with kmax > 0 each step stores its total density row into
+// a (B, k, L) scratch (coalesced, and marked evict-first, __stcs, so that a
+// scratch of many steps does not push the tracers' ring out of L2) and the
+// spectra kernel (csrc/pde_spectra.cu), launched right after on the same
+// stream, computes all the steps' bins across the card.
 //
 // Random bits: injected (noise, (B, k, 3, n_t) uint32 held in int32: flip,
 // Box-Muller u2, u3) or native Philox with key (seed[b], b0 + b), b0 the
 // global index of the launch's first replica, and counter
 // (tracer, step0 + s, 0, 0), whose first three words are the three draws.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "philox.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;  // 128 registers a thread: no spills
 constexpr int kWarps = kThreads / 32;
 constexpr int kHalf = kThreads / 2;  // the scan solve: one field per half
+constexpr int kHalfWarps = kHalf / 32;
 constexpr int kBlock = 9;            // sites per unit of the circulant
+constexpr int kTiles = 32;           // scan tiles of the exact solve
+constexpr int kMaxCluster = 16;
+constexpr unsigned kFull = 0xffffffffu;
 
 enum MMode { kGlobal = 0, kPointwise = 1, kTaps = 2 };
 enum SolveMode { kNoSolve = 0, kExact = 1, kBanded = 2 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+// This CTA's share of the lattice and of the tracers.
+struct Geo {
+  int C, rank, L, seg, shift, lo, nloc;  // sites [lo, lo + nloc)
+  int tseg, t0, tloc;                    // tracers [t0, t0 + tloc)
+};
 
-// Block-wide sum of NV values with one barrier.  `scratch` ([kWarps][NV])
-// must not be reused before another barrier has passed.
-template <int NV>
-__device__ __forceinline__ void block_sum(float (&v)[NV], float* scratch) {
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) v[i] = warp_sum(v[i]);
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int i = 0; i < NV; ++i) scratch[warp * NV + i] = v[i];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += scratch[w * NV + i];
-    v[i] = s;
+__device__ __forceinline__ void cluster_sync(int C) {
+  if (C > 1) {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  } else {
+    __syncthreads();
   }
 }
 
-__device__ __forceinline__ float cw(float beta, float s, float m) {
-  return fminf(fmaxf(expf(-beta * s * m), 1e-8f), 1e8f);
+// The same shared-memory object in CTA `r` of the cluster.
+template <typename T>
+__device__ __forceinline__ T* at_rank(T* p, int r, int C) {
+  return C > 1 ? cg::this_cluster().map_shared_rank(p, (unsigned)r) : p;
+}
+
+// Site j (global, in [0, L)) of a field whose local copy is `buf`.
+__device__ __forceinline__ float site(const Geo& g, float* buf, int j) {
+  const int r = j >> g.shift;
+  if (r == g.rank) return buf[j - g.lo];
+  return at_rank(buf, r, g.C)[j - (r << g.shift)];
 }
 
 __device__ __forceinline__ int wrap(int i, int L) {
   i %= L;
   return i < 0 ? i + L : i;
+}
+
+// The adjacent-pairing butterfly: lane pairs (l, l^1), then pairs of pairs,
+// ...; every lane ends with the same sum (addition commutes exactly).
+template <int NV>
+__device__ __forceinline__ void warp_tree(float (&v)[NV]) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) v[i] += __shfl_xor_sync(kFull, v[i], o);
+  }
+}
+
+// Sums of NV quantities over an aligned power-of-two range of n_alloc
+// leaves (sites or tracers) of which the first n_real are real: chunk c =
+// leaves [32c, 32c + 32), the warp's k chunks consecutive.  f(i, v) fills
+// v with leaf i's values (called only for real leaves).  Every lane of a
+// warp ends with the warp's total.
+template <int NV, typename F>
+__device__ __forceinline__ void warp_sums(int n_alloc, int n_real,
+                                          float (&tot)[NV], F f) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nch = n_alloc > 32 ? n_alloc >> 5 : 1;
+  const int k = nch > kWarps ? nch / kWarps : 1;
+#pragma unroll
+  for (int q = 0; q < NV; ++q) tot[q] = 0.f;
+  for (int i = 0; i < k; ++i) {
+    const int c = warp * k + i;
+    if (c >= nch) break;
+    const int x = c * 32 + lane;
+    float v[NV];
+#pragma unroll
+    for (int q = 0; q < NV; ++q) v[q] = 0.f;
+    if (x < n_real) f(x, v);
+    warp_tree(v);
+#pragma unroll
+    for (int q = 0; q < NV; ++q) tot[q] = lane == i ? v[q] : tot[q];
+  }
+  if (k > 1) warp_tree(tot);
+}
+
+// The cluster's total of the warps' totals: the CTA's warps through
+// `scratch` ([kWarps][NV]), then the C CTAs' totals through `pub` (NV),
+// read after a cluster barrier.  Every thread ends with the totals.  A
+// slot may be written again only after another barrier of the cluster.
+template <int NV>
+__device__ __forceinline__ void cluster_total(const Geo& g, float (&v)[NV],
+                                              float* scratch, float* pub) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) {
+#pragma unroll
+    for (int q = 0; q < NV; ++q) scratch[warp * NV + q] = v[q];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < NV; ++q) v[q] = lane < kWarps ? scratch[lane * NV + q]
+                                                    : 0.f;
+  warp_tree(v);
+  if (g.C > 1) {
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int q = 0; q < NV; ++q) pub[q] = v[q];
+    }
+    cluster_sync(g.C);
+    const float* src = lane < g.C ? at_rank(pub, lane, g.C) : nullptr;
+#pragma unroll
+    for (int q = 0; q < NV; ++q) v[q] = src ? src[q] : 0.f;
+    warp_tree(v);
+  }
+}
+
+__device__ __forceinline__ float cw(float beta, float s, float m) {
+  return fminf(fmaxf(expf(-beta * s * m), 1e-8f), 1e8f);
 }
 
 // One tap of the circulant on a unit's S outputs; u (the tap's place in
@@ -133,72 +226,121 @@ __device__ __forceinline__ void tap_sum(const float (&lw)[S],
                   acc[s]);
 }
 
-// The symmetric circulant on one field,
+// One circulant law and its staging: taps w padded with zeros to
+// 1 + ns*len; `tb` taps per pass (a multiple of kBlock), `fp` fields per
+// field group.
+struct Circ {
+  const float* w;
+  int ns, len, tb, fp;
+};
+
+// The symmetric circulant on the two fields a[0], a[1] (this CTA's
+// segments of them; every CTA's must be complete, and stay unchanged until
+// the next cluster barrier),
 //   o[x] = w[0] a[x] + sum_{d>=1} w[d] (a[x-d] + a[x+d]),  indices mod L,
-// w padded with zeros to 1 + ns*len taps (len a multiple of kBlock).  Work
-// unit (slice, block) = sites [kBlock*block, +kBlock) over taps
-// [1 + slice*len, 1 + (slice+1)*len); slice 0 adds the centre tap.  With
-// ns == 1 each unit hands its sums to consume(x, o); otherwise the units
-// write `part` ([ns][L]) and, after a barrier, consume() runs per site on
-// the slices' sums in slice order (a unit and the per-site pass give a
-// thread the same sites in both fields, so a second call may read what the
-// first one's consume() wrote).  Every thread must call it.
+// handed to consume(f, i, o) for local site i of field f.  Work unit
+// (field, slice, block) = sites [kBlock*block, +kBlock) of the segment over
+// the slice's taps in the pass.  `win` holds `wf` floats for each field of
+// a group: a pass over taps (E0, E1] stages sites [lo - E1, lo + nloc + 9 -
+// E0) and, from offset seg + 9 + tb, [lo + E0, lo + nloc + 9 + E1) (one
+// window [lo - E1, lo + nloc + 9 + E1) when E0 = 0).  Chains that
+// outlive a pass, and the slices when ns > 1, meet in `part`
+// ([fp][ns][seg]).  Every thread must call it.
 template <typename F>
-__device__ __forceinline__ void circulant(const float* __restrict__ a,
-                                          const float* __restrict__ w,
-                                          int L, int nb, int ns, int len,
+__device__ __forceinline__ void circulant(const Geo& g, float* a0, float* a1,
+                                          const Circ& c, float* win, int wf,
                                           float* part, F consume) {
   constexpr int S = kBlock;
-  for (int unit = threadIdx.x; unit < nb * ns; unit += kThreads) {
-    const int sl = unit / nb, x0 = (unit - sl * nb) * S;
-    const int d0 = sl * len;  // the window before the slice's first tap
-    float lw[S], rw[S], acc[S];
-    int lo = wrap(x0 - d0, L), hi = wrap(x0 + d0, L);
-#pragma unroll
-    for (int s = 0; s < S; ++s) {  // slot s holds x0 + s -/+ d0
-      lw[s] = a[lo];
-      rw[s] = a[hi];
-      lo = lo == L - 1 ? 0 : lo + 1;
-      hi = hi == L - 1 ? 0 : hi + 1;
-    }
-    const float w0 = sl == 0 ? __ldg(w) : 0.f;
-#pragma unroll
-    for (int s = 0; s < S; ++s) acc[s] = w0 * lw[s];
-    lo = wrap(x0 - d0, L);              // the next left site is lo - 1
-    hi = wrap(x0 + S - 1 + d0, L);      // the next right site is hi + 1
-    const float* wp = w + 1 + d0;
-    for (int c = 0; c < len; c += S) {
-#pragma unroll
-      for (int u = 0; u < S; ++u) {
-        // tap d = d0 + c + u + 1 = 1 + u (mod S): left site x0 + s - d
-        // sits in slot (s - 1 - u) mod S, right site x0 + s + d in slot
-        // (s + 1 + u) mod S; the new values enter slots S-1-u and u
-        lo = lo == 0 ? L - 1 : lo - 1;
-        hi = hi == L - 1 ? 0 : hi + 1;
-        lw[S - 1 - u] = a[lo];
-        rw[u] = a[hi];
-        tap_sum<S>(lw, rw, acc, __ldg(wp + c + u), u);
+  const int tid = threadIdx.x, L = g.L;
+  const int R = c.ns * c.len;
+  const int nu = (g.nloc + S - 1) / S;
+  const bool direct = c.ns == 1 && c.tb >= R;
+  for (int f0 = 0; f0 < 2; f0 += c.fp) {
+    const int nf = min(c.fp, 2 - f0);
+    int E0 = 0;
+    do {
+      const int E1 = min(R, E0 + c.tb);
+      // -- stage the pass's inputs from the cluster --------------------
+      const int n_one = g.nloc + S + (E0 == 0 ? 2 * E1 : E1 - E0);
+      for (int fi = 0; fi < nf; ++fi) {
+        float* a = f0 + fi == 0 ? a0 : a1;
+        float* lb = win + fi * wf;
+        for (int i = tid; i < n_one; i += kThreads)
+          lb[i] = site(g, a, wrap(g.lo - E1 + i, L));
+        if (E0 > 0) {
+          float* rb = lb + g.seg + S + c.tb;
+          for (int i = tid; i < n_one; i += kThreads)
+            rb[i] = site(g, a, wrap(g.lo + E0 + i, L));
+        }
       }
-    }
+      __syncthreads();
+      // -- the chains of the slices that meet (E0, E1] ------------------
+      const int s_lo = c.len ? E0 / c.len : 0;
+      const int s_hi = c.len ? (E1 - 1) / c.len : 0;
+      const int nsl = max(1, s_hi - s_lo + 1);
+      for (int item = tid; item < nf * nsl * nu; item += kThreads) {
+        const int fi = item / (nsl * nu);
+        const int rem = item - fi * nsl * nu;
+        const int sl = s_lo + rem / nu, unit = rem - (rem / nu) * nu;
+        const int t0 = max(E0, sl * c.len), t1 = min(E1, (sl + 1) * c.len);
+        const float* lb = win + fi * wf;
+        const float* rb = E0 == 0 ? lb + E1 : lb + g.seg + S + c.tb;
+        const int x0 = unit * S;
+        float lw[S], rw[S], acc[S];
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const int x = x0 + s;
-      if (x >= L) break;
-      if (ns == 1) {
-        consume(x, acc[s]);
-      } else {
-        part[sl * L + x] = acc[s];
+        for (int s = 0; s < S; ++s) {  // slot s holds x0 + s -/+ t0
+          lw[s] = lb[x0 + s - t0 + E1];
+          rw[s] = rb[x0 + s + t0 - E0];
+        }
+        float* pp = part + ((size_t)fi * c.ns + sl) * g.seg;
+        if (t0 == sl * c.len) {
+          const float w0 = sl == 0 ? __ldg(c.w) : 0.f;
+#pragma unroll
+          for (int s = 0; s < S; ++s) acc[s] = w0 * lw[s];
+        } else {
+#pragma unroll
+          for (int s = 0; s < S; ++s)
+            acc[s] = x0 + s < g.nloc ? pp[x0 + s] : 0.f;
+        }
+        const float* lo_p = lb + x0 + E1;        // site x0 - d at lo_p[-d]
+        const float* hi_p = rb + x0 + S - 1 - E0;  // x0 + 8 + d at hi_p[d]
+        for (int cc = t0; cc < t1; cc += S) {
+#pragma unroll
+          for (int u = 0; u < S; ++u) {
+            // tap d = cc + u + 1: left site x0 + s - d sits in slot
+            // (s - 1 - u) mod S, right site x0 + s + d in slot
+            // (s + 1 + u) mod S; the new values enter slots S-1-u and u
+            const int d = cc + u + 1;
+            lw[S - 1 - u] = lo_p[-d];
+            rw[u] = hi_p[d];
+            tap_sum<S>(lw, rw, acc, __ldg(c.w + d), u);
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const int x = x0 + s;
+          if (x >= g.nloc) break;
+          if (direct) {
+            consume(f0 + fi, x, acc[s]);
+          } else {
+            pp[x] = acc[s];
+          }
+        }
       }
+      __syncthreads();  // the windows are free again
+      E0 = E1;
+    } while (E0 < R);
+    if (!direct) {  // the slices' sums, in slice order
+      for (int x = tid; x < g.nloc; x += kThreads) {
+        for (int fi = 0; fi < nf; ++fi) {
+          const float* pp = part + (size_t)fi * c.ns * g.seg;
+          float o = pp[x];
+          for (int sl = 1; sl < c.ns; ++sl) o += pp[(size_t)sl * g.seg + x];
+          consume(f0 + fi, x, o);
+        }
+      }
+      __syncthreads();  // `part` is free again
     }
-  }
-  if (ns > 1) {
-    __syncthreads();
-    for (int x = threadIdx.x; x < L; x += kThreads) {
-      float o = part[x];
-      for (int sl = 1; sl < ns; ++sl) o += part[sl * L + x];
-      consume(x, o);
-    }
-    __syncthreads();  // `part` is free again
   }
 }
 
@@ -210,71 +352,93 @@ __device__ __forceinline__ Aff after(Aff l, Aff e) {
   return {l.a * e.a, fma(l.a, e.b, l.b)};
 }
 __device__ __forceinline__ Aff shfl_up(Aff v, int d) {
-  return {__shfl_up_sync(0xffffffffu, v.a, d),
-          __shfl_up_sync(0xffffffffu, v.b, d)};
+  return {__shfl_up_sync(kFull, v.a, d), __shfl_up_sync(kFull, v.b, d)};
 }
 __device__ __forceinline__ Aff shfl_down(Aff v, int d) {
-  return {__shfl_down_sync(0xffffffffu, v.a, d),
-          __shfl_down_sync(0xffffffffu, v.b, d)};
+  return {__shfl_down_sync(kFull, v.a, d), __shfl_down_sync(kFull, v.b, d)};
+}
+__device__ __forceinline__ Aff shfl_idx(Aff v, int l) {
+  return {__shfl_sync(kFull, v.a, l), __shfl_sync(kFull, v.b, l)};
 }
 
-// One sweep of the scan solve over this thread's run [lo, hi) of field F
-// on its half of the block (kHalf threads, one field each).  Forward:
-// y_i = alpha_i y_{i-1} + inv_i F_i from y_{-1} = 0; back (rev): x_i =
-// -c'_i x_{i+1} + F_i from x_L = 0 (c'_{L-1} = 0).  `tot` holds the half's
-// kHalf/32 warp totals; the caller's barrier must separate two uses of it.
-// Writes the result over F[lo, hi).
-__device__ __forceinline__ void scan_sweep(float* F, int lo, int hi,
+// One sweep of the scan solve of field F (this CTA's segment) on this
+// thread's half of the block.  Forward: y_i = alpha_i y_{i-1} + inv_i F_i
+// from y_{-1} = 0; back (rev): x_i = -c'_i x_{i+1} + F_i from x_L = 0
+// (c'_{L-1} = 0).  Tile t = sites [t*32*run, (t+1)*32*run), lane l's run
+// its [l*run, (l+1)*run); sites past L are the identity.  `tt` ([kTiles]
+// per field) takes this CTA's tiles' totals; the caller's barrier must
+// separate two uses of it.  Writes the result over F.
+__device__ __forceinline__ void scan_sweep(const Geo& g, float* F, int run,
+                                           int ntiles, int h,
                                            const double* __restrict__ coef,
                                            const double* __restrict__ inv,
-                                           bool rev, Aff* tot) {
+                                           bool rev, Aff* tt) {
   const int lane = threadIdx.x & 31, wh = (threadIdx.x & (kHalf - 1)) >> 5;
-  constexpr int kHalfWarps = kHalf / 32;
-  Aff v{1.0, 0.0};
-  if (!rev) {
-    for (int i = lo; i < hi; ++i) {
-      const double al = __ldg(coef + i);
-      v = {al * v.a, fma(al, v.b, (double)F[i] * __ldg(inv + i))};
+  const int ntl = ntiles / g.C;  // this CTA's tiles
+  const Aff id{1.0, 0.0};
+  Aff e[2] = {id, id};
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int tl = wh + u * kHalfWarps;
+    if (tl >= ntl) break;
+    const int gt = g.rank * ntl + tl;
+    const int lo = gt * 32 * run + lane * run;
+    const int hi = min(g.L, lo + run);
+    Aff v = id;
+    if (!rev) {
+      for (int i = lo; i < hi; ++i) {
+        const double al = __ldg(coef + i);
+        v = {al * v.a, fma(al, v.b, (double)F[i - g.lo] * __ldg(inv + i))};
+      }
+    } else {
+      for (int i = hi - 1; i >= lo; --i) {
+        const double ng = -__ldg(coef + i);
+        v = {ng * v.a, fma(ng, v.b, (double)F[i - g.lo])};
+      }
     }
-  } else {
-    for (int i = hi - 1; i >= lo; --i) {
-      const double ng = -__ldg(coef + i);
-      v = {ng * v.a, fma(ng, v.b, (double)F[i])};
+    // inclusive scan of the tile in sweep order (rev: lane 31 first)
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const Aff o = rev ? shfl_down(v, d) : shfl_up(v, d);
+      if (rev ? lane + d < 32 : lane >= d) v = after(v, o);
     }
+    if (lane == (rev ? 0 : 31)) tt[h * kTiles + gt] = v;
+    Aff ex = rev ? shfl_down(v, 1) : shfl_up(v, 1);
+    if (lane == (rev ? 31 : 0)) ex = id;
+    e[u] = ex;
   }
-  // inclusive warp scan in sweep order (rev: lane 31 first)
+  cluster_sync(g.C);
+  // the tiles in sweep order: lane p takes the total of the tile at sweep
+  // position p, from the CTA that owns it, and a shuffle scan composes them
+  const int p_tile = rev ? ntiles - 1 - lane : lane;
+  Aff t = id;
+  if (lane < ntiles) t = at_rank(tt, p_tile / ntl, g.C)[h * kTiles + p_tile];
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const Aff o = rev ? shfl_down(v, d) : shfl_up(v, d);
-    if (rev ? lane + d < 32 : lane >= d) v = after(v, o);
-  }
-  if (lane == (rev ? 0 : 31)) tot[wh] = v;
-  Aff e = rev ? shfl_down(v, 1) : shfl_up(v, 1);
-  if (lane == (rev ? 31 : 0)) e = {1.0, 0.0};
-  __syncthreads();
-  // the warps before this one in sweep order: lane l < kHalfWarps takes the
-  // total of the warp at sweep position l, and a shuffle scan composes them
-  Aff t{1.0, 0.0};
-  if (lane < kHalfWarps) t = tot[rev ? kHalfWarps - 1 - lane : lane];
-#pragma unroll
-  for (int d = 1; d < kHalfWarps; d <<= 1) {
     const Aff o = shfl_up(t, d);
     if (lane >= d) t = after(t, o);
   }
-  const int at = rev ? kHalfWarps - 1 - wh : wh;  // this warp's position
-  Aff q{__shfl_sync(0xffffffffu, t.a, at > 0 ? at - 1 : 0),
-        __shfl_sync(0xffffffffu, t.b, at > 0 ? at - 1 : 0)};
-  if (at == 0) q = {1.0, 0.0};
-  double y = after(e, q).b;  // the value entering the run
-  if (!rev) {
-    for (int i = lo; i < hi; ++i) {
-      y = fma(__ldg(coef + i), y, (double)F[i] * __ldg(inv + i));
-      F[i] = (float)y;
-    }
-  } else {
-    for (int i = hi - 1; i >= lo; --i) {
-      y = fma(-__ldg(coef + i), y, (double)F[i]);
-      F[i] = (float)y;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int tl = wh + u * kHalfWarps;
+    if (tl >= ntl) break;
+    const int gt = g.rank * ntl + tl;
+    const int at = rev ? ntiles - 1 - gt : gt;  // the tile's position
+    Aff q = shfl_idx(t, at > 0 ? at - 1 : 0);
+    if (at == 0) q = id;
+    double y = after(e[u], q).b;  // the value entering the run
+    const int lo = gt * 32 * run + lane * run;
+    const int hi = min(g.L, lo + run);
+    if (!rev) {
+      for (int i = lo; i < hi; ++i) {
+        y = fma(__ldg(coef + i), y, (double)F[i - g.lo] * __ldg(inv + i));
+        F[i - g.lo] = (float)y;
+      }
+    } else {
+      for (int i = hi - 1; i >= lo; --i) {
+        y = fma(-__ldg(coef + i), y, (double)F[i - g.lo]);
+        F[i - g.lo] = (float)y;
+      }
     }
   }
 }
@@ -287,100 +451,126 @@ struct Args {
   const float *rp_in, *rm_in, *pos_in, *spin_in, *hist_in;
   float *rp_out, *rm_out, *pos_out, *spin_out, *hist_out, *recs;
   const double* scan;        // (4, L) [1/pivot, c', alpha, z] (exact solve)
-  const float* solve_taps;   // (1 + sv_ns*sv_len,) padded taps (banded)
-  const float* smooth_taps;  // (1 + sm_ns*sm_len,) padded taps (smoothed m)
+  const float* solve_taps;   // (1 + sv.ns*sv.len,) padded taps (banded)
+  const float* smooth_taps;  // (1 + sm.ns*sm.len,) padded taps (smoothed m)
   float* dens;               // (B, k, L) total density per step (kmax > 0)
   const int* noise;
   int L, n_t, window, k_steps, kmax, m_mode, solve_mode;
-  int sm_nb, sm_ns, sm_len, sv_nb, sv_ns, sv_len;  // circulant plans
+  int C, seg, tseg, run, ntiles;  // the cluster plan
+  int sm_ns, sm_len, sm_tb, sm_fp, sv_ns, sv_len, sv_tb, sv_fp;
+  int wf;                         // staging window floats a field
   int periodic, bidirectional;
   float dt, dx, xlim, v_last, fac, w_dt, w_2dt;
 };
 
+// Shared memory of a CTA, in this order (ops/pde_kernel.py cta_smem_bytes):
+// the scan's tile totals (2 sweeps x 2 fields x kTiles double-word maps,
+// first, so they are 16-byte aligned), the reductions' warp totals
+// (7 x kWarps) and published totals (8), the fields P, M, Q, N (seg
+// each), m and the smoothed denominator (seg each, where used), the
+// tracers' displacements (tseg), the staging windows (fp * wf) and the
+// partial sums.
 __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
-  // the scan's double-word table first, so it is 16-byte aligned whatever
-  // L and n_t
   extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.x, tid = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int C = a.C;
+  const int rank = C > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int b = blockIdx.x / C;
   const int L = a.L, n_t = a.n_t, kmax = a.kmax;
-  const bool local_m = a.m_mode != kGlobal;
+  const bool local_m = a.m_mode != kGlobal, taps = a.m_mode == kTaps;
+  Geo g;
+  g.C = C;
+  g.rank = rank;
+  g.L = L;
+  g.seg = a.seg;
+  g.shift = __ffs(a.seg) - 1;
+  g.lo = rank * a.seg;
+  g.nloc = max(0, min(L - g.lo, a.seg));
+  g.tseg = a.tseg;
+  g.t0 = rank * a.tseg;
+  g.tloc = max(0, min(n_t - g.t0, a.tseg));
 
-  Aff* scanT = reinterpret_cast<Aff*>(smem);  // 2 x kWarps
+  Aff* tt = reinterpret_cast<Aff*>(smem);  // [2][2][kTiles]
+  float* redA = reinterpret_cast<float*>(tt + 4 * kTiles);  // kWarps * 2
+  float* redB = redA + kWarps * 2;                          // kWarps * 2
+  float* redD = redB + kWarps * 2;                          // kWarps * 3
+  float* pubA = redD + kWarps * 3;                          // 2
+  float* pubB = pubA + 2;                                   // 3
+  float* pubD = pubB + 3;                                   // 3
   // state (P, M) and scratch (Q, N) swap roles from step to step
-  float* P = reinterpret_cast<float*>(scanT + 2 * kWarps);
-  float* M = P + L;
-  float* Q = M + L;
-  float* N = Q + L;
-  float* mS = N + L;                       // L floats when local_m
-  float* DR = mS + (local_m ? L : 0);      // n_t
-  float* redA = DR + n_t;                  // kWarps * 2
-  float* redB = redA + kWarps * 2;         // kWarps * 2
-  float* redD = redB + kWarps * 2;         // kWarps * 3
-  float* part = redD + kWarps * 3;         // circulant partial sums
+  float* P = pubD + 3;
+  float* M = P + a.seg;
+  float* Q = M + a.seg;
+  float* N = Q + a.seg;
+  float* mS = N + a.seg;                      // seg when local_m
+  float* dS = mS + (local_m ? a.seg : 0);     // seg when taps
+  float* DR = dS + (taps ? a.seg : 0);        // tseg
+  float* win = DR + a.tseg;                   // fp * wf
+  float* part = win + max(a.sm_fp, a.sv_fp) * a.wf;
 
+  const Circ smc{a.smooth_taps, a.sm_ns, a.sm_len, a.sm_tb, a.sm_fp};
+  const Circ svc{a.solve_taps, a.sv_ns, a.sv_len, a.sv_tb, a.sv_fp};
   const float beta = a.scal[4 * b], lam = a.scal[4 * b + 1];
   const float noise_amp = sqrtf(__fmul_rn(2.f * a.scal[4 * b + 2], a.dt));
   const float inv_L = 1.f / (float)L;
   const float inv_nt = 1.f / (float)(n_t > 1 ? n_t : 1);
   const float dt = a.dt, dx = a.dx;
-  const size_t foff = (size_t)b * L, toff = (size_t)b * n_t;
+  const size_t foff = (size_t)b * L + g.lo, toff = (size_t)b * n_t;
   const int rw = 4 + 2 * kmax;
   const uint2 key = make_uint2((uint32_t)a.seeds[b], (uint32_t)(a.b0 + b));
 
-  for (int x = tid; x < L; x += kThreads) {
+  for (int x = tid; x < g.nloc; x += kThreads) {
     P[x] = a.rp_in[foff + x];
     M[x] = a.rm_in[foff + x];
   }
   const float* hin = a.hist_in + (size_t)b * a.window * n_t;
   float* hist = a.hist_out + (size_t)b * a.window * n_t;
-  for (int j = tid; j < n_t; j += kThreads) {
+  for (int j = g.t0 + tid; j < g.t0 + g.tloc; j += kThreads) {
     a.pos_out[toff + j] = a.pos_in[toff + j];
     a.spin_out[toff + j] = a.spin_in[toff + j];
     for (int w = 0; w < a.window; ++w) hist[w * n_t + j] = hin[w * n_t + j];
   }
-  __syncthreads();
+  // every CTA of the cluster runs, its fields loaded, before any remote read
+  cluster_sync(C);
 
   for (int s = 0; s < a.k_steps; ++s) {
     const int n = a.step0 + s;
     float* row = a.recs + ((size_t)b * a.k_steps + s) * rw;
-    float* drow =
-        a.dens ? a.dens + ((size_t)b * a.k_steps + s) * L : nullptr;
+    float* drow = a.dens ? a.dens + ((size_t)b * a.k_steps + s) * L + g.lo
+                         : nullptr;
 
     // -- magnetization of the pre-step densities --------------------------
-    if (a.m_mode == kTaps) {
-      for (int x = tid; x < L; x += kThreads) {
+    float vA[2];
+    if (taps) {  // the smoothed numerator and denominator
+      for (int x = tid; x < g.nloc; x += kThreads) {
         Q[x] = P[x] - M[x];
         N[x] = P[x] + M[x];
         if (drow) __stcs(drow + x, N[x]);
       }
-      __syncthreads();
-    }
-    float vA[2] = {0.f, 0.f};
-    if (a.m_mode == kTaps) {  // mS holds the smoothed numerator between
-      circulant(Q, a.smooth_taps, L, a.sm_nb, a.sm_ns, a.sm_len, part,
-                [&](int x, float sn) { mS[x] = sn; });
-      circulant(N, a.smooth_taps, L, a.sm_nb, a.sm_ns, a.sm_len, part,
-                [&](int x, float sd) {
-                  const float mx = mS[x] / (sd + 1e-12f);
-                  mS[x] = mx;
-                  vA[0] += mx;
-                });
-      for (int x = tid; x < L; x += kThreads) vA[1] += P[x] + M[x];
+      cluster_sync(C);
+      circulant(g, Q, N, smc, win, a.wf, part,
+                [&](int f, int x, float o) { (f == 0 ? mS : dS)[x] = o; });
+      warp_sums<2>(a.seg, g.nloc, vA, [&](int x, float (&v)[2]) {
+        const float mx = mS[x] / (dS[x] + 1e-12f);
+        mS[x] = mx;
+        v[0] = mx;
+        v[1] = P[x] + M[x];
+      });
     } else {
-      for (int x = tid; x < L; x += kThreads) {
+      warp_sums<2>(a.seg, g.nloc, vA, [&](int x, float (&v)[2]) {
         const float p = P[x], q = M[x];
         if (drow) __stcs(drow + x, p + q);
         if (a.m_mode == kGlobal) {
-          vA[0] += p - q;
+          v[0] = p - q;
         } else {
           const float mx = (p - q) / (p + q + 1e-12f);
           mS[x] = mx;
-          vA[0] += mx;
+          v[0] = mx;
         }
-        vA[1] += p + q;
-      }
+        v[1] = p + q;
+      });
     }
-    block_sum<2>(vA, redA);  // its barrier also publishes mS
+    cluster_total<2>(g, vA, redA, pubA);  // its barrier also publishes mS
     const float m_glob = vA[0] / (vA[1] + 1e-12f);
     const float m_mean = local_m ? vA[0] * inv_L : m_glob;
     const float t_mean = vA[1] * inv_L;
@@ -389,8 +579,9 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
     const int* nz =
         a.noise ? a.noise + (size_t)(b * a.k_steps + s) * 3 * n_t : nullptr;
     const int slot = n % a.window;
-    float vB[2] = {0.f, 0.f};
-    for (int j = tid; j < n_t; j += kThreads) {
+    float vB[2], vT[1];
+    warp_sums<1>(a.tseg, g.tloc, vT, [&](int jl, float (&v)[1]) {
+      const int j = g.t0 + jl;
       uint32_t w0, w1, w2;
       if (nz) {
         w0 = (uint32_t)nz[j];
@@ -407,7 +598,7 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
       if (local_m) {  // m at the tracer's site, floor-mod as jnp.mod
         float pw = fmodf(pos, a.xlim);
         if (pw != 0.f && ((pw < 0.f) != (a.xlim < 0.f))) pw += a.xlim;
-        m_tr = mS[((int)(pw / dx)) % L];
+        m_tr = site(g, mS, ((int)(pw / dx)) % L);
       }
       const float rate = cw(beta, spin, m_tr);
       if (hydrolim::bits_to_uniform(w0) < rate * dt) spin = -spin;
@@ -427,14 +618,17 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
       hist[slot * n_t + j] = pos;
       a.pos_out[toff + j] = pos;
       a.spin_out[toff + j] = spin;
-      DR[j] = pos - old;
-      vB[1] += pos - old;
-    }
-    for (int x = tid; x < L; x += kThreads) {
+      DR[jl] = pos - old;
+      v[0] = pos - old;
+    });
+    float vS[1];
+    warp_sums<1>(a.seg, g.nloc, vS, [&](int x, float (&v)[1]) {
       const float d = P[x] + M[x] - t_mean;
-      vB[0] += d * d;
-    }
-    block_sum<2>(vB, redB);
+      v[0] = d * d;
+    });
+    vB[0] = vS[0];
+    vB[1] = vT[0];
+    cluster_total<2>(g, vB, redB, pubB);
     const float var = vB[0] * inv_L;
     const float mean_dr = vB[1] * inv_nt;
 
@@ -444,42 +638,42 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
     float cP = 0.f, cM = 0.f;
     const double* zz = nullptr;
     if (a.solve_mode == kExact) {  // in place: two scan sweeps per field
-      const int h = tid / kHalf, t = tid - h * kHalf;
-      const int run = (L + kHalf - 1) / kHalf;
-      const int lo = min(L, t * run), hi = min(L, lo + run);
+      const int h = tid / kHalf;
       float* F = h == 0 ? P : M;
-      const double* g = a.scan;
-      scan_sweep(F, lo, hi, g + 2 * L, g, false, scanT + h * (kHalf / 32));
-      scan_sweep(F, lo, hi, g + L, nullptr, true,
-                 scanT + kWarps + h * (kHalf / 32));
-      __syncthreads();
+      const double* gs = a.scan;
+      scan_sweep(g, F, a.run, a.ntiles, h, gs + 2 * L, gs, false, tt);
+      scan_sweep(g, F, a.run, a.ntiles, h, gs + L, nullptr, true,
+                 tt + 2 * kTiles);
+      cluster_sync(C);  // the solved fields, for the corners and the edges
       if (a.periodic) {  // Sherman-Morrison: x - c z, applied where read
-        cP = a.fac * (P[0] + a.v_last * P[L - 1]);
-        cM = a.fac * (M[0] + a.v_last * M[L - 1]);
-        zz = g + 3 * L;
+        cP = a.fac * (site(g, P, 0) + a.v_last * site(g, P, L - 1));
+        cM = a.fac * (site(g, M, 0) + a.v_last * site(g, M, L - 1));
+        zz = gs + 3 * L;
       }
     } else if (a.solve_mode == kBanded) {
-      circulant(P, a.solve_taps, L, a.sv_nb, a.sv_ns, a.sv_len, part,
-                [&](int x, float v) { Q[x] = v; });
-      circulant(M, a.solve_taps, L, a.sv_nb, a.sv_ns, a.sv_len, part,
-                [&](int x, float v) { N[x] = v; });
-      __syncthreads();
+      circulant(g, P, M, svc, win, a.wf, part,
+                [&](int f, int x, float o) { (f == 0 ? Q : N)[x] = o; });
+      cluster_sync(C);  // the solved fields, for the edges
       P1 = Q; M1 = N; P2 = P; M2 = M;
     }
 
     // -- upwind advection + CW reaction + clip, then mass renorm ----------
     const float cwm_g = cw(beta, -1.f, m_glob), cwp_g = cw(beta, 1.f, m_glob);
     const bool walls = !a.periodic;
-    float vD[3] = {0.f, 0.f, 0.f};
+    float vD[3];
     // the new state, and the two buffers that become the scratch
     float *P_new, *M_new, *Q_new, *N_new;
     if (a.bidirectional) {
-      for (int x = tid; x < L; x += kThreads) {
-        const int xl = x == 0 ? L - 1 : x - 1;
-        const int xr = x == L - 1 ? 0 : x + 1;
-        float p1 = P1[x], m1 = M1[x], pl = P1[xl], mr = M1[xr];
+      float v01[2];
+      warp_sums<2>(a.seg, g.nloc, v01, [&](int x, float (&v)[2]) {
+        const int xg = g.lo + x;
+        const int xl = xg == 0 ? L - 1 : xg - 1;
+        const int xr = xg == L - 1 ? 0 : xg + 1;
+        float p1 = P1[x], m1 = M1[x];
+        float pl = x > 0 ? P1[x - 1] : site(g, P1, xl);
+        float mr = x + 1 < g.nloc ? M1[x + 1] : site(g, M1, xr);
         if (zz) {
-          const float z = (float)__ldg(zz + x);
+          const float z = (float)__ldg(zz + xg);
           p1 -= cP * z;
           m1 -= cM * z;
           pl -= cP * (float)__ldg(zz + xl);
@@ -487,8 +681,8 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
         }
         float dp = (p1 - pl) / dx;
         float dm = (mr - m1) / dx;
-        if (walls && x == 0) dp = 0.f;
-        if (walls && x == L - 1) dm = 0.f;
+        if (walls && xg == 0) dp = 0.f;
+        if (walls && xg == L - 1) dm = 0.f;
         const float mx = local_m ? mS[x] : m_glob;
         const float cwm = local_m ? cw(beta, -1.f, mx) : cwm_g;
         const float cwp = local_m ? cw(beta, 1.f, mx) : cwp_g;
@@ -497,15 +691,18 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
         const float m2 = fmaxf(m1 + dt * (lam * dm - R_p), 0.f);
         P2[x] = p2;
         M2[x] = m2;
-        vD[0] += p1 + m1;
-        vD[1] += p2 + m2;
-      }
+        v[0] = p1 + m1;
+        v[1] = p2 + m2;
+      });
+      vD[0] = v01[0];
+      vD[1] = v01[1];
       P_new = P2; M_new = M2; Q_new = P1; N_new = M1;
     } else {  // anchored_minus: reaction first, then rho_+* is advected
-      for (int x = tid; x < L; x += kThreads) {
+      float v0[1], v1[1];
+      warp_sums<1>(a.seg, g.nloc, v0, [&](int x, float (&v)[1]) {
         float p1 = P1[x], m1 = M1[x];
         if (zz) {
-          const float z = (float)__ldg(zz + x);
+          const float z = (float)__ldg(zz + g.lo + x);
           p1 -= cP * z;
           m1 -= cM * z;
         }
@@ -515,33 +712,39 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
         const float R_p = cwm * m1 - cwp * p1;
         P2[x] = fmaxf(p1 + dt * R_p, 0.f);
         M2[x] = fmaxf(m1 - dt * R_p, 0.f);
-        vD[0] += p1 + m1;
-      }
-      __syncthreads();  // rho_+* is read across threads below
-      for (int x = tid; x < L; x += kThreads) {
-        const int xl = x == 0 ? L - 1 : x - 1;
+        v[0] = p1 + m1;
+      });
+      cluster_sync(C);  // rho_+* is read across threads and CTAs below
+      warp_sums<1>(a.seg, g.nloc, v1, [&](int x, float (&v)[1]) {
+        const int xg = g.lo + x;
         const float ps = P2[x];
-        float dp = (ps - P2[xl]) / dx;
-        if (walls && x == 0) dp = 0.f;
+        const float pl = x > 0 ? P2[x - 1] : site(g, P2, xg == 0 ? L - 1
+                                                                  : xg - 1);
+        float dp = (ps - pl) / dx;
+        if (walls && xg == 0) dp = 0.f;
         const float p2 = fmaxf(ps + dt * (-lam * dp), 0.f);
         P1[x] = p2;
-        vD[1] += p2 + M2[x];
-      }
+        v[0] = p2 + M2[x];
+      });
+      vD[0] = v0[0];
+      vD[1] = v1[0];
       P_new = P1; M_new = M2; Q_new = P2; N_new = M1;
     }
-    for (int j = tid; j < n_t; j += kThreads) {
-      const float d = DR[j] - mean_dr;
-      vD[2] += d * d;
-    }
-    block_sum<3>(vD, redD);
+    float vV[1];
+    warp_sums<1>(a.tseg, g.tloc, vV, [&](int jl, float (&v)[1]) {
+      const float d = DR[jl] - mean_dr;
+      v[0] = d * d;
+    });
+    vD[2] = vV[0];
+    cluster_total<3>(g, vD, redD, pubD);
     const float scale = vD[0] / fmaxf(vD[1], 1e-30f);
-    for (int x = tid; x < L; x += kThreads) {
+    for (int x = tid; x < g.nloc; x += kThreads) {
       P_new[x] *= scale;
       M_new[x] *= scale;
     }
     P = P_new; M = M_new; Q = Q_new; N = N_new;
 
-    if (tid == 0) {
+    if (rank == 0 && tid == 0) {
       const bool valid = n >= a.window;
       const float var_dr = vD[2] * inv_nt;
       row[0] = m_mean;
@@ -553,46 +756,88 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
     __syncthreads();
   }
 
-  for (int x = tid; x < L; x += kThreads) {
+  for (int x = tid; x < g.nloc; x += kThreads) {
     a.rp_out[foff + x] = P[x];
     a.rm_out[foff + x] = M[x];
   }
+  // no CTA leaves while another may still read its shared memory
+  cluster_sync(C);
+}
+
+cudaError_t configure(int C, size_t smem, int B, void* stream,
+                      cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+  if (C < 1 || C > kMaxCluster || (C & (C - 1))) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      pde_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  if (C > 8) {
+    e = cudaFuncSetAttribute(
+        pde_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(B * C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
 }
 
 }  // namespace
 
-extern "C" size_t pde_multi_step_smem_bytes(int L, int n_t, int local_m,
-                                            int part_floats) {
-  return sizeof(Aff) * 2 * kWarps +
-         sizeof(float) * ((size_t)(local_m ? 5 : 4) * L + n_t + 7 * kWarps +
-                          (size_t)part_floats);
+// How many clusters of C CTAs with `smem` bytes each the card holds at
+// once.
+extern "C" int pde_max_active_clusters(int C, int smem, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = configure(C, (size_t)smem, 1, nullptr, cfg, attr);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveClusters(out, pde_kernel, &cfg);
 }
 
 extern "C" int pde_multi_step_launch(
     const float* scal, const int* seeds, int step0, int b0,
-    const float* rp_in,
-    const float* rm_in, const float* pos_in, const float* spin_in,
-    const float* hist_in, float* rp_out, float* rm_out, float* pos_out,
-    float* spin_out, float* hist_out, float* recs, const double* scan,
-    const float* solve_taps, const float* smooth_taps, float* dens,
-    const int* noise, int B, int L, int n_t, int window,
-    int k_steps, int kmax, int m_mode, int solve_mode, int sm_nb, int sm_ns,
-    int sm_len, int sv_nb, int sv_ns, int sv_len, int part_floats,
-    int periodic, int bidirectional, float dt, float dx, float xlim,
-    float v_last, float fac, float w_dt, float w_2dt, void* stream) {
-  Args a{scal,     seeds,      step0,   b0,      rp_in,       rm_in,
-         pos_in,   spin_in,    hist_in, rp_out,  rm_out,      pos_out,
-         spin_out, hist_out,   recs,    scan,    solve_taps,  smooth_taps,
-         dens,     noise,      L,       n_t,     window,
-         k_steps,  kmax,       m_mode,  solve_mode, sm_nb,    sm_ns,
-         sm_len,   sv_nb,      sv_ns,   sv_len,  periodic,    bidirectional,
-         dt,       dx,         xlim,    v_last,  fac,         w_dt,
-         w_2dt};
-  const size_t smem =
-      pde_multi_step_smem_bytes(L, n_t, m_mode != kGlobal, part_floats);
-  cudaError_t e = cudaFuncSetAttribute(
-      pde_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const float* rp_in, const float* rm_in, const float* pos_in,
+    const float* spin_in, const float* hist_in, float* rp_out,
+    float* rm_out, float* pos_out, float* spin_out, float* hist_out,
+    float* recs, const double* scan, const float* solve_taps,
+    const float* smooth_taps, float* dens, const int* noise, int B, int L,
+    int n_t, int window, int k_steps, int kmax, int m_mode, int solve_mode,
+    int C, int seg, int tseg, int run, int ntiles, int sm_ns, int sm_len,
+    int sm_tb, int sm_fp, int sv_ns, int sv_len, int sv_tb, int sv_fp,
+    int wf, int smem, int periodic, int bidirectional,
+    float dt, float dx, float xlim, float v_last, float fac, float w_dt,
+    float w_2dt, void* stream) {
+  // what the kernel's indexing assumes (ops/pde_kernel.py pde_launch_plan)
+  if (seg < 32 || (seg & (seg - 1)) || tseg < 1 || (tseg & (tseg - 1)) ||
+      (size_t)seg * C < (size_t)L || (C - 1) * seg >= L ||
+      (size_t)tseg * C < (size_t)n_t || ntiles < C || ntiles > kTiles ||
+      ntiles % C || (size_t)ntiles * 32 * run < (size_t)L ||
+      sm_tb < 1 || sv_tb < 1 || sm_tb % kBlock || sv_tb % kBlock ||
+      sm_fp < 1 || sm_fp > 2 || sv_fp < 1 || sv_fp > 2)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = configure(C, (size_t)smem, B, stream, cfg, attr);
   if (e != cudaSuccess) return (int)e;
-  pde_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(a);
+  const Args a{scal,       seeds,     step0,     b0,          rp_in,
+               rm_in,      pos_in,    spin_in,   hist_in,     rp_out,
+               rm_out,     pos_out,   spin_out,  hist_out,    recs,
+               scan,       solve_taps, smooth_taps, dens,     noise,
+               L,          n_t,       window,    k_steps,     kmax,
+               m_mode,     solve_mode, C,        seg,         tseg,
+               run,        ntiles,    sm_ns,     sm_len,      sm_tb,
+               sm_fp,      sv_ns,     sv_len,    sv_tb,       sv_fp,
+               wf,         periodic,  bidirectional, dt,
+               dx,         xlim,      v_last,    fac,         w_dt,
+               w_2dt};
+  e = cudaLaunchKernelEx(&cfg, pde_kernel, a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -11,18 +11,30 @@ tracers, σ=0.005 (narrow taps), no solve (γ=0), the full 501 rfft bins,
 50-step calls (a frame).  ``--mode spectra-kernel``: the spectra kernel
 alone on that run's (1, 50, 1000) density rows, 501 bins: its device
 time a call (the kernels' time under ``torch.profiler``, 20 calls) and
-the events' time a call.  ``--batch`` sets the replicas of 'main' and
+the events' time a call.  ``--mode rows``: the per-mode rows of PERF.md
+§6 (``ROWS``: global, pointwise, narrow and smooth m at B=5 with 1000
+tracers and B=64 with 64, L=1000, the exact solve; the L=8192 banded row;
+the single run's step), one JSON row each.  ``--mode cluster``: the same
+rows and the large lattices (``LARGE``: L=8192 and 16,384 at B=4, 65,536
+at B=2, the large-lattice driver's recipe, pointwise m, the banded solve,
+64 tracers, 8 bins) under every cluster size the plan allows
+(``pde_launch_plan(cluster=C)``), one row per shape with the µs per step
+at each C and the plan's C.  ``--mode drift``: the kernel against its
+plain version over 1500 steps of that recipe from the large-lattice
+driver's initial fields, at each ``--lattice`` L (default 1024 and
+8192): the density's difference and each route's mass every 375 steps.  ``--batch`` sets the replicas of 'main' and
 'smooth' (β over [0, 3]; e.g. 5 and 64, the PDE slice's σ-sweep and
 phase-diagram batches).  Several modes and batches run in one process,
-one row each.  It calls only what the kernel's wrapper has taken since
-the PDE slice was ported, so the same script times an older checkout of
-the package: put that checkout first on ``PYTHONPATH`` and run this file
-by its path.  Prints one JSON row per shape (CUDA events, after a warm-up
-call), with the step kernel's launches a call where the checkout counts
-them.
+one row each.  Every mode but 'cluster' calls only what the kernel's
+wrapper has taken since the PDE slice was ported, so the same script
+times an older checkout of the package: put that checkout first on
+``PYTHONPATH`` and run this file by its path.  Prints one JSON row per
+shape (CUDA events, after a warm-up call), with the step kernel's
+launches a call where the checkout counts them.
 
 Usage: PYTHONPATH=<checkout> python <this file> [--calls 5] [--tag NAME]
-       [--mode main|smooth|spectra|spectra-kernel ...] [--batch B ...]
+       [--mode main|smooth|spectra|spectra-kernel|rows|cluster|drift ...]
+       [--batch B ...] [--lattice L ...]
 """
 from __future__ import annotations
 
@@ -83,12 +95,187 @@ def spectra_kernel(tag: str = "") -> dict:
     return row
 
 
+# PERF.md §6's per-mode rows: (label, PDEConfig fields beyond L=1000,
+# dt=5e-4, shape, steps per call, γ).  The large-lattice recipe
+# (dt = 0.5·dx/λ, γ = 2.5·dx²/dt) at L=8192, 16,384 and 65,536.
+def _recipe(L: int) -> dict:
+    dt = 0.5 / L / 0.6
+    return dict(L=L, dt=dt, gamma=2.5 / L / L / dt)
+
+
+ROWS = [(f"{m}, exact, B={B}, n_t={n_t}", over, dict(B=B, n_t=n_t), 2000)
+        for B, n_t in ((5, 1000), (64, 64))
+        for m, over in (("global", dict(gaussian_kernel=True,
+                                        kernel_sigma=2e5)),
+                        ("pointwise", {}),
+                        ("narrow sigma=0.005", dict(gaussian_kernel=True,
+                                                    kernel_sigma=0.005)),
+                        ("smooth sigma=0.05", dict(gaussian_kernel=True,
+                                                   kernel_sigma=0.05)))] + [
+    ("pointwise, banded, L=8192, B=4, n_t=64",
+     dict(diffusion_solver="banded"),
+     dict(L=8192, B=4, n_t=64, W=20, dt=2e-7), 2000),
+    ("the single run: narrow sigma=0.005, none, kmax 501, B=1",
+     dict(gaussian_kernel=True, kernel_sigma=0.005),
+     dict(B=1, gamma=0.0, kmax=501), 50)]
+LARGE = [(f"pointwise, banded, L={L}, B={B}, n_t=64, the recipe",
+          dict(diffusion_solver="banded"),
+          dict(B=B, n_t=64, W=20, **_recipe(L)), k)
+         for L, B, k in ((8192, 4, 2000), (16_384, 4, 1000),
+                         (65_536, 2, 500))]
+
+
+def b2_inputs(dev, over: dict, shape: dict, gen=None):
+    """(config, γ, operands, scal, state) of a B2 shape: PDEConfig fields
+    ``over`` beyond L=1000, dt=5e-4, γ=0.2, 1000 tracers, window 100, 8
+    bins, B=4 (``shape`` overrides those), β over [0.5, 3], homogeneous
+    fields with 30% noise drawn from ``gen`` (seed 0 where None)."""
+    from hydrolim_tpu_torch.pde.fast_solve import kernel_operands
+
+    sh = dict(L=1000, B=4, n_t=1000, W=100, dt=5e-4, gamma=0.2, kmax=8)
+    sh.update(shape)
+    config = PDEConfig(L=sh["L"], dt=sh["dt"], n_tracers=sh["n_t"],
+                       tracer_window_time=sh["W"] * sh["dt"] * (1 + 1e-9),
+                       fft_kmax=sh["kmax"], **over)
+    assert config.tracer_window == sh["W"]
+    ops = kernel_operands(config, sh["gamma"], dev)
+    if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+    rp, rm, tr = pde_initialize(config, gen, B=sh["B"], mode="homogeneous",
+                                noise=0.3, n_tracers=sh["n_t"], device=dev)
+    scal = torch.tensor([[b, 0.6, sh["gamma"], 0.0]
+                         for b in np.linspace(0.5, 3.0, sh["B"])],
+                        dtype=torch.float32, device=dev)
+    return config, sh["gamma"], ops, scal, [rp, rm, tr.unwrapped,
+                                            tr.spin.float(), tr.hist]
+
+
+def _time(fn, k: int, calls: int) -> list:
+    fn()                                            # build + warm-up
+    ms = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return [m * 1e3 / k for m in ms]
+
+
+def rows(calls: int, tag: str, cluster: bool) -> list:
+    """The rows (``ROWS``; with ``cluster``, also ``LARGE``, at every C
+    the plan allows): µs per step, one JSON row each."""
+    dev = torch.device("cuda", 0)
+    out = []
+    for label, over, shape, k in ROWS + (LARGE if cluster else []):
+        config, _, ops, scal, state = b2_inputs(dev, over, shape)
+        B = scal.shape[0]
+        seeds = torch.arange(B, dtype=torch.int32, device=dev)
+        kw = dict(L=config.L, n_t=config.n_tracers,
+                  window=config.tracer_window, k_steps=k, dt=config.dt,
+                  xlim=config.xlim, periodic=config.bc == "periodic",
+                  m_mode=ops[0], solve_mode=ops[1],
+                  bidirectional=config.active_model == "bidirectional",
+                  kmax_rec=config.kmax)
+        args = (scal, seeds, 0, *state, ops[3], ops[2])
+        row = dict(tag=tag, label=label, B=B, L=config.L, k_steps=k,
+                   m_mode=ops[0], solve_mode=ops[1], card=_card())
+        if not cluster:
+            row["us_per_step"] = _time(lambda: pde_multi_step(*args, **kw),
+                                       k, calls)
+        else:
+            from hydrolim_tpu_torch.ops import pde_kernel as pk
+
+            circ = pk.call_circulants(config.L, ops[0], ops[1], ops[2],
+                                      ops[3])
+            co = pk.card_coresident(0, config.L, config.n_tracers, ops[0],
+                                    circ)
+            row["plan_cluster"] = pk.card_plan(
+                0, B, config.L, config.n_tracers, ops[0],
+                tuple(sorted(circ.items()))).cluster
+            row["coresident"] = co
+            row["us_per_step_at_C"] = {}
+            for C in pk.CLUSTER_SIZES:
+                if not co.get(C):
+                    continue
+                plan = pk.pde_launch_plan(B, config.L, config.n_tracers,
+                                          ops[0], circ, co, cluster=C)
+                row["us_per_step_at_C"][C] = _time(
+                    lambda: pk.pde_multi_step_planned(plan, *args, **kw),
+                    k, calls)
+        print(json.dumps(row), flush=True)
+        out.append(row)
+    return out
+
+
+def drift(tag: str, lattices) -> list:
+    """Kernel B2 against its plain version over the large-lattice recipe
+    (dt = 0.5·dx/λ, γ = 2.5·dx²/dt, pointwise m, the banded solve, 64
+    tracers, 8 bins) from the large-lattice driver's initial fields (β =
+    0.5, 2.5): at every 375 steps up to 1500, the total density's largest
+    difference relative to the plain version's largest value, and each
+    route's mass relative to step 0's.  One JSON row a lattice and
+    step."""
+    from hydrolim_tpu_torch.experiments.large_lattice import pde_rho0
+    from hydrolim_tpu_torch.ops.pde_kernel import pde_multi_step_plain
+    from hydrolim_tpu_torch.pde.fast_solve import kernel_operands
+
+    dev = torch.device("cuda", 0)
+    out = []
+    for L in lattices:
+        dt = 0.5 / L / 0.6
+        gamma = 2.5 / L / L / dt
+        config = PDEConfig(L=L, dt=dt, n_tracers=64, fft_kmax=8,
+                           diffusion_solver="banded",
+                           tracer_window_time=20 * dt * (1 + 1e-9))
+        ops = kernel_operands(config, gamma, dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        _, _, tr = pde_initialize(config, gen, B=2, mode="homogeneous",
+                                  noise=0.3, n_tracers=64, device=dev)
+        rho0 = [pde_rho0(L, 0, bi) for bi in range(2)]
+        field = lambda c, i: torch.tensor(np.stack([c * r[i] for r in rho0]),
+                                          dtype=torch.float32, device=dev)
+        scal = torch.tensor([[0.5, 0.6, gamma, 0.0], [2.5, 0.6, gamma, 0.0]],
+                            dtype=torch.float32, device=dev)
+        seeds = torch.arange(2, dtype=torch.int32, device=dev)
+        kw = dict(L=L, n_t=64, window=config.tracer_window, k_steps=375,
+                  dt=dt, xlim=config.xlim, periodic=True, m_mode=ops[0],
+                  solve_mode=ops[1], bidirectional=True, kmax_rec=8)
+        sk = [field(1.2, 0), field(0.8, 1), tr.unwrapped, tr.spin.float(),
+              tr.hist]
+        sp = list(sk)
+        mass0 = (sk[0] + sk[1]).double().sum(-1)
+        for c in range(4):
+            *sk, _ = pde_multi_step(scal, seeds, 375 * c, *sk, ops[3],
+                                    ops[2], **kw)
+            *sp, _ = pde_multi_step_plain(scal, seeds, 375 * c, *sp, ops[3],
+                                          ops[2], generator=gen, **kw)
+            a, b = (sk[0] + sk[1]).double(), (sp[0] + sp[1]).double()
+            row = dict(tag=tag, L=L, modes=list(ops[:2]), step=375 * (c + 1),
+                       diff=((a - b).abs().amax(-1)
+                             / b.abs().amax(-1)).tolist(),
+                       mass_kernel=(a.sum(-1) / mass0 - 1).tolist(),
+                       mass_plain=(b.sum(-1) / mass0 - 1).tolist(),
+                       card=_card())
+            print(json.dumps(row), flush=True)
+            out.append(row)
+    return out
+
+
 def main(calls: int = 5, tag: str = "", mode: str = "main",
-         batch=None) -> dict:
+         batch=None, lattices=(1024, 8192)) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_pde_kernel: needs a CUDA device")
     if mode == "spectra-kernel":
         return spectra_kernel(tag)
+    if mode in ("rows", "cluster"):
+        return rows(calls, tag, mode == "cluster")
+    if mode == "drift":
+        return drift(tag, lattices)
     dev = torch.device("cuda", 0)
     L, k, dt, gamma, kmax = 1000, 2000, 5e-4, 0.2, 8
     if mode == "spectra":
@@ -158,9 +345,11 @@ if __name__ == "__main__":
     p.add_argument("--calls", type=int, default=5)
     p.add_argument("--tag", default="")
     p.add_argument("--mode", default=["main"], nargs="+",
-                   choices=["main", "smooth", "spectra", "spectra-kernel"])
+                   choices=["main", "smooth", "spectra", "spectra-kernel",
+                            "rows", "cluster", "drift"])
     p.add_argument("--batch", type=int, default=[0], nargs="+")
+    p.add_argument("--lattice", type=int, default=[1024, 8192], nargs="+")
     a = p.parse_args()
     for mode in a.mode:
         for batch in (a.batch if mode in ("main", "smooth") else [0]):
-            main(a.calls, a.tag, mode, batch or None)
+            main(a.calls, a.tag, mode, batch or None, a.lattice)

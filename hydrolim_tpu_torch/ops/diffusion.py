@@ -6,6 +6,10 @@ the second-difference operator (periodic corners or Neumann mirrors).
 - ``identity``: γ = 0, A = I.
 - ``dense``: ``A⁻¹`` built on the host in float64 and applied as an f32
   matmul — the plain version of the exact solve.
+- ``spectral``: the same exact solve by a float64 FFT (``SpectralSolve``):
+  periodic A is circulant, and a Neumann A is the circulant of the even
+  extension of length 2(L − 1) — the plain version of the exact solve
+  past ``DENSE_MAX_L``, where the (L, L) inverse would not fit the host.
 - ``banded`` / ``banded_dct``: the rows of ``A⁻¹`` decay exponentially, so
   the solve is a symmetric banded circular convolution (``banded_kernel``,
   the JAX package's ``build_diffusion_op(kind='banded')``); ``banded_dct``
@@ -48,6 +52,33 @@ def build_dense_inverse(L: int, dx: float, dt: float, gamma: float,
     return torch.tensor(np.linalg.inv(A), dtype=torch.float32, device=device)
 
 
+# The largest L whose exact solve the plain version applies as the dense
+# inverse (256 MB in float32); past it, ``spectral_solve``.
+DENSE_MAX_L = 8192
+
+
+@dataclasses.dataclass
+class SpectralSolve:
+    """The exact solve by FFT: ``symbol`` (n//2 + 1,) float64, the
+    eigenvalues of A⁻¹ on the periodic lattice of n = L sites, or of the
+    even extension of a Neumann one (n = 2(L − 1))."""
+
+    symbol: torch.Tensor
+    n: int
+    neumann: bool
+
+
+def spectral_solve(L: int, dx: float, dt: float, gamma: float, bc: str,
+                   device="cuda") -> SpectralSolve:
+    """``SpectralSolve`` of A = I − γ·dt·D/dx² (float64 symbol)."""
+    n = L if bc == "periodic" else 2 * (L - 1)
+    c = float(gamma) * dt / dx ** 2
+    lam = 2.0 * np.cos(2.0 * np.pi * np.arange(n // 2 + 1) / n) - 2.0
+    return SpectralSolve(torch.tensor(1.0 / (1.0 - c * lam),
+                                      dtype=torch.float64, device=device),
+                         n, bc != "periodic")
+
+
 def banded_kernel(dx: float, dt: float, gamma: float) -> np.ndarray:
     """(2r+1,) float32 symmetric taps of the periodic ``A⁻¹``, w(d) at
     r + d, truncated where they fall below 1e-9 of the centre.  Computed
@@ -76,9 +107,9 @@ def banded_kernel(dx: float, dt: float, gamma: float) -> np.ndarray:
 
 def diffusion_solve(op, rho: torch.Tensor, kind: str) -> torch.Tensor:
     """Apply ``A⁻¹`` along the trailing axis (batched).  ``op`` is the
-    operand of ``kind``: the dense inverse for 'dense', the taps of
-    :func:`banded_kernel` for 'banded' / 'banded_dct', unused for
-    'identity'."""
+    operand of ``kind``: the dense inverse for 'dense', a
+    ``SpectralSolve`` for 'spectral', the taps of :func:`banded_kernel`
+    for 'banded' / 'banded_dct', unused for 'identity'."""
     if kind == "identity":
         return rho
     if kind == "dense":
@@ -92,6 +123,13 @@ def diffusion_solve(op, rho: torch.Tensor, kind: str) -> torch.Tensor:
             return torch.stack([torch.mv(op, r) for r in flat]).reshape(
                 rho.shape)
         return torch.matmul(rho, op.T)
+    if kind == "spectral":
+        x = rho.double()
+        if op.neumann:
+            x = torch.cat([x, x[..., 1:-1].flip(-1)], dim=-1)
+        y = torch.fft.irfft(torch.fft.rfft(x, dim=-1) * op.symbol, n=op.n,
+                            dim=-1)
+        return y[..., :rho.shape[-1]].to(rho.dtype)
     if kind == "banded":
         return banded_circular_conv(rho, op)
     if kind == "banded_dct":        # Neumann = periodic on the even extension

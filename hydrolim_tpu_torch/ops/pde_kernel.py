@@ -38,7 +38,7 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Optional
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,8 +48,11 @@ from hydrolim_tpu_torch.fields.magnetization import MFieldOp, pde_magnetization
 from hydrolim_tpu_torch.ops._build import check_cuda, load_kernel_library, ptr
 from hydrolim_tpu_torch.ops.convolve import banded_circular_conv
 from hydrolim_tpu_torch.ops.diffusion import (
+    DENSE_MAX_L,
+    SpectralSolve,
     TridiagFactors,
     build_dense_inverse,
+    spectral_solve,
     tridiag_factors,
 )
 from hydrolim_tpu_torch.ops.stepper_kernel import bits_to_uniform
@@ -69,8 +72,10 @@ SPECTRA_REPLACES = "hydrolim_tpu/ops/pallas_pde.py:288 (in :337)"
 SPECTRA_SCRATCH_BYTES = 256 << 20
 SPECTRA_THREADS = 512         # threads of a block of the spectra kernel
 SMEM_LIMIT = 232_448          # bytes of shared memory one block may use
-KERNEL_THREADS = 1024         # one block per replica
+KERNEL_THREADS = 1024         # the threads the circulant's law is cut for
 KBLOCK = 9                    # sites per work unit of the blocked circulant
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # CTAs per replica (16: non-portable)
+SCAN_TILES = 16               # tiles of the exact solve's scan (at most)
 _M_CODES = {"global": 0, "pointwise": 1, "narrow": 2, "smooth": 2}
 _SOLVE_CODES = {"none": 0, "exact": 1, "banded": 2}
 
@@ -85,7 +90,8 @@ def _half_taps(w: torch.Tensor) -> torch.Tensor:
 class SolveOperands:
     """The implicit solve A·x = ρ.  'exact': each consumer builds the form
     it reads, once, at its first use — the plain version the dense inverse
-    (``a_inv``), the kernel the tridiagonal factors (``factors``).
+    (``a_inv``; past ``DENSE_MAX_L`` sites the float64 FFT solve,
+    ``spectral``), the kernel the tridiagonal factors (``factors``).
     'banded': ``weights``, the (2r+1,) symmetric taps of A⁻¹, w(d) at
     r + d."""
 
@@ -102,6 +108,13 @@ class SolveOperands:
         bc = "periodic" if self.periodic else "neumann"
         return build_dense_inverse(self.L, self.dx, self.dt, self.gamma, bc,
                                    self.device)
+
+    @functools.cached_property
+    def spectral(self) -> SpectralSolve:
+        """The plain version's exact solve past ``DENSE_MAX_L``."""
+        bc = "periodic" if self.periodic else "neumann"
+        return spectral_solve(self.L, self.dx, self.dt, self.gamma, bc,
+                              self.device)
 
     @functools.cached_property
     def factors(self) -> TridiagFactors:
@@ -196,6 +209,14 @@ def tap_plan(L: int, R: int, avail_floats: int):
     return nb, ns, KBLOCK * per
 
 
+def tap_law(L: int, R: int) -> Tuple[int, int]:
+    """(ns, length) of kernel B2's circulant law over taps 1..R: the slices
+    of ``tap_plan`` with no cap from shared memory, a function of L and R
+    alone, so that every cluster size sums a site's taps in one order."""
+    _, ns, length = tap_plan(L, R, KERNEL_THREADS * L)
+    return ns, length
+
+
 def padded_taps(half_taps: torch.Tensor, ns: int, length: int
                 ) -> torch.Tensor:
     """The (R+1,) half taps padded with zeros to 1 + ns·length."""
@@ -211,6 +232,223 @@ def _kernel_taps(ops, ns: int, length: int) -> torch.Tensor:
     if (ns, length) not in cache:
         cache[ns, length] = padded_taps(ops.half_taps, ns, length)
     return cache[ns, length]
+
+
+def lattice_pow2(L: int) -> int:
+    """Lp: the lattice padded to a power of two, at least 32 (the sums'
+    tree and the CTAs' segments are cut from it)."""
+    return max(32, 1 << (L - 1).bit_length())
+
+
+@dataclasses.dataclass(frozen=True)
+class CircStage:
+    """One circulant of a CTA: its law (``ns`` slices of ``length`` taps,
+    ``tap_law``) and its staging (``tb`` taps a pass, ``fp`` fields a
+    group).  ns = 1, length = 0 where the call has no such circulant."""
+
+    ns: int = 1
+    length: int = 0
+    tb: int = KBLOCK
+    fp: int = 1
+
+    @property
+    def taps(self) -> int:
+        return self.ns * self.length
+
+    @property
+    def direct(self) -> bool:
+        """One pass of one slice: the chains need no partial sums."""
+        return self.ns == 1 and self.tb >= self.taps
+
+
+@dataclasses.dataclass(frozen=True)
+class PDEPlan:
+    """The launch of kernel B2: ``cluster`` CTAs per replica, each owning
+    ``seg`` sites of the padded lattice (a power of two) and ``tseg``
+    tracers; the exact solve's scan in ``tiles`` tiles of 32 runs of
+    ``run`` sites; the two circulants (``smooth``, ``solve``) with their
+    staging windows (``wf`` floats a field) and partial sums (``part``
+    floats); ``smem`` bytes of shared memory per CTA; ``waves`` =
+    ⌈B / co-resident clusters⌉."""
+
+    cluster: int
+    seg: int
+    tseg: int
+    run: int
+    tiles: int
+    smooth: CircStage
+    solve: CircStage
+    wf: int
+    part: int
+    smem: int
+    waves: int = 1
+
+
+def cta_smem_bytes(seg: int, tseg: int, local_m: bool, taps: bool,
+                   fp: int, wf: int, part: int) -> int:
+    """Shared memory of one CTA (``csrc/pde_multi_step.cu``, in its
+    order): the scan's 4 × 32 tile-total slots (16 B each), 7 × 32 warp
+    totals and 8 published totals, the fields P, M, Q, N, m and the smoothed
+    denominator (``seg`` floats each, the last two where used), the
+    tracers' displacements (``tseg``), the staging windows (``wf`` floats
+    for each of ``fp`` fields) and the partial sums."""
+    floats = (7 * 32 + 8 + (4 + int(local_m) + int(taps)) * seg + tseg
+              + fp * wf + part)
+    return 16 * 4 * 32 + 4 * floats
+
+
+def cta_layout(L: int, n_t: int, C: int, m_mode: str,
+               circulants: Mapping[str, int]) -> Optional[PDEPlan]:
+    """The layout of a cluster of C CTAs for one call, or None where it
+    does not fit: each CTA at least 32 sites and none empty, the scan's
+    tiles a multiple of C, and shared memory within ``SMEM_LIMIT``.
+    ``circulants`` maps 'smooth' / 'solve' to the radius of the call's
+    circulants, whose laws are ``tap_law``'s.  The staging takes both
+    fields and a pass of every tap where that fits, else one field at a
+    time, else passes of fewer taps (halved down to ``KBLOCK``), which
+    move no result.  A pass over
+    taps (E0, E1] stages [lo − E1, hi + 9 + E1) when E0 = 0, else a left
+    and a right region of seg + 9 + tb sites."""
+    Lp = lattice_pow2(L)
+    seg = Lp // C
+    tile = max(32, Lp // SCAN_TILES)   # 32 runs of tile / 32 sites
+    tiles = Lp // tile
+    if seg < 32 or (C - 1) * seg >= L or tiles % C:
+        return None
+    tseg = max(1, (1 << (max(n_t, 1) - 1).bit_length()) // C)
+    local_m, taps = m_mode != "global", m_mode in ("narrow", "smooth")
+    used = {k: tap_law(L, R) for k, R in circulants.items()}
+    top = max((ns * ln for ns, ln in used.values()), default=0)
+    for fp in (2, 1):
+        cap = max(KBLOCK, top)
+        while True:
+            st = {k: CircStage(ns, ln, max(KBLOCK, min(ns * ln, cap)), fp)
+                  for k, (ns, ln) in used.items()}
+            tb = max((c.tb for c in st.values()), default=0)
+            if not st:
+                wf = 0
+            elif all(c.tb >= c.taps for c in st.values()):
+                wf = seg + KBLOCK + 2 * tb      # one window a pass
+            else:
+                wf = 2 * (seg + KBLOCK + tb)    # a left and a right region
+            part = max((0 if c.direct else fp * c.ns * seg
+                        for c in st.values()), default=0)
+            smem = cta_smem_bytes(seg, tseg, local_m, taps, fp, wf, part)
+            if smem <= SMEM_LIMIT:
+                return PDEPlan(C, seg, tseg, tile // 32, tiles,
+                               st.get("smooth", CircStage()),
+                               st.get("solve", CircStage()), wf, part,
+                               smem)
+            if cap <= KBLOCK:
+                break
+            cap = max(KBLOCK, (cap // 2) // KBLOCK * KBLOCK)
+    return None
+
+
+def call_circulants(L: int, m_mode: str, solve_mode: str,
+                    smooth: Optional["SmoothOperands"],
+                    solve: Optional["SolveOperands"]) -> dict:
+    """The radii of a call's circulants: 'smooth' (the narrow taps or the
+    full circulant's L//2) and 'solve' (the banded taps)."""
+    out = {}
+    if smooth is not None and m_mode in ("narrow", "smooth"):
+        out["smooth"] = smooth.radius
+    if solve is not None and solve_mode == "banded":
+        out["solve"] = solve.half_taps.shape[0] - 1
+    return out
+
+
+def preferred_cluster(Lp: int, m_mode: str) -> int:
+    """The cluster size the measured table favours (``profile_pde_kernel.py
+    --mode cluster``, PERF.md §6): a CTA per 1024 sites of the padded
+    lattice up to 8 CTAs, 16 past 16,384 sites; the full circulant, whose
+    2·L² FMAs a step outweigh the cluster's barriers, four times as many
+    (at most 16)."""
+    C = 16 if Lp > 16_384 else max(1, min(8, Lp // 1024))
+    return min(16, 4 * C) if m_mode == "smooth" else C
+
+
+def pde_launch_plan(B: int, L: int, n_t: int, m_mode: str,
+                    circulants: Mapping[str, int],
+                    coresident: Mapping[int, int], *,
+                    cluster: Optional[int] = None,
+                    launchable: Optional[Mapping[int, int]] = None
+                    ) -> PDEPlan:
+    """The plan of one call.  ``coresident[C]`` is how many clusters of C
+    CTAs (at C's layout, ``cta_layout``) the card holds at once (absent or
+    0: cannot launch).  Among the C of ``CLUSTER_SIZES`` that fit, with
+    the fewest waves, the largest up to ``preferred_cluster``, else the
+    smallest.  ``cluster`` forces C.
+    Raises ValueError where no C fits, naming the largest L this
+    configuration serves (``pde_max_lattice`` over the C in
+    ``launchable``, by default those in ``coresident``)."""
+    sizes = [cluster] if cluster else CLUSTER_SIZES
+    lay = {C: cta_layout(L, n_t, C, m_mode, circulants) for C in sizes}
+    ok = [C for C in sizes
+          if lay[C] is not None and int(coresident.get(C, 0)) > 0]
+    if not ok:
+        top = pde_max_lattice(n_t, m_mode, circulants,
+                              launchable or coresident)
+        raise ValueError(
+            f"pde_multi_step kernel: L={L}, n_t={n_t}, m_mode {m_mode!r} "
+            f"fit no cluster of {list(sizes)} CTAs: it needs more than the "
+            f"{SMEM_LIMIT} B of shared memory a CTA may use; the largest L "
+            f"this configuration serves on this card is {top}")
+    waves = {C: -(-B // int(coresident[C])) for C in ok}
+    fewest = min(waves.values())
+    cands = [C for C in ok if waves[C] == fewest]
+    below = [C for C in cands
+             if C <= preferred_cluster(lattice_pow2(L), m_mode)]
+    C = max(below) if below else min(cands)
+    return dataclasses.replace(lay[C], waves=fewest)
+
+
+def pde_max_lattice(n_t: int, m_mode: str, circulants: Mapping[str, int],
+                    launchable: Mapping[int, int]) -> int:
+    """The largest L (a power of two) that a cluster of a size in
+    ``launchable`` (non-zero: the card can launch it) serves for this
+    configuration: the full circulant's radius grows with L (L//2), the
+    narrow smoothing's and the banded solve's do not."""
+    best, Lp = 0, 32
+    while Lp <= 1 << 24:
+        radii = dict(circulants)
+        if m_mode == "smooth":
+            radii["smooth"] = Lp // 2
+        if not any(cta_layout(Lp, n_t, C, m_mode, radii) is not None
+                   and int(launchable.get(C, 0)) > 0
+                   for C in CLUSTER_SIZES):
+            break
+        best, Lp = Lp, 2 * Lp
+    return best
+
+
+def _occupancy_fn():
+    fn = load_kernel_library("pde_multi_step").pde_max_active_clusters
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=256)
+def max_active_clusters(device_index: int, C: int, smem: int) -> int:
+    """Clusters of C CTAs with ``smem`` bytes each the card holds at once
+    (``cudaOccupancyMaxActiveClusters``; 0 where it cannot launch)."""
+    cnt = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = _occupancy_fn()(C, smem, ctypes.byref(cnt))
+    return cnt.value if rc == 0 else 0
+
+
+def card_coresident(device_index: int, L: int, n_t: int, m_mode: str,
+                    circulants: Mapping[str, int]) -> dict:
+    """{C: ``max_active_clusters`` at C's layout} for one call's
+    configuration (0 where the layout does not fit)."""
+    out = {}
+    for C in CLUSTER_SIZES:
+        lay = cta_layout(L, n_t, C, m_mode, circulants)
+        out[C] = (max_active_clusters(device_index, C, lay.smem)
+                  if lay is not None else 0)
+    return out
 
 
 @functools.lru_cache(maxsize=8)
@@ -269,11 +507,16 @@ class SpectraPlan:
     """How a call's spectra are computed: the DFT's split L = n1·n2 of the
     spectra kernel, its rows (steps) per block, and the steps per launch
     of the step kernel, whose density scratch must fit
-    ``SPECTRA_SCRATCH_BYTES``."""
+    ``SPECTRA_SCRATCH_BYTES``.  ``stage``: the (2, L) table and the rows
+    sit in a block's shared memory; else the kernel reads them through the
+    read-only path, and with ``scratch`` keeps the stage-1 sums in device
+    memory too."""
 
     n1: int
     rows_per_block: int
     piece: int
+    stage: bool = True
+    scratch: bool = False
 
 
 def spectra_split(L: int) -> int:
@@ -283,27 +526,38 @@ def spectra_split(L: int) -> int:
     return next(d for d in range(math.isqrt(L - 1) + 1, L + 1) if L % d == 0)
 
 
-def spectra_smem_bytes(L: int, kmax: int, n1: int, rows: int) -> int:
-    """Shared memory of a block of the spectra kernel: the (2, L) table,
-    ``rows`` density rows and their stage-1 sums (n2·min(n1, kmax) complex
-    values a row)."""
+def spectra_smem_bytes(L: int, kmax: int, n1: int, rows: int,
+                       stage: bool = True, scratch: bool = False) -> int:
+    """Shared memory of a block of the spectra kernel: the (2, L) table and
+    ``rows`` density rows where staged, and the rows' stage-1 sums
+    (n2·min(n1, kmax) complex values a row) unless in the scratch."""
     per = (L // n1) * min(n1, kmax)
-    return 4 * (2 * L + rows * (L + 2 * per))
+    return 4 * ((2 * L + rows * L if stage else 0)
+                + (0 if scratch else 2 * rows * per))
 
 
 def spectra_plan(B: int, k_steps: int, L: int, kmax: int) -> SpectraPlan:
     """The spectra kernel's split (``spectra_split``) and rows per block
     (about one stage-1 sum per thread, at most 16 rows, within shared
-    memory), and the steps per launch of the step kernel: all of them
-    while the (B, k, L) float32 scratch fits ``SPECTRA_SCRATCH_BYTES``,
-    else as many as fit (at least one)."""
+    memory), staged where the table and a row fit a block (else read
+    through L2, the stage-1 sums in shared memory where they fit, else in
+    a device scratch), and the steps per launch of the step kernel: all
+    of them while the (B, k, L) float32 scratch fits
+    ``SPECTRA_SCRATCH_BYTES``, else as many as fit (at least one)."""
     n1 = spectra_split(L)
     per = (L // n1) * min(n1, kmax)
-    rows = max(1, min(16, SPECTRA_THREADS // per))
-    while rows > 1 and spectra_smem_bytes(L, kmax, n1, rows) > SMEM_LIMIT:
-        rows -= 1
     piece = max(1, min(k_steps, SPECTRA_SCRATCH_BYTES // (4 * B * L)))
-    return SpectraPlan(n1, rows, piece)
+    top = max(1, min(16, SPECTRA_THREADS // per))
+    for stage, scratch in ((True, False), (False, False), (False, True)):
+        rows = top
+        while rows > 1 and spectra_smem_bytes(L, kmax, n1, rows, stage,
+                                              scratch) > SMEM_LIMIT:
+            rows -= 1
+        if spectra_smem_bytes(L, kmax, n1, rows, stage,
+                              scratch) <= SMEM_LIMIT:
+            return SpectraPlan(n1, rows, piece, stage, scratch)
+    raise AssertionError("unreachable: the scratch route needs no shared "
+                         "memory")
 
 
 def pde_spectra_plain(dens: torch.Tensor, kmax: int) -> torch.Tensor:
@@ -328,12 +582,14 @@ def pde_spectra(dens: torch.Tensor, recs: torch.Tensor, kmax: int) -> None:
     if not 1 <= kmax <= L // 2 + 1:
         raise ValueError(f"pde_spectra: kmax={kmax} with L={L}")
     plan = spectra_plan(B, k, L, kmax)
-    smem = spectra_smem_bytes(L, kmax, plan.n1, plan.rows_per_block)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"pde_spectra: L={L}, kmax={kmax} need {smem} B of "
-                         f"shared memory per block, more than {SMEM_LIMIT}")
+    ys = None
+    if plan.scratch:
+        blocks = -(-B * k // plan.rows_per_block)
+        per = (L // plan.n1) * min(plan.n1, kmax)
+        ys = torch.empty(blocks * plan.rows_per_block * 2 * per,
+                         dtype=torch.float32, device=dens.device)
     fn = load_kernel_library("pde_spectra").pde_spectra_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dens.device)
@@ -342,9 +598,9 @@ def pde_spectra(dens: torch.Tensor, recs: torch.Tensor, kmax: int) -> None:
         pde_spectra.events.append(
             [torch.cuda.Event(enable_timing=True) for _ in range(2)])
         pde_spectra.events[-1][0].record(stream)
-    rc = fn(ptr(dens), ptr(trig_table(L, dens.device)), ptr(recs), B * k, L,
-            kmax, 4 + 2 * kmax, plan.n1, plan.rows_per_block,
-            ctypes.c_void_p(stream.cuda_stream))
+    rc = fn(ptr(dens), ptr(trig_table(L, dens.device)), ptr(recs), ptr(ys),
+            B * k, L, kmax, 4 + 2 * kmax, plan.n1, plan.rows_per_block,
+            int(plan.stage), ctypes.c_void_p(stream.cuda_stream))
     check_cuda(rc, "pde_spectra")
     if pde_spectra.events is not None:
         pde_spectra.events[-1][1].record(stream)
@@ -375,7 +631,9 @@ def pde_multi_step_plain(scal, seeds, step0: int, rho_p, rho_m, pos, spin,
                        active_model=("bidirectional" if bidirectional
                                      else "anchored_minus"))
     params = PDEParams(beta=scal[:, 0], lam=scal[:, 1], gamma=scal[:, 2])
-    if solve_mode == "exact":
+    if solve_mode == "exact" and L > DENSE_MAX_L:
+        ops = PDEOps("spectral", a_inv=solve.spectral)
+    elif solve_mode == "exact":
         ops = PDEOps("dense", a_inv=solve.a_inv)
     elif solve_mode == "banded":
         ops = PDEOps("banded", banded_w=solve.weights)
@@ -458,6 +716,28 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
         return pde_multi_step_plain(*args, **kw)
     if rho_p.device.type != "cuda":
         raise ValueError(f"pde_multi_step: unsupported device {rho_p.device}")
+    del kw["generator"]                    # the kernel draws natively
+    return pde_multi_step_planned(None, *args, **kw)
+
+
+@functools.lru_cache(maxsize=256)
+def card_plan(device_index: int, B: int, L: int, n_t: int, m_mode: str,
+              circulants: tuple) -> PDEPlan:
+    """``pde_launch_plan`` on the card (``circulants``: the sorted items
+    of ``call_circulants``), the co-resident clusters from the card's
+    occupancy query."""
+    circ = dict(circulants)
+    return pde_launch_plan(
+        B, L, n_t, m_mode, circ,
+        card_coresident(device_index, L, n_t, m_mode, circ),
+        launchable={C: max_active_clusters(device_index, C, SMEM_LIMIT)
+                    for C in CLUSTER_SIZES})
+
+
+def _check_call(scal, seeds, step0, rho_p, rho_m, pos, spin, hist, solve,
+                smooth, *, L, n_t, window, k_steps, m_mode, solve_mode,
+                kmax_rec, b0, noise):
+    """The kernel's checks of one call's modes, operands and tensors."""
     if m_mode not in _M_CODES or solve_mode not in _SOLVE_CODES:
         raise ValueError(f"pde_multi_step: m_mode {m_mode!r}, solve_mode "
                          f"{solve_mode!r}")
@@ -484,41 +764,62 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
         raise ValueError(f"pde_multi_step: L={L}, n_t={n_t}, "
                          f"window={window}, step0={step0}, "
                          f"kmax_rec={kmax_rec}, b0={b0}")
-    lib = load_kernel_library("pde_multi_step")
-    lib.pde_multi_step_smem_bytes.argtypes = [ctypes.c_int] * 4
-    lib.pde_multi_step_smem_bytes.restype = ctypes.c_size_t
-    smem = lib.pde_multi_step_smem_bytes(L, n_t, int(m_mode != "global"), 0)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"pde_multi_step kernel: L={L}, n_t={n_t}, m_mode {m_mode!r} "
-            f"need {smem} B of shared memory per replica "
-            f"({5 if m_mode != 'global' else 4}·L + n_t floats), more than "
-            f"the {SMEM_LIMIT} B a block may use")
-    fac = solve.factors if solve_mode == "exact" else None
-    if fac is not None:
-        _check(fac.scan, "scan factors", torch.float64, (4, L), dev)
-    avail = (SMEM_LIMIT - smem) // 4
-    plans, taps = {}, {}
+    if solve_mode == "exact":
+        _check(solve.factors.scan, "scan factors", torch.float64, (4, L),
+               dev)
     for name, ops in (("solve", solve if solve_mode == "banded" else None),
-                      ("smoothing", smooth)):
+                      ("smooth", smooth)):
         if ops is None:
-            plans[name], taps[name] = (0, 1, 0), None
             continue
         t = ops.half_taps
         _check(t, f"{name} taps", torch.float32, (t.shape[0],), dev)
         if 2 * (t.shape[0] - 1) > L:
             raise ValueError(f"{name} taps: radius {t.shape[0] - 1} > L/2")
-        plans[name] = tap_plan(L, t.shape[0] - 1, avail)
-        taps[name] = _kernel_taps(ops, *plans[name][1:])
-    part_floats = max(ns * L if ns > 1 else 0
-                      for _, ns, _ in plans.values())
+
+
+def pde_multi_step_planned(plan: Optional[PDEPlan], scal, seeds,
+                           step0: int, rho_p,
+                           rho_m, pos, spin, hist,
+                           solve: Optional[SolveOperands],
+                           smooth: Optional[SmoothOperands] = None, *,
+                           L: int, n_t: int, window: int, k_steps: int,
+                           dt: float, xlim: float, periodic: bool,
+                           m_mode: str, solve_mode: str,
+                           bidirectional: bool, kmax_rec: int = 0,
+                           b0: int = 0,
+                           noise: Optional[torch.Tensor] = None):
+    """``pde_multi_step`` on CUDA tensors under a given plan: the card's
+    (``card_plan``) where ``plan`` is None, or one that
+    ``pde_launch_plan(..., cluster=C)`` forces, to compare cluster
+    sizes."""
+    _check_call(scal, seeds, step0, rho_p, rho_m, pos, spin, hist, solve,
+                smooth, L=L, n_t=n_t, window=window, k_steps=k_steps,
+                m_mode=m_mode, solve_mode=solve_mode, kmax_rec=kmax_rec,
+                b0=b0, noise=noise)
+    B, dev = rho_p.shape[0], rho_p.device
+    circ = call_circulants(L, m_mode, solve_mode, smooth, solve)
+    if plan is None:
+        idx = dev.index if dev.index is not None else \
+            torch.cuda.current_device()
+        plan = card_plan(idx, B, L, n_t, m_mode, tuple(sorted(circ.items())))
+    lay = cta_layout(L, n_t, plan.cluster, m_mode, circ)
+    if lay is None or dataclasses.replace(plan, waves=1) != lay:
+        raise ValueError(f"pde_multi_step: a plan for {plan} does not fit "
+                         f"L={L}, n_t={n_t}, m_mode {m_mode!r}")
+    fac = solve.factors if solve_mode == "exact" else None
+    taps = {"solve": (_kernel_taps(solve, plan.solve.ns, plan.solve.length)
+                      if solve_mode == "banded" else None),
+            "smooth": (_kernel_taps(smooth, plan.smooth.ns,
+                                    plan.smooth.length)
+                       if smooth is not None else None)}
+    lib = load_kernel_library("pde_multi_step")
     sp = spectra_plan(B, k_steps, L, kmax_rec) if kmax_rec else None
     piece = sp.piece if sp else k_steps
     dens = (torch.empty(B * piece * L, dtype=torch.float32, device=dev)
             if sp else None)
     fn = lib.pde_multi_step_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 16 + [ctypes.c_int] * 17
+                   + [ctypes.c_void_p] * 16 + [ctypes.c_int] * 25
                    + [ctypes.c_float] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev)
@@ -526,6 +827,7 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
         pde_multi_step.events.append(
             [torch.cuda.Event(enable_timing=True) for _ in range(2)])
         pde_multi_step.events[-1][0].record(stream)
+    sm, sv = plan.smooth, plan.solve
     state, parts = (rho_p, rho_m, pos, spin, hist), []
     for s0 in range(0, k_steps, piece):            # one piece unless the
         kp = min(piece, k_steps - s0)              # scratch is too large
@@ -539,12 +841,13 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
         rc = fn(ptr(scal), ptr(seeds), step0 + s0, b0,
                 *[ptr(t) for t in state], *[ptr(t) for t in outs],
                 ptr(recs), ptr(fac.scan if fac is not None else None),
-                ptr(taps["solve"]), ptr(taps["smoothing"]), ptr(d), ptr(nz),
+                ptr(taps["solve"]), ptr(taps["smooth"]), ptr(d), ptr(nz),
                 B, L, n_t, window, kp, kmax_rec, _M_CODES[m_mode],
-                _SOLVE_CODES[solve_mode], *plans["smoothing"],
-                *plans["solve"], part_floats, int(periodic),
-                int(bidirectional), dt, xlim / L, xlim,
-                0.0 if fac is None else fac.v_last,
+                _SOLVE_CODES[solve_mode], plan.cluster, plan.seg, plan.tseg,
+                plan.run, plan.tiles, sm.ns, sm.length, sm.tb, sm.fp,
+                sv.ns, sv.length, sv.tb, sv.fp, plan.wf, plan.smem,
+                int(periodic), int(bidirectional), dt, xlim / L,
+                xlim, 0.0 if fac is None else fac.v_last,
                 0.0 if fac is None else fac.fac, window * dt,
                 2.0 * window * dt, ctypes.c_void_p(stream.cuda_stream))
         check_cuda(rc, "pde_multi_step")

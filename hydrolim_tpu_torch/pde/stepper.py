@@ -33,9 +33,10 @@ from hydrolim_tpu_torch.ops.diffusion import (
 @dataclasses.dataclass
 class PDEOps:
     """Per-config operators: the solve kind ('identity' | 'dense' |
-    'banded' | 'banded_dct') with its operand (the dense inverse, or the
-    banded taps), and the smoothing operand of the magnetization (None
-    without a Gaussian kernel)."""
+    'spectral' | 'banded' | 'banded_dct') with its operand (the dense
+    inverse or the ``SpectralSolve`` in ``a_inv``, or the banded taps), and
+    the smoothing operand of the magnetization (None without a Gaussian
+    kernel)."""
 
     kind: str
     a_inv: Optional[torch.Tensor] = None

@@ -325,11 +325,12 @@ def test_b2_kernel_matches_plain(dev, case):
 
 
 def test_b2_wrapper_refuses_what_does_not_fit(dev):
-    """A lattice past shared memory is refused before any launch, with the
-    reason; so are missing operands."""
+    """A lattice past the largest a cluster of CTAs holds (131,072 sites
+    at C = 16 with a local m) is refused before any launch, with the
+    reason and the limit; so are missing operands."""
     from hydrolim_tpu_torch.ops.pde_kernel import SMEM_LIMIT
 
-    B, L, n_t, W = 1, 12_000, 64, 4
+    B, L, n_t, W = 1, 140_000, 64, 4
     rp = torch.full((B, L), 0.5 / L, device=dev)
     pos = torch.zeros((B, n_t), device=dev)
     args = (torch.tensor([[1.0, 0.6, 0.0, 0.0]], device=dev),
@@ -344,6 +345,153 @@ def test_b2_wrapper_refuses_what_does_not_fit(dev):
     with pytest.raises(ValueError, match="needs its SmoothOperands"):
         pde_multi_step(*args, m_mode="narrow", **kw)
     assert pde_multi_step.launches == n0
+
+
+def _b2_large_case(dev, L, B, over, gamma=None, n_t=64, W=10, seed=0):
+    """Inputs of kernel B2 at a large L, the large-lattice driver's recipe
+    (dt = 0.5·dx/λ, γ = 2.5·dx²/dt) unless ``gamma`` is given."""
+    from hydrolim_tpu_torch.pde.fast_solve import kernel_operands
+
+    dt = 0.5 / L / 0.6
+    gamma = 2.5 / L / L / dt if gamma is None else gamma
+    config = PDEConfig(L=L, dt=dt, n_tracers=n_t, fft_kmax=8,
+                       tracer_window_time=W * dt * (1 + 1e-9), **over)
+    modes = kernel_operands(config, gamma, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rp, rm, tr = pde_initialize(config, gen, B=B, mode="homogeneous",
+                                noise=0.3, n_tracers=n_t, device=dev)
+    scal = torch.tensor([[b, 0.6, gamma, 0.0]
+                         for b in np.linspace(0.5, 2.5, B)],
+                        dtype=torch.float32, device=dev)
+    seeds = torch.arange(B, dtype=torch.int32, device=dev)
+    kw = dict(L=L, n_t=n_t, window=config.tracer_window, dt=dt,
+              xlim=config.xlim, periodic=config.bc == "periodic",
+              m_mode=modes[0], solve_mode=modes[1],
+              bidirectional=config.active_model == "bidirectional",
+              kmax_rec=8)
+    return gen, modes, scal, seeds, [rp, rm, tr.unwrapped, tr.spin.float(),
+                                     tr.hist], kw
+
+
+def _b2_held(got, want):
+    """The kernel-logic tolerances (``test_b2_kernel_matches_plain``); Var
+    rtol 1e-3, atol 1e-5 of the run's largest Var (Var scales with the
+    lattice: ~1e-10 at L=16,384)."""
+    torch.testing.assert_close(got[0], want[0], rtol=2e-4, atol=1e-7)
+    torch.testing.assert_close(got[1], want[1], rtol=2e-4, atol=1e-7)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-5)
+    assert torch.equal(got[3], want[3])
+    torch.testing.assert_close(got[4], want[4], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got[5][..., 2:4], want[5][..., 2:4],
+                               rtol=5e-4, atol=1e-6, equal_nan=True)
+    torch.testing.assert_close(got[5][..., 0], want[5][..., 0], rtol=0,
+                               atol=1e-5)
+    var = want[5][..., 1]
+    torch.testing.assert_close(got[5][..., 1], var, rtol=1e-3,
+                               atol=1e-5 * float(var.abs().max()))
+    torch.testing.assert_close(got[5][..., 4:], want[5][..., 4:],
+                               rtol=1e-4, atol=1e-8)
+
+
+def test_b2_is_the_same_at_every_cluster_size(dev):
+    """The L=8192 banded row (pointwise, B=4) under every cluster size the
+    card launches: the fields, tracers, ring and records EQUAL C=1's, under
+    native Philox and at injected bits."""
+    from hydrolim_tpu_torch.ops import pde_kernel as pk
+
+    gen, modes, scal, seeds, state, kw = _b2_large_case(
+        dev, 8192, 4, dict(diffusion_solver="banded"))
+    assert modes[:2] == ("pointwise", "banded")
+    k = 40
+    noise = _bits((4, k, 3, 64), gen, dev)
+    circ = pk.call_circulants(8192, modes[0], modes[1], modes[2], modes[3])
+    co = pk.card_coresident(0, 8192, 64, modes[0], circ)
+    sizes = [C for C in pk.CLUSTER_SIZES if co[C] > 0]
+    assert sizes[:3] == [1, 2, 4]
+    runs = {}
+    for C in sizes:
+        plan = pk.pde_launch_plan(4, 8192, 64, modes[0], circ, co,
+                                  cluster=C)
+        runs[C] = [pk.pde_multi_step_planned(
+            plan, scal, seeds, 3, *state, modes[3], modes[2], k_steps=k,
+            noise=nz, **kw) for nz in (None, noise)]
+    for C in sizes[1:]:
+        for got, want in zip(runs[C], runs[1]):
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, rtol=0, atol=0,
+                                           equal_nan=True)
+
+
+B2_LARGE = {  # (PDEConfig fields, γ (None: the recipe's), modes)
+    "global-exact": (dict(gaussian_kernel=True, kernel_sigma=2e5,
+                          diffusion_solver="dense"), None,
+                     ("global", "exact")),
+    "pointwise-banded": (dict(diffusion_solver="banded"), None,
+                         ("pointwise", "banded")),
+    "pointwise-neumann-exact": (dict(bc="neumann"), None,
+                                ("pointwise", "exact")),
+    "narrow-banded": (dict(gaussian_kernel=True, diffusion_solver="banded"),
+                      None, ("narrow", "banded")),
+    "narrow-none-anchored": (dict(gaussian_kernel=True,
+                                  active_model="anchored_minus"), 0.0,
+                             ("narrow", "none")),
+    "smooth-exact": (dict(gaussian_kernel=True, kernel_sigma=0.05,
+                          diffusion_solver="dense"), None,
+                     ("smooth", "exact")),
+}
+
+
+@pytest.mark.parametrize("case, L", [
+    (case, L) for L in (16_384, 65_536) for case in B2_LARGE] + [
+    (case, 131_072) for case in ("global-exact", "pointwise-banded",
+                                 "pointwise-neumann-exact")])
+def test_b2_past_one_cta_matches_plain(dev, case, L):
+    """Every m mode and solve past one CTA's shared memory, on the plan's
+    cluster, against the plain version at injected bits (B=2, 64 tracers,
+    the large-lattice recipe, 8 steps; the full circulant 3 steps; the
+    narrow σ = 8.2 sites, r = 48); and at L = 131,072, the largest lattice
+    a cluster serves with a global or pointwise m."""
+    over, gamma, modes_want = B2_LARGE[case]
+    if modes_want[0] == "narrow":
+        over = dict(over, kernel_sigma=5e-4 * 16_384 / L)
+    gen, modes, scal, seeds, state, kw = _b2_large_case(
+        dev, L, 2, over, gamma=gamma, seed=L)
+    assert modes[:2] == modes_want
+    k = 3 if modes[0] == "smooth" else 8
+    kw["noise"] = _bits((2, k, 3, 64), gen, dev)
+    n0 = pde_multi_step.launches
+    got = pde_multi_step(scal, seeds, 0, *state, modes[3], modes[2],
+                         k_steps=k, **kw)
+    assert pde_multi_step.launches == n0 + 1
+    want = pde_multi_step_plain(scal, seeds, 0, *state, modes[3], modes[2],
+                                k_steps=k, **kw)
+    _b2_held(got, want)
+    assert not torch.equal(got[0], state[0])
+
+
+def test_b2_spectra_kernel_at_65536(dev):
+    """The spectra kernel past one block's shared memory (L=65,536: the
+    table and rows read through L2), at 8 bins (stage-1 sums in shared
+    memory) and at every bin (in the device scratch), against
+    ``pde_spectra_plain``: rtol 1e-4, atol 1e-6 as at L=1000, the sums
+    being chains of 256 terms."""
+    from hydrolim_tpu_torch.ops.pde_kernel import spectra_plan
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(65)
+    L = 65_536
+    for kmax, rows in ((8, 12), (L // 2 + 1, 3)):
+        plan = spectra_plan(1, rows, L, kmax)
+        assert not plan.stage and plan.scratch == (kmax > 8)
+        dens = torch.rand((1, rows, L), generator=gen, device=dev) + 0.5
+        recs = torch.zeros((1, rows, 4 + 2 * kmax), device=dev)
+        n0 = pde_spectra.launches
+        pde_spectra(dens, recs, kmax)
+        assert pde_spectra.launches == n0 + 1
+        torch.testing.assert_close(recs[..., 4:],
+                                   pde_spectra_plain(dens, kmax),
+                                   rtol=1e-4, atol=1e-6)
 
 
 def _exclusion_inputs(dev, *, B, K, L, sigma, periodic, seed):
