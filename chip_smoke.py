@@ -147,7 +147,20 @@ Phases (each prints one line with its wall time; a failed phase raises):
     solve across the cluster) against the plain version; (d) the full
     smoothing circulant at L=16,384, and the banded and the exact solve at
     L=131,072, against the plain version; (e) ``profile_pde_kernel.py --mode cluster``: µs per step at
-    every cluster size the plan allows, and the plan's choice.
+    every cluster size the plan allows, and the plan's choice;
+22. B2's device-memory route (the fields in device memory, G co-resident
+    CTAs a replica), past a cluster's shared memory: (a) at L = 65,536
+    (pointwise and narrow m, banded) and 131,072 (global m, banded;
+    pointwise m, the Neumann exact solve), the route forced at the card's
+    G and at G = 8 against the cluster route, 0 elements differing; (b)
+    the card's plan at L = 262,144, 1,048,576 and 4,194,304 (the recipe,
+    100 steps) against the plain version at phase 4's tolerances; (c)
+    ``run_pde_ensemble`` at L = 262,144 and 1,048,576 with phase 21(b)'s
+    asserts, its bound and the masses' (C8); (d) ``pde_beta_sweep`` and a
+    Neumann ``IMEXPDE`` at 262,144, their modes and launches by route; (e)
+    ``profile_pde_kernel.py --mode route``: µs per step on each route and
+    without the bins, G and waves, the bound and the plain ``pde_step``
+    loop.
 
 Phases 3, 4 and 7 also launch each kernel on rows [b0, b0 + n) of a batch
 (``b0`` > 0, the blocks of a sweep mesh): native Philox output equal to
@@ -3823,27 +3836,47 @@ def _plain_snapshots(L: int, beta: float, rho0, steps: list, dev) -> list:
     return out
 
 
-def b2_large_ensemble(dev, L: int = 65_536) -> dict:
+# Phase 21(b)'s and 22(c)'s bound on the total density's distance from the
+# plain pde_step, in units of its largest value, per step: half a float32
+# ulp a step.  The readings it was set from (PERF.md, C8): at most 0.164 ×
+# 2⁻²³ a step at L = 65,536 to 1,048,576 after the repair of the
+# circulant's law; 0.74 × 2⁻²³ a step before it, under the bound 2⁻²³
+# then.
+ENSEMBLE_ULPS = 2.0 ** -24
+
+
+def b2_large_ensemble(dev, L: int = 65_536, label: str = "phase 21"
+                      ) -> dict:
     """(b) ``run_pde_ensemble`` at full width, L=65,536, β ∈ {0.5, 2.5},
     64 tracers, 8 bins, the large-lattice recipe (1500 steps, the banded
     solve) from the driver's initial fields (its seeded draw, ρ₊ = 1.2·ρ₀,
     ρ₋ = 0.8·ρ₀: ``large_lattice.pde_rho0``), with the driver's asserts:
     mass to 1e-4, dm/dt within 15% of the Curie–Weiss law 2(sinh βm − m
-    cosh βm), m decaying below β=1 and growing above.  The counters are
+    cosh βm) from the driver's first m record (step nsteps/100: the
+    pointwise m's mean moves ~2e-4 in the first steps as the fields'
+    noise diffuses, in lattice units at every L, while the reaction moves
+    it ~rate·1250/L), m decaying below β=1 and growing above from that
+    record on.  The counters are
     set to 0 just before the run and read just after.  Its total density
     at every snapshot (steps 375, 750, 1125, 1500) is held against the
-    driver's plain ``pde_step`` loop from the same fields, to n·2⁻²³ of
-    scale after n steps, one float32 ulp of scale a step: the kernel
-    rounds its sums, taps and fused multiply-adds otherwise than torch,
+    driver's plain ``pde_step`` loop from the same fields, to n·2⁻²⁴ of
+    scale after n steps (``ENSEMBLE_ULPS``; n·2⁻²³ before C8's repair):
+    the kernel sums its taps and reductions in another order than torch,
     and on fields this close to stationary the differences accumulate
     instead of decaying (``profile_pde_kernel.py --mode drift`` measures
     the same at smaller L).  Printed beside it: the difference per step,
     its split into the masses' ratio and the rest (the kernel's density
     rescaled to the plain mass), and each route's mass against step
-    0's."""
+    0's; after 1500 steps the two masses' changes agree within
+    ``B2_MASS_BOUND`` (C8).  Returns the launches of each kernel, and of
+    the step kernel by route."""
     import torch
     from hydrolim_tpu_torch.experiments import large_lattice as ll
-    from hydrolim_tpu_torch.ops.pde_kernel import pde_multi_step, pde_spectra
+    from hydrolim_tpu_torch.ops.pde_kernel import (
+        pde_multi_step,
+        pde_spectra,
+        reset_launches,
+    )
     from hydrolim_tpu_torch.sweeps import pde_sweeps
 
     seed = 0
@@ -3860,41 +3893,43 @@ def b2_large_ensemble(dev, L: int = 65_536) -> dict:
 
     pde_sweeps.pde_initialize = driver_fields
     try:
-        pde_multi_step.launches = pde_spectra.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         res, _ = pde_sweeps.run_pde_ensemble(
             config, betas, gamma=gamma, lam=ll.LAM, n_runs=1, seed=seed,
             n_tracers=64, device=dev)
         wall = time.perf_counter() - t0
         launches = {"pde_multi_step": pde_multi_step.launches,
-                    "pde_spectra": pde_spectra.launches}
+                    "pde_spectra": pde_spectra.launches,
+                    **pde_multi_step.route_launches}
     finally:
         pde_sweeps.pde_initialize = draw
-    if min(launches.values()) < 1:
-        raise AssertionError(f"phase 21 ensemble: launches {launches}")
+    if min(launches["pde_multi_step"], launches["pde_spectra"]) < 1:
+        raise AssertionError(f"{label} ensemble: launches {launches}")
     nsteps, dt = config.nsteps, config.dt
     mass0 = res.snapshots[:, 0].astype(np.float64).sum(-1)
     mass1 = (res.rho_p + res.rho_m).astype(np.float64).sum(-1)
     if not (np.abs(mass1 - mass0) / mass0 < 1e-4).all():
-        raise AssertionError(f"phase 21 ensemble: mass {mass0} -> {mass1}")
+        raise AssertionError(f"{label} ensemble: mass {mass0} -> {mass1}")
     m = res.records.m_mean
     rates = []
+    rec = max(nsteps // 100, 1)      # the JAX driver's first m record
     for i, beta in enumerate(betas):
-        rate = float((m[i, -1] - m[i, 0]) / (nsteps * dt))
-        mid = 0.5 * float(m[i, 0] + m[i, -1])
+        rate = float((m[i, -1] - m[i, rec]) / ((nsteps - rec) * dt))
+        mid = 0.5 * float(m[i, rec] + m[i, -1])
         th = 2.0 * (np.sinh(beta * mid) - mid * np.cosh(beta * mid))
         if not abs(rate - th) < 0.15 * abs(th) + 1e-3:
-            raise AssertionError(f"phase 21 ensemble beta={beta}: dm/dt "
+            raise AssertionError(f"{label} ensemble beta={beta}: dm/dt "
                                  f"{rate} against the CW law {th}")
         rates.append((round(rate, 6), round(float(th), 6)))
-    if not (m[0, -1] < m[0, 0] and m[1, -1] > m[1, 0]):
-        raise AssertionError(f"phase 21 ensemble: m {m[:, [0, -1]]}")
+    if not (m[0, -1] < m[0, rec] and m[1, -1] > m[1, rec]):
+        raise AssertionError(f"{label} ensemble: m {m[:, [rec, -1]]}")
     if not np.isfinite(res.records.fft_ri).all():
-        raise AssertionError("phase 21 ensemble: spectra not finite")
+        raise AssertionError(f"{label} ensemble: spectra not finite")
     steps = [config.snapshot_interval * j
              for j in range(1, res.snapshots.shape[1])]
     if steps[-1] != nsteps:
-        raise AssertionError(f"phase 21 ensemble: snapshots at {steps}")
+        raise AssertionError(f"{label} ensemble: snapshots at {steps}")
     t0 = time.perf_counter()
     rows = []
     for i, beta in enumerate(betas):
@@ -3913,23 +3948,30 @@ def b2_large_ensemble(dev, L: int = 65_536) -> dict:
                        float(want.sum() / mass0[i] - 1.0))))
     plain_wall = time.perf_counter() - t0
     for r in rows:
-        print(f"phase 21 ensemble beta={r['beta']} step {r['n']}: total "
+        print(f"{label} ensemble beta={r['beta']} step {r['n']}: total "
               f"density {r['diff']:.3e} of scale from the plain pde_step "
               f"({r['diff'] / r['n'] / 2.0 ** -23:.3f} x 2^-23 a step); "
               f"the masses' ratio {r['mass']:.3e}, the rest "
               f"{r['rest']:.3e}; mass from step 0: kernel "
               f"{r['drift'][0]:+.3e}, plain {r['drift'][1]:+.3e}",
               flush=True)
-        if not r["diff"] < r["n"] * 2.0 ** -23:
+        if not r["diff"] < r["n"] * ENSEMBLE_ULPS:
             raise AssertionError(
-                f"phase 21 ensemble beta={r['beta']}: {r['diff']:.3e} of "
+                f"{label} ensemble beta={r['beta']}: {r['diff']:.3e} of "
                 f"scale from the plain pde_step at step {r['n']} (bound "
-                f"{r['n'] * 2.0 ** -23:.3e})")
+                f"{r['n'] * ENSEMBLE_ULPS:.3e})")
+    for r in rows:
+        gap = abs(r["drift"][0] - r["drift"][1])
+        if r["n"] == nsteps and not gap < B2_MASS_BOUND:
+            raise AssertionError(
+                f"{label} ensemble beta={r['beta']}: the kernel's mass moved "
+                f"{r['drift'][0]:+.3e}, the plain pde_step's "
+                f"{r['drift'][1]:+.3e} (bound {B2_MASS_BOUND:.1e} apart)")
     worst = max(r["diff"] for r in rows if r["n"] == nsteps)
     print(f"run_pde_ensemble L={L}, 2 x {nsteps} steps, 64 tracers, 8 bins: "
           f"{wall:.3f} s, launches {launches}; dm/dt (measured, CW law) "
           f"{rates}; final density {worst:.3e} of scale from the driver's "
-          f"plain pde_step (bound {nsteps * 2.0 ** -23:.3e}; "
+          f"plain pde_step (bound {nsteps * ENSEMBLE_ULPS:.3e}; "
           f"{plain_wall:.3f} s for the same steps)", flush=True)
     return launches
 
@@ -4107,6 +4149,226 @@ def b2_cluster_times(dev) -> None:
               flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: B2's device-memory route, past a cluster's shared memory
+# ---------------------------------------------------------------------------
+
+# |B2's mass change − its plain version's| over 1500 steps of the
+# large-lattice recipe (C8, PERF.md; tests/test_torch_gpu.py
+# B2_MASS_BOUND), set from the readings: 1.19e-5 and 1.58e-5 at L = 8192,
+# 1.26e-5 and 2.26e-5 at 65,536, at most 1.53e-5 at 262,144 and
+# 1,048,576; the kernel's law before its repair read 1.93e-5 and 5.90e-5
+# at L = 8192
+B2_MASS_BOUND = 2.5e-5
+# (a)'s cases: (label, L, PDEConfig fields, the modes)
+B2_ROUTE_CASES = (
+    ("L=65536 pointwise, banded", 65_536, dict(diffusion_solver="banded"),
+     ("pointwise", "banded")),
+    ("L=65536 narrow, banded", 65_536,
+     dict(gaussian_kernel=True, kernel_sigma=5e-4 / 4,
+          diffusion_solver="banded"), ("narrow", "banded")),
+    ("L=131072 global, banded", 131_072,
+     dict(gaussian_kernel=True, kernel_sigma=2e5, diffusion_solver="banded"),
+     ("global", "banded")),
+    ("L=131072 pointwise, neumann, exact", 131_072, dict(bc="neumann"),
+     ("pointwise", "exact")),
+)
+LARGE_L = (262_144, 1_048_576, 4_194_304)
+
+
+def _recipe_inputs(dev, L: int, over: dict, gen, B: int = 2, k: int = 40):
+    """``profile_pde_kernel.b2_inputs`` at the large-lattice recipe (B
+    replicas, 64 tracers, window 20, 8 bins) and its kernel arguments."""
+    from hydrolim_tpu_torch.experiments.profile_pde_kernel import (
+        _recipe,
+        b2_inputs,
+    )
+
+    config, _, ops, scal, state = b2_inputs(
+        dev, over, dict(B=B, n_t=64, W=20, **_recipe(L)), gen)
+    return config, ops, scal, state, dict(b2_kwargs(config, ops), k_steps=k)
+
+
+def b2_routes_bitwise(dev) -> None:
+    """(a) Where both routes serve, the device-memory route forced at the
+    card's G and at G = 8 against the cluster route: native Philox and
+    injected bits, 40 steps, 0 elements differing in the fields, tracers,
+    ring and records."""
+    import functools
+
+    import torch
+    from hydrolim_tpu_torch.ops import pde_kernel as pk
+
+    for label, L, over, modes in B2_ROUTE_CASES:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(L + 22)
+        config, ops, scal, state, kw = _recipe_inputs(dev, L, over, gen)
+        if ops[:2] != modes:
+            raise AssertionError(f"B2 {label}: routed to {ops[:2]}")
+        noise = randbits((2, 40, 3, 64), gen, dev)
+        seeds = torch.arange(2, dtype=torch.int32, device=dev) + 3
+        circ = pk.call_circulants(L, ops[0], ops[1], ops[2], ops[3])
+        co = pk.card_coresident(dev.index or 0, L, 64, ops[0], circ)
+        ctas = functools.partial(pk.gmem_max_ctas, dev.index or 0)
+        plans = [pk.pde_route_plan(2, L, 64, ops[0], circ, co, ctas)] + [
+            pk.pde_route_plan(2, L, 64, ops[0], circ, co, ctas,
+                              route="gmem", ctas=G) for G in (None, 8)]
+        if [p.route for p in plans] != ["cluster", "gmem", "gmem"]:
+            raise AssertionError(f"B2 {label}: routes {plans}")
+        runs = [[pk.pde_multi_step_planned(p, scal, seeds, 0, *state,
+                                           ops[3], ops[2], noise=nz, **kw)
+                 for nz in (None, noise)] for p in plans]
+        torch.cuda.synchronize()
+        n_all = sum(t.numel() for t in runs[0][0])
+        for p, run in zip(plans[1:], runs[1:]):
+            n_diff = [sum(_differ(a, b) for a, b in zip(run[i], runs[0][i]))
+                      for i in (0, 1)]
+            if n_diff != [0, 0]:
+                raise AssertionError(
+                    f"B2 {label}: the device-memory route at G={p.ctas} "
+                    f"differs from the cluster (C={plans[0].cluster}) in "
+                    f"{n_diff} of {n_all} elements (native, injected)")
+            print(f"B2 {label}: device-memory route at G={p.ctas} (segment "
+                  f"{p.seg}, tile {p.tile}) against the cluster route "
+                  f"(C={plans[0].cluster}): 0 of {n_all} elements differ, "
+                  "native and injected", flush=True)
+
+
+def b2_gmem_against_plain(dev) -> float:
+    """(b) The card's plan at L = 262,144, 1,048,576 and 4,194,304 (the
+    recipe: pointwise m, the banded solve; B = 2, 100 steps, injected
+    bits) against the plain version at phase 4's tolerances; the route
+    must be the device-memory route.  Returns the largest field error."""
+    import torch
+    from hydrolim_tpu_torch.ops import pde_kernel as pk
+
+    err = 0.0
+    for L in LARGE_L:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(L)
+        config, ops, scal, state, kw = _recipe_inputs(
+            dev, L, dict(diffusion_solver="banded"), gen, k=100)
+        kw["noise"] = randbits((2, 100, 3, 64), gen, dev)
+        seeds = torch.zeros(2, dtype=torch.int32, device=dev)
+        got = pk.pde_multi_step(scal, seeds, 0, *state, ops[3], ops[2],
+                                **kw)
+        plan = pk.pde_multi_step.last_plan
+        if plan.route != "gmem":
+            raise AssertionError(f"B2 L={L}: the plan is {plan}")
+        want = pk.pde_multi_step_plain(scal, seeds, 0, *state, ops[3],
+                                       ops[2], **kw)
+        res = b2_against_plain(
+            f"B2 L={L} {ops[0]}, {ops[1]} (device-memory route, G="
+            f"{plan.ctas}, {plan.waves} wave(s))", got, want,
+            config.tracer_window)
+        err = max(err, res["rho_p"][0], res["rho_m"][0])
+    return err
+
+
+def b2_gmem_entry_points(dev, outdir: str) -> dict:
+    """(d) ``pde_beta_sweep`` (global m, the banded solve) and a Neumann
+    ``IMEXPDE`` (pointwise m, the exact solve) at L = 262,144: no
+    ValueError, the device-memory route's launches, the modes from
+    ``kernel_operands``.  Returns the launches of each path."""
+    from hydrolim_tpu_torch.core.config import PDEConfig
+    from hydrolim_tpu_torch.ops import pde_kernel as pk
+    from hydrolim_tpu_torch.pde.fast_solve import kernel_operands
+    from hydrolim_tpu_torch.pde.system import IMEXPDE
+    from hydrolim_tpu_torch.sweeps.pde_sweeps import pde_beta_sweep
+
+    L = 262_144
+    out = {}
+    config, gamma = _recipe_config(L)
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    res = pde_beta_sweep([0.5, 2.5], n_runs=1, T=0.08, t_min=0.06,
+                         t_max=0.08, gamma=gamma, L=L, dt=config.dt,
+                         n_tracers=64, outdir=outdir, plot_result=False,
+                         device=dev)
+    wall = time.perf_counter() - t0
+    n = dict(pk.pde_multi_step.route_launches, spectra=pk.pde_spectra.launches)
+    sweep = PDEConfig(L=L, T=0.08, dt=config.dt, bc="periodic",
+                      gaussian_kernel=True, kernel_sigma=1e5 - 10,
+                      fft_kmax=8)
+    m_mode, solve_mode, _, _ = kernel_operands(sweep, gamma, dev)
+    if n["gmem"] < 1 or n["cluster"] or not np.isfinite(res["v_mean"]).all():
+        raise AssertionError(f"pde_beta_sweep L={L}: launches {n}, v "
+                             f"{res['v_mean']}")
+    print(f"pde_beta_sweep L={L} (T=0.08, {sweep.nsteps} steps, {m_mode} "
+          f"m, {solve_mode} solve): route {pk.pde_multi_step.last_plan.route}"
+          f", G={pk.pde_multi_step.last_plan.ctas}; v {res['v_mean']}, D "
+          f"{res['D_mean']}, launches {n}, {wall:.3f} s", flush=True)
+    out[f"pde_beta_sweep L={L} (phase 22)"] = n
+    pk.reset_launches()
+    steps = 40
+    s = IMEXPDE(L=L, T=steps * config.dt, dt=config.dt, gamma=gamma,
+                lam=0.6, beta=2.5, bc="neumann", snapshot_interval=20,
+                fft_kmax=8, outdir=outdir, seed=9, device=dev)
+    s.initialize(mode="homogeneous", rho0=1.0, noise=0.3, n_tracers=64)
+    t0 = time.perf_counter()
+    s.solve()
+    wall = time.perf_counter() - t0
+    o = s.get_output()
+    n = dict(pk.pde_multi_step.route_launches, spectra=pk.pde_spectra.launches)
+    m_mode, solve_mode, _, _ = kernel_operands(s.config, gamma, dev)
+    if n["gmem"] < 1 or n["cluster"] or not np.isfinite(o["rho_p"]).all():
+        raise AssertionError(f"IMEXPDE L={L} neumann: launches {n}")
+    print(f"IMEXPDE L={L} neumann ({steps} steps, {m_mode} m, {solve_mode} "
+          f"solve): route {pk.pde_multi_step.last_plan.route}, G="
+          f"{pk.pde_multi_step.last_plan.ctas}; launches {n}, {wall:.3f} s",
+          flush=True)
+    out[f"IMEXPDE neumann L={L} (phase 22)"] = n
+    return out
+
+
+def b2_route_times(dev) -> dict:
+    """(e) ``profile_pde_kernel.py --mode route`` in a child process: µs
+    per step on each route at L = 65,536 and 131,072 and on the card's
+    plan (the device-memory route) at the three large L, G and waves, the
+    plain ``pde_step`` loop's µs per step, each row with its bound
+    (``b2_step_bound``).  Returns the L = 1,048,576 row's times for the
+    ``kernels`` line."""
+    import os
+
+    from hydrolim_tpu_torch.experiments import profile_pde_kernel as pp
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run(
+        [sys.executable, "-m",
+         "hydrolim_tpu_torch.experiments.profile_pde_kernel", "--mode",
+         "route", "--calls", "3", "--tag", "phase 22"],
+        capture_output=True, text=True, env=env, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"profile_pde_kernel --mode route: "
+                             f"{res.stderr[-2000:]}")
+    out = {}
+    for line in res.stdout.splitlines():
+        row = json.loads(line)
+        L, k = row["L"], row["k_steps"]
+        over = next(o for L2, o, _, _ in pp.ROUTE_ROWS if L2 == L)
+        config, _, ops, scal, _ = pp.b2_inputs(
+            dev, over, dict(B=2, n_t=64, W=20, **pp._recipe(L)))
+        b = b2_step_bound(config, ops, 2, k)
+        bd = b["bound_ms"] * 1e3 / k
+        plain = float(np.mean(row["plain_pde_step_us_per_step"]))
+        for route, r in row["routes"].items():
+            us, bare = r["us_per_step"], r["us_per_step_without_bins"]
+            print(f"B2 L={L} {ops[0]}, {ops[1]}, B=2 on the {route} route "
+                  f"({r['ctas']} CTAs a replica, {r['waves']} wave(s), "
+                  f"{r['launches_per_call']} launches a {k}-step call): "
+                  f"{np.mean(us):.2f} us/step ({min(us):.2f}-{max(us):.2f}), "
+                  f"without the bins {np.mean(bare):.2f} "
+                  f"({min(bare):.2f}-{max(bare):.2f}); bound {bd:.4f} "
+                  f"us/step ({b['bound_by']}); the plain pde_step loop "
+                  f"{plain:.1f} us/step", flush=True)
+            if L == 1_048_576:
+                out = dict(ms=float(np.mean(us)) * k / 1e3,
+                           plain_ms=plain * k / 1e3, **b,
+                           shape=dict(B=2, L=L, k=k, ctas=r["ctas"]))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4131,6 +4393,10 @@ def main() -> int:
                                       exclusion_kernel.REPLACES)}
     rows = {name: dict(name=name, route="cuda", source=src, replaces=rep)
             for name, (src, rep) in kinds.items()}
+    # kernel B2's device-memory route: its own kernel in B2's source
+    rows["pde_multi_step_gmem"] = dict(
+        name="pde_multi_step_gmem", route="cuda", source=pde_kernel.SOURCE,
+        replaces=pde_kernel.REPLACES)
 
     with phase("1 device"):
         smi = subprocess.run(
@@ -4266,12 +4532,34 @@ def main() -> int:
     with phase("21 B2 on a cluster"):
         b2_every_cluster(dev)
         with tempfile.TemporaryDirectory() as outdir:
-            for name, n in b2_large_ensemble(dev).items():
+            n = b2_large_ensemble(dev)
+            for name in ("pde_multi_step", "pde_spectra"):
                 rows[name]["launches_per_path"][
-                    "large-L ensemble, L=65536 (phase 21)"] = n
+                    "large-L ensemble, L=65536 (phase 21)"] = n[name]
             b2_large_entry_points(dev, outdir)
         b2_large_against_plain(dev)
         b2_cluster_times(dev)
+    gmem = rows["pde_multi_step_gmem"]
+    gmem["launches_per_path"] = {}
+    with phase("22 B2 in device memory"):
+        t_phase = time.perf_counter()
+        b2_routes_bitwise(dev)
+        gmem["max_abs_err"] = b2_gmem_against_plain(dev)
+        paths = {}
+        for L in LARGE_L[:2]:
+            n = b2_large_ensemble(dev, L, "phase 22")
+            if n["cluster"] or n["gmem"] != n["pde_multi_step"]:
+                raise AssertionError(f"phase 22 ensemble L={L}: {n}")
+            paths[f"large-L ensemble, L={L} (phase 22)"] = n
+        with tempfile.TemporaryDirectory() as outdir:
+            paths.update(b2_gmem_entry_points(dev, outdir))
+        for path, n in paths.items():
+            gmem["launches_per_path"][path] = n["gmem"]
+            rows["pde_spectra"]["launches_per_path"][path] = n.get(
+                "spectra", n.get("pde_spectra"))
+        gmem.update(b2_route_times(dev))
+        print(f"phase 22 took {time.perf_counter() - t_phase:.2f} s; "
+              f"card: {smi}", flush=True)
     for row in rows.values():
         row["launches"] = sum(row["launches_per_path"].values())
 

@@ -16,58 +16,78 @@
 // 2 fields x 8192 sites, ~9 us at full issue), and one CTA's shared memory
 // holds 5 fields of at most ~11,600 sites.
 //
-// Design: a thread-block cluster of C = 1, 2, 4, 8 or 16 CTAs per replica
-// (ops/pde_kernel.py pde_launch_plan picks C).  The lattice is padded to
-// Lp = the next power of two, and CTA r owns sites [r*seg, (r+1)*seg) of
-// it, seg = Lp / C, and tracers [r*tseg, (r+1)*tseg), tseg = ntp / C (ntp
-// = n_t padded to a power of two).  Its fields live in its shared memory;
-// a neighbour's sites are read through distributed shared memory
-// (cluster.map_shared_rank) after a cluster barrier.  C = 1 is the same
-// code, with block barriers for cluster barriers.
+// Design: C CTAs per replica, by one of two routes that run one step body
+// (`b2_steps`, templated on how the CTAs meet):
+//   - the cluster route (`pde_kernel`, ClusterNet): a thread-block cluster
+//     of C = 1, 2, 4, 8 or 16 CTAs; the fields live in the CTAs' shared
+//     memory, a neighbour's sites are read through distributed shared
+//     memory (cluster.map_shared_rank) after a cluster barrier;
+//   - the device-memory route (`pde_gmem_kernel`, GmemNet), past what a
+//     cluster's shared memory holds: G = 1 .. 256 CTAs, all co-resident (a
+//     cooperative launch), the fields in device memory (L2-resident up to a
+//     few million sites), each phase streaming a CTA's segment from there;
+//     a neighbour's sites are plain loads after a barrier of the replica's
+//     G CTAs (an arrival counter, released and acquired by fences).
+// ops/pde_kernel.py picks the route and C (pde_route_plan).  The lattice is
+// padded to Lp = the next power of two, and CTA r owns sites [r*seg,
+// (r+1)*seg) of it, seg = Lp / C, and tracers [r*tseg, (r+1)*tseg), tseg =
+// ntp / C (ntp = n_t padded to a power of two).
 //
-// Every result is the same bit for bit at every C, because no arithmetic
-// depends on which CTA does it:
+// Every result is the same bit for bit at every C and on both routes,
+// because no arithmetic depends on which CTA does it or where the fields
+// live:
 //   - a sum over sites (or tracers) is the adjacent-pairing binary tree
 //     over the Lp (ntp) padded leaves: a warp's butterfly over 32 sites, a
-//     tree over the warp's chunks, over the CTA's 16 warps, over the C
-//     CTAs, each an aligned power-of-two range of the one tree (padding
-//     adds 0.0, exactly);
+//     tree over the warp's chunks (in groups of 32, the groups' totals
+//     paired in turn), over the CTA's 16 warps, over the C CTAs, each an
+//     aligned power-of-two range of the one tree (padding adds 0.0,
+//     exactly);
 //   - the circulant sum_d w(d) (x[i-d] + x[i+d]) (indices mod L) serves the
 //     narrow smoothing, the full circulant (d up to L/2; for even L the
 //     host halves the d = L/2 tap, so its pair adds it once) and the banded
 //     solve.  Its law: the taps are cut into ns slices of `len` taps
 //     (ops/pde_kernel.py tap_plan, a function of L and the radius), each
-//     site's slice is one fused multiply-add chain in tap order, and the
-//     slices' sums are added in slice order.  A thread computes kBlock
-//     consecutive sites of one field over one slice, sliding two windows
-//     through registers (a circular buffer whose slots rotate at compile
-//     time, so tap d -> d+1 loads one new value per side for kBlock
-//     outputs; kBlock is odd, so loads at stride kBlock are free of bank
-//     conflicts).  The inputs it reads -- the segment and `tb` taps of
-//     ring on each side, wrapping around the lattice -- are first staged
-//     from the cluster into this CTA's shared memory; past one stage of
-//     taps (the full circulant at large L) the taps run in passes, the
-//     chains' partial sums kept in shared memory between them;
+//     site's slice is one fused multiply-add chain from its outermost tap
+//     inward, the centre tap w(0) x[i] last, and the slices' sums are added
+//     from the last slice to the first: the smallest terms first.  (Summed
+//     outward, from w(0) x[i], a tap's term falls below half an ulp of the
+//     running sum and is dropped or rounded up as the field's binade
+//     decides: the banded solve then moved the mass by -4e-8 .. +1.6e-8 a
+//     step, against the +1.06e-8 its float32 taps carry.)  A thread
+//     computes kBlock consecutive sites of one field over one slice,
+//     sliding two windows through registers (a circular buffer whose slots
+//     rotate at compile time, so tap d -> d-1 loads one new value per side
+//     for kBlock outputs; kBlock is odd, so loads at stride kBlock are free
+//     of bank conflicts).  The inputs it reads -- a tile of the segment
+//     (the whole segment on the cluster route) and `tb` taps of ring on
+//     each side, wrapping around the lattice -- are first staged into this
+//     CTA's shared memory; past one stage of taps (the full circulant at
+//     large L) the taps run in passes, outermost first, the chains' partial
+//     sums kept in shared memory between them;
 //   - the exact solve (1+2c) x_i - a_i x_{i-1} - c x_{i+1} = rho_i: both
 //     sweeps of Thomas are first-order affine recurrences with coefficients
 //     fixed from step to step (forward y_i = alpha_i y_{i-1} + inv_i rho_i,
 //     back x_i = y_i - c'_i x_{i+1}), so each runs as a scan of affine maps
 //     over 16 tiles of 32 runs of `run` = Lp/512 (at least 1) sites: a run
 //     composed in registers, a 32-lane shuffle scan per tile, the tiles'
-//     totals exchanged through distributed shared memory and scanned the
-//     same way in every CTA; the two fields at once on the two halves of
-//     the block.  Neumann's mirrored last row carries 2c in a_i; periodic
-//     adds a Sherman-Morrison correction for the corners from x_0 (CTA 0)
-//     and x_{L-1} (the last CTA), applied where the next phase reads the
-//     solved fields.  Factors come from the host in float64
-//     (ops/diffusion.py); the scan composes its maps in float64 and stores
-//     f32 fields;
+//     totals published and scanned the same way in every CTA; the two
+//     fields at once on the two halves of the block.  A CTA takes tiles
+//     [r*ntl, (r+1)*ntl), ntl = tiles / C, or, past 16 CTAs, tile r (the
+//     rest wait).  Neumann's mirrored last row carries 2c in a_i; periodic
+//     adds a Sherman-Morrison correction for the corners from x_0 and
+//     x_{L-1}, applied where the next phase reads the solved fields.
+//     Factors come from the host in float64 (ops/diffusion.py); the scan
+//     composes its maps in float64 and stores f32 fields;
 //   - upwind advection, CW reaction, clip and mass renormalisation, in the
 //     bidirectional branch, or in anchored_minus (reaction first, then the
 //     advection of rho_+* alone, read across a barrier); a segment's edge
-//     reads its neighbour's site through distributed shared memory.
-// Cluster barriers per step: the three reductions (m; Var and the tracers'
-// mean displacement; the masses and the tracers' variance), one before a
+//     reads its neighbour's site.  The file is compiled with --fmad=false
+//     (ops/_build.py), so these products and sums are rounded one by one
+//     as the plain version rounds them; the circulant's and the scan's
+//     fused multiply-adds are written out.  The renormalisation's scale is
+//     applied where the next step (or the final store) reads the fields.
+// Barriers per step: the three reductions (m; Var and the tracers' mean
+// displacement; the masses and the tracers' variance), one before a
 // smoothing's staging, one after a banded solve, three in an exact solve
 // and one in anchored_minus.
 // Tracers take one thread each, in the CTA that owns them; a tracer reads
@@ -102,6 +122,10 @@ constexpr int kHalfWarps = kHalf / 32;
 constexpr int kBlock = 9;            // sites per unit of the circulant
 constexpr int kTiles = 32;           // scan tiles of the exact solve
 constexpr int kMaxCluster = 16;
+constexpr int kMaxCtas = 256;        // CTAs per replica, device-memory route
+constexpr int kMaxSeg = 1 << 24;     // sites per CTA, device-memory route
+constexpr int kPub = 4;              // floats a CTA publishes a reduction
+constexpr int kBar = 32;             // words per replica's arrival counter
 constexpr unsigned kFull = 0xffffffffu;
 
 enum MMode { kGlobal = 0, kPointwise = 1, kTaps = 2 };
@@ -128,11 +152,78 @@ __device__ __forceinline__ T* at_rank(T* p, int r, int C) {
   return C > 1 ? cg::this_cluster().map_shared_rank(p, (unsigned)r) : p;
 }
 
-// Site j (global, in [0, L)) of a field whose local copy is `buf`.
+// A barrier of a replica's G co-resident CTAs through device memory: each
+// CTA adds one to the replica's counter (which only grows; G is a power of
+// two, so the wrap at 2^32 keeps the arithmetic) and waits until the
+// counter reaches the end of its generation.  The fences on either side
+// release this CTA's writes and acquire the others' (as cooperative
+// groups' grid barrier does).
+__device__ __forceinline__ void replica_sync(unsigned* ctr, int G) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const unsigned old = atomicAdd(ctr, 1u);
+    const unsigned target = (old & ~(unsigned)(G - 1)) + (unsigned)G;
+    while ((int)(*(volatile unsigned*)ctr - target) < 0) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// How a replica's CTAs meet on the cluster route: cluster barriers, and
+// the published totals read through distributed shared memory.
+struct ClusterNet {
+  static constexpr bool kGlobalMem = false;
+  static constexpr int kUnroll = 1;  // chunks a warp loads at once
+  int C;
+  __device__ __forceinline__ void sync() const { cluster_sync(C); }
+  __device__ __forceinline__ float* mine(float* pub, int) const { return pub; }
+  __device__ __forceinline__ const float* pub_of(float* pub, int r) const {
+    return at_rank(pub, r, C);
+  }
+  template <typename T>
+  __device__ __forceinline__ T* tt_of(T* tt, int r) const {
+    return at_rank(tt, r, C);
+  }
+};
+
+// ... and on the device-memory route: the replica's counter, and the
+// published totals in one device array per replica.
+struct GmemNet {
+  static constexpr bool kGlobalMem = true;
+  static constexpr int kUnroll = 8;  // loads in flight from L2 / HBM
+  int G;
+  unsigned* ctr;
+  __device__ __forceinline__ void sync() const {
+    if (G > 1) {
+      replica_sync(ctr, G);
+    } else {
+      __syncthreads();
+    }
+  }
+  __device__ __forceinline__ float* mine(float* pub, int r) const {
+    return pub + r * kPub;
+  }
+  __device__ __forceinline__ const float* pub_of(float* pub, int r) const {
+    return pub + r * kPub;
+  }
+  template <typename T>
+  __device__ __forceinline__ T* tt_of(T* tt, int) const {
+    return tt;
+  }
+};
+
+// Site j (global, in [0, L)) of a field whose segment is `buf`.
+template <class Net>
 __device__ __forceinline__ float site(const Geo& g, float* buf, int j) {
-  const int r = j >> g.shift;
-  if (r == g.rank) return buf[j - g.lo];
-  return at_rank(buf, r, g.C)[j - (r << g.shift)];
+  if constexpr (Net::kGlobalMem) {
+    return buf[j - g.lo];
+  } else {
+    const int r = j >> g.shift;
+    if (r == g.rank) return buf[j - g.lo];
+    return at_rank(buf, r, g.C)[j - (r << g.shift)];
+  }
 }
 
 __device__ __forceinline__ int wrap(int i, int L) {
@@ -151,41 +242,116 @@ __device__ __forceinline__ void warp_tree(float (&v)[NV]) {
   }
 }
 
+// Ask for the line holding *p in this SM's L1 (a hint: no result, no
+// ordering), so that a pass whose every leaf loads, then stores, keeps
+// several chunks' loads in flight.
+__device__ __forceinline__ void prefetch_l1(const float* p) {
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+}
+
+struct NoPrefetch {
+  __device__ __forceinline__ void operator()(int) const {}
+};
+
 // Sums of NV quantities over an aligned power-of-two range of n_alloc
 // leaves (sites or tracers) of which the first n_real are real: chunk c =
-// leaves [32c, 32c + 32), the warp's k chunks consecutive.  f(i, v) fills
-// v with leaf i's values (called only for real leaves).  Every lane of a
-// warp ends with the warp's total.
-template <int NV, typename F>
+// leaves [32c, 32c + 32), the warp's k chunks consecutive, in groups of at
+// most 32 (a chunk a lane), the groups' totals paired as one tree (kGroups;
+// without it at most 32 chunks a warp, one group: the same sums).  f(i, v)
+// fills v with leaf i's values (called only for real leaves); U chunks are
+// read before their butterflies, after pf(i) has asked for each of their
+// leaves (U > 1).  Every lane of a warp ends with the warp's total.
+template <int NV, int U, bool kGroups, typename F,
+          typename Pf = NoPrefetch>
 __device__ __forceinline__ void warp_sums(int n_alloc, int n_real,
-                                          float (&tot)[NV], F f) {
+                                          float (&tot)[NV], F f,
+                                          Pf pf = Pf()) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nch = n_alloc > 32 ? n_alloc >> 5 : 1;
   const int k = nch > kWarps ? nch / kWarps : 1;
 #pragma unroll
   for (int q = 0; q < NV; ++q) tot[q] = 0.f;
-  for (int i = 0; i < k; ++i) {
-    const int c = warp * k + i;
-    if (c >= nch) break;
-    const int x = c * 32 + lane;
-    float v[NV];
+  if constexpr (!kGroups) {  // at most 32 chunks a warp (n_alloc <= 16384)
+    for (int i = 0; i < k; ++i) {
+      const int c = warp * k + i;
+      if (c >= nch) break;
+      const int x = c * 32 + lane;
+      float v[NV];
 #pragma unroll
-    for (int q = 0; q < NV; ++q) v[q] = 0.f;
-    if (x < n_real) f(x, v);
-    warp_tree(v);
+      for (int q = 0; q < NV; ++q) v[q] = 0.f;
+      if (x < n_real) f(x, v);
+      warp_tree(v);
 #pragma unroll
-    for (int q = 0; q < NV; ++q) tot[q] = lane == i ? v[q] : tot[q];
+      for (int q = 0; q < NV; ++q) tot[q] = lane == i ? v[q] : tot[q];
+    }
+    if (k > 1) warp_tree(tot);
+    return;
   }
-  if (k > 1) warp_tree(tot);
+  const int kg = k > 32 ? 32 : k;  // chunks of a group
+  const int ng = k / kg;           // groups, a power of two
+  float lv[12][NV];                // the groups' tree: pending left halves
+  for (int gi = 0; gi < ng; ++gi) {
+    float gt[NV];
+#pragma unroll
+    for (int q = 0; q < NV; ++q) gt[q] = 0.f;
+    const int c0 = warp * k + gi * kg;
+    for (int i0 = 0; i0 < kg; i0 += U) {
+      float v[U][NV];
+      if constexpr (U > 1) {
+#pragma unroll
+        for (int j = 0; j < U; ++j) {
+          const int x = (c0 + i0 + j) * 32 + lane;
+          if (i0 + j < kg && c0 + i0 + j < nch && x < n_real) pf(x);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+#pragma unroll
+        for (int q = 0; q < NV; ++q) v[j][q] = 0.f;
+        const int c = c0 + i0 + j;
+        if (i0 + j < kg && c < nch) {
+          const int x = c * 32 + lane;
+          if (x < n_real) f(x, v[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        warp_tree(v[j]);
+#pragma unroll
+        for (int q = 0; q < NV; ++q) gt[q] = lane == i0 + j ? v[j][q] : gt[q];
+      }
+    }
+    if (kg > 1) warp_tree(gt);
+    if (ng == 1) {
+#pragma unroll
+      for (int q = 0; q < NV; ++q) tot[q] = gt[q];
+      break;
+    }
+    int z = gi, l = 0;
+    while (z & 1) {  // group gi closes the subtrees its trailing ones end
+#pragma unroll
+      for (int q = 0; q < NV; ++q) gt[q] = lv[l][q] + gt[q];
+      z >>= 1;
+      ++l;
+    }
+#pragma unroll
+    for (int q = 0; q < NV; ++q) lv[l][q] = gt[q];
+    if (gi == ng - 1) {
+#pragma unroll
+      for (int q = 0; q < NV; ++q) tot[q] = gt[q];
+    }
+  }
 }
 
-// The cluster's total of the warps' totals: the CTA's warps through
-// `scratch` ([kWarps][NV]), then the C CTAs' totals through `pub` (NV),
-// read after a cluster barrier.  Every thread ends with the totals.  A
-// slot may be written again only after another barrier of the cluster.
-template <int NV>
-__device__ __forceinline__ void cluster_total(const Geo& g, float (&v)[NV],
-                                              float* scratch, float* pub) {
+// The replica's total of the warps' totals: the CTA's warps through
+// `scratch` ([kWarps][NV]), then the C CTAs' totals, published at `pub`
+// and read after a barrier of the replica (a lane adds C/32 of them as one
+// tree past 32 CTAs).  Every thread ends with the totals.  A slot may be
+// written again only after another barrier of the replica.
+template <int NV, class Net>
+__device__ __forceinline__ void cta_total(const Geo& g, const Net& net,
+                                          float (&v)[NV], float* scratch,
+                                          float* pub) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (lane == 0) {
 #pragma unroll
@@ -198,13 +364,42 @@ __device__ __forceinline__ void cluster_total(const Geo& g, float (&v)[NV],
   warp_tree(v);
   if (g.C > 1) {
     if (threadIdx.x == 0) {
+      float* p = net.mine(pub, g.rank);
 #pragma unroll
-      for (int q = 0; q < NV; ++q) pub[q] = v[q];
+      for (int q = 0; q < NV; ++q) p[q] = v[q];
     }
-    cluster_sync(g.C);
-    const float* src = lane < g.C ? at_rank(pub, lane, g.C) : nullptr;
+    net.sync();
+    if constexpr (!Net::kGlobalMem) {  // at most 16 CTAs: one a lane
+      const float* src = lane < g.C ? net.pub_of(pub, lane) : nullptr;
 #pragma unroll
-    for (int q = 0; q < NV; ++q) v[q] = src ? src[q] : 0.f;
+      for (int q = 0; q < NV; ++q) v[q] = src ? src[q] : 0.f;
+      warp_tree(v);
+      return;
+    }
+    const int per = g.C > 32 ? g.C >> 5 : 1;  // CTAs a lane adds
+    float t[8][NV];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int q = 0; q < NV; ++q) t[i][q] = 0.f;
+      if (i < per && lane * per + i < g.C) {
+        const float* src = net.pub_of(pub, lane * per + i);
+#pragma unroll
+        for (int q = 0; q < NV; ++q) t[i][q] = src[q];
+      }
+    }
+#pragma unroll
+    for (int w = 1; w < 8; w <<= 1) {
+#pragma unroll
+      for (int i = 0; i < 8; i += 2 * w) {
+        if (w < per) {
+#pragma unroll
+          for (int q = 0; q < NV; ++q) t[i][q] += t[i + w][q];
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NV; ++q) v[q] = t[0][q];
     warp_tree(v);
   }
 }
@@ -213,16 +408,16 @@ __device__ __forceinline__ float cw(float beta, float s, float m) {
   return fminf(fmaxf(expf(-beta * s * m), 1e-8f), 1e8f);
 }
 
-// One tap of the circulant on a unit's S outputs; u (the tap's place in
-// its chunk) is a constant once the caller's loop is unrolled, so the slots
-// are registers.
+// One tap of the circulant on a unit's S outputs, taps taken inward: u
+// (the tap's place in its chunk) is a constant once the caller's loop is
+// unrolled, so the slots are registers.
 template <int S>
 __device__ __forceinline__ void tap_sum(const float (&lw)[S],
                                         const float (&rw)[S], float (&acc)[S],
                                         float wd, int u) {
 #pragma unroll
   for (int s = 0; s < S; ++s)
-    acc[s] = fmaf(wd, lw[(s + 2 * S - 1 - u) % S] + rw[(s + 1 + u) % S],
+    acc[s] = fmaf(wd, lw[(s + u + 1) % S] + rw[(s + 2 * S - 1 - u) % S],
                   acc[s]);
 }
 
@@ -236,110 +431,126 @@ struct Circ {
 
 // The symmetric circulant on the two fields a[0], a[1] (this CTA's
 // segments of them; every CTA's must be complete, and stay unchanged until
-// the next cluster barrier),
-//   o[x] = w[0] a[x] + sum_{d>=1} w[d] (a[x-d] + a[x+d]),  indices mod L,
-// handed to consume(f, i, o) for local site i of field f.  Work unit
-// (field, slice, block) = sites [kBlock*block, +kBlock) of the segment over
-// the slice's taps in the pass.  `win` holds `wf` floats for each field of
-// a group: a pass over taps (E0, E1] stages sites [lo - E1, lo + nloc + 9 -
-// E0) and, from offset seg + 9 + tb, [lo + E0, lo + nloc + 9 + E1) (one
-// window [lo - E1, lo + nloc + 9 + E1) when E0 = 0).  Chains that
-// outlive a pass, and the slices when ns > 1, meet in `part`
-// ([fp][ns][seg]).  Every thread must call it.
-template <typename F>
+// the next barrier of the replica),
+//   o[x] = sum_{d>=1} w[d] (a[x-d] + a[x+d]) + w[0] a[x],  indices mod L,
+// handed to consume(f, i, o) for local site i of field f.  The segment
+// runs in tiles of T sites.  Work unit (field, slice, block) = sites
+// [kBlock*block, +kBlock) of the tile over the slice's taps in the pass.
+// `win` holds `wf` floats for each field of a group: a pass over taps
+// (E0, E1] stages sites [lo - E1, lo + n + 9 - E0) and, from offset T + 9
+// + tb, [lo + E0, lo + n + 9 + E1) (one window [lo - E1, lo + n + 9 + E1)
+// when E0 = 0).  The passes run from the outermost taps inward.  Chains
+// that outlive a pass, and the slices when ns > 1, meet in `part`
+// ([fp][ns][T]).  Every thread must call it.
+template <class Net, typename F>
 __device__ __forceinline__ void circulant(const Geo& g, float* a0, float* a1,
-                                          const Circ& c, float* win, int wf,
-                                          float* part, F consume) {
+                                          const Circ& c, int T, float* win,
+                                          int wf, float* part, F consume) {
   constexpr int S = kBlock;
   const int tid = threadIdx.x, L = g.L;
   const int R = c.ns * c.len;
-  const int nu = (g.nloc + S - 1) / S;
   const bool direct = c.ns == 1 && c.tb >= R;
-  for (int f0 = 0; f0 < 2; f0 += c.fp) {
-    const int nf = min(c.fp, 2 - f0);
-    int E0 = 0;
-    do {
-      const int E1 = min(R, E0 + c.tb);
-      // -- stage the pass's inputs from the cluster --------------------
-      const int n_one = g.nloc + S + (E0 == 0 ? 2 * E1 : E1 - E0);
-      for (int fi = 0; fi < nf; ++fi) {
-        float* a = f0 + fi == 0 ? a0 : a1;
-        float* lb = win + fi * wf;
-        for (int i = tid; i < n_one; i += kThreads)
-          lb[i] = site(g, a, wrap(g.lo - E1 + i, L));
-        if (E0 > 0) {
-          float* rb = lb + g.seg + S + c.tb;
-          for (int i = tid; i < n_one; i += kThreads)
-            rb[i] = site(g, a, wrap(g.lo + E0 + i, L));
-        }
-      }
-      __syncthreads();
-      // -- the chains of the slices that meet (E0, E1] ------------------
-      const int s_lo = c.len ? E0 / c.len : 0;
-      const int s_hi = c.len ? (E1 - 1) / c.len : 0;
-      const int nsl = max(1, s_hi - s_lo + 1);
-      for (int item = tid; item < nf * nsl * nu; item += kThreads) {
-        const int fi = item / (nsl * nu);
-        const int rem = item - fi * nsl * nu;
-        const int sl = s_lo + rem / nu, unit = rem - (rem / nu) * nu;
-        const int t0 = max(E0, sl * c.len), t1 = min(E1, (sl + 1) * c.len);
-        const float* lb = win + fi * wf;
-        const float* rb = E0 == 0 ? lb + E1 : lb + g.seg + S + c.tb;
-        const int x0 = unit * S;
-        float lw[S], rw[S], acc[S];
-#pragma unroll
-        for (int s = 0; s < S; ++s) {  // slot s holds x0 + s -/+ t0
-          lw[s] = lb[x0 + s - t0 + E1];
-          rw[s] = rb[x0 + s + t0 - E0];
-        }
-        float* pp = part + ((size_t)fi * c.ns + sl) * g.seg;
-        if (t0 == sl * c.len) {
-          const float w0 = sl == 0 ? __ldg(c.w) : 0.f;
-#pragma unroll
-          for (int s = 0; s < S; ++s) acc[s] = w0 * lw[s];
-        } else {
-#pragma unroll
-          for (int s = 0; s < S; ++s)
-            acc[s] = x0 + s < g.nloc ? pp[x0 + s] : 0.f;
-        }
-        const float* lo_p = lb + x0 + E1;        // site x0 - d at lo_p[-d]
-        const float* hi_p = rb + x0 + S - 1 - E0;  // x0 + 8 + d at hi_p[d]
-        for (int cc = t0; cc < t1; cc += S) {
-#pragma unroll
-          for (int u = 0; u < S; ++u) {
-            // tap d = cc + u + 1: left site x0 + s - d sits in slot
-            // (s - 1 - u) mod S, right site x0 + s + d in slot
-            // (s + 1 + u) mod S; the new values enter slots S-1-u and u
-            const int d = cc + u + 1;
-            lw[S - 1 - u] = lo_p[-d];
-            rw[u] = hi_p[d];
-            tap_sum<S>(lw, rw, acc, __ldg(c.w + d), u);
-          }
-        }
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const int x = x0 + s;
-          if (x >= g.nloc) break;
-          if (direct) {
-            consume(f0 + fi, x, acc[s]);
-          } else {
-            pp[x] = acc[s];
-          }
-        }
-      }
-      __syncthreads();  // the windows are free again
-      E0 = E1;
-    } while (E0 < R);
-    if (!direct) {  // the slices' sums, in slice order
-      for (int x = tid; x < g.nloc; x += kThreads) {
+  for (int t_lo = 0; t_lo < g.nloc; t_lo += T) {
+    const int n = min(T, g.nloc - t_lo);
+    const int lo = g.lo + t_lo;  // the tile's first site
+    const int nu = (n + S - 1) / S;
+    for (int f0 = 0; f0 < 2; f0 += c.fp) {
+      const int nf = min(c.fp, 2 - f0);
+      int E1 = R;
+      do {
+        const int E0 = max(0, E1 - c.tb);
+        // -- stage the pass's inputs ---------------------------------------
+        const int n_one = n + S + (E0 == 0 ? 2 * E1 : E1 - E0);
         for (int fi = 0; fi < nf; ++fi) {
-          const float* pp = part + (size_t)fi * c.ns * g.seg;
-          float o = pp[x];
-          for (int sl = 1; sl < c.ns; ++sl) o += pp[(size_t)sl * g.seg + x];
-          consume(f0 + fi, x, o);
+          float* a = f0 + fi == 0 ? a0 : a1;
+          float* lb = win + fi * wf;
+#pragma unroll 4
+          for (int i = tid; i < n_one; i += kThreads)
+            lb[i] = site<Net>(g, a, wrap(lo - E1 + i, L));
+          if (E0 > 0) {
+            float* rb = lb + T + S + c.tb;
+#pragma unroll 4
+            for (int i = tid; i < n_one; i += kThreads)
+              rb[i] = site<Net>(g, a, wrap(lo + E0 + i, L));
+          }
         }
+        __syncthreads();
+        // -- the chains of the slices that meet (E0, E1] ------------------
+        const int s_lo = c.len ? E0 / c.len : 0;
+        const int s_hi = c.len ? (E1 - 1) / c.len : 0;
+        const int nsl = max(1, s_hi - s_lo + 1);
+        for (int item = tid; item < nf * nsl * nu; item += kThreads) {
+          const int fi = item / (nsl * nu);
+          const int rem = item - fi * nsl * nu;
+          const int sl = s_lo + rem / nu, unit = rem - (rem / nu) * nu;
+          const int t0 = max(E0, sl * c.len), t1 = min(E1, (sl + 1) * c.len);
+          const float* lb = win + fi * wf;
+          const float* rb = E0 == 0 ? lb + E1 : lb + T + S + c.tb;
+          const int x0 = unit * S;
+          float lw[S], rw[S], acc[S];
+          // the windows of tap t1 + 1: left slot s holds site x0 + s - t1 - 1
+          // (slot 0 is loaded before its first use), right slot s site
+          // x0 + s + t1 + 1 (slot S-1 likewise)
+          lw[0] = 0.f;
+          rw[S - 1] = 0.f;
+#pragma unroll
+          for (int s = 1; s < S; ++s) lw[s] = lb[x0 + s - t1 - 1 + E1];
+#pragma unroll
+          for (int s = 0; s < S - 1; ++s) rw[s] = rb[x0 + s + t1 + 1 - E0];
+          float* pp = part + ((size_t)fi * c.ns + sl) * T;
+          if (t1 == (sl + 1) * c.len) {  // the slice's outermost taps
+#pragma unroll
+            for (int s = 0; s < S; ++s) acc[s] = 0.f;
+          } else {
+#pragma unroll
+            for (int s = 0; s < S; ++s)
+              acc[s] = x0 + s < n ? pp[x0 + s] : 0.f;
+          }
+          const float* lo_p = lb + x0 + S - 1 + E1;  // x0 + 8 - d at lo_p[-d]
+          const float* hi_p = rb + x0 - E0;          // x0 + d at hi_p[d]
+          for (int cc = t1; cc > t0; cc -= S) {
+#pragma unroll
+            for (int u = 0; u < S; ++u) {
+              // tap d = cc - u: left site x0 + s - d sits in slot
+              // (s + u + 1) mod S, right site x0 + s + d in slot
+              // (s - u - 1) mod S; the new values enter slots u and S-1-u
+              const int d = cc - u;
+              lw[u] = lo_p[-d];
+              rw[S - 1 - u] = hi_p[d];
+              tap_sum<S>(lw, rw, acc, __ldg(c.w + d), u);
+            }
+          }
+          if (t0 == 0) {  // slice 0 ends with the centre tap
+            const float w0 = __ldg(c.w);
+#pragma unroll
+            for (int s = 0; s < S; ++s)
+              acc[s] = fmaf(w0, lb[x0 + s + E1], acc[s]);
+          }
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            const int x = x0 + s;
+            if (x >= n) break;
+            if (direct) {
+              consume(f0 + fi, t_lo + x, acc[s]);
+            } else {
+              pp[x] = acc[s];
+            }
+          }
+        }
+        __syncthreads();  // the windows are free again
+        E1 = E0;
+      } while (E1 > 0);
+      if (!direct) {  // the slices' sums, the last slice first
+        for (int x = tid; x < n; x += kThreads) {
+          for (int fi = 0; fi < nf; ++fi) {
+            const float* pp = part + (size_t)fi * c.ns * T;
+            float o = pp[(size_t)(c.ns - 1) * T + x];
+            for (int sl = c.ns - 2; sl >= 0; --sl) o += pp[(size_t)sl * T + x];
+            consume(f0 + fi, t_lo + x, o);
+          }
+        }
+        __syncthreads();  // `part` is free again
       }
-      __syncthreads();  // `part` is free again
     }
   }
 }
@@ -361,27 +572,30 @@ __device__ __forceinline__ Aff shfl_idx(Aff v, int l) {
   return {__shfl_sync(kFull, v.a, l), __shfl_sync(kFull, v.b, l)};
 }
 
-// One sweep of the scan solve of field F (this CTA's segment) on this
+// One sweep of the scan solve of field F (this CTA's segment; the tiles it
+// takes may lie in other segments on the device-memory route) on this
 // thread's half of the block.  Forward: y_i = alpha_i y_{i-1} + inv_i F_i
 // from y_{-1} = 0; back (rev): x_i = -c'_i x_{i+1} + F_i from x_L = 0
 // (c'_{L-1} = 0).  Tile t = sites [t*32*run, (t+1)*32*run), lane l's run
 // its [l*run, (l+1)*run); sites past L are the identity.  `tt` ([kTiles]
-// per field) takes this CTA's tiles' totals; the caller's barrier must
-// separate two uses of it.  Writes the result over F.
-__device__ __forceinline__ void scan_sweep(const Geo& g, float* F, int run,
-                                           int ntiles, int h,
+// per field) takes the tiles' totals; the caller's barrier must separate
+// two uses of it.  Writes the result over F.
+template <class Net>
+__device__ __forceinline__ void scan_sweep(const Geo& g, const Net& net,
+                                           float* F, int run, int ntiles,
+                                           int h,
                                            const double* __restrict__ coef,
                                            const double* __restrict__ inv,
                                            bool rev, Aff* tt) {
   const int lane = threadIdx.x & 31, wh = (threadIdx.x & (kHalf - 1)) >> 5;
-  const int ntl = ntiles / g.C;  // this CTA's tiles
+  const int ntl = ntiles >= g.C ? ntiles / g.C : 1;  // this CTA's tiles
   const Aff id{1.0, 0.0};
   Aff e[2] = {id, id};
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
     const int tl = wh + u * kHalfWarps;
-    if (tl >= ntl) break;
     const int gt = g.rank * ntl + tl;
+    if (tl >= ntl || gt >= ntiles) break;
     const int lo = gt * 32 * run + lane * run;
     const int hi = min(g.L, lo + run);
     Aff v = id;
@@ -407,12 +621,12 @@ __device__ __forceinline__ void scan_sweep(const Geo& g, float* F, int run,
     if (lane == (rev ? 31 : 0)) ex = id;
     e[u] = ex;
   }
-  cluster_sync(g.C);
+  net.sync();
   // the tiles in sweep order: lane p takes the total of the tile at sweep
   // position p, from the CTA that owns it, and a shuffle scan composes them
   const int p_tile = rev ? ntiles - 1 - lane : lane;
   Aff t = id;
-  if (lane < ntiles) t = at_rank(tt, p_tile / ntl, g.C)[h * kTiles + p_tile];
+  if (lane < ntiles) t = net.tt_of(tt, p_tile / ntl)[h * kTiles + p_tile];
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
     const Aff o = shfl_up(t, d);
@@ -421,8 +635,8 @@ __device__ __forceinline__ void scan_sweep(const Geo& g, float* F, int run,
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
     const int tl = wh + u * kHalfWarps;
-    if (tl >= ntl) break;
     const int gt = g.rank * ntl + tl;
+    if (tl >= ntl || gt >= ntiles) break;
     const int at = rev ? ntiles - 1 - gt : gt;  // the tile's position
     Aff q = shfl_idx(t, at > 0 ? at - 1 : 0);
     if (at == 0) q = id;
@@ -456,58 +670,57 @@ struct Args {
   float* dens;               // (B, k, L) total density per step (kmax > 0)
   const int* noise;
   int L, n_t, window, k_steps, kmax, m_mode, solve_mode;
-  int C, seg, tseg, run, ntiles;  // the cluster plan
+  int C, seg, tseg, run, ntiles;  // the plan: CTAs per replica, ...
   int sm_ns, sm_len, sm_tb, sm_fp, sv_ns, sv_len, sv_tb, sv_fp;
   int wf;                         // staging window floats a field
+  int T;                          // sites of a circulant tile
   int periodic, bidirectional;
   float dt, dx, xlim, v_last, fac, w_dt, w_2dt;
+  // the device-memory route's device scratch, per replica of the launch:
+  float* gfld;     // (B, 2 + local m + smoothed, L): Q, N, m, denominator
+  float* gpub;     // (B, 3, C, kPub) published totals of the reductions
+  double* gtt;     // (B, 4 * kTiles, 2) the scan's tile totals
+  unsigned* gbar;  // (B, kBar) the replica's arrival counter (zeroed)
 };
 
-// Shared memory of a CTA, in this order (ops/pde_kernel.py cta_smem_bytes):
-// the scan's tile totals (2 sweeps x 2 fields x kTiles double-word maps,
-// first, so they are 16-byte aligned), the reductions' warp totals
-// (7 x kWarps) and published totals (8), the fields P, M, Q, N (seg
-// each), m and the smoothed denominator (seg each, where used), the
-// tracers' displacements (tseg), the staging windows (fp * wf) and the
-// partial sums.
-__global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int C = a.C;
-  const int rank = C > 1 ? (int)cg::this_cluster().block_rank() : 0;
-  const int b = blockIdx.x / C;
-  const int L = a.L, n_t = a.n_t, kmax = a.kmax;
-  const bool local_m = a.m_mode != kGlobal, taps = a.m_mode == kTaps;
+// A CTA's scratch on chip, whichever the route: the reductions' warp
+// totals, the tracers' displacements, the staging windows and partial
+// sums; and where its published totals and scan tile totals live.
+struct Scratch {
+  float *redA, *redB, *redD, *pubA, *pubB, *pubD, *DR, *win, *part;
+  Aff* tt;
+};
+
+__device__ __forceinline__ Geo geo_of(const Args& a, int C, int rank) {
   Geo g;
   g.C = C;
   g.rank = rank;
-  g.L = L;
+  g.L = a.L;
   g.seg = a.seg;
   g.shift = __ffs(a.seg) - 1;
   g.lo = rank * a.seg;
-  g.nloc = max(0, min(L - g.lo, a.seg));
+  g.nloc = max(0, min(a.L - g.lo, a.seg));
   g.tseg = a.tseg;
   g.t0 = rank * a.tseg;
-  g.tloc = max(0, min(n_t - g.t0, a.tseg));
+  g.tloc = max(0, min(a.n_t - g.t0, a.tseg));
+  return g;
+}
 
-  Aff* tt = reinterpret_cast<Aff*>(smem);  // [2][2][kTiles]
-  float* redA = reinterpret_cast<float*>(tt + 4 * kTiles);  // kWarps * 2
-  float* redB = redA + kWarps * 2;                          // kWarps * 2
-  float* redD = redB + kWarps * 2;                          // kWarps * 3
-  float* pubA = redD + kWarps * 3;                          // 2
-  float* pubB = pubA + 2;                                   // 3
-  float* pubD = pubB + 3;                                   // 3
-  // state (P, M) and scratch (Q, N) swap roles from step to step
-  float* P = pubD + 3;
-  float* M = P + a.seg;
-  float* Q = M + a.seg;
-  float* N = Q + a.seg;
-  float* mS = N + a.seg;                      // seg when local_m
-  float* dS = mS + (local_m ? a.seg : 0);     // seg when taps
-  float* DR = dS + (taps ? a.seg : 0);        // tseg
-  float* win = DR + a.tseg;                   // fp * wf
-  float* part = win + max(a.sm_fp, a.sv_fp) * a.wf;
-
+// Replica b's k steps on this CTA; P, M, Q, N (and mS, dS where used) are
+// this CTA's segments of the four fields (state P, M; scratch Q, N, which
+// swap roles from step to step), of m and of the smoothed denominator.
+template <class Net>
+__device__ __forceinline__ void b2_steps(const Args& a, const Geo& g,
+                                         const Net& net, int b, float* P,
+                                         float* M, float* Q, float* N,
+                                         float* mS, float* dS,
+                                         const Scratch& sc_) {
+  constexpr int U = Net::kUnroll;
+  const int tid = threadIdx.x;
+  const int rank = g.rank;
+  const int L = a.L, n_t = a.n_t, kmax = a.kmax;
+  const bool local_m = a.m_mode != kGlobal, taps = a.m_mode == kTaps;
+  float* DR = sc_.DR;
   const Circ smc{a.smooth_taps, a.sm_ns, a.sm_len, a.sm_tb, a.sm_fp};
   const Circ svc{a.solve_taps, a.sv_ns, a.sv_len, a.sv_tb, a.sv_fp};
   const float beta = a.scal[4 * b], lam = a.scal[4 * b + 1];
@@ -519,10 +732,6 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
   const int rw = 4 + 2 * kmax;
   const uint2 key = make_uint2((uint32_t)a.seeds[b], (uint32_t)(a.b0 + b));
 
-  for (int x = tid; x < g.nloc; x += kThreads) {
-    P[x] = a.rp_in[foff + x];
-    M[x] = a.rm_in[foff + x];
-  }
   const float* hin = a.hist_in + (size_t)b * a.window * n_t;
   float* hist = a.hist_out + (size_t)b * a.window * n_t;
   for (int j = g.t0 + tid; j < g.t0 + g.tloc; j += kThreads) {
@@ -530,9 +739,18 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
     a.spin_out[toff + j] = a.spin_in[toff + j];
     for (int w = 0; w < a.window; ++w) hist[w * n_t + j] = hin[w * n_t + j];
   }
-  // every CTA of the cluster runs, its fields loaded, before any remote read
-  cluster_sync(C);
+  // every CTA of the replica runs before any remote read
+  net.sync();
 
+  // the state the next step reads is (srcP, srcM) times the last step's
+  // renormalisation `sc`; the step's first pass stores it into (P, M)
+  const float* srcP = a.rp_in + foff;
+  const float* srcM = a.rm_in + foff;
+  float sc = 1.f;
+  // the device-memory route's prefetches of a pass's fields
+  const auto pf = [](const float* p) {
+    if constexpr (Net::kGlobalMem) prefetch_l1(p);
+  };
   for (int s = 0; s < a.k_steps; ++s) {
     const int n = a.step0 + s;
     float* row = a.recs + ((size_t)b * a.k_steps + s) * rw;
@@ -542,35 +760,65 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
     // -- magnetization of the pre-step densities --------------------------
     float vA[2];
     if (taps) {  // the smoothed numerator and denominator
-      for (int x = tid; x < g.nloc; x += kThreads) {
-        Q[x] = P[x] - M[x];
-        N[x] = P[x] + M[x];
-        if (drow) __stcs(drow + x, N[x]);
-      }
-      cluster_sync(C);
-      circulant(g, Q, N, smc, win, a.wf, part,
-                [&](int f, int x, float o) { (f == 0 ? mS : dS)[x] = o; });
-      warp_sums<2>(a.seg, g.nloc, vA, [&](int x, float (&v)[2]) {
-        const float mx = mS[x] / (dS[x] + 1e-12f);
-        mS[x] = mx;
-        v[0] = mx;
-        v[1] = P[x] + M[x];
-      });
-    } else {
-      warp_sums<2>(a.seg, g.nloc, vA, [&](int x, float (&v)[2]) {
-        const float p = P[x], q = M[x];
-        if (drow) __stcs(drow + x, p + q);
-        if (a.m_mode == kGlobal) {
-          v[0] = p - q;
-        } else {
-          const float mx = (p - q) / (p + q + 1e-12f);
-          mS[x] = mx;
-          v[0] = mx;
+      for (int x0 = tid; x0 < g.nloc; x0 += 4 * kThreads) {
+        float p[4], q[4];  // four sites' loads before their stores
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int x = x0 + j * kThreads;
+          p[j] = x < g.nloc ? srcP[x] * sc : 0.f;
+          q[j] = x < g.nloc ? srcM[x] * sc : 0.f;
         }
-        v[1] = p + q;
-      });
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int x = x0 + j * kThreads;
+          if (x >= g.nloc) break;
+          P[x] = p[j];
+          M[x] = q[j];
+          Q[x] = p[j] - q[j];
+          N[x] = p[j] + q[j];
+          if (drow) __stcs(drow + x, p[j] + q[j]);
+        }
+      }
+      net.sync();
+      circulant<Net>(g, Q, N, smc, a.T, sc_.win, a.wf, sc_.part,
+                     [&](int f, int x, float o) {
+                       (f == 0 ? mS : dS)[x] = o;
+                     });
+      warp_sums<2, U, Net::kGlobalMem>(
+          a.seg, g.nloc, vA,
+          [&](int x, float (&v)[2]) {
+            const float mx = mS[x] / (dS[x] + 1e-12f);
+            mS[x] = mx;
+            v[0] = mx;
+            v[1] = P[x] + M[x];
+          },
+          [&](int x) {
+            pf(mS + x);
+            pf(dS + x);
+          });
+    } else {
+      warp_sums<2, U, Net::kGlobalMem>(
+          a.seg, g.nloc, vA,
+          [&](int x, float (&v)[2]) {
+            const float p = srcP[x] * sc, q = srcM[x] * sc;
+            P[x] = p;
+            M[x] = q;
+            if (drow) __stcs(drow + x, p + q);
+            if (a.m_mode == kGlobal) {
+              v[0] = p - q;
+            } else {
+              const float mx = (p - q) / (p + q + 1e-12f);
+              mS[x] = mx;
+              v[0] = mx;
+            }
+            v[1] = p + q;
+          },
+          [&](int x) {
+            pf(srcP + x);
+            pf(srcM + x);
+          });
     }
-    cluster_total<2>(g, vA, redA, pubA);  // its barrier also publishes mS
+    cta_total<2>(g, net, vA, sc_.redA, sc_.pubA);  // also publishes mS
     const float m_glob = vA[0] / (vA[1] + 1e-12f);
     const float m_mean = local_m ? vA[0] * inv_L : m_glob;
     const float t_mean = vA[1] * inv_L;
@@ -580,7 +828,8 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
         a.noise ? a.noise + (size_t)(b * a.k_steps + s) * 3 * n_t : nullptr;
     const int slot = n % a.window;
     float vB[2], vT[1];
-    warp_sums<1>(a.tseg, g.tloc, vT, [&](int jl, float (&v)[1]) {
+    warp_sums<1, 1, true>(a.tseg, g.tloc, vT,
+                          [&](int jl, float (&v)[1]) {
       const int j = g.t0 + jl;
       uint32_t w0, w1, w2;
       if (nz) {
@@ -598,7 +847,7 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
       if (local_m) {  // m at the tracer's site, floor-mod as jnp.mod
         float pw = fmodf(pos, a.xlim);
         if (pw != 0.f && ((pw < 0.f) != (a.xlim < 0.f))) pw += a.xlim;
-        m_tr = site(g, mS, ((int)(pw / dx)) % L);
+        m_tr = site<Net>(g, mS, ((int)(pw / dx)) % L);
       }
       const float rate = cw(beta, spin, m_tr);
       if (hydrolim::bits_to_uniform(w0) < rate * dt) spin = -spin;
@@ -622,13 +871,14 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
       v[0] = pos - old;
     });
     float vS[1];
-    warp_sums<1>(a.seg, g.nloc, vS, [&](int x, float (&v)[1]) {
+    warp_sums<1, U, Net::kGlobalMem>(a.seg, g.nloc, vS,
+                                     [&](int x, float (&v)[1]) {
       const float d = P[x] + M[x] - t_mean;
       v[0] = d * d;
     });
     vB[0] = vS[0];
     vB[1] = vT[0];
-    cluster_total<2>(g, vB, redB, pubB);
+    cta_total<2>(g, net, vB, sc_.redB, sc_.pubB);
     const float var = vB[0] * inv_L;
     const float mean_dr = vB[1] * inv_nt;
 
@@ -641,19 +891,20 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
       const int h = tid / kHalf;
       float* F = h == 0 ? P : M;
       const double* gs = a.scan;
-      scan_sweep(g, F, a.run, a.ntiles, h, gs + 2 * L, gs, false, tt);
-      scan_sweep(g, F, a.run, a.ntiles, h, gs + L, nullptr, true,
-                 tt + 2 * kTiles);
-      cluster_sync(C);  // the solved fields, for the corners and the edges
+      scan_sweep(g, net, F, a.run, a.ntiles, h, gs + 2 * L, gs, false,
+                 sc_.tt);
+      scan_sweep(g, net, F, a.run, a.ntiles, h, gs + L, nullptr, true,
+                 sc_.tt + 2 * kTiles);
+      net.sync();  // the solved fields, for the corners and the edges
       if (a.periodic) {  // Sherman-Morrison: x - c z, applied where read
-        cP = a.fac * (site(g, P, 0) + a.v_last * site(g, P, L - 1));
-        cM = a.fac * (site(g, M, 0) + a.v_last * site(g, M, L - 1));
+        cP = a.fac * (site<Net>(g, P, 0) + a.v_last * site<Net>(g, P, L - 1));
+        cM = a.fac * (site<Net>(g, M, 0) + a.v_last * site<Net>(g, M, L - 1));
         zz = gs + 3 * L;
       }
     } else if (a.solve_mode == kBanded) {
-      circulant(g, P, M, svc, win, a.wf, part,
-                [&](int f, int x, float o) { (f == 0 ? Q : N)[x] = o; });
-      cluster_sync(C);  // the solved fields, for the edges
+      circulant<Net>(g, P, M, svc, a.T, sc_.win, a.wf, sc_.part,
+                     [&](int f, int x, float o) { (f == 0 ? Q : N)[x] = o; });
+      net.sync();  // the solved fields, for the edges
       P1 = Q; M1 = N; P2 = P; M2 = M;
     }
 
@@ -665,13 +916,14 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
     float *P_new, *M_new, *Q_new, *N_new;
     if (a.bidirectional) {
       float v01[2];
-      warp_sums<2>(a.seg, g.nloc, v01, [&](int x, float (&v)[2]) {
+      warp_sums<2, U, Net::kGlobalMem>(a.seg, g.nloc, v01,
+                                       [&](int x, float (&v)[2]) {
         const int xg = g.lo + x;
         const int xl = xg == 0 ? L - 1 : xg - 1;
         const int xr = xg == L - 1 ? 0 : xg + 1;
         float p1 = P1[x], m1 = M1[x];
-        float pl = x > 0 ? P1[x - 1] : site(g, P1, xl);
-        float mr = x + 1 < g.nloc ? M1[x + 1] : site(g, M1, xr);
+        float pl = x > 0 ? P1[x - 1] : site<Net>(g, P1, xl);
+        float mr = x + 1 < g.nloc ? M1[x + 1] : site<Net>(g, M1, xr);
         if (zz) {
           const float z = (float)__ldg(zz + xg);
           p1 -= cP * z;
@@ -693,13 +945,18 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
         M2[x] = m2;
         v[0] = p1 + m1;
         v[1] = p2 + m2;
+      }, [&](int x) {
+        pf(P1 + x);
+        pf(M1 + x);
+        if (local_m) pf(mS + x);
       });
       vD[0] = v01[0];
       vD[1] = v01[1];
       P_new = P2; M_new = M2; Q_new = P1; N_new = M1;
     } else {  // anchored_minus: reaction first, then rho_+* is advected
       float v0[1], v1[1];
-      warp_sums<1>(a.seg, g.nloc, v0, [&](int x, float (&v)[1]) {
+      warp_sums<1, U, Net::kGlobalMem>(a.seg, g.nloc, v0,
+                                       [&](int x, float (&v)[1]) {
         float p1 = P1[x], m1 = M1[x];
         if (zz) {
           const float z = (float)__ldg(zz + g.lo + x);
@@ -713,36 +970,43 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
         P2[x] = fmaxf(p1 + dt * R_p, 0.f);
         M2[x] = fmaxf(m1 - dt * R_p, 0.f);
         v[0] = p1 + m1;
+      }, [&](int x) {
+        pf(P1 + x);
+        pf(M1 + x);
+        if (local_m) pf(mS + x);
       });
-      cluster_sync(C);  // rho_+* is read across threads and CTAs below
-      warp_sums<1>(a.seg, g.nloc, v1, [&](int x, float (&v)[1]) {
+      net.sync();  // rho_+* is read across threads and CTAs below
+      warp_sums<1, U, Net::kGlobalMem>(a.seg, g.nloc, v1,
+                                       [&](int x, float (&v)[1]) {
         const int xg = g.lo + x;
         const float ps = P2[x];
-        const float pl = x > 0 ? P2[x - 1] : site(g, P2, xg == 0 ? L - 1
-                                                                  : xg - 1);
+        const float pl =
+            x > 0 ? P2[x - 1] : site<Net>(g, P2, xg == 0 ? L - 1 : xg - 1);
         float dp = (ps - pl) / dx;
         if (walls && xg == 0) dp = 0.f;
         const float p2 = fmaxf(ps + dt * (-lam * dp), 0.f);
         P1[x] = p2;
         v[0] = p2 + M2[x];
+      }, [&](int x) {
+        pf(P2 + x);
+        pf(M2 + x);
       });
       vD[0] = v0[0];
       vD[1] = v1[0];
       P_new = P1; M_new = M2; Q_new = P2; N_new = M1;
     }
     float vV[1];
-    warp_sums<1>(a.tseg, g.tloc, vV, [&](int jl, float (&v)[1]) {
+    warp_sums<1, 1, true>(a.tseg, g.tloc, vV,
+                          [&](int jl, float (&v)[1]) {
       const float d = DR[jl] - mean_dr;
       v[0] = d * d;
     });
     vD[2] = vV[0];
-    cluster_total<3>(g, vD, redD, pubD);
-    const float scale = vD[0] / fmaxf(vD[1], 1e-30f);
-    for (int x = tid; x < g.nloc; x += kThreads) {
-      P_new[x] *= scale;
-      M_new[x] *= scale;
-    }
+    cta_total<3>(g, net, vD, sc_.redD, sc_.pubD);
+    sc = vD[0] / fmaxf(vD[1], 1e-30f);  // applied where the state is read
     P = P_new; M = M_new; Q = Q_new; N = N_new;
+    srcP = P;
+    srcM = M;
 
     if (rank == 0 && tid == 0) {
       const bool valid = n >= a.window;
@@ -756,23 +1020,95 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
     __syncthreads();
   }
 
+#pragma unroll 4
   for (int x = tid; x < g.nloc; x += kThreads) {
-    a.rp_out[foff + x] = P[x];
-    a.rm_out[foff + x] = M[x];
+    a.rp_out[foff + x] = srcP[x] * sc;
+    a.rm_out[foff + x] = srcM[x] * sc;
   }
   // no CTA leaves while another may still read its shared memory
-  cluster_sync(C);
+  if constexpr (!Net::kGlobalMem) net.sync();
 }
 
-cudaError_t configure(int C, size_t smem, int B, void* stream,
+// Shared memory of a cluster-route CTA, in this order (ops/pde_kernel.py
+// cta_smem_bytes): the scan's tile totals (2 sweeps x 2 fields x kTiles
+// double-word maps, first, so they are 16-byte aligned), the reductions'
+// warp totals (7 x kWarps) and published totals (8), the fields P, M, Q, N
+// (seg each), m and the smoothed denominator (seg each, where used), the
+// tracers' displacements (tseg), the staging windows (fp * wf) and the
+// partial sums.
+__global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = a.C;
+  const int rank = C > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int b = blockIdx.x / C;
+  const bool local_m = a.m_mode != kGlobal, taps = a.m_mode == kTaps;
+  const Geo g = geo_of(a, C, rank);
+
+  Scratch s;
+  s.tt = reinterpret_cast<Aff*>(smem);  // [2][2][kTiles]
+  s.redA = reinterpret_cast<float*>(s.tt + 4 * kTiles);  // kWarps * 2
+  s.redB = s.redA + kWarps * 2;                          // kWarps * 2
+  s.redD = s.redB + kWarps * 2;                          // kWarps * 3
+  s.pubA = s.redD + kWarps * 3;                          // 2
+  s.pubB = s.pubA + 2;                                   // 3
+  s.pubD = s.pubB + 3;                                   // 3
+  float* P = s.pubD + 3;
+  float* M = P + a.seg;
+  float* Q = M + a.seg;
+  float* N = Q + a.seg;
+  float* mS = N + a.seg;                      // seg when local_m
+  float* dS = mS + (local_m ? a.seg : 0);     // seg when taps
+  s.DR = dS + (taps ? a.seg : 0);             // tseg
+  s.win = s.DR + a.tseg;                      // fp * wf
+  s.part = s.win + max(a.sm_fp, a.sv_fp) * a.wf;
+  b2_steps(a, g, ClusterNet{C}, b, P, M, Q, N, mS, dS, s);
+}
+
+// Shared memory of a device-memory-route CTA (ops/pde_kernel.py
+// gmem_smem_bytes): the reductions' warp totals (7 x kWarps), the tracers'
+// displacements (tseg), the staging windows (fp * wf) and the partial
+// sums.  The fields are rows of rp_out, rm_out (the state) and gfld.
+__global__ void __launch_bounds__(kThreads) pde_gmem_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int G = a.C;
+  const int b = blockIdx.x / G, rank = blockIdx.x % G;
+  const bool local_m = a.m_mode != kGlobal, taps = a.m_mode == kTaps;
+  const Geo g = geo_of(a, G, rank);
+
+  Scratch s;
+  s.redA = reinterpret_cast<float*>(smem);
+  s.redB = s.redA + kWarps * 2;
+  s.redD = s.redB + kWarps * 2;
+  s.DR = s.redD + kWarps * 3;
+  s.win = s.DR + a.tseg;
+  s.part = s.win + max(a.sm_fp, a.sv_fp) * a.wf;
+  float* pub = a.gpub + (size_t)b * 3 * G * kPub;
+  s.pubA = pub;
+  s.pubB = pub + G * kPub;
+  s.pubD = pub + 2 * G * kPub;
+  s.tt = reinterpret_cast<Aff*>(a.gtt) + (size_t)b * 4 * kTiles;
+  const size_t L = (size_t)a.L;
+  const size_t nfs = 2 + (local_m ? 1 : 0) + (taps ? 1 : 0);
+  float* fb = a.gfld + (size_t)b * nfs * L + g.lo;
+  float* mS = fb + 2 * L;
+  float* dS = mS + (local_m ? L : 0);
+  b2_steps(a, g, GmemNet{G, a.gbar + (size_t)b * kBar}, b,
+           a.rp_out + (size_t)b * L + g.lo, a.rm_out + (size_t)b * L + g.lo,
+           fb, fb + L, mS, dS, s);
+}
+
+cudaError_t configure(int route, int C, size_t smem, int B, void* stream,
                       cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
-  if (C < 1 || C > kMaxCluster || (C & (C - 1))) return cudaErrorInvalidValue;
+  const void* fn = route == 0 ? (const void*)pde_kernel
+                              : (const void*)pde_gmem_kernel;
+  const int top = route == 0 ? kMaxCluster : kMaxCtas;
+  if (C < 1 || C > top || (C & (C - 1))) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      pde_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  if (C > 8) {
+  if (route == 0 && C > 8) {
     e = cudaFuncSetAttribute(
-        pde_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return e;
   }
   cfg = cudaLaunchConfig_t{};
@@ -780,10 +1116,15 @@ cudaError_t configure(int C, size_t smem, int B, void* stream,
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = C;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
+  if (route == 0) {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = C;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+  } else {  // every CTA resident at once, or the launch fails
+    attr.id = cudaLaunchAttributeCooperative;
+    attr.val.cooperative = 1;
+  }
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   return cudaSuccess;
@@ -796,9 +1137,27 @@ cudaError_t configure(int C, size_t smem, int B, void* stream,
 extern "C" int pde_max_active_clusters(int C, int smem, int* out) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t e = configure(C, (size_t)smem, 1, nullptr, cfg, attr);
+  cudaError_t e = configure(0, C, (size_t)smem, 1, nullptr, cfg, attr);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveClusters(out, pde_kernel, &cfg);
+}
+
+// How many CTAs of the device-memory route with `smem` bytes each the card
+// holds at once (CTAs an SM holds times the SMs).
+extern "C" int pde_gmem_max_ctas(int smem, int* out) {
+  cudaError_t e = cudaFuncSetAttribute(
+      pde_gmem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0, dev = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pde_gmem_kernel,
+                                                    kThreads, (size_t)smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  *out = per_sm * sms;
+  return 0;
 }
 
 extern "C" int pde_multi_step_launch(
@@ -807,24 +1166,32 @@ extern "C" int pde_multi_step_launch(
     const float* spin_in, const float* hist_in, float* rp_out,
     float* rm_out, float* pos_out, float* spin_out, float* hist_out,
     float* recs, const double* scan, const float* solve_taps,
-    const float* smooth_taps, float* dens, const int* noise, int B, int L,
+    const float* smooth_taps, float* dens, const int* noise, float* gfld,
+    float* gpub, double* gtt, unsigned* gbar, int B, int L,
     int n_t, int window, int k_steps, int kmax, int m_mode, int solve_mode,
-    int C, int seg, int tseg, int run, int ntiles, int sm_ns, int sm_len,
-    int sm_tb, int sm_fp, int sv_ns, int sv_len, int sv_tb, int sv_fp,
-    int wf, int smem, int periodic, int bidirectional,
+    int route, int C, int seg, int tseg, int run, int ntiles, int sm_ns,
+    int sm_len, int sm_tb, int sm_fp, int sv_ns, int sv_len, int sv_tb,
+    int sv_fp, int wf, int T, int smem, int periodic, int bidirectional,
     float dt, float dx, float xlim, float v_last, float fac, float w_dt,
     float w_2dt, void* stream) {
-  // what the kernel's indexing assumes (ops/pde_kernel.py pde_launch_plan)
+  // what the kernels' indexing assumes (ops/pde_kernel.py pde_launch_plan,
+  // gmem_launch_plan)
   if (seg < 32 || (seg & (seg - 1)) || tseg < 1 || (tseg & (tseg - 1)) ||
-      (size_t)seg * C < (size_t)L || (C - 1) * seg >= L ||
-      (size_t)tseg * C < (size_t)n_t || ntiles < C || ntiles > kTiles ||
-      ntiles % C || (size_t)ntiles * 32 * run < (size_t)L ||
+      (size_t)seg * C < (size_t)L || (size_t)tseg * C < (size_t)n_t ||
+      ntiles < 1 || ntiles > kTiles || (ntiles >= C && ntiles % C) ||
+      (size_t)ntiles * 32 * run < (size_t)L || T < 1 ||
       sm_tb < 1 || sv_tb < 1 || sm_tb % kBlock || sv_tb % kBlock ||
       sm_fp < 1 || sm_fp > 2 || sv_fp < 1 || sv_fp > 2)
     return (int)cudaErrorInvalidValue;
+  if (route == 0 && ((C - 1) * seg >= L || ntiles < C || T != seg ||
+                     seg > 16384))
+    return (int)cudaErrorInvalidValue;
+  if (route == 1 && (seg > kMaxSeg || !gfld || !gpub || !gtt || !gbar))
+    return (int)cudaErrorInvalidValue;
+  if (route != 0 && route != 1) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t e = configure(C, (size_t)smem, B, stream, cfg, attr);
+  cudaError_t e = configure(route, C, (size_t)smem, B, stream, cfg, attr);
   if (e != cudaSuccess) return (int)e;
   const Args a{scal,       seeds,     step0,     b0,          rp_in,
                rm_in,      pos_in,    spin_in,   hist_in,     rp_out,
@@ -834,10 +1201,11 @@ extern "C" int pde_multi_step_launch(
                m_mode,     solve_mode, C,        seg,         tseg,
                run,        ntiles,    sm_ns,     sm_len,      sm_tb,
                sm_fp,      sv_ns,     sv_len,    sv_tb,       sv_fp,
-               wf,         periodic,  bidirectional, dt,
+               wf,         T,         periodic,  bidirectional, dt,
                dx,         xlim,      v_last,    fac,         w_dt,
-               w_2dt};
-  e = cudaLaunchKernelEx(&cfg, pde_kernel, a);
+               w_2dt,      gfld,      gpub,      gtt,         gbar};
+  e = route == 0 ? cudaLaunchKernelEx(&cfg, pde_kernel, a)
+                 : cudaLaunchKernelEx(&cfg, pde_gmem_kernel, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

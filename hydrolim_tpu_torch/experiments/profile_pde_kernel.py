@@ -22,7 +22,15 @@ at B=2, the large-lattice driver's recipe, pointwise m, the banded solve,
 at each C and the plan's C.  ``--mode drift``: the kernel against its
 plain version over 1500 steps of that recipe from the large-lattice
 driver's initial fields, at each ``--lattice`` L (default 1024 and
-8192): the density's difference and each route's mass every 375 steps.  ``--batch`` sets the replicas of 'main' and
+8192): the density's difference and each route's mass every 375 steps;
+with ``--reference FILE`` (``tests/pde_drift_reference.py --out FILE``,
+the JAX XLA path's snapshots on the CPU) also each route's distance from
+the JAX package's fields.  ``--mode route``: kernel B2's two routes
+(``ROUTE_ROWS``: L = 65,536 and 131,072, where both serve, each forced;
+L = 262,144, 1,048,576 and 4,194,304, the device-memory route the card's
+plan takes), B = 2, the large-lattice recipe, with the plain ``pde_step``
+loop on the same fields beside them: µs per step, the route, its CTAs a
+replica and launches.  ``--batch`` sets the replicas of 'main' and
 'smooth' (β over [0, 3]; e.g. 5 and 64, the PDE slice's σ-sweep and
 phase-diagram batches).  Several modes and batches run in one process,
 one row each.  Every mode but 'cluster' calls only what the kernel's
@@ -33,8 +41,8 @@ shape (CUDA events, after a warm-up call), with the step kernel's
 launches a call where the checkout counts them.
 
 Usage: PYTHONPATH=<checkout> python <this file> [--calls 5] [--tag NAME]
-       [--mode main|smooth|spectra|spectra-kernel|rows|cluster|drift ...]
-       [--batch B ...] [--lattice L ...]
+       [--mode main|smooth|spectra|spectra-kernel|rows|cluster|drift|route
+       ...] [--batch B ...] [--lattice L ...] [--reference FILE]
 """
 from __future__ import annotations
 
@@ -211,19 +219,21 @@ def rows(calls: int, tag: str, cluster: bool) -> list:
     return out
 
 
-def drift(tag: str, lattices) -> list:
+def drift(tag: str, lattices, reference: str = "") -> list:
     """Kernel B2 against its plain version over the large-lattice recipe
     (dt = 0.5·dx/λ, γ = 2.5·dx²/dt, pointwise m, the banded solve, 64
     tracers, 8 bins) from the large-lattice driver's initial fields (β =
     0.5, 2.5): at every 375 steps up to 1500, the total density's largest
     difference relative to the plain version's largest value, and each
-    route's mass relative to step 0's.  One JSON row a lattice and
-    step."""
+    route's mass relative to step 0's; with ``reference``, each route's
+    largest distance from the JAX XLA path's total density (relative to
+    its largest value).  One JSON row a lattice and step."""
     from hydrolim_tpu_torch.experiments.large_lattice import pde_rho0
     from hydrolim_tpu_torch.ops.pde_kernel import pde_multi_step_plain
     from hydrolim_tpu_torch.pde.fast_solve import kernel_operands
 
     dev = torch.device("cuda", 0)
+    ref = np.load(reference) if reference else None
     out = []
     for L in lattices:
         dt = 0.5 / L / 0.6
@@ -261,13 +271,85 @@ def drift(tag: str, lattices) -> list:
                        mass_kernel=(a.sum(-1) / mass0 - 1).tolist(),
                        mass_plain=(b.sum(-1) / mass0 - 1).tolist(),
                        card=_card())
+            if ref is not None:
+                jax_at = np.stack([ref[f"rho_{L}_{beta}"][c]
+                                   for beta in (0.5, 2.5)])
+                j = torch.tensor(jax_at, dtype=torch.float64, device=dev)
+                scale = j.abs().amax(-1)
+                row["from_jax_kernel"] = ((a - j).abs().amax(-1)
+                                          / scale).tolist()
+                row["from_jax_plain"] = ((b - j).abs().amax(-1)
+                                         / scale).tolist()
             print(json.dumps(row), flush=True)
             out.append(row)
     return out
 
 
+# --mode route: (L, PDEConfig fields, steps a call, forced routes): where
+# both routes serve, each forced; past a cluster, the card's plan
+ROUTE_ROWS = [
+    (65_536, dict(diffusion_solver="banded"), 400, ("cluster", "gmem")),
+    (131_072, dict(gaussian_kernel=True, kernel_sigma=2e5,
+                   diffusion_solver="banded"), 400, ("cluster", "gmem")),
+    (262_144, dict(diffusion_solver="banded"), 400, (None,)),
+    (1_048_576, dict(diffusion_solver="banded"), 200, (None,)),
+    (4_194_304, dict(diffusion_solver="banded"), 50, (None,)),
+]
+
+
+def route_rows(calls: int, tag: str, plain_steps: int = 20) -> list:
+    """``ROUTE_ROWS``: µs per step of kernel B2 on each route (B = 2, the
+    large-lattice recipe, 64 tracers, 8 bins, native Philox) and of the
+    plain ``pde_step`` loop (the large-lattice driver's step, torch on the
+    card) on the same fields; one JSON row per L.  Each route is also
+    timed without the spectral bins (the step kernel alone, in one launch
+    a call)."""
+    from hydrolim_tpu_torch.core.config import PDEParams
+    from hydrolim_tpu_torch.ops import pde_kernel as pk
+    from hydrolim_tpu_torch.pde.stepper import build_pde_ops, pde_step
+
+    dev = torch.device("cuda", 0)
+    out = []
+    for L, over, k, routes in ROUTE_ROWS:
+        config, gamma, ops, scal, state = b2_inputs(
+            dev, over, dict(B=2, n_t=64, W=20, **_recipe(L)))
+        seeds = torch.arange(2, dtype=torch.int32, device=dev)
+        kw = dict(L=L, n_t=64, window=config.tracer_window, k_steps=k,
+                  dt=config.dt, xlim=config.xlim, periodic=True,
+                  m_mode=ops[0], solve_mode=ops[1], bidirectional=True,
+                  kmax_rec=8)
+        row = dict(tag=tag, L=L, B=2, k_steps=k, m_mode=ops[0],
+                   solve_mode=ops[1], card=_card(), routes={})
+        for route in routes:
+            n0 = pk.pde_multi_step.launches
+            fn = lambda: pk.pde_multi_step(scal, seeds, 0, *state, ops[3],
+                                           ops[2], route=route, **kw)
+            us = _time(fn, k, calls)
+            plan = pk.pde_multi_step.last_plan
+            launches = (pk.pde_multi_step.launches - n0) // (calls + 1)
+            bare = _time(lambda: pk.pde_multi_step(
+                scal, seeds, 0, *state, ops[3], ops[2], route=route,
+                **dict(kw, kmax_rec=0)), k, calls)
+            row["routes"][plan.route] = dict(
+                us_per_step=us, us_per_step_without_bins=bare,
+                ctas=plan.ctas, waves=plan.waves,
+                launches_per_call=launches)
+        params = PDEParams(beta=scal[:, 0], lam=scal[:, 1], gamma=scal[:, 2])
+        pops = build_pde_ops(config, gamma, dev)
+        rp, rm = state[0].clone(), state[1].clone()
+
+        def plain():
+            nonlocal rp, rm
+            for _ in range(plain_steps):
+                rp, rm = pde_step(config, params, pops, rp, rm)
+        row["plain_pde_step_us_per_step"] = _time(plain, plain_steps, calls)
+        print(json.dumps(row), flush=True)
+        out.append(row)
+    return out
+
+
 def main(calls: int = 5, tag: str = "", mode: str = "main",
-         batch=None, lattices=(1024, 8192)) -> dict:
+         batch=None, lattices=(1024, 8192), reference: str = "") -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_pde_kernel: needs a CUDA device")
     if mode == "spectra-kernel":
@@ -275,7 +357,9 @@ def main(calls: int = 5, tag: str = "", mode: str = "main",
     if mode in ("rows", "cluster"):
         return rows(calls, tag, mode == "cluster")
     if mode == "drift":
-        return drift(tag, lattices)
+        return drift(tag, lattices, reference)
+    if mode == "route":
+        return route_rows(calls, tag)
     dev = torch.device("cuda", 0)
     L, k, dt, gamma, kmax = 1000, 2000, 5e-4, 0.2, 8
     if mode == "spectra":
@@ -346,10 +430,11 @@ if __name__ == "__main__":
     p.add_argument("--tag", default="")
     p.add_argument("--mode", default=["main"], nargs="+",
                    choices=["main", "smooth", "spectra", "spectra-kernel",
-                            "rows", "cluster", "drift"])
+                            "rows", "cluster", "drift", "route"])
     p.add_argument("--batch", type=int, default=[0], nargs="+")
     p.add_argument("--lattice", type=int, default=[1024, 8192], nargs="+")
+    p.add_argument("--reference", default="")
     a = p.parse_args()
     for mode in a.mode:
         for batch in (a.batch if mode in ("main", "smooth") else [0]):
-            main(a.calls, a.tag, mode, batch or None, a.lattice)
+            main(a.calls, a.tag, mode, batch or None, a.lattice, a.reference)

@@ -7,6 +7,13 @@ kernel (``csrc/pde_multi_step.cu``, the port of the TPU kernel
 ``pde_multi_step_plain``, a loop of the ported magnetization,
 ``_tracer_update`` and ``pde_step`` with the kernel's record layout.
 
+The kernel has two routes (``pde_route_plan`` picks one): a cluster of C
+CTAs per replica with the fields in shared memory (``pde_launch_plan``),
+wherever a cluster holds them, and past that G co-resident CTAs per
+replica with the fields in device memory (``gmem_launch_plan``), up to the
+card's free memory (``gmem_max_lattice``).  Both give the same values bit
+for bit.
+
 Modes, as in the TPU kernel:
 - ``m_mode``: 'global' (one m per replica), 'pointwise', 'narrow' (the
   Gaussian's 2r+1 centre taps, ``SmoothOperands``) or 'smooth' (the full
@@ -76,6 +83,11 @@ KERNEL_THREADS = 1024         # the threads the circulant's law is cut for
 KBLOCK = 9                    # sites per work unit of the blocked circulant
 CLUSTER_SIZES = (1, 2, 4, 8, 16)  # CTAs per replica (16: non-portable)
 SCAN_TILES = 16               # tiles of the exact solve's scan (at most)
+GMEM_MAX_CTAS = 256           # CTAs per replica on the device-memory route
+GMEM_MAX_SEG = 1 << 24        # sites per CTA on the device-memory route
+GMEM_TILE = 8192              # sites of its circulant's tiles (at most)
+GMEM_MAX_L = 1 << 30          # sites the kernel's int indexing allows
+GMEM_M_MODES = ("global", "pointwise", "narrow")
 _M_CODES = {"global": 0, "pointwise": 1, "narrow": 2, "smooth": 2}
 _SOLVE_CODES = {"none": 0, "exact": 1, "banded": 2}
 
@@ -240,6 +252,14 @@ def lattice_pow2(L: int) -> int:
     return max(32, 1 << (L - 1).bit_length())
 
 
+def scan_law(Lp: int) -> Tuple[int, int]:
+    """(run, tiles) of the exact solve's scan on the padded lattice: at
+    most ``SCAN_TILES`` tiles of 32 runs of ``run`` sites, on both
+    routes at every CTA count."""
+    tile = max(32, Lp // SCAN_TILES)
+    return tile // 32, Lp // tile
+
+
 @dataclasses.dataclass(frozen=True)
 class CircStage:
     """One circulant of a CTA: its law (``ns`` slices of ``length`` taps,
@@ -282,6 +302,44 @@ class PDEPlan:
     part: int
     smem: int
     waves: int = 1
+    route: str = "cluster"
+
+    @property
+    def ctas(self) -> int:
+        """CTAs per replica."""
+        return self.cluster
+
+    @property
+    def tile(self) -> int:
+        """Sites of the circulant's tiles: the whole segment."""
+        return self.seg
+
+
+@dataclasses.dataclass(frozen=True)
+class GmemPlan:
+    """The device-memory route of kernel B2: ``ctas`` (G) co-resident CTAs
+    per replica, each owning ``seg`` sites of the padded lattice (a power
+    of two) and ``tseg`` tracers, the fields in device memory; the exact
+    solve's scan as the cluster route's (``tiles`` tiles of 32 runs of
+    ``run`` sites); the circulants staged in ``tile``-site tiles of the
+    segment (``wf`` floats a field, ``part`` floats of partial sums);
+    ``smem`` bytes of shared memory per CTA; ``per_launch`` replicas a
+    launch holds co-resident, ``waves`` = ⌈B / per_launch⌉ launches."""
+
+    ctas: int
+    seg: int
+    tseg: int
+    run: int
+    tiles: int
+    smooth: CircStage
+    solve: CircStage
+    tile: int
+    wf: int
+    part: int
+    smem: int
+    per_launch: int = 1
+    waves: int = 1
+    route: str = "gmem"
 
 
 def cta_smem_bytes(seg: int, tseg: int, local_m: bool, taps: bool,
@@ -297,11 +355,31 @@ def cta_smem_bytes(seg: int, tseg: int, local_m: bool, taps: bool,
     return 16 * 4 * 32 + 4 * floats
 
 
+def _staging(used: Mapping[str, Tuple[int, int]], fp: int, cap: int,
+             span: int):
+    """The circulants' stages at ``fp`` fields a group and at most ``cap``
+    taps a pass, and their window and partial-sum floats for a tile of
+    ``span`` sites: (stages, wf, part)."""
+    st = {k: CircStage(ns, ln, max(KBLOCK, min(ns * ln, cap)), fp)
+          for k, (ns, ln) in used.items()}
+    tb = max((c.tb for c in st.values()), default=0)
+    if not st:
+        wf = 0
+    elif all(c.tb >= c.taps for c in st.values()):
+        wf = span + KBLOCK + 2 * tb      # one window a pass
+    else:
+        wf = 2 * (span + KBLOCK + tb)    # a left and a right region
+    part = max((0 if c.direct else fp * c.ns * span
+                for c in st.values()), default=0)
+    return st, wf, part
+
+
 def cta_layout(L: int, n_t: int, C: int, m_mode: str,
-               circulants: Mapping[str, int]) -> Optional[PDEPlan]:
+               circulants: Mapping[str, int],
+               smem_limit: int = SMEM_LIMIT) -> Optional[PDEPlan]:
     """The layout of a cluster of C CTAs for one call, or None where it
-    does not fit: each CTA at least 32 sites and none empty, the scan's
-    tiles a multiple of C, and shared memory within ``SMEM_LIMIT``.
+    does not fit: each CTA 32 to 16,384 sites and none empty, the scan's
+    tiles a multiple of C, and shared memory within ``smem_limit``.
     ``circulants`` maps 'smooth' / 'solve' to the radius of the call's
     circulants, whose laws are ``tap_law``'s.  The staging takes both
     fields and a pass of every tap where that fits, else one field at a
@@ -311,9 +389,8 @@ def cta_layout(L: int, n_t: int, C: int, m_mode: str,
     and a right region of seg + 9 + tb sites."""
     Lp = lattice_pow2(L)
     seg = Lp // C
-    tile = max(32, Lp // SCAN_TILES)   # 32 runs of tile / 32 sites
-    tiles = Lp // tile
-    if seg < 32 or (C - 1) * seg >= L or tiles % C:
+    run, tiles = scan_law(Lp)
+    if not 32 <= seg <= 16_384 or (C - 1) * seg >= L or tiles % C:
         return None
     tseg = max(1, (1 << (max(n_t, 1) - 1).bit_length()) // C)
     local_m, taps = m_mode != "global", m_mode in ("narrow", "smooth")
@@ -322,20 +399,10 @@ def cta_layout(L: int, n_t: int, C: int, m_mode: str,
     for fp in (2, 1):
         cap = max(KBLOCK, top)
         while True:
-            st = {k: CircStage(ns, ln, max(KBLOCK, min(ns * ln, cap)), fp)
-                  for k, (ns, ln) in used.items()}
-            tb = max((c.tb for c in st.values()), default=0)
-            if not st:
-                wf = 0
-            elif all(c.tb >= c.taps for c in st.values()):
-                wf = seg + KBLOCK + 2 * tb      # one window a pass
-            else:
-                wf = 2 * (seg + KBLOCK + tb)    # a left and a right region
-            part = max((0 if c.direct else fp * c.ns * seg
-                        for c in st.values()), default=0)
+            st, wf, part = _staging(used, fp, cap, seg)
             smem = cta_smem_bytes(seg, tseg, local_m, taps, fp, wf, part)
-            if smem <= SMEM_LIMIT:
-                return PDEPlan(C, seg, tseg, tile // 32, tiles,
+            if smem <= smem_limit:
+                return PDEPlan(C, seg, tseg, run, tiles,
                                st.get("smooth", CircStage()),
                                st.get("solve", CircStage()), wf, part,
                                smem)
@@ -372,8 +439,8 @@ def pde_launch_plan(B: int, L: int, n_t: int, m_mode: str,
                     circulants: Mapping[str, int],
                     coresident: Mapping[int, int], *,
                     cluster: Optional[int] = None,
-                    launchable: Optional[Mapping[int, int]] = None
-                    ) -> PDEPlan:
+                    launchable: Optional[Mapping[int, int]] = None,
+                    smem_limit: int = SMEM_LIMIT) -> PDEPlan:
     """The plan of one call.  ``coresident[C]`` is how many clusters of C
     CTAs (at C's layout, ``cta_layout``) the card holds at once (absent or
     0: cannot launch).  Among the C of ``CLUSTER_SIZES`` that fit, with
@@ -381,18 +448,20 @@ def pde_launch_plan(B: int, L: int, n_t: int, m_mode: str,
     smallest.  ``cluster`` forces C.
     Raises ValueError where no C fits, naming the largest L this
     configuration serves (``pde_max_lattice`` over the C in
-    ``launchable``, by default those in ``coresident``)."""
+    ``launchable``, by default those in ``coresident``).  ``smem_limit``:
+    the shared memory a CTA may use."""
     sizes = [cluster] if cluster else CLUSTER_SIZES
-    lay = {C: cta_layout(L, n_t, C, m_mode, circulants) for C in sizes}
+    lay = {C: cta_layout(L, n_t, C, m_mode, circulants, smem_limit)
+           for C in sizes}
     ok = [C for C in sizes
           if lay[C] is not None and int(coresident.get(C, 0)) > 0]
     if not ok:
         top = pde_max_lattice(n_t, m_mode, circulants,
-                              launchable or coresident)
+                              launchable or coresident, smem_limit)
         raise ValueError(
             f"pde_multi_step kernel: L={L}, n_t={n_t}, m_mode {m_mode!r} "
             f"fit no cluster of {list(sizes)} CTAs: it needs more than the "
-            f"{SMEM_LIMIT} B of shared memory a CTA may use; the largest L "
+            f"{smem_limit} B of shared memory a CTA may use; the largest L "
             f"this configuration serves on this card is {top}")
     waves = {C: -(-B // int(coresident[C])) for C in ok}
     fewest = min(waves.values())
@@ -404,7 +473,8 @@ def pde_launch_plan(B: int, L: int, n_t: int, m_mode: str,
 
 
 def pde_max_lattice(n_t: int, m_mode: str, circulants: Mapping[str, int],
-                    launchable: Mapping[int, int]) -> int:
+                    launchable: Mapping[int, int],
+                    smem_limit: int = SMEM_LIMIT) -> int:
     """The largest L (a power of two) that a cluster of a size in
     ``launchable`` (non-zero: the card can launch it) serves for this
     configuration: the full circulant's radius grows with L (L//2), the
@@ -414,12 +484,171 @@ def pde_max_lattice(n_t: int, m_mode: str, circulants: Mapping[str, int],
         radii = dict(circulants)
         if m_mode == "smooth":
             radii["smooth"] = Lp // 2
-        if not any(cta_layout(Lp, n_t, C, m_mode, radii) is not None
+        if not any(cta_layout(Lp, n_t, C, m_mode, radii, smem_limit)
+                   is not None
                    and int(launchable.get(C, 0)) > 0
                    for C in CLUSTER_SIZES):
             break
         best, Lp = Lp, 2 * Lp
     return best
+
+
+def gmem_smem_bytes(tseg: int, fp: int, wf: int, part: int) -> int:
+    """Shared memory of one CTA of the device-memory route
+    (``csrc/pde_multi_step.cu`` ``pde_gmem_kernel``, in its order): 7 × 16
+    warp totals, the tracers' displacements, the staging windows and the
+    partial sums."""
+    return 4 * (7 * 16 + tseg + fp * wf + part)
+
+
+def gmem_layout(L: int, n_t: int, G: int, m_mode: str,
+                circulants: Mapping[str, int],
+                smem_limit: int = SMEM_LIMIT) -> Optional[GmemPlan]:
+    """The layout of G CTAs of the device-memory route for one call, or
+    None where it does not fit: a power of two G up to ``GMEM_MAX_CTAS``,
+    each CTA 32 to ``GMEM_MAX_SEG`` sites, the m modes of
+    ``GMEM_M_MODES`` (the full circulant's L//2 taps a site stay on the
+    cluster route), and shared memory within ``smem_limit``.  The scan's
+    tiles and the circulants' laws are the cluster route's; a circulant
+    stages tiles of at most ``GMEM_TILE`` sites, fewer (halved down to 32)
+    where its windows do not fit."""
+    Lp = lattice_pow2(L)
+    if (G < 1 or G > GMEM_MAX_CTAS or G & (G - 1) or m_mode not in
+            GMEM_M_MODES or not 32 <= Lp // G <= GMEM_MAX_SEG
+            or L > GMEM_MAX_L):
+        return None
+    seg = Lp // G
+    run, tiles = scan_law(Lp)
+    tseg = max(1, (1 << (max(n_t, 1) - 1).bit_length()) // G)
+    used = {k: tap_law(L, R) for k, R in circulants.items()}
+    top = max((ns * ln for ns, ln in used.values()), default=0)
+    T = min(seg, GMEM_TILE)
+    while T >= 32:
+        for fp in (2, 1):
+            st, wf, part = _staging(used, fp, max(KBLOCK, top), T)
+            smem = gmem_smem_bytes(tseg, fp, wf, part)
+            if smem <= smem_limit:
+                return GmemPlan(G, seg, tseg, run, tiles,
+                                st.get("smooth", CircStage()),
+                                st.get("solve", CircStage()), T, wf, part,
+                                smem)
+        T //= 2
+    return None
+
+
+def gmem_launch_plan(B: int, L: int, n_t: int, m_mode: str,
+                     circulants: Mapping[str, int], coresident_ctas, *,
+                     ctas: Optional[int] = None,
+                     smem_limit: int = SMEM_LIMIT) -> GmemPlan:
+    """The device-memory route's plan of one call.  ``coresident_ctas``:
+    the CTAs of this route the card holds at once, a number or a function
+    of a CTA's shared-memory bytes (``gmem_max_ctas``).  G is the largest
+    power of two with all B replicas' CTAs co-resident (B·G at most the
+    card's), within the layout's bounds (``gmem_layout``), at least 1;
+    replicas past one launch's co-resident CTAs run as further launches
+    (``waves``).  ``ctas`` forces G.  Raises ValueError where no G fits
+    or the card holds not even one replica's CTAs."""
+    co_of = (coresident_ctas if callable(coresident_ctas)
+             else (lambda smem: int(coresident_ctas)))
+    Lp = lattice_pow2(L)
+    if ctas is None:
+        top = min(GMEM_MAX_CTAS, max(1, Lp // 32))
+        floor = max(1, -(-Lp // GMEM_MAX_SEG))
+        G = top
+        while G > floor:
+            lay = gmem_layout(L, n_t, G, m_mode, circulants, smem_limit)
+            if lay is not None and B * G <= co_of(lay.smem):
+                break
+            G //= 2
+    else:
+        G = ctas
+    lay = gmem_layout(L, n_t, G, m_mode, circulants, smem_limit)
+    if lay is None:
+        raise ValueError(
+            f"pde_multi_step kernel, device-memory route: L={L}, n_t={n_t}, "
+            f"m_mode {m_mode!r} fits no layout of {G} CTAs a replica (m "
+            f"modes {GMEM_M_MODES}, at most {GMEM_MAX_CTAS} CTAs of 32 to "
+            f"{GMEM_MAX_SEG} sites, L at most {GMEM_MAX_L}, {smem_limit} B "
+            "of shared memory a CTA)")
+    co = int(co_of(lay.smem))
+    if co < G:
+        raise ValueError(
+            f"pde_multi_step kernel, device-memory route: the card holds "
+            f"{co} of its CTAs at once, fewer than the {G} of one replica")
+    per = min(B, co // G)
+    return dataclasses.replace(lay, per_launch=per, waves=-(-B // per))
+
+
+def gmem_call_bytes(plan: GmemPlan, B: int, L: int, n_t: int, window: int,
+                    m_mode: str, kmax_rec: int, k_steps: int) -> int:
+    """Device memory a call on the device-memory route allocates: the
+    outputs (the two fields, the tracers and their ring, the records), the
+    device scratch (the fields Q, N, m and the smoothed denominator where
+    used; the published totals, the scan's tile totals and the arrival
+    counters of one launch's replicas) and the spectra's density scratch
+    (``spectra_plan``)."""
+    nfs = 2 + int(m_mode != "global") + int(m_mode == "narrow")
+    per = plan.per_launch
+    out = 4 * B * (2 * L + 2 * n_t + window * n_t + k_steps
+                   * (4 + 2 * kmax_rec))
+    scratch = 4 * per * (nfs * L + 3 * plan.ctas * 4 + 32) + 16 * per * 128
+    dens = 0
+    if kmax_rec:
+        sp = spectra_plan(B, k_steps, L, kmax_rec)
+        dens = 4 * B * sp.piece * L
+        if sp.scratch:
+            dens += 4 * 2 * (L // sp.n1) * min(sp.n1, kmax_rec) * (
+                -(-B * sp.piece // sp.rows_per_block) * sp.rows_per_block)
+    return out + scratch + dens
+
+
+def gmem_max_lattice(plan_of, B: int, n_t: int, window: int, m_mode: str,
+                     kmax_rec: int, k_steps: int, mem_bytes: int) -> int:
+    """The largest L whose call fits ``mem_bytes`` of device memory
+    (``gmem_call_bytes`` under the plan ``plan_of(L)`` gives), by
+    bisection over L (the bytes grow with L); 0 where none does."""
+    def fits(L):
+        plan = plan_of(L)
+        return plan is not None and gmem_call_bytes(
+            plan, B, L, n_t, window, m_mode, kmax_rec, k_steps) <= mem_bytes
+    lo, hi = 0, GMEM_MAX_L
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if mid >= 3 and fits(mid):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def pde_route_plan(B: int, L: int, n_t: int, m_mode: str,
+                   circulants: Mapping[str, int],
+                   coresident: Mapping[int, int], coresident_ctas, *,
+                   route: Optional[str] = None,
+                   cluster: Optional[int] = None,
+                   ctas: Optional[int] = None,
+                   launchable: Optional[Mapping[int, int]] = None,
+                   smem_limit: int = SMEM_LIMIT):
+    """The route and plan of one call: the cluster route
+    (``pde_launch_plan``) wherever a cluster fits, the device-memory route
+    (``gmem_launch_plan``) past it.  ``route`` ('cluster' or 'gmem')
+    forces one; ``cluster`` / ``ctas`` force its C / G.  The full
+    circulant (m_mode 'smooth') has no device-memory route: past a
+    cluster it raises the cluster route's ValueError."""
+    if route not in (None, "cluster", "gmem"):
+        raise ValueError(f"pde_multi_step: unknown route {route!r}")
+    kw = dict(smem_limit=smem_limit)
+    if route == "gmem":
+        return gmem_launch_plan(B, L, n_t, m_mode, circulants,
+                                coresident_ctas, ctas=ctas, **kw)
+    try:
+        return pde_launch_plan(B, L, n_t, m_mode, circulants, coresident,
+                               cluster=cluster, launchable=launchable, **kw)
+    except ValueError:
+        if route == "cluster" or m_mode not in GMEM_M_MODES:
+            raise
+    return gmem_launch_plan(B, L, n_t, m_mode, circulants, coresident_ctas,
+                            ctas=ctas, **kw)
 
 
 def _occupancy_fn():
@@ -436,6 +665,20 @@ def max_active_clusters(device_index: int, C: int, smem: int) -> int:
     cnt = ctypes.c_int(0)
     with torch.cuda.device(device_index):
         rc = _occupancy_fn()(C, smem, ctypes.byref(cnt))
+    return cnt.value if rc == 0 else 0
+
+
+@functools.lru_cache(maxsize=256)
+def gmem_max_ctas(device_index: int, smem: int) -> int:
+    """CTAs of the device-memory route with ``smem`` bytes each the card
+    holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` times
+    the SMs; 0 where it cannot launch)."""
+    fn = load_kernel_library("pde_multi_step").pde_gmem_max_ctas
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    cnt = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = fn(smem, ctypes.byref(cnt))
     return cnt.value if rc == 0 else 0
 
 
@@ -523,7 +766,7 @@ def spectra_split(L: int) -> int:
     """n1 of the spectra kernel's split L = n1·n2: the smallest divisor of
     L at least √L (40 at L = 1000; L itself for a prime L, the direct
     sum)."""
-    return next(d for d in range(math.isqrt(L - 1) + 1, L + 1) if L % d == 0)
+    return L // max(d for d in range(1, math.isqrt(L) + 1) if L % d == 0)
 
 
 def spectra_smem_bytes(L: int, kmax: int, n1: int, rows: int,
@@ -685,7 +928,8 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
                    bidirectional: bool,
                    kmax_rec: int = 0, b0: int = 0,
                    noise: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   route: Optional[str] = None):
     """Advance k IMEX steps (fields + tracers).
 
     Args:
@@ -703,6 +947,8 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
       kmax_rec: rfft bins recorded per step (any number up to L//2 + 1).
       b0: global index of the first replica (native-mode key).
       noise: optional (B, k_steps, 3, n_t) int32 random bits.
+      route: the kernel's route on the card, 'cluster' or 'gmem' (None:
+        ``pde_route_plan``'s choice); the plain version has one.
 
     Returns (rho_p, rho_m, pos, spin, hist, recs), recs
     (B, k_steps, 4 + 2·kmax_rec) float32 with NaN v/D before the first full
@@ -717,21 +963,48 @@ def pde_multi_step(scal, seeds, step0: int, rho_p, rho_m, pos, spin, hist,
     if rho_p.device.type != "cuda":
         raise ValueError(f"pde_multi_step: unsupported device {rho_p.device}")
     del kw["generator"]                    # the kernel draws natively
-    return pde_multi_step_planned(None, *args, **kw)
+    return pde_multi_step_planned(None, *args, route=route, **kw)
 
 
 @functools.lru_cache(maxsize=256)
 def card_plan(device_index: int, B: int, L: int, n_t: int, m_mode: str,
-              circulants: tuple) -> PDEPlan:
-    """``pde_launch_plan`` on the card (``circulants``: the sorted items
-    of ``call_circulants``), the co-resident clusters from the card's
-    occupancy query."""
+              circulants: tuple, route: Optional[str] = None):
+    """``pde_route_plan`` on the card (``circulants``: the sorted items of
+    ``call_circulants``): the co-resident clusters and CTAs from the
+    card's occupancy queries."""
     circ = dict(circulants)
-    return pde_launch_plan(
+    return pde_route_plan(
         B, L, n_t, m_mode, circ,
         card_coresident(device_index, L, n_t, m_mode, circ),
+        functools.partial(gmem_max_ctas, device_index), route=route,
         launchable={C: max_active_clusters(device_index, C, SMEM_LIMIT)
                     for C in CLUSTER_SIZES})
+
+
+def check_gmem_memory(plan: GmemPlan, free_bytes: int, *, B: int, L: int,
+                      n_t: int, window: int, m_mode: str, circulants,
+                      kmax_rec: int, k_steps: int, coresident_ctas) -> None:
+    """Raise ValueError, before any launch, where a call on the
+    device-memory route needs more than ``free_bytes`` of device memory,
+    naming the largest L this configuration serves with them
+    (``gmem_max_lattice``)."""
+    need = gmem_call_bytes(plan, B, L, n_t, window, m_mode, kmax_rec,
+                           k_steps)
+    if need <= free_bytes:
+        return
+
+    def plan_of(L2):
+        try:
+            return gmem_launch_plan(B, L2, n_t, m_mode, circulants,
+                                    coresident_ctas)
+        except ValueError:
+            return None
+    top = gmem_max_lattice(plan_of, B, n_t, window, m_mode, kmax_rec,
+                           k_steps, free_bytes)
+    raise ValueError(
+        f"pde_multi_step kernel, device-memory route: L={L} at B={B} needs "
+        f"{need} B of device memory, more than the {free_bytes} B free; "
+        f"the largest L this configuration serves with them is {top}")
 
 
 def _check_call(scal, seeds, step0, rho_p, rho_m, pos, spin, hist, solve,
@@ -777,9 +1050,17 @@ def _check_call(scal, seeds, step0, rho_p, rho_m, pos, spin, hist, solve,
             raise ValueError(f"{name} taps: radius {t.shape[0] - 1} > L/2")
 
 
-def pde_multi_step_planned(plan: Optional[PDEPlan], scal, seeds,
-                           step0: int, rho_p,
-                           rho_m, pos, spin, hist,
+def _launch_fn():
+    fn = load_kernel_library("pde_multi_step").pde_multi_step_launch
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 20 + [ctypes.c_int] * 27
+                   + [ctypes.c_float] * 7 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def pde_multi_step_planned(plan, scal, seeds, step0: int, rho_p, rho_m,
+                           pos, spin, hist,
                            solve: Optional[SolveOperands],
                            smooth: Optional[SmoothOperands] = None, *,
                            L: int, n_t: int, window: int, k_steps: int,
@@ -787,23 +1068,38 @@ def pde_multi_step_planned(plan: Optional[PDEPlan], scal, seeds,
                            m_mode: str, solve_mode: str,
                            bidirectional: bool, kmax_rec: int = 0,
                            b0: int = 0,
-                           noise: Optional[torch.Tensor] = None):
+                           noise: Optional[torch.Tensor] = None,
+                           route: Optional[str] = None):
     """``pde_multi_step`` on CUDA tensors under a given plan: the card's
-    (``card_plan``) where ``plan`` is None, or one that
-    ``pde_launch_plan(..., cluster=C)`` forces, to compare cluster
-    sizes."""
+    (``card_plan``, on ``route`` where given) where ``plan`` is None, or
+    one that ``pde_launch_plan(..., cluster=C)`` or ``gmem_launch_plan(...,
+    ctas=G)`` forces, to compare cluster sizes and routes.  A plan of the
+    device-memory route runs ⌈B / per_launch⌉ launches, each over its
+    replicas' rows."""
     _check_call(scal, seeds, step0, rho_p, rho_m, pos, spin, hist, solve,
                 smooth, L=L, n_t=n_t, window=window, k_steps=k_steps,
                 m_mode=m_mode, solve_mode=solve_mode, kmax_rec=kmax_rec,
                 b0=b0, noise=noise)
     B, dev = rho_p.shape[0], rho_p.device
     circ = call_circulants(L, m_mode, solve_mode, smooth, solve)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
     if plan is None:
-        idx = dev.index if dev.index is not None else \
-            torch.cuda.current_device()
-        plan = card_plan(idx, B, L, n_t, m_mode, tuple(sorted(circ.items())))
-    lay = cta_layout(L, n_t, plan.cluster, m_mode, circ)
-    if lay is None or dataclasses.replace(plan, waves=1) != lay:
+        plan = card_plan(idx, B, L, n_t, m_mode, tuple(sorted(circ.items())),
+                         route)
+    gmem = plan.route == "gmem"
+    if gmem:
+        lay = gmem_layout(L, n_t, plan.ctas, m_mode, circ)
+        fits = lay is not None and dataclasses.replace(
+            plan, per_launch=1, waves=1) == lay and 1 <= plan.per_launch
+        check_gmem_memory(plan, torch.cuda.mem_get_info(dev)[0], B=B, L=L,
+                          n_t=n_t, window=window, m_mode=m_mode,
+                          circulants=circ, kmax_rec=kmax_rec,
+                          k_steps=k_steps, coresident_ctas=functools.partial(
+                              gmem_max_ctas, idx))
+    else:
+        lay = cta_layout(L, n_t, plan.cluster, m_mode, circ)
+        fits = lay is not None and dataclasses.replace(plan, waves=1) == lay
+    if not fits:
         raise ValueError(f"pde_multi_step: a plan for {plan} does not fit "
                          f"L={L}, n_t={n_t}, m_mode {m_mode!r}")
     fac = solve.factors if solve_mode == "exact" else None
@@ -812,16 +1108,22 @@ def pde_multi_step_planned(plan: Optional[PDEPlan], scal, seeds,
             "smooth": (_kernel_taps(smooth, plan.smooth.ns,
                                     plan.smooth.length)
                        if smooth is not None else None)}
-    lib = load_kernel_library("pde_multi_step")
+    fn = _launch_fn()
     sp = spectra_plan(B, k_steps, L, kmax_rec) if kmax_rec else None
     piece = sp.piece if sp else k_steps
     dens = (torch.empty(B * piece * L, dtype=torch.float32, device=dev)
             if sp else None)
-    fn = lib.pde_multi_step_launch
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 16 + [ctypes.c_int] * 25
-                   + [ctypes.c_float] * 7 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    per = plan.per_launch if gmem else B
+    g = None
+    if gmem:   # one launch's device scratch, reused launch after launch
+        nfs = 2 + int(m_mode != "global") + int(m_mode == "narrow")
+        g = dict(fld=torch.empty((per, nfs, L), dtype=torch.float32,
+                                 device=dev),
+                 pub=torch.empty((per, 3, plan.ctas, 4), dtype=torch.float32,
+                                 device=dev),
+                 tt=torch.empty((per, 128, 2), dtype=torch.float64,
+                                device=dev),
+                 bar=torch.zeros((per, 32), dtype=torch.int32, device=dev))
     stream = torch.cuda.current_stream(dev)
     if pde_multi_step.events is not None:
         pde_multi_step.events.append(
@@ -837,33 +1139,55 @@ def pde_multi_step_planned(plan: Optional[PDEPlan], scal, seeds,
         d = dens[:B * kp * L].view(B, kp, L) if sp else None
         nz = (noise if noise is None or kp == k_steps
               else noise[:, s0:s0 + kp].contiguous())
-        pde_multi_step.launches += 1
-        rc = fn(ptr(scal), ptr(seeds), step0 + s0, b0,
-                *[ptr(t) for t in state], *[ptr(t) for t in outs],
-                ptr(recs), ptr(fac.scan if fac is not None else None),
-                ptr(taps["solve"]), ptr(taps["smooth"]), ptr(d), ptr(nz),
-                B, L, n_t, window, kp, kmax_rec, _M_CODES[m_mode],
-                _SOLVE_CODES[solve_mode], plan.cluster, plan.seg, plan.tseg,
-                plan.run, plan.tiles, sm.ns, sm.length, sm.tb, sm.fp,
-                sv.ns, sv.length, sv.tb, sv.fp, plan.wf, plan.smem,
-                int(periodic), int(bidirectional), dt, xlim / L,
-                xlim, 0.0 if fac is None else fac.v_last,
-                0.0 if fac is None else fac.fac, window * dt,
-                2.0 * window * dt, ctypes.c_void_p(stream.cuda_stream))
-        check_cuda(rc, "pde_multi_step")
+        for r0 in range(0, B, per):                # a launch's replicas
+            nb = min(per, B - r0)
+            rows = slice(r0, r0 + nb)
+            if g is not None:
+                g["bar"].zero_()
+            pde_multi_step.launches += 1
+            pde_multi_step.route_launches[plan.route] += 1
+            rc = fn(ptr(scal[rows]), ptr(seeds[rows]), step0 + s0, b0 + r0,
+                    *[ptr(t[rows]) for t in state],
+                    *[ptr(t[rows]) for t in outs], ptr(recs[rows]),
+                    ptr(fac.scan if fac is not None else None),
+                    ptr(taps["solve"]), ptr(taps["smooth"]),
+                    ptr(d[rows] if d is not None else None),
+                    ptr(nz[rows] if nz is not None else None),
+                    *[ptr(g[k] if g else None)
+                      for k in ("fld", "pub", "tt", "bar")],
+                    nb, L, n_t, window, kp, kmax_rec, _M_CODES[m_mode],
+                    _SOLVE_CODES[solve_mode], int(gmem), plan.ctas,
+                    plan.seg, plan.tseg, plan.run, plan.tiles, sm.ns,
+                    sm.length, sm.tb, sm.fp, sv.ns, sv.length, sv.tb, sv.fp,
+                    plan.wf, plan.tile, plan.smem, int(periodic),
+                    int(bidirectional), dt, xlim / L, xlim,
+                    0.0 if fac is None else fac.v_last,
+                    0.0 if fac is None else fac.fac, window * dt,
+                    2.0 * window * dt, ctypes.c_void_p(stream.cuda_stream))
+            check_cuda(rc, "pde_multi_step")
         if d is not None:
             pde_spectra(d, recs, kmax_rec)
         state = outs
         parts.append(recs)
     if pde_multi_step.events is not None:      # the steps and their spectra
         pde_multi_step.events[-1][1].record(stream)
+    pde_multi_step.last_plan = plan
     return (*state, parts[0] if len(parts) == 1 else torch.cat(parts, 1))
 
 
-# launches of the kernel; and, while ``events`` is a list, a pair of CUDA
-# events around each launch (``kernel_ms`` sums them) — off by default
+# launches of the kernel, in all and by route ('cluster', 'gmem'); the plan
+# of the last call; and, while ``events`` is a list, a pair of CUDA events
+# around each call (``kernel_ms`` sums them) — off by default
 pde_multi_step.launches = 0
+pde_multi_step.route_launches = {"cluster": 0, "gmem": 0}
+pde_multi_step.last_plan = None
 pde_multi_step.events = None
+
+
+def reset_launches() -> None:
+    """Set kernel B2's and its spectra kernel's launch counters to 0."""
+    pde_multi_step.launches = pde_spectra.launches = 0
+    pde_multi_step.route_launches = {"cluster": 0, "gmem": 0}
 
 
 def kernel_ms(events) -> float:

@@ -5,6 +5,8 @@ with ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py`` (the
 suite's conftest imports jax, which a GPU host need not have); ``chip_smoke.py``
 runs the same comparisons at the main path's shapes.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -324,26 +326,43 @@ def test_b2_kernel_matches_plain(dev, case):
                                atol=1e-8)
 
 
-def test_b2_wrapper_refuses_what_does_not_fit(dev):
-    """A lattice past the largest a cluster of CTAs holds (131,072 sites
-    at C = 16 with a local m) is refused before any launch, with the
-    reason and the limit; so are missing operands."""
-    from hydrolim_tpu_torch.ops.pde_kernel import SMEM_LIMIT
+def test_b2_wrapper_refuses_what_does_not_fit(dev, monkeypatch):
+    """What neither route serves is refused before any launch, with the
+    reason and the limit: the full smoothing circulant past the 65,536
+    sites a cluster holds (it has no device-memory route), and a lattice
+    past the device memory the card has free (here reported as 1 MB);
+    so are missing operands."""
+    from hydrolim_tpu_torch.ops import pde_kernel as pk
+    from hydrolim_tpu_torch.ops.convolve import periodic_gaussian_kernel
 
-    B, L, n_t, W = 1, 140_000, 64, 4
-    rp = torch.full((B, L), 0.5 / L, device=dev)
-    pos = torch.zeros((B, n_t), device=dev)
-    args = (torch.tensor([[1.0, 0.6, 0.0, 0.0]], device=dev),
-            torch.zeros(B, dtype=torch.int32, device=dev), 0, rp, rp.clone(),
-            pos, torch.ones_like(pos), torch.zeros((B, W, n_t), device=dev),
-            None, None)
-    kw = dict(L=L, n_t=n_t, window=W, k_steps=1, dt=1e-4, xlim=1.0,
+    B, n_t, W = 1, 64, 4
+
+    def args(L, smooth=None):
+        rp = torch.full((B, L), 0.5 / L, device=dev)
+        pos = torch.zeros((B, n_t), device=dev)
+        return (torch.tensor([[1.0, 0.6, 0.0, 0.0]], device=dev),
+                torch.zeros(B, dtype=torch.int32, device=dev), 0, rp,
+                rp.clone(), pos, torch.ones_like(pos),
+                torch.zeros((B, W, n_t), device=dev), None, smooth)
+
+    kw = dict(n_t=n_t, window=W, k_steps=1, dt=1e-4, xlim=1.0,
               periodic=True, solve_mode="none", bidirectional=True)
     n0 = pde_multi_step.launches
-    with pytest.raises(ValueError, match=f"more than the {SMEM_LIMIT} B"):
-        pde_multi_step(*args, m_mode="pointwise", **kw)
+    L = 140_000
+    smooth = pk.build_smooth_operands(
+        "smooth", periodic_gaussian_kernel(L, 1.0 / L, 0.05), dev)
+    with pytest.raises(ValueError, match=f"more than the {pk.SMEM_LIMIT} B"
+                       ".*largest L .* is 65536"):
+        pde_multi_step(*args(L, smooth), L=L, m_mode="smooth", **kw)
     with pytest.raises(ValueError, match="needs its SmoothOperands"):
-        pde_multi_step(*args, m_mode="narrow", **kw)
+        pde_multi_step(*args(L), L=L, m_mode="narrow", **kw)
+    L = 262_144
+    total = torch.cuda.mem_get_info(dev)[1]
+    monkeypatch.setattr(pk.torch.cuda, "mem_get_info",
+                        lambda *a: (1 << 20, total))
+    with pytest.raises(ValueError, match="device-memory route: L=262144 .*"
+                       "more than the 1048576 B free; the largest L"):
+        pde_multi_step(*args(L), L=L, m_mode="pointwise", **kw)
     assert pde_multi_step.launches == n0
 
 
@@ -429,6 +448,9 @@ B2_LARGE = {  # (PDEConfig fields, γ (None: the recipe's), modes)
                      ("global", "exact")),
     "pointwise-banded": (dict(diffusion_solver="banded"), None,
                          ("pointwise", "banded")),
+    "global-banded": (dict(gaussian_kernel=True, kernel_sigma=2e5,
+                           diffusion_solver="banded"), None,
+                      ("global", "banded")),
     "pointwise-neumann-exact": (dict(bc="neumann"), None,
                                 ("pointwise", "exact")),
     "narrow-banded": (dict(gaussian_kernel=True, diffusion_solver="banded"),
@@ -468,6 +490,108 @@ def test_b2_past_one_cta_matches_plain(dev, case, L):
                                 k_steps=k, **kw)
     _b2_held(got, want)
     assert not torch.equal(got[0], state[0])
+
+
+# the two routes where both serve: (case of B2_LARGE, L)
+B2_ROUTES = [("pointwise-banded", 65_536), ("narrow-banded", 65_536),
+             ("global-banded", 131_072), ("pointwise-neumann-exact", 131_072)]
+
+
+@pytest.mark.parametrize("case, L", B2_ROUTES)
+def test_b2_routes_are_bitwise_equal(dev, case, L):
+    """Where a cluster serves, the device-memory route forced at its own G
+    (64 CTAs a replica, more than the scan's 16 tiles) and at G = 8 (two
+    tiles a CTA) gives the cluster route's fields, tracers, ring and
+    records bit for bit, under native Philox and at injected bits (B = 2,
+    40 steps of the large-lattice recipe)."""
+    from hydrolim_tpu_torch.ops import pde_kernel as pk
+
+    over, gamma, modes_want = B2_LARGE[case]
+    if modes_want[0] == "narrow":
+        over = dict(over, kernel_sigma=5e-4 * 16_384 / L)
+    gen, modes, scal, seeds, state, kw = _b2_large_case(
+        dev, L, 2, over, gamma=gamma, seed=L + 1)
+    assert modes[:2] == modes_want
+    k = 40
+    noise = _bits((2, k, 3, 64), gen, dev)
+    circ = pk.call_circulants(L, modes[0], modes[1], modes[2], modes[3])
+    co = pk.card_coresident(0, L, 64, modes[0], circ)
+    ctas = functools.partial(pk.gmem_max_ctas, 0)
+    plans = [pk.pde_route_plan(2, L, 64, modes[0], circ, co, ctas)]
+    plans += [pk.pde_route_plan(2, L, 64, modes[0], circ, co, ctas,
+                                route="gmem", ctas=G) for G in (None, 8)]
+    assert [p.route for p in plans] == ["cluster", "gmem", "gmem"]
+    assert plans[1].ctas > 16
+    runs = [[pk.pde_multi_step_planned(p, scal, seeds, 5, *state, modes[3],
+                                       modes[2], k_steps=k, noise=nz, **kw)
+             for nz in (None, noise)] for p in plans]
+    for run in runs[1:]:
+        for got, want in zip(run, runs[0]):
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, rtol=0, atol=0,
+                                           equal_nan=True)
+    assert not torch.equal(runs[0][0][0], state[0])
+
+
+@pytest.mark.parametrize("case, L", [
+    ("pointwise-banded", 262_144), ("pointwise-banded", 1_048_576),
+    ("pointwise-banded", 4_194_304), ("global-banded", 262_144),
+    ("narrow-banded", 262_144), ("pointwise-neumann-exact", 262_144)])
+def test_b2_device_memory_route_matches_plain(dev, case, L):
+    """Past a cluster's shared memory the card's plan is the device-memory
+    route, held to the plain version at injected bits (B = 2, 64 tracers,
+    the large-lattice recipe, 8 steps), at the three large lattices of
+    the recipe and in every m mode and solve it serves at 262,144."""
+    over, gamma, modes_want = B2_LARGE[case]
+    if modes_want[0] == "narrow":
+        over = dict(over, kernel_sigma=5e-4 * 16_384 / L)
+    gen, modes, scal, seeds, state, kw = _b2_large_case(
+        dev, L, 2, over, gamma=gamma, seed=L)
+    assert modes[:2] == modes_want
+    k = 8
+    kw["noise"] = _bits((2, k, 3, 64), gen, dev)
+    n0 = dict(pde_multi_step.route_launches)
+    got = pde_multi_step(scal, seeds, 0, *state, modes[3], modes[2],
+                         k_steps=k, **kw)
+    assert pde_multi_step.last_plan.route == "gmem"
+    assert pde_multi_step.route_launches["gmem"] == n0["gmem"] + 1
+    assert pde_multi_step.route_launches["cluster"] == n0["cluster"]
+    want = pde_multi_step_plain(scal, seeds, 0, *state, modes[3], modes[2],
+                                k_steps=k, **kw)
+    _b2_held(got, want)
+    assert not torch.equal(got[0], state[0])
+
+
+# |B2's mass change − the plain version's| after 1500 steps of the
+# large-lattice recipe at L = 8192, the bound set from the readings
+# (PERF.md, C8): 1.19e-5 and 1.58e-5 (β = 0.5, 2.5) after the repair of
+# the circulant's law, 1.93e-5 and 5.90e-5 before it
+B2_MASS_BOUND = 2.5e-5
+
+
+def test_b2_mass_over_1500_steps_holds_the_plain_versions(dev):
+    """C8: over 1500 steps of the large-lattice recipe (L = 8192, β = 0.5
+    and 2.5, the driver's initial fields, pointwise m, the banded solve),
+    the kernel's total mass moves as its plain version's does, within
+    ``B2_MASS_BOUND`` of step 0's mass."""
+    from hydrolim_tpu_torch.experiments.large_lattice import pde_rho0
+
+    L = 8192
+    gen, modes, scal, seeds, state, kw = _b2_large_case(
+        dev, L, 2, dict(diffusion_solver="banded"))
+    rho0 = [pde_rho0(L, 0, bi) for bi in range(2)]
+    for i, c in ((0, 1.2), (1, 0.8)):
+        state[i] = torch.tensor(np.stack([c * r[i] for r in rho0]),
+                                dtype=torch.float32, device=dev)
+    mass0 = (state[0] + state[1]).double().sum(-1)
+    got = pde_multi_step(scal, seeds, 0, *state, modes[3], modes[2],
+                         k_steps=1500, **kw)
+    want = pde_multi_step_plain(scal, seeds, 0, *state, modes[3], modes[2],
+                                k_steps=1500, generator=gen, **kw)
+    moved = [((r[0] + r[1]).double().sum(-1) / mass0 - 1.0)
+             for r in (got, want)]
+    gap = (moved[0] - moved[1]).abs().max().item()
+    assert gap < B2_MASS_BOUND, (moved, gap)
 
 
 def test_b2_spectra_kernel_at_65536(dev):

@@ -8,9 +8,10 @@ their shape is checked here:
     and back sweeps; the periodic correction) against the sequential Thomas
     solve and the float64 dense inverse;
 (b) B2's blocked circulant: an emulation of the kernel's work units
-    (KBLOCK sites per thread, register windows rotating through their slots,
-    tap slices meeting in slice order) against the dense circulant product
-    and the JAX package's ``build_conv_matrix``;
+    (KBLOCK sites per thread, register windows rotating through their slots
+    as the taps are taken inward, the centre tap last, the tap slices
+    meeting from the last to the first) against the dense circulant
+    product and the JAX package's ``build_conv_matrix``;
 (c) B1's launch plan: co-resident clusters at the main path's and the
     headline's shapes, the cluster-size rule, forced state modes, the
     packed state within shared memory, the winding change within its bits,
@@ -201,31 +202,33 @@ def test_scan_coefficients_are_the_thomas_factors(bc):
 
 def blocked_circulant(x, half, avail_floats):
     """Kernel B2's ``circulant`` on one field, emulated unit by unit (all
-    units at once): out[i] = w0·x[i] + Σ_d w(d)·(x[i−d] + x[i+d])."""
+    units at once): out[i] = Σ_d w(d)·(x[i−d] + x[i+d]) + w0·x[i], each
+    slice's chain from its outermost tap inward."""
     L, S = x.shape[0], KBLOCK
     nb, ns, length = tap_plan(L, half.shape[0] - 1, avail_floats)
     w = padded_taps(half, ns, length)
     x0 = (torch.arange(nb) * S)[None, :]
-    d0 = (torch.arange(ns) * length)[:, None]
-    la = [x[(x0 - d0 + s) % L] for s in range(S)]
-    ra = [x[(x0 + d0 + s) % L] for s in range(S)]
-    w0 = torch.where(d0 == 0, w[0], torch.zeros(()))
-    acc = [w0 * la[s] for s in range(S)]
-    lo, hi = (x0 - d0) % L, (x0 + S - 1 + d0) % L
+    t1 = (torch.arange(ns) * length + length)[:, None]   # a slice's top tap
+    # the windows of tap t1 + 1 (left slot 0 and right slot S-1 unused)
+    la = [x[(x0 + s - t1 - 1) % L] for s in range(S)]
+    ra = [x[(x0 + s + t1 + 1) % L] for s in range(S)]
+    acc = [torch.zeros(ns, nb) for _ in range(S)]
     for c in range(0, length, S):
         for u in range(S):
-            lo, hi = (lo - 1) % L, (hi + 1) % L
-            la[S - 1 - u], ra[u] = x[lo], x[hi]
-            wd = w[1 + d0 + c + u].expand(ns, nb)
+            d = t1 - c - u
+            la[u], ra[S - 1 - u] = x[(x0 + S - 1 - d) % L], x[(x0 + d) % L]
+            wd = w[d].expand(ns, nb)
             for s in range(S):
-                il, ir = (s + 2 * S - 1 - u) % S, (s + 1 + u) % S
+                il, ir = (s + u + 1) % S, (s + 2 * S - 1 - u) % S
                 acc[s] = _fma(wd, la[il] + ra[ir], acc[s])
+    for s in range(S):                        # slice 0: the centre tap
+        acc[s][0] = _fma(w[0].expand(nb), x[(x0[0] + s) % L], acc[s][0])
     part = torch.zeros(ns, nb * S)
     for s in range(S):
         part[:, s::S] = acc[s]
     part = part[:, :L]
-    out = part[0]
-    for sl in range(1, ns):                   # the slices, in slice order
+    out = part[ns - 1]
+    for sl in range(ns - 2, -1, -1):          # the last slice first
         out = out + part[sl]
     return out, (nb, ns, length)
 

@@ -14,9 +14,10 @@ results the same at every cluster size, on the CPU.
     sites, a tree over the warp's chunks, over 16 warps, over the C CTAs)
     emulated in float32 for every C is the one adjacent-pairing tree over
     the padded lattice, bit for bit.
-(c) The circulant's law: the staged passes and segments of every C and
-    pass length, emulated in float32, equal one pass over the whole
-    lattice bit for bit, and the dense product to float32 roundoff.
+(c) The circulant's law (each chain from its outermost tap inward, the
+    centre tap last): the staged passes and segments of every C and pass
+    length, emulated in float32, equal one pass over the whole lattice bit
+    for bit, and the dense product to float32 roundoff.
 """
 import numpy as np
 import pytest
@@ -185,8 +186,10 @@ def _fma(a, b, c):
 
 def _circulant_staged(x, half, L, C, tb):
     """The kernel's circulant on one field: C segments, passes of ``tb``
-    taps over the law's slices, each site's slice one fused chain in tap
-    order from its staged window, the slices added in slice order."""
+    taps from the outermost inward over the law's slices, each site's
+    slice one fused chain from its outermost tap inward (slice 0 ending
+    with the centre tap) from its staged window, the slices added from the
+    last to the first."""
     ns, length = tap_law(L, half.shape[0] - 1)
     w = padded_taps(torch.tensor(half), ns, length).numpy()
     R = ns * length
@@ -196,28 +199,27 @@ def _circulant_staged(x, half, L, C, tb):
         lo, n = r * seg, max(0, min(L - r * seg, seg))
         sites = lo + np.arange(n)
         part = np.zeros((ns, n), np.float32)
-        E0 = 0
+        E1 = R
         while True:
-            E1 = min(R, E0 + tb)
+            E0 = max(0, E1 - tb)
             for sl in range(ns):
                 t0, t1 = max(E0, sl * length), min(E1, (sl + 1) * length)
                 if t0 >= t1 and not (R == 0 and sl == 0):
                     continue
-                if t0 == sl * length:
-                    acc = (w[0] * x[sites]).astype(np.float32) if sl == 0 \
-                        else np.zeros(n, np.float32)
-                else:
-                    acc = part[sl]
-                for d in range(t0 + 1, t1 + 1):
+                acc = (np.zeros(n, np.float32) if t1 == (sl + 1) * length
+                       else part[sl])
+                for d in range(t1, t0, -1):
                     pair = (x[(sites - d) % L] + x[(sites + d) % L]).astype(
                         np.float32)
                     acc = _fma(np.float32(w[d]), pair, acc)
+                if t0 == 0:
+                    acc = _fma(np.float32(w[0]), x[sites], acc)
                 part[sl] = acc
-            E0 = E1
-            if E0 >= R:
+            E1 = E0
+            if E1 <= 0:
                 break
-        o = part[0]
-        for sl in range(1, ns):
+        o = part[ns - 1]
+        for sl in range(ns - 2, -1, -1):
             o = (o + part[sl]).astype(np.float32)
         out[lo:lo + n] = o
     return out
