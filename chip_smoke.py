@@ -161,6 +161,21 @@ Phases (each prints one line with its wall time; a failed phase raises):
     ``profile_pde_kernel.py --mode route``: µs per step on each route and
     without the bins, G and waves, the bound and the plain ``pde_step``
     loop.
+23. B2's full smoothing in device memory (the FFT stage: the full
+    Gaussian m past a cluster's 65,536 sites): (a) the card's plan at L =
+    131,072, 200,000, 131,071 (prime) and 262,144, σ = 0.0005 and 0.05
+    (the recipe, B = 2, 40 steps), against the plain version (float64
+    ``torch.fft``) at phase 4's tolerances, at injected and at native bits;
+    (b) ``run_pde_ensemble`` with σ = 0.05 at L = 262,144 and 1,048,576
+    with phase 21(b)'s asserts, every call on the device-memory route; (c)
+    ``pde_kernel_sigma_sweep`` at L = 131,072 over the reference σ (5 runs,
+    1000 tracers, 200 steps), each σ's route; (d) the memory refusal at a
+    reported 1 MB free; (e) ``profile_pde_kernel.py --mode route-smooth
+    spectra-large``: µs per step with and without the bins, the bound,
+    the plain loop, and ``torch.fft``'s stage in float32 and float64 as
+    the yardstick; at 65,536 the cluster's direct circulant against the
+    FFT stage; the spectra kernel at phase 22's calls past a million sites
+    beside ``torch.fft.rfft`` of the same rows.
 
 Phases 3, 4 and 7 also launch each kernel on rows [b0, b0 + n) of a batch
 (``b0`` > 0, the blocks of a sweep mesh): native Philox output equal to
@@ -267,6 +282,17 @@ def circulant_ops(L: int, r: int) -> float:
     (2 · 5/2·L·log2 L) with the real spectrum of the symmetric taps
     between (L), whichever is smaller."""
     return min((3.0 * r + 1.0) * L, 5.0 * L * math.log2(L) + L)
+
+
+def fft_scratch_us(n: int, B: int) -> float:
+    """Not a bound: µs a step that B2's FFT stage (the full smoothing on
+    the device-memory route, one complex transform of n points) spends on
+    its complex scratch if each of its three passes reads and writes it in
+    device memory (B replicas of n values of 8 B), at the memory rate.
+    The scratch is neither an input nor an output of the step, so
+    ``b2_step_bound`` leaves it out; past the L2 (50 MB) it is this
+    design's own floor."""
+    return 3.0 * 2.0 * 8.0 * n * B / HBM_BYTES_PER_S * 1e6
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -498,8 +524,10 @@ def held(what: str, got, want, rtol: float, atol: float) -> tuple:
 VAR_ATOL = 1e-5
 
 
-def b2_against_plain(what: str, kernel_out, plain_out, W: int) -> dict:
-    """Phase 4's tolerances: fields rtol 2e-4 / atol 1e-7, tracers and ring
+def b2_against_plain(what: str, kernel_out, plain_out, W: int,
+                     field_atol: float = 1e-7) -> dict:
+    """Phase 4's tolerances: fields rtol 2e-4 / atol ``field_atol`` (1e-7
+    unless a caller tightens it), tracers and ring
     rtol 1e-4 / atol 1e-5, spins equal, v and D rtol 5e-4 / atol 1e-6
     with the NaN prefix of a run from step 0 (``W`` steps), m atol 1e-5,
     Var rtol 1e-3 / atol ``VAR_ATOL`` of the run's largest Var, spectra
@@ -510,8 +538,8 @@ def b2_against_plain(what: str, kernel_out, plain_out, W: int) -> dict:
     sk, rk = kernel_out[:5], kernel_out[5]
     sp, rp = plain_out[:5], plain_out[5]
     res = {}
-    for name, i, rtol, atol in (("rho_p", 0, 2e-4, 1e-7),
-                                ("rho_m", 1, 2e-4, 1e-7),
+    for name, i, rtol, atol in (("rho_p", 0, 2e-4, field_atol),
+                                ("rho_m", 1, 2e-4, field_atol),
                                 ("tracer pos", 2, 1e-4, 1e-5),
                                 ("ring", 4, 1e-4, 1e-5)):
         res[name] = held(f"{what} {name}", sk[i], sp[i], rtol, atol)
@@ -908,7 +936,9 @@ def b2_step_bound(config, ops, B: int, k: int) -> dict:
     per tracer, the spectra's fewest (``spectra_ops``), and the
     circulants' fewest (``circulant_ops``): the smoothing of ρ₊ − ρ₋ and
     ρ₊ + ρ₋ (the narrow taps or the full circulant) and the banded solve
-    of ρ₊ and ρ₋, two fields each."""
+    of ρ₊ and ρ₋, two fields each — on either route, whatever the
+    kernel's algorithm (the FFT stage's scratch is no input or output:
+    ``fft_scratch_us``)."""
     m_mode, solve_mode, smooth, solve = ops
     L, n_t, W, kmax = (config.L, config.n_tracers, config.tracer_window,
                        config.kmax)
@@ -1470,6 +1500,9 @@ def throughput_b3(dev) -> dict:
     rate("flagship B=16 N=750", slots, scal, seeds, band, 1000, 2e-3)
     clusters("flagship B=16 N=750", slots, scal, seeds, band, 2e-3)
     plain("flagship B=16 N=750", slots, scal, seeds, band, 2e-3)
+    bench = b3_bound(slots, band, 1000)
+    print(f"B3 flagship B=16 N=750: bound {bench['bound_ms']:.4f} ms per "
+          f"1000 steps ({bench['bound_by']})", flush=True)
 
     ps = dict(DEFAULT_PS_KWARGS, **FLAGSHIP)
     cfg = config_from_kwargs(ps)
@@ -1489,6 +1522,7 @@ def throughput_b3(dev) -> dict:
     table = clusters("sweep (b) B=33", slots, scal, seeds, band, dt)
     plain_ms = plain("sweep (b) B=33", slots, scal, seeds, band, dt)
     out["exclusion_multi_step"] = dict(
+        bench_bound=bench,
         ms=ms, plain_ms=plain_ms, plan=dict(cluster=plan.cluster,
                                             halo=plan.halo,
                                             threads=plan.threads),
@@ -3810,10 +3844,14 @@ def _recipe_config(L: int, **over):
     return PDEConfig(**kw), gamma
 
 
-def _plain_snapshots(L: int, beta: float, rho0, steps: list, dev) -> list:
+def _plain_snapshots(L: int, beta: float, rho0, steps: list, dev,
+                     over: dict = None) -> list:
     """The large-lattice driver's plain ``pde_step`` loop
-    (``large_lattice.pde_run``: its config, operators and initial fields
-    1.2·ρ₀[0], 0.8·ρ₀[1]), the total density at each of ``steps``."""
+    (``large_lattice.pde_run``: its config with the PDEConfig fields
+    ``over``, operators and initial fields 1.2·ρ₀[0], 0.8·ρ₀[1]), the
+    total density at each of ``steps``."""
+    import dataclasses
+
     import torch
     from hydrolim_tpu_torch.core.config import make_pde_params
     from hydrolim_tpu_torch.experiments import large_lattice as ll
@@ -3821,6 +3859,7 @@ def _plain_snapshots(L: int, beta: float, rho0, steps: list, dev) -> list:
     from hydrolim_tpu_torch.pde.stepper import build_pde_ops
 
     grid, gamma, _ = ll.pde_grid(L, small=False)
+    grid = dataclasses.replace(grid, **(over or {}))
     as_t = lambda a: torch.as_tensor(a, dtype=torch.float32).to(dev)
     rho = PDEFields(grid, make_pde_params(gamma=gamma, lam=ll.LAM,
                                           beta=beta, device=dev),
@@ -3845,8 +3884,8 @@ def _plain_snapshots(L: int, beta: float, rho0, steps: list, dev) -> list:
 ENSEMBLE_ULPS = 2.0 ** -24
 
 
-def b2_large_ensemble(dev, L: int = 65_536, label: str = "phase 21"
-                      ) -> dict:
+def b2_large_ensemble(dev, L: int = 65_536, label: str = "phase 21",
+                      over: dict = None) -> dict:
     """(b) ``run_pde_ensemble`` at full width, L=65,536, β ∈ {0.5, 2.5},
     64 tracers, 8 bins, the large-lattice recipe (1500 steps, the banded
     solve) from the driver's initial fields (its seeded draw, ρ₊ = 1.2·ρ₀,
@@ -3868,8 +3907,9 @@ def b2_large_ensemble(dev, L: int = 65_536, label: str = "phase 21"
     its split into the masses' ratio and the rest (the kernel's density
     rescaled to the plain mass), and each route's mass against step
     0's; after 1500 steps the two masses' changes agree within
-    ``B2_MASS_BOUND`` (C8).  Returns the launches of each kernel, and of
-    the step kernel by route."""
+    ``B2_MASS_BOUND`` (C8).  ``over``: PDEConfig fields beyond the recipe
+    (both runs; phase 23's full Gaussian m).  Returns the launches of each
+    kernel, and of the step kernel by route."""
     import torch
     from hydrolim_tpu_torch.experiments import large_lattice as ll
     from hydrolim_tpu_torch.ops.pde_kernel import (
@@ -3880,7 +3920,7 @@ def b2_large_ensemble(dev, L: int = 65_536, label: str = "phase 21"
     from hydrolim_tpu_torch.sweeps import pde_sweeps
 
     seed = 0
-    config, gamma = _recipe_config(L)
+    config, gamma = _recipe_config(L, **(over or {}))
     betas = np.asarray(ll.BETAS, np.float32)
     rho0 = [ll.pde_rho0(L, seed, bi) for bi in range(len(betas))]
     draw = pde_sweeps.pde_initialize
@@ -3901,6 +3941,7 @@ def b2_large_ensemble(dev, L: int = 65_536, label: str = "phase 21"
         wall = time.perf_counter() - t0
         launches = {"pde_multi_step": pde_multi_step.launches,
                     "pde_spectra": pde_spectra.launches,
+                    "fft": pde_multi_step.fft_launches,
                     **pde_multi_step.route_launches}
     finally:
         pde_sweeps.pde_initialize = draw
@@ -3933,7 +3974,7 @@ def b2_large_ensemble(dev, L: int = 65_536, label: str = "phase 21"
     t0 = time.perf_counter()
     rows = []
     for i, beta in enumerate(betas):
-        plain = _plain_snapshots(L, float(beta), rho0[i], steps, dev)
+        plain = _plain_snapshots(L, float(beta), rho0[i], steps, dev, over)
         for j, (n, want) in enumerate(zip(steps, plain)):
             got = res.snapshots[i, j + 1].astype(np.float64)
             want = want.astype(np.float64)
@@ -3968,7 +4009,9 @@ def b2_large_ensemble(dev, L: int = 65_536, label: str = "phase 21"
                 f"{r['drift'][0]:+.3e}, the plain pde_step's "
                 f"{r['drift'][1]:+.3e} (bound {B2_MASS_BOUND:.1e} apart)")
     worst = max(r["diff"] for r in rows if r["n"] == nsteps)
-    print(f"run_pde_ensemble L={L}, 2 x {nsteps} steps, 64 tracers, 8 bins: "
+    print(f"run_pde_ensemble L={L}"
+          + (f" {over}" if over else "") + f", 2 x {nsteps} steps, 64 "
+          "tracers, 8 bins: "
           f"{wall:.3f} s, launches {launches}; dm/dt (measured, CW law) "
           f"{rates}; final density {worst:.3e} of scale from the driver's "
           f"plain pde_step (bound {nsteps * ENSEMBLE_ULPS:.3e}; "
@@ -4369,6 +4412,320 @@ def b2_route_times(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: B2's full smoothing in device memory (the FFT stage)
+# ---------------------------------------------------------------------------
+
+# (a)'s lattices: powers of two, a prime and a composite (the row wrapped
+# and padded), and its σ (xlim 1; all take m_mode 'smooth'); then a few
+# steps at the stage's largest transforms: 4,194,304 (2048 x 2048) and
+# 2^26 (8192 x 8192, the plan's reach, one column and one row a unit)
+FFT_L = (131_072, 200_000, 131_071, 262_144)
+FFT_SIGMAS = (0.0005, 0.05)
+FFT_L_LARGE = ((4_194_304, 4), (1 << 26, 2))
+SMOOTH = dict(gaussian_kernel=True, kernel_sigma=0.05)
+
+
+def fft_field_atol(want) -> float:
+    """The fields' atol of phase 23: phase 4's 1e-7, or 1e-5 of the
+    largest density where that is less (a site holds ~1/L of the mass)."""
+    return min(1e-7, 1e-5 * max(float(want[0].abs().max()),
+                                float(want[1].abs().max())))
+
+
+def b2_fft_m_field(what: str, state, scal, seeds, ops, kw) -> tuple:
+    """The smoothed m field the FFT stage leaves for the step's reaction
+    and tracers, site by site: one step from ``state`` with the launch's
+    m field kept (``pde_multi_step.m_fields``) against ``m_field_of`` on
+    the same densities, atol 1e-5.  Returns (max error, share)."""
+    import torch
+    from hydrolim_tpu_torch.ops import pde_kernel as pk
+
+    pk.pde_multi_step.m_fields = []
+    try:
+        pk.pde_multi_step(scal, seeds, 0, *state, ops[3], ops[2],
+                          **dict(kw, k_steps=1))
+        got = torch.cat(pk.pde_multi_step.m_fields)
+    finally:
+        pk.pde_multi_step.m_fields = None
+    want = pk.m_field_of("smooth", state[0], state[1], ops[2])
+    return held(f"{what} m field", got, want.to(got.dtype), 0.0, 1e-5)
+
+
+def b2_fft_against_plain(dev) -> float:
+    """(a) The card's plan (the device-memory route, its FFT stage) against
+    the plain version on the card, which smooths by ``m_field_of``'s
+    float64 ``torch.fft``: B = 2, the large-lattice recipe (the banded
+    solve), 64 tracers, 8 bins, 40 steps, at L = 131,072, 200,000, 131,071
+    and 262,144 and σ = 0.0005, 0.05; and at σ = 0.05 a few steps at L =
+    4,194,304 and 2^26 (``FFT_L_LARGE``).  At injected bits phase 4's
+    tolerances on every output, the fields' atol tightened to the density
+    (``fft_field_atol``); at native bits (the plain version draws from a
+    generator, the kernel from Philox) the fields, m, Var and the spectra,
+    which read no draw, for the first four L.  After each call, the
+    stage's m field site by site on the call's output
+    (``b2_fft_m_field``).  Returns the largest field error."""
+    import torch
+    from hydrolim_tpu_torch.ops import pde_kernel as pk
+
+    err = 0.0
+    cases = ([(L, sigma, 40) for L in FFT_L for sigma in FFT_SIGMAS]
+             + [(L, 0.05, k) for L, k in FFT_L_LARGE])
+    for L, sigma, k in cases:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(L + 23)
+        config, ops, scal, state, kw = _recipe_inputs(
+            dev, L, dict(gaussian_kernel=True, kernel_sigma=sigma,
+                         diffusion_solver="banded"), gen, k=k)
+        if ops[:2] != ("smooth", "banded"):
+            raise AssertionError(f"B2 L={L} sigma={sigma}: {ops[:2]}")
+        seeds = torch.arange(2, dtype=torch.int32, device=dev) + 5
+        noise = randbits((2, k, 3, 64), gen, dev)
+        got = pk.pde_multi_step(scal, seeds, 0, *state, ops[3], ops[2],
+                                noise=noise, **kw)
+        plan = pk.pde_multi_step.last_plan
+        if plan.route != "gmem" or plan.fft is None:
+            raise AssertionError(f"B2 L={L} smooth: the plan is {plan}")
+        want = pk.pde_multi_step_plain(scal, seeds, 0, *state, ops[3],
+                                       ops[2], noise=noise, **kw)
+        f = plan.fft
+        what = (f"B2 L={L} smooth sigma={sigma}, {k} steps (FFT stage n="
+                f"{f.n} = {f.n1} x {f.n2}, {f.w1} columns / {f.w2} rows a "
+                f"unit, wrap {f.wrap}; G={plan.ctas})")
+        fa = fft_field_atol(want)
+        res = b2_against_plain(f"{what}, injected (fields atol {fa:.2e})",
+                               got, want, config.tracer_window, fa)
+        err = max(err, res["rho_p"][0], res["rho_m"][0])
+        del want                  # the plain version's float64 scratch
+        torch.cuda.empty_cache()  # goes back to the card at 2^26
+        e, sh = b2_fft_m_field(what, got[:5], scal, seeds, ops, kw)
+        print(f"{what}: the stage's m field on the call's output, max "
+              f"|kernel - m_field_of| {e:.2e} ({sh:.3f} of atol 1e-5)",
+              flush=True)
+        del got
+        if k != 40:
+            continue
+        got = pk.pde_multi_step(scal, seeds, 0, *state, ops[3], ops[2],
+                                **kw)
+        want = pk.pde_multi_step_plain(scal, seeds, 0, *state, ops[3],
+                                       ops[2], generator=gen, **kw)
+        fa = fft_field_atol(want)
+        res = {}
+        for name, i in (("rho_p", 0), ("rho_m", 1)):
+            res[name] = held(f"{what} {name}", got[i], want[i], 2e-4, fa)
+        rk, rp = got[5], want[5]
+        res["m"] = held(f"{what} m", rk[..., 0], rp[..., 0], 0.0, 1e-5)
+        res["Var"] = held(f"{what} Var", rk[..., 1], rp[..., 1], 1e-3,
+                          VAR_ATOL * float(rp[..., 1].abs().max()))
+        res["spectra"] = held(f"{what} spectra", rk[..., 4:],
+                              rp[..., 4:], 1e-4, 1e-8)
+        err = max(err, res["rho_p"][0], res["rho_m"][0])
+        print(f"{what}, native (fields atol {fa:.2e}): max |kernel - "
+              "plain| (share of the tolerance): " + ", ".join(
+                  f"{n} {e:.2e} ({sh:.3f})" for n, (e, sh) in res.items()),
+              flush=True)
+    return err
+
+
+def b2_fft_sigma_sweep(dev, outdir: str) -> dict:
+    """(c) ``pde_kernel_sigma_sweep`` at L = 131,072 over the reference σ
+    (``REFERENCE_KERNEL_SIGMAS``, every one the full smoothing there), 5
+    runs a σ, 1000 tracers, dt = 0.5·dx/λ, T cut to 200 steps: no
+    ValueError, every launch on the device-memory route, each σ's route
+    and the wall.  Returns the launches."""
+    from hydrolim_tpu_torch.core.config import PDEConfig
+    from hydrolim_tpu_torch.ops import pde_kernel as pk
+    from hydrolim_tpu_torch.pde.fast_solve import kernel_operands
+    from hydrolim_tpu_torch.sweeps.pde_sweeps import (
+        REFERENCE_KERNEL_SIGMAS,
+        pde_kernel_sigma_sweep,
+    )
+
+    L, runs, n_t = 131_072, 5, 1000
+    dt = 0.5 / L / 0.6
+    T = 200 * dt
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    out = pde_kernel_sigma_sweep(n_runs=runs, L=L, dt=dt, T=T,
+                                 n_tracers=n_t, outdir=outdir,
+                                 plot_result=False, device=dev)
+    wall = time.perf_counter() - t0
+    n = dict(pk.pde_multi_step.route_launches,
+             spectra=pk.pde_spectra.launches,
+             fft=pk.pde_multi_step.fft_launches)
+    if n["cluster"] or n["gmem"] != pk.pde_multi_step.launches \
+            or n["gmem"] < len(REFERENCE_KERNEL_SIGMAS):
+        raise AssertionError(f"sigma sweep L={L}: launches {n}")
+    routes = []
+    for sigma in REFERENCE_KERNEL_SIGMAS:
+        cfg = PDEConfig(L=L, T=T, dt=dt, gaussian_kernel=True,
+                        kernel_sigma=sigma, fft_kmax=8)
+        ops = kernel_operands(cfg, out["gamma"], dev)
+        circ = pk.call_circulants(L, ops[0], ops[1], ops[2], ops[3])
+        plan = pk.card_plan(dev.index or 0, runs, L, n_t, ops[0],
+                            tuple(sorted(circ.items())))
+        if ops[0] != "smooth" or plan.route != "gmem":
+            raise AssertionError(f"sigma sweep sigma={sigma}: {ops[:2]} "
+                                 f"on {plan.route}")
+        if not np.isfinite(out["m"][sigma]).all():
+            raise AssertionError(f"sigma sweep sigma={sigma}: m not finite")
+        routes.append(f"{sigma}: {ops[0]} on {plan.route} (G={plan.ctas}, "
+                      f"n={plan.fft.n})")
+    print(f"pde_kernel_sigma_sweep L={L} ({runs} runs x "
+          f"{len(REFERENCE_KERNEL_SIGMAS)} sigma, {n_t} tracers, "
+          f"{round(T / dt)} steps): {wall:.3f} s, launches {n}; "
+          + "; ".join(routes), flush=True)
+    return n
+
+
+def b2_fft_refusal(dev) -> None:
+    """(d) With the card's free memory reported as 1 MB, a full-smoothing
+    call at L = 262,144 is refused before any launch, naming the largest
+    L the FFT stage's bytes leave room for."""
+    import torch
+    from hydrolim_tpu_torch.ops import pde_kernel as pk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    config, ops, scal, state, kw = _recipe_inputs(
+        dev, 262_144, dict(SMOOTH, diffusion_solver="banded"), gen, k=2)
+    seeds = torch.zeros(2, dtype=torch.int32, device=dev)
+    real = torch.cuda.mem_get_info
+    total = real(dev)[1]
+    n0 = dict(pk.pde_multi_step.route_launches)
+    torch.cuda.mem_get_info = lambda *a: (1 << 20, total)
+    try:
+        pk.pde_multi_step(scal, seeds, 0, *state, ops[3], ops[2], **kw)
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("B2 smooth L=262144 at 1 MB free: not refused")
+    finally:
+        torch.cuda.mem_get_info = real
+    if pk.pde_multi_step.route_launches != n0 or \
+            "the largest L this configuration serves" not in msg:
+        raise AssertionError(f"B2 smooth refusal: {msg}")
+    print(f"B2 smooth L=262144 at 1 MB free: refused before any launch: "
+          f"{msg}", flush=True)
+
+
+def b2_fft_times(dev) -> dict:
+    """(e) ``profile_pde_kernel.py --mode route-smooth spectra-large`` in a
+    child process: µs per step of the full smoothing on the card's plan
+    (the FFT stage) at L = 131,072, 262,144, 1,048,576 and 4,194,304
+    (50-step calls), with and without the bins; at 65,536 the cluster's
+    direct circulant against the FFT stage forced with ``route='gmem'`` (a
+    reading: the route line does not move); the plain ``pde_step`` loop;
+    each row's bound (``b2_step_bound``); the stage's
+    library yardstick, ``torch.fft.rfft``·spectrum·``irfft`` of the (num,
+    den) rows in float32 and float64; and the stage's scratch traffic
+    (``fft_scratch_us``, a reading).  And the spectra kernel at phase
+    22's calls past a million sites (B = 2, 8 bins, 200 steps at
+    1,048,576, 50 at 4,194,304) beside ``torch.fft.rfft`` of the same rows,
+    with its bound.  Returns the L = 262,144 row's times and the spectra
+    rows for the ``kernels`` line."""
+    import os
+
+    from hydrolim_tpu_torch.experiments import profile_pde_kernel as pp
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run(
+        [sys.executable, "-m",
+         "hydrolim_tpu_torch.experiments.profile_pde_kernel", "--mode",
+         "route-smooth", "spectra-large", "--calls", "3", "--tag",
+         "phase 23"],
+        capture_output=True, text=True, env=env, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"profile_pde_kernel --mode route-smooth: "
+                             f"{res.stderr[-2000:]}")
+    out = {"spectra": []}
+    for line in res.stdout.splitlines():
+        row = json.loads(line)
+        if "routes" not in row:              # the spectra kernel
+            sh = row["shape"]
+            B, k, L, kmax = sh["B"], sh["k_steps"], sh["L"], sh["kmax_rec"]
+            b = bound(4 * B * k * (L + 2 * kmax),
+                      spectra_ops(B * k, L, kmax))
+            us = lambda v: "not measured" if v is None else f"{v:.2f} us"
+            print(f"B2 spectra kernel (B={B}, {k} steps, L={L}, {kmax} "
+                  f"bins): device {us(row['device_us_per_call'])} a call "
+                  f"(events {us(row['events_us_per_call'])}); "
+                  "torch.fft.rfft of the rows device "
+                  f"{us(row['rfft_device_us_per_call'])} (events "
+                  f"{us(row['rfft_events_us_per_call'])}); bound "
+                  f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']})",
+                  flush=True)
+            out["spectra"].append(dict(row, bound_ms=b["bound_ms"],
+                                       bound_by=b["bound_by"]))
+            continue
+        L, k = row["L"], row["k_steps"]
+        config, _, ops, scal, _ = pp.b2_inputs(
+            dev, pp.SMOOTH, dict(B=2, n_t=64, W=20, **pp._recipe(L)))
+        plain = float(np.mean(row["plain_pde_step_us_per_step"]))
+        lib = {t: float(np.mean(v)) for t, v in
+               row["library_stage_us"].items()}
+        for route, r in row["routes"].items():
+            fft = r.get("fft")
+            b = b2_step_bound(config, ops, 2, k)
+            bd = b["bound_ms"] * 1e3 / k
+            us, bare = r["us_per_step"], r["us_per_step_without_bins"]
+            smooth_bd = 2 * 2 * circulant_ops(L, L // 2) / F32_OPS_PER_S
+            stage = (f"FFT stage n={fft['n']} = {fft['n1']} x {fft['n2']}, "
+                     f"its scratch's three round trips in device memory "
+                     f"{fft_scratch_us(fft['n'], 2):.2f} us/step (not in "
+                     "the bound)" if fft else "the direct circulant")
+            stage += (f"; the full smoothing's share of the bound "
+                      f"{smooth_bd * 1e6:.4f} us/step")
+            print(f"B2 L={L} smooth sigma=0.05, banded, B=2 on the {route} "
+                  f"route ({stage}; {r['ctas']} CTAs a replica, "
+                  f"{r['waves']} wave(s)): {np.mean(us):.2f} us/step "
+                  f"({min(us):.2f}-{max(us):.2f}), without the bins "
+                  f"{np.mean(bare):.2f} ({min(bare):.2f}-{max(bare):.2f}); "
+                  f"bound {bd:.4f} us/step ({b['bound_by']}); the plain "
+                  f"pde_step loop {plain:.1f} us/step; torch.fft "
+                  f"rfft*spectrum*irfft of the (num, den) rows "
+                  f"{lib['float32']:.2f} us (float32), {lib['float64']:.2f} "
+                  "(float64)", flush=True)
+            if L == 262_144:
+                out.update(ms=float(np.mean(us)) * k / 1e3,
+                           plain_ms=plain * k / 1e3, **b,
+                           shape=dict(B=2, L=L, k=k, ctas=r["ctas"],
+                                      m_mode="smooth"))
+    return out
+
+
+def b2_fft_phase(dev, rows: dict) -> None:
+    """Phase 23, (a)–(e); the ``pde_multi_step_gmem_fft`` row (the
+    device-memory route's FFT-stage kernel) gets its paths' launches, its
+    largest error and its times at L = 262,144, and the ``pde_spectra``
+    row its paths' launches and its times past a million sites.  Every
+    launch of the phase is the FFT-stage kernel's."""
+    fft = rows["pde_multi_step_gmem_fft"]
+    t_phase = time.perf_counter()
+    fft["max_abs_err"] = b2_fft_against_plain(dev)
+    paths = {}
+    for L in (262_144, 1_048_576):
+        n = b2_large_ensemble(dev, L, "phase 23", SMOOTH)
+        paths[f"large-L ensemble, smooth m, L={L} (phase 23)"] = n
+    with tempfile.TemporaryDirectory() as outdir:
+        paths["kernel-sigma sweep L=131072 (phase 23)"] = \
+            b2_fft_sigma_sweep(dev, outdir)
+    for path, n in paths.items():
+        if n["cluster"] or not n["gmem"] == n["fft"] == n.get(
+                "pde_multi_step", n["gmem"]):
+            raise AssertionError(f"phase 23 {path}: launches {n}")
+        fft["launches_per_path"][path] = n["fft"]
+        rows["pde_spectra"]["launches_per_path"][path] = n.get(
+            "spectra", n.get("pde_spectra"))
+    b2_fft_refusal(dev)
+    times = b2_fft_times(dev)
+    rows["pde_spectra"]["large_shapes"] = times.pop("spectra")
+    fft.update(times)
+    print(f"phase 23 took {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4393,10 +4750,11 @@ def main() -> int:
                                       exclusion_kernel.REPLACES)}
     rows = {name: dict(name=name, route="cuda", source=src, replaces=rep)
             for name, (src, rep) in kinds.items()}
-    # kernel B2's device-memory route: its own kernel in B2's source
-    rows["pde_multi_step_gmem"] = dict(
-        name="pde_multi_step_gmem", route="cuda", source=pde_kernel.SOURCE,
-        replaces=pde_kernel.REPLACES)
+    # kernel B2's device-memory route, and its instantiation with the full
+    # smoothing's FFT stage: kernels of their own in B2's source
+    for name in ("pde_multi_step_gmem", "pde_multi_step_gmem_fft"):
+        rows[name] = dict(name=name, route="cuda", source=pde_kernel.SOURCE,
+                          replaces=pde_kernel.REPLACES)
 
     with phase("1 device"):
         smi = subprocess.run(
@@ -4560,6 +4918,10 @@ def main() -> int:
         gmem.update(b2_route_times(dev))
         print(f"phase 22 took {time.perf_counter() - t_phase:.2f} s; "
               f"card: {smi}", flush=True)
+    rows["pde_multi_step_gmem_fft"]["launches_per_path"] = {}
+    with phase("23 B2's smoothing in device memory"):
+        b2_fft_phase(dev, rows)
+        print(f"card: {smi}", flush=True)
     for row in rows.values():
         row["launches"] = sum(row["launches_per_path"].values())
 

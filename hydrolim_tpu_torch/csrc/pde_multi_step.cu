@@ -9,7 +9,8 @@
 //
 // What bounds it on an H100: per step a replica is a few thousand flops on
 // 2*L field values and n_t tracers (2*(2r+1)*L FMAs for a banded solve or
-// a narrow smoothing, 2*L^2 with the full smoothing circulant): too little
+// a narrow smoothing, 2*L^2 with the full smoothing circulant, ~10 n log2 n
+// flops and three passes of n complex values by its FFT): too little
 // work per replica to be bound by bandwidth, and every reduction (m, Var,
 // tracer mean and variance, mass renormalisation) is a barrier.  On one
 // CTA a replica's taps run on one SM (the L = 8192 banded step: 127 taps x
@@ -28,6 +29,10 @@
 //     few million sites), each phase streaming a CTA's segment from there;
 //     a neighbour's sites are plain loads after a barrier of the replica's
 //     G CTAs (an arrival counter, released and acquired by fences).
+// On the device-memory route the full smoothing is no circulant but an FFT
+// convolution (`fft_smooth`, m_mode kFft, in a kernel of its own,
+// `pde_gmem_fft_kernel`): the direct circulant's 2 L^2 FMAs a field are
+// 3.4e10 at L = 131,072, about a millisecond a step.
 // ops/pde_kernel.py picks the route and C (pde_route_plan).  The lattice is
 // padded to Lp = the next power of two, and CTA r owns sites [r*seg,
 // (r+1)*seg) of it, seg = Lp / C, and tracers [r*tseg, (r+1)*tseg), tseg =
@@ -35,7 +40,9 @@
 //
 // Every result is the same bit for bit at every C and on both routes,
 // because no arithmetic depends on which CTA does it or where the fields
-// live:
+// live -- except the full smoothing, a direct circulant on the cluster
+// route and an FFT convolution on the device-memory route, which agree to
+// float32 roundoff and not bit for bit (so do the steps that read m):
 //   - a sum over sites (or tracers) is the adjacent-pairing binary tree
 //     over the Lp (ntp) padded leaves: a warp's butterfly over 32 sites, a
 //     tree over the warp's chunks (in groups of 32, the groups' totals
@@ -88,8 +95,8 @@
 //     applied where the next step (or the final store) reads the fields.
 // Barriers per step: the three reductions (m; Var and the tracers' mean
 // displacement; the masses and the tracers' variance), one before a
-// smoothing's staging, one after a banded solve, three in an exact solve
-// and one in anchored_minus.
+// smoothing's staging and three more in the FFT stage, one after a banded
+// solve, three in an exact solve and one in anchored_minus.
 // Tracers take one thread each, in the CTA that owns them; a tracer reads
 // m at int(mod(pos, xlim)/dx) mod L from the CTA owning that site; their
 // windowed displacement ring stays in device memory, touched once per
@@ -126,9 +133,11 @@ constexpr int kMaxCtas = 256;        // CTAs per replica, device-memory route
 constexpr int kMaxSeg = 1 << 24;     // sites per CTA, device-memory route
 constexpr int kPub = 4;              // floats a CTA publishes a reduction
 constexpr int kBar = 32;             // words per replica's arrival counter
+
+constexpr int kFftMaxSub = 8192;     // points of an FFT sub-transform
 constexpr unsigned kFull = 0xffffffffu;
 
-enum MMode { kGlobal = 0, kPointwise = 1, kTaps = 2 };
+enum MMode { kGlobal = 0, kPointwise = 1, kTaps = 2, kFft = 3 };
 enum SolveMode { kNoSolve = 0, kExact = 1, kBanded = 2 };
 
 // This CTA's share of the lattice and of the tracers.
@@ -555,6 +564,231 @@ __device__ __forceinline__ void circulant(const Geo& g, float* a0, float* a1,
   }
 }
 
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+// a * conj(b)
+__device__ __forceinline__ float2 cmulc(float2 a, float2 b) {
+  return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
+}
+__device__ __forceinline__ int bit_reverse(int k, int lg) {
+  return (int)(__brev((unsigned)k) >> (32 - lg));
+}
+
+// R consecutive radix-2 stages of `fft_batch`, starting at stage s0, on
+// groups of 2^R elements a thread holds in registers.  A stage of pair
+// distance h pairs positions i and i + h, i mod 2h = off < h, with twiddle
+// W_2h^off = tw[off * nt / 2h]; its distances run from q 2^(R-1) down to
+// q (forward) or from q up (inverse), so the 2^R elements base + j q, base
+// = (a block of 2 q 2^(R-1)) + o, o < q, meet only each other.  Each
+// butterfly is the one the stage would compute alone, so the result does
+// not depend on R.
+template <bool kInverse, int R>
+__device__ __forceinline__ void fft_stages(float2* buf, const float2* tw,
+                                           int nt, int lg, int cnt,
+                                           int lg_cnt, int sj, int sc,
+                                           int s0) {
+  constexpr int E = 1 << R;
+  const int lq = kInverse ? s0 : lg - s0 - R;  // log2 q
+  const int q = 1 << lq;
+  const int lg_groups = lg - R;                // groups a sequence
+  const int total = cnt << lg_groups;
+  for (int b = threadIdx.x; b < total; b += kThreads) {
+    int c, gi;
+    if (sc == 1) {
+      c = b & (cnt - 1);
+      gi = b >> lg_cnt;
+    } else {
+      c = b >> lg_groups;
+      gi = b & ((1 << lg_groups) - 1);
+    }
+    const int o = gi & (q - 1);
+    float2* p = buf + c * sc + (((gi >> lq) << (lq + R)) + o) * sj;
+    const int st = q * sj;
+    float2 v[E];
+#pragma unroll
+    for (int j = 0; j < E; ++j) v[j] = p[j * st];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int hb = kInverse ? 1 << k : 1 << (R - 1 - k);  // h = q hb
+      const int step = nt / (2 * q * hb);
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        if (j & hb) continue;
+        const float2 w = tw[(o + (j & (hb - 1)) * q) * step];
+        const float2 a = v[j];
+        if (!kInverse) {
+          const float2 d = v[j + hb];
+          v[j] = make_float2(a.x + d.x, a.y + d.y);
+          v[j + hb] = cmul(make_float2(a.x - d.x, a.y - d.y), w);
+        } else {
+          const float2 d = cmulc(v[j + hb], w);
+          v[j] = make_float2(a.x + d.x, a.y + d.y);
+          v[j + hb] = make_float2(a.x - d.x, a.y - d.y);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < E; ++j) p[j * st] = v[j];
+  }
+}
+
+// Radix-2 transforms of `cnt` sequences of length n (powers of two) in
+// shared memory, element j of sequence c at buf[j * sj + c * sc] (sc = 1:
+// the sequences interleaved; else sj = 1, one after another); tw[i] =
+// W^i = exp(-2 pi i i / nt) for i < nt / 2, nt a multiple of n, from the
+// float64-built table.  The forward transform is a decimation in
+// frequency, natural order in and bit-reversed out; the inverse
+// (conjugate twiddles, unscaled) a decimation in time, bit-reversed in and
+// natural out.  Three stages a barrier (`fft_stages`).  Every thread must
+// call it; it ends with a barrier of the block.
+template <bool kInverse>
+__device__ void fft_batch(float2* buf, const float2* tw, int nt, int n,
+                          int cnt, int sj, int sc) {
+  const int lg = __ffs(n) - 1, lg_cnt = __ffs(cnt) - 1;
+  for (int s0 = 0; s0 < lg; s0 += 3) {
+    if (lg - s0 >= 3) {
+      fft_stages<kInverse, 3>(buf, tw, nt, lg, cnt, lg_cnt, sj, sc, s0);
+    } else if (lg - s0 == 2) {
+      fft_stages<kInverse, 2>(buf, tw, nt, lg, cnt, lg_cnt, sj, sc, s0);
+    } else {
+      fft_stages<kInverse, 1>(buf, tw, nt, lg, cnt, lg_cnt, sj, sc, s0);
+    }
+    __syncthreads();
+  }
+}
+
+// for (t = threadIdx.x; t < total; t += kThreads) st(t, ld(t)), with U
+// values' loads in flight a thread before their stores.
+template <int U, typename Ld, typename St>
+__device__ __forceinline__ void batched(int total, Ld ld, St st) {
+  for (int t0 = threadIdx.x; t0 < total; t0 += U * kThreads) {
+    float2 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = t0 + u * kThreads;
+      if (t < total) v[u] = ld(t);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = t0 + u * kThreads;
+      if (t < total) st(t, v[u]);
+    }
+  }
+}
+
+// The FFT stage's operands (ops/pde_kernel.py fft_plan): the
+// transform n = n1 * n2, the row wrapped by `wrap` sites on each side,
+// w1 columns (passes 1, 3) and w2 rows (pass 2) a unit.
+struct FftArgs {
+  const float2* tw;    // (n) W_n^(n2' k1) at k1 * n2 + n2'
+  const float* spec;   // (n) the taps' spectrum K[k1 + n1 bitrev(p)] at
+                       // k1 * n2 + p
+  float2* x;           // (n) this replica's complex scratch
+  const float2* stw;   // shared: W_n2^i, i < n2 / 2
+  float2* buf;         // shared: a unit's sub-transforms
+  int n1, n2, w1, w2, wrap;
+};
+
+// The full smoothing by FFT (m_mode kFft, the device-memory route): with
+// z[t] = num[(t - wrap) mod L] + i den[(t - wrap) mod L] for t < L + 2 wrap
+// and 0 up to n, and y = z convolved circularly on n with the taps (their
+// real spectrum), the smoothed numerator and denominator of site j are
+// Re y[j + wrap] and Im y[j + wrap], stored into the rows mo and dn.  The
+// transform runs in four steps, t = n2' + n2 n1' and k = k1 + n1 k2:
+//   pass 1: each column n2', the length-n1 transform over n1', times
+//           W_n^(n2' k1), into x[k1 n2 + n2'];
+//   pass 2: each row k1, the length-n2 transform over n2', times the
+//           spectrum, the inverse length-n2 transform, times W_n^-(n2' k1);
+//   pass 3: each column n2', the inverse length-n1 transform over k1, over
+//           n, to site t - wrap.
+// CTA r takes units r, r + G, ... of each pass, and a barrier of the
+// replica ends each.  Every thread must call it.
+template <class Net>
+__device__ void fft_smooth(const Geo& g, const Net& net, const FftArgs& f,
+                           const float* num, const float* den, float* mo,
+                           float* dn) {
+  constexpr int U = 8;  // loads in flight a thread
+  const int L = g.L;
+  const int n1 = f.n1, n2 = f.n2, w1 = f.w1, w2 = f.w2;
+  const int lg1 = __ffs(n1) - 1, lw1 = __ffs(w1) - 1;
+  const int span = L + 2 * f.wrap, per1 = n1 << lw1, per2 = w2 * n2;
+  const float inv_n = 1.f / (float)(n1 * n2);  // a power of two: exact
+  float2* buf = f.buf;
+  float2* x = f.x;
+  for (int u = g.rank; u < (n2 >> lw1); u += g.C) {  // pass 1
+    const int c0 = u << lw1;
+    batched<U>(
+        per1,
+        [&](int t) {
+          const int q = (t >> lw1) * n2 + c0 + (t & (w1 - 1));
+          if (q >= span) return make_float2(0.f, 0.f);
+          int j = q - f.wrap;
+          j = j < 0 ? j + L : (j >= L ? j - L : j);
+          return make_float2(num[j], den[j]);
+        },
+        [&](int t, float2 z) { buf[t] = z; });
+    __syncthreads();
+    fft_batch<false>(buf, f.stw, n2, n1, w1, w1, 1);
+    batched<U>(
+        per1,
+        [&](int t) {
+          const int k1 = t >> lw1;
+          return cmul(buf[(bit_reverse(k1, lg1) << lw1) + (t & (w1 - 1))],
+                      __ldg(f.tw + (size_t)k1 * n2 + c0 + (t & (w1 - 1))));
+        },
+        [&](int t, float2 z) {
+          x[(size_t)(t >> lw1) * n2 + c0 + (t & (w1 - 1))] = z;
+        });
+    __syncthreads();
+  }
+  net.sync();
+  for (int u = g.rank; u < n1 / w2; u += g.C) {  // pass 2
+    const size_t r0 = (size_t)u * per2;
+    batched<U>(
+        per2, [&](int t) { return x[r0 + t]; },
+        [&](int t, float2 z) { buf[t] = z; });
+    __syncthreads();
+    fft_batch<false>(buf, f.stw, n2, n2, w2, 1, n2);
+    batched<U>(
+        per2,
+        [&](int t) {
+          const float k = __ldg(f.spec + r0 + t);
+          return make_float2(buf[t].x * k, buf[t].y * k);
+        },
+        [&](int t, float2 z) { buf[t] = z; });
+    __syncthreads();
+    fft_batch<true>(buf, f.stw, n2, n2, w2, 1, n2);
+    batched<U>(
+        per2, [&](int t) { return cmulc(buf[t], __ldg(f.tw + r0 + t)); },
+        [&](int t, float2 z) { x[r0 + t] = z; });
+    __syncthreads();
+  }
+  net.sync();
+  for (int u = g.rank; u < (n2 >> lw1); u += g.C) {  // pass 3
+    const int c0 = u << lw1;
+    batched<U>(
+        per1,
+        [&](int t) {
+          return x[(size_t)(t >> lw1) * n2 + c0 + (t & (w1 - 1))];
+        },
+        [&](int t, float2 z) {
+          buf[(bit_reverse(t >> lw1, lg1) << lw1) + (t & (w1 - 1))] = z;
+        });
+    __syncthreads();
+    fft_batch<true>(buf, f.stw, n2, n1, w1, w1, 1);
+    for (int t = threadIdx.x; t < per1; t += kThreads) {
+      const int j = (t >> lw1) * n2 + c0 + (t & (w1 - 1)) - f.wrap;
+      if (j >= 0 && j < L) {
+        mo[j] = buf[t].x * inv_n;
+        dn[j] = buf[t].y * inv_n;
+      }
+    }
+    __syncthreads();
+  }
+  net.sync();  // every CTA reads its segment of the smoothed rows next
+}
+
 // An affine map v -> a v + b, in float64; after(l, e) is l o e.
 struct Aff {
   double a, b;
@@ -681,6 +915,13 @@ struct Args {
   float* gpub;     // (B, 3, C, kPub) published totals of the reductions
   double* gtt;     // (B, 4 * kTiles, 2) the scan's tile totals
   unsigned* gbar;  // (B, kBar) the replica's arrival counter (zeroed)
+  // the FFT stage (m_mode kFft): its twiddles, (n + n2/2) [re, im], the
+  // taps' spectrum (n), the complex scratch (B, n); ops/pde_kernel.py
+  // FftPlan: n = n1 * n2, w1, w2, wrap, and the shared buffer's values
+  const float2* fft_tw;
+  const float* fft_spec;
+  float2* gfft;
+  int fft_n1, fft_n2, fft_w1, fft_w2, fft_wrap, fft_buf;
 };
 
 // A CTA's scratch on chip, whichever the route: the reductions' warp
@@ -689,6 +930,7 @@ struct Args {
 struct Scratch {
   float *redA, *redB, *redD, *pubA, *pubB, *pubD, *DR, *win, *part;
   Aff* tt;
+  float2 *fbuf = nullptr, *ftw = nullptr;  // the FFT stage's (kFft)
 };
 
 __device__ __forceinline__ Geo geo_of(const Args& a, int C, int rank) {
@@ -709,7 +951,9 @@ __device__ __forceinline__ Geo geo_of(const Args& a, int C, int rank) {
 // Replica b's k steps on this CTA; P, M, Q, N (and mS, dS where used) are
 // this CTA's segments of the four fields (state P, M; scratch Q, N, which
 // swap roles from step to step), of m and of the smoothed denominator.
-template <class Net>
+// kFft: the full smoothing by the FFT stage (m_mode kFft, a kernel of its
+// own, so that the other modes' kernels compile as they would without it).
+template <class Net, bool kFft = false>
 __device__ __forceinline__ void b2_steps(const Args& a, const Geo& g,
                                          const Net& net, int b, float* P,
                                          float* M, float* Q, float* N,
@@ -719,7 +963,8 @@ __device__ __forceinline__ void b2_steps(const Args& a, const Geo& g,
   const int tid = threadIdx.x;
   const int rank = g.rank;
   const int L = a.L, n_t = a.n_t, kmax = a.kmax;
-  const bool local_m = a.m_mode != kGlobal, taps = a.m_mode == kTaps;
+  const bool local_m = a.m_mode != kGlobal;
+  const bool taps = kFft || a.m_mode == kTaps;
   float* DR = sc_.DR;
   const Circ smc{a.smooth_taps, a.sm_ns, a.sm_len, a.sm_tb, a.sm_fp};
   const Circ svc{a.solve_taps, a.sv_ns, a.sv_len, a.sv_tb, a.sv_fp};
@@ -780,10 +1025,18 @@ __device__ __forceinline__ void b2_steps(const Args& a, const Geo& g,
         }
       }
       net.sync();
-      circulant<Net>(g, Q, N, smc, a.T, sc_.win, a.wf, sc_.part,
-                     [&](int f, int x, float o) {
-                       (f == 0 ? mS : dS)[x] = o;
-                     });
+      if constexpr (kFft) {
+        const FftArgs fa{a.fft_tw, a.fft_spec,
+                         a.gfft + (size_t)b * a.fft_n1 * a.fft_n2, sc_.ftw,
+                         sc_.fbuf, a.fft_n1, a.fft_n2, a.fft_w1, a.fft_w2,
+                         a.fft_wrap};
+        fft_smooth(g, net, fa, Q - g.lo, N - g.lo, mS - g.lo, dS - g.lo);
+      } else {
+        circulant<Net>(g, Q, N, smc, a.T, sc_.win, a.wf, sc_.part,
+                       [&](int f, int x, float o) {
+                         (f == 0 ? mS : dS)[x] = o;
+                       });
+      }
       warp_sums<2, U, Net::kGlobalMem>(
           a.seg, g.nloc, vA,
           [&](int x, float (&v)[2]) {
@@ -1065,18 +1318,31 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
 }
 
 // Shared memory of a device-memory-route CTA (ops/pde_kernel.py
-// gmem_smem_bytes): the reductions' warp totals (7 x kWarps), the tracers'
-// displacements (tseg), the staging windows (fp * wf) and the partial
-// sums.  The fields are rows of rp_out, rm_out (the state) and gfld.
-__global__ void __launch_bounds__(kThreads) pde_gmem_kernel(Args a) {
+// gmem_smem_bytes): the FFT stage's buffer (fft_buf complex values) and
+// twiddles W_n2^i (n2 / 2) where kFft, the reductions' warp totals (7 x
+// kWarps), the tracers' displacements (tseg), the staging windows (fp *
+// wf) and the partial sums.  The fields are rows of rp_out, rm_out (the
+// state) and gfld.
+template <bool kFft>
+__device__ __forceinline__ void gmem_steps(const Args& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = a.C;
   const int b = blockIdx.x / G, rank = blockIdx.x % G;
-  const bool local_m = a.m_mode != kGlobal, taps = a.m_mode == kTaps;
+  const bool local_m = a.m_mode != kGlobal;
+  const bool taps = kFft || a.m_mode == kTaps;
   const Geo g = geo_of(a, G, rank);
 
   Scratch s;
-  s.redA = reinterpret_cast<float*>(smem);
+  float* after_fft = reinterpret_cast<float*>(smem);
+  if constexpr (kFft) {  // the twiddles are read after b2_steps's barrier
+    s.fbuf = reinterpret_cast<float2*>(smem);
+    s.ftw = s.fbuf + a.fft_buf;
+    const size_t n = (size_t)a.fft_n1 * a.fft_n2;
+    for (int i = threadIdx.x; i < a.fft_n2 / 2; i += kThreads)
+      s.ftw[i] = a.fft_tw[n + i];
+    after_fft = reinterpret_cast<float*>(s.ftw + a.fft_n2 / 2);
+  }
+  s.redA = after_fft;
   s.redB = s.redA + kWarps * 2;
   s.redD = s.redB + kWarps * 2;
   s.DR = s.redD + kWarps * 3;
@@ -1092,14 +1358,28 @@ __global__ void __launch_bounds__(kThreads) pde_gmem_kernel(Args a) {
   float* fb = a.gfld + (size_t)b * nfs * L + g.lo;
   float* mS = fb + 2 * L;
   float* dS = mS + (local_m ? L : 0);
-  b2_steps(a, g, GmemNet{G, a.gbar + (size_t)b * kBar}, b,
-           a.rp_out + (size_t)b * L + g.lo, a.rm_out + (size_t)b * L + g.lo,
-           fb, fb + L, mS, dS, s);
+  b2_steps<GmemNet, kFft>(
+      a, g, GmemNet{G, a.gbar + (size_t)b * kBar}, b,
+      a.rp_out + (size_t)b * L + g.lo, a.rm_out + (size_t)b * L + g.lo, fb,
+      fb + L, mS, dS, s);
 }
 
-cudaError_t configure(int route, int C, size_t smem, int B, void* stream,
-                      cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+__global__ void __launch_bounds__(kThreads) pde_gmem_kernel(Args a) {
+  gmem_steps<false>(a);
+}
+
+// The device-memory route with the full smoothing's FFT stage.  Its CTAs
+// are pde_gmem_kernel's (512 threads, at most 128 registers each: one an
+// SM), so that kernel's occupancy query serves both.
+__global__ void __launch_bounds__(kThreads) pde_gmem_fft_kernel(Args a) {
+  gmem_steps<true>(a);
+}
+
+cudaError_t configure(int route, bool fft, int C, size_t smem, int B,
+                      void* stream, cudaLaunchConfig_t& cfg,
+                      cudaLaunchAttribute& attr) {
   const void* fn = route == 0 ? (const void*)pde_kernel
+                   : fft      ? (const void*)pde_gmem_fft_kernel
                               : (const void*)pde_gmem_kernel;
   const int top = route == 0 ? kMaxCluster : kMaxCtas;
   if (C < 1 || C > top || (C & (C - 1))) return cudaErrorInvalidValue;
@@ -1137,7 +1417,8 @@ cudaError_t configure(int route, int C, size_t smem, int B, void* stream,
 extern "C" int pde_max_active_clusters(int C, int smem, int* out) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t e = configure(0, C, (size_t)smem, 1, nullptr, cfg, attr);
+  cudaError_t e =
+      configure(0, false, C, (size_t)smem, 1, nullptr, cfg, attr);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveClusters(out, pde_kernel, &cfg);
 }
@@ -1167,11 +1448,13 @@ extern "C" int pde_multi_step_launch(
     float* rm_out, float* pos_out, float* spin_out, float* hist_out,
     float* recs, const double* scan, const float* solve_taps,
     const float* smooth_taps, float* dens, const int* noise, float* gfld,
-    float* gpub, double* gtt, unsigned* gbar, int B, int L,
+    float* gpub, double* gtt, unsigned* gbar, const float* fft_tw,
+    const float* fft_spec, float* gfft, int B, int L,
     int n_t, int window, int k_steps, int kmax, int m_mode, int solve_mode,
     int route, int C, int seg, int tseg, int run, int ntiles, int sm_ns,
     int sm_len, int sm_tb, int sm_fp, int sv_ns, int sv_len, int sv_tb,
-    int sv_fp, int wf, int T, int smem, int periodic, int bidirectional,
+    int sv_fp, int wf, int T, int smem, int fft_n1, int fft_n2, int fft_w1,
+    int fft_w2, int fft_wrap, int fft_buf, int periodic, int bidirectional,
     float dt, float dx, float xlim, float v_last, float fac, float w_dt,
     float w_2dt, void* stream) {
   // what the kernels' indexing assumes (ops/pde_kernel.py pde_launch_plan,
@@ -1189,9 +1472,21 @@ extern "C" int pde_multi_step_launch(
   if (route == 1 && (seg > kMaxSeg || !gfld || !gpub || !gtt || !gbar))
     return (int)cudaErrorInvalidValue;
   if (route != 0 && route != 1) return (int)cudaErrorInvalidValue;
+  const auto pow2 = [](int v) { return v >= 1 && (v & (v - 1)) == 0; };
+  if (m_mode < kGlobal || m_mode > kFft) return (int)cudaErrorInvalidValue;
+  if (m_mode == kFft &&
+      (route != 1 || !fft_tw || !fft_spec || !gfft || !pow2(fft_n1) ||
+       !pow2(fft_n2) || fft_n1 < 2 || fft_n1 > fft_n2 ||
+       fft_n2 > kFftMaxSub || !pow2(fft_w1) || !pow2(fft_w2) ||
+       fft_w1 > fft_n2 || fft_w2 > fft_n1 || fft_n1 * fft_w1 > fft_buf ||
+       fft_n2 * fft_w2 > fft_buf || fft_wrap < 0 || 2 * fft_wrap > L ||
+       (size_t)fft_n1 * fft_n2 < (size_t)L + 2 * fft_wrap))
+    return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t e = configure(route, C, (size_t)smem, B, stream, cfg, attr);
+  const bool fft = m_mode == kFft;
+  cudaError_t e =
+      configure(route, fft, C, (size_t)smem, B, stream, cfg, attr);
   if (e != cudaSuccess) return (int)e;
   const Args a{scal,       seeds,     step0,     b0,          rp_in,
                rm_in,      pos_in,    spin_in,   hist_in,     rp_out,
@@ -1203,8 +1498,12 @@ extern "C" int pde_multi_step_launch(
                sm_fp,      sv_ns,     sv_len,    sv_tb,       sv_fp,
                wf,         T,         periodic,  bidirectional, dt,
                dx,         xlim,      v_last,    fac,         w_dt,
-               w_2dt,      gfld,      gpub,      gtt,         gbar};
+               w_2dt,      gfld,      gpub,      gtt,         gbar,
+               reinterpret_cast<const float2*>(fft_tw), fft_spec,
+               reinterpret_cast<float2*>(gfft), fft_n1, fft_n2, fft_w1,
+               fft_w2,     fft_wrap,  fft_buf};
   e = route == 0 ? cudaLaunchKernelEx(&cfg, pde_kernel, a)
+      : fft      ? cudaLaunchKernelEx(&cfg, pde_gmem_fft_kernel, a)
                  : cudaLaunchKernelEx(&cfg, pde_gmem_kernel, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -11,7 +11,10 @@ tracers, σ=0.005 (narrow taps), no solve (γ=0), the full 501 rfft bins,
 50-step calls (a frame).  ``--mode spectra-kernel``: the spectra kernel
 alone on that run's (1, 50, 1000) density rows, 501 bins: its device
 time a call (the kernels' time under ``torch.profiler``, 20 calls) and
-the events' time a call.  ``--mode rows``: the per-mode rows of PERF.md
+the events' time a call, beside ``torch.fft.rfft`` of the same rows;
+``--mode spectra-large`` the same at the route rows' calls past a million
+sites (``SPECTRA_LARGE``: B = 2, 8 bins, 200 steps at L = 1,048,576 and
+50 at 4,194,304).  ``--mode rows``: the per-mode rows of PERF.md
 §6 (``ROWS``: global, pointwise, narrow and smooth m at B=5 with 1000
 tracers and B=64 with 64, L=1000, the exact solve; the L=8192 banded row;
 the single run's step), one JSON row each.  ``--mode cluster``: the same
@@ -30,7 +33,14 @@ the JAX package's fields.  ``--mode route``: kernel B2's two routes
 L = 262,144, 1,048,576 and 4,194,304, the device-memory route the card's
 plan takes), B = 2, the large-lattice recipe, with the plain ``pde_step``
 loop on the same fields beside them: µs per step, the route, its CTAs a
-replica and launches.  ``--batch`` sets the replicas of 'main' and
+replica and launches.  ``--mode route-smooth``: the same for the full
+Gaussian m (σ = 0.05, the banded solve; ``SMOOTH_ROUTE_ROWS``: L = 65,536
+on both routes, the cluster's direct circulant against the device-memory
+route's FFT stage; 131,072, 262,144, 1,048,576 and 4,194,304 on the
+card's plan, its FFT stage), each row also with the stage's library
+yardstick: ``torch.fft.rfft`` of the replicas' (num, den) rows times the
+taps' spectrum and ``irfft``, in float32 and in float64 (the port never
+calls it).  ``--batch`` sets the replicas of 'main' and
 'smooth' (β over [0, 3]; e.g. 5 and 64, the PDE slice's σ-sweep and
 phase-diagram batches).  Several modes and batches run in one process,
 one row each.  Every mode but 'cluster' calls only what the kernel's
@@ -42,7 +52,8 @@ launches a call where the checkout counts them.
 
 Usage: PYTHONPATH=<checkout> python <this file> [--calls 5] [--tag NAME]
        [--mode main|smooth|spectra|spectra-kernel|rows|cluster|drift|route
-       ...] [--batch B ...] [--lattice L ...] [--reference FILE]
+       |route-smooth|spectra-large ...] [--batch B ...] [--lattice L ...]
+       [--reference FILE]
 """
 from __future__ import annotations
 
@@ -68,39 +79,61 @@ def _card() -> str:
         text=True).stdout.strip().splitlines()[0]
 
 
-def spectra_kernel(tag: str = "") -> dict:
-    """The spectra kernel alone at the single run's shape."""
+def _device_and_events_us(fn, reps: int) -> tuple:
+    """(device µs a call: the card's kernels under ``torch.profiler``, None
+    where it records none; µs a call by CUDA events), ``reps`` calls each
+    after a warm-up call."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = sum(e.device_time_total for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA) / reps
+    return dev_us or None, start.elapsed_time(end) * 1e3 / reps
+
+
+# --mode spectra-large: the spectra kernel at phase 22's route rows' calls
+# (B = 2, 8 bins): 200 steps at L = 1,048,576, 50 at 4,194,304
+SPECTRA_LARGE = [(2, 200, 1_048_576, 8), (2, 50, 4_194_304, 8)]
+
+
+def spectra_kernel(tag: str = "", shapes=((1, 50, 1000, 501),)) -> list:
+    """The spectra kernel alone, by default at the single run's shape: its
+    device time a call and its events' time a call (20 calls); and
+    ``torch.fft.rfft`` of the same (B, k, L) density rows, the library
+    call computing its function (the port never calls it)."""
     from hydrolim_tpu_torch.ops.pde_kernel import pde_spectra
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    B, k, L, kmax, reps = 1, 50, 1000, 501, 20
-    dens = 0.5 + torch.rand((B, k, L), generator=gen, device=dev)
-    recs = torch.zeros((B, k, 4 + 2 * kmax), device=dev)
-    pde_spectra(dens, recs, kmax)                   # build + warm-up
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        pde_spectra(dens, recs, kmax)
-    end.record()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            pde_spectra(dens, recs, kmax)
-        torch.cuda.synchronize()
-    dev_us = sum(e.device_time_total for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA) / reps
-    row = dict(tag=tag, shape=dict(B=B, k_steps=k, L=L, kmax_rec=kmax,
-                                   m_mode="spectra kernel"),
-               device_us_per_call=dev_us or None,
-               events_us_per_call=start.elapsed_time(end) * 1e3 / reps,
-               card=_card())
-    print(json.dumps(row), flush=True)
-    return row
+    out = []
+    for B, k, L, kmax in shapes:
+        reps = 20 if L <= 65_536 else 5
+        dens = 0.5 + torch.rand((B, k, L), generator=gen, device=dev)
+        recs = torch.zeros((B, k, 4 + 2 * kmax), device=dev)
+        dev_us, ev_us = _device_and_events_us(
+            lambda: pde_spectra(dens, recs, kmax), reps)
+        lib_dev, lib_ev = _device_and_events_us(
+            lambda: torch.fft.rfft(dens, dim=-1), reps)
+        row = dict(tag=tag, shape=dict(B=B, k_steps=k, L=L, kmax_rec=kmax,
+                                       m_mode="spectra kernel"),
+                   device_us_per_call=dev_us, events_us_per_call=ev_us,
+                   rfft_device_us_per_call=lib_dev,
+                   rfft_events_us_per_call=lib_ev, card=_card())
+        print(json.dumps(row), flush=True)
+        out.append(row)
+    return out
 
 
 # PERF.md §6's per-mode rows: (label, PDEConfig fields beyond L=1000,
@@ -297,20 +330,51 @@ ROUTE_ROWS = [
 ]
 
 
-def route_rows(calls: int, tag: str, plain_steps: int = 20) -> list:
-    """``ROUTE_ROWS``: µs per step of kernel B2 on each route (B = 2, the
-    large-lattice recipe, 64 tracers, 8 bins, native Philox) and of the
-    plain ``pde_step`` loop (the large-lattice driver's step, torch on the
-    card) on the same fields; one JSON row per L.  Each route is also
-    timed without the spectral bins (the step kernel alone, in one launch
-    a call)."""
+# --mode route-smooth: the full Gaussian m (σ = 0.05, 13,107 sites at
+# L = 262,144) on the same recipe; at 65,536 the cluster's direct circulant
+# (2·L² FMAs a field a step) takes a few ms a step, so its calls are short
+SMOOTH = dict(gaussian_kernel=True, kernel_sigma=0.05,
+              diffusion_solver="banded")
+SMOOTH_ROUTE_ROWS = [
+    (65_536, SMOOTH, 20, ("cluster", "gmem")),
+    (131_072, SMOOTH, 400, (None,)),
+    (262_144, SMOOTH, 400, (None,)),
+    (1_048_576, SMOOTH, 200, (None,)),
+    (4_194_304, SMOOTH, 50, (None,)),
+]
+
+
+def smooth_stage_library(rho_p, rho_m, smooth, calls: int) -> dict:
+    """µs of one ``torch.fft.rfft`` of the (B, 2, L) (num, den) rows, times
+    the taps' spectrum, and ``irfft``: the FFT stage's function by
+    library calls, in float32 and in float64."""
+    both = torch.stack([rho_p - rho_m, rho_p + rho_m], 1)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        x = both.to(dtype)
+        kr = torch.fft.rfft(smooth.weights.to(dtype))
+        fn = lambda: torch.fft.irfft(torch.fft.rfft(x) * kr, n=x.shape[-1])
+        out[str(dtype).split(".")[-1]] = _time(fn, 1, calls)
+    return out
+
+
+def route_rows(calls: int, tag: str, plain_steps: int = 20,
+               table=None) -> list:
+    """``ROUTE_ROWS`` (or ``table``): µs per step of kernel B2 on each
+    route (B = 2, the large-lattice recipe, 64 tracers, 8 bins, native
+    Philox) and of the plain ``pde_step`` loop (the large-lattice driver's
+    step, torch on the card) on the same fields; one JSON row per L.  Each
+    route is also timed without the spectral bins (the step kernel alone,
+    in one launch a call); a row of the full smoothing also gives its FFT
+    stage's plan and the stage's library yardstick
+    (``smooth_stage_library``)."""
     from hydrolim_tpu_torch.core.config import PDEParams
     from hydrolim_tpu_torch.ops import pde_kernel as pk
     from hydrolim_tpu_torch.pde.stepper import build_pde_ops, pde_step
 
     dev = torch.device("cuda", 0)
     out = []
-    for L, over, k, routes in ROUTE_ROWS:
+    for L, over, k, routes in table or ROUTE_ROWS:
         config, gamma, ops, scal, state = b2_inputs(
             dev, over, dict(B=2, n_t=64, W=20, **_recipe(L)))
         seeds = torch.arange(2, dtype=torch.int32, device=dev)
@@ -334,6 +398,13 @@ def route_rows(calls: int, tag: str, plain_steps: int = 20) -> list:
                 us_per_step=us, us_per_step_without_bins=bare,
                 ctas=plan.ctas, waves=plan.waves,
                 launches_per_call=launches)
+            if getattr(plan, "fft", None) is not None:
+                f = plan.fft
+                row["routes"][plan.route]["fft"] = dict(
+                    n=f.n, n1=f.n1, n2=f.n2, wrap=f.wrap, w1=f.w1, w2=f.w2)
+        if ops[0] == "smooth":
+            row["library_stage_us"] = smooth_stage_library(
+                state[0], state[1], ops[2], calls)
         params = PDEParams(beta=scal[:, 0], lam=scal[:, 1], gamma=scal[:, 2])
         pops = build_pde_ops(config, gamma, dev)
         rp, rm = state[0].clone(), state[1].clone()
@@ -354,12 +425,16 @@ def main(calls: int = 5, tag: str = "", mode: str = "main",
         raise SystemExit("profile_pde_kernel: needs a CUDA device")
     if mode == "spectra-kernel":
         return spectra_kernel(tag)
+    if mode == "spectra-large":
+        return spectra_kernel(tag, SPECTRA_LARGE)
     if mode in ("rows", "cluster"):
         return rows(calls, tag, mode == "cluster")
     if mode == "drift":
         return drift(tag, lattices, reference)
     if mode == "route":
         return route_rows(calls, tag)
+    if mode == "route-smooth":
+        return route_rows(calls, tag, table=SMOOTH_ROUTE_ROWS)
     dev = torch.device("cuda", 0)
     L, k, dt, gamma, kmax = 1000, 2000, 5e-4, 0.2, 8
     if mode == "spectra":
@@ -430,7 +505,8 @@ if __name__ == "__main__":
     p.add_argument("--tag", default="")
     p.add_argument("--mode", default=["main"], nargs="+",
                    choices=["main", "smooth", "spectra", "spectra-kernel",
-                            "rows", "cluster", "drift", "route"])
+                            "rows", "cluster", "drift", "route",
+                            "route-smooth", "spectra-large"])
     p.add_argument("--batch", type=int, default=[0], nargs="+")
     p.add_argument("--lattice", type=int, default=[1024, 8192], nargs="+")
     p.add_argument("--reference", default="")

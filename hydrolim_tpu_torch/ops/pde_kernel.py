@@ -12,7 +12,9 @@ CTAs per replica with the fields in shared memory (``pde_launch_plan``),
 wherever a cluster holds them, and past that G co-resident CTAs per
 replica with the fields in device memory (``gmem_launch_plan``), up to the
 card's free memory (``gmem_max_lattice``).  Both give the same values bit
-for bit.
+for bit, except the full smoothing: on the device-memory route it is an
+FFT convolution (``fft_plan``), which agrees with the cluster route's
+direct circulant to float32 roundoff.
 
 Modes, as in the TPU kernel:
 - ``m_mode``: 'global' (one m per replica), 'pointwise', 'narrow' (the
@@ -87,8 +89,11 @@ GMEM_MAX_CTAS = 256           # CTAs per replica on the device-memory route
 GMEM_MAX_SEG = 1 << 24        # sites per CTA on the device-memory route
 GMEM_TILE = 8192              # sites of its circulant's tiles (at most)
 GMEM_MAX_L = 1 << 30          # sites the kernel's int indexing allows
-GMEM_M_MODES = ("global", "pointwise", "narrow")
+GMEM_M_MODES = ("global", "pointwise", "narrow", "smooth")
+FFT_MAX_SUB = 8192            # points of a sub-transform in shared memory
+FFT_MAX_N = FFT_MAX_SUB ** 2  # the FFT stage's longest transform (2 passes)
 _M_CODES = {"global": 0, "pointwise": 1, "narrow": 2, "smooth": 2}
+_FFT_M_CODE = 3               # 'smooth' on the device-memory route
 _SOLVE_CODES = {"none": 0, "exact": 1, "banded": 2}
 
 
@@ -191,6 +196,19 @@ class SmoothOperands:
     def radius(self) -> int:
         return self.half_taps.shape[0] - 1
 
+    def fft_spectrum(self, f: "FftPlan") -> torch.Tensor:
+        """(n,) float32 real spectrum of the full circulant's taps on the
+        FFT stage's transform (``fft_plan``), in the order its second pass
+        reads: K[k1 + n1·bitrev(p)] at k1·n2 + p, computed in float64 from
+        the half taps (kept on the operand)."""
+        cache = self.__dict__.setdefault("_fft_spectrum", {})
+        if (f.n1, f.n2) not in cache:
+            t = self.half_taps.detach().cpu().numpy().astype(np.float64)
+            cache[f.n1, f.n2] = torch.tensor(
+                fft_spectrum_order(taps_spectrum(t, f.n), f),
+                dtype=torch.float32, device=self.weights.device)
+        return cache[f.n1, f.n2]
+
 
 def build_smooth_operands(m_mode: str, weights,
                           device="cuda") -> Optional[SmoothOperands]:
@@ -202,6 +220,110 @@ def build_smooth_operands(m_mode: str, weights,
         raise ValueError(f"unknown m_mode {m_mode!r}")
     return SmoothOperands(m_mode, torch.as_tensor(
         weights, dtype=torch.float32, device=device))
+
+
+@dataclasses.dataclass(frozen=True)
+class FftPlan:
+    """The full circulant's FFT stage on the device-memory route: one
+    complex transform of length ``n`` = ``n1``·``n2`` (powers of two, n1 ≤
+    n2 ≤ ``FFT_MAX_SUB``) in two passes, of the row ``num + i·den``
+    wrapped by ``wrap`` sites on each side and padded with zeros; ``w1``
+    columns (passes 1 and 3) and ``w2`` rows (pass 2) of sub-transforms a
+    CTA holds in shared memory at once."""
+
+    n: int
+    n1: int
+    n2: int
+    wrap: int
+    w1: int
+    w2: int
+
+    @property
+    def buf(self) -> int:
+        """Complex values of a CTA's sub-transform buffer."""
+        return max(self.n1 * self.w1, self.n2 * self.w2)
+
+    @property
+    def smem(self) -> int:
+        """Shared memory of the stage: the buffer and W_n2^i, i < n2/2."""
+        return 8 * (self.buf + self.n2 // 2)
+
+
+def fft_plan(L: int, G: int) -> FftPlan:
+    """The FFT stage of a row of L sites for G CTAs a replica.  A
+    power-of-two L
+    transforms at n = L (a circular convolution); any other L at the power
+    of two n ≥ L + 2h, h = L//2, the row wrapped by h sites on each side:
+    the taps centred (d = −h…h, the d = ±L/2 taps halved for an even L, as
+    ``SmoothOperands.half_taps``), the convolution on n is the circular one
+    on L in exact arithmetic.  n = n1·n2 with n1 = 2^⌊log₂n / 2⌋.  A CTA
+    holds at least 4 columns (32-byte runs) or as many as give each CTA
+    one unit, within ``FFT_MAX_SUB`` points; rows likewise, at least one.
+    Raises ValueError past n = ``FFT_MAX_N``, naming the largest L
+    served."""
+    if L & (L - 1) == 0:
+        n, wrap = L, 0
+    else:
+        wrap = L // 2
+        n = 1 << (L + 2 * wrap - 1).bit_length()
+    if n > FFT_MAX_N:
+        raise ValueError(
+            f"pde_multi_step kernel, device-memory route: the full smoothing "
+            f"at L={L} needs a transform of {n} points, more than the FFT "
+            f"stage's {FFT_MAX_N} (two passes of {FFT_MAX_SUB}); the largest "
+            f"L it serves is {FFT_MAX_N} (a power of two), else "
+            f"{FFT_MAX_N // 2 - 1}")
+    n1 = 1 << ((n.bit_length() - 1) // 2)
+    n2 = n // n1
+    return FftPlan(n, n1, n2, wrap,
+                   w1=min(n2, FFT_MAX_SUB // n1, max(4, n2 // G)),
+                   w2=min(n1, FFT_MAX_SUB // n2, max(1, n1 // G)))
+
+
+def taps_spectrum(half_taps: np.ndarray, n: int) -> np.ndarray:
+    """(n,) float64 real DFT of the centred symmetric taps w(|d|), d =
+    −h…h (``half_taps``: w(0..h)), placed circularly on n points."""
+    h = half_taps.shape[0] - 1
+    row = np.zeros(n)
+    row[:h + 1] += half_taps
+    if h:
+        row[n - h:] += half_taps[1:][::-1]
+    r = np.fft.rfft(row).real
+    return np.concatenate([r, r[1:n - n // 2][::-1]])
+
+
+def bitrev(n: int) -> np.ndarray:
+    """(n,) the bit-reversal permutation of a power of two n."""
+    lg = n.bit_length() - 1
+    i = np.arange(n)
+    out = np.zeros(n, np.int64)
+    for b in range(lg):
+        out |= ((i >> b) & 1) << (lg - 1 - b)
+    return out
+
+
+def fft_spectrum_order(K: np.ndarray, f: FftPlan) -> np.ndarray:
+    """A spectrum K[k] (k = k1 + n1·k2) in the second pass's order:
+    K[k1 + n1·bitrev(p)] at k1·n2 + p."""
+    return K.reshape(f.n2, f.n1).T[:, bitrev(f.n2)].ravel()
+
+
+@functools.lru_cache(maxsize=4)
+def _fft_twiddles(n1: int, n2: int, device: str) -> torch.Tensor:
+    n = n1 * n2
+    ang = np.concatenate([
+        np.outer(np.arange(n1, dtype=np.float64),
+                 np.arange(n2, dtype=np.float64)).ravel() * (2.0 * np.pi / n),
+        np.arange(n2 // 2, dtype=np.float64) * (2.0 * np.pi / n2)])
+    return torch.tensor(np.stack([np.cos(ang), -np.sin(ang)], -1),
+                        dtype=torch.float32, device=device)
+
+
+def fft_twiddles(f: FftPlan, device="cuda") -> torch.Tensor:
+    """(n + n2/2, 2) float32 [re, im] twiddles of the FFT stage, computed in
+    float64: W_n^(n2'·k1) = exp(−2πi·n2'·k1/n) at k1·n2 + n2' (the passes'
+    order), then W_n2^i for i < n2/2 (the sub-transforms')."""
+    return _fft_twiddles(f.n1, f.n2, str(torch.device(device)))
 
 
 def tap_plan(L: int, R: int, avail_floats: int):
@@ -324,7 +446,9 @@ class GmemPlan:
     ``run`` sites); the circulants staged in ``tile``-site tiles of the
     segment (``wf`` floats a field, ``part`` floats of partial sums);
     ``smem`` bytes of shared memory per CTA; ``per_launch`` replicas a
-    launch holds co-resident, ``waves`` = ⌈B / per_launch⌉ launches."""
+    launch holds co-resident, ``waves`` = ⌈B / per_launch⌉ launches;
+    ``fft``: the full smoothing's FFT stage (m_mode 'smooth', else
+    None)."""
 
     ctas: int
     seg: int
@@ -340,6 +464,7 @@ class GmemPlan:
     per_launch: int = 1
     waves: int = 1
     route: str = "gmem"
+    fft: Optional[FftPlan] = None
 
 
 def cta_smem_bytes(seg: int, tseg: int, local_m: bool, taps: bool,
@@ -478,7 +603,8 @@ def pde_max_lattice(n_t: int, m_mode: str, circulants: Mapping[str, int],
     """The largest L (a power of two) that a cluster of a size in
     ``launchable`` (non-zero: the card can launch it) serves for this
     configuration: the full circulant's radius grows with L (L//2), the
-    narrow smoothing's and the banded solve's do not."""
+    narrow smoothing's and the banded solve's do not.  Past it the call
+    takes the device-memory route, the full smoothing its FFT stage."""
     best, Lp = 0, 32
     while Lp <= 1 << 24:
         radii = dict(circulants)
@@ -493,12 +619,14 @@ def pde_max_lattice(n_t: int, m_mode: str, circulants: Mapping[str, int],
     return best
 
 
-def gmem_smem_bytes(tseg: int, fp: int, wf: int, part: int) -> int:
+def gmem_smem_bytes(tseg: int, fp: int, wf: int, part: int,
+                    fft: Optional[FftPlan] = None) -> int:
     """Shared memory of one CTA of the device-memory route
-    (``csrc/pde_multi_step.cu`` ``pde_gmem_kernel``, in its order): 7 × 16
-    warp totals, the tracers' displacements, the staging windows and the
+    (``csrc/pde_multi_step.cu`` ``gmem_steps``, in its order): the FFT
+    stage's buffer and twiddles (``FftPlan.smem``, where used), 7 × 16 warp
+    totals, the tracers' displacements, the staging windows and the
     partial sums."""
-    return 4 * (7 * 16 + tseg + fp * wf + part)
+    return (fft.smem if fft else 0) + 4 * (7 * 16 + tseg + fp * wf + part)
 
 
 def gmem_layout(L: int, n_t: int, G: int, m_mode: str,
@@ -507,16 +635,21 @@ def gmem_layout(L: int, n_t: int, G: int, m_mode: str,
     """The layout of G CTAs of the device-memory route for one call, or
     None where it does not fit: a power of two G up to ``GMEM_MAX_CTAS``,
     each CTA 32 to ``GMEM_MAX_SEG`` sites, the m modes of
-    ``GMEM_M_MODES`` (the full circulant's L//2 taps a site stay on the
-    cluster route), and shared memory within ``smem_limit``.  The scan's
+    ``GMEM_M_MODES``, and shared memory within ``smem_limit``.  The scan's
     tiles and the circulants' laws are the cluster route's; a circulant
     stages tiles of at most ``GMEM_TILE`` sites, fewer (halved down to 32)
-    where its windows do not fit."""
+    where its windows do not fit.  The full smoothing (m_mode 'smooth') is
+    no circulant here but the FFT stage (``fft_plan``), whose ValueError
+    past its reach this passes on."""
     Lp = lattice_pow2(L)
     if (G < 1 or G > GMEM_MAX_CTAS or G & (G - 1) or m_mode not in
             GMEM_M_MODES or not 32 <= Lp // G <= GMEM_MAX_SEG
             or L > GMEM_MAX_L):
         return None
+    fft = None
+    if m_mode == "smooth":
+        fft = fft_plan(L, G)
+        circulants = {k: R for k, R in circulants.items() if k != "smooth"}
     seg = Lp // G
     run, tiles = scan_law(Lp)
     tseg = max(1, (1 << (max(n_t, 1) - 1).bit_length()) // G)
@@ -526,12 +659,12 @@ def gmem_layout(L: int, n_t: int, G: int, m_mode: str,
     while T >= 32:
         for fp in (2, 1):
             st, wf, part = _staging(used, fp, max(KBLOCK, top), T)
-            smem = gmem_smem_bytes(tseg, fp, wf, part)
+            smem = gmem_smem_bytes(tseg, fp, wf, part, fft)
             if smem <= smem_limit:
                 return GmemPlan(G, seg, tseg, run, tiles,
                                 st.get("smooth", CircStage()),
                                 st.get("solve", CircStage()), T, wf, part,
-                                smem)
+                                smem, fft=fft)
         T //= 2
     return None
 
@@ -546,8 +679,9 @@ def gmem_launch_plan(B: int, L: int, n_t: int, m_mode: str,
     power of two with all B replicas' CTAs co-resident (B·G at most the
     card's), within the layout's bounds (``gmem_layout``), at least 1;
     replicas past one launch's co-resident CTAs run as further launches
-    (``waves``).  ``ctas`` forces G.  Raises ValueError where no G fits
-    or the card holds not even one replica's CTAs."""
+    (``waves``).  ``ctas`` forces G.  Raises ValueError where no G fits,
+    the FFT stage does not reach L, or the card holds not even one
+    replica's CTAs."""
     co_of = (coresident_ctas if callable(coresident_ctas)
              else (lambda smem: int(coresident_ctas)))
     Lp = lattice_pow2(L)
@@ -585,13 +719,17 @@ def gmem_call_bytes(plan: GmemPlan, B: int, L: int, n_t: int, window: int,
     outputs (the two fields, the tracers and their ring, the records), the
     device scratch (the fields Q, N, m and the smoothed denominator where
     used; the published totals, the scan's tile totals and the arrival
-    counters of one launch's replicas) and the spectra's density scratch
-    (``spectra_plan``)."""
-    nfs = 2 + int(m_mode != "global") + int(m_mode == "narrow")
+    counters of one launch's replicas), the FFT stage's complex scratch
+    (n·8 B for each of one launch's replicas), spectrum and twiddles, and
+    the spectra's density scratch (``spectra_plan``)."""
+    nfs = 2 + int(m_mode != "global") + int(m_mode in ("narrow", "smooth"))
     per = plan.per_launch
     out = 4 * B * (2 * L + 2 * n_t + window * n_t + k_steps
                    * (4 + 2 * kmax_rec))
     scratch = 4 * per * (nfs * L + 3 * plan.ctas * 4 + 32) + 16 * per * 128
+    f = plan.fft
+    if f is not None:
+        scratch += 8 * per * f.n + 4 * f.n + 8 * (f.n + f.n2 // 2)
     dens = 0
     if kmax_rec:
         sp = spectra_plan(B, k_steps, L, kmax_rec)
@@ -605,20 +743,31 @@ def gmem_call_bytes(plan: GmemPlan, B: int, L: int, n_t: int, window: int,
 def gmem_max_lattice(plan_of, B: int, n_t: int, window: int, m_mode: str,
                      kmax_rec: int, k_steps: int, mem_bytes: int) -> int:
     """The largest L whose call fits ``mem_bytes`` of device memory
-    (``gmem_call_bytes`` under the plan ``plan_of(L)`` gives), by
-    bisection over L (the bytes grow with L); 0 where none does."""
+    (``gmem_call_bytes`` under the plan ``plan_of(L)`` gives); 0 where
+    none does.  The bytes grow with L, but for the full smoothing a power
+    of two L transforms at n = L and L − 1 at 2L (``fft_plan``): so the
+    bisection runs over odd L, then L + 1 and the powers of two above are
+    tried."""
     def fits(L):
+        if L < 3 or L > GMEM_MAX_L:
+            return False
         plan = plan_of(L)
         return plan is not None and gmem_call_bytes(
             plan, B, L, n_t, window, m_mode, kmax_rec, k_steps) <= mem_bytes
-    lo, hi = 0, GMEM_MAX_L
+    lo, hi = 0, (GMEM_MAX_L - 1) // 2            # odd L = 2i + 1
     while lo < hi:
         mid = (lo + hi + 1) // 2
-        if mid >= 3 and fits(mid):
+        if fits(2 * mid + 1):
             lo = mid
         else:
             hi = mid - 1
-    return lo
+    best = 2 * lo + 1 if lo else 0
+    if fits(best + 1):
+        best += 1
+    p = 1 << best.bit_length()
+    while fits(p):
+        best, p = p, 2 * p
+    return best
 
 
 def pde_route_plan(B: int, L: int, n_t: int, m_mode: str,
@@ -631,10 +780,9 @@ def pde_route_plan(B: int, L: int, n_t: int, m_mode: str,
                    smem_limit: int = SMEM_LIMIT):
     """The route and plan of one call: the cluster route
     (``pde_launch_plan``) wherever a cluster fits, the device-memory route
-    (``gmem_launch_plan``) past it.  ``route`` ('cluster' or 'gmem')
-    forces one; ``cluster`` / ``ctas`` force its C / G.  The full
-    circulant (m_mode 'smooth') has no device-memory route: past a
-    cluster it raises the cluster route's ValueError."""
+    (``gmem_launch_plan``) past it; there the full smoothing (m_mode
+    'smooth') is the FFT stage.  ``route`` ('cluster' or 'gmem') forces
+    one; ``cluster`` / ``ctas`` force its C / G."""
     if route not in (None, "cluster", "gmem"):
         raise ValueError(f"pde_multi_step: unknown route {route!r}")
     kw = dict(smem_limit=smem_limit)
@@ -1053,7 +1201,7 @@ def _check_call(scal, seeds, step0, rho_p, rho_m, pos, spin, hist, solve,
 def _launch_fn():
     fn = load_kernel_library("pde_multi_step").pde_multi_step_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 20 + [ctypes.c_int] * 27
+                   + [ctypes.c_void_p] * 23 + [ctypes.c_int] * 33
                    + [ctypes.c_float] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -1103,11 +1251,12 @@ def pde_multi_step_planned(plan, scal, seeds, step0: int, rho_p, rho_m,
         raise ValueError(f"pde_multi_step: a plan for {plan} does not fit "
                          f"L={L}, n_t={n_t}, m_mode {m_mode!r}")
     fac = solve.factors if solve_mode == "exact" else None
+    fft = plan.fft if gmem else None
     taps = {"solve": (_kernel_taps(solve, plan.solve.ns, plan.solve.length)
                       if solve_mode == "banded" else None),
             "smooth": (_kernel_taps(smooth, plan.smooth.ns,
                                     plan.smooth.length)
-                       if smooth is not None else None)}
+                       if smooth is not None and fft is None else None)}
     fn = _launch_fn()
     sp = spectra_plan(B, k_steps, L, kmax_rec) if kmax_rec else None
     piece = sp.piece if sp else k_steps
@@ -1116,7 +1265,8 @@ def pde_multi_step_planned(plan, scal, seeds, step0: int, rho_p, rho_m,
     per = plan.per_launch if gmem else B
     g = None
     if gmem:   # one launch's device scratch, reused launch after launch
-        nfs = 2 + int(m_mode != "global") + int(m_mode == "narrow")
+        nfs = 2 + int(m_mode != "global") + int(m_mode in ("narrow",
+                                                           "smooth"))
         g = dict(fld=torch.empty((per, nfs, L), dtype=torch.float32,
                                  device=dev),
                  pub=torch.empty((per, 3, plan.ctas, 4), dtype=torch.float32,
@@ -1124,6 +1274,13 @@ def pde_multi_step_planned(plan, scal, seeds, step0: int, rho_p, rho_m,
                  tt=torch.empty((per, 128, 2), dtype=torch.float64,
                                 device=dev),
                  bar=torch.zeros((per, 32), dtype=torch.int32, device=dev))
+        g.update(tw=None, spec=None, fft=None)
+        if fft is not None:             # the full smoothing's FFT stage
+            g.update(tw=fft_twiddles(fft, dev),
+                     spec=smooth.fft_spectrum(fft),
+                     fft=torch.empty((per, fft.n, 2), dtype=torch.float32,
+                                     device=dev))
+    m_code = _FFT_M_CODE if fft is not None else _M_CODES[m_mode]
     stream = torch.cuda.current_stream(dev)
     if pde_multi_step.events is not None:
         pde_multi_step.events.append(
@@ -1146,6 +1303,7 @@ def pde_multi_step_planned(plan, scal, seeds, step0: int, rho_p, rho_m,
                 g["bar"].zero_()
             pde_multi_step.launches += 1
             pde_multi_step.route_launches[plan.route] += 1
+            pde_multi_step.fft_launches += fft is not None
             rc = fn(ptr(scal[rows]), ptr(seeds[rows]), step0 + s0, b0 + r0,
                     *[ptr(t[rows]) for t in state],
                     *[ptr(t[rows]) for t in outs], ptr(recs[rows]),
@@ -1153,18 +1311,23 @@ def pde_multi_step_planned(plan, scal, seeds, step0: int, rho_p, rho_m,
                     ptr(taps["solve"]), ptr(taps["smooth"]),
                     ptr(d[rows] if d is not None else None),
                     ptr(nz[rows] if nz is not None else None),
-                    *[ptr(g[k] if g else None)
-                      for k in ("fld", "pub", "tt", "bar")],
-                    nb, L, n_t, window, kp, kmax_rec, _M_CODES[m_mode],
+                    *[ptr(g[k] if g else None) for k in (
+                        "fld", "pub", "tt", "bar", "tw", "spec", "fft")],
+                    nb, L, n_t, window, kp, kmax_rec, m_code,
                     _SOLVE_CODES[solve_mode], int(gmem), plan.ctas,
                     plan.seg, plan.tseg, plan.run, plan.tiles, sm.ns,
                     sm.length, sm.tb, sm.fp, sv.ns, sv.length, sv.tb, sv.fp,
-                    plan.wf, plan.tile, plan.smem, int(periodic),
+                    plan.wf, plan.tile, plan.smem,
+                    *((fft.n1, fft.n2, fft.w1, fft.w2, fft.wrap, fft.buf)
+                      if fft is not None else (0,) * 6), int(periodic),
                     int(bidirectional), dt, xlim / L, xlim,
                     0.0 if fac is None else fac.v_last,
                     0.0 if fac is None else fac.fac, window * dt,
                     2.0 * window * dt, ctypes.c_void_p(stream.cuda_stream))
             check_cuda(rc, "pde_multi_step")
+            if pde_multi_step.m_fields is not None and g is not None \
+                    and m_mode != "global":
+                pde_multi_step.m_fields.append(g["fld"][:nb, 2].clone())
         if d is not None:
             pde_spectra(d, recs, kmax_rec)
         state = outs
@@ -1175,18 +1338,24 @@ def pde_multi_step_planned(plan, scal, seeds, step0: int, rho_p, rho_m,
     return (*state, parts[0] if len(parts) == 1 else torch.cat(parts, 1))
 
 
-# launches of the kernel, in all and by route ('cluster', 'gmem'); the plan
-# of the last call; and, while ``events`` is a list, a pair of CUDA events
-# around each call (``kernel_ms`` sums them) — off by default
+# launches of the kernel, in all and by route ('cluster', 'gmem'), and of
+# the device-memory route's FFT-stage kernel (m_mode 'smooth'); the plan
+# of the last call; while ``events`` is a list, a pair of CUDA events
+# around each call (``kernel_ms`` sums them); and while ``m_fields`` is a
+# list, a copy of each device-memory launch's m field (its replicas' rows,
+# m_mode not 'global') as its last step read it — both off by default
 pde_multi_step.launches = 0
 pde_multi_step.route_launches = {"cluster": 0, "gmem": 0}
+pde_multi_step.fft_launches = 0
 pde_multi_step.last_plan = None
 pde_multi_step.events = None
+pde_multi_step.m_fields = None
 
 
 def reset_launches() -> None:
     """Set kernel B2's and its spectra kernel's launch counters to 0."""
     pde_multi_step.launches = pde_spectra.launches = 0
+    pde_multi_step.fft_launches = 0
     pde_multi_step.route_launches = {"cluster": 0, "gmem": 0}
 
 

@@ -11,7 +11,12 @@ the interval.
 
 CUDA tensors run the kernel, CPU tensors its plain version.  The routing
 (``_m_mode``, ``_solve_mode_of``) is the JAX package's, without its VMEM
-budget: an exact solve needs no (L, L) matrix here.
+budget: an exact solve needs no (L, L) matrix here.  On the card the
+kernel's plan picks its route (``ops.pde_kernel.pde_route_plan``): a
+cluster of CTAs where one holds the fields, else the fields in device
+memory, where the full Gaussian m ('smooth') is an FFT convolution.  The
+route is a function of the configuration and the card's type, both in a
+checkpointed run's hash, so a checkpoint directory is tied to it.
 """
 from __future__ import annotations
 

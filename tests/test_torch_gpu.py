@@ -24,6 +24,7 @@ from hydrolim_tpu_torch.ops.exclusion_kernel import (
     smoothing_band,
 )
 from hydrolim_tpu_torch.ops.pde_kernel import (
+    m_field_of,
     pde_multi_step,
     pde_multi_step_plain,
     pde_spectra,
@@ -328,10 +329,11 @@ def test_b2_kernel_matches_plain(dev, case):
 
 def test_b2_wrapper_refuses_what_does_not_fit(dev, monkeypatch):
     """What neither route serves is refused before any launch, with the
-    reason and the limit: the full smoothing circulant past the 65,536
-    sites a cluster holds (it has no device-memory route), and a lattice
-    past the device memory the card has free (here reported as 1 MB);
-    so are missing operands."""
+    reason and the limit: a lattice past the device memory the card has
+    free (here reported as 1 MB), with a pointwise m and with the full
+    smoothing; so are missing operands.  The full smoothing past the
+    65,536 sites a cluster holds (L = 140,000) is served, on the
+    device-memory route's FFT stage, in one launch."""
     from hydrolim_tpu_torch.ops import pde_kernel as pk
     from hydrolim_tpu_torch.ops.convolve import periodic_gaussian_kernel
 
@@ -347,23 +349,31 @@ def test_b2_wrapper_refuses_what_does_not_fit(dev, monkeypatch):
 
     kw = dict(n_t=n_t, window=W, k_steps=1, dt=1e-4, xlim=1.0,
               periodic=True, solve_mode="none", bidirectional=True)
-    n0 = pde_multi_step.launches
+    n0 = dict(pde_multi_step.route_launches)
     L = 140_000
     smooth = pk.build_smooth_operands(
         "smooth", periodic_gaussian_kernel(L, 1.0 / L, 0.05), dev)
-    with pytest.raises(ValueError, match=f"more than the {pk.SMEM_LIMIT} B"
-                       ".*largest L .* is 65536"):
-        pde_multi_step(*args(L, smooth), L=L, m_mode="smooth", **kw)
+    out = pde_multi_step(*args(L, smooth), L=L, m_mode="smooth", **kw)
+    torch.cuda.synchronize()
+    assert pde_multi_step.last_plan.route == "gmem"
+    assert pde_multi_step.last_plan.fft.n == 524_288
+    assert pde_multi_step.route_launches["gmem"] == n0["gmem"] + 1
+    assert torch.isfinite(out[0]).all()
+    assert torch.isfinite(out[5][..., :2]).all()       # m and Var
     with pytest.raises(ValueError, match="needs its SmoothOperands"):
         pde_multi_step(*args(L), L=L, m_mode="narrow", **kw)
-    L = 262_144
+    n0 = dict(pde_multi_step.route_launches)
     total = torch.cuda.mem_get_info(dev)[1]
     monkeypatch.setattr(pk.torch.cuda, "mem_get_info",
                         lambda *a: (1 << 20, total))
+    with pytest.raises(ValueError, match="device-memory route: L=140000 .*"
+                       "more than the 1048576 B free; the largest L"):
+        pde_multi_step(*args(L, smooth), L=L, m_mode="smooth", **kw)
+    L = 262_144
     with pytest.raises(ValueError, match="device-memory route: L=262144 .*"
                        "more than the 1048576 B free; the largest L"):
         pde_multi_step(*args(L), L=L, m_mode="pointwise", **kw)
-    assert pde_multi_step.launches == n0
+    assert pde_multi_step.route_launches == n0
 
 
 def _b2_large_case(dev, L, B, over, gamma=None, n_t=64, W=10, seed=0):
@@ -393,12 +403,13 @@ def _b2_large_case(dev, L, B, over, gamma=None, n_t=64, W=10, seed=0):
                                      tr.hist], kw
 
 
-def _b2_held(got, want):
+def _b2_held(got, want, field_atol=1e-7):
     """The kernel-logic tolerances (``test_b2_kernel_matches_plain``); Var
     rtol 1e-3, atol 1e-5 of the run's largest Var (Var scales with the
-    lattice: ~1e-10 at L=16,384)."""
-    torch.testing.assert_close(got[0], want[0], rtol=2e-4, atol=1e-7)
-    torch.testing.assert_close(got[1], want[1], rtol=2e-4, atol=1e-7)
+    lattice: ~1e-10 at L=16,384); the fields' atol 1e-7 unless a caller
+    tightens it."""
+    torch.testing.assert_close(got[0], want[0], rtol=2e-4, atol=field_atol)
+    torch.testing.assert_close(got[1], want[1], rtol=2e-4, atol=field_atol)
     torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-5)
     assert torch.equal(got[3], want[3])
     torch.testing.assert_close(got[4], want[4], rtol=1e-4, atol=1e-5)
@@ -492,6 +503,30 @@ def test_b2_past_one_cta_matches_plain(dev, case, L):
     assert not torch.equal(got[0], state[0])
 
 
+def _density_atol(want):
+    """The fields' atol of the full smoothing's checks: 1e-7, or 1e-5 of
+    the largest density where that is less."""
+    return min(1e-7, 1e-5 * float(torch.maximum(want[0].abs().max(),
+                                                want[1].abs().max())))
+
+
+def _b2_m_field_held(state, modes, scal, seeds, kw):
+    """The m field the FFT stage leaves for the step's reaction and
+    tracers, site by site: one step from ``state`` with the launch's m
+    field kept (``pde_multi_step.m_fields``) against ``m_field_of`` on the
+    same densities, atol 1e-5."""
+    pde_multi_step.m_fields = []
+    try:
+        pde_multi_step(scal, seeds, 0, *state, modes[3], modes[2],
+                       k_steps=1, **kw)
+        got = torch.cat(pde_multi_step.m_fields)
+    finally:
+        pde_multi_step.m_fields = None
+    want = m_field_of("smooth", state[0], state[1], modes[2])
+    assert got.shape == want.shape == (scal.shape[0], kw["L"])
+    torch.testing.assert_close(got, want.to(got.dtype), rtol=0, atol=1e-5)
+
+
 # the two routes where both serve: (case of B2_LARGE, L)
 B2_ROUTES = [("pointwise-banded", 65_536), ("narrow-banded", 65_536),
              ("global-banded", 131_072), ("pointwise-neumann-exact", 131_072)]
@@ -536,12 +571,19 @@ def test_b2_routes_are_bitwise_equal(dev, case, L):
 @pytest.mark.parametrize("case, L", [
     ("pointwise-banded", 262_144), ("pointwise-banded", 1_048_576),
     ("pointwise-banded", 4_194_304), ("global-banded", 262_144),
-    ("narrow-banded", 262_144), ("pointwise-neumann-exact", 262_144)])
+    ("narrow-banded", 262_144), ("pointwise-neumann-exact", 262_144),
+    ("smooth-exact", 262_144), ("smooth-exact", 131_071),
+    ("smooth-exact", 4_194_304)])
 def test_b2_device_memory_route_matches_plain(dev, case, L):
     """Past a cluster's shared memory the card's plan is the device-memory
     route, held to the plain version at injected bits (B = 2, 64 tracers,
     the large-lattice recipe, 8 steps), at the three large lattices of
-    the recipe and in every m mode and solve it serves at 262,144."""
+    the recipe and in every m mode and solve it serves at 262,144; the full
+    smoothing (its FFT stage) also at the prime L = 131,071, the row
+    wrapped and padded to 262,144 points, and at 4,194,304 (2048 x 2048
+    points), with the fields' atol 1e-5 of the largest density (a site
+    holds ~1/L of the mass) and the stage's m field held site by site
+    (``_b2_m_field_held``)."""
     over, gamma, modes_want = B2_LARGE[case]
     if modes_want[0] == "narrow":
         over = dict(over, kernel_sigma=5e-4 * 16_384 / L)
@@ -551,15 +593,46 @@ def test_b2_device_memory_route_matches_plain(dev, case, L):
     k = 8
     kw["noise"] = _bits((2, k, 3, 64), gen, dev)
     n0 = dict(pde_multi_step.route_launches)
+    fft0 = pde_multi_step.fft_launches
     got = pde_multi_step(scal, seeds, 0, *state, modes[3], modes[2],
                          k_steps=k, **kw)
     assert pde_multi_step.last_plan.route == "gmem"
     assert pde_multi_step.route_launches["gmem"] == n0["gmem"] + 1
     assert pde_multi_step.route_launches["cluster"] == n0["cluster"]
+    assert pde_multi_step.fft_launches == fft0 + (modes[0] == "smooth")
     want = pde_multi_step_plain(scal, seeds, 0, *state, modes[3], modes[2],
                                 k_steps=k, **kw)
-    _b2_held(got, want)
+    if modes[0] != "smooth":
+        _b2_held(got, want)
+    else:
+        _b2_held(got, want, _density_atol(want))
+        del kw["noise"]
+        _b2_m_field_held(got[:5], modes, scal, seeds, kw)
     assert not torch.equal(got[0], state[0])
+
+
+def _density_atol(want):
+    """The fields' atol of the full smoothing's checks: 1e-7, or 1e-5 of
+    the largest density where that is less."""
+    return min(1e-7, 1e-5 * float(torch.maximum(want[0].abs().max(),
+                                                want[1].abs().max())))
+
+
+def _b2_m_field_held(state, modes, scal, seeds, kw):
+    """The m field the FFT stage leaves for the step's reaction and
+    tracers, site by site: one step from ``state`` with the launch's m
+    field kept (``pde_multi_step.m_fields``) against ``m_field_of`` on the
+    same densities, atol 1e-5."""
+    pde_multi_step.m_fields = []
+    try:
+        pde_multi_step(scal, seeds, 0, *state, modes[3], modes[2],
+                       k_steps=1, **kw)
+        got = torch.cat(pde_multi_step.m_fields)
+    finally:
+        pde_multi_step.m_fields = None
+    want = m_field_of("smooth", state[0], state[1], modes[2])
+    assert got.shape == want.shape == (scal.shape[0], kw["L"])
+    torch.testing.assert_close(got, want.to(got.dtype), rtol=0, atol=1e-5)
 
 
 # |B2's mass change − the plain version's| after 1500 steps of the
@@ -592,6 +665,56 @@ def test_b2_mass_over_1500_steps_holds_the_plain_versions(dev):
              for r in (got, want)]
     gap = (moved[0] - moved[1]).abs().max().item()
     assert gap < B2_MASS_BOUND, (moved, gap)
+
+
+def test_run_pde_ensemble_full_smoothing_past_a_cluster(dev, monkeypatch):
+    """``run_pde_ensemble`` with the full Gaussian m (σ = 0.05, 13,107
+    sites) at L = 131,072 on the card: every block call on the
+    device-memory route (its FFT stage), none on the cluster, against the
+    same ensemble stepped by the plain version on the card from the same
+    initial state: the fields at rtol 2e-4 and phase 4's atol 1e-7
+    tightened to 1e-5 of the largest density (``_density_atol``), m atol
+    1e-5, Var rtol 1e-3 (atol 1e-5 of the largest), the spectra rtol 1e-4
+    / atol 1e-8 (the tracers' draws differ, and no field reads them)."""
+    from hydrolim_tpu_torch.ops import pde_kernel as pk
+    from hydrolim_tpu_torch.pde import fast_solve
+    from hydrolim_tpu_torch.sweeps.pde_sweeps import run_pde_ensemble
+
+    L, steps = 131_072, 40
+    dt = 0.5 / L / 0.6
+    config = PDEConfig(L=L, T=steps * dt, dt=dt, gaussian_kernel=True,
+                       kernel_sigma=0.05, snapshot_interval=20, fft_kmax=8,
+                       tracer_window_time=10 * dt * (1 + 1e-9))
+    kw = dict(gamma=2.5 / L / L / dt, lam=0.6, n_runs=1, seed=3,
+              n_tracers=64, device=dev)
+    assert fast_solve.kernel_operands(config, kw["gamma"], dev)[0] == \
+        "smooth"
+    pk.reset_launches()
+    got, _ = run_pde_ensemble(config, [0.5, 2.5], **kw)
+    n = dict(pk.pde_multi_step.route_launches)
+    assert n["gmem"] == pk.pde_multi_step.launches >= 1 and not n["cluster"]
+    assert pk.pde_multi_step.fft_launches == n["gmem"]
+    assert pk.pde_spectra.launches >= 1
+
+    def plain(*args, generator=None, route=None, **k):
+        return pk.pde_multi_step_plain(*args, generator=generator, **k)
+    monkeypatch.setattr(fast_solve, "pde_multi_step", plain)
+    want, _ = run_pde_ensemble(config, [0.5, 2.5], **kw)
+    assert pk.pde_multi_step.launches == n["gmem"]
+    t = lambda a: torch.as_tensor(np.asarray(a), device=dev)
+    fa = _density_atol((t(want.rho_p), t(want.rho_m)))
+    for a, b in ((got.rho_p, want.rho_p), (got.rho_m, want.rho_m),
+                 (got.snapshots, want.snapshots)):
+        torch.testing.assert_close(t(a), t(b), rtol=2e-4, atol=fa)
+    rec, wrec = got.records, want.records
+    torch.testing.assert_close(t(rec.m_mean), t(wrec.m_mean), rtol=0,
+                               atol=1e-5)
+    var = np.abs(wrec.var).max()
+    torch.testing.assert_close(t(rec.var), t(wrec.var), rtol=1e-3,
+                               atol=1e-5 * var)
+    torch.testing.assert_close(t(rec.fft_ri), t(wrec.fft_ri), rtol=1e-4,
+                               atol=1e-8)
+    assert not np.array_equal(got.rho_p, got.snapshots[:, 0])
 
 
 def test_b2_spectra_kernel_at_65536(dev):

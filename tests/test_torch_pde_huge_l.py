@@ -13,7 +13,11 @@ The lattices follow the large-lattice driver's recipe (dt = 0.5·dx/λ,
 γ = 2.5·dx²/dt), 20 steps from the JAX path's own initial states, at the
 tolerances of ``test_torch_pde_large_l.py`` (fields rtol 2e-4 / atol
 1e-7, m rtol 1e-4 / atol 1e-6, Var rtol 1e-3).  The narrow smoothing's σ
-keeps its radius under the kernel's 63 taps (σ·L = 8.2 sites, r = 33).
+keeps its radius under the kernel's 63 taps (σ·L = 8.2 sites, r = 33);
+σ = 0.05 (13,107 sites) is the full smoothing, which the card runs on its
+device-memory route's FFT stage and the plain version by a float64 FFT;
+the JAX XLA path convolves it by its native FFT (``HYDROLIM_FFT_MODE``
+'native': its default 'matmul' mode would build the L×L circulant).
 The tracers' draws differ between the packages, so v_eff and D_eff are
 held to their NaN warm-up and finite values after it.
 """
@@ -49,12 +53,14 @@ def _close(got, want, what):
 @pytest.mark.parametrize("over", [
     dict(),                                                 # pointwise
     dict(gaussian_kernel=True, kernel_sigma=SIGMA),         # narrow, r=33
-], ids=["pointwise", "narrow"])
+    dict(gaussian_kernel=True, kernel_sigma=0.05),          # smooth
+], ids=["pointwise", "narrow", "smooth"])
 def test_run_pde_ensemble_matches_jax_at_262144(over, monkeypatch):
     """``run_pde_ensemble`` on ``device="cpu"`` (kernel B2's plain
     version, the banded solve) from the JAX ensemble's initial states
     against ``run_pde_ensemble(engine='xla')``: the final fields, the
     snapshots, m, Var and the 8 spectral bins at every step."""
+    from hydrolim_tpu.ops import dft
     from hydrolim_tpu.pde.init import pde_initialize as j_init
     from hydrolim_tpu.sweeps.pde_sweeps import run_pde_ensemble as j_run
 
@@ -65,10 +71,13 @@ def test_run_pde_ensemble_matches_jax_at_262144(over, monkeypatch):
         **over))
     assert jcfg.solver_kind == cfg.solver_kind == "banded"
     m_mode, solve_mode, smooth, _ = pfs.kernel_operands(cfg, GAMMA, "cpu")
-    assert (m_mode, solve_mode) == (
-        "narrow" if over else "pointwise", "banded")
-    if smooth is not None:
+    want = ("pointwise" if not over else
+            "smooth" if over["kernel_sigma"] == 0.05 else "narrow")
+    assert (m_mode, solve_mode) == (want, "banded")
+    if m_mode == "narrow":
         assert smooth.radius <= 63
+    if m_mode == "smooth":      # the XLA path's FFT, not its L×L circulant
+        monkeypatch.setattr(dft, "_FFT_MODE", "native")
     kw = dict(gamma=GAMMA, lam=LAM, n_runs=1, seed=5, n_tracers=N_T)
     jres, _ = j_run(jcfg, BETAS, engine="xla", **kw)
 
