@@ -287,12 +287,12 @@ def circulant_ops(L: int, r: int) -> float:
 def fft_scratch_us(n: int, B: int) -> float:
     """Not a bound: µs a step that B2's FFT stage (the full smoothing on
     the device-memory route, one complex transform of n points) spends on
-    its complex scratch if each of its three passes reads and writes it in
-    device memory (B replicas of n values of 8 B), at the memory rate.
-    The scratch is neither an input nor an output of the step, so
-    ``b2_step_bound`` leaves it out; past the L2 (50 MB) it is this
-    design's own floor."""
-    return 3.0 * 2.0 * 8.0 * n * B / HBM_BYTES_PER_S * 1e6
+    its complex scratch in device memory (B replicas of n values of 8 B),
+    at the memory rate: pass 1 writes it, pass 2 reads and writes it, pass
+    3 reads it, two round trips.  The scratch is neither an input nor an
+    output of the step, so ``b2_step_bound`` leaves it out; past the L2
+    (50 MB) it is this design's own floor."""
+    return 2.0 * 2.0 * 8.0 * n * B / HBM_BYTES_PER_S * 1e6
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -658,6 +658,12 @@ def check_b2(dev) -> tuple:
                       noise=noise[:, c * k:(c + 1) * k].contiguous())
             *sk, r1 = pde_multi_step(scal, seeds, c * k, *sk, ops[3],
                                      ops[2], **kw)
+            if c == 0 and ops[0] == "smooth":
+                plan = pde_multi_step.last_plan
+                print(f"B2 {what}: the card's plan takes the {plan.route} "
+                      f"route ({plan.ctas} CTAs a replica"
+                      + (", the FFT stage" if getattr(plan, "fft", None)
+                         else ", the direct circulant") + ")", flush=True)
             *sp, r2 = pde_multi_step_plain(scal, seeds, c * k, *sp, ops[3],
                                            ops[2], **kw)
             pde_kernel.SPECTRA_SCRATCH_BYTES = 4 * B * piece * config.L
@@ -4122,11 +4128,12 @@ B2_LARGE_PLAIN = (
 
 
 def b2_large_against_plain(dev) -> None:
-    """(d) The full smoothing circulant at L = 16,384 (σ=0.05, the exact
-    solve, B=1, 64 tracers, 6 steps), and at L = 131,072, the largest
+    """(d) The cluster route's full smoothing circulant at L = 16,384
+    (σ=0.05, the exact solve, B=1, 64 tracers, 6 steps; forced, the route
+    line sends it to the FFT stage), and at L = 131,072, the largest
     lattice a cluster serves with a global or pointwise m, the banded
     solve (global m) and the exact one (pointwise m, Neumann; 8 steps of
-    the large-lattice recipe each): the card's plan against the plain
+    the large-lattice recipe each): the cluster route against the plain
     version on the card at injected bits."""
     import torch
     from hydrolim_tpu_torch.experiments.profile_pde_kernel import (
@@ -4147,12 +4154,12 @@ def b2_large_against_plain(dev) -> None:
                   noise=randbits((1, k, 3, 64), gen, dev))
         seeds = torch.zeros(1, dtype=torch.int32, device=dev)
         got = pk.pde_multi_step(scal, seeds, 0, *state, ops[3], ops[2],
-                                **kw)
+                                route="cluster", **kw)
         want = pk.pde_multi_step_plain(scal, seeds, 0, *state, ops[3],
                                        ops[2], **kw)
         circ = pk.call_circulants(config.L, ops[0], ops[1], ops[2], ops[3])
         plan = pk.card_plan(dev.index or 0, 1, config.L, 64, ops[0],
-                            tuple(sorted(circ.items())))
+                            tuple(sorted(circ.items())), "cluster")
         print(f"B2 {label}: plan C={plan.cluster}, segment {plan.seg}, "
               f"{plan.smem} B of shared memory a CTA", flush=True)
         b2_against_plain(f"B2 {label}", got, want, config.tracer_window)
@@ -4416,13 +4423,17 @@ def b2_route_times(dev) -> dict:
 # phase 23: B2's full smoothing in device memory (the FFT stage)
 # ---------------------------------------------------------------------------
 
-# (a)'s lattices: powers of two, a prime and a composite (the row wrapped
-# and padded), and its σ (xlim 1; all take m_mode 'smooth'); then a few
-# steps at the stage's largest transforms: 4,194,304 (2048 x 2048) and
-# 2^26 (8192 x 8192, the plan's reach, one column and one row a unit)
+# (a)'s lattices: the route line (``SMOOTH_FFT_FROM``, the smallest L the
+# stage serves) and 32,768, below a cluster's reach, both newly on the
+# stage, at σ = 0.05 (at 0.0005, 4096 takes the narrow taps); powers of two,
+# a prime and a composite (the row wrapped and padded), and its σ (xlim 1;
+# all take m_mode 'smooth'); then a few steps at 1,048,576 and at the
+# stage's largest transforms: 4,194,304 (512 x 8192) and 2^26 (8192 x
+# 8192, the plan's reach, one column and one row a unit)
+FFT_L_LINE = (4096, 32_768)
 FFT_L = (131_072, 200_000, 131_071, 262_144)
 FFT_SIGMAS = (0.0005, 0.05)
-FFT_L_LARGE = ((4_194_304, 4), (1 << 26, 2))
+FFT_L_LARGE = ((1_048_576, 4), (4_194_304, 4), (1 << 26, 2))
 SMOOTH = dict(gaussian_kernel=True, kernel_sigma=0.05)
 
 
@@ -4456,20 +4467,22 @@ def b2_fft_against_plain(dev) -> float:
     """(a) The card's plan (the device-memory route, its FFT stage) against
     the plain version on the card, which smooths by ``m_field_of``'s
     float64 ``torch.fft``: B = 2, the large-lattice recipe (the banded
-    solve), 64 tracers, 8 bins, 40 steps, at L = 131,072, 200,000, 131,071
-    and 262,144 and σ = 0.0005, 0.05; and at σ = 0.05 a few steps at L =
-    4,194,304 and 2^26 (``FFT_L_LARGE``).  At injected bits phase 4's
-    tolerances on every output, the fields' atol tightened to the density
-    (``fft_field_atol``); at native bits (the plain version draws from a
-    generator, the kernel from Philox) the fields, m, Var and the spectra,
-    which read no draw, for the first four L.  After each call, the
+    solve), 64 tracers, 8 bins, 40 steps, at L = 4096 (the route line)
+    and 32,768 at σ = 0.05 (``FFT_L_LINE``), at 131,072, 200,000, 131,071
+    and 262,144 at σ = 0.0005, 0.05; and at σ = 0.05 a few steps at L =
+    1,048,576, 4,194,304 and 2^26 (``FFT_L_LARGE``).  At injected bits
+    phase 4's tolerances on every output, the fields' atol tightened to the
+    density (``fft_field_atol``); at native bits (the plain version draws
+    from a generator, the kernel from Philox) the fields, m, Var and the
+    spectra, which read no draw, for the 40-step calls.  After each call, the
     stage's m field site by site on the call's output
     (``b2_fft_m_field``).  Returns the largest field error."""
     import torch
     from hydrolim_tpu_torch.ops import pde_kernel as pk
 
     err = 0.0
-    cases = ([(L, sigma, 40) for L in FFT_L for sigma in FFT_SIGMAS]
+    cases = ([(L, 0.05, 40) for L in FFT_L_LINE]
+             + [(L, sigma, 40) for L in FFT_L for sigma in FFT_SIGMAS]
              + [(L, 0.05, k) for L, k in FFT_L_LARGE])
     for L, sigma, k in cases:
         gen = torch.Generator(device=dev)
@@ -4610,44 +4623,60 @@ def b2_fft_refusal(dev) -> None:
 
 
 def b2_fft_times(dev) -> dict:
-    """(e) ``profile_pde_kernel.py --mode route-smooth spectra-large`` in a
-    child process: µs per step of the full smoothing on the card's plan
-    (the FFT stage) at L = 131,072, 262,144, 1,048,576 and 4,194,304
-    (50-step calls), with and without the bins; at 65,536 the cluster's
-    direct circulant against the FFT stage forced with ``route='gmem'`` (a
-    reading: the route line does not move); the plain ``pde_step`` loop;
-    each row's bound (``b2_step_bound``); the stage's
-    library yardstick, ``torch.fft.rfft``·spectrum·``irfft`` of the (num,
-    den) rows in float32 and float64; and the stage's scratch traffic
-    (``fft_scratch_us``, a reading).  And the spectra kernel at phase
-    22's calls past a million sites (B = 2, 8 bins, 200 steps at
-    1,048,576, 50 at 4,194,304) beside ``torch.fft.rfft`` of the same rows,
-    with its bound.  Returns the L = 262,144 row's times and the spectra
-    rows for the ``kernels`` line."""
+    """(e) ``profile_pde_kernel.py --mode route-smooth spectra-large
+    --quick`` in a child process: µs per step of the full smoothing at
+    L = 1000 … 65,536 and B = 2, 5, 64 on both routes (the cluster's
+    direct circulant, the law below the route line, against the FFT stage
+    forced with ``route='gmem'``; a quarter of the table's steps a call, at
+    least 50 on the stage), and at 131,072, 262,144,
+    1,048,576 and 4,194,304 (B = 2) on the card's plan, the FFT stage,
+    with and without the bins; the plain ``pde_step`` loop; each row's
+    bound (``b2_step_bound``); the stage's library yardstick,
+    ``torch.fft.rfft``·spectrum·``irfft`` of the (num, den) rows in
+    float32 and float64, by device time and by events; and the stage's
+    scratch traffic (``fft_scratch_us``, a reading).  Each row says which
+    route the card's plan takes (``SMOOTH_FFT_FROM``).  And the spectra
+    kernel at phase 22's calls past a million sites (B = 2, 8 bins, 200
+    steps at 1,048,576, 50 at 4,194,304) beside ``torch.fft.rfft`` of the
+    same rows, with its bound; and where a step on the stage goes at
+    262,144, 1,048,576 and 4,194,304 sites (``--mode fft-split``, the
+    stage's clock marks).  Returns the L = 262,144 row's times and the
+    spectra rows for the ``kernels`` line."""
     import os
 
     from hydrolim_tpu_torch.experiments import profile_pde_kernel as pp
+    from hydrolim_tpu_torch.ops import pde_kernel as pk
 
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
     res = subprocess.run(
         [sys.executable, "-m",
          "hydrolim_tpu_torch.experiments.profile_pde_kernel", "--mode",
-         "route-smooth", "spectra-large", "--calls", "3", "--tag",
-         "phase 23"],
+         "route-smooth", "fft-split", "spectra-large", "--calls", "1",
+         "--quick",
+         "--tag", "phase 23"],
         capture_output=True, text=True, env=env, timeout=600)
     if res.returncode != 0:
         raise AssertionError(f"profile_pde_kernel --mode route-smooth: "
                              f"{res.stderr[-2000:]}")
     out = {"spectra": []}
+    us = lambda v: "not measured" if v is None else f"{v:.2f} us"
     for line in res.stdout.splitlines():
         row = json.loads(line)
+        if "split_us_per_step" in row:       # where a step on the stage goes
+            print(f"B2 L={row['L']} smooth, B=2, the FFT stage "
+                  f"{row['fft']['n1']} x {row['fft']['n2']}: "
+                  f"{np.mean(row['us_per_step']):.2f} us/step without bins, "
+                  "of it " + ", ".join(
+                      f"{name} {v:.2f}"
+                      for name, v in row["split_us_per_step"].items()),
+                  flush=True)
+            continue
         if "routes" not in row:              # the spectra kernel
             sh = row["shape"]
             B, k, L, kmax = sh["B"], sh["k_steps"], sh["L"], sh["kmax_rec"]
             b = bound(4 * B * k * (L + 2 * kmax),
                       spectra_ops(B * k, L, kmax))
-            us = lambda v: "not measured" if v is None else f"{v:.2f} us"
             print(f"B2 spectra kernel (B={B}, {k} steps, L={L}, {kmax} "
                   f"bins): device {us(row['device_us_per_call'])} a call "
                   f"(events {us(row['events_us_per_call'])}); "
@@ -4659,38 +4688,45 @@ def b2_fft_times(dev) -> dict:
             out["spectra"].append(dict(row, bound_ms=b["bound_ms"],
                                        bound_by=b["bound_by"]))
             continue
-        L, k = row["L"], row["k_steps"]
-        config, _, ops, scal, _ = pp.b2_inputs(
-            dev, pp.SMOOTH, dict(B=2, n_t=64, W=20, **pp._recipe(L)))
+        L, k, B = row["L"], row["k_steps"], row["B"]
+        over = pp.SMOOTH_EXACT if row["solve_mode"] == "exact" else pp.SMOOTH
+        config, _, ops, scal, _ = pp.b2_inputs(dev, over,
+                                               pp.route_shape(L, over, B))
         plain = float(np.mean(row["plain_pde_step_us_per_step"]))
-        lib = {t: float(np.mean(v)) for t, v in
-               row["library_stage_us"].items()}
+        lib = row["library_stage_us"]
+        line_route = "gmem" if L >= pk.SMOOTH_FFT_FROM else "cluster"
         for route, r in row["routes"].items():
             fft = r.get("fft")
-            b = b2_step_bound(config, ops, 2, k)
+            k = r.get("k_steps", k)
+            b = b2_step_bound(config, ops, B, k)
             bd = b["bound_ms"] * 1e3 / k
-            us, bare = r["us_per_step"], r["us_per_step_without_bins"]
-            smooth_bd = 2 * 2 * circulant_ops(L, L // 2) / F32_OPS_PER_S
+            t, bare = r["us_per_step"], r["us_per_step_without_bins"]
+            smooth_bd = B * 2 * circulant_ops(L, L // 2) / F32_OPS_PER_S
             stage = (f"FFT stage n={fft['n']} = {fft['n1']} x {fft['n2']}, "
-                     f"its scratch's three round trips in device memory "
-                     f"{fft_scratch_us(fft['n'], 2):.2f} us/step (not in "
+                     f"its scratch's round trips in device memory "
+                     f"{fft_scratch_us(fft['n'], B):.2f} us/step (not in "
                      "the bound)" if fft else "the direct circulant")
             stage += (f"; the full smoothing's share of the bound "
                       f"{smooth_bd * 1e6:.4f} us/step")
-            print(f"B2 L={L} smooth sigma=0.05, banded, B=2 on the {route} "
-                  f"route ({stage}; {r['ctas']} CTAs a replica, "
-                  f"{r['waves']} wave(s)): {np.mean(us):.2f} us/step "
-                  f"({min(us):.2f}-{max(us):.2f}), without the bins "
+            mark = " (the plan's)" if route == line_route else ""
+            print(f"B2 L={L} smooth sigma=0.05, {row['solve_mode']}, B={B} "
+                  f"on the {route} route{mark} ({stage}; {r['ctas']} CTAs "
+                  f"a replica, "
+                  f"{r['waves']} wave(s)): {np.mean(t):.2f} us/step "
+                  f"({min(t):.2f}-{max(t):.2f}), without the bins "
                   f"{np.mean(bare):.2f} ({min(bare):.2f}-{max(bare):.2f}); "
                   f"bound {bd:.4f} us/step ({b['bound_by']}); the plain "
                   f"pde_step loop {plain:.1f} us/step; torch.fft "
-                  f"rfft*spectrum*irfft of the (num, den) rows "
-                  f"{lib['float32']:.2f} us (float32), {lib['float64']:.2f} "
-                  "(float64)", flush=True)
+                  f"rfft*spectrum*irfft of the (num, den) rows, device / "
+                  f"events: {us(lib['float32']['device_us'])} / "
+                  f"{lib['float32']['events_us']:.2f} us (float32), "
+                  f"{us(lib['float64']['device_us'])} / "
+                  f"{lib['float64']['events_us']:.2f} us (float64)",
+                  flush=True)
             if L == 262_144:
-                out.update(ms=float(np.mean(us)) * k / 1e3,
+                out.update(ms=float(np.mean(t)) * k / 1e3,
                            plain_ms=plain * k / 1e3, **b,
-                           shape=dict(B=2, L=L, k=k, ctas=r["ctas"],
+                           shape=dict(B=B, L=L, k=k, ctas=r["ctas"],
                                       m_mode="smooth"))
     return out
 

@@ -33,6 +33,52 @@
 // convolution (`fft_smooth`, m_mode kFft, in a kernel of its own,
 // `pde_gmem_fft_kernel`): the direct circulant's 2 L^2 FMAs a field are
 // 3.4e10 at L = 131,072, about a millisecond a step.
+//
+// The FFT stage.  One complex transform of n = n1 * n2 points (z = num +
+// i den, two fields for one) in three passes that meet through a complex
+// scratch in device memory (columns; rows with the spectrum between the
+// forward and the inverse transform; columns), each pass's units spread
+// over the replica's G CTAs.  What bounds it: its fewest operations are
+// ~10 n log2 n flops a step, well under a microsecond; what it pays is
+// (i) the replica barriers between the passes, a few microseconds each
+// (the arrival counter's round trips through L2, and the slowest CTA),
+// (ii) past ~2 million sites the scratch's traffic in device memory (the
+// fields, then 8 n bytes written and read twice, ~64 MB a replica at
+// 4,194,304: past the 50 MB L2), and below that the latency of each
+// unit's loads, with one CTA an SM (512 threads at 128 registers), and
+// (iii) the sub-transforms' shared-memory traffic and registers: a step
+// that held a thread's 16 values across a barrier spilled.  What the
+// design does:
+//   - no pass of its own for m: pass 1 reads the step's state (srcP sc,
+//     srcM sc) itself, forms num + i den in registers, and stores the
+//     state and the spectra's row on the way (each site once), so the
+//     state lands in the scratch rows, which swap roles with P, M; pass 3
+//     forms m = num / (den + 1e-12) and its sum, and the step's first
+//     reduction (cta_total) is its barrier: two replica barriers for the
+//     smoothing and m, where the first design took four and two more
+//     field passes;
+//   - a CTA's units two deep: unit u + G is copied into the second
+//     landing buffer with cp.async (16 bytes a copy: two complex values,
+//     or four sites of a power-of-two row; 4 for a wrapped row, which has
+//     no alignment) while unit u runs, its steps out of place between its
+//     landing buffer and a third buffer (an item read, turned and stored
+//     at once: one barrier a step, nothing held across it; three buffers
+//     of 8192 values, 204 KB);
+//   - wide runs: n1 = G where n allows (fft_plan), so passes 1 and 3 take
+//     n2 / G columns a unit, 16 or more: 128-byte runs of the scratch or
+//     longer, where the first design read 4-8 columns (32-64 bytes) at
+//     4,194,304;
+//   - Stockham steps (self-sorting, natural order in and out): radix-8
+//     butterflies in registers (one radix 4 or 2 step first), twiddles
+//     from r-major per-step tables (a warp's lanes on consecutive entries,
+//     through L1), complex products as fused multiply-adds, so no bit
+//     reversal, and the buffer padded by 2 values every 32, which spreads
+//     the strided steps' stores over the banks;
+//   - the first step of a pass reads its copied unit, the last writes the
+//     pass's result straight to device memory with the pass's twiddle or
+//     the spectrum, read before the item's butterflies.
+// Two CTAs an SM would hide more latency, but the step body's 128
+// registers a thread allow one.
 // ops/pde_kernel.py picks the route and C (pde_route_plan).  The lattice is
 // padded to Lp = the next power of two, and CTA r owns sites [r*seg,
 // (r+1)*seg) of it, seg = Lp / C, and tracers [r*tseg, (r+1)*tseg), tseg =
@@ -95,7 +141,7 @@
 //     applied where the next step (or the final store) reads the fields.
 // Barriers per step: the three reductions (m; Var and the tracers' mean
 // displacement; the masses and the tracers' variance), one before a
-// smoothing's staging and three more in the FFT stage, one after a banded
+// smoothing's staging or two more in the FFT stage, one after a banded
 // solve, three in an exact solve and one in anchored_minus.
 // Tracers take one thread each, in the CTA that owns them; a tracer reads
 // m at int(mod(pos, xlim)/dx) mod L from the CTA owning that site; their
@@ -564,229 +610,471 @@ __device__ __forceinline__ void circulant(const Geo& g, float* a0, float* a1,
   }
 }
 
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-// a * conj(b)
-__device__ __forceinline__ float2 cmulc(float2 a, float2 b) {
-  return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
-}
-__device__ __forceinline__ int bit_reverse(int k, int lg) {
-  return (int)(__brev((unsigned)k) >> (32 - lg));
+
+// -- the full smoothing's FFT stage (m_mode kFft) ---------------------------
+
+constexpr int kFftPad = 16;  // a buffer skips 2 values every 32 (banks)
+
+// Element a of a unit's buffer, padded: a warp's stores at a Stockham
+// step's strides 1 and 8 (rows, or columns under 16 wide) meet every bank
+// twice, as a contiguous run does, and an even element stays 16-byte
+// aligned (cp.async of two values).
+__device__ __forceinline__ int fpad(int a) { return a + ((a >> 5) << 1); }
+// values of a unit's buffer: padded, and even (each buffer 16-byte aligned)
+__host__ __device__ __forceinline__ int fft_unit_values(int buf) {
+  return (buf + buf / kFftPad + 1) & ~1;
 }
 
-// R consecutive radix-2 stages of `fft_batch`, starting at stage s0, on
-// groups of 2^R elements a thread holds in registers.  A stage of pair
-// distance h pairs positions i and i + h, i mod 2h = off < h, with twiddle
-// W_2h^off = tw[off * nt / 2h]; its distances run from q 2^(R-1) down to
-// q (forward) or from q up (inverse), so the 2^R elements base + j q, base
-// = (a block of 2 q 2^(R-1)) + o, o < q, meet only each other.  Each
-// butterfly is the one the stage would compute alone, so the result does
-// not depend on R.
-template <bool kInverse, int R>
-__device__ __forceinline__ void fft_stages(float2* buf, const float2* tw,
-                                           int nt, int lg, int cnt,
-                                           int lg_cnt, int sj, int sc,
-                                           int s0) {
-  constexpr int E = 1 << R;
-  const int lq = kInverse ? s0 : lg - s0 - R;  // log2 q
-  const int q = 1 << lq;
-  const int lg_groups = lg - R;                // groups a sequence
-  const int total = cnt << lg_groups;
-  for (int b = threadIdx.x; b < total; b += kThreads) {
-    int c, gi;
-    if (sc == 1) {
-      c = b & (cnt - 1);
-      gi = b >> lg_cnt;
-    } else {
-      c = b >> lg_groups;
-      gi = b & ((1 << lg_groups) - 1);
-    }
-    const int o = gi & (q - 1);
-    float2* p = buf + c * sc + (((gi >> lq) << (lq + R)) + o) * sj;
-    const int st = q * sj;
-    float2 v[E];
+// cp.async: `bytes` from device memory into shared memory without the
+// registers, the copy waited on by cp_async_wait; `src_bytes` 0 writes
+// zeros.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+// 16 bytes (both addresses 16-byte aligned), through L2 only
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every group but the newest `N` has landed (this thread's copies)
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The stage's complex products, a fused multiply-add each part (the file
+// is built with --fmad=false, so they are written out): a * b, a *
+// conj(b).
+__device__ __forceinline__ float2 fcmul(float2 a, float2 b) {
+  return make_float2(__fmaf_rn(a.x, b.x, -(a.y * b.y)),
+                     __fmaf_rn(a.x, b.y, a.y * b.x));
+}
+__device__ __forceinline__ float2 fcmulc(float2 a, float2 b) {
+  return make_float2(__fmaf_rn(a.x, b.x, a.y * b.y),
+                     __fmaf_rn(a.y, b.x, -(a.x * b.y)));
+}
+
+// d * W_8^e (its conjugate when kInv); e a constant once unrolled.  W_8 =
+// c (1 - i), so the product is a sum and a difference scaled by c.
+template <bool kInv>
+__device__ __forceinline__ float2 rot8(float2 d, int e) {
+  constexpr float c = 0.70710678118654752f;
+  if (e == 0) return d;
+  if (e == 2) return kInv ? make_float2(-d.y, d.x) : make_float2(d.y, -d.x);
+  const float s = c * (d.x + d.y), t = c * (d.y - d.x);
+  if (e == 1) return kInv ? make_float2(-t, s) : make_float2(s, t);
+  return kInv ? make_float2(-s, -t) : make_float2(t, -s);  // e == 3
+}
+
+__host__ __device__ constexpr int brev_small(int s, int R) {
+  return R == 8 ? ((s & 1) << 2) | (s & 2) | (s >> 2)
+                : R == 4 ? ((s & 1) << 1) | (s >> 1) : s;
+}
+
+// The R-point DFT (R = 2, 4, 8) of u in registers, natural order in and
+// out: a radix-2 decimation-in-frequency network whose bit-reversed outputs
+// are renamed at compile time.  Conjugate twiddles when kInv (unscaled).
+template <int R, bool kInv>
+__device__ __forceinline__ void dft_small(float2 (&u)[R]) {
 #pragma unroll
-    for (int j = 0; j < E; ++j) v[j] = p[j * st];
+  for (int h = R / 2; h >= 1; h >>= 1) {
 #pragma unroll
-    for (int k = 0; k < R; ++k) {
-      const int hb = kInverse ? 1 << k : 1 << (R - 1 - k);  // h = q hb
-      const int step = nt / (2 * q * hb);
+    for (int b = 0; b < R; b += 2 * h) {
 #pragma unroll
-      for (int j = 0; j < E; ++j) {
-        if (j & hb) continue;
-        const float2 w = tw[(o + (j & (hb - 1)) * q) * step];
-        const float2 a = v[j];
-        if (!kInverse) {
-          const float2 d = v[j + hb];
-          v[j] = make_float2(a.x + d.x, a.y + d.y);
-          v[j + hb] = cmul(make_float2(a.x - d.x, a.y - d.y), w);
-        } else {
-          const float2 d = cmulc(v[j + hb], w);
-          v[j] = make_float2(a.x + d.x, a.y + d.y);
-          v[j + hb] = make_float2(a.x - d.x, a.y - d.y);
-        }
+      for (int r = 0; r < h; ++r) {
+        const float2 a = u[b + r], d = u[b + r + h];
+        u[b + r] = make_float2(a.x + d.x, a.y + d.y);
+        u[b + r + h] =
+            rot8<kInv>(make_float2(a.x - d.x, a.y - d.y), r * (4 / h));
       }
     }
+  }
+  float2 t[R];
 #pragma unroll
-    for (int j = 0; j < E; ++j) p[j * st] = v[j];
+  for (int s = 0; s < R; ++s) t[s] = u[brev_small(s, R)];
+#pragma unroll
+  for (int s = 0; s < R; ++s) u[s] = t[s];
+}
+
+// A unit of the FFT stage: `cnt` sequences of length N in a padded
+// buffer, element a of sequence c at a * cnt + c (kCols: columns,
+// interleaved) or c * N + a (rows); the steps run out of place, from `a`
+// into `b`, which then swap.
+template <bool kCols>
+struct FftUnit {
+  float2 *a, *b;
+  int N, cnt;
+  __device__ __forceinline__ int at(int e, int c) const {
+    return fpad(kCols ? e * cnt + c : c * N + e);
+  }
+  // the unpadded distance between elements e and e + 1 of a sequence
+  __device__ __forceinline__ int step() const { return kCols ? cnt : 1; }
+};
+
+// The padded places of `r` elements d apart from the element at unpadded
+// place x: where d is a multiple of 32 they are fpad(x) + r (d + d / 16)
+// (the pad grows by 2 every 32), else fpad of each.
+template <int R>
+__device__ __forceinline__ void fpad_run(int x, int d, int (&at)[R]) {
+  if ((d & 31) == 0) {
+    const int a0 = fpad(x), dp = d + (d >> 4);
+#pragma unroll
+    for (int r = 0; r < R; ++r) at[r] = a0 + r * dp;
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) at[r] = fpad(x + r * d);
   }
 }
 
-// Radix-2 transforms of `cnt` sequences of length n (powers of two) in
-// shared memory, element j of sequence c at buf[j * sj + c * sc] (sc = 1:
-// the sequences interleaved; else sj = 1, one after another); tw[i] =
-// W^i = exp(-2 pi i i / nt) for i < nt / 2, nt a multiple of n, from the
-// float64-built table.  The forward transform is a decimation in
-// frequency, natural order in and bit-reversed out; the inverse
-// (conjugate twiddles, unscaled) a decimation in time, bit-reversed in and
-// natural out.  Three stages a barrier (`fft_stages`).  Every thread must
-// call it; it ends with a barrier of the block.
-template <bool kInverse>
-__device__ void fft_batch(float2* buf, const float2* tw, int nt, int n,
-                          int cnt, int sj, int sc) {
-  const int lg = __ffs(n) - 1, lg_cnt = __ffs(cnt) - 1;
-  for (int s0 = 0; s0 < lg; s0 += 3) {
-    if (lg - s0 >= 3) {
-      fft_stages<kInverse, 3>(buf, tw, nt, lg, cnt, lg_cnt, sj, sc, s0);
-    } else if (lg - s0 == 2) {
-      fft_stages<kInverse, 2>(buf, tw, nt, lg, cnt, lg_cnt, sj, sc, s0);
+// One radix-R Stockham step (self-sorting: natural order in and out) of
+// every sequence of the unit, p the product of the radices before it:
+// work item i < T = N / R of a sequence takes its elements i + r T, turns
+// them by W_(pR)^(r k), k = i mod p (tw: (r - 1) p + k, r-major, so a
+// warp's lanes read consecutive entries), and stores the R-point DFT at
+// j + s p, j = (i - k) R + k.  Columns put the sequence index in the low
+// bits of the item (a warp's lanes on consecutive addresses), rows the
+// element.  An item is read, turned and stored at once (out of place:
+// nothing is held across a barrier).  The first step (kFirst) reads
+// through ld(e, c), the others buffer a; the last (kLast) writes st(e, c,
+// v, ax(e, c)) (ax, a device-memory factor, is read before the item's
+// butterflies so that its latency overlaps them), the others into buffer
+// b.  All threads must call it; it ends with a barrier of the block.
+template <int R, bool kInv, bool kFirst, bool kLast, bool kCols,
+          typename Ld, typename Ax, typename St>
+__device__ __forceinline__ void stock_step(const FftUnit<kCols>& q, int p,
+                                           const float2* __restrict__ tw,
+                                           Ld ld, Ax ax, St st) {
+  const int T = q.N / R, total = q.cnt * T;
+  const int lgc = __ffs(q.cnt) - 1, lgT = __ffs(T) - 1;
+#pragma unroll 1
+  for (int b = threadIdx.x; b < total; b += kThreads) {
+    const int c = kCols ? b & (q.cnt - 1) : b >> lgT;
+    const int i = kCols ? b >> lgc : b & (T - 1);
+    const int k = i & (p - 1), j = (i - k) * R + k;
+    float2 v[R], w[R], x[kLast ? R : 1];
+    if constexpr (kLast) {
+#pragma unroll
+      for (int s = 0; s < R; ++s) x[s] = ax(j + s * p, c);
+    }
+    if (p > 1) {
+#pragma unroll
+      for (int r = 1; r < R; ++r) w[r] = __ldg(tw + (r - 1) * p + k);
+    }
+    if constexpr (kFirst) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[r] = ld(i + r * T, c);
     } else {
-      fft_stages<kInverse, 1>(buf, tw, nt, lg, cnt, lg_cnt, sj, sc, s0);
+      int at[R];
+      fpad_run<R>(kCols ? i * q.cnt + c : c * q.N + i, T * q.step(), at);
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[r] = q.a[at[r]];
     }
-    __syncthreads();
+    if (p > 1) {
+#pragma unroll
+      for (int r = 1; r < R; ++r)
+        v[r] = kInv ? fcmulc(v[r], w[r]) : fcmul(v[r], w[r]);
+    }
+    dft_small<R, kInv>(v);
+    if constexpr (kLast) {
+#pragma unroll
+      for (int s = 0; s < R; ++s) st(j + s * p, c, v[s], x[s]);
+    } else {
+      int at[R];
+      fpad_run<R>(kCols ? j * q.cnt + c : c * q.N + j, p * q.step(), at);
+#pragma unroll
+      for (int s = 0; s < R; ++s) q.b[at[s]] = v[s];
+    }
+  }
+  __syncthreads();
+}
+
+// The unit's length-N transforms (forward, or inverse unscaled): one step
+// of radix 2 or 4 where log2 N is no multiple of 3 (p = 1: no twiddles),
+// then radix-8 steps (ops/pde_kernel.py fft_radices), with their twiddles
+// from `tw` (stockham_angles' order); the first step reads through ld
+// where kLd (else buffer a), the last writes through st (see
+// stock_step).  The unit's buffers swap after every step but the last.
+template <bool kInv, bool kCols, bool kLd, typename Ld, typename Ax,
+          typename St>
+__device__ __forceinline__ void fft_unit(FftUnit<kCols>& q,
+                                         const float2* __restrict__ tw,
+                                         Ld ld, Ax ax, St st) {
+  const int lg = __ffs(q.N) - 1, n8 = lg / 3, rem = lg % 3;
+  const auto swap = [&]() {
+    float2* t = q.a;
+    q.a = q.b;
+    q.b = t;
+  };
+  int p = 1;
+  if (rem) {  // the first step: p = 1 reads no twiddle
+    const bool only = n8 == 0;
+    if (rem == 2) {
+      if (only) {
+        stock_step<4, kInv, kLd, true, kCols>(q, 1, tw, ld, ax, st);
+      } else {
+        stock_step<4, kInv, kLd, false, kCols>(q, 1, tw, ld, ax, st);
+      }
+    } else if (only) {
+      stock_step<2, kInv, kLd, true, kCols>(q, 1, tw, ld, ax, st);
+    } else {
+      stock_step<2, kInv, kLd, false, kCols>(q, 1, tw, ld, ax, st);
+    }
+    if (!only) swap();
+    p = 1 << rem;
+    tw += p - 1;
+  }
+  for (int s = 0; s < n8; ++s) {
+    const bool first = p == 1, last = s == n8 - 1;
+    if (first && last) {
+      stock_step<8, kInv, kLd, true, kCols>(q, p, tw, ld, ax, st);
+    } else if (first) {
+      stock_step<8, kInv, kLd, false, kCols>(q, p, tw, ld, ax, st);
+    } else if (last) {
+      stock_step<8, kInv, false, true, kCols>(q, p, tw, ld, ax, st);
+    } else {
+      stock_step<8, kInv, false, false, kCols>(q, p, tw, ld, ax, st);
+    }
+    if (!last) swap();
+    tw += 7 * p;
+    p *= 8;
   }
 }
 
-// for (t = threadIdx.x; t < total; t += kThreads) st(t, ld(t)), with U
-// values' loads in flight a thread before their stores.
-template <int U, typename Ld, typename St>
-__device__ __forceinline__ void batched(int total, Ld ld, St st) {
-  for (int t0 = threadIdx.x; t0 < total; t0 += U * kThreads) {
-    float2 v[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int t = t0 + u * kThreads;
-      if (t < total) v[u] = ld(t);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int t = t0 + u * kThreads;
-      if (t < total) st(t, v[u]);
-    }
+// Where a CTA's thread 0 marks the stage (clock64, summed over the steps,
+// i the interval ending at the mark): 0 pass 1's first unit landed, 1
+// pass 1, 2 its barrier, 3 pass 2's first unit landed, 4 the forward
+// transforms, 5 the inverse ones, 6 its barrier, 7 pass 3's first unit
+// landed, 8 pass 3, 9 the reduction of m with its barrier; 10 the whole
+// step, 11 the steps.  Kept in registers, stored into trace[kMarks (b G +
+// rank) + i] once a launch.
+constexpr int kMarks = 12;
+struct FftTrace {
+  unsigned long long* t;  // this CTA's kMarks slots, or null
+  long long last;
+  long long acc[kMarks];
+  __device__ __forceinline__ bool on() const {
+    return t != nullptr && threadIdx.x == 0;
   }
+  __device__ __forceinline__ void mark(int i) {
+    if (!on()) return;
+    const long long now = clock64();
+    acc[i] += now - last;
+    last = now;
+  }
+};
+
+// A pass's units u = rank, rank + G, ... < nu on this CTA, two deep:
+// load(u, dst) issues unit u's copies (cp.async) into one of the landing
+// buffers bf[0], bf[1], which land while run(u, buf, partner) works on the
+// one before, its steps going back and forth between its landing buffer
+// and bf[2].  run must end with a barrier of the block (stock_step's),
+// after which its landing buffer takes the next copies.  The first unit's
+// landing is marked `landed` (FftTrace).
+template <typename Load, typename Run>
+__device__ __forceinline__ void fft_pass(const Geo& g, int nu,
+                                         float2* const (&bf)[3], Load load,
+                                         Run run, FftTrace& tr, int landed) {
+  if (g.rank < nu) load(g.rank, bf[0]);
+  cp_async_commit();
+  int i = 0;
+  for (int u = g.rank; u < nu; u += g.C, ++i) {
+    if (u + g.C < nu) load(u + g.C, bf[(i + 1) & 1]);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // unit u's copies, every thread's, have landed
+    if (i == 0) tr.mark(landed);
+    run(u, bf[i & 1], bf[2]);
+  }
+  cp_async_wait<0>();
 }
 
 // The FFT stage's operands (ops/pde_kernel.py fft_plan): the
 // transform n = n1 * n2, the row wrapped by `wrap` sites on each side,
-// w1 columns (passes 1, 3) and w2 rows (pass 2) a unit.
+// w1 columns (passes 1, 3) and w2 rows (pass 2) a unit of `ub` (padded)
+// values; `buf`, three such buffers in shared memory.
 struct FftArgs {
-  const float2* tw;    // (n) W_n^(n2' k1) at k1 * n2 + n2'
-  const float* spec;   // (n) the taps' spectrum K[k1 + n1 bitrev(p)] at
-                       // k1 * n2 + p
+  const float2* tw;    // (n) W_n^(n2' k1) at k1 * n2 + n2', then the
+                       // Stockham steps' of length n2 and of length n1
+  const float* spec;   // (n) the taps' spectrum K[k1 + n1 k2] at k1 n2 + k2
   float2* x;           // (n) this replica's complex scratch
-  const float2* stw;   // shared: W_n2^i, i < n2 / 2
-  float2* buf;         // shared: a unit's sub-transforms
-  int n1, n2, w1, w2, wrap;
+  float2* buf;         // shared: three unit buffers
+  int n1, n2, w1, w2, wrap, ub;
 };
 
-// The full smoothing by FFT (m_mode kFft, the device-memory route): with
-// z[t] = num[(t - wrap) mod L] + i den[(t - wrap) mod L] for t < L + 2 wrap
-// and 0 up to n, and y = z convolved circularly on n with the taps (their
-// real spectrum), the smoothed numerator and denominator of site j are
-// Re y[j + wrap] and Im y[j + wrap], stored into the rows mo and dn.  The
-// transform runs in four steps, t = n2' + n2 n1' and k = k1 + n1 k2:
+// The full smoothing by FFT (m_mode kFft, the device-memory route), and
+// with it the m pass: with p = srcP sc, q = srcM sc (the step's state),
+// z[t] = p - q + i (p + q) of site (t - wrap) mod L for t < L + 2 wrap and
+// 0 up to n, and y = z convolved circularly on n with the taps (their real
+// spectrum), m of site j is Re y[j + wrap] / (Im y[j + wrap] + 1e-12),
+// stored into mS.  The transform runs in four steps, t = n2' + n2 n1' and
+// k = k1 + n1 k2:
 //   pass 1: each column n2', the length-n1 transform over n1', times
-//           W_n^(n2' k1), into x[k1 n2 + n2'];
+//           W_n^(n2' k1), into x[k1 n2 + n2']; its first step also stores
+//           p and q into the rows P1, M1 (the state the rest of the step
+//           reads) and p + q into the spectra's row `dens`, once a site;
 //   pass 2: each row k1, the length-n2 transform over n2', times the
 //           spectrum, the inverse length-n2 transform, times W_n^-(n2' k1);
 //   pass 3: each column n2', the inverse length-n1 transform over k1, over
-//           n, to site t - wrap.
-// CTA r takes units r, r + G, ... of each pass, and a barrier of the
-// replica ends each.  Every thread must call it.
+//           n: m of site t - wrap.
+// CTA r takes units r, r + G, ... of each pass; a barrier of the replica
+// ends passes 1 and 2, the caller's reduction (cta_total) pass 3.
+// v[0], v[1]: this thread's sums of m and of p + q over the sites it
+// stored.  Every thread must call it.  Not inlined: it takes the 128
+// registers a thread has for itself, apart from the step body's (inlined,
+// the two spill).
 template <class Net>
-__device__ void fft_smooth(const Geo& g, const Net& net, const FftArgs& f,
-                           const float* num, const float* den, float* mo,
-                           float* dn) {
-  constexpr int U = 8;  // loads in flight a thread
-  const int L = g.L;
-  const int n1 = f.n1, n2 = f.n2, w1 = f.w1, w2 = f.w2;
-  const int lg1 = __ffs(n1) - 1, lw1 = __ffs(w1) - 1;
-  const int span = L + 2 * f.wrap, per1 = n1 << lw1, per2 = w2 * n2;
+__device__ __noinline__ void fft_smooth(
+    const Geo& g, const Net& net, const FftArgs& f, const float* srcP,
+    const float* srcM, float sc, float* P1, float* M1, float* dens,
+    float* mS, float (&v)[2], FftTrace& tr) {
+  const int L = g.L, n1 = f.n1, n2 = f.n2, w1 = f.w1, w2 = f.w2;
+  const int lw1 = __ffs(w1) - 1, wrap = f.wrap;
+  const int span = L + 2 * wrap, S1 = n1 * w1;
+  // a power-of-two row (no wrap, n = L) copies four sites at once where a
+  // unit's columns come four by four
+  const bool aligned = wrap == 0 && w1 >= 4;
   const float inv_n = 1.f / (float)(n1 * n2);  // a power of two: exact
-  float2* buf = f.buf;
+  const float2* tw_n2 = f.tw + (size_t)n1 * n2;
+  const float2* tw_n1 = tw_n2 + n2 - 1;
   float2* x = f.x;
-  for (int u = g.rank; u < (n2 >> lw1); u += g.C) {  // pass 1
-    const int c0 = u << lw1;
-    batched<U>(
-        per1,
-        [&](int t) {
-          const int q = (t >> lw1) * n2 + c0 + (t & (w1 - 1));
-          if (q >= span) return make_float2(0.f, 0.f);
-          int j = q - f.wrap;
+  float2* const bf[3] = {f.buf, f.buf + f.ub, f.buf + 2 * f.ub};
+  const auto nox = [](int, int) { return make_float2(0.f, 0.f); };
+  float tot = 0.f, msum = 0.f;
+
+  // pass 1: the box of n1 rows x w1 columns of the fields, as floats
+  // (the P row at [0, S1), the M row after it), zeros past the padded row
+  fft_pass(
+      g, n2 >> lw1, bf,
+      [&](int u, float2* dst) {
+        float* fp = reinterpret_cast<float*>(dst);
+        const int c0 = u << lw1;
+        if (aligned) {  // four sites a copy, none past the row
+          for (int e = 4 * threadIdx.x; e < S1; e += 4 * kThreads) {
+            const int j = (e >> lw1) * n2 + c0 + (e & (w1 - 1));
+            cp_async16(fp + e, srcP + j);
+            cp_async16(fp + S1 + e, srcM + j);
+          }
+          return;
+        }
+        for (int e = threadIdx.x; e < S1; e += kThreads) {
+          const int t = (e >> lw1) * n2 + c0 + (e & (w1 - 1));
+          int j = t - wrap;
           j = j < 0 ? j + L : (j >= L ? j - L : j);
-          return make_float2(num[j], den[j]);
-        },
-        [&](int t, float2 z) { buf[t] = z; });
-    __syncthreads();
-    fft_batch<false>(buf, f.stw, n2, n1, w1, w1, 1);
-    batched<U>(
-        per1,
-        [&](int t) {
-          const int k1 = t >> lw1;
-          return cmul(buf[(bit_reverse(k1, lg1) << lw1) + (t & (w1 - 1))],
-                      __ldg(f.tw + (size_t)k1 * n2 + c0 + (t & (w1 - 1))));
-        },
-        [&](int t, float2 z) {
-          x[(size_t)(t >> lw1) * n2 + c0 + (t & (w1 - 1))] = z;
-        });
-    __syncthreads();
-  }
+          const int ok = t < span ? 4 : 0;
+          cp_async4(fp + e, srcP + (ok ? j : 0), ok);
+          cp_async4(fp + S1 + e, srcM + (ok ? j : 0), ok);
+        }
+      },
+      [&](int u, float2* in, float2* part) {
+        const float* fp = reinterpret_cast<const float*>(in);
+        const int c0 = u << lw1;
+        FftUnit<true> q{in, part, n1, w1};
+        fft_unit<false, true, true>(
+            q, tw_n1,
+            [&](int a, int c) {
+              const int e = a * w1 + c;
+              const float p = fp[e] * sc, q = fp[S1 + e] * sc;
+              const int j = a * n2 + c0 + c - wrap;
+              if (j >= 0 && j < L) {
+                P1[j] = p;
+                M1[j] = q;
+                if (dens) __stcs(dens + j, p + q);
+                tot += p + q;
+              }
+              return make_float2(p - q, p + q);
+            },
+            [&](int a, int c) {
+              return __ldg(f.tw + (size_t)a * n2 + c0 + c);
+            },
+            [&](int a, int c, float2 z, float2 w) {
+              x[(size_t)a * n2 + c0 + c] = fcmul(z, w);
+            });
+      },
+      tr, 0);
+  tr.mark(1);
   net.sync();
-  for (int u = g.rank; u < n1 / w2; u += g.C) {  // pass 2
-    const size_t r0 = (size_t)u * per2;
-    batched<U>(
-        per2, [&](int t) { return x[r0 + t]; },
-        [&](int t, float2 z) { buf[t] = z; });
-    __syncthreads();
-    fft_batch<false>(buf, f.stw, n2, n2, w2, 1, n2);
-    batched<U>(
-        per2,
-        [&](int t) {
-          const float k = __ldg(f.spec + r0 + t);
-          return make_float2(buf[t].x * k, buf[t].y * k);
-        },
-        [&](int t, float2 z) { buf[t] = z; });
-    __syncthreads();
-    fft_batch<true>(buf, f.stw, n2, n2, w2, 1, n2);
-    batched<U>(
-        per2, [&](int t) { return cmulc(buf[t], __ldg(f.tw + r0 + t)); },
-        [&](int t, float2 z) { x[r0 + t] = z; });
-    __syncthreads();
-  }
+  tr.mark(2);
+  // pass 2: w2 rows of x
+  fft_pass(
+      g, n1 / w2, bf,
+      [&](int u, float2* dst) {  // two values a copy: rows are even
+        const float2* src = x + (size_t)u * w2 * n2;
+        for (int e = 2 * threadIdx.x; e < w2 * n2; e += 2 * kThreads)
+          cp_async16(dst + fpad(e), src + e);
+      },
+      [&](int u, float2* in, float2* part) {
+        FftUnit<false> q{in, part, n2, w2};
+        const size_t r0 = (size_t)u * w2 * n2;
+        fft_unit<false, false, false>(
+            q, tw_n2, nox,
+            [&](int a, int c) {
+              return make_float2(__ldg(f.spec + r0 + c * n2 + a), 0.f);
+            },
+            [&](int a, int c, float2 z, float2 k) {
+              q.b[q.at(a, c)] = make_float2(z.x * k.x, z.y * k.x);
+            });
+        float2* t = q.a;  // the spectrum's product is in b
+        q.a = q.b;
+        q.b = t;
+        tr.mark(4);
+        fft_unit<true, false, false>(
+            q, tw_n2, nox,
+            [&](int a, int c) { return __ldg(f.tw + r0 + c * n2 + a); },
+            [&](int a, int c, float2 z, float2 w) {
+              x[r0 + c * n2 + a] = fcmulc(z, w);
+            });
+        tr.mark(5);
+      },
+      tr, 3);
   net.sync();
-  for (int u = g.rank; u < (n2 >> lw1); u += g.C) {  // pass 3
-    const int c0 = u << lw1;
-    batched<U>(
-        per1,
-        [&](int t) {
-          return x[(size_t)(t >> lw1) * n2 + c0 + (t & (w1 - 1))];
-        },
-        [&](int t, float2 z) {
-          buf[(bit_reverse(t >> lw1, lg1) << lw1) + (t & (w1 - 1))] = z;
-        });
-    __syncthreads();
-    fft_batch<true>(buf, f.stw, n2, n1, w1, w1, 1);
-    for (int t = threadIdx.x; t < per1; t += kThreads) {
-      const int j = (t >> lw1) * n2 + c0 + (t & (w1 - 1)) - f.wrap;
-      if (j >= 0 && j < L) {
-        mo[j] = buf[t].x * inv_n;
-        dn[j] = buf[t].y * inv_n;
-      }
-    }
-    __syncthreads();
-  }
-  net.sync();  // every CTA reads its segment of the smoothed rows next
+  tr.mark(6);
+  // pass 3: the box of n1 rows x w1 columns of x
+  fft_pass(
+      g, n2 >> lw1, bf,
+      [&](int u, float2* dst) {
+        const int c0 = u << lw1;
+        if (w1 == 1) {  // one column: single values
+          for (int e = threadIdx.x; e < S1; e += kThreads)
+            cp_async8(dst + fpad(e), x + (size_t)e * n2 + c0);
+          return;
+        }
+        for (int e = 2 * threadIdx.x; e < S1; e += 2 * kThreads)
+          cp_async16(dst + fpad(e),
+                     x + (size_t)(e >> lw1) * n2 + c0 + (e & (w1 - 1)));
+      },
+      [&](int u, float2* in, float2* part) {
+        const int c0 = u << lw1;
+        FftUnit<true> q{in, part, n1, w1};
+        fft_unit<true, true, false>(
+            q, tw_n1, nox, nox,
+            [&](int a, int c, float2 y, float2) {
+              const int j = a * n2 + c0 + c - wrap;
+              if (j >= 0 && j < L) {
+                const float mx = (y.x * inv_n) / (y.y * inv_n + 1e-12f);
+                mS[j] = mx;
+                msum += mx;
+              }
+            });
+      },
+      tr, 7);
+  tr.mark(8);
+  v[0] = msum;
+  v[1] = tot;
 }
 
 // An affine map v -> a v + b, in float64; after(l, e) is l o e.
@@ -915,12 +1203,14 @@ struct Args {
   float* gpub;     // (B, 3, C, kPub) published totals of the reductions
   double* gtt;     // (B, 4 * kTiles, 2) the scan's tile totals
   unsigned* gbar;  // (B, kBar) the replica's arrival counter (zeroed)
-  // the FFT stage (m_mode kFft): its twiddles, (n + n2/2) [re, im], the
-  // taps' spectrum (n), the complex scratch (B, n); ops/pde_kernel.py
-  // FftPlan: n = n1 * n2, w1, w2, wrap, and the shared buffer's values
+  // the FFT stage (m_mode kFft): its twiddles, (n + n2 + n1 - 2) [re,
+  // im], the taps' spectrum (n), the complex scratch (B, n); ops/
+  // pde_kernel.py FftPlan: n = n1 * n2, w1, w2, wrap, and a unit's values;
+  // its marks (FftTrace), (B, G, kMarks), or null
   const float2* fft_tw;
   const float* fft_spec;
   float2* gfft;
+  unsigned long long* fft_trace;
   int fft_n1, fft_n2, fft_w1, fft_w2, fft_wrap, fft_buf;
 };
 
@@ -930,7 +1220,7 @@ struct Args {
 struct Scratch {
   float *redA, *redB, *redD, *pubA, *pubB, *pubD, *DR, *win, *part;
   Aff* tt;
-  float2 *fbuf = nullptr, *ftw = nullptr;  // the FFT stage's (kFft)
+  float2* fbuf = nullptr;  // the FFT stage's three unit buffers (kFft)
 };
 
 __device__ __forceinline__ Geo geo_of(const Args& a, int C, int rank) {
@@ -964,7 +1254,7 @@ __device__ __forceinline__ void b2_steps(const Args& a, const Geo& g,
   const int rank = g.rank;
   const int L = a.L, n_t = a.n_t, kmax = a.kmax;
   const bool local_m = a.m_mode != kGlobal;
-  const bool taps = kFft || a.m_mode == kTaps;
+  const bool taps = a.m_mode == kTaps;
   float* DR = sc_.DR;
   const Circ smc{a.smooth_taps, a.sm_ns, a.sm_len, a.sm_tb, a.sm_fp};
   const Circ svc{a.solve_taps, a.sv_ns, a.sv_len, a.sv_tb, a.sv_fp};
@@ -996,7 +1286,12 @@ __device__ __forceinline__ void b2_steps(const Args& a, const Geo& g,
   const auto pf = [](const float* p) {
     if constexpr (Net::kGlobalMem) prefetch_l1(p);
   };
+  FftTrace tr{nullptr, 0, {}};
+  if constexpr (kFft) {
+    if (a.fft_trace) tr.t = a.fft_trace + kMarks * ((size_t)b * g.C + rank);
+  }
   for (int s = 0; s < a.k_steps; ++s) {
+    const long long t_step = kFft ? clock64() : 0;
     const int n = a.step0 + s;
     float* row = a.recs + ((size_t)b * a.k_steps + s) * rw;
     float* drow = a.dens ? a.dens + ((size_t)b * a.k_steps + s) * L + g.lo
@@ -1004,7 +1299,24 @@ __device__ __forceinline__ void b2_steps(const Args& a, const Geo& g,
 
     // -- magnetization of the pre-step densities --------------------------
     float vA[2];
-    if (taps) {  // the smoothed numerator and denominator
+    if constexpr (kFft) {  // m and the state from the FFT stage
+      const FftArgs fa{a.fft_tw, a.fft_spec,
+                       a.gfft + (size_t)b * a.fft_n1 * a.fft_n2, sc_.fbuf,
+                       a.fft_n1, a.fft_n2, a.fft_w1, a.fft_w2, a.fft_wrap,
+                       fft_unit_values(a.fft_buf)};
+      tr.last = clock64();
+      fft_smooth(g, net, fa, srcP - g.lo, srcM - g.lo, sc, Q - g.lo,
+                 N - g.lo, drow ? drow - g.lo : nullptr, mS - g.lo, vA, tr);
+      warp_tree(vA);
+      // the state is in (Q, N) now, and (P, M) the scratch: pass 1 read
+      // srcP and srcM across the replica, so none could be stored over
+      float* t = P;
+      P = Q;
+      Q = t;
+      t = M;
+      M = N;
+      N = t;
+    } else if (taps) {  // the smoothed numerator and denominator
       for (int x0 = tid; x0 < g.nloc; x0 += 4 * kThreads) {
         float p[4], q[4];  // four sites' loads before their stores
 #pragma unroll
@@ -1025,18 +1337,10 @@ __device__ __forceinline__ void b2_steps(const Args& a, const Geo& g,
         }
       }
       net.sync();
-      if constexpr (kFft) {
-        const FftArgs fa{a.fft_tw, a.fft_spec,
-                         a.gfft + (size_t)b * a.fft_n1 * a.fft_n2, sc_.ftw,
-                         sc_.fbuf, a.fft_n1, a.fft_n2, a.fft_w1, a.fft_w2,
-                         a.fft_wrap};
-        fft_smooth(g, net, fa, Q - g.lo, N - g.lo, mS - g.lo, dS - g.lo);
-      } else {
-        circulant<Net>(g, Q, N, smc, a.T, sc_.win, a.wf, sc_.part,
-                       [&](int f, int x, float o) {
-                         (f == 0 ? mS : dS)[x] = o;
-                       });
-      }
+      circulant<Net>(g, Q, N, smc, a.T, sc_.win, a.wf, sc_.part,
+                     [&](int f, int x, float o) {
+                       (f == 0 ? mS : dS)[x] = o;
+                     });
       warp_sums<2, U, Net::kGlobalMem>(
           a.seg, g.nloc, vA,
           [&](int x, float (&v)[2]) {
@@ -1072,6 +1376,7 @@ __device__ __forceinline__ void b2_steps(const Args& a, const Geo& g,
           });
     }
     cta_total<2>(g, net, vA, sc_.redA, sc_.pubA);  // also publishes mS
+    if constexpr (kFft) tr.mark(9);
     const float m_glob = vA[0] / (vA[1] + 1e-12f);
     const float m_mean = local_m ? vA[0] * inv_L : m_glob;
     const float t_mean = vA[1] * inv_L;
@@ -1271,12 +1576,23 @@ __device__ __forceinline__ void b2_steps(const Args& a, const Geo& g,
     }
     // the next step reads P and M across threads
     __syncthreads();
+    if constexpr (kFft) {
+      if (tr.on()) {
+        tr.acc[10] += clock64() - t_step;
+        tr.acc[11] += 1;
+      }
+    }
   }
 
 #pragma unroll 4
   for (int x = tid; x < g.nloc; x += kThreads) {
     a.rp_out[foff + x] = srcP[x] * sc;
     a.rm_out[foff + x] = srcM[x] * sc;
+  }
+  if constexpr (kFft) {
+    if (tr.on()) {
+      for (int i = 0; i < kMarks; ++i) tr.t[i] = (unsigned long long)tr.acc[i];
+    }
   }
   // no CTA leaves while another may still read its shared memory
   if constexpr (!Net::kGlobalMem) net.sync();
@@ -1318,35 +1634,32 @@ __global__ void __launch_bounds__(kThreads) pde_kernel(Args a) {
 }
 
 // Shared memory of a device-memory-route CTA (ops/pde_kernel.py
-// gmem_smem_bytes): the FFT stage's buffer (fft_buf complex values) and
-// twiddles W_n2^i (n2 / 2) where kFft, the reductions' warp totals (7 x
-// kWarps), the tracers' displacements (tseg), the staging windows (fp *
-// wf) and the partial sums.  The fields are rows of rp_out, rm_out (the
-// state) and gfld.
+// gmem_smem_bytes): the reductions' warp totals (7 x kWarps) and the
+// tracers' displacements (tseg), then the staging windows (fp * wf) and
+// the partial sums; where kFft, from the next 16-byte boundary, the FFT
+// stage's three unit buffers, which the banded solve's windows and partial
+// sums share (the solve runs after the smoothing).  The fields are rows of
+// rp_out, rm_out (the state) and gfld.
 template <bool kFft>
 __device__ __forceinline__ void gmem_steps(const Args& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = a.C;
   const int b = blockIdx.x / G, rank = blockIdx.x % G;
   const bool local_m = a.m_mode != kGlobal;
-  const bool taps = kFft || a.m_mode == kTaps;
+  const bool taps = a.m_mode == kTaps;
   const Geo g = geo_of(a, G, rank);
 
   Scratch s;
-  float* after_fft = reinterpret_cast<float*>(smem);
-  if constexpr (kFft) {  // the twiddles are read after b2_steps's barrier
-    s.fbuf = reinterpret_cast<float2*>(smem);
-    s.ftw = s.fbuf + a.fft_buf;
-    const size_t n = (size_t)a.fft_n1 * a.fft_n2;
-    for (int i = threadIdx.x; i < a.fft_n2 / 2; i += kThreads)
-      s.ftw[i] = a.fft_tw[n + i];
-    after_fft = reinterpret_cast<float*>(s.ftw + a.fft_n2 / 2);
-  }
-  s.redA = after_fft;
+  s.redA = reinterpret_cast<float*>(smem);
   s.redB = s.redA + kWarps * 2;
   s.redD = s.redB + kWarps * 2;
   s.DR = s.redD + kWarps * 3;
   s.win = s.DR + a.tseg;
+  if constexpr (kFft) {
+    s.fbuf = reinterpret_cast<float2*>(
+        smem + ((4 * (7 * kWarps + a.tseg) + 15) & ~15));
+    s.win = reinterpret_cast<float*>(s.fbuf);
+  }
   s.part = s.win + max(a.sm_fp, a.sv_fp) * a.wf;
   float* pub = a.gpub + (size_t)b * 3 * G * kPub;
   s.pubA = pub;
@@ -1370,7 +1683,8 @@ __global__ void __launch_bounds__(kThreads) pde_gmem_kernel(Args a) {
 
 // The device-memory route with the full smoothing's FFT stage.  Its CTAs
 // are pde_gmem_kernel's (512 threads, at most 128 registers each: one an
-// SM), so that kernel's occupancy query serves both.
+// SM, so no second CTA an SM whatever the shared memory), so that
+// kernel's occupancy query serves both.
 __global__ void __launch_bounds__(kThreads) pde_gmem_fft_kernel(Args a) {
   gmem_steps<true>(a);
 }
@@ -1449,7 +1763,8 @@ extern "C" int pde_multi_step_launch(
     float* recs, const double* scan, const float* solve_taps,
     const float* smooth_taps, float* dens, const int* noise, float* gfld,
     float* gpub, double* gtt, unsigned* gbar, const float* fft_tw,
-    const float* fft_spec, float* gfft, int B, int L,
+    const float* fft_spec, float* gfft, unsigned long long* fft_trace,
+    int B, int L,
     int n_t, int window, int k_steps, int kmax, int m_mode, int solve_mode,
     int route, int C, int seg, int tseg, int run, int ntiles, int sm_ns,
     int sm_len, int sm_tb, int sm_fp, int sv_ns, int sv_len, int sv_tb,
@@ -1474,12 +1789,17 @@ extern "C" int pde_multi_step_launch(
   if (route != 0 && route != 1) return (int)cudaErrorInvalidValue;
   const auto pow2 = [](int v) { return v >= 1 && (v & (v - 1)) == 0; };
   if (m_mode < kGlobal || m_mode > kFft) return (int)cudaErrorInvalidValue;
+  // the FFT stage: a unit holds at most kFftMaxSub values, its three
+  // buffers fit the CTA's shared memory
   if (m_mode == kFft &&
       (route != 1 || !fft_tw || !fft_spec || !gfft || !pow2(fft_n1) ||
        !pow2(fft_n2) || fft_n1 < 2 || fft_n1 > fft_n2 ||
        fft_n2 > kFftMaxSub || !pow2(fft_w1) || !pow2(fft_w2) ||
        fft_w1 > fft_n2 || fft_w2 > fft_n1 || fft_n1 * fft_w1 > fft_buf ||
-       fft_n2 * fft_w2 > fft_buf || fft_wrap < 0 || 2 * fft_wrap > L ||
+       fft_n2 * fft_w2 > fft_buf || fft_buf > kFftMaxSub ||
+       ((4 * (7 * kWarps + tseg) + 15) & ~15) +
+               24 * fft_unit_values(fft_buf) > smem ||
+       fft_wrap < 0 || 2 * fft_wrap > L ||
        (size_t)fft_n1 * fft_n2 < (size_t)L + 2 * fft_wrap))
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
@@ -1500,8 +1820,8 @@ extern "C" int pde_multi_step_launch(
                dx,         xlim,      v_last,    fac,         w_dt,
                w_2dt,      gfld,      gpub,      gtt,         gbar,
                reinterpret_cast<const float2*>(fft_tw), fft_spec,
-               reinterpret_cast<float2*>(gfft), fft_n1, fft_n2, fft_w1,
-               fft_w2,     fft_wrap,  fft_buf};
+               reinterpret_cast<float2*>(gfft), fft_trace, fft_n1, fft_n2,
+               fft_w1,     fft_w2,    fft_wrap,  fft_buf};
   e = route == 0 ? cudaLaunchKernelEx(&cfg, pde_kernel, a)
       : fft      ? cudaLaunchKernelEx(&cfg, pde_gmem_fft_kernel, a)
                  : cudaLaunchKernelEx(&cfg, pde_gmem_kernel, a);

@@ -34,13 +34,27 @@ L = 262,144, 1,048,576 and 4,194,304, the device-memory route the card's
 plan takes), B = 2, the large-lattice recipe, with the plain ``pde_step``
 loop on the same fields beside them: µs per step, the route, its CTAs a
 replica and launches.  ``--mode route-smooth``: the same for the full
-Gaussian m (σ = 0.05, the banded solve; ``SMOOTH_ROUTE_ROWS``: L = 65,536
-on both routes, the cluster's direct circulant against the device-memory
-route's FFT stage; 131,072, 262,144, 1,048,576 and 4,194,304 on the
-card's plan, its FFT stage), each row also with the stage's library
-yardstick: ``torch.fft.rfft`` of the replicas' (num, den) rows times the
-taps' spectrum and ``irfft``, in float32 and in float64 (the port never
-calls it).  ``--batch`` sets the replicas of 'main' and
+Gaussian m (σ = 0.05; ``SMOOTH_ROUTE_ROWS``: L = 1000 with the exact
+solve, the PDE slice's shape, and 2048 … 65,536 with the recipe's banded
+solve, at B = 2, 5 and 64 on both routes, the cluster's direct circulant
+against the device-memory route's FFT stage; 131,072, 262,144, 1,048,576
+and 4,194,304 at B = 2 on the card's plan), each row also with the
+stage's library yardstick: ``torch.fft.rfft`` of the replicas' (num,
+den) rows times the taps' spectrum and ``irfft``, in float32 and in
+float64, its device time (``torch.profiler``) and its events' time (the
+port never calls it); ``--quick`` shortens the calls (the smoke's phase
+23).  ``--mode fft-split`` (this tree only): where a step
+on the FFT stage goes at 262,144, 1,048,576 and 4,194,304 sites (B = 2,
+the recipe, σ = 0.05, no bins), from the stage's clock marks
+(``pde_multi_step.fft_trace``): passes 1–3, the barriers after passes 1
+and 2, the reduction of m with its barrier, and the rest of the step, in
+µs a step (the marks' cycles scaled to the events' time) and as shares.
+``--mode stage``: the FFT stage's own time at 131,072, 262,144,
+1,048,576 and 4,194,304 sites (``STAGE_ROWS``, B = 2, the recipe, no
+bins, the device-memory route): the 'smooth' step (σ = 0.05) less the
+pointwise step on the same fields, beside the stage's library yardstick;
+it calls only what an older wrapper takes, so it times an older checkout
+too.  ``--batch`` sets the replicas of 'main' and
 'smooth' (β over [0, 3]; e.g. 5 and 64, the PDE slice's σ-sweep and
 phase-diagram batches).  Several modes and batches run in one process,
 one row each.  Every mode but 'cluster' calls only what the kernel's
@@ -52,8 +66,8 @@ launches a call where the checkout counts them.
 
 Usage: PYTHONPATH=<checkout> python <this file> [--calls 5] [--tag NAME]
        [--mode main|smooth|spectra|spectra-kernel|rows|cluster|drift|route
-       |route-smooth|spectra-large ...] [--batch B ...] [--lattice L ...]
-       [--reference FILE]
+       |route-smooth|fft-split|stage|spectra-large ...] [--batch B ...]
+       [--lattice L ...] [--reference FILE] [--quick]
 """
 from __future__ import annotations
 
@@ -331,72 +345,105 @@ ROUTE_ROWS = [
 
 
 # --mode route-smooth: the full Gaussian m (σ = 0.05, 13,107 sites at
-# L = 262,144) on the same recipe; at 65,536 the cluster's direct circulant
-# (2·L² FMAs a field a step) takes a few ms a step, so its calls are short
+# L = 262,144): (L, PDEConfig fields, steps a call, forced routes, B).  Up
+# to 65,536 both routes at B = 2, 5, 64 (the large-lattice ensembles, the
+# magn2 σ sweep, the phase diagram), L = 1000 with the exact solve (the PDE
+# slice's shape, γ = 0.2, dt = 5e-4), the rest the recipe's banded solve;
+# the cluster's direct circulant (2·L² FMAs a field a step, a few ms at
+# 65,536) in short calls.  Past a cluster, the card's plan at B = 2.
 SMOOTH = dict(gaussian_kernel=True, kernel_sigma=0.05,
               diffusion_solver="banded")
+SMOOTH_EXACT = dict(gaussian_kernel=True, kernel_sigma=0.05)
+GMEM_MIN_STEPS = 200           # steps a call on the device-memory route
 SMOOTH_ROUTE_ROWS = [
-    (65_536, SMOOTH, 20, ("cluster", "gmem")),
-    (131_072, SMOOTH, 400, (None,)),
-    (262_144, SMOOTH, 400, (None,)),
-    (1_048_576, SMOOTH, 200, (None,)),
-    (4_194_304, SMOOTH, 50, (None,)),
+    (L, SMOOTH_EXACT if L == 1000 else SMOOTH, k, ("cluster", "gmem"), B)
+    for L, k in ((1000, 200), (2048, 200), (4096, 100), (8192, 100),
+                 (16_384, 40), (32_768, 20), (65_536, 8))
+    for B in (2, 5, 64)] + [
+    (131_072, SMOOTH, 400, (None,), 2),
+    (262_144, SMOOTH, 400, (None,), 2),
+    (1_048_576, SMOOTH, 200, (None,), 2),
+    (4_194_304, SMOOTH, 50, (None,), 2),
 ]
 
 
+def route_shape(L: int, over: dict, B: int) -> dict:
+    """``b2_inputs``' shape of a route row: B replicas, 64 tracers, window
+    20, the large-lattice recipe's dt and γ (the PDE slice's L = 1000
+    defaults with the exact solve, ``SMOOTH_EXACT``)."""
+    return dict(B=B, n_t=64, W=20,
+                **(dict(L=L) if over is SMOOTH_EXACT else _recipe(L)))
+
+
 def smooth_stage_library(rho_p, rho_m, smooth, calls: int) -> dict:
-    """µs of one ``torch.fft.rfft`` of the (B, 2, L) (num, den) rows, times
-    the taps' spectrum, and ``irfft``: the FFT stage's function by
-    library calls, in float32 and in float64."""
+    """The FFT stage's function by library calls: one ``torch.fft.rfft``
+    of the (B, 2, L) (num, den) rows, times the taps' spectrum, and
+    ``irfft``, in float32 and in float64: µs a call of device time (the
+    card's kernels under ``torch.profiler``) and by CUDA events."""
     both = torch.stack([rho_p - rho_m, rho_p + rho_m], 1)
     out = {}
     for dtype in (torch.float32, torch.float64):
         x = both.to(dtype)
         kr = torch.fft.rfft(smooth.weights.to(dtype))
         fn = lambda: torch.fft.irfft(torch.fft.rfft(x) * kr, n=x.shape[-1])
-        out[str(dtype).split(".")[-1]] = _time(fn, 1, calls)
+        dev_us, ev_us = _device_and_events_us(fn, max(calls, 3))
+        out[str(dtype).split(".")[-1]] = dict(device_us=dev_us,
+                                              events_us=ev_us)
     return out
 
 
 def route_rows(calls: int, tag: str, plain_steps: int = 20,
-               table=None) -> list:
+               table=None, quick: bool = False) -> list:
     """``ROUTE_ROWS`` (or ``table``): µs per step of kernel B2 on each
-    route (B = 2, the large-lattice recipe, 64 tracers, 8 bins, native
-    Philox) and of the plain ``pde_step`` loop (the large-lattice driver's
-    step, torch on the card) on the same fields; one JSON row per L.  Each
-    route is also timed without the spectral bins (the step kernel alone,
-    in one launch a call); a row of the full smoothing also gives its FFT
-    stage's plan and the stage's library yardstick
-    (``smooth_stage_library``)."""
+    route (B = 2 unless the row says, the large-lattice recipe, 64
+    tracers, 8 bins, native Philox) and of the plain ``pde_step`` loop (the
+    large-lattice driver's step, torch on the card) on the same fields; one
+    JSON row per L and B.  Each route is also timed without the spectral
+    bins (the step kernel alone, in one launch a call); a row of the full
+    smoothing also gives its FFT stage's plan and the stage's library
+    yardstick (``smooth_stage_library``).  The device-memory route takes
+    at least ``GMEM_MIN_STEPS`` steps a call (the wrapper's host work is
+    a few hundred µs a call; the cluster's direct circulant, a few ms a
+    step at 65,536, keeps the row's).  ``quick``: a quarter of a row's
+    steps (at least 2) on the cluster, at least 50 a call on the
+    device-memory route (at most 50 past a cluster), 4 plain steps: calls
+    long enough that the wrapper's host work does not swamp them."""
     from hydrolim_tpu_torch.core.config import PDEParams
     from hydrolim_tpu_torch.ops import pde_kernel as pk
     from hydrolim_tpu_torch.pde.stepper import build_pde_ops, pde_step
 
     dev = torch.device("cuda", 0)
     out = []
-    for L, over, k, routes in table or ROUTE_ROWS:
+    for L, over, k, routes, *nb in table or ROUTE_ROWS:
+        B = nb[0] if nb else 2
+        if quick:
+            k = min(k, 50) if routes == (None,) else max(2, k // 4)
+            plain_steps = 4
         config, gamma, ops, scal, state = b2_inputs(
-            dev, over, dict(B=2, n_t=64, W=20, **_recipe(L)))
-        seeds = torch.arange(2, dtype=torch.int32, device=dev)
+            dev, over, route_shape(L, over, B))
+        seeds = torch.arange(B, dtype=torch.int32, device=dev)
         kw = dict(L=L, n_t=64, window=config.tracer_window, k_steps=k,
                   dt=config.dt, xlim=config.xlim, periodic=True,
                   m_mode=ops[0], solve_mode=ops[1], bidirectional=True,
                   kmax_rec=8)
-        row = dict(tag=tag, L=L, B=2, k_steps=k, m_mode=ops[0],
+        row = dict(tag=tag, L=L, B=B, k_steps=k, m_mode=ops[0],
                    solve_mode=ops[1], card=_card(), routes={})
         for route in routes:
+            kr = k if route == "cluster" else max(
+                k, 50 if quick else GMEM_MIN_STEPS)
+            kwr = dict(kw, k_steps=kr)
             n0 = pk.pde_multi_step.launches
             fn = lambda: pk.pde_multi_step(scal, seeds, 0, *state, ops[3],
-                                           ops[2], route=route, **kw)
-            us = _time(fn, k, calls)
+                                           ops[2], route=route, **kwr)
+            us = _time(fn, kr, calls)
             plan = pk.pde_multi_step.last_plan
             launches = (pk.pde_multi_step.launches - n0) // (calls + 1)
             bare = _time(lambda: pk.pde_multi_step(
                 scal, seeds, 0, *state, ops[3], ops[2], route=route,
-                **dict(kw, kmax_rec=0)), k, calls)
+                **dict(kwr, kmax_rec=0)), kr, calls)
             row["routes"][plan.route] = dict(
                 us_per_step=us, us_per_step_without_bins=bare,
-                ctas=plan.ctas, waves=plan.waves,
+                ctas=plan.ctas, waves=plan.waves, k_steps=kr,
                 launches_per_call=launches)
             if getattr(plan, "fft", None) is not None:
                 f = plan.fft
@@ -419,8 +466,121 @@ def route_rows(calls: int, tag: str, plain_steps: int = 20,
     return out
 
 
+# --mode stage: (L, steps a call) at B = 2, the recipe, the banded solve
+STAGE_ROWS = ((131_072, 400), (262_144, 400), (1_048_576, 200),
+              (4_194_304, 50))
+
+
+def stage_rows(calls: int, tag: str) -> list:
+    """``STAGE_ROWS``: µs a step without the bins of the full Gaussian m
+    (σ = 0.05) and of the pointwise m on the same fields, both on the
+    device-memory route (the full smoothing's FFT stage), and their
+    difference, the stage's own time (the pointwise step's m pass
+    replaced by the stage); with ``smooth_stage_library`` and the
+    smoothing's share of the step's bound: its fewest operations (two
+    real fields a replica by FFT there and back, 5·L·log2 L + L each, as
+    ``chip_smoke.py`` ``circulant_ops`` counts them) at the card's
+    float32 rate, 67 TFLOP/s.  One JSON row per L."""
+    from hydrolim_tpu_torch.ops import pde_kernel as pk
+
+    dev = torch.device("cuda", 0)
+    out = []
+    for L, k in STAGE_ROWS:
+        row = dict(tag=tag, L=L, B=2, k_steps=k, card=_card())
+        for name, over in (("pointwise", dict(diffusion_solver="banded")),
+                           ("smooth", SMOOTH)):
+            config, _, ops, scal, state = b2_inputs(
+                dev, over, dict(B=2, n_t=64, W=20, **_recipe(L)))
+            seeds = torch.arange(2, dtype=torch.int32, device=dev)
+            kw = dict(L=L, n_t=64, window=config.tracer_window, k_steps=k,
+                      dt=config.dt, xlim=config.xlim, periodic=True,
+                      m_mode=ops[0], solve_mode=ops[1], bidirectional=True,
+                      kmax_rec=0)
+            row[f"{name}_us_per_step"] = _time(
+                lambda: pk.pde_multi_step(scal, seeds, 0, *state, ops[3],
+                                          ops[2], route="gmem", **kw),
+                k, calls)
+            plan = pk.pde_multi_step.last_plan
+            row[f"{name}_plan"] = dict(route=plan.route, ctas=plan.ctas)
+            if name == "smooth":
+                f = plan.fft
+                row["fft"] = dict(n=f.n, n1=f.n1, n2=f.n2, w1=f.w1, w2=f.w2)
+                row["library_stage_us"] = smooth_stage_library(
+                    state[0], state[1], ops[2], calls)
+        row["stage_us"] = float(np.mean(row["smooth_us_per_step"])
+                                - np.mean(row["pointwise_us_per_step"]))
+        ops = min((3.0 * (L // 2) + 1.0) * L, 5.0 * L * np.log2(L) + L)
+        row["smoothing_bound_us"] = 2 * 2 * ops / 67e12 * 1e6
+        print(json.dumps(row), flush=True)
+        out.append(row)
+    return out
+
+
+# --mode fft-split: (L, steps a call) at B = 2, the recipe, σ = 0.05
+FFT_SPLIT = ((262_144, 400), (1_048_576, 200), (4_194_304, 50))
+FFT_MARKS = ("pass 1: first unit landed", "pass 1", "barrier 1",
+             "pass 2: first unit landed", "pass 2: forward",
+             "pass 2: inverse", "barrier 2", "pass 3: first unit landed",
+             "pass 3", "m's reduction")
+
+
+def fft_split(calls: int, tag: str) -> list:
+    """Where a step on the FFT stage goes (``FFT_SPLIT``, no bins): the
+    stage's clock marks summed over a call's steps, averaged over the
+    replicas' CTAs, as µs a step (the cycles of the whole step scaled to
+    the call's events time) and as shares of the step; the rest of the
+    step (tracers, Var, the solve, the advection, the masses) is the
+    remainder.  One JSON row per L."""
+    from hydrolim_tpu_torch.ops import pde_kernel as pk
+
+    dev = torch.device("cuda", 0)
+    out = []
+    for L, k in FFT_SPLIT:
+        config, _, ops, scal, state = b2_inputs(
+            dev, SMOOTH, dict(B=2, n_t=64, W=20, **_recipe(L)))
+        seeds = torch.arange(2, dtype=torch.int32, device=dev)
+        kw = dict(L=L, n_t=64, window=config.tracer_window, k_steps=k,
+                  dt=config.dt, xlim=config.xlim, periodic=True,
+                  m_mode=ops[0], solve_mode=ops[1], bidirectional=True,
+                  kmax_rec=0)
+        fn = lambda: pk.pde_multi_step(scal, seeds, 0, *state, ops[3],
+                                       ops[2], **kw)
+        us = _time(fn, k, calls)
+        pk.pde_multi_step.fft_trace = []
+        try:
+            fn()
+            torch.cuda.synchronize()
+            marks = torch.cat(pk.pde_multi_step.fft_trace).double()
+        finally:
+            pk.pde_multi_step.fft_trace = None
+        nm = len(FFT_MARKS)
+        per_cta = marks.reshape(-1, pk.FFT_MARKS)
+        if not bool((per_cta[:, nm + 1] == k).all()):
+            raise AssertionError(f"fft-split L={L}: steps "
+                                 f"{per_cta[:, nm + 1]}")
+        cyc = (per_cta[:, :nm + 1] / k).mean(0)       # cycles a step
+        step_us = float(np.mean(us))
+        us_per_cycle = step_us / float(cyc[nm])
+        split = {name: float(cyc[i]) * us_per_cycle
+                 for i, name in enumerate(FFT_MARKS)}
+        split["rest of the step"] = float(cyc[nm] - cyc[:nm].sum()) \
+            * us_per_cycle
+        plan = pk.pde_multi_step.last_plan
+        f = plan.fft
+        row = dict(tag=tag, L=L, B=2, k_steps=k, us_per_step=us,
+                   ctas=plan.ctas,
+                   fft=dict(n=f.n, n1=f.n1, n2=f.n2, w1=f.w1, w2=f.w2),
+                   split_us_per_step=split,
+                   share={n: v / step_us for n, v in split.items()},
+                   cycles_per_step=float(cyc[nm]), card=_card())
+        print(json.dumps(row), flush=True)
+        out.append(row)
+    return out
+
+
 def main(calls: int = 5, tag: str = "", mode: str = "main",
-         batch=None, lattices=(1024, 8192), reference: str = "") -> dict:
+         batch=None, lattices=(1024, 8192), reference: str = "",
+         quick: bool = False) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_pde_kernel: needs a CUDA device")
     if mode == "spectra-kernel":
@@ -434,7 +594,11 @@ def main(calls: int = 5, tag: str = "", mode: str = "main",
     if mode == "route":
         return route_rows(calls, tag)
     if mode == "route-smooth":
-        return route_rows(calls, tag, table=SMOOTH_ROUTE_ROWS)
+        return route_rows(calls, tag, table=SMOOTH_ROUTE_ROWS, quick=quick)
+    if mode == "fft-split":
+        return fft_split(calls, tag)
+    if mode == "stage":
+        return stage_rows(calls, tag)
     dev = torch.device("cuda", 0)
     L, k, dt, gamma, kmax = 1000, 2000, 5e-4, 0.2, 8
     if mode == "spectra":
@@ -506,11 +670,14 @@ if __name__ == "__main__":
     p.add_argument("--mode", default=["main"], nargs="+",
                    choices=["main", "smooth", "spectra", "spectra-kernel",
                             "rows", "cluster", "drift", "route",
-                            "route-smooth", "spectra-large"])
+                            "route-smooth", "fft-split", "stage",
+                            "spectra-large"])
     p.add_argument("--batch", type=int, default=[0], nargs="+")
     p.add_argument("--lattice", type=int, default=[1024, 8192], nargs="+")
     p.add_argument("--reference", default="")
+    p.add_argument("--quick", action="store_true")
     a = p.parse_args()
     for mode in a.mode:
         for batch in (a.batch if mode in ("main", "smooth") else [0]):
-            main(a.calls, a.tag, mode, batch or None, a.lattice, a.reference)
+            main(a.calls, a.tag, mode, batch or None, a.lattice, a.reference,
+                 a.quick)

@@ -14,7 +14,8 @@ replica with the fields in device memory (``gmem_launch_plan``), up to the
 card's free memory (``gmem_max_lattice``).  Both give the same values bit
 for bit, except the full smoothing: on the device-memory route it is an
 FFT convolution (``fft_plan``), which agrees with the cluster route's
-direct circulant to float32 roundoff.
+direct circulant to float32 roundoff, and which m_mode 'smooth' takes
+from ``SMOOTH_FFT_FROM`` sites on, where a cluster would fit too.
 
 Modes, as in the TPU kernel:
 - ``m_mode``: 'global' (one m per replica), 'pointwise', 'narrow' (the
@@ -90,8 +91,19 @@ GMEM_MAX_SEG = 1 << 24        # sites per CTA on the device-memory route
 GMEM_TILE = 8192              # sites of its circulant's tiles (at most)
 GMEM_MAX_L = 1 << 30          # sites the kernel's int indexing allows
 GMEM_M_MODES = ("global", "pointwise", "narrow", "smooth")
-FFT_MAX_SUB = 8192            # points of a sub-transform in shared memory
+FFT_MAX_SUB = 8192            # points of a sub-transform, and of a unit
 FFT_MAX_N = FFT_MAX_SUB ** 2  # the FFT stage's longest transform (2 passes)
+FFT_PAD = 16                  # a unit's buffer skips 2 values every 32 (banks)
+FFT_RUN = 16                  # columns a unit of passes 1 and 3 takes where
+                              # it can: 128-byte runs of the complex scratch
+FFT_MARKS = 12                # clock marks a CTA of the stage keeps (kMarks)
+# The full Gaussian m's route line: from this many sites m_mode 'smooth'
+# takes the device-memory route's FFT stage, below it the cluster route's
+# direct circulant.  The measured crossover (PERF.md §6, B2's full
+# smoothing by route; ``profile_pde_kernel.py --mode route-smooth``):
+# from 4096 sites the stage wins at B = 2, 5 and 64, at 1000 and 2048 the
+# circulant.
+SMOOTH_FFT_FROM = 4096
 _M_CODES = {"global": 0, "pointwise": 1, "narrow": 2, "smooth": 2}
 _FFT_M_CODE = 3               # 'smooth' on the device-memory route
 _SOLVE_CODES = {"none": 0, "exact": 1, "banded": 2}
@@ -199,8 +211,8 @@ class SmoothOperands:
     def fft_spectrum(self, f: "FftPlan") -> torch.Tensor:
         """(n,) float32 real spectrum of the full circulant's taps on the
         FFT stage's transform (``fft_plan``), in the order its second pass
-        reads: K[k1 + n1·bitrev(p)] at k1·n2 + p, computed in float64 from
-        the half taps (kept on the operand)."""
+        reads: K[k1 + n1·k2] at k1·n2 + k2, computed in float64 from the
+        half taps (kept on the operand)."""
         cache = self.__dict__.setdefault("_fft_spectrum", {})
         if (f.n1, f.n2) not in cache:
             t = self.half_taps.detach().cpu().numpy().astype(np.float64)
@@ -225,11 +237,13 @@ def build_smooth_operands(m_mode: str, weights,
 @dataclasses.dataclass(frozen=True)
 class FftPlan:
     """The full circulant's FFT stage on the device-memory route: one
-    complex transform of length ``n`` = ``n1``·``n2`` (powers of two, n1 ≤
-    n2 ≤ ``FFT_MAX_SUB``) in two passes, of the row ``num + i·den``
+    complex transform of length ``n`` = ``n1``·``n2`` (powers of two, 2 ≤
+    n1 ≤ n2 ≤ ``FFT_MAX_SUB``) in two passes, of the row ``num + i·den``
     wrapped by ``wrap`` sites on each side and padded with zeros; ``w1``
     columns (passes 1 and 3) and ``w2`` rows (pass 2) of sub-transforms a
-    CTA holds in shared memory at once."""
+    unit.  A CTA holds three unit buffers in shared memory: the next unit
+    lands in one while the current one's steps go back and forth between
+    the other two."""
 
     n: int
     n1: int
@@ -240,27 +254,34 @@ class FftPlan:
 
     @property
     def buf(self) -> int:
-        """Complex values of a CTA's sub-transform buffer."""
+        """Complex values of a unit."""
         return max(self.n1 * self.w1, self.n2 * self.w2)
 
     @property
+    def unit(self) -> int:
+        """Values of a unit's buffer: ``buf`` padded by 2 values every 32
+        (one every ``FFT_PAD``), made even (16-byte aligned buffers)."""
+        u = self.buf + self.buf // FFT_PAD
+        return u + (u & 1)
+
+    @property
     def smem(self) -> int:
-        """Shared memory of the stage: the buffer and W_n2^i, i < n2/2."""
-        return 8 * (self.buf + self.n2 // 2)
+        """Shared memory of the stage: three unit buffers."""
+        return 3 * 8 * self.unit
 
 
 def fft_plan(L: int, G: int) -> FftPlan:
     """The FFT stage of a row of L sites for G CTAs a replica.  A
-    power-of-two L
-    transforms at n = L (a circular convolution); any other L at the power
-    of two n ≥ L + 2h, h = L//2, the row wrapped by h sites on each side:
-    the taps centred (d = −h…h, the d = ±L/2 taps halved for an even L, as
-    ``SmoothOperands.half_taps``), the convolution on n is the circular one
-    on L in exact arithmetic.  n = n1·n2 with n1 = 2^⌊log₂n / 2⌋.  A CTA
-    holds at least 4 columns (32-byte runs) or as many as give each CTA
-    one unit, within ``FFT_MAX_SUB`` points; rows likewise, at least one.
-    Raises ValueError past n = ``FFT_MAX_N``, naming the largest L
-    served."""
+    power-of-two L transforms at n = L (a circular convolution); any other
+    L at the power of two n ≥ L + 2h, h = L//2, the row wrapped by h sites
+    on each side: the taps centred (d = −h…h, the d = ±L/2 taps halved for
+    an even L, as ``SmoothOperands.half_taps``), the convolution on n is
+    the circular one on L in exact arithmetic.  n1, the columns' length, is
+    G where n allows both passes a unit for each CTA with ``FFT_RUN``
+    columns (n ≥ ``FFT_RUN``·G²), else as short as the rows' ``FFT_MAX_SUB``
+    points allow (at least 2); n2 = n / n1.  A unit takes as many columns
+    (rows) as give each CTA one, within ``FFT_MAX_SUB`` points.  Raises
+    ValueError past n = ``FFT_MAX_N``, naming the largest L served."""
     if L & (L - 1) == 0:
         n, wrap = L, 0
     else:
@@ -273,10 +294,10 @@ def fft_plan(L: int, G: int) -> FftPlan:
             f"stage's {FFT_MAX_N} (two passes of {FFT_MAX_SUB}); the largest "
             f"L it serves is {FFT_MAX_N} (a power of two), else "
             f"{FFT_MAX_N // 2 - 1}")
-    n1 = 1 << ((n.bit_length() - 1) // 2)
+    n1 = max(2, n // FFT_MAX_SUB, min(G, n // (FFT_RUN * G)))
     n2 = n // n1
     return FftPlan(n, n1, n2, wrap,
-                   w1=min(n2, FFT_MAX_SUB // n1, max(4, n2 // G)),
+                   w1=min(n2, FFT_MAX_SUB // n1, max(1, n2 // G)),
                    w2=min(n1, FFT_MAX_SUB // n2, max(1, n1 // G)))
 
 
@@ -292,20 +313,31 @@ def taps_spectrum(half_taps: np.ndarray, n: int) -> np.ndarray:
     return np.concatenate([r, r[1:n - n // 2][::-1]])
 
 
-def bitrev(n: int) -> np.ndarray:
-    """(n,) the bit-reversal permutation of a power of two n."""
-    lg = n.bit_length() - 1
-    i = np.arange(n)
-    out = np.zeros(n, np.int64)
-    for b in range(lg):
-        out |= ((i >> b) & 1) << (lg - 1 - b)
-    return out
-
-
 def fft_spectrum_order(K: np.ndarray, f: FftPlan) -> np.ndarray:
     """A spectrum K[k] (k = k1 + n1·k2) in the second pass's order:
-    K[k1 + n1·bitrev(p)] at k1·n2 + p."""
-    return K.reshape(f.n2, f.n1).T[:, bitrev(f.n2)].ravel()
+    K[k1 + n1·k2] at k1·n2 + k2."""
+    return K.reshape(f.n2, f.n1).T.ravel()
+
+
+def fft_radices(N: int) -> Tuple[int, ...]:
+    """The radices of the stage's sub-transform of length N (a power of
+    two), step by step: one radix 2 or 4 where log2 N is no multiple of 3,
+    then radix 8 (so the last step, which writes device memory, holds the
+    fewest items a thread)."""
+    q, r = divmod(N.bit_length() - 1, 3)
+    return ((1 << r,) if r else ()) + (8,) * q
+
+
+def stockham_angles(N: int) -> np.ndarray:
+    """(N − 1,) float64 angles of a length-N sub-transform's twiddles, step
+    by step (``fft_radices``, p the product of the radices before the
+    step): 2π·r·k / (p·R) at r-major (r − 1)·p + k, r = 1…R−1, k < p."""
+    out, p = [], 1
+    for R in fft_radices(N):
+        rk = np.arange(1, R)[:, None] * np.arange(p)[None, :]
+        out.append((rk / (p * R)).ravel() * (2.0 * np.pi))
+        p *= R
+    return np.concatenate(out) if out else np.zeros(0)
 
 
 @functools.lru_cache(maxsize=4)
@@ -314,15 +346,16 @@ def _fft_twiddles(n1: int, n2: int, device: str) -> torch.Tensor:
     ang = np.concatenate([
         np.outer(np.arange(n1, dtype=np.float64),
                  np.arange(n2, dtype=np.float64)).ravel() * (2.0 * np.pi / n),
-        np.arange(n2 // 2, dtype=np.float64) * (2.0 * np.pi / n2)])
+        stockham_angles(n2), stockham_angles(n1)])
     return torch.tensor(np.stack([np.cos(ang), -np.sin(ang)], -1),
                         dtype=torch.float32, device=device)
 
 
 def fft_twiddles(f: FftPlan, device="cuda") -> torch.Tensor:
-    """(n + n2/2, 2) float32 [re, im] twiddles of the FFT stage, computed in
-    float64: W_n^(n2'·k1) = exp(−2πi·n2'·k1/n) at k1·n2 + n2' (the passes'
-    order), then W_n2^i for i < n2/2 (the sub-transforms')."""
+    """(n + n2 + n1 − 2, 2) float32 [re, im] twiddles of the FFT stage,
+    computed in float64: W_n^(n2'·k1) = exp(−2πi·n2'·k1/n) at k1·n2 + n2'
+    (the passes' order), then the Stockham steps' W_(pR)^(r·k) of the rows'
+    length n2 and of the columns' length n1 (``stockham_angles``)."""
     return _fft_twiddles(f.n1, f.n2, str(torch.device(device)))
 
 
@@ -622,11 +655,15 @@ def pde_max_lattice(n_t: int, m_mode: str, circulants: Mapping[str, int],
 def gmem_smem_bytes(tseg: int, fp: int, wf: int, part: int,
                     fft: Optional[FftPlan] = None) -> int:
     """Shared memory of one CTA of the device-memory route
-    (``csrc/pde_multi_step.cu`` ``gmem_steps``, in its order): the FFT
-    stage's buffer and twiddles (``FftPlan.smem``, where used), 7 × 16 warp
-    totals, the tracers' displacements, the staging windows and the
-    partial sums."""
-    return (fft.smem if fft else 0) + 4 * (7 * 16 + tseg + fp * wf + part)
+    (``csrc/pde_multi_step.cu`` ``gmem_steps``, in its order): 7 × 16 warp
+    totals and the tracers' displacements, then the staging windows and
+    the partial sums; with the FFT stage, from the next 16-byte boundary,
+    its three unit buffers (``FftPlan.smem``), which the windows and
+    partial sums share."""
+    if fft is None:
+        return 4 * (7 * 16 + tseg + fp * wf + part)
+    return (-(-4 * (7 * 16 + tseg) // 16) * 16
+            + max(fft.smem, 4 * (fp * wf + part)))
 
 
 def gmem_layout(L: int, n_t: int, G: int, m_mode: str,
@@ -713,23 +750,31 @@ def gmem_launch_plan(B: int, L: int, n_t: int, m_mode: str,
     return dataclasses.replace(lay, per_launch=per, waves=-(-B // per))
 
 
+def gmem_fields(m_mode: str, fft: bool) -> int:
+    """Rows of a replica's device scratch on the device-memory route: the
+    fields Q and N, m (a local m) and the smoothed denominator (the narrow
+    smoothing; the FFT stage forms m in its last pass and keeps none)."""
+    return 2 + int(m_mode != "global") + int(m_mode == "narrow" or (
+        m_mode == "smooth" and not fft))
+
+
 def gmem_call_bytes(plan: GmemPlan, B: int, L: int, n_t: int, window: int,
                     m_mode: str, kmax_rec: int, k_steps: int) -> int:
     """Device memory a call on the device-memory route allocates: the
     outputs (the two fields, the tracers and their ring, the records), the
-    device scratch (the fields Q, N, m and the smoothed denominator where
-    used; the published totals, the scan's tile totals and the arrival
-    counters of one launch's replicas), the FFT stage's complex scratch
-    (n·8 B for each of one launch's replicas), spectrum and twiddles, and
-    the spectra's density scratch (``spectra_plan``)."""
-    nfs = 2 + int(m_mode != "global") + int(m_mode in ("narrow", "smooth"))
+    device scratch (``gmem_fields``; the published totals, the scan's tile
+    totals and the arrival counters of one launch's replicas), the FFT
+    stage's complex scratch (n·8 B for each of one launch's replicas),
+    spectrum and twiddles, and the spectra's density scratch
+    (``spectra_plan``)."""
+    nfs = gmem_fields(m_mode, plan.fft is not None)
     per = plan.per_launch
     out = 4 * B * (2 * L + 2 * n_t + window * n_t + k_steps
                    * (4 + 2 * kmax_rec))
     scratch = 4 * per * (nfs * L + 3 * plan.ctas * 4 + 32) + 16 * per * 128
     f = plan.fft
     if f is not None:
-        scratch += 8 * per * f.n + 4 * f.n + 8 * (f.n + f.n2 // 2)
+        scratch += 8 * per * f.n + 4 * f.n + 8 * (f.n + f.n2 + f.n1 - 2)
     dens = 0
     if kmax_rec:
         sp = spectra_plan(B, k_steps, L, kmax_rec)
@@ -781,12 +826,14 @@ def pde_route_plan(B: int, L: int, n_t: int, m_mode: str,
     """The route and plan of one call: the cluster route
     (``pde_launch_plan``) wherever a cluster fits, the device-memory route
     (``gmem_launch_plan``) past it; there the full smoothing (m_mode
-    'smooth') is the FFT stage.  ``route`` ('cluster' or 'gmem') forces
-    one; ``cluster`` / ``ctas`` force its C / G."""
+    'smooth') is the FFT stage, which it takes from ``SMOOTH_FFT_FROM``
+    sites on.  ``route`` ('cluster' or 'gmem') forces one; ``cluster`` /
+    ``ctas`` force its C / G."""
     if route not in (None, "cluster", "gmem"):
         raise ValueError(f"pde_multi_step: unknown route {route!r}")
     kw = dict(smem_limit=smem_limit)
-    if route == "gmem":
+    if route == "gmem" or (route is None and m_mode == "smooth"
+                           and L >= SMOOTH_FFT_FROM):
         return gmem_launch_plan(B, L, n_t, m_mode, circulants,
                                 coresident_ctas, ctas=ctas, **kw)
     try:
@@ -1201,7 +1248,7 @@ def _check_call(scal, seeds, step0, rho_p, rho_m, pos, spin, hist, solve,
 def _launch_fn():
     fn = load_kernel_library("pde_multi_step").pde_multi_step_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 23 + [ctypes.c_int] * 33
+                   + [ctypes.c_void_p] * 24 + [ctypes.c_int] * 33
                    + [ctypes.c_float] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -1265,8 +1312,7 @@ def pde_multi_step_planned(plan, scal, seeds, step0: int, rho_p, rho_m,
     per = plan.per_launch if gmem else B
     g = None
     if gmem:   # one launch's device scratch, reused launch after launch
-        nfs = 2 + int(m_mode != "global") + int(m_mode in ("narrow",
-                                                           "smooth"))
+        nfs = gmem_fields(m_mode, fft is not None)
         g = dict(fld=torch.empty((per, nfs, L), dtype=torch.float32,
                                  device=dev),
                  pub=torch.empty((per, 3, plan.ctas, 4), dtype=torch.float32,
@@ -1274,12 +1320,15 @@ def pde_multi_step_planned(plan, scal, seeds, step0: int, rho_p, rho_m,
                  tt=torch.empty((per, 128, 2), dtype=torch.float64,
                                 device=dev),
                  bar=torch.zeros((per, 32), dtype=torch.int32, device=dev))
-        g.update(tw=None, spec=None, fft=None)
+        g.update(tw=None, spec=None, fft=None, trace=None)
         if fft is not None:             # the full smoothing's FFT stage
             g.update(tw=fft_twiddles(fft, dev),
                      spec=smooth.fft_spectrum(fft),
                      fft=torch.empty((per, fft.n, 2), dtype=torch.float32,
                                      device=dev))
+            if pde_multi_step.fft_trace is not None:
+                g["trace"] = torch.zeros((per, plan.ctas, FFT_MARKS),
+                                         dtype=torch.int64, device=dev)
     m_code = _FFT_M_CODE if fft is not None else _M_CODES[m_mode]
     stream = torch.cuda.current_stream(dev)
     if pde_multi_step.events is not None:
@@ -1301,6 +1350,8 @@ def pde_multi_step_planned(plan, scal, seeds, step0: int, rho_p, rho_m,
             rows = slice(r0, r0 + nb)
             if g is not None:
                 g["bar"].zero_()
+                if g["trace"] is not None:
+                    g["trace"].zero_()
             pde_multi_step.launches += 1
             pde_multi_step.route_launches[plan.route] += 1
             pde_multi_step.fft_launches += fft is not None
@@ -1312,7 +1363,8 @@ def pde_multi_step_planned(plan, scal, seeds, step0: int, rho_p, rho_m,
                     ptr(d[rows] if d is not None else None),
                     ptr(nz[rows] if nz is not None else None),
                     *[ptr(g[k] if g else None) for k in (
-                        "fld", "pub", "tt", "bar", "tw", "spec", "fft")],
+                        "fld", "pub", "tt", "bar", "tw", "spec", "fft",
+                        "trace")],
                     nb, L, n_t, window, kp, kmax_rec, m_code,
                     _SOLVE_CODES[solve_mode], int(gmem), plan.ctas,
                     plan.seg, plan.tseg, plan.run, plan.tiles, sm.ns,
@@ -1328,6 +1380,8 @@ def pde_multi_step_planned(plan, scal, seeds, step0: int, rho_p, rho_m,
             if pde_multi_step.m_fields is not None and g is not None \
                     and m_mode != "global":
                 pde_multi_step.m_fields.append(g["fld"][:nb, 2].clone())
+            if g is not None and g["trace"] is not None:
+                pde_multi_step.fft_trace.append(g["trace"][:nb].clone())
         if d is not None:
             pde_spectra(d, recs, kmax_rec)
         state = outs
@@ -1343,13 +1397,18 @@ def pde_multi_step_planned(plan, scal, seeds, step0: int, rho_p, rho_m,
 # of the last call; while ``events`` is a list, a pair of CUDA events
 # around each call (``kernel_ms`` sums them); and while ``m_fields`` is a
 # list, a copy of each device-memory launch's m field (its replicas' rows,
-# m_mode not 'global') as its last step read it — both off by default
+# m_mode not 'global') as its last step read it; while ``fft_trace`` is a
+# list, each FFT-stage launch's (replicas, G, ``FFT_MARKS``) int64 clock
+# marks, summed over its steps (csrc/pde_multi_step.cu ``FftTrace``: each
+# pass's first landing and work, the barriers after passes 1 and 2, the
+# reduction of m, the whole step, the steps) — all off by default
 pde_multi_step.launches = 0
 pde_multi_step.route_launches = {"cluster": 0, "gmem": 0}
 pde_multi_step.fft_launches = 0
 pde_multi_step.last_plan = None
 pde_multi_step.events = None
 pde_multi_step.m_fields = None
+pde_multi_step.fft_trace = None
 
 
 def reset_launches() -> None:

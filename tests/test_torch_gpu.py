@@ -24,6 +24,7 @@ from hydrolim_tpu_torch.ops.exclusion_kernel import (
     smoothing_band,
 )
 from hydrolim_tpu_torch.ops.pde_kernel import (
+    SMOOTH_FFT_FROM,
     m_field_of,
     pde_multi_step,
     pde_multi_step_plain,
@@ -573,16 +574,19 @@ def test_b2_routes_are_bitwise_equal(dev, case, L):
     ("pointwise-banded", 4_194_304), ("global-banded", 262_144),
     ("narrow-banded", 262_144), ("pointwise-neumann-exact", 262_144),
     ("smooth-exact", 262_144), ("smooth-exact", 131_071),
-    ("smooth-exact", 4_194_304)])
+    ("smooth-exact", 4_194_304), ("smooth-exact", SMOOTH_FFT_FROM),
+    ("smooth-exact", 32_768), ("smooth-exact", 1_048_576)])
 def test_b2_device_memory_route_matches_plain(dev, case, L):
     """Past a cluster's shared memory the card's plan is the device-memory
     route, held to the plain version at injected bits (B = 2, 64 tracers,
     the large-lattice recipe, 8 steps), at the three large lattices of
     the recipe and in every m mode and solve it serves at 262,144; the full
-    smoothing (its FFT stage) also at the prime L = 131,071, the row
-    wrapped and padded to 262,144 points, and at 4,194,304 (2048 x 2048
-    points), with the fields' atol 1e-5 of the largest density (a site
-    holds ~1/L of the mass) and the stage's m field held site by site
+    smoothing (its FFT stage), which takes that route from the route line
+    on (``SMOOTH_FFT_FROM``), also there and at 32,768 (where a cluster
+    fits too), at the prime L = 131,071, the row wrapped and padded to
+    262,144 points, and at 1,048,576 and 4,194,304 (512 x 8192 points),
+    with the fields' atol 1e-5 of the largest density (a site holds ~1/L
+    of the mass) and the stage's m field held site by site
     (``_b2_m_field_held``)."""
     over, gamma, modes_want = B2_LARGE[case]
     if modes_want[0] == "narrow":

@@ -4,8 +4,9 @@
     a cluster holds the fields (up to 131,072 sites with a global or
     pointwise m, 65,536 with a narrow smoothing), the device-memory route
     past it with its G CTAs a replica, segment, tiles and waves; the full
-    smoothing past 65,536 on the device-memory route's FFT stage (the
-    cluster route refuses it); a forced route; a reduced
+    smoothing on the device-memory route's FFT stage from the route line
+    on (the cluster route refuses it past 65,536); a forced route; a
+    reduced
     per-CTA budget that sends a small L to the device-memory route; the
     largest L the card's memory serves and the ValueError past it.  The
     co-resident counts are an H100's (clusters: 132, 66, 30, 15, 7 of 1,
@@ -125,16 +126,18 @@ def test_forced_routes_and_sizes():
 
 
 def test_full_smoothing_past_a_cluster_is_refused():
-    """The full circulant (radius L//2) takes the cluster route up to
-    65,536 sites, where a cluster holds it; past that the cluster route
-    still refuses it (its ValueError names 65,536), and the chooser takes
-    the device-memory route, whose full smoothing is the FFT stage (no
-    circulant staged)."""
+    """The full circulant (radius L//2) fits a cluster up to 65,536 sites
+    (``route='cluster'`` forces it there, though the route line sends the
+    call to the FFT stage); past that the cluster route refuses it (its
+    ValueError names 65,536), and the chooser takes the device-memory
+    route, whose full smoothing is the FFT stage (no circulant staged)."""
     lay = gmem_layout(262_144, 64, 64, "smooth", {"smooth": 131_072})
     assert lay is not None and lay.fft is not None
     assert lay.smooth.taps == 0 and lay.wf == 0
     assert pde_route_plan(1, 65_536, 64, "smooth", {"smooth": 32_768}, H100,
-                          H100_CTAS).route == "cluster"
+                          H100_CTAS, route="cluster").route == "cluster"
+    assert pde_route_plan(1, 65_536, 64, "smooth", {"smooth": 32_768}, H100,
+                          H100_CTAS).route == "gmem"
     with pytest.raises(ValueError, match="largest L .* is 65536"):
         pde_route_plan(1, 131_072, 64, "smooth", {"smooth": 65_536}, H100,
                        H100_CTAS, route="cluster")
