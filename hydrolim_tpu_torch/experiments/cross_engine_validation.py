@@ -22,6 +22,7 @@ from hydrolim_tpu_torch.sweeps.ensemble import broadcast_params, ensemble_dt
 from hydrolim_tpu_torch.sweeps.fast_meanfield import run_meanfield_sweep
 from hydrolim_tpu_torch.sweeps.pde_sweeps import pde_beta_sweep
 from hydrolim_tpu_torch.theory.meanfield import m_fixed_point
+from hydrolim_tpu_torch.utils import profiling
 
 LAM, GAMMA = 0.6, 0.2
 
@@ -62,25 +63,27 @@ def particle_side(beta_values, n_runs, *, L, N, T, obs_dt, seed=0,
                      rate_diffusion=rd, rate_active=ra)
     frames = run_meanfield_sweep(config, params, T=T, obs_dt=obs_dt, dt=dt,
                                  seed=seed, device=device)
-    times = frames.times_obs
-    s = len(times) // 2
-    dx = 1.0 / L
-    span = times[s:] - times[s]
+    with profiling.span("mf.fits"):
+        times = frames.times_obs
+        s = len(times) // 2
+        dx = 1.0 / L
+        span = times[s:] - times[s]
 
-    v_mean, v_err, D_mean, D_err = [], [], [], []
-    for b in range(len(beta_values)):
-        vs, Ds = [], []
-        for r in range(n_runs):
-            pos = frames.pos[:, b * n_runs + r].astype(float) * dx
-            disp = pos[s:] - pos[s]
-            vs.append(abs(np.polyfit(span, disp.mean(axis=1), 1)[0]))
-            var = ((disp - disp.mean(axis=1, keepdims=True)) ** 2).mean(axis=1)
-            Ds.append(np.polyfit(span, var, 1)[0] / 2.0)
-        v_mean.append(np.mean(vs))
-        v_err.append(np.std(vs) / np.sqrt(n_runs))
-        D_mean.append(np.mean(Ds))
-        D_err.append(np.std(Ds) / np.sqrt(n_runs))
-    return tuple(map(np.asarray, (v_mean, v_err, D_mean, D_err)))
+        v_mean, v_err, D_mean, D_err = [], [], [], []
+        for b in range(len(beta_values)):
+            vs, Ds = [], []
+            for r in range(n_runs):
+                pos = frames.pos[:, b * n_runs + r].astype(float) * dx
+                disp = pos[s:] - pos[s]
+                vs.append(abs(np.polyfit(span, disp.mean(axis=1), 1)[0]))
+                var = ((disp - disp.mean(axis=1, keepdims=True)) ** 2
+                       ).mean(axis=1)
+                Ds.append(np.polyfit(span, var, 1)[0] / 2.0)
+            v_mean.append(np.mean(vs))
+            v_err.append(np.std(vs) / np.sqrt(n_runs))
+            D_mean.append(np.mean(Ds))
+            D_err.append(np.std(Ds) / np.sqrt(n_runs))
+        return tuple(map(np.asarray, (v_mean, v_err, D_mean, D_err)))
 
 
 def _plot(out: Path, beta_values, particle, pde) -> None:

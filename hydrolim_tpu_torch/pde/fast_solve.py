@@ -42,6 +42,7 @@ from hydrolim_tpu_torch.pde.stepper import (
     _tracer_update,
     build_smooth_op,
 )
+from hydrolim_tpu_torch.utils import profiling
 
 _NARROW_R_MAX = 63   # taps per side of the narrow smoothing
 _BANDED_R_MAX = 63   # taps per side of the banded solve
@@ -231,32 +232,33 @@ class PDERun:
         card a batched matmul, FFT or row reduction picks its algorithm by
         the row count, and the row would differ from the one-device run's
         in its last bits."""
-        config, dev = self.config, self.device
-        smooth = build_smooth_op(config, dev)
-        flip_u = draws.rand(pos.shape, gen, pos.device)
-        z = draws.randn(pos.shape, gen, pos.device)
-        rows = []
-        for i in range(rho_p.shape[0]):
-            r = slice(i, i + 1)
-            m_field = pde_magnetization(rho_p[r], rho_m[r], smooth,
-                                        kernel_sigma=config.kernel_sigma)
-            total = rho_p[r] + rho_m[r]
-            tr = TracerState(pos=torch.remainder(pos[r], config.xlim),
-                             unwrapped=pos[r], spin=spin[r].to(torch.int32),
-                             hist=hist[r])
-            params = PDEParams(**{
-                f.name: _replica(getattr(self.params_b, f.name), i)
-                for f in dataclasses.fields(PDEParams)})
-            _, v_f, D_f = _tracer_update(config, params, m_field, tr,
-                                         config.nsteps,
-                                         _inject=(flip_u[r], z[r]))
-            ri = _rfft_ri(total, config.kmax, config.L)
-            col = lambda a: a[:, None]
-            rows.append(torch.cat([col(m_field.mean(-1)),
-                                   col(total.var(-1, unbiased=False)),
-                                   col(v_f), col(D_f), ri[..., 0],
-                                   ri[..., 1]], dim=1))
-        return torch.cat(rows)[:, None]
+        with profiling.span("pde.final_row"):
+            config, dev = self.config, self.device
+            smooth = build_smooth_op(config, dev)
+            flip_u = draws.rand(pos.shape, gen, pos.device)
+            z = draws.randn(pos.shape, gen, pos.device)
+            rows = []
+            for i in range(rho_p.shape[0]):
+                r = slice(i, i + 1)
+                m_field = pde_magnetization(rho_p[r], rho_m[r], smooth,
+                                            kernel_sigma=config.kernel_sigma)
+                total = rho_p[r] + rho_m[r]
+                tr = TracerState(pos=torch.remainder(pos[r], config.xlim),
+                                 unwrapped=pos[r],
+                                 spin=spin[r].to(torch.int32), hist=hist[r])
+                params = PDEParams(**{
+                    f.name: _replica(getattr(self.params_b, f.name), i)
+                    for f in dataclasses.fields(PDEParams)})
+                _, v_f, D_f = _tracer_update(config, params, m_field, tr,
+                                             config.nsteps,
+                                             _inject=(flip_u[r], z[r]))
+                ri = _rfft_ri(total, config.kmax, config.L)
+                col = lambda a: a[:, None]
+                rows.append(torch.cat([col(m_field.mean(-1)),
+                                       col(total.var(-1, unbiased=False)),
+                                       col(v_f), col(D_f), ri[..., 0],
+                                       ri[..., 1]], dim=1))
+            return torch.cat(rows)[:, None]
 
     def run_range(self, carry: dict, lo: int, hi: int):
         config = self.config
@@ -288,36 +290,38 @@ class PDERun:
         B = rho_p.shape[0]
         stack = lambda xs: (torch.stack(xs, dim=1) if xs else
                             torch.zeros((B, 0, L), device=self.device))
-        records = dict(recs=torch.cat(recs, dim=1), snaps=stack(snaps),
-                       m_snaps=stack(m_snaps))
+        with profiling.span("pde.finish"):
+            records = dict(recs=torch.cat(recs, dim=1), snaps=stack(snaps),
+                           m_snaps=stack(m_snaps))
         return records, dict(rho_p=rho_p, rho_m=rho_m, pos=pos, spin=spin,
                              hist=hist, seeds=seeds, gen=gen)
 
     def finish(self, records: dict, carry: dict) -> PDESolveResult:
         """The result of the whole grid from its stitched records (rows of
         iterations 0…nsteps) and the last carry."""
-        config = self.config
-        kmax, dt = config.kmax, config.dt
-        recs = records["recs"]
-        snapshots = records["snaps"]
-        B, n_snap = snapshots.shape[0], snapshots.shape[1]
-        snap_times = (torch.arange(n_snap, dtype=torch.float32,
-                                   device=self.device)
-                      * (config.snapshot_interval * dt)).expand(B, n_snap)
-        col = lambda j: recs[:, :, j].contiguous()
-        fft_ri = torch.stack([recs[:, :, 4:4 + kmax],
-                              recs[:, :, 4 + kmax:4 + 2 * kmax]], -1)
-        records_ = PDERecord(m_mean=col(0), var=col(1), fft_ri=fft_ri,
-                             v_eff=col(2), D_eff=col(3))
-        if config.record_every > 1:
-            e = config.record_every
-            records_ = PDERecord(*(getattr(records_, f)[:, ::e] for f in
-                                   ("m_mean", "var", "fft_ri", "v_eff",
-                                    "D_eff")))
-        return PDESolveResult(rho_p=carry["rho_p"], rho_m=carry["rho_m"],
-                              records=records_, snapshots=snapshots,
-                              m_snapshots=records["m_snaps"],
-                              snap_times=snap_times)
+        with profiling.span("pde.finish"):
+            config = self.config
+            kmax, dt = config.kmax, config.dt
+            recs = records["recs"]
+            snapshots = records["snaps"]
+            B, n_snap = snapshots.shape[0], snapshots.shape[1]
+            snap_times = (torch.arange(n_snap, dtype=torch.float32,
+                                       device=self.device)
+                          * (config.snapshot_interval * dt)).expand(B, n_snap)
+            col = lambda j: recs[:, :, j].contiguous()
+            fft_ri = torch.stack([recs[:, :, 4:4 + kmax],
+                                  recs[:, :, 4 + kmax:4 + 2 * kmax]], -1)
+            records_ = PDERecord(m_mean=col(0), var=col(1), fft_ri=fft_ri,
+                                 v_eff=col(2), D_eff=col(3))
+            if config.record_every > 1:
+                e = config.record_every
+                records_ = PDERecord(*(getattr(records_, f)[:, ::e] for f in
+                                       ("m_mean", "var", "fft_ri", "v_eff",
+                                        "D_eff")))
+            return PDESolveResult(rho_p=carry["rho_p"], rho_m=carry["rho_m"],
+                                  records=records_, snapshots=snapshots,
+                                  m_snapshots=records["m_snaps"],
+                                  snap_times=snap_times)
 
 
 def pde_solve_fused(config: PDEConfig, params_b: PDEParams,
@@ -333,22 +337,30 @@ def pde_solve_fused(config: PDEConfig, params_b: PDEParams,
     on its rows with their global index (``parallel.mesh.ShardedRun``)."""
     from hydrolim_tpu_torch.parallel.mesh import shard_run
 
-    run = PDERun(config, params_b, device=rho_p0.device,
-                 keep_snapshots=keep_snapshots)
-    carry = run.start(rho_p0, rho_m0, tracers0, generator)
-    records, carry = shard_run(mesh, run, params_b).run_range(
-        carry, 0, run.n_blocks)
-    return run.finish(records, carry)
+    with profiling.span("pde.solve"):
+        run = PDERun(config, params_b, device=rho_p0.device,
+                     keep_snapshots=keep_snapshots)
+        carry = run.start(rho_p0, rho_m0, tracers0, generator)
+        records, carry = shard_run(mesh, run, params_b).run_range(
+            carry, 0, run.n_blocks)
+        return run.finish(records, carry)
 
 
 def result_to_numpy(res: PDESolveResult) -> PDESolveResult:
-    """The same result with every tensor moved to host numpy arrays."""
+    """The same result with every tensor moved to host numpy arrays (span
+    ``pde.fetch``, whose ``bytes`` are the arrays')."""
     np_ = lambda t: t.detach().cpu().numpy()
     rec = res.records
-    return PDESolveResult(
-        rho_p=np_(res.rho_p), rho_m=np_(res.rho_m),
-        records=PDERecord(m_mean=np_(rec.m_mean), var=np_(rec.var),
-                          fft_ri=np_(rec.fft_ri), v_eff=np_(rec.v_eff),
-                          D_eff=np_(rec.D_eff)),
-        snapshots=np_(res.snapshots), m_snapshots=np_(res.m_snapshots),
-        snap_times=np_(res.snap_times))
+    with profiling.span("pde.fetch") as sp:
+        records = PDERecord(m_mean=np_(rec.m_mean), var=np_(rec.var),
+                            fft_ri=np_(rec.fft_ri), v_eff=np_(rec.v_eff),
+                            D_eff=np_(rec.D_eff))
+        out = PDESolveResult(
+            rho_p=np_(res.rho_p), rho_m=np_(res.rho_m), records=records,
+            snapshots=np_(res.snapshots), m_snapshots=np_(res.m_snapshots),
+            snap_times=np_(res.snap_times))
+    if sp is not None:
+        sp.attrs["bytes"] = sum(a.nbytes for a in (
+            out.rho_p, out.rho_m, out.snapshots, out.m_snapshots,
+            out.snap_times, *vars(records).values()))
+    return out

@@ -22,6 +22,7 @@ from hydrolim_tpu_torch.ops.stepper_kernel import meanfield_multi_step
 from hydrolim_tpu_torch.particles.run import in_b1_scope, substeps_for
 from hydrolim_tpu_torch.particles.stepper import _is_meanfield_fast_path
 from hydrolim_tpu_torch.sweeps.ensemble import run_particle_ensemble
+from hydrolim_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -85,64 +86,69 @@ def run_meanfield_sweep(config: ParticleConfig, params_b: ParticleParams,
     draws come from generators seeded with ``seed`` on ``device``: the
     initial state, the kernel's Philox seeds and, on the CPU, the plain
     version's uniforms."""
-    assert _is_meanfield_fast_path(config), (
-        "run_meanfield_sweep requires the mean-field configuration")
-    device = torch.device(device)
-    times = np.arange(0.0, T, obs_dt)
-    if resolve_meanfield_engine(engine, config) == "xla":
-        f = run_particle_ensemble(config, params_b, seed, T=T, obs_dt=obs_dt,
-                                  dt=dt, record_pos=record_pos,
-                                  record_fft=False, engine="xla",
-                                  device=device).frames
-        host = lambda a: a.movedim(1, 0).cpu().numpy()
+    with profiling.span("mf.sweep"):
+        assert _is_meanfield_fast_path(config), (
+            "run_meanfield_sweep requires the mean-field configuration")
+        device = torch.device(device)
+        times = np.arange(0.0, T, obs_dt)
+        if resolve_meanfield_engine(engine, config) == "xla":
+            f = run_particle_ensemble(config, params_b, seed, T=T,
+                                      obs_dt=obs_dt, dt=dt,
+                                      record_pos=record_pos,
+                                      record_fft=False, engine="xla",
+                                      device=device).frames
+            host = lambda a: a.movedim(1, 0).cpu().numpy()
+            return MeanfieldFrames(
+                times_obs=times, m_global=host(f.m_global),
+                rho_p=host(f.rho_p), rho_m=host(f.rho_m), var=host(f.var),
+                pos=host(f.pos) if record_pos else None)
+        B = params_b.beta.shape[0]
+        n = config.N                    # the TRUE particle count normalizes m
+        L = config.L
+        M = len(times)
+        n_sub = substeps_for(obs_dt, dt)
+        dt_eff = obs_dt / n_sub
+
+        with profiling.span("mf.init"):
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed)
+            pos = torch.randint(0, L, (B, n), generator=gen, device=device,
+                                dtype=torch.int32)
+            sigma = (torch.randint(0, 2, (B, n), generator=gen, device=device,
+                                   dtype=torch.int32) * 2 - 1)
+            wind = torch.zeros((B, n), dtype=torch.int32, device=device)
+            seeds = torch.randint(0, 2 ** 31 - 1, (B,), generator=gen,
+                                  device=device, dtype=torch.int32)
+            scal = torch.stack([params_b.beta, params_b.rate_diffusion,
+                                params_b.rate_active], dim=1).to(
+                device=device, dtype=torch.float32).contiguous()
+        bidi = config.active_model == "bidirectional"
+
+        frames = dict(m=[], rho_p=[], rho_m=[], var=[], pos=[])
+
+        def record(pos, sigma, wind):
+            rho_p, rho_m, m, var = _frame_obs(pos, sigma, L, n, config.dx)
+            frames["m"].append(m)
+            frames["rho_p"].append(rho_p)
+            frames["rho_m"].append(rho_m)
+            frames["var"].append(var)
+            if record_pos:
+                frames["pos"].append(pos + wind * L)
+
+        with profiling.span("mf.frames"):
+            record(pos, sigma, wind)
+            for f in range(1, M):
+                pos, sigma, wind = meanfield_multi_step(
+                    scal, seeds, pos, sigma, wind, L=L, k_steps=n_sub,
+                    dt=dt_eff, bidirectional=bidi, step0=(f - 1) * n_sub,
+                    generator=gen)
+                record(pos, sigma, wind)
+
+        host = lambda xs: torch.stack(xs).cpu().numpy()
+        with profiling.span("mf.fetch") as sp:
+            fetched = {k: host(v) for k, v in frames.items() if v}
+        if sp is not None:
+            sp.attrs["bytes"] = sum(a.nbytes for a in fetched.values())
         return MeanfieldFrames(
-            times_obs=times, m_global=host(f.m_global), rho_p=host(f.rho_p),
-            rho_m=host(f.rho_m), var=host(f.var),
-            pos=host(f.pos) if record_pos else None)
-    B = params_b.beta.shape[0]
-    n = config.N                    # the TRUE particle count normalizes m
-    L = config.L
-    M = len(times)
-    n_sub = substeps_for(obs_dt, dt)
-    dt_eff = obs_dt / n_sub
-
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    pos = torch.randint(0, L, (B, n), generator=gen, device=device,
-                        dtype=torch.int32)
-    sigma = (torch.randint(0, 2, (B, n), generator=gen, device=device,
-                           dtype=torch.int32) * 2 - 1)
-    wind = torch.zeros((B, n), dtype=torch.int32, device=device)
-    seeds = torch.randint(0, 2 ** 31 - 1, (B,), generator=gen, device=device,
-                          dtype=torch.int32)
-    scal = torch.stack([params_b.beta, params_b.rate_diffusion,
-                        params_b.rate_active], dim=1).to(
-        device=device, dtype=torch.float32).contiguous()
-    bidi = config.active_model == "bidirectional"
-
-    frames = dict(m=[], rho_p=[], rho_m=[], var=[], pos=[])
-
-    def record(pos, sigma, wind):
-        rho_p, rho_m, m, var = _frame_obs(pos, sigma, L, n, config.dx)
-        frames["m"].append(m)
-        frames["rho_p"].append(rho_p)
-        frames["rho_m"].append(rho_m)
-        frames["var"].append(var)
-        if record_pos:
-            frames["pos"].append(pos + wind * L)
-
-    record(pos, sigma, wind)
-    for f in range(1, M):
-        pos, sigma, wind = meanfield_multi_step(
-            scal, seeds, pos, sigma, wind, L=L, k_steps=n_sub, dt=dt_eff,
-            bidirectional=bidi, step0=(f - 1) * n_sub, generator=gen)
-        record(pos, sigma, wind)
-
-    host = lambda xs: torch.stack(xs).cpu().numpy()
-    return MeanfieldFrames(
-        times_obs=times,
-        m_global=host(frames["m"]),
-        rho_p=host(frames["rho_p"]),
-        rho_m=host(frames["rho_m"]),
-        var=host(frames["var"]),
-        pos=host(frames["pos"]) if record_pos else None)
+            times_obs=times, m_global=fetched["m"], rho_p=fetched["rho_p"],
+            rho_m=fetched["rho_m"], var=fetched["var"], pos=fetched.get("pos"))

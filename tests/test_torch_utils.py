@@ -1,10 +1,10 @@
 """The port's profiling and debug utilities (``utils/profiling.py``,
-``utils/debug.py``) on the CPU: the phase timers, ``throughput`` and the
-``torch.profiler`` trace; the debug invariants passing on the port's own
-initial state and failing in ``tests/test_aux.py``'s cases (a site over
-capacity, a position off the lattice, a negative density), each also on
-the JAX package's checks for the same arrays; ``nan_guard`` inert unless
-``HYDROLIM_DEBUG`` is set."""
+``utils/debug.py``) on the CPU: the ``torch.profiler`` trace (the spans'
+own tests are ``tests/test_torch_tracing.py``); the debug invariants
+passing on the port's own initial state and failing in
+``tests/test_aux.py``'s cases (a site over capacity, a position off the
+lattice, a negative density), each also on the JAX package's checks for
+the same arrays; ``nan_guard`` inert unless ``HYDROLIM_DEBUG`` is set."""
 import json
 
 import numpy as np
@@ -22,27 +22,7 @@ from hydrolim_tpu_torch.utils.debug import (
     debug_enabled,
     nan_guard,
 )
-from hydrolim_tpu_torch.utils.profiling import PhaseTimer, throughput, trace
-
-
-def test_phase_timer_and_throughput():
-    timer = PhaseTimer()
-    with timer("a"):
-        sum(range(1000))
-    with timer("a"):
-        pass
-    with timer("b"):
-        torch.ones(8).sum()
-    assert timer.counts == {"a": 2, "b": 1}
-    summary = timer.summary()
-    assert "a" in summary and "b" in summary
-    calls = []
-    r = throughput(lambda: calls.append(1), items_per_call=100, warmup=1,
-                   reps=3)
-    assert len(calls) == 4
-    assert r["items_per_sec"] > 0 and r["best_s"] <= r["mean_s"]
-    # a CPU-only process never starts CUDA to time itself
-    assert not torch.cuda.is_initialized()
+from hydrolim_tpu_torch.utils.profiling import trace
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
