@@ -1498,3 +1498,71 @@ def test_lattice_sharding_on_the_card_equals_one_device(dev, engine):
         assert torch.equal(oa, ob)
         for name in fa._fields:
             assert torch.equal(getattr(fa, name), getattr(fb, name)), name
+
+
+# ---------------------------------------------------------------------------
+# the PDE result to the host
+# ---------------------------------------------------------------------------
+
+def test_result_to_numpy_fetches_through_page_locked_memory(dev,
+                                                            monkeypatch):
+    """``result_to_numpy`` on the card (strided record columns at
+    ``record_every=2``, the snapshot times an ``expand``): every array is
+    bitwise ``.cpu().numpy()`` of its tensor, C-contiguous and page-locked,
+    and ``pde.fetch`` counts all its bytes as pinned.  Two results fetched
+    while the first is kept share no memory and the first keeps its
+    values; once the first is dropped, a third fetch is still right."""
+    import gc
+
+    from hydrolim_tpu_torch.core.config import PDEParams
+    from hydrolim_tpu_torch.pde.fast_solve import (pde_solve_fused,
+                                                   result_to_numpy)
+    from hydrolim_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(profiling, "_registry", profiling._Registry())
+    cfg = PDEConfig(L=96, T=0.06, dt=1e-3, bc="periodic",
+                    active_model="bidirectional", gaussian_kernel=True,
+                    kernel_sigma=0.05, snapshot_interval=10, fft_kmax=12,
+                    tracer_window_time=0.014, n_tracers=24, record_every=2)
+    full = lambda v: torch.full((2,), v, device=dev)
+    params = PDEParams(gamma=full(0.2), lam=full(0.6),
+                       beta=torch.tensor([0.5, 2.0], device=dev))
+    records = ("m_mean", "var", "fft_ri", "v_eff", "D_eff")
+    tree = lambda r: {
+        **{f: getattr(r, f) for f in ("rho_p", "rho_m", "snapshots",
+                                      "m_snapshots", "snap_times")},
+        **{f: getattr(r.records, f) for f in records}}
+    bits = lambda a: np.ascontiguousarray(a).view(np.uint8)
+
+    def fetch(seed):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        res = pde_solve_fused(cfg, params, *pde_initialize(
+            cfg, gen, B=2, mode="homogeneous", noise=0.3, n_tracers=24,
+            device=dev), gen)
+        src = tree(res)
+        assert not src["m_mean"].is_contiguous()
+        assert src["snap_times"].stride()[0] == 0
+        want = {k: t.cpu().numpy() for k, t in src.items()}
+        got = tree(result_to_numpy(res))
+        for k, a in got.items():
+            assert a.shape == want[k].shape and a.dtype == want[k].dtype, k
+            assert a.flags.c_contiguous, k
+            assert torch.from_numpy(a).is_pinned(), k
+            assert np.array_equal(bits(a), bits(want[k])), k
+        return got, want
+
+    profiling.enable()
+    first, first_want = fetch(1)
+    second, _ = fetch(2)
+    assert not np.array_equal(first["rho_p"], second["rho_p"])
+    for k, a in first.items():
+        assert not np.shares_memory(a, second[k]), k
+        assert np.array_equal(bits(a), bits(first_want[k])), k
+    del first
+    gc.collect()
+    fetch(3)
+    spans = [e for e in profiling.events() if e.name == "pde.fetch"]
+    assert len(spans) == 3
+    for sp in spans:
+        assert sp.attrs["pinned_bytes"] == sp.attrs["bytes"] > 0
