@@ -358,11 +358,14 @@ def result_to_numpy(res: PDESolveResult) -> PDESolveResult:
     drops the array: a later fetch never writes over a kept result, and a
     caller that keeps many results keeps their bytes page-locked (rounded
     up to the allocator's block sizes).  A CPU tensor's array is its own
-    memory, copied only where the tensor is strided."""
+    memory, copied only where the tensor is strided.  Every tensor field
+    of the result and its records comes back with the one wait; a field
+    left None stays None."""
     rec = res.records
-    tensors = dict(rho_p=res.rho_p, rho_m=res.rho_m,
-                   snapshots=res.snapshots, m_snapshots=res.m_snapshots,
-                   snap_times=res.snap_times, **vars(rec))
+    fields = {f.name: getattr(res, f.name) for f in dataclasses.fields(res)
+              if f.name != "records"}
+    tensors = {**{k: t for k, t in fields.items() if t is not None},
+               **vars(rec)}
     with profiling.span("pde.fetch") as sp:
         host, cards = {}, set()
         for name, t in tensors.items():
@@ -382,7 +385,5 @@ def result_to_numpy(res: PDESolveResult) -> PDESolveResult:
         sp.attrs["pinned_bytes"] = sum(arrays[name].nbytes for name, t in
                                        tensors.items() if t.is_cuda)
     return PDESolveResult(
-        rho_p=arrays["rho_p"], rho_m=arrays["rho_m"],
         records=PDERecord(**{f: arrays[f] for f in vars(rec)}),
-        snapshots=arrays["snapshots"], m_snapshots=arrays["m_snapshots"],
-        snap_times=arrays["snap_times"])
+        **{k: arrays.get(k) for k in fields})

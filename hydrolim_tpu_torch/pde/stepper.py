@@ -194,6 +194,9 @@ class PDESolveResult:
     snapshots: torch.Tensor    # (B, n_snap, L) total density
     m_snapshots: torch.Tensor  # (B, n_snap, L) rho_p - rho_m
     snap_times: torch.Tensor   # (B, n_snap)
+    # (B, 2) float64 window means of v_eff and D_eff, where a sweep asked
+    # for them; no solve fills it
+    window_means: Optional[torch.Tensor] = None
 
 
 def _tracer_update(config: PDEConfig, params: PDEParams, m_field,

@@ -1,6 +1,7 @@
 """PDE drivers on the fused solve (kernel B2 on CUDA).
 
-- :func:`run_pde_ensemble` — one batched (β × runs) solve,
+- :func:`run_pde_ensemble` — one batched (β × runs) solve, with its
+  records' window means where asked (:func:`record_window_means`),
 - :func:`pde_single_run` — IMEX_PDE_solver_run.py through the ``IMEXPDE``
   facade (L=1000, T=20, γ=0, λ=0.6, β=2, kernel σ=0.005, seed 58),
 - :func:`pde_beta_sweep` — the reference β sweep
@@ -12,6 +13,8 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
+import warnings
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -33,6 +36,36 @@ from hydrolim_tpu_torch.utils import profiling
 from hydrolim_tpu_torch.utils.checkpoint import run_pde_ensemble_checkpointed
 
 
+@functools.lru_cache(maxsize=16)
+def window_columns(config: PDEConfig, t_min: float, t_max: float):
+    """The record columns ``[i0, i1]`` of t_min ≤ t ≤ t_max, t on the
+    records' grid (``linspace(0, T, nsteps + 1)`` thinned by
+    ``record_every``); ``(0, -1)`` where no t is inside.  t is monotone,
+    so the window is one run of columns.  Kept per configuration and
+    window: a sweep after sweep builds the grid once."""
+    t = np.linspace(0, config.T, config.nsteps + 1)[::config.record_every]
+    inside = np.flatnonzero((t >= t_min) & (t <= t_max))
+    return (int(inside[0]), int(inside[-1])) if inside.size else (0, -1)
+
+
+def record_window_means(v_eff: torch.Tensor, D_eff: torch.Tensor, i0: int,
+                        i1: int) -> torch.Tensor:
+    """Each row's NaN-ignoring means of ``v_eff`` and ``D_eff`` (B, n) over
+    columns [i0, i1], as (B, 2) float64 on their device.  Both windows go
+    into one float64 buffer beside a 1 for each of their non-NaN entries
+    (``x == x`` is false only for NaN), so one NaN-ignoring sum gives the
+    sums and the counts, then divided: five operations whatever B, and a
+    row's means depend on that row alone.  A row with no value in the
+    window reads NaN."""
+    buf = torch.empty((v_eff.shape[0], 4, max(i1 + 1 - i0, 0)),
+                      dtype=torch.float64, device=v_eff.device)
+    buf[:, 0].copy_(v_eff[:, i0:i1 + 1])
+    buf[:, 1].copy_(D_eff[:, i0:i1 + 1])
+    torch.eq(buf[:, :2], buf[:, :2], out=buf[:, 2:])
+    total = buf.nansum(-1)
+    return total[:, :2] / total[:, 2:]
+
+
 def run_pde_ensemble(config: PDEConfig, beta_values, *, gamma: float,
                      lam: float, n_runs: int, seed: int = 0,
                      mode: str = "homogeneous", rho0: float = 1.0,
@@ -40,12 +73,20 @@ def run_pde_ensemble(config: PDEConfig, beta_values, *, gamma: float,
                      engine: str = "xla", device="cuda",
                      fetch_snapshots: bool = True, mesh=None,
                      n_devices: Optional[int] = None, ckpt_dir=None,
-                     stop_after_chunks: Optional[int] = None):
+                     stop_after_chunks: Optional[int] = None,
+                     mean_window=None):
     """Batched (β × runs) solve on ``device``; returns the result as numpy
     arrays and the flattened β array.  Every draw comes from one
     ``torch.Generator`` seeded with ``seed``.  ``engine`` takes the JAX
     package's names, which all run the fused solve
     (``fast_solve.PDE_ENGINES``).
+
+    ``mean_window=(t_min, t_max)`` also gives each row's v_eff and D_eff
+    means over that window (``window_columns``, ``record_window_means``)
+    as the result's ``window_means``, (B, 2) float64: reduced where the
+    records are, after any mesh's blocks are stitched, and fetched with
+    them (span ``pde.window_means``, whose ``rows`` and ``device`` say
+    what was reduced where).  Without it the result is as it was.
 
     ``ckpt_dir=`` makes the in-flight batch preemption-safe: the solve
     runs through ``utils.checkpoint.run_pde_ensemble_checkpointed`` (kernel
@@ -96,6 +137,14 @@ def run_pde_ensemble(config: PDEConfig, beta_values, *, gamma: float,
             stop_after_chunks=stop_after_chunks, mesh=mesh)
         if res is None:
             return None
+    if mean_window is not None:
+        with profiling.span("pde.window_means") as sp:
+            rec = res.records
+            res = dataclasses.replace(res, window_means=record_window_means(
+                rec.v_eff, rec.D_eff, *window_columns(config, *mean_window)))
+        if sp is not None:
+            sp.attrs.update(rows=rec.v_eff.shape[0],
+                            device=str(rec.v_eff.device))
     return result_to_numpy(res), flat_beta
 
 
@@ -131,7 +180,9 @@ def pde_beta_sweep(beta_values=None, n_runs: int = 3, T: float = 40.0,
                    engine: str = "xla", n_devices: Optional[int] = None,
                    ckpt_dir=None, device="cuda") -> Dict:
     """β sweep with theory overlay.  v per run is |nanmean v_eff(t)| over
-    [t_min, t_max]; D per run is nanmean D_eff(t) there.  ``engine``,
+    [t_min, t_max]; D per run is nanmean D_eff(t) there, both taken on the
+    records' device before the fetch (``run_pde_ensemble``'s
+    ``mean_window``); per β their mean and standard error.  ``engine``,
     ``n_devices`` and ``ckpt_dir`` as in
     ``run_pde_ensemble``; the figures need matplotlib."""
     with profiling.span("pde.sweep"):
@@ -146,25 +197,18 @@ def pde_beta_sweep(beta_values=None, n_runs: int = 3, T: float = 40.0,
                                   n_runs=n_runs, seed=seed,
                                   n_tracers=n_tracers, engine=engine,
                                   device=device, fetch_snapshots=False,
-                                  ckpt_dir=ckpt_dir, n_devices=n_devices)
+                                  ckpt_dir=ckpt_dir, n_devices=n_devices,
+                                  mean_window=(t_min, t_max))
         with profiling.span("pde.window_means"):
-            t = np.linspace(0, T, config.nsteps + 1)
-            mask = (t >= t_min) & (t <= t_max)
-
-            v_mean, v_err, D_mean, D_err = [], [], [], []
-            for b_idx in range(len(beta_values)):
-                rows = slice(b_idx * n_runs, (b_idx + 1) * n_runs)
-                v_runs = np.abs(np.nanmean(res.records.v_eff[rows][:, mask],
-                                           axis=1))
-                D_runs = np.nanmean(res.records.D_eff[rows][:, mask], axis=1)
-                se = ((lambda a: a.std(ddof=1) / np.sqrt(n_runs))
-                      if n_runs > 1 else (lambda a: 0.0))
-                v_mean.append(v_runs.mean())
-                v_err.append(se(v_runs))
-                D_mean.append(D_runs.mean())
-                D_err.append(se(D_runs))
-            v_mean, v_err = np.array(v_mean), np.array(v_err)
-            D_mean, D_err = np.array(D_mean), np.array(D_err)
+            if np.isnan(res.window_means).any():     # as numpy's nanmean
+                warnings.warn("Mean of empty slice", RuntimeWarning,
+                              stacklevel=2)
+            runs = res.window_means.reshape(len(beta_values), n_runs, 2)
+            v_runs, D_runs = np.abs(runs[..., 0]), runs[..., 1]
+            se = ((lambda a: a.std(axis=1, ddof=1) / np.sqrt(n_runs))
+                  if n_runs > 1 else (lambda a: np.zeros(len(a))))
+            v_mean, v_err = v_runs.mean(axis=1), se(v_runs)
+            D_mean, D_err = D_runs.mean(axis=1), se(D_runs)
 
         plt = _pyplot() if plot_result and is_primary() else None
         if plt is not None:

@@ -1566,3 +1566,82 @@ def test_result_to_numpy_fetches_through_page_locked_memory(dev,
     assert len(spans) == 3
     for sp in spans:
         assert sp.attrs["pinned_bytes"] == sp.attrs["bytes"] > 0
+
+
+def test_window_means_on_the_card_equal_the_cpu(dev, monkeypatch):
+    """``record_window_means`` of CUDA records at the cross-engine cell's
+    shapes (B=33, 80,001 columns, the NaN lead-in of 100, an all-NaN row,
+    the window [40000, 80000]) equals the CPU's of the same records to
+    1e-6 relative, in at most 6 kernels under the profiler.  On the card
+    ``run_pde_ensemble`` returns the same arrays, bit for bit, with and
+    without ``mean_window``, the means being those of its records."""
+    from hydrolim_tpu_torch.core.config import PDEParams
+    from hydrolim_tpu_torch.pde.fast_solve import (pde_solve_fused,
+                                                   result_to_numpy)
+    from hydrolim_tpu_torch.sweeps.pde_sweeps import (record_window_means,
+                                                      run_pde_ensemble,
+                                                      window_columns)
+    from hydrolim_tpu_torch.utils import profiling
+
+    g = torch.Generator().manual_seed(24)
+    v = torch.randn((33, 80_001), generator=g) * 0.3 + 0.1
+    D = torch.rand((33, 80_001), generator=g) * 0.4 + 0.1
+    for x in (v, D):
+        x[:, :100] = float("nan")
+        x[1] = float("nan")
+    cols = (40_000, 80_000)
+    want = record_window_means(v, D, *cols)
+    vc, Dc = v.to(dev), D.to(dev)
+    got = record_window_means(vc, Dc, *cols)
+    assert got.device == vc.device and got.dtype == torch.float64
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-6,
+                               atol=0, equal_nan=True)
+    assert torch.isnan(got[1]).all() and torch.isfinite(got[2:]).all()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        record_window_means(vc, Dc, *cols)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    assert 1 <= len(kernels) <= 6, kernels
+
+    monkeypatch.setattr(profiling, "_registry", profiling._Registry())
+    profiling.enable()
+    cfg = PDEConfig(L=96, T=0.06, dt=1e-3, bc="periodic",
+                    active_model="bidirectional", gaussian_kernel=True,
+                    kernel_sigma=0.05, snapshot_interval=20, fft_kmax=8,
+                    n_tracers=24)
+    kw = dict(gamma=0.2, lam=0.6, n_runs=2, seed=5, n_tracers=24,
+              device=dev, fetch_snapshots=False)
+    plain, flat = run_pde_ensemble(cfg, [0.5, 2.0], **kw)
+    means, _ = run_pde_ensemble(cfg, [0.5, 2.0], mean_window=(0.02, 0.06),
+                                **kw)
+    assert plain.window_means is None
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    full = lambda x: torch.full((4,), x, dtype=torch.float32, device=dev)
+    params = PDEParams(gamma=full(0.2), lam=full(0.6),
+                       beta=torch.tensor(flat, device=dev))
+    direct = result_to_numpy(pde_solve_fused(cfg, params, *pde_initialize(
+        cfg, gen, B=4, mode="homogeneous", noise=0.3, n_tracers=24,
+        device=dev), gen, keep_snapshots=False))
+    bits = lambda a: np.ascontiguousarray(a).view(np.uint8)
+    for f in ("rho_p", "rho_m", "snapshots", "snap_times"):
+        assert np.array_equal(bits(getattr(plain, f)),
+                              bits(getattr(direct, f))), f
+        assert np.array_equal(bits(getattr(means, f)),
+                              bits(getattr(plain, f))), f
+    for f in ("m_mean", "var", "fft_ri", "v_eff", "D_eff"):
+        a = getattr(plain.records, f)
+        assert np.array_equal(bits(a), bits(getattr(direct.records, f))), f
+        assert np.array_equal(bits(getattr(means.records, f)), bits(a)), f
+    cpu = record_window_means(torch.from_numpy(plain.records.v_eff),
+                              torch.from_numpy(plain.records.D_eff),
+                              *window_columns(cfg, 0.02, 0.06)).numpy()
+    np.testing.assert_allclose(means.window_means, cpu, rtol=1e-6, atol=0)
+    reduced = [e for e in profiling.events()
+               if e.name == "pde.window_means" and "rows" in e.attrs]
+    assert [e.attrs for e in reduced] == [dict(rows=4, device=str(dev))]

@@ -377,10 +377,12 @@ def test_local_structure_n_devices_bit_equal(engine, eight_cpus):
 
 
 def test_pde_sweeps_n_devices_bit_equal(tmp_path, eight_cpus):
-    """``run_pde_ensemble`` (``tests/test_parallel.py:134``) and
-    ``pde_kernel_sigma_sweep`` on 8 blocks; ``n_devices`` is a named
-    option, not an override of the variant."""
+    """``run_pde_ensemble`` (``tests/test_parallel.py:134``),
+    ``pde_kernel_sigma_sweep`` and ``pde_beta_sweep``'s estimators (the
+    window means of the stitched records) on 8 blocks; ``n_devices`` is a
+    named option, not an override of the variant."""
     from hydrolim_tpu_torch.sweeps.pde_sweeps import (
+        pde_beta_sweep,
         pde_kernel_sigma_sweep,
         run_pde_ensemble,
     )
@@ -401,6 +403,14 @@ def test_pde_sweeps_n_devices_bit_equal(tmp_path, eight_cpus):
     for k in ("m", "v", "D", "var"):
         assert_same(a[k], b[k])
     assert "n_devices" not in b and b["T"] == 0.02
+    kw = dict(n_runs=3, T=0.08, t_min=0.055, t_max=0.08, L=64, dt=1e-3,
+              n_tracers=8, plot_result=False, device=CPU,
+              outdir=str(tmp_path))
+    a = pde_beta_sweep([0.5, 2.0], **kw)
+    b = pde_beta_sweep([0.5, 2.0], n_devices=8, **kw)
+    for k in ("v_mean", "v_err", "D_mean", "D_err"):
+        assert np.isfinite(a[k]).all(), k
+        np.testing.assert_array_equal(a[k], b[k])
 
 
 def test_checkpoint_stopped_on_eight_blocks_resumes_on_one(tmp_path):

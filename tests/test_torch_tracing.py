@@ -194,8 +194,13 @@ def test_the_tiny_pde_run_has_one_fetch_row_and_means_a_sweep(tiny,
     ev = profiling.events()
     n = r["attempted"]
     for name in ("pde.sweep", "pde.init", "pde.solve", "pde.fetch",
-                 "pde.final_row", "pde.window_means"):
+                 "pde.final_row"):
         assert sum(e.name == name for e in ev) == n, name
+    # the window means: the reduction where the records are, then the
+    # host's per-β arithmetic
+    means = [e for e in ev if e.name == "pde.window_means"]
+    assert len(means) == 2 * n
+    assert sum("rows" in e.attrs for e in means) == n
     assert len(fetched) == n + 1        # the warm unit's, unrecorded
     fetched = fetched[1:]
     for sweep in (e for e in ev if e.name == "pde.sweep"):
@@ -206,7 +211,8 @@ def test_the_tiny_pde_run_has_one_fetch_row_and_means_a_sweep(tiny,
     for sp, out in zip((e for e in ev if e.name == "pde.fetch"), fetched):
         arrays = [out.rho_p, out.rho_m, out.snapshots, out.m_snapshots,
                   out.snap_times, out.records.m_mean, out.records.var,
-                  out.records.fft_ri, out.records.v_eff, out.records.D_eff]
+                  out.records.fft_ri, out.records.v_eff, out.records.D_eff,
+                  out.window_means]
         assert all(isinstance(a, np.ndarray) for a in arrays)
         assert sp.attrs["bytes"] == sum(a.nbytes for a in arrays)
     solve = next(e for e in ev if e.name == "pde.solve")
